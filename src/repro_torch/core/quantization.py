@@ -125,6 +125,45 @@ def dequantize_blocked(x_q: torch.Tensor, scales: torch.Tensor, *,
 
 
 # ---------------------------------------------------------------------------
+# Error metrics: the paper's evaluation quantities (paper §7.2, §7.3)
+# ---------------------------------------------------------------------------
+
+def l2_error(x: torch.Tensor, x_hat: torch.Tensor) -> torch.Tensor:
+    """||x - x_hat||_2 over every element (grows with the matrix size)."""
+    d = x.float() - x_hat.float()
+    return torch.sqrt(torch.sum(d * d))
+
+
+def max_abs_error(x: torch.Tensor, x_hat: torch.Tensor) -> torch.Tensor:
+    """max |x - x_hat|; bounded by s/2 per element (paper Eq. 9)."""
+    return torch.amax(torch.abs(x.float() - x_hat.float()))
+
+
+def attention_score_error(q: torch.Tensor, k: torch.Tensor,
+                          k_hat: torch.Tensor) -> torch.Tensor:
+    """Mean |q.k - q.k_hat| over all (query, key) pairs, scaled by
+    1/sqrt(D) like attention logits."""
+    d = q.shape[-1]
+    s = torch.einsum("...qd,...kd->...qk", q.float(),
+                     (k.float() - k_hat.float())) / d ** 0.5
+    return torch.mean(torch.abs(s))
+
+
+def attention_score_error_raw(q: torch.Tensor, k: torch.Tensor,
+                              k_hat: torch.Tensor) -> torch.Tensor:
+    """The paper's §7.3 convention: the raw dot-product error, no
+    1/sqrt(D)."""
+    s = torch.einsum("...qd,...kd->...qk", q.float(),
+                     (k.float() - k_hat.float()))
+    return torch.mean(torch.abs(s))
+
+
+def theoretical_max_error(scales: torch.Tensor) -> torch.Tensor:
+    """Eq. 9: the max error is at most s/2 (largest scale)."""
+    return torch.amax(scales) / 2.0
+
+
+# ---------------------------------------------------------------------------
 # FP8 and packed INT4
 # ---------------------------------------------------------------------------
 

@@ -1,5 +1,6 @@
 // Shared by the paged decode and paged prefill kernels: one element of a
-// quantized KV page, read from device memory and converted to float32.
+// quantized KV page, read from device memory and converted to float32; and,
+// with flat decode too, the warp reductions and the shared-memory limit.
 //
 // A page of one kv head is ps_packed rows of D bytes; consecutive rows are
 // row_stride = H_kv * D bytes apart (pool layout (P, ps_packed, H_kv, D)).

@@ -14,14 +14,15 @@
 // (never the table tail) and, inside a page, only tokens below `len`, in
 // 64-token tiles. A tile is read once, coalesced along D, dequantized to
 // float32 into shared memory, and folded into the float32 online-softmax
-// state. Simple first: with B * H_kv blocks a small batch leaves most SMs
-// idle; splitting the page walk across blocks (flash-decoding) is later work.
-#include "page_dequant.cuh"
+// state (decode_tile.cuh, shared with flat_decode.cu). Simple first: with
+// B * H_kv blocks a small batch leaves most SMs idle; splitting the page walk
+// across blocks (flash-decoding) is later work.
+#include "decode_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kTile = 64;  // tokens per shared-memory tile
+using decode::kThreads;
+using decode::kTile;
 
 template <int D, int KV>
 __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
@@ -36,32 +37,14 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     float* __restrict__ l_out,            // (B, H)
     int H, int Hkv, int G, int ps, int ps_packed, int NT, float scale) {
   extern __shared__ float smem[];
-  float* qs = smem;                  // G * D
-  float* acc = qs + G * D;           // G * D
-  float* kt = acc + G * D;           // kTile * (D + 1), padded: no bank conflicts
-  float* vt = kt + kTile * (D + 1);  // kTile * D
-  float* st = vt + kTile * D;        // G * kTile logits, then probabilities
-  float* ms = st + G * kTile;        // G running max
-  float* ls = ms + G;                // G running sum
-  float* al = ls + G;                // G rescale factor of this tile
-
+  const decode::Smem<D> s(smem, G);
   const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
   const int len = lengths[b];
   const int row_stride = Hkv * D;
   const size_t qoff = (static_cast<size_t>(b) * H + static_cast<size_t>(h) * G) * D;
-
-  for (int i = tid; i < G * D; i += kThreads) {
-    qs[i] = q[qoff + i];
-    acc[i] = 0.f;
-  }
-  for (int g = tid; g < G; g += kThreads) {
-    ms[g] = -1e30f;
-    ls[g] = 0.f;
-  }
+  decode::init(s, q + qoff, G);
   int n_pages = len > 0 ? (len + ps - 1) / ps : 0;
   if (n_pages > NT) n_pages = NT;
-  __syncthreads();
 
   for (int t = 0; t < n_pages; ++t) {
     const int pid = page_table[b * NT + t];
@@ -75,57 +58,13 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
       const int nk = min(kTile, page_live - j0);
       for (int i = tid; i < nk * D; i += kThreads) {
         const int j = i / D, d = i % D;
-        kt[j * (D + 1) + d] = page_value<KV>(kp, j0 + j, row_stride, d) * ksr[d];
-        vt[j * D + d] = page_value<KV>(vp, j0 + j, row_stride, d) * vsr[d];
+        s.kt[j * (D + 1) + d] = page_value<KV>(kp, j0 + j, row_stride, d) * ksr[d];
+        s.vt[j * D + d] = page_value<KV>(vp, j0 + j, row_stride, d) * vsr[d];
       }
-      __syncthreads();
-      for (int i = tid; i < G * kTile; i += kThreads) {
-        const int g = i / kTile, j = i % kTile;
-        if (j < nk) {
-          float dot = 0.f;
-#pragma unroll 16
-          for (int d = 0; d < D; ++d) dot += qs[g * D + d] * kt[j * (D + 1) + d];
-          st[i] = dot * scale;
-        }
-      }
-      __syncthreads();
-      for (int g = warp; g < G; g += kThreads / 32) {
-        float mx = -1e30f;
-        for (int j = lane; j < nk; j += 32) mx = fmaxf(mx, st[g * kTile + j]);
-        mx = warp_max(mx);
-        const float m_prev = ms[g];
-        const float m_new = fmaxf(m_prev, mx);
-        float sum = 0.f;
-        for (int j = lane; j < nk; j += 32) {
-          const float p = expf(st[g * kTile + j] - m_new);
-          st[g * kTile + j] = p;
-          sum += p;
-        }
-        sum = warp_sum(sum);
-        if (lane == 0) {
-          const float a = expf(m_prev - m_new);
-          al[g] = a;
-          ls[g] = ls[g] * a + sum;
-          ms[g] = m_new;
-        }
-      }
-      __syncthreads();
-      for (int i = tid; i < G * D; i += kThreads) {
-        const int g = i / D, d = i % D;
-        float a = acc[i] * al[g];
-        for (int j = 0; j < nk; ++j) a += st[g * kTile + j] * vt[j * D + d];
-        acc[i] = a;
-      }
-      __syncthreads();
+      decode::fold_tile(s, G, nk, scale, [](int) { return true; });
     }
   }
-
-  for (int i = tid; i < G * D; i += kThreads) o[qoff + i] = acc[i];
-  for (int g = tid; g < G; g += kThreads) {
-    const size_t r = static_cast<size_t>(b) * H + static_cast<size_t>(h) * G + g;
-    m_out[r] = ms[g];
-    l_out[r] = ls[g];
-  }
+  decode::store(s, o, m_out, l_out, qoff, static_cast<size_t>(b) * H + h * G, G);
 }
 
 template <int D, int KV>
@@ -135,8 +74,7 @@ cudaError_t launch(const float* q, const void* kq, const float* ks, const void* 
                    int NT, float scale, cudaStream_t stream) {
   static size_t allowed = 48 * 1024;
   const int G = H / Hkv;
-  const size_t smem =
-      sizeof(float) * (2 * G * D + kTile * (D + 1) + kTile * D + G * kTile + 3 * G);
+  const size_t smem = decode::Smem<D>::bytes(G);
   cudaError_t e = allow_smem(paged_decode_kernel<D, KV>, smem, allowed);
   if (e != cudaSuccess) return e;
   paged_decode_kernel<D, KV><<<dim3(Hkv, B), kThreads, smem, stream>>>(

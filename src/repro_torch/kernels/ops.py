@@ -1,5 +1,5 @@
 """Kernel entry points with dispatch by the tensor's device (port of
-``repro.kernels.ops``, paged subset).
+``repro.kernels.ops``).
 
 A CUDA tensor launches the hand-written kernel — or raises; there is no
 fallback — and a CPU tensor takes the kernel's plain PyTorch version.
@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.kernels import quant_attention as _qa
 from repro_torch.kernels import quant_prefill as _qp
+from repro_torch.kernels import quantize as _quant
 from repro_torch.kernels.quant_attention import logit_scale
 
 
@@ -21,6 +22,68 @@ def _route(t: torch.Tensor, cuda_fn, plain_fn):
     if t.device.type == "cpu":
         return plain_fn
     raise ValueError(f"no kernel for device {t.device}")
+
+
+# -- quantization ------------------------------------------------------------
+
+def quantize_per_channel(x):
+    """(..., T, D) -> (int8 (..., T, D), float32 scales (..., D)); paper
+    Eq. 5-7 in two passes (column absmax, then quantize)."""
+    fn = _route(x, _quant.quantize_per_channel_cuda,
+                _quant.quantize_per_channel_plain)
+    return fn(x.float().contiguous())
+
+
+def quantize_blocked(x, block_size: int = 256):
+    """(..., T, D) -> (int8 (..., T, D), float32 (..., T // block_size,
+    D)); absmax and quantize per (token block, channel) in one kernel."""
+    fn = _route(x, _quant.quantize_blocked_cuda,
+                _quant.quantize_blocked_plain)
+    return fn(x.float().contiguous(), block_size)
+
+
+def dequantize(x_q, scales, *, out_dtype=torch.float32):
+    """int8 (..., T, D) x float32 scales (..., nb, D) or (..., D) ->
+    (..., T, D) ``out_dtype``."""
+    fn = _route(x_q, _quant.dequantize_cuda, _quant.dequantize_plain)
+    return fn(x_q.contiguous(), scales.float().contiguous(), out_dtype)
+
+
+# -- decode attention over the contiguous cache ------------------------------
+
+def quant_attention_decode_partials(q, k_q, k_s, v_q, v_s, length, *,
+                                    window=None):
+    """Flash partials (o_unnormalized, m, l) of one query token per row
+    over the int8 cache. q (B, H, D); k_q/v_q (B, H_kv, T, D) int8;
+    k_s/v_s (B, H_kv, nb, D) float32 (nb = 1: per channel); ``length`` an
+    int or (B,) tensor of absolute tokens written (a ring cache may exceed
+    T); ``window`` masks ring slots by token age (None: no window).
+    Returns (o (B, H, D), m (B, H, 1), l (B, H, 1)) float32."""
+    B = q.shape[0]
+    T = k_q.shape[2]
+
+    def per_row(v):
+        if isinstance(v, torch.Tensor):
+            return torch.broadcast_to(v.to(device=q.device,
+                                            dtype=torch.int32), (B,))
+        return torch.full((B,), int(v), dtype=torch.int32, device=q.device)
+
+    fn = _route(q, _qa.flat_decode_partials_cuda,
+                _qa.flat_decode_partials_plain)
+    return fn(q.float().contiguous(), k_q.contiguous(),
+              k_s.float().contiguous(), v_q.contiguous(),
+              v_s.float().contiguous(), per_row(length).contiguous(),
+              per_row(T if window is None else window).contiguous())
+
+
+def quant_attention_decode(q, k_q, k_s, v_q, v_s, length, *, window=None):
+    """Normalized decode attention over the int8 cache: (B, H, D) float32."""
+    o, m, l = quant_attention_decode_partials(q, k_q, k_s, v_q, v_s, length,
+                                              window=window)
+    return o / torch.clamp_min(l, 1e-30)
+
+
+# -- paged attention ---------------------------------------------------------
 
 
 def paged_attention_decode_partials(q, pool_kq, pool_ks, pool_vq, pool_vs,

@@ -1,10 +1,13 @@
-"""Serving launcher of the port: the LLMEngine over the paged quantized KV
-cache, with random weights from a seeded `torch.Generator`.
+"""Serving launcher of the port: the LLMEngine over the quantized KV cache,
+with random weights from a seeded `torch.Generator`.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2_1_8b \
         --max-len 2048 --batch 4 --requests 5 --prompt-len 1000 --max-new 48
 
-Runs on the card by default (``--device cuda``) and fails without one.
+The contiguous cache by default; ``--paged`` serves from the page pool
+(implied by ``--prefill-chunk`` and by a ``--kv-cache-dtype`` other than
+int8). Runs on the card by default (``--device cuda``) and fails without
+one.
 """
 from __future__ import annotations
 
@@ -26,6 +29,9 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=12)
     ap.add_argument("--max-new", type=int, default=8)
+    ap.add_argument("--paged", action="store_true",
+                    help="paged KV cache + page-budget admission over "
+                         "unpadded prompts (varlen chunked prefill)")
     ap.add_argument("--pages", type=int, default=None,
                     help="pool size in pages (default: dense capacity)")
     ap.add_argument("--chunk", type=int, default=None,
@@ -33,14 +39,19 @@ def main(argv=None):
                          "power of two); default: to the next completion")
     ap.add_argument("--prefill-chunk", type=int, default=None,
                     help="prompt tokens per prefill dispatch (rounded up to "
-                         "a page multiple; default 4 pages)")
-    ap.add_argument("--kv-cache-dtype", default="int8",
-                    choices=list(KV_DTYPES), help="page storage format")
+                         "a page multiple; default 4 pages; implies --paged)")
+    ap.add_argument("--kv-cache-dtype", default=None,
+                    choices=list(KV_DTYPES),
+                    help="page storage format (default int8; another "
+                         "implies --paged)")
     ap.add_argument("--stop", action="append", default=None,
                     help="stop string (repeatable); token id T renders as "
                          "'<T>'")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    kv_dtype = args.kv_cache_dtype or "int8"
+    if args.prefill_chunk or kv_dtype != "int8":
+        args.paged = True
 
     import dataclasses
 
@@ -63,9 +74,10 @@ def main(argv=None):
     gen = torch.Generator(device=device).manual_seed(0)
     params = transformer.init_params(cfg, gen, device=device)
     eng = LLMEngine(params, cfg, EngineConfig(
-        batch=args.batch, max_len=args.max_len, n_pages=args.pages,
-        chunk=args.chunk, prefill_chunk=args.prefill_chunk,
-        kv_cache_dtype=args.kv_cache_dtype), device=device)
+        batch=args.batch, max_len=args.max_len, paged=args.paged,
+        n_pages=args.pages, chunk=args.chunk,
+        prefill_chunk=args.prefill_chunk, kv_cache_dtype=kv_dtype),
+        device=device)
     rng = np.random.RandomState(0)
     prompts = [rng.randint(0, cfg.vocab, (args.prompt_len,)).astype(np.int32)
                for _ in range(args.requests)]
@@ -84,9 +96,13 @@ def main(argv=None):
           f"({total / dt:.1f} tok/s over {eng.ticks} ticks)")
     rep = eng.pool_report()
     print(f"[serve] TTFT p50/p90/p99 = {rep['ttft_s_p50'] * 1e3:.1f}/"
-          f"{rep['ttft_s_p90'] * 1e3:.1f}/{rep['ttft_s_p99'] * 1e3:.1f} ms; "
-          f"page pool: {rep['pages_total']} pages ({rep['kv_cache_dtype']}), "
-          f"{rep['pages_free']} free after drain")
+          f"{rep['ttft_s_p90'] * 1e3:.1f}/{rep['ttft_s_p99'] * 1e3:.1f} ms")
+    if args.paged:
+        print(f"[serve] page pool: {rep['pages_total']} pages "
+              f"({rep['kv_cache_dtype']}), {rep['pages_free']} free after "
+              f"drain")
+    else:
+        print(f"[serve] contiguous int8 cache ({cfg.quant.granularity})")
     for o in outs[:3]:
         print(f"  req {o.uid}: {o.token_ids} (finish={o.finish_reason})")
     return 0 if len(outs) == args.requests else 1

@@ -1,7 +1,14 @@
-"""GQA attention over the paged quantized KV cache (port of the serving
-half of ``repro.models.attention``).
+"""GQA attention over the quantized KV cache (port of the serving half of
+``repro.models.attention``).
 
-Two entry points per layer, both paged:
+Contiguous cache (`core.kvcache.QuantizedKVCache`):
+    prefill(...)        causal attention over the prompt (blocked flash
+                        attention, `models.flash`), then quantizes its K/V
+                        into the cache
+    decode(...)         one token: appends K/V, then attends over the int8
+                        cache (the flat decode kernel); per-block caches
+                        merge it with the fp residual tail (`_decode_blocked`)
+Paged cache (`core.paging.PagedQuantizedKVCache`):
     prefill_chunk(...)  one varlen prompt chunk: attends over the row's
                         resident pages + causally within the chunk (the
                         paged prefill kernel), then writes the chunk's K/V
@@ -10,7 +17,7 @@ Two entry points per layer, both paged:
                         over the flushed pages (the paged decode kernel)
                         merged with the fp residual tail
 
-The cache is updated in place: attention reads the pool BEFORE a chunk's
+The caches are updated in place: attention reads the pool BEFORE a chunk's
 pages are written, and decode appends BEFORE it reads, exactly the order
 of the reference's functional updates.
 """
@@ -18,8 +25,10 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.kvcache import QuantizedKVCache
 from repro_torch.core.paging import PagedQuantizedKVCache
 from repro_torch.kernels import ops
+from repro_torch.models import flash
 from repro_torch.models.common import apply_rope, dense_init
 
 
@@ -50,6 +59,20 @@ def _merge_heads(p, out, dtype):
     return out @ p["wo"]
 
 
+def prefill(p, x, cfg, positions, cache: QuantizedKVCache, *,
+            row_mask=None):
+    """Prompt pass over the contiguous cache: causal attention, then the
+    prompt's K/V quantized into the cache. ``row_mask`` is a paged-cache
+    feature: the contiguous cache has one length for every row."""
+    if row_mask is not None:
+        raise ValueError("row-masked prefill requires the paged cache (the "
+                         "contiguous cache has one shared length)")
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    out = flash.flash_attention(q, k, v, True, cfg.sliding_window)
+    cache.prefill(k.float(), v.float())
+    return _merge_heads(p, out, x.dtype), cache
+
+
 def prefill_chunk(p, x, cfg, positions, cache: PagedQuantizedKVCache, *,
                   row_mask=None, hist_blocks: int | None = None, valid=None):
     """One prompt chunk under varlen chunked prefill. ``x`` (B, C, d), C a
@@ -72,15 +95,42 @@ def prefill_chunk(p, x, cfg, positions, cache: PagedQuantizedKVCache, *,
     return _merge_heads(p, out.to(x.dtype), x.dtype), cache
 
 
-def decode(p, x, cfg, positions, cache: PagedQuantizedKVCache, *,
-           row_mask=None):
-    """One-token step: append K/V, then fused paged attention merged with
-    the exact fp residual tail. ``row_mask`` (B,) bool freezes unmasked
-    rows' caches."""
+def decode(p, x, cfg, positions, cache, *, row_mask=None):
+    """One-token step: append K/V, then attention over the int8 cache
+    (merged with the exact fp residual tail where there is one).
+    ``row_mask`` (B,) bool freezes unmasked rows' caches (paged only)."""
     q, k, v = _project_qkv(p, x, cfg, positions)          # S == 1
-    cache.append(k.float(), v.float(), row_mask=row_mask)
-    out = _decode_paged(q[:, :, 0], cache)[:, :, None]
+    if isinstance(cache, PagedQuantizedKVCache):
+        cache.append(k.float(), v.float(), row_mask=row_mask)
+        out = _decode_paged(q[:, :, 0], cache)
+    else:
+        if row_mask is not None:
+            raise ValueError("row-masked decode requires the paged cache")
+        cache.append(k.float(), v.float())
+        window = cfg.sliding_window if cache.ring else None
+        if cache.per_channel:
+            out = ops.quant_attention_decode(
+                q[:, :, 0], cache.k_q, cache.k_s, cache.v_q, cache.v_s,
+                cache.length, window=window)
+        else:
+            out = _decode_blocked(q[:, :, 0], cache, window=window)
+    out = out[:, :, None]                                  # (B, H, 1, hd)
     return _merge_heads(p, out.to(x.dtype), x.dtype), cache
+
+
+def _decode_blocked(q, cache: QuantizedKVCache, *, window=None):
+    """The flat decode kernel over the flushed blocks merged with exact
+    attention over the residual tail. Ring ages in the quantized part count
+    from the flushed prefix, and its window budget leaves out the n_tail
+    newest (residual) tokens."""
+    bs = cache.block_size
+    flushed = (cache.length // bs) * bs
+    n_tail = cache.length % bs
+    win_q = None if window is None else max(window - n_tail, 0)
+    o1, m1, l1 = ops.quant_attention_decode_partials(
+        q, cache.k_q, cache.k_s, cache.v_q, cache.v_s, flushed, window=win_q)
+    m2, l2, o2 = _decode_partials_fp(q, cache.resid_k, cache.resid_v, n_tail)
+    return _merge_partials(o1, m1, l1, o2, m2, l2)
 
 
 def _decode_paged(q, cache: PagedQuantizedKVCache):
@@ -112,8 +162,9 @@ def _decode_partials_fp(q, rk, rv, n_tail):
     qg = q.float().reshape(B, Hkv, G, hd)
     logits = torch.einsum("bhgd,bhtd->bhgt", qg, rk.float())
     logits = logits / torch.sqrt(torch.tensor(float(hd)))
-    mask = (torch.arange(bs, device=q.device)[None, None, None, :]
-            < n_tail.to(torch.int32)[:, None, None, None])
+    if isinstance(n_tail, torch.Tensor):       # per row (paged)
+        n_tail = n_tail.to(torch.int32)[:, None, None, None]
+    mask = torch.arange(bs, device=q.device)[None, None, None, :] < n_tail
     neg = torch.full_like(logits, -1e30)
     logits = torch.where(mask, logits, neg)
     m = torch.clamp_min(torch.amax(logits, dim=-1, keepdim=True), -1e30 / 2)

@@ -1,17 +1,19 @@
-"""Decoder-only transformer for paged serving (port of the serving half of
+"""Decoder-only transformer for serving (port of the serving half of
 ``repro.models.transformer``, dense full-attention stacks).
 
 Parameters are a dict: ``embed`` (Vp, d), ``lm_head`` (d, Vp),
 ``final_norm``, and ``layers`` — one dict per layer (norm1, attn, norm2,
 mlp). The reference stacks layers on a leading axis for ``lax.scan``; the
 port keeps a list and loops, and `decode_scan` is a Python loop. The
-serving state is a list of per-layer `PagedQuantizedKVCache`s.
+serving state is a list of per-layer caches: contiguous
+`QuantizedKVCache`s (the default) or paged `PagedQuantizedKVCache`s.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import quantization as Q
+from repro_torch.core.kvcache import QuantizedKVCache
 from repro_torch.core.paging import PagedQuantizedKVCache
 from repro_torch.models import attention, mlp
 from repro_torch.models import sampling as SMP
@@ -38,7 +40,8 @@ def check_device(device) -> torch.device:
 
 
 def check_servable(cfg) -> None:
-    """The paged path serves dense full-attention stacks only."""
+    """The port serves dense full-attention stacks only (the ring cache of
+    sliding windows is ported, but no servable config reaches it yet)."""
     bad = [k for k in cfg.block_pattern if k != "attn"]
     if bad or cfg.sliding_window or cfg.tie_embeddings or cfg.qkv_bias \
             or cfg.mrope_sections or cfg.norm != "rmsnorm":
@@ -72,10 +75,12 @@ def init_params(cfg, generator: torch.Generator | None = None, *,
     return params
 
 
-def init_decode_state(cfg, batch: int, max_len: int, *,
+def init_decode_state(cfg, batch: int, max_len: int, *, paged: bool = False,
                       n_pages: int | None = None, kv_cache_dtype="int8",
                       device="cuda") -> list:
-    """One paged cache per layer, each over its own pool of ``n_pages``
+    """One cache per layer: a contiguous `QuantizedKVCache` (int8 only; a
+    ring of the window's block-rounded length under a sliding window), or
+    with ``paged=True`` a paged cache over its own pool of ``n_pages``
     pages (default: dense capacity, batch * max_len / page + sentinel)."""
     device = check_device(device)
     check_servable(cfg)
@@ -84,6 +89,18 @@ def init_decode_state(cfg, batch: int, max_len: int, *,
             f"kv_cache_dtype={kv_cache_dtype!r}: the port takes one uniform "
             f"dtype of {Q.KV_DTYPES}; mixed per-layer plans are ROADMAP "
             f"queue 1, item 11")
+    if not paged:
+        if kv_cache_dtype != "int8":
+            raise ValueError(f"kv_cache_dtype={kv_cache_dtype!r} requires the "
+                             f"paged cache (the contiguous backends are "
+                             f"int8-only)")
+        eff = max_len
+        if cfg.sliding_window:
+            eff = min(max_len, _round_block(cfg.sliding_window, cfg))
+        return [QuantizedKVCache.init(batch, cfg.n_kv_heads, eff,
+                                      cfg.head_dim, cfg.quant,
+                                      ring=eff < max_len, device=device)
+                for _ in range(cfg.n_layers)]
     if n_pages is None:
         n_pages = batch * (max_len // cfg.quant.block_size) + 1
     return [PagedQuantizedKVCache.init(
@@ -92,10 +109,19 @@ def init_decode_state(cfg, batch: int, max_len: int, *,
         for _ in range(cfg.n_layers)]
 
 
+def _round_block(n: int, cfg) -> int:
+    """``n`` rounded up to the cache block (8 in per_channel mode)."""
+    b = cfg.quant.block_size if cfg.quant.granularity == "per_block" else 8
+    return -(-n // b) * b
+
+
 def _block_serve(p, x, cfg, positions, cache, mode: str, row_mask=None,
                  hist_blocks=None, valid=None):
     h = rmsnorm(p["norm1"], x)
-    if mode == "chunk":
+    if mode == "prefill":
+        h, cache = attention.prefill(p["attn"], h, cfg, positions, cache,
+                                     row_mask=row_mask)
+    elif mode == "chunk":
         h, cache = attention.prefill_chunk(p["attn"], h, cfg, positions,
                                            cache, row_mask=row_mask,
                                            hist_blocks=hist_blocks,
@@ -123,6 +149,18 @@ def _serve(params, tok, cfg, state, positions, mode: str, row_mask=None,
 
 def _head(params, x):
     return rmsnorm(params["final_norm"], x) @ params["lm_head"]
+
+
+def prefill(params, tokens, cfg, state, *, positions=None, row_mask=None):
+    """Prompt pass over the contiguous caches: tokens (B, S) at positions
+    0..S-1 (default). Returns (logits of the last position (B, Vp),
+    state)."""
+    B, S = tokens.shape
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=tokens.device)[None].expand(B, S)
+    x = _serve(params, tokens, cfg, state, positions, "prefill", row_mask)
+    return _head(params, x[:, -1]), state
 
 
 def prefill_chunk(params, tokens, cfg, state, *, start, row_mask=None,

@@ -72,17 +72,17 @@ def default_detokenize(ids: Sequence[int]) -> str:
 
 @dataclasses.dataclass
 class EngineConfig:
-    """One object configuring the serving stack (field names as the
-    reference's). Ported: ``batch``, ``max_len``, ``eos_id``, ``n_pages``,
-    ``chunk``, ``prefill_chunk``, ``detokenize`` and a uniform
-    ``kv_cache_dtype``. ``paged`` defaults to True here —
-    the paged backend is the only one ported — and every option below
-    that is set to anything but its off value raises
-    `NotImplementedError`."""
+    """One object configuring the serving stack (field names and defaults
+    as the reference's). Ported: ``batch``, ``max_len``, ``eos_id``,
+    ``paged`` (False: the contiguous backend, the default; True: the page
+    pool), ``n_pages``, ``chunk``, ``prefill_chunk`` (paged only),
+    ``detokenize`` and a uniform ``kv_cache_dtype`` (other than int8:
+    paged only). Every option below that is set to anything but its off
+    value raises `NotImplementedError`."""
     batch: int = 4
     max_len: int = 128
     eos_id: int | None = None
-    paged: bool = True
+    paged: bool = False
     n_pages: int | None = None
     chunk: int | None = None
     prefix_cache: bool = False
@@ -99,12 +99,10 @@ class EngineConfig:
     host_tier_dtype: str | None = None
 
     def __post_init__(self):
-        if not self.paged:
-            _not_ported("the contiguous backend (paged=False)",
-                        "ROADMAP queue 1, item 13")
         if not self.use_fused_prefill:
             _not_ported("the dequantize-gather prefill oracle "
-                        "(use_fused_prefill=False)", "ROADMAP queue 1, item 5")
+                        "(use_fused_prefill=False)",
+                        "ROADMAP queue 1, item 13")
         if self.prefix_cache:
             _not_ported("prefix caching", "ROADMAP queue 1, item 8")
         if (self.host_pages is not None or self.evictor != "lru"
@@ -126,3 +124,7 @@ class EngineConfig:
                             "ROADMAP queue 1, item 11")
             raise ValueError(f"unknown kv_cache_dtype {self.kv_cache_dtype!r};"
                              f" expected one of {KV_DTYPES}")
+        if self.kv_cache_dtype != "int8" and not self.paged:
+            raise ValueError(
+                f"kv_cache_dtype={self.kv_cache_dtype!r} requires "
+                f"paged=True (the contiguous backends are int8-only)")

@@ -1,8 +1,17 @@
-"""Host-side continuous-batching scheduler over the paged quantized cache
-(port of the paged path of ``repro.serving.scheduler``).
+"""Host-side continuous-batching scheduler over the quantized cache (port
+of ``repro.serving.scheduler``, both backends).
 
 A fixed pool of ``batch`` rows; empty rows refill from a FCFS request
-queue between device steps. Admission reserves pages for each request's
+queue between device steps.
+
+Contiguous backend (``EngineConfig.paged=False``, the default): the cache
+has one length for every row, so a tick that admits requests rebuilds the
+batch: every active history (prompt + generated) is left-padded to a
+common block multiple and re-prefilled at positions 0..S-1, pad tokens
+included. A candidate waits while the rebuilt length plus any row's
+remaining budget would overflow ``max_len``.
+
+Paged backend (``paged=True``): admission reserves pages for each request's
 UNPADDED prompt plus its decode budget (`pages_for_request`) and feeds the
 prompt by varlen chunked prefill: ``prefill_chunk`` tokens per dispatch
 (default 4 pages), full chunks page-aligned, the final partial chunk at a
@@ -15,8 +24,7 @@ discarded (decode is causal).
 
 Not ported yet (they raise in `EngineConfig`): prefix caching, overload
 (watermark admission, preemption, priorities, the stall watchdog), the
-host swap tier, mixed precision plans, sampled requests, and the
-contiguous backend.
+host swap tier, mixed precision plans and sampled requests.
 """
 from __future__ import annotations
 
@@ -64,9 +72,9 @@ class Request:
 class ContinuousBatcher:
     """Continuous batching over ``config.batch`` rows on ``device``
     (default "cuda"; raises when there is no card). `submit` queues
-    requests; `step` runs one tick (admit, one prefill chunk, one decode
-    chunk); `abort` cancels a queued or running uid; `run_to_completion`
-    drains the queue."""
+    requests; `step` runs one tick (admit, prefill — a rebuild of the
+    batch, or one paged chunk — and one decode chunk); `abort` cancels a
+    queued or running uid; `run_to_completion` drains the queue."""
 
     def __init__(self, params, cfg, config: EngineConfig, *, device="cuda"):
         self.device = T.check_device(device)
@@ -74,8 +82,12 @@ class ContinuousBatcher:
         if params["embed"].device != self.device:
             raise ValueError(f"params live on {params['embed'].device}, the "
                              f"batcher on {self.device}")
-        if cfg.quant.granularity != "per_block":
+        self.paged = config.paged
+        if self.paged and cfg.quant.granularity != "per_block":
             raise ValueError("paged serving requires per_block quantization")
+        if config.prefill_chunk is not None and not self.paged:
+            raise ValueError("chunked prefill requires the paged backend "
+                             "(paged=True)")
         self.config = config
         self.params, self.cfg = params, cfg
         self.batch, self.max_len = config.batch, config.max_len
@@ -88,21 +100,26 @@ class ContinuousBatcher:
         self.ticks = 0
         self.prefill_tokens_computed = 0
         self.decode_tokens_computed = 0
-        self.page_size = cfg.quant.block_size
-        self.max_blocks = self.max_len // self.page_size
-        self.n_pages = (config.n_pages if config.n_pages is not None
-                        else self.batch * self.max_blocks + 1)
-        self.allocator = HostPageAllocator(self.n_pages)
-        self.tables = np.zeros((self.batch, self.max_blocks), np.int32)
-        self.row_pages: list[list[int]] = [[] for _ in range(self.batch)]
-        pc = config.prefill_chunk or 4 * self.page_size
-        self.prefill_chunk_tokens = -(-pc // self.page_size) * self.page_size
-        self._chunk_prefill_fns: dict[int, object] = {}
-        self.prefilling: dict[int, dict] = {}   # row -> toks/cursor/S
-        self._pf_rr = 0
+        self.block = (cfg.quant.block_size
+                      if cfg.quant.granularity == "per_block" else 8)
+        self.n_pages = None
+        if self.paged:
+            self.page_size = cfg.quant.block_size
+            self.max_blocks = self.max_len // self.page_size
+            self.n_pages = (config.n_pages if config.n_pages is not None
+                            else self.batch * self.max_blocks + 1)
+            self.allocator = HostPageAllocator(self.n_pages)
+            self.tables = np.zeros((self.batch, self.max_blocks), np.int32)
+            self.row_pages: list[list[int]] = [[] for _ in range(self.batch)]
+            pc = config.prefill_chunk or 4 * self.page_size
+            self.prefill_chunk_tokens = -(-pc // self.page_size) * \
+                self.page_size
+            self._chunk_prefill_fns: dict[int, object] = {}
+            self.prefilling: dict[int, dict] = {}   # row -> toks/cursor/S
+            self._pf_rr = 0
         self.kv_cache_dtype = config.kv_cache_dtype
-        self._init_state, self._decode = make_serve_fns(
-            cfg, max_len=self.max_len, n_pages=self.n_pages,
+        self._init_state, self._prefill, self._decode = make_serve_fns(
+            cfg, max_len=self.max_len, paged=self.paged, n_pages=self.n_pages,
             kv_cache_dtype=self.kv_cache_dtype, device=self.device)
         self.queue: deque[Request] = deque()
         self.rows: list[Request | None] = [None] * self.batch
@@ -126,19 +143,29 @@ class ContinuousBatcher:
                              f"({self.kv_cache_dtype!r})")
         budget = (req.max_new_tokens if req.max_new_tokens is not None
                   else req.sampling.max_new_tokens)
-        if len(req.prompt) < 1:
-            raise ValueError(f"request {req.uid}: empty prompt")
-        if len(req.prompt) + budget > self.max_len:
+        if self.paged:
+            if len(req.prompt) < 1:
+                raise ValueError(f"request {req.uid}: empty prompt")
+            if len(req.prompt) + budget > self.max_len:
+                raise ValueError(f"request {req.uid}: prompt+max_new exceeds "
+                                 f"max_len={self.max_len}")
+            if pages_for_request(len(req.prompt), budget,
+                                 self.page_size) > self.n_pages - 1:
+                raise ValueError(f"request {req.uid} needs more pages than "
+                                 f"the pool holds ({self.n_pages - 1}); "
+                                 f"raise n_pages")
+        elif self._pad(len(req.prompt)) + budget > self.max_len:
             raise ValueError(f"request {req.uid}: prompt+max_new exceeds "
                              f"max_len={self.max_len}")
-        if pages_for_request(len(req.prompt), budget,
-                             self.page_size) > self.n_pages - 1:
-            raise ValueError(f"request {req.uid} needs more pages than the "
-                             f"pool holds ({self.n_pages - 1}); raise n_pages")
         req.max_new_tokens = budget
         req.submit_time = time.perf_counter()
         self._inflight_uids.add(req.uid)
         self.queue.append(req)
+
+    def _pad(self, n: int) -> int:
+        """``n`` tokens rounded up to the block (the contiguous prefill
+        length; at least one block)."""
+        return -(-max(n, 1) // self.block) * self.block
 
     # -- lifecycle helpers -------------------------------------------------
     def _sample_rows(self, logits) -> np.ndarray:
@@ -199,7 +226,8 @@ class ContinuousBatcher:
             if r is not None and r.uid == uid:
                 self._finish(r, "aborted")
                 self._release_row(i)
-                self._sync_device()
+                if self.paged:
+                    self._sync_device()
                 self.aborted_requests += 1
                 return r
         return None
@@ -213,10 +241,11 @@ class ContinuousBatcher:
                 "ttft_s_p99": pct(99)}
 
     def step(self) -> list[Request]:
-        """One scheduler tick: admit, advance one prefill chunk, decode one
-        chunk for the rows past prefill. Returns requests finished now."""
+        """One scheduler tick: admit, prefill (a rebuild of the batch, or
+        one paged chunk), decode one chunk for the rows past prefill.
+        Returns requests finished now."""
         self.ticks += 1
-        return self._step_paged()
+        return self._step_paged() if self.paged else self._step_contiguous()
 
     def run_to_completion(self, max_ticks: int = 10_000) -> list[Request]:
         out = []
@@ -286,12 +315,14 @@ class ContinuousBatcher:
                 self.pos[i] += n
         return done
 
-    def _decode_tick(self, active: list[int], row_mask: np.ndarray
-                     ) -> list[Request]:
+    def _decode_tick(self, active: list[int],
+                     row_mask: np.ndarray | None = None) -> list[Request]:
+        """Decode one chunk for the active rows (all rows advance in the
+        contiguous cache; paged rows outside ``row_mask`` stay frozen)."""
         n = self._chunk_len(active)
         self.decode_tokens_computed += n * len(active)
-        tok, pos, mask = (self._dev(self.tok), self._dev(self.pos),
-                          self._dev(row_mask))
+        tok, pos = self._dev(self.tok), self._dev(self.pos)
+        mask = None if row_mask is None else self._dev(row_mask)
         if n == 1:
             logits, self.state = self._decode(self.params, tok, self.state,
                                               pos, mask)
@@ -303,16 +334,18 @@ class ContinuousBatcher:
                                   pending.cpu().numpy())
 
     def _release_row(self, i: int):
-        """Return row ``i``'s pages to the free list. The device table and
-        length stay stale until the next `_sync_device` (before any page
-        is handed out again); the dead row's output is discarded."""
+        """Free row ``i``; paged, its pages return to the free list. The
+        device table and length stay stale until the next `_sync_device`
+        (before any page is handed out again); the dead row's output is
+        discarded."""
         self.rows[i] = None
         self.pos[i] = 0
         self.tok[i, 0] = 0
-        self.allocator.release(self.row_pages[i])
-        self.row_pages[i] = []
-        self.tables[i, :] = 0
-        self.prefilling.pop(i, None)
+        if self.paged:
+            self.allocator.release(self.row_pages[i])
+            self.row_pages[i] = []
+            self.tables[i, :] = 0
+            self.prefilling.pop(i, None)
 
     def _sync_device(self):
         """Push the host page tables and per-row lengths (active rows:
@@ -322,6 +355,67 @@ class ContinuousBatcher:
         table, length = self._dev(self.tables), self._dev(lengths)
         for c in self.state:
             c.page_table, c.length = table, length
+
+    # -- contiguous backend --------------------------------------------------
+    def _admit_rows(self) -> list[int]:
+        """Fill empty rows FCFS, deferring a candidate whose admission would
+        overflow the cache after the rebuild: the rebuild restarts every
+        active row at the group's padded history length S, so each row's S
+        plus remaining budget must fit max_len."""
+        active = [r for r in self.rows if r is not None]
+        new: list[int] = []
+        free = [i for i in range(self.batch) if self.rows[i] is None]
+        while free[len(new):] and self.queue:
+            cand = self.queue[0]
+            group = active + [self.rows[i] for i in new] + [cand]
+            S = self._pad(max(len(r.prompt) + len(r.generated)
+                              for r in group))
+            if any(S + r.max_new_tokens - len(r.generated) > self.max_len
+                   for r in group):
+                break                          # wait until rows free up
+            i = free[len(new)]
+            self.queue.popleft()
+            self.rows[i] = cand
+            new.append(i)
+        return new
+
+    def _step_contiguous(self) -> list[Request]:
+        newly = self._admit_rows()
+        active = [i for i, r in enumerate(self.rows) if r is not None]
+        done: list[Request] = []           # first-draw-is-stop completions
+        if not active:
+            return done
+        if newly:
+            # rebuild: re-prefill every active history (prompt + generated)
+            # left-padded to one block multiple, at positions 0..S-1 with
+            # the pad tokens included, as the reference does
+            self.state = self._init_state(self.batch)
+            hist = {i: np.concatenate(
+                [self.rows[i].prompt,
+                 np.asarray(self.rows[i].generated, np.int32)])
+                for i in active}
+            S = self._pad(max(len(h) for h in hist.values()))
+            toks = np.zeros((self.batch, S), np.int32)
+            for i, h in hist.items():
+                toks[i, S - len(h):] = h       # left-pad
+            logits, self.state = self._prefill(self.params, self._dev(toks),
+                                               self.state)
+            nxt = self._sample_rows(logits)
+            for i in active:
+                r = self.rows[i]
+                if not r.generated and int(nxt[i]) in self._stop_ids(r):
+                    self._finish(r, "stop_token")   # suppressed, empty
+                    done.append(r)
+                    self._release_row(i)
+                    continue
+                self.tok[i, 0] = nxt[i]
+                self.pos[i] = S
+                if not r.generated:
+                    self._record_first_token(r)
+            active = [i for i in active if self.rows[i] is not None]
+        if not active:
+            return done
+        return done + self._decode_tick(active)
 
     # -- varlen chunked admission --------------------------------------------
     def _admit_chunked(self) -> bool:
@@ -440,7 +534,12 @@ class ContinuousBatcher:
 
     # -- introspection -----------------------------------------------------
     def pool_report(self) -> dict:
-        """Page occupancy, ticks, token counters and TTFT percentiles."""
+        """Ticks, token counters and TTFT percentiles; paged, also the page
+        occupancy."""
+        if not self.paged:
+            return {"ticks": self.ticks,
+                    "decode_tokens_computed": self.decode_tokens_computed,
+                    **self.lifecycle_report()}
         lengths = [int(self.pos[i]) if r is not None else 0
                    for i, r in enumerate(self.rows)]
         a = self.allocator

@@ -1,13 +1,17 @@
 """The port's CUDA kernels on the card (``gpu`` marker): each kernel against
-its plain PyTorch version on the same CUDA tensors, for int8, fp8_e4m3
-and int4 pages at the smoke shapes and at internlm2_1_8b's widths, and
-the smoke engine's greedy tokens on the card against the CPU. Skipped
-where there is no card; imports no JAX (the card's machine has none).
+its plain PyTorch version on the same CUDA tensors — the paged kernels for
+int8, fp8_e4m3 and int4 pages, the flat decode kernel per block and per
+channel (ring windows included), the quantize/dequantize family — at the
+smoke shapes and at internlm2_1_8b's widths, and the smoke engines'
+greedy tokens on the card against the CPU (paged and contiguous, and
+`greedy_generate`). Skipped where there is no card; imports no JAX (the
+card's machine has none).
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
-Tolerance: float32, |a - b| <= 1e-5 + 1e-4 |b| — the kernel sums in
-another order than the plain version (tile-wise online softmax)."""
+Tolerance: attention in float32, |a - b| <= 1e-5 + 1e-4 |b| — the kernel
+sums in another order than the plain version (tile-wise online softmax);
+the quantize family bitwise."""
 import dataclasses
 
 import numpy as np
@@ -18,6 +22,7 @@ from repro_torch.core import quantization as Q
 from repro_torch.kernels import ops
 from repro_torch.kernels import quant_attention as QA
 from repro_torch.kernels import quant_prefill as QP
+from repro_torch.kernels import quantize as QK
 from torch_parity import cuda_device  # noqa: F401  (fixture)
 
 DTYPES = ["int8", "fp8_e4m3", "int4"]
@@ -95,6 +100,114 @@ def test_prefill_kernel_matches_plain(kv_dtype, width, cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("per_channel", [False, True],
+                         ids=["per_block", "per_channel"])
+@pytest.mark.parametrize("width", WIDTHS)
+def test_flat_decode_kernel_matches_plain(per_channel, width, cuda_device):
+    H, Hkv, D, bs = width
+    T = 4 * bs + 8 if per_channel else 8 * bs     # per channel: T % 64 != 0
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=cuda_device)
+    lengths = i32([0, 1, bs - 1, 3 * bs + 5, T, T + bs + 3])
+    windows = i32([T, T, T, 2 * bs, T, bs + 2])   # two rows windowed
+    B = len(lengths)
+    k = torch.randn((B, Hkv, T, D), generator=gen, device=cuda_device)
+    v = torch.randn((B, Hkv, T, D), generator=gen, device=cuda_device)
+    quant = (QK.quantize_per_channel_plain if per_channel
+             else lambda x: QK.quantize_blocked_plain(x, bs))
+    (kq, ks), (vq, vs) = quant(k), quant(v)
+    if per_channel:
+        ks, vs = ks[:, :, None].contiguous(), vs[:, :, None].contiguous()
+    q = torch.randn((B, H, D), generator=gen, device=cuda_device)
+    args = (q, kq, ks, vq, vs, lengths, windows)
+    before = QA.flat_decode_partials_cuda.launches
+    got = QA.flat_decode_partials_cuda(*args)
+    torch.cuda.synchronize()
+    assert QA.flat_decode_partials_cuda.launches == before + 1
+    for g, w in zip(got, QA.flat_decode_partials_plain(*args)):
+        torch.testing.assert_close(g, w, **TOL)
+    assert float(got[2][0].abs().max()) == 0.0            # empty row: l = 0
+
+
+def _bitwise(a, b):
+    assert a.dtype == b.dtype and a.shape == b.shape
+    assert torch.equal(a.contiguous().view(torch.uint8),
+                       b.contiguous().view(torch.uint8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,bs", [((2, 2, 40, 16), 8),
+                                      ((4, 8, 2048, 128), 256),
+                                      ((1, 1, 1032, 128), 8)])
+def test_quantize_kernels_bitwise(shape, bs, cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.rand(shape, generator=gen, device=cuda_device) * 2 - 1
+    x[..., 2] = 0.0                                # an all-zero channel
+    x[..., 3] *= 1e-29                             # absmax below 127e-30
+    x[..., 0, 3] = 1e-29
+    counts = [QK.absmax_cuda.launches, QK.quantize_with_scales_cuda.launches,
+              QK.quantize_blocked_cuda.launches, QK.dequantize_cuda.launches]
+    got = QK.quantize_per_channel_cuda(x)
+    for g, w in zip(got, QK.quantize_per_channel_plain(x)):
+        _bitwise(g, w)
+    got = QK.quantize_blocked_cuda(x, bs)
+    for g, w in zip(got, QK.quantize_blocked_plain(x, bs)):
+        _bitwise(g, w)
+    q, s = got
+    for dt in (torch.float32, torch.bfloat16):
+        _bitwise(QK.dequantize_cuda(q, s, dt), QK.dequantize_plain(q, s, dt))
+    pq, ps = QK.quantize_per_channel_plain(x)
+    _bitwise(QK.dequantize_cuda(pq, ps), QK.dequantize_plain(pq, ps))
+    torch.cuda.synchronize()
+    assert [QK.absmax_cuda.launches, QK.quantize_with_scales_cuda.launches,
+            QK.quantize_blocked_cuda.launches, QK.dequantize_cuda.launches] \
+        == [counts[0] + 1, counts[1] + 1, counts[2] + 1, counts[3] + 3]
+    # ops routes a CUDA tensor to the kernels
+    before = QK.quantize_blocked_cuda.launches
+    ops.quantize_blocked(x, bs)
+    assert QK.quantize_blocked_cuda.launches == before + 1
+
+
+def _to(x, device):
+    if isinstance(x, dict):
+        return {k: _to(v, device) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_to(v, device) for v in x]
+    return x.to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("granularity", ["per_block", "per_channel"])
+def test_contiguous_smoke_tokens_match_cpu(granularity, cuda_device):
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import (EngineConfig, LLMEngine, SamplingParams,
+                                     greedy_generate)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("internlm2_1_8b", smoke=True),
+                              dtype="float32",
+                              quant=Q.QuantConfig(granularity, 8))
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    rng = np.random.RandomState(7)
+    prompts = [rng.randint(0, cfg.vocab, (n,)).astype(np.int32)
+               for n in (13, 30, 5, 20)]
+    sp = SamplingParams.greedy(max_new_tokens=7)
+
+    def run(device, p):
+        eng = LLMEngine(p, cfg, EngineConfig(batch=2, max_len=64),
+                        device=device)
+        toks = [o.token_ids for o in eng.generate(prompts, sp)]
+        gen = greedy_generate(p, cfg, np.stack([prompts[0], prompts[3][:13]]),
+                              steps=6, device=device)
+        return toks, gen.cpu().tolist()
+
+    before = QA.flat_decode_partials_cuda.launches
+    assert run(cuda_device, _to(params, cuda_device)) == run("cpu", params)
+    assert QA.flat_decode_partials_cuda.launches > before
+
+
+@pytest.mark.gpu
 def test_smoke_engine_tokens_match_cpu(cuda_device):
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
@@ -110,8 +223,8 @@ def test_smoke_engine_tokens_match_cpu(cuda_device):
     sp = SamplingParams.greedy(max_new_tokens=8)
 
     def run(device, p):
-        eng = LLMEngine(p, cfg, EngineConfig(batch=2, max_len=128),
-                        device=device)
+        eng = LLMEngine(p, cfg, EngineConfig(batch=2, max_len=128,
+                                             paged=True), device=device)
         return [o.token_ids for o in eng.generate(prompts, sp)]
 
     def to(x):

@@ -41,8 +41,8 @@ def _setup():
     rstate["p0"] = dataclasses.replace(
         rstate["p0"], page_table=jnp.broadcast_to(
             jnp.asarray(table), rstate["p0"].page_table.shape))
-    pstate = T.init_decode_state(pcfg, B, MAX_LEN, n_pages=N_PAGES,
-                                 device="cpu")
+    pstate = T.init_decode_state(pcfg, B, MAX_LEN, paged=True,
+                                 n_pages=N_PAGES, device="cpu")
     for c in pstate:
         c.page_table = torch.from_numpy(table)
     return (rcfg, rparams, rstate), (pcfg, pparams, pstate)

@@ -28,7 +28,7 @@ jax.config.update("jax_platform_name", "cpu")
 
 PROMPT_LENS = [13, 70, 5, 40, 21]      # partial page / 3 chunks / ...
 MAX_NEW = [6, 9, 5, 7, 8]
-ENGINE = dict(batch=2, max_len=128)
+ENGINE = dict(batch=2, max_len=128, paged=True)
 
 
 def _models():
@@ -60,7 +60,7 @@ def test_generate_matches_reference_engine(pallas_interpret):
              {"stop": (f"<{free[4].token_ids[3]}>",)}]
     outs, ticks, rep = _run_port(pcfg, pparams, prompts, stops)
 
-    ref = RefLLMEngine(rparams, rcfg, RefEngineConfig(paged=True, **ENGINE))
+    ref = RefLLMEngine(rparams, rcfg, RefEngineConfig(**ENGINE))
     routs = ref.generate(prompts, [RefSamplingParams.greedy(
         max_new_tokens=n, **s) for n, s in zip(MAX_NEW, stops)])
     assert [o.token_ids for o in outs] == [o.token_ids for o in routs]
@@ -77,7 +77,7 @@ def test_generate_matches_reference_engine(pallas_interpret):
 
 
 @pytest.mark.parametrize("option", [
-    dict(paged=False), dict(prefix_cache=True), dict(host_pages=8),
+    dict(prefix_cache=True), dict(host_pages=8),
     dict(evictor="freq"), dict(host_tier_dtype="int4"), dict(watermark=2),
     dict(aging_ticks=4), dict(fault_injector=object()), dict(stall_ticks=50),
     dict(kv_cache_dtype=("int8", "int4")), dict(use_fused_prefill=False)])
@@ -114,6 +114,6 @@ def test_serve_cli_on_cpu(capsys):
     from repro_torch.launch import serve
     assert serve.main(["--arch", "internlm2_1_8b", "--smoke", "--batch", "2",
                        "--max-len", "64", "--requests", "3",
-                       "--prompt-len", "13", "--max-new", "4",
+                       "--prompt-len", "13", "--max-new", "4", "--paged",
                        "--device", "cpu"]) == 0
     assert "completed 3/3 requests" in capsys.readouterr().out
