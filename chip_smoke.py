@@ -11,12 +11,15 @@ Phases, each fatal on failure (no fallback anywhere):
   2. each kernel against its plain PyTorch version on the card, at the
      main paths' full shapes (internlm2_1_8b: H 16, H_kv 8, D 128, block
      256): paged decode and prefill for int8, fp8_e4m3 and int4 pages; flat
-     decode per block and per channel (lengths 2048 / 1280 / 0 and a ring
-     row, length 3000 in a window of 1024; per channel also the generate
-     path's T = 1032, lengths 1032 / 1000 / 1017 / 0, partial last tiles);
-     the quantize family bitwise at (4, 8, 2048, 128), per channel at
-     (4, 8, 1000, 128) and blocked at a flush's (4, 8, 256, 128). Times
-     from CUDA events, the L2 cache flushed before each launch.
+     decode and the seed baseline per block and per channel (mixed lengths,
+     an empty row and a ring row, length 3000 in a window of 1024; flat per
+     channel also the generate path's T = 1032, partial last tiles); the
+     flash forward in bf16 at the training shape (4, 16, 2048, 128) causal
+     and the contiguous prefill's 1536 rebuild, with a window and
+     kv_offset, and at an odd S in float32; the quantize family bitwise at
+     (4, 8, 2048, 128), per channel at (4, 8, 1000, 128) and blocked at a
+     flush's (4, 8, 256, 128). Times from CUDA events, the L2 cache
+     flushed before each launch.
   3. the paper's kernels at its eight (T, D) sizes: quantize per channel,
      quantize blocked (block 256) and dequantize through `kernels.ops`
      (launches counted), each bitwise against its plain version, Eq. 9
@@ -29,9 +32,13 @@ Phases, each fatal on failure (no fallback anywhere):
      a seeded torch.Generator serves 5 greedy requests through the paged
      LLMEngine and through the contiguous one (batch 4, max_len 2048), and
      runs greedy_generate per block (a block flush in every layer) and per
-     channel (batch 4, 1000-token prompts, 32 steps); the kernels' launch
-     counters are set to 0 just before each path and must be > 0 just
-     after for every kernel the path runs.
+     channel (batch 4, 1000-token prompts, 32 steps); the seed baseline
+     runs over the contiguous cache's shape beside flat decode; then, the
+     serving weights freed, the train CLI's entry point takes 3 steps at
+     batch 4 x 2048 and 1 more with --grad-compression (step 0's loss held
+     against the plain flash forward's). The kernels' launch counters are
+     set to 0 just before each path and must be > 0 just after for every
+     kernel the path runs.
   6. a {"kernels": [...]} line, then the card line, then as the last line
      {"ok": true, "device": {...}}.
 Exits non-zero without a CUDA device or without the repository's src/.
@@ -39,6 +46,7 @@ Exits non-zero without a CUDA device or without the repository's src/.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -49,11 +57,23 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 F32_FLOP_PER_S = 67e12         # H100 SXM float32 peak outside the tensor cores
+BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 dense tensor-core peak
 DTYPES = ("int8", "fp8_e4m3", "int4")
 # kernel vs plain version, both float32 on the card; sums run in another
 # order (tile-wise online softmax vs one softmax), so elementwise
 # |a - b| <= ATOL + RTOL * |b|
 ATOL, RTOL = 1e-5, 1e-4
+# flash forward on bfloat16 inputs, against the plain version walked in
+# the kernel's 64-key tiles: m and l (float32 sums of unrounded
+# probabilities) as above; the output within one bf16 ulp (2^-8) of its
+# scale, as both versions round each probability to bf16 before P.V and a
+# last-bit difference in a float32 logit can move that rounding a whole
+# bf16 ulp
+ATOL_BF16 = RTOL_BF16 = 2.0 ** -8
+FLASH_TILE = 64                # keys per kernel tile (csrc/flash_fwd.cu)
+# the full-width train step's loss through the kernel vs through the
+# plain flash forward, bf16 model: relative
+LOSS_RTOL = 1e-3
 
 
 def log(*a):
@@ -96,9 +116,11 @@ def time_cold_ms(fn, iters: int, warmup: int = 1) -> float:
     return sum(a.elapsed_time(b) for a, b in pairs) / iters
 
 
-def bound_of(nbytes: float, flops: float = 0.0) -> tuple[float, str]:
-    """(least ms at 3.35 TB/s and 67 TFLOP/s float32, what bounds it)."""
-    tb, tf = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+def bound_of(nbytes: float, flops: float = 0.0,
+             flop_rate: float = F32_FLOP_PER_S) -> tuple[float, str]:
+    """(least ms at 3.35 TB/s and ``flop_rate`` (float32: 67 TFLOP/s),
+    what bounds it)."""
+    tb, tf = nbytes / HBM_BYTES_PER_S, flops / flop_rate
     return max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations"
 
 
@@ -108,9 +130,9 @@ def same_bits(a, b) -> bool:
         a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8)))
 
 
-def excess(got, want) -> float:
-    """max |got - want| / (ATOL + RTOL |want|): <= 1 passes."""
-    return float(((got - want).abs() / (ATOL + RTOL * want.abs())).max())
+def excess(got, want, atol=ATOL, rtol=RTOL) -> float:
+    """max |got - want| / (atol + rtol |want|): <= 1 passes."""
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
 
 
 # -- inputs -----------------------------------------------------------------
@@ -328,26 +350,26 @@ def _flat_quant(mode, k, v, bs):
     return kq, ks[:, :, None].contiguous(), vq, vs[:, :, None].contiguous()
 
 
-def _flat_check(label, args):
-    """Flat decode kernel against its plain version on ``args``: (max |err|,
-    multiple of the tolerance); an empty row must give o = 0, m = -1e30,
-    l = 0 exactly."""
+def _flat_check(label, args, kernel=None):
+    """A contiguous decode kernel (default: flat decode) against the plain
+    version on ``args``: (max |err|, multiple of the tolerance); an empty
+    row must give o = 0, m = -1e30, l = 0 exactly."""
     import torch
     from repro_torch.kernels import quant_attention as QA
-    got = QA.flat_decode_partials_cuda(*args)
+    got = (kernel or QA.flat_decode_partials_cuda)(*args)
     torch.cuda.synchronize()
     want = QA.flat_decode_partials_plain(*args)
     err = max(float((g - w).abs().max()) for g, w in zip(got, want))
     ex = max(excess(g, w) for g, w in zip(got, want))
     if ex > 1.0 or not all(bool(torch.isfinite(g).all()) for g in got):
-        raise AssertionError(f"flat decode {label}: kernel vs plain off by "
-                             f"{err:.3e} ({ex:.2f}x tolerance)")
+        raise AssertionError(f"{label}: kernel vs plain off by {err:.3e} "
+                             f"({ex:.2f}x tolerance)")
     o, m, l = got
     empty = args[5] == 0
     if bool(empty.any()) and (float(o[empty].abs().max()) or float(
             l[empty].max()) or bool((m[empty] != -1e30).any())):
-        raise AssertionError(f"flat decode {label}: an empty row must give "
-                             f"o = 0, m = -1e30, l = 0")
+        raise AssertionError(f"{label}: an empty row must give o = 0, "
+                             f"m = -1e30, l = 0")
     return err, ex
 
 
@@ -373,9 +395,10 @@ def check_flat_decode(dev, gen):
     out = {"per_mode": []}
     for mode in ("per_block", "per_channel"):
         kq, ks, vq, vs = _flat_quant(mode, k, v, bs)
-        err, ex = _flat_check(mode, (q, kq, ks, vq, vs, lengths, windows))
+        err, ex = _flat_check(f"flat decode {mode}",
+                              (q, kq, ks, vq, vs, lengths, windows))
         if mode == "per_channel":
-            e2, x2 = _flat_check(f"{mode} T={Tp}", (
+            e2, x2 = _flat_check(f"flat decode {mode} T={Tp}", (
                 q, *_flat_quant(mode, kp, vp, bs), lp, wp))
             err, ex = max(err, e2), max(ex, x2)
         targs = (q, kq, ks, vq, vs, full, full)
@@ -409,6 +432,122 @@ def check_flat_decode(dev, gen):
     out["timed_shapes"] = (f"k/v ({B},{Hkv},{T},{D}), lengths {[T] * B}; "
                            f"L2 flushed")
     return out
+
+
+def check_seed_decode(dev, gen):
+    """The seed baseline at the contiguous engine's decode shape, per block
+    and per channel, mixed lengths (one empty, one ring row in a window);
+    timed at full length as flat decode is (the same live bytes)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import quant_attention as QA
+    from repro_torch.kernels import quantize as QK
+    B, H, Hkv, D, T, bs = 4, 16, 8, 128, 2048, 256
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)
+    lengths, windows = i32([1500, 300, 0, 3000]), i32([T, T, T, 1024])
+    k = torch.randn((B, Hkv, T, D), generator=gen, device=dev)
+    v = torch.randn((B, Hkv, T, D), generator=gen, device=dev)
+    q = torch.randn((B, H, D), generator=gen, device=dev)
+    full = i32([T] * B)
+    out = {"per_mode": []}
+    for mode in ("per_block", "per_channel"):
+        kq, ks, vq, vs = _flat_quant(mode, k, v, bs)
+        err, ex = _flat_check(f"seed decode {mode}",
+                              (q, kq, ks, vq, vs, lengths, windows),
+                              QA.seed_decode_partials_cuda)
+        targs = (q, kq, ks, vq, vs, full, full)
+        ms = time_cold_ms(lambda: QA.seed_decode_partials_cuda(*targs), 50)
+        plain_ms = time_cold_ms(lambda: QA.flat_decode_partials_plain(*targs),
+                                5)
+        nb = ks.shape[2]
+        nbytes = (2 * B * T * Hkv * D + 2 * B * Hkv * nb * D * 4
+                  + 2 * B * H * D * 4 + 2 * B * H * 4 + 2 * B * 4)
+        flops = 4 * D * H * B * T
+        bound, by = bound_of(nbytes, flops)
+        kb = QK.dequantize_plain(kq, ks, torch.bfloat16)
+        vb = QK.dequantize_plain(vq, vs, torch.bfloat16)
+        qb = q.bfloat16()[:, :, None]
+        lib_ms = time_cold_ms(lambda: F.scaled_dot_product_attention(
+            qb, kb, vb, enable_gqa=True), 50)
+        row = {"mode": mode, "max_abs_err": err, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+               "library_ms": lib_ms}
+        out["per_mode"].append(row)
+        log(f"[seed_decode] {mode}: max_abs_err {err:.3e} (tol {ATOL:g} + "
+            f"{RTOL:g}|ref|, {ex:.3f}x) kernel {ms:.4f} ms plain "
+            f"{plain_ms:.4f} ms sdpa(bf16) {lib_ms:.4f} ms bound "
+            f"{bound:.5f} ms ({by}: {nbytes / 1e6:.2f} MB at 3.35 TB/s)")
+    out["check_shapes"] = (f"q ({B},{H},{D}) f32; k/v ({B},{Hkv},{T},{D}) "
+                           f"int8, block {bs} or per channel; lengths "
+                           f"{lengths.tolist()} windows {windows.tolist()}")
+    out["timed_shapes"] = f"k/v ({B},{Hkv},{T},{D}), lengths {[T] * B}"
+    return out
+
+
+def _flash_inputs(B, H, Hkv, S, T, D, dtype, gen, dev):
+    import torch
+    mk = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(dtype)
+    return mk(B, H, S, D), mk(B, Hkv, T, D), mk(B, Hkv, T, D)
+
+
+def check_flash(dev, gen):
+    """The flash forward kernel against its plain version: bf16 at the
+    training shape (4, 16, 2048, 128) causal and at the contiguous
+    prefill's rebuild (4, 16, 1536, 128); a window with kv_offset; an odd S
+    in float32. Timed at the training shape beside SDPA on the same bf16
+    q/k/v (the port never calls SDPA)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_fwd as FF
+    cases = [  # label, (B, H, Hkv, S, T, D), dtype, causal, window, offset
+        ("train", (4, 16, 8, 2048, 2048, 128), torch.bfloat16, True, None, 0),
+        ("prefill 1536", (4, 16, 8, 1536, 1536, 128), torch.bfloat16, True,
+         None, 0),
+        ("window+offset", (2, 16, 8, 300, 812, 128), torch.bfloat16, True,
+         256, 512),
+        ("odd S f32", (2, 16, 8, 999, 999, 128), torch.float32, True, None,
+         0),
+    ]
+    worst = {"max_abs_err": 0.0}
+    for label, shape, dt, causal, window, off in cases:
+        q, k, v = _flash_inputs(*shape, dt, gen, dev)
+        got = FF.flash_fwd_cuda(q, k, v, causal, window, off)
+        torch.cuda.synchronize()
+        want = FF.flash_fwd_plain(q, k, v, causal, window, off, FLASH_TILE)
+        atol, rtol = ((ATOL_BF16, RTOL_BF16) if dt == torch.bfloat16
+                      else (ATOL, RTOL))
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        ex = max(excess(got[0], want[0], atol, rtol),
+                 *(excess(g, w) for g, w in zip(got[1:], want[1:])))
+        if ex > 1.0 or not all(bool(torch.isfinite(g).all()) for g in got):
+            raise AssertionError(f"flash forward {label}: kernel vs plain "
+                                 f"off by {err:.3e} ({ex:.2f}x tolerance)")
+        worst["max_abs_err"] = max(worst["max_abs_err"], err)
+        log(f"[flash_fwd] {label} {shape} {str(dt)[6:]}: max_abs_err "
+            f"{err:.3e} (out: tol {atol:g} + {rtol:g}|ref|; m, l: {ATOL:g} + "
+            f"{RTOL:g}|ref|; {ex:.3f}x)")
+        if label != "train":
+            continue
+        B, H, Hkv, S, T, D = shape
+        ms = time_cold_ms(lambda: FF.flash_fwd_cuda(q, k, v), 10)
+        plain_ms = time_cold_ms(lambda: FF.flash_fwd_plain(q, k, v), 3)
+        lib_ms = time_cold_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 10)
+        flops = 4 * D * H * B * S * (S + 1) // 2      # live (query, key) pairs
+        nbytes = (q.numel() + k.numel() + v.numel()) * 2 + B * H * S * D * 4 \
+            + 2 * B * H * S * 4
+        bound, by = bound_of(nbytes, flops, BF16_FLOP_PER_S)
+        worst.update({"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                      "bound_by": by, "library_ms": lib_ms})
+        log(f"[flash_fwd] train: kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+            f"sdpa(bf16) {lib_ms:.4f} ms bound {bound:.5f} ms ({by}: "
+            f"{flops / 1e9:.2f} GFLOP at 989 TFLOP/s bf16, "
+            f"{nbytes / 1e6:.1f} MB at 3.35 TB/s)")
+    worst["check_shapes"] = "; ".join(
+        f"{label} (B,H,Hkv,S,T,D)={shape} {str(dt)[6:]} causal={c} "
+        f"window={w} kv_offset={o}" for label, shape, dt, c, w, o in cases)
+    worst["timed_shapes"] = "q (4,16,2048,128), k/v (4,8,2048,128) bf16 causal"
+    return worst
 
 
 def quantize_family(x, bs: int, iters: int, plain_iters: int) -> dict:
@@ -664,11 +803,14 @@ def parity_smoke(dev):
 
 def _counters():
     """Every kernel's launcher, by the name the kernels line gives it."""
+    from repro_torch.kernels import flash_fwd as FF
     from repro_torch.kernels import quant_attention as QA
     from repro_torch.kernels import quant_prefill as QP
     return {"paged_decode": QA.paged_decode_partials_cuda,
             "paged_prefill": QP.paged_prefill_cuda,
-            "flat_decode": QA.flat_decode_partials_cuda, **_quant_counts()}
+            "flat_decode": QA.flat_decode_partials_cuda, **_quant_counts(),
+            "flash_fwd": FF.flash_fwd_cuda,
+            "seed_decode": QA.seed_decode_partials_cuda}
 
 
 def _run_path(dev, label: str, needs: tuple, fn):
@@ -696,7 +838,7 @@ def serve_full_width(dev, params, cfg, paged: bool):
     from repro_torch.serving import EngineConfig, LLMEngine, SamplingParams
     label = "paged" if paged else "contiguous"
     needs = (("paged_decode", "paged_prefill") if paged
-             else ("flat_decode", "quantize_blocked"))
+             else ("flat_decode", "quantize_blocked", "flash_fwd"))
     eng = LLMEngine(params, cfg, EngineConfig(batch=4, max_len=2048,
                                               paged=paged), device=dev)
     rng = np.random.RandomState(0)
@@ -741,9 +883,9 @@ def generate_full_width(dev, params, cfg, granularity: str):
     from repro_torch.serving import greedy_generate
     gc = dataclasses.replace(cfg, quant=QuantConfig(granularity))
     B, S, steps = 4, 1000, 32
-    needs = (("flat_decode", "absmax", "quantize_with_scales")
+    needs = (("flat_decode", "absmax", "quantize_with_scales", "flash_fwd")
              if granularity == "per_channel"
-             else ("flat_decode", "quantize_blocked"))
+             else ("flat_decode", "quantize_blocked", "flash_fwd"))
     prompts = np.random.RandomState(1).randint(0, gc.vocab, (B, S)).astype(
         np.int32)
     toks, wall, counts, peak = _run_path(
@@ -771,6 +913,132 @@ def generate_full_width(dev, params, cfg, granularity: str):
     return counts
 
 
+def seed_path(dev, gen):
+    """The seed baseline through `ops.quant_attention_decode_partials_vmap`
+    over the contiguous engine's cache (batch 4, H_kv 8, T 2048, D 128,
+    block 256) at mixed lengths, timed beside the flat entry on the same
+    cache, as benchmarks/e2e_decode.py compares the two (L2 flushed)."""
+    import torch
+    from repro_torch.kernels import ops
+    B, H, Hkv, D, T, bs = 4, 16, 8, 128, 2048, 256
+    lens = torch.tensor([2048, 1536, 1024, 512], dtype=torch.int32,
+                        device=dev)
+    k = torch.randn((B, Hkv, T, D), generator=gen, device=dev)
+    v = torch.randn((B, Hkv, T, D), generator=gen, device=dev)
+    q = torch.randn((B, H, D), generator=gen, device=dev)
+    kq, ks, vq, vs = _flat_quant("per_block", k, v, bs)
+    args = (q, kq, ks, vq, vs, lens)
+    out, _, counts, _ = _run_path(
+        dev, "seed baseline", ("seed_decode",),
+        lambda: ops.quant_attention_decode_partials_vmap(*args))
+    flat = ops.quant_attention_decode_partials(*args)
+    err = max(float((a - b).abs().max()) for a, b in zip(out, flat))
+    if max(excess(a, b) for a, b in zip(out, flat)) > 1.0:
+        raise AssertionError(f"seed baseline vs flat entry off by {err:.3e}")
+    seed_ms = time_cold_ms(
+        lambda: ops.quant_attention_decode_partials_vmap(*args), 50)
+    flat_ms = time_cold_ms(
+        lambda: ops.quant_attention_decode_partials(*args), 50)
+    res = {"lengths": lens.tolist(), "seed_ms": seed_ms, "flat_ms": flat_ms,
+           "seed_over_flat": seed_ms / flat_ms, "max_abs_err_vs_flat": err,
+           "launches": counts}
+    log(f"[seed path] lengths {lens.tolist()}: seed {seed_ms:.4f} ms, flat "
+        f"{flat_ms:.4f} ms ({seed_ms / flat_ms:.2f}x), max |seed - flat| "
+        f"{err:.3e}; " + json.dumps(res))
+    return counts
+
+
+def _plain_flash_loss(dev, cfg, batch):
+    """Step 0's loss of the train CLI's model (seed 0 weights) with the
+    forward's attention through the plain flash version on the card, and
+    through the kernel, no gradients."""
+    import torch
+    from repro_torch.kernels import flash_fwd as FF
+    from repro_torch.models import transformer as T
+    from repro_torch.training.step import loss_fn
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    out = {}
+    kernel = FF.flash_fwd_cuda
+    with torch.no_grad():
+        try:
+            for name, fn in (("plain", FF.flash_fwd_plain),
+                             ("kernel", kernel)):
+                FF.flash_fwd_cuda = fn
+                out[name] = float(loss_fn(params, batch, cfg)[1]["loss"])
+        finally:
+            FF.flash_fwd_cuda = kernel
+    return out
+
+
+def train_full_width(dev):
+    """`launch.train.main` at full width: 3 steps of internlm2_1_8b at
+    batch 4 x 2048 (SyntheticLM seed 0, no checkpoint dir), then, after
+    that run's state is freed, 1 step with --grad-compression. flash_fwd
+    runs in each block's forward and again in its recompute: >= 2 x 24
+    launches a step. Step 0's loss is held against the same forward
+    through the plain flash version on the card."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import train as train_cli
+    cfg = get_config("internlm2_1_8b")
+    B, S = 4, 2048
+    argv = ["--arch", "internlm2_1_8b", "--batch", str(B), "--seq", str(S),
+            "--log-every", "1"]
+    runs = {}
+    for label, extra, steps, needs in (
+            ("train", [], 3, ("flash_fwd",)),
+            ("train compressed", ["--grad-compression"], 1,
+             ("flash_fwd", "absmax", "quantize_with_scales", "dequantize"))):
+        rows = []
+        _, wall, counts, peak = _run_path(
+            dev, label, needs, lambda: train_cli.main(
+                argv + ["--steps", str(steps)] + extra,
+                on_step=lambda i, m, sec: rows.append(
+                    {"step": i, **m, "step_ms": sec * 1e3,
+                     "tokens_per_s": B * S / sec})))
+        gc.collect()
+        torch.cuda.empty_cache()
+        if len(rows) != steps or not all(
+                math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                for r in rows):
+            raise AssertionError(f"{label}: steps or losses not finite: "
+                                 f"{rows}")
+        if counts["flash_fwd"] < 2 * cfg.n_layers * steps:
+            raise AssertionError(f"{label}: {counts['flash_fwd']} flash "
+                                 f"launches, < 2 x {cfg.n_layers} x {steps}")
+        runs[label] = {"steps": rows, "wall_s": wall, "launches": counts,
+                       "max_memory_allocated_bytes": peak}
+        for r in rows:
+            log(f"[{label}] step {r['step']}: loss {r['loss']:.5f} grad_norm "
+                f"{r['grad_norm']:.4f} lr {r['lr']:.3e} step "
+                f"{r['step_ms']:.1f} ms ({r['tokens_per_s']:.0f} tok/s)")
+        log(f"[{label}] {steps} steps in {wall:.2f} s, launches {counts}, "
+            f"max_memory_allocated {peak / 2**30:.2f} GiB")
+    data = SyntheticLM(DataConfig(seq_len=S, global_batch=B, vocab=cfg.vocab,
+                                  seed=0))
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in data.batch_at(0).items()}
+    losses = _plain_flash_loss(dev, cfg, batch)
+    cli0 = runs["train"]["steps"][0]["loss"]
+    rel = abs(cli0 - losses["plain"]) / abs(losses["plain"])
+    if rel > LOSS_RTOL:
+        raise AssertionError(f"step-0 loss through the kernel {cli0} vs "
+                             f"plain flash {losses['plain']}: {rel:.2e} > "
+                             f"{LOSS_RTOL:g}")
+    runs["step0_loss"] = {"cli_kernel": cli0, **losses, "rel_diff": rel}
+    log(f"[train] step-0 loss: CLI (kernel) {cli0:.6f}, forward with kernel "
+        f"{losses['kernel']:.6f}, with plain flash {losses['plain']:.6f} "
+        f"(rel diff {rel:.2e} <= {LOSS_RTOL:g})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[train] " + json.dumps(runs))
+    return {k: v["launches"] for k, v in runs.items() if "launches" in v}
+
+
 def _leaves(x):
     if isinstance(x, dict):
         for v in x.values():
@@ -782,7 +1050,8 @@ def _leaves(x):
         yield x
 
 
-def kernels_line(decode, prefill, flat, quant, paper, path_counts):
+def kernels_line(decode, prefill, flat, quant, paper, flash, seed,
+                 path_counts):
     """One entry per hand-written kernel: the keys of every entry of the
     kernels line, its launches summed over the main paths that ran it."""
     launches = {k: sum(c.get(k, 0) for c in path_counts.values())
@@ -811,18 +1080,33 @@ def kernels_line(decode, prefill, flat, quant, paper, path_counts):
             "per_dtype": res["per_dtype"],
             **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")}})
-    main_row = flat["per_mode"][0]              # per block: the engine's
+    for name, res, src, replaces in (
+            ("flat_decode", flat, "flat_decode.cu", "quant_attention.py:112"),
+            ("seed_decode", seed, "seed_decode.cu", "quant_attention.py:271")):
+        main_row = res["per_mode"][0]           # per block: the engine's
+        out.append({
+            "name": name, "route": "cuda", "source": csrc + src,
+            "replaces": ref + replaces, "dtype": "int8",
+            "max_abs_err": max(r["max_abs_err"] for r in res["per_mode"]),
+            "tol": attn_tol, "library": sdpa,
+            "shapes": {"checked": res["check_shapes"],
+                       "timed": res["timed_shapes"]},
+            "per_mode": res["per_mode"],
+            **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")}})
     out.append({
-        "name": "flat_decode", "route": "cuda", "source": csrc +
-        "flat_decode.cu", "replaces": ref + "quant_attention.py:112",
-        "dtype": "int8",
-        "max_abs_err": max(r["max_abs_err"] for r in flat["per_mode"]),
-        "tol": attn_tol, "library": sdpa,
-        "shapes": {"checked": flat["check_shapes"],
-                   "timed": flat["timed_shapes"]},
-        "per_mode": flat["per_mode"],
-        **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms",
-                                    "bound_by", "library_ms")}})
+        "name": "flash_fwd", "route": "cuda", "source": csrc + "flash_fwd.cu",
+        "replaces": ref + "flash_fwd.py:37", "dtype": "bfloat16 (float32 "
+        "too)", "max_abs_err": flash["max_abs_err"],
+        "tol": f"out |a-b| <= {ATOL_BF16:g} + {RTOL_BF16:g}|b| (bf16 "
+               f"inputs; one bf16 ulp), else and m, l: {ATOL:g} + "
+               f"{RTOL:g}|b|; plain walked in {FLASH_TILE}-key tiles",
+        "library": "torch.nn.functional.scaled_dot_product_attention, "
+                   "causal, bf16 q/k/v",
+        "shapes": {"checked": flash["check_shapes"],
+                   "timed": flash["timed_shapes"]},
+        **{k: flash[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")}})
     lines = {"absmax": "quantize.py:35", "quantize_with_scales":
              "quantize.py:49", "quantize_blocked": "quantize.py:59",
              "dequantize": "quantize.py:67"}
@@ -890,6 +1174,8 @@ def main() -> int:
     decode = check_decode(dev, gen)
     prefill = check_prefill(dev, gen)
     flat = check_flat_decode(dev, gen)
+    seed = check_seed_decode(dev, gen)
+    flash = check_flash(dev, gen)
     quant = check_quantize(dev, gen)
     log(f"[kernels] checked in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -914,10 +1200,17 @@ def main() -> int:
                                                          "per_block"),
         "greedy_generate per_channel": generate_full_width(dev, params, cfg,
                                                            "per_channel"),
-        "paper": paper["launches"]}
+        "paper": paper["launches"],
+        "seed baseline": seed_path(dev, gen)}
     log(f"[serve] phase in {time.perf_counter() - t0:.1f} s")
+    del params                     # the serving weights make way for training
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    path_counts.update(train_full_width(dev))
+    log(f"[train] phase in {time.perf_counter() - t0:.1f} s")
 
-    kernels = kernels_line(decode, prefill, flat, quant, paper, path_counts)
+    kernels = kernels_line(decode, prefill, flat, quant, paper, flash, seed,
+                           path_counts)
     if any(k["launches"] < 1 for k in kernels):
         raise AssertionError("a kernel was launched on no main path")
     log(f"[total] {time.perf_counter() - t_start:.1f} s")

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_fwd as _ff
 from repro_torch.kernels import quant_attention as _qa
 from repro_torch.kernels import quant_prefill as _qp
 from repro_torch.kernels import quantize as _quant
@@ -49,7 +50,28 @@ def dequantize(x_q, scales, *, out_dtype=torch.float32):
     return fn(x_q.contiguous(), scales.float().contiguous(), out_dtype)
 
 
+# -- flash attention forward -------------------------------------------------
+
+def flash_prefill(q, k, v, *, causal: bool = True, window: int | None = None,
+                  kv_offset: int = 0, kv_block: int = 512):
+    """Flash forward of `models.flash.flash_attention`: q (B, H, S, D);
+    k/v (B, H_kv, T, D), one dtype (float32 or bfloat16; a CPU tensor
+    takes any). Returns (out (B, H, S, D), m, l (B, H_kv, G, S, 1))
+    float32; ``kv_block`` is the plain version's kv slice."""
+    fn = _route(q, _ff.flash_fwd_cuda, _ff.flash_fwd_plain)
+    return fn(q.contiguous(), k.contiguous(), v.contiguous(), causal, window,
+              kv_offset, kv_block)
+
+
 # -- decode attention over the contiguous cache ------------------------------
+
+def _per_row(v, B: int, device) -> torch.Tensor:
+    """An int or a (B,)-broadcastable tensor as (B,) int32 on ``device``."""
+    if isinstance(v, torch.Tensor):
+        return torch.broadcast_to(v.to(device=device, dtype=torch.int32),
+                                  (B,)).contiguous()
+    return torch.full((B,), int(v), dtype=torch.int32, device=device)
+
 
 def quant_attention_decode_partials(q, k_q, k_s, v_q, v_s, length, *,
                                     window=None):
@@ -61,19 +83,37 @@ def quant_attention_decode_partials(q, k_q, k_s, v_q, v_s, length, *,
     Returns (o (B, H, D), m (B, H, 1), l (B, H, 1)) float32."""
     B = q.shape[0]
     T = k_q.shape[2]
-
-    def per_row(v):
-        if isinstance(v, torch.Tensor):
-            return torch.broadcast_to(v.to(device=q.device,
-                                            dtype=torch.int32), (B,))
-        return torch.full((B,), int(v), dtype=torch.int32, device=q.device)
-
     fn = _route(q, _qa.flat_decode_partials_cuda,
                 _qa.flat_decode_partials_plain)
     return fn(q.float().contiguous(), k_q.contiguous(),
               k_s.float().contiguous(), v_q.contiguous(),
-              v_s.float().contiguous(), per_row(length).contiguous(),
-              per_row(T if window is None else window).contiguous())
+              v_s.float().contiguous(), _per_row(length, B, q.device),
+              _per_row(T if window is None else window, B, q.device))
+
+
+def quant_attention_decode_partials_vmap(q, k_q, k_s, v_q, v_s, length, *,
+                                         window=None,
+                                         block_t: int | None = None):
+    """The seed baseline: the partials of `quant_attention_decode_partials`
+    from a kernel that walks every ``block_t`` tile of T (dead ones
+    masked, not skipped). ``block_t`` defaults as the reference's
+    (T / nb per block; 256 per channel where it divides T) and must
+    divide T into 1 or nb scale rows' worth of tiles."""
+    B = q.shape[0]
+    T, nb = k_q.shape[2], k_s.shape[2]
+    if block_t is None:
+        block_t = T // nb if nb > 1 else (256 if T % 256 == 0 else T)
+    if T % block_t:
+        raise ValueError(f"block_t={block_t} must divide T={T}")
+    if nb not in (1, T // block_t):
+        raise ValueError(f"scale rows {nb} incompatible with "
+                         f"{T // block_t} token blocks")
+    fn = _route(q, _qa.seed_decode_partials_cuda,
+                _qa.flat_decode_partials_plain)
+    return fn(q.float().contiguous(), k_q.contiguous(),
+              k_s.float().contiguous(), v_q.contiguous(),
+              v_s.float().contiguous(), _per_row(length, B, q.device),
+              _per_row(T if window is None else window, B, q.device))
 
 
 def quant_attention_decode(q, k_q, k_s, v_q, v_s, length, *, window=None):

@@ -11,13 +11,17 @@ over the contiguous int8 cache (B, H_kv, T, D) with one scale row per
 token block or per channel; slots past ``min(length, T)`` and ring slots
 older than the row's window are masked.
 
-Both return UNNORMALIZED flash partials ``(o, m, l)`` so the caller can
+Seed (port of ``_decode_kernel``, the reference's baseline under vmap):
+the flat kernel's result with the baseline's cost, every tile of T walked
+and the dead slots masked. Its plain version is the flat one.
+
+All return UNNORMALIZED flash partials ``(o, m, l)`` so the caller can
 merge them with the fp residual tail; a row with nothing to attend yields
 o = 0, m = -1e30, l = 0.
 
-The CUDA kernels (``csrc/paged_decode.cu``, ``csrc/flat_decode.cu``) run
-on CUDA tensors; the plain versions are what a CPU tensor gets, and what
-the kernels are held against.
+The CUDA kernels (``csrc/paged_decode.cu``, ``csrc/flat_decode.cu``,
+``csrc/seed_decode.cu``) run on CUDA tensors; the plain versions are what
+a CPU tensor gets, and what the kernels are held against.
 """
 from __future__ import annotations
 
@@ -167,15 +171,15 @@ _FLAT_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + \
     [ctypes.c_float, ctypes.c_void_p]
 
 
-def flat_decode_partials_cuda(q, k_q, k_s, v_q, v_s, lengths, windows):
-    """Launch the CUDA kernel (same contract as the plain version; q must
-    be float32). Counts each launch in ``flat_decode_partials_cuda.
-    launches``."""
+def _flat_launch(lib, fn_name, counter, q, k_q, k_s, v_q, v_s, lengths,
+                 windows):
+    """Check the contiguous decode kernels' arguments, launch ``fn_name``
+    of library ``lib`` and count the launch on ``counter``."""
     B, H, D = q.shape
     _, Hkv, T, _ = k_q.shape
     nb = k_s.shape[2]
     if D not in HEAD_DIMS or H % Hkv or T % nb:
-        raise ValueError(f"flat decode kernel takes head_dim in {HEAD_DIMS}, "
+        raise ValueError(f"{lib} kernel takes head_dim in {HEAD_DIMS}, "
                          f"H % H_kv == 0 and T % nb == 0 (got D={D}, H={H}, "
                          f"H_kv={Hkv}, T={T}, nb={nb})")
     _check(q, "q", torch.float32)
@@ -185,7 +189,7 @@ def flat_decode_partials_cuda(q, k_q, k_s, v_q, v_s, lengths, windows):
     _check(v_s, "v_s", torch.float32, (B, Hkv, nb, D))
     _check(lengths, "lengths", torch.int32, (B,))
     _check(windows, "windows", torch.int32, (B,))
-    fn = _build.load("flat_decode", "flat_decode_partials", _FLAT_ARGTYPES)
+    fn = _build.load(lib, fn_name, _FLAT_ARGTYPES)
     o = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
     m = torch.empty((B, H, 1), dtype=torch.float32, device=q.device)
     l = torch.empty((B, H, 1), dtype=torch.float32, device=q.device)
@@ -194,10 +198,28 @@ def flat_decode_partials_cuda(q, k_q, k_s, v_q, v_s, lengths, windows):
             o.data_ptr(), m.data_ptr(), l.data_ptr(), B, H, Hkv, D, T, nb,
             logit_scale(D), torch.cuda.current_stream(q.device).cuda_stream)
     if rc:
-        raise RuntimeError(f"flat decode kernel launch failed: CUDA error "
-                           f"{rc}")
-    flat_decode_partials_cuda.launches += 1
+        raise RuntimeError(f"{lib} kernel launch failed: CUDA error {rc}")
+    counter.launches += 1
     return o, m, l
 
 
+def flat_decode_partials_cuda(q, k_q, k_s, v_q, v_s, lengths, windows):
+    """Launch the CUDA kernel (same contract as the plain version; q must
+    be float32). Counts each launch in ``flat_decode_partials_cuda.
+    launches``."""
+    return _flat_launch("flat_decode", "flat_decode_partials",
+                        flat_decode_partials_cuda, q, k_q, k_s, v_q, v_s,
+                        lengths, windows)
+
+
+def seed_decode_partials_cuda(q, k_q, k_s, v_q, v_s, lengths, windows):
+    """Launch the seed-baseline kernel: the contract of
+    `flat_decode_partials_plain`, every tile of T walked. Counts each
+    launch in ``seed_decode_partials_cuda.launches``."""
+    return _flat_launch("seed_decode", "seed_decode_partials",
+                        seed_decode_partials_cuda, q, k_q, k_s, v_q, v_s,
+                        lengths, windows)
+
+
 flat_decode_partials_cuda.launches = 0
+seed_decode_partials_cuda.launches = 0

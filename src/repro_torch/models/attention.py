@@ -1,6 +1,9 @@
-"""GQA attention over the quantized KV cache (port of the serving half of
-``repro.models.attention``).
+"""GQA attention: training, and serving over the quantized KV cache (port
+of ``repro.models.attention`` for dense stacks).
 
+Training:
+    train(...)          full causal (optionally sliding-window) attention,
+                        no cache: blocked flash attention (`models.flash`)
 Contiguous cache (`core.kvcache.QuantizedKVCache`):
     prefill(...)        causal attention over the prompt (blocked flash
                         attention, `models.flash`), then quantizes its K/V
@@ -53,11 +56,28 @@ def _project_qkv(p, x, cfg, positions):
     return q, k, v
 
 
+def _sdpa(q, k, v, *, causal: bool, window: int | None):
+    """Blocked flash-style attention (see models/flash.py)."""
+    return flash.flash_attention(q, k, v, causal, window)
+
+
 def _merge_heads(p, out, dtype):
     B, H, S, hd = out.shape
     out = out.transpose(1, 2).reshape(B, S, H * hd).to(dtype)
     return out @ p["wo"]
 
+
+# -- training -----------------------------------------------------------------
+
+def train(p, x, cfg, positions, *, local: bool = False, causal: bool = True):
+    """x (B, S, d) -> (B, S, d): attention over the sequence itself."""
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    window = cfg.sliding_window if (cfg.sliding_window or local) else None
+    out = _sdpa(q, k, v, causal=causal, window=window)
+    return _merge_heads(p, out, x.dtype)
+
+
+# -- serving ------------------------------------------------------------------
 
 def prefill(p, x, cfg, positions, cache: QuantizedKVCache, *,
             row_mask=None):
@@ -68,7 +88,7 @@ def prefill(p, x, cfg, positions, cache: QuantizedKVCache, *,
         raise ValueError("row-masked prefill requires the paged cache (the "
                          "contiguous cache has one shared length)")
     q, k, v = _project_qkv(p, x, cfg, positions)
-    out = flash.flash_attention(q, k, v, True, cfg.sliding_window)
+    out = _sdpa(q, k, v, causal=True, window=cfg.sliding_window)
     cache.prefill(k.float(), v.float())
     return _merge_heads(p, out, x.dtype), cache
 

@@ -1,4 +1,4 @@
-"""Decoder-only transformer for serving (port of the serving half of
+"""Decoder-only transformer for training and serving (port of
 ``repro.models.transformer``, dense full-attention stacks).
 
 Parameters are a dict: ``embed`` (Vp, d), ``lm_head`` (d, Vp),
@@ -7,14 +7,19 @@ mlp). The reference stacks layers on a leading axis for ``lax.scan``; the
 port keeps a list and loops, and `decode_scan` is a Python loop. The
 serving state is a list of per-layer caches: contiguous
 `QuantizedKVCache`s (the default) or paged `PagedQuantizedKVCache`s.
+`forward_train` recomputes each block in the backward
+(`torch.utils.checkpoint`), as the reference's per-block
+``jax.checkpoint(nothing_saveable)``.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import quantization as Q
 from repro_torch.core.kvcache import QuantizedKVCache
 from repro_torch.core.paging import PagedQuantizedKVCache
+from repro_torch.core.tree import leaves, tree_map
 from repro_torch.models import attention, mlp
 from repro_torch.models import sampling as SMP
 from repro_torch.models.common import (dense_init, embed_init, rmsnorm,
@@ -108,6 +113,72 @@ def init_decode_state(cfg, batch: int, max_len: int, *, paged: bool = False,
         n_pages=n_pages, kv_dtype=kv_cache_dtype, device=device)
         for _ in range(cfg.n_layers)]
 
+
+def stack_layers(tree) -> dict:
+    """The port's layout (``layers``: one dict per layer) -> the
+    reference's (``blocks.p0``: each leaf stacked over layers on axis 0);
+    the other top-level entries unchanged."""
+    out = {k: v for k, v in tree.items() if k != "layers"}
+    layers = tree["layers"]
+    out["blocks"] = {"p0": tree_map(lambda *xs: torch.stack(xs),
+                                    layers[0], *layers[1:])}
+    return out
+
+
+def unstack_layers(tree) -> dict:
+    """Inverse of `stack_layers` (the layers are views of the stack)."""
+    out = {k: v for k, v in tree.items() if k != "blocks"}
+    stacked = tree["blocks"]["p0"]
+    n = leaves(stacked)[0].shape[0]
+    out["layers"] = [tree_map(lambda x, i=i: x[i], stacked) for i in range(n)]
+    return out
+
+
+def check_trainable(cfg) -> None:
+    """The port trains the dense family only (and, through `init_params`,
+    the dense stacks it serves)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: the port trains the dense family only; "
+            f"{cfg.family!r} models are ROADMAP queue 1, item 15")
+
+
+# -- training -----------------------------------------------------------------
+
+def _embed(params, tok, positions):
+    """tokens (B, S) -> (embeddings (B, S, d), positions (B, S) int32;
+    0..S-1 when None)."""
+    B, S = tok.shape
+    x = params["embed"][tok]
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=tok.device)[None].expand(B, S)
+    return x, positions
+
+
+def _block_train(p, x, cfg, positions):
+    x = x + attention.train(p["attn"], rmsnorm(p["norm1"], x), cfg, positions)
+    return x + mlp.apply(p["mlp"], rmsnorm(p["norm2"], x))
+
+
+def forward_train(params, tokens, cfg, *, positions=None,
+                  remat: bool = True):
+    """-> (logits (B, S, Vp), aux_loss ()). tokens (B, S) int. With
+    ``remat`` each block keeps only its input for the backward and runs
+    its forward again there (flash attention's kernel included)."""
+    check_trainable(cfg)
+    x, positions = _embed(params, tokens, positions)
+    for p in params["layers"]:
+        if remat:
+            x = checkpoint(_block_train, p, x, cfg, positions,
+                           use_reentrant=False)
+        else:
+            x = _block_train(p, x, cfg, positions)
+    return _head(params, x), torch.zeros((), dtype=torch.float32,
+                                         device=x.device)
+
+
+# -- serving ------------------------------------------------------------------
 
 def _round_block(n: int, cfg) -> int:
     """``n`` rounded up to the cache block (8 in per_channel mode)."""

@@ -1,17 +1,24 @@
 """The port's CUDA kernels on the card (``gpu`` marker): each kernel against
 its plain PyTorch version on the same CUDA tensors — the paged kernels for
-int8, fp8_e4m3 and int4 pages, the flat decode kernel per block and per
-channel (ring windows included), the quantize/dequantize family — at the
-smoke shapes and at internlm2_1_8b's widths, and the smoke engines'
-greedy tokens on the card against the CPU (paged and contiguous, and
-`greedy_generate`). Skipped where there is no card; imports no JAX (the
-card's machine has none).
+int8, fp8_e4m3 and int4 pages, the flat decode kernel and the seed
+baseline per block and per channel (ring windows included), the flash
+forward (float32 and bfloat16; causal, windowed, offset, ragged), the
+quantize/dequantize family — at the smoke shapes and at internlm2_1_8b's
+widths; the smoke engines' greedy tokens on the card against the CPU
+(paged and contiguous, and `greedy_generate`); and the smoke train step's
+loss on the card against the CPU. Skipped where there is no card; imports
+no JAX (the card's machine has none).
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
 Tolerance: attention in float32, |a - b| <= 1e-5 + 1e-4 |b| — the kernel
 sums in another order than the plain version (tile-wise online softmax);
-the quantize family bitwise."""
+the flash forward's output on bfloat16 inputs within one bf16 ulp, 2^-8
+(1 + |b|), against the plain version walked in the kernel's 64-key tiles
+(a probability may round to bf16 one ulp apart; m and l as in float32);
+the quantize family bitwise; the train
+step's loss within 1e-5 relative, its grad_norm 1e-4 (float32, cuBLAS
+against the CPU's sums)."""
 import dataclasses
 
 import numpy as np
@@ -19,6 +26,7 @@ import pytest
 import torch
 
 from repro_torch.core import quantization as Q
+from repro_torch.kernels import flash_fwd as FF
 from repro_torch.kernels import ops
 from repro_torch.kernels import quant_attention as QA
 from repro_torch.kernels import quant_prefill as QP
@@ -127,6 +135,46 @@ def test_flat_decode_kernel_matches_plain(per_channel, width, cuda_device):
     for g, w in zip(got, QA.flat_decode_partials_plain(*args)):
         torch.testing.assert_close(g, w, **TOL)
     assert float(got[2][0].abs().max()) == 0.0            # empty row: l = 0
+    # the seed baseline: the same partials, every tile walked
+    before = QA.seed_decode_partials_cuda.launches
+    got = ops.quant_attention_decode_partials_vmap(
+        q, kq, ks, vq, vs, lengths, window=windows,
+        block_t=bs if not per_channel else None)
+    torch.cuda.synchronize()
+    assert QA.seed_decode_partials_cuda.launches == before + 1
+    for g, w in zip(got, QA.flat_decode_partials_plain(*args)):
+        torch.testing.assert_close(g, w, **TOL)
+
+
+# (B, H, H_kv, S, T, D, causal, window, kv_offset)
+FLASH_CASES = [(2, 4, 2, 37, 37, 16, True, None, 0),
+               (1, 4, 2, 24, 45, 16, False, None, 0),
+               (1, 6, 2, 20, 52, 32, True, 12, 32),
+               (2, 16, 8, 130, 130, 128, True, None, 0),
+               (1, 16, 8, 257, 300, 128, True, 50, 43),
+               (1, 16, 8, 64, 200, 128, False, None, 0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_forward_kernel_matches_plain(case, dtype, cuda_device):
+    B, H, Hkv, S, T, D, causal, window, off = case
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    mk = lambda *shape: torch.randn(shape, generator=gen,
+                                    device=cuda_device).to(dtype)
+    q, k, v = mk(B, H, S, D), mk(B, Hkv, T, D), mk(B, Hkv, T, D)
+    before = FF.flash_fwd_cuda.launches
+    got = ops.flash_prefill(q, k, v, causal=causal, window=window,
+                            kv_offset=off)
+    torch.cuda.synchronize()
+    assert FF.flash_fwd_cuda.launches == before + 1
+    want = FF.flash_fwd_plain(q, k, v, causal, window, off, 64)
+    tol = TOL if dtype == torch.float32 else dict(atol=2 ** -8, rtol=2 ** -8)
+    torch.testing.assert_close(got[0], want[0], **tol)
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, w, **TOL)
 
 
 def _bitwise(a, b):
@@ -235,3 +283,34 @@ def test_smoke_engine_tokens_match_cpu(cuda_device):
         return x.to(cuda_device)
 
     assert run(cuda_device, to(params)) == run("cpu", params)
+
+
+@pytest.mark.gpu
+def test_smoke_train_step_loss_matches_cpu(cuda_device):
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.training.step import init_opt_state, make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("internlm2_1_8b", smoke=True),
+                              dtype="float32")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    batch = SyntheticLM(DataConfig(seq_len=64, global_batch=4,
+                                   vocab=cfg.vocab)).batch_at(0)
+
+    def run(device):
+        p = _to(params, device)
+        step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=2,
+                                                total_steps=10),
+                               grad_compression=True)
+        b = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        _, _, m = step(p, init_opt_state(p, grad_compression=True), b)
+        return {k: float(v) for k, v in m.items()}
+
+    before = FF.flash_fwd_cuda.launches
+    card, cpu = run(cuda_device), run("cpu")
+    assert FF.flash_fwd_cuda.launches >= before + 2 * cfg.n_layers
+    assert card["loss"] == pytest.approx(cpu["loss"], rel=1e-5)
+    assert card["grad_norm"] == pytest.approx(cpu["grad_norm"], rel=1e-4)

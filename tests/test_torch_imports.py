@@ -1,6 +1,7 @@
-"""The port stands alone: every module of `repro_torch` imports in a fresh
-interpreter where `jax` and the reference package `repro` cannot be
-imported, `chip_smoke.py` imports neither, and `chip_smoke.py` copied
+"""The port stands alone: every module of `repro_torch` (the training
+path's too: `training`, `optim`, `data`, `checkpoint`, `runtime`,
+`launch.train`, `kernels.flash_fwd`) imports in a fresh interpreter where
+`jax` and the reference package `repro` cannot be imported, `chip_smoke.py` imports neither, and `chip_smoke.py` copied
 alone into an empty directory fails without printing a result."""
 import os
 import re
@@ -27,7 +28,7 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for n in names:
     __import__(n)
 assert not any(k.split(".")[0] in ("jax", "repro") for k in sys.modules)
-print(len(names))
+print(" ".join(names))
 '''
 
 
@@ -36,7 +37,13 @@ def test_every_port_module_imports_without_jax_or_the_reference():
                          capture_output=True, text=True, timeout=300,
                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip().splitlines()[-1]) >= 25
+    names = set(res.stdout.strip().splitlines()[-1].split())
+    assert len(names) >= 44
+    assert {"repro_torch.training.step", "repro_torch.training.loss",
+            "repro_torch.optim.adamw", "repro_torch.optim.compression",
+            "repro_torch.data.pipeline", "repro_torch.checkpoint.manager",
+            "repro_torch.runtime.fault", "repro_torch.launch.train",
+            "repro_torch.kernels.flash_fwd"} <= names
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_reference():
