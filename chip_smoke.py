@@ -7,7 +7,9 @@ Phases, each fatal on failure (no fallback anywhere):
   1. card and build: the card's name and power limit, torch/CUDA versions;
      every CUDA kernel built from csrc/ for sm_90a, one nvcc per source, all
      at once (ptxas register/spill summary printed; full logs in
-     build/kernels/*.log); TF32 off.
+     build/kernels/*.log); TF32 off; the count of tensor-core instructions
+     (HMMA/HGMMA, from cuobjdump -sass) in each flash forward kernel: the
+     bf16 kernel must have some.
   2. each kernel against its plain PyTorch version on the card, at the
      main paths' full shapes (internlm2_1_8b: H 16, H_kv 8, D 128, block
      256): paged decode and prefill for int8, fp8_e4m3 and int4 pages; flat
@@ -19,7 +21,9 @@ Phases, each fatal on failure (no fallback anywhere):
      kv_offset, and at an odd S in float32; the quantize family bitwise at
      (4, 8, 2048, 128), per channel at (4, 8, 1000, 128) and blocked at a
      flush's (4, 8, 256, 128). Times from CUDA events, the L2 cache
-     flushed before each launch.
+     flushed and the host's enqueue kept off the clock before each launch;
+     the flash forward's achieved TFLOP/s and paged decode's GB/s beside
+     them; the paged decode call once more with any host sync an error.
   3. the paper's kernels at its eight (T, D) sizes: quantize per channel,
      quantize blocked (block 256) and dequantize through `kernels.ops`
      (launches counted), each bitwise against its plain version, Eq. 9
@@ -95,9 +99,16 @@ def card_line() -> str:
 _FLUSH = []
 
 
+# cycles the card spins after the L2 flush, about 0.1 ms: the host enqueues
+# the timed call meanwhile, so the events time the card's work and not the
+# wrapper's Python (which takes up to ~0.1 ms a call)
+SPIN_CYCLES = 200_000
+
+
 def time_cold_ms(fn, iters: int, warmup: int = 1) -> float:
     """Mean ms of ``fn`` with the 50 MB L2 cache evicted (a 256 MB write)
-    before each launch; CUDA events bracket ``fn`` alone."""
+    before each launch; CUDA events bracket ``fn`` alone, and a spin on
+    the card after the flush keeps the host's enqueue off the clock."""
     import torch
     if not _FLUSH:
         _FLUSH.append(torch.empty(64 << 20, dtype=torch.float32,
@@ -105,6 +116,7 @@ def time_cold_ms(fn, iters: int, warmup: int = 1) -> float:
     pairs = []
     for i in range(warmup + iters):
         _FLUSH[0].zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
         t0.record()
@@ -181,6 +193,7 @@ def dequant_bf16(pool, table, kv_dtype):
 def check_decode(dev, gen):
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import ops
     from repro_torch.kernels import quant_attention as QA
     B, H, Hkv, D, ps, NT = 5, 16, 8, 128, 256, 8
     lengths = torch.tensor([0, 1, 255, 256, 2048], dtype=torch.int32,
@@ -205,6 +218,14 @@ def check_decode(dev, gen):
         tl = torch.tensor(t_len, dtype=torch.int32, device=dev)
         tq, ttab = q[:tB].contiguous(), table[:tB].contiguous()
         targs = (tq, *pool, ttab, tl, kv_dtype)
+        # the serving call adds no host sync: it must run with any sync an
+        # error (the split count comes from shapes, never from lengths)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ops.paged_attention_decode_partials(tq, *pool, ttab, tl,
+                                                kv_dtype=kv_dtype)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
         ms = time_cold_ms(lambda: QA.paged_decode_partials_cuda(*targs), 50)
         plain_ms = time_cold_ms(
             lambda: QA.paged_decode_partials_plain(*targs), 5)
@@ -224,17 +245,25 @@ def check_decode(dev, gen):
                "plain_ms": plain_ms, "bound_ms": bound,
                "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
                >= flops / F32_FLOP_PER_S else "operations",
-               "library_ms": lib_ms}
+               "library_ms": lib_ms, "gb_per_s": nbytes / ms / 1e6}
         out["per_dtype"].append(row)
         log(f"[decode] {kv_dtype}: max_abs_err {err:.3e} (tol {ATOL:g} + "
-            f"{RTOL:g}|ref|, {ex:.3f}x) kernel {ms:.4f} ms plain "
+            f"{RTOL:g}|ref|, {ex:.3f}x) kernel {ms:.4f} ms "
+            f"({row['gb_per_s']:.0f} GB/s of 3350) plain "
             f"{plain_ms:.4f} ms sdpa(bf16) {lib_ms:.4f} ms bound "
             f"{bound:.5f} ms ({row['bound_by']}: {nbytes / 1e6:.2f} MB at "
-            f"3.35 TB/s, {flops / 1e9:.3f} GFLOP at 67 TFLOP/s f32)")
+            f"3.35 TB/s, {flops / 1e9:.3f} GFLOP at 67 TFLOP/s f32); "
+            f"no host sync under set_sync_debug_mode('error')")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = {b: QA.decode_splits(b, Hkv, H // Hkv, NT, sms) for b in (B, tB)}
+    log(f"[decode] (splits, pages a split) on {sms} SMs: checked batch {B} "
+        f"{splits[B]}, timed batch {tB} {splits[tB]}")
     out["check_shapes"] = (f"q ({B},{H},{D}) f32; pool ({B * NT + 1},ps_packed,"
                            f"{Hkv},{D}); page_table ({B},{NT}); lengths "
-                           f"{lengths.tolist()}")
-    out["timed_shapes"] = (f"q ({tB},{H},{D}); page {ps}; lengths {t_len}")
+                           f"{lengths.tolist()}; (splits, pages a split) "
+                           f"{splits[B]}")
+    out["timed_shapes"] = (f"q ({tB},{H},{D}); page {ps}; lengths {t_len}; "
+                           f"(splits, pages a split) {splits[tB]}")
     return out
 
 
@@ -538,16 +567,45 @@ def check_flash(dev, gen):
             + 2 * B * H * S * 4
         bound, by = bound_of(nbytes, flops, BF16_FLOP_PER_S)
         worst.update({"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                      "bound_by": by, "library_ms": lib_ms})
-        log(f"[flash_fwd] train: kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-            f"sdpa(bf16) {lib_ms:.4f} ms bound {bound:.5f} ms ({by}: "
-            f"{flops / 1e9:.2f} GFLOP at 989 TFLOP/s bf16, "
+                      "bound_by": by, "library_ms": lib_ms,
+                      "tflop_per_s": flops / ms / 1e9})
+        log(f"[flash_fwd] train: kernel {ms:.4f} ms "
+            f"({worst['tflop_per_s']:.1f} TFLOP/s of 989 bf16) plain "
+            f"{plain_ms:.4f} ms sdpa(bf16) {lib_ms:.4f} ms "
+            f"({flops / lib_ms / 1e9:.1f} TFLOP/s) bound {bound:.5f} ms "
+            f"({by}: {flops / 1e9:.2f} GFLOP at 989 TFLOP/s bf16, "
             f"{nbytes / 1e6:.1f} MB at 3.35 TB/s)")
     worst["check_shapes"] = "; ".join(
         f"{label} (B,H,Hkv,S,T,D)={shape} {str(dt)[6:]} causal={c} "
         f"window={w} kv_offset={o}" for label, shape, dt, c, w, o in cases)
     worst["timed_shapes"] = "q (4,16,2048,128), k/v (4,8,2048,128) bf16 causal"
     return worst
+
+
+def flash_mma_count() -> dict:
+    """Tensor-core instructions (HMMA / HGMMA) in the built flash library's
+    SASS (cuobjdump from the CUDA toolkit), by kernel: the bf16 kernel must
+    have some, the float32 kernel none."""
+    import os
+    import shutil
+    from repro_torch.kernels import _build
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_build.lib_path("flash_fwd"))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    counts = {"bf16 (flash_fwd_tc_kernel)": 0, "float32 (flash_fwd_kernel)": 0}
+    key = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            key = ("bf16 (flash_fwd_tc_kernel)" if "flash_fwd_tc_kernel" in line
+                   else "float32 (flash_fwd_kernel)"
+                   if "flash_fwd_kernel" in line else None)
+        elif key and ("HMMA" in line or "HGMMA" in line):
+            counts[key] += 1
+    if not counts["bf16 (flash_fwd_tc_kernel)"]:
+        raise AssertionError(f"no HMMA/HGMMA in the bf16 flash kernel: {counts}")
+    return counts
 
 
 def quantize_family(x, bs: int, iters: int, plain_iters: int) -> dict:
@@ -1050,7 +1108,7 @@ def _leaves(x):
         yield x
 
 
-def kernels_line(decode, prefill, flat, quant, paper, flash, seed,
+def kernels_line(decode, prefill, flat, quant, paper, flash, seed, mma,
                  path_counts):
     """One entry per hand-written kernel: the keys of every entry of the
     kernels line, its launches summed over the main paths that ran it."""
@@ -1079,7 +1137,8 @@ def kernels_line(decode, prefill, flat, quant, paper, flash, seed,
                        "timed": res["timed_shapes"]},
             "per_dtype": res["per_dtype"],
             **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms",
-                                        "bound_by", "library_ms")}})
+                                        "bound_by", "library_ms", "gb_per_s")
+               if k in main_row}})
     for name, res, src, replaces in (
             ("flat_decode", flat, "flat_decode.cu", "quant_attention.py:112"),
             ("seed_decode", seed, "seed_decode.cu", "quant_attention.py:271")):
@@ -1105,6 +1164,7 @@ def kernels_line(decode, prefill, flat, quant, paper, flash, seed,
                    "causal, bf16 q/k/v",
         "shapes": {"checked": flash["check_shapes"],
                    "timed": flash["timed_shapes"]},
+        "sass_mma": mma, "tflop_per_s": flash["tflop_per_s"],
         **{k: flash[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")}})
     lines = {"absmax": "quantize.py:35", "quantize_with_scales":
@@ -1169,6 +1229,9 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[ptxas {name}] {line.strip()}")
 
+    mma = flash_mma_count()
+    log(f"[sass] HMMA/HGMMA instructions in flash_fwd: {mma}")
+
     gen = torch.Generator(device=dev).manual_seed(0)
     t0 = time.perf_counter()
     decode = check_decode(dev, gen)
@@ -1210,7 +1273,7 @@ def main() -> int:
     log(f"[train] phase in {time.perf_counter() - t0:.1f} s")
 
     kernels = kernels_line(decode, prefill, flat, quant, paper, flash, seed,
-                           path_counts)
+                           mma, path_counts)
     if any(k["launches"] < 1 for k in kernels):
         raise AssertionError("a kernel was launched on no main path")
     log(f"[total] {time.perf_counter() - t_start:.1f} s")

@@ -16,8 +16,12 @@ the K dtype, products of K-typed values summed in float32, probabilities
 rounded to the V dtype before P.V. In float32 the two orders agree to
 about an ulp.
 
-The CUDA kernel (``csrc/flash_fwd.cu``) runs on CUDA tensors; the plain
-version is what a CPU tensor gets, and what the kernel is held against.
+The CUDA kernels (``csrc/flash_fwd.cu``) run on CUDA tensors: bfloat16
+inputs on the tensor cores (bf16 products, float32 sums), float32 inputs
+as float32 FMAs on the CUDA cores; both walk 64-key tiles. The plain
+version is what a CPU tensor gets, and what the kernels are held against
+(walked in the kernels' tiles: each probability is rounded to bf16 at the
+running max of its own tile).
 """
 from __future__ import annotations
 
@@ -26,7 +30,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.quant_attention import HEAD_DIMS, _check, logit_scale
+from repro_torch.kernels.quant_attention import (HEAD_DIMS, _check,
+                                                   _check_aligned, logit_scale)
 
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -80,10 +85,10 @@ _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + \
 
 def flash_fwd_cuda(q, k, v, causal: bool = True, window: int | None = None,
                    kv_offset: int = 0, kv_block: int = 512):
-    """Launch the CUDA kernel (same contract as the plain version; q, k, v
-    contiguous, all float32 or all bfloat16; ``kv_block`` is the plain
-    version's and is not used: the kernel walks 64-key tiles). Counts each
-    launch in ``flash_fwd_cuda.launches``."""
+    """Launch the CUDA kernel of q's dtype (same contract as the plain
+    version; q, k, v contiguous, all float32 or all bfloat16; ``kv_block``
+    is the plain version's and is not used: the kernels walk 64-key
+    tiles). Counts each launch in ``flash_fwd_cuda.launches``."""
     B, H, S, D = q.shape
     _, Hkv, T, _ = k.shape
     G = H // Hkv if Hkv else 0
@@ -97,6 +102,7 @@ def flash_fwd_cuda(q, k, v, causal: bool = True, window: int | None = None,
     _check(q, "q", q.dtype)
     _check(k, "k", q.dtype, (B, Hkv, T, D))
     _check(v, "v", q.dtype, (B, Hkv, T, D))
+    _check_aligned(q=q, k=k, v=v)
     fn = _build.load("flash_fwd", "flash_fwd", _ARGTYPES)
     out = torch.empty((B, H, S, D), dtype=torch.float32, device=q.device)
     m = torch.empty((B, Hkv, G, S, 1), dtype=torch.float32, device=q.device)

@@ -4,7 +4,9 @@ launchers and their plain PyTorch versions.
 Paged (port of ``repro.kernels.quant_attention._paged_decode_kernel``):
 one query token per row attends over the row's pages through its page
 table. Pages are int8, fp8_e4m3 or int4-packed (two tokens per byte) and
-are dequantized to float32 (value * scale row).
+are dequantized to float32 (value * scale row). The kernel splits each
+row's page walk across blocks and merges the splits' partials
+(`merge_split_partials` is that merge in plain PyTorch, for the tests).
 
 Flat (port of ``_flat_decode_kernel``): one query token per row attends
 over the contiguous int8 cache (B, H_kv, T, D) with one scale row per
@@ -78,8 +80,42 @@ def paged_decode_partials_plain(q, pool_kq, pool_ks, pool_vq, pool_vs,
     return o.reshape(B, H, D), m.reshape(B, H, 1), l.reshape(B, H, 1)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + \
+def merge_split_partials(o_s, m_s, l_s):
+    """Merge flash partials of splits of the key axis, the plain version of
+    the paged kernel's merge: o_s (B, H, n, D), m_s / l_s (B, H, n, 1)
+    float32, each split's unnormalized (o, m, l) -> (o (B, H, D),
+    m (B, H, 1), l (B, H, 1)) with m = max m_s, l = sum l_s e^(m_s - m),
+    o = sum o_s e^(m_s - m). A split with nothing live (m_s = -1e30,
+    l_s = 0, o_s = 0) adds nothing; a row with no live split keeps
+    m = -1e30, l = 0, o = 0."""
+    m = torch.amax(m_s, dim=2)
+    w = torch.exp(m_s - m[:, :, None])
+    return (o_s * w).sum(2), m, (l_s * w).sum(2)
+
+
+def decode_splits(B: int, Hkv: int, G: int, NT: int, sms: int):
+    """(splits, pages per split) of the paged decode kernel's page walk:
+    enough blocks for two per SM over B * H_kv * ceil(G / 2) (kv head,
+    query pair) blocks, a split never less than one page-table entry.
+    From host-known shapes only: reading the lengths would sync."""
+    blocks = B * Hkv * (1 if G == 1 else -(-G // 2))
+    want = -(-2 * sms // blocks)
+    pps = max(1, -(-NT // want))
+    return -(-NT // pps), pps
+
+
+_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 10 + \
     [ctypes.c_float, ctypes.c_void_p]
+
+
+_SMS: dict = {}
+
+
+def _sm_count(dev: torch.device) -> int:
+    """The card's SM count (read once per device: a host query)."""
+    if dev not in _SMS:
+        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _SMS[dev]
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape=None):
@@ -94,19 +130,27 @@ def _check(t: torch.Tensor, name: str, dtype, shape=None):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_aligned(**tensors):
+    """The kernels that copy 16 bytes a thread need 16-byte aligned data."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
 def paged_decode_partials_cuda(q, pool_kq, pool_ks, pool_vq, pool_vs,
                                page_table, lengths, kv_dtype="int8"):
-    """Launch the CUDA kernel (same contract as the plain version; q must
-    be float32). Counts each launch in ``paged_decode_partials_cuda.
-    launches``."""
+    """Launch the CUDA kernels (same contract as the plain version; q must
+    be float32): the split page walk, then the merge of its float32
+    partials (scratch from `torch.empty`; `decode_splits` sizes it). Counts
+    each call in ``paged_decode_partials_cuda.launches``."""
     B, H, D = q.shape
     P, ps_packed, Hkv, _ = pool_kq.shape
     NT = page_table.shape[1]
     ps = 2 * ps_packed if kv_dtype == "int4" else ps_packed
-    if D not in HEAD_DIMS or H % Hkv:
+    if D not in HEAD_DIMS or H % Hkv or not NT:
         raise ValueError(f"paged decode kernel takes head_dim in "
-                         f"{HEAD_DIMS} and H % H_kv == 0 (got D={D}, "
-                         f"H={H}, H_kv={Hkv})")
+                         f"{HEAD_DIMS}, H % H_kv == 0 and a page table "
+                         f"(got D={D}, H={H}, H_kv={Hkv}, NT={NT})")
     store = Q.kv_storage_dtype(kv_dtype)
     _check(q, "q", torch.float32)
     _check(pool_kq, "pool_kq", store, (P, ps_packed, Hkv, D))
@@ -115,15 +159,24 @@ def paged_decode_partials_cuda(q, pool_kq, pool_ks, pool_vq, pool_vs,
     _check(pool_vs, "pool_vs", torch.float32, (P, Hkv, D))
     _check(page_table, "page_table", torch.int32, (B, NT))
     _check(lengths, "lengths", torch.int32, (B,))
+    _check_aligned(q=q, pool_kq=pool_kq, pool_vq=pool_vq, pool_ks=pool_ks,
+                   pool_vs=pool_vs)
     fn = _build.load("paged_decode", "paged_decode_partials", _ARGTYPES)
-    o = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
-    m = torch.empty((B, H, 1), dtype=torch.float32, device=q.device)
-    l = torch.empty((B, H, 1), dtype=torch.float32, device=q.device)
+    dev = q.device
+    nsplit, pps = decode_splits(B, Hkv, H // Hkv, NT, _sm_count(dev))
+    o = torch.empty((B, H, D), dtype=torch.float32, device=dev)
+    m = torch.empty((B, H, 1), dtype=torch.float32, device=dev)
+    l = torch.empty((B, H, 1), dtype=torch.float32, device=dev)
+    # scratch: o_s (B, H, nsplit, D), then m_s and l_s (B, H, nsplit)
+    n = B * H * nsplit
+    scratch = torch.empty((n * (D + 2),), dtype=torch.float32, device=dev)
+    base = scratch.data_ptr()
     rc = fn(q.data_ptr(), pool_kq.data_ptr(), pool_ks.data_ptr(),
             pool_vq.data_ptr(), pool_vs.data_ptr(), page_table.data_ptr(),
             lengths.data_ptr(), o.data_ptr(), m.data_ptr(), l.data_ptr(),
-            B, H, Hkv, D, ps, ps_packed, NT, KV_CODES[kv_dtype],
-            logit_scale(D), torch.cuda.current_stream(q.device).cuda_stream)
+            base, base + 4 * n * D, base + 4 * n * (D + 1),
+            B, H, Hkv, D, ps, ps_packed, NT, KV_CODES[kv_dtype], pps, nsplit,
+            logit_scale(D), torch.cuda.current_stream(dev).cuda_stream)
     if rc:
         raise RuntimeError(f"paged decode kernel launch failed: CUDA error "
                            f"{rc}")

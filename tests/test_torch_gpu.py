@@ -1,8 +1,10 @@
 """The port's CUDA kernels on the card (``gpu`` marker): each kernel against
 its plain PyTorch version on the same CUDA tensors — the paged kernels for
-int8, fp8_e4m3 and int4 pages, the flat decode kernel and the seed
-baseline per block and per channel (ring windows included), the flash
-forward (float32 and bfloat16; causal, windowed, offset, ragged), the
+int8, fp8_e4m3 and int4 pages (paged decode also at batches that give
+one, two, four and eight splits of the page walk), the flat decode kernel
+and the seed baseline per block and per channel (ring windows included),
+the flash forward (float32 on the CUDA cores and bfloat16 on the tensor
+cores; causal, windowed, offset, ragged, GQA groups of 1 to 8), the
 quantize/dequantize family — at the smoke shapes and at internlm2_1_8b's
 widths; the smoke engines' greedy tokens on the card against the CPU
 (paged and contiguous, and `greedy_generate`); and the smoke train step's
@@ -73,6 +75,36 @@ def test_decode_kernel_matches_plain(kv_dtype, width, cuda_device):
     assert QA.paged_decode_partials_cuda.launches == before + 1
     for g, w in zip(got, QA.paged_decode_partials_plain(*args)):
         torch.testing.assert_close(g, w, **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", DTYPES)
+@pytest.mark.parametrize("B", [2, 10, 20, 40])
+def test_decode_kernel_split_walk_matches_plain(B, kv_dtype, cuda_device):
+    """At internlm2_1_8b's widths the batch sets the split: on 132 SMs one
+    page a split (B 2), two and four (B 10, 20: rows longer than a split),
+    one split (B 40). Lengths leave most tables with pages past the live
+    ones."""
+    H, Hkv, D, ps = WIDTHS[1]
+    NT = 8
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    cycle = [0, 1, ps - 1, ps, ps + 1, 3 * ps + 5, NT * ps, NT * ps - 1,
+             2 * ps, 5 * ps + 100]
+    lengths = torch.tensor([cycle[i % len(cycle)] for i in range(B)],
+                           dtype=torch.int32, device=cuda_device)
+    pool = _pool(kv_dtype, B * NT + 1, Hkv, D, ps, gen, cuda_device)
+    args = (torch.randn((B, H, D), generator=gen, device=cuda_device),
+            *pool, _table(B, NT, B * NT + 1, gen, cuda_device), lengths,
+            kv_dtype)
+    got = QA.paged_decode_partials_cuda(*args)
+    torch.cuda.synchronize()
+    want = QA.paged_decode_partials_plain(*args)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **TOL)
+    empty = lengths == 0                    # exactly the plain version's
+    assert float(got[0][empty].abs().max()) == 0.0
+    assert float(got[2][empty].abs().max()) == 0.0
+    assert bool((got[1][empty] == want[1][empty]).all())
 
 
 @pytest.mark.gpu
@@ -152,7 +184,12 @@ FLASH_CASES = [(2, 4, 2, 37, 37, 16, True, None, 0),
                (1, 6, 2, 20, 52, 32, True, 12, 32),
                (2, 16, 8, 130, 130, 128, True, None, 0),
                (1, 16, 8, 257, 300, 128, True, 50, 43),
-               (1, 16, 8, 64, 200, 128, False, None, 0)]
+               (1, 16, 8, 64, 200, 128, False, None, 0),
+               # G = 1 and G = 8, S no multiple of the 64-key tile
+               (2, 8, 8, 100, 100, 64, True, None, 0),
+               (1, 16, 2, 77, 77, 128, True, None, 0),
+               # a 64-key window starting mid-tile, crossing tile edges
+               (1, 16, 8, 150, 214, 128, True, 64, 64)]
 
 
 @pytest.mark.gpu
