@@ -8,8 +8,9 @@ Phases, each fatal on failure (no fallback anywhere):
      every CUDA kernel built from csrc/ for sm_90a, one nvcc per source, all
      at once (ptxas register/spill summary printed; full logs in
      build/kernels/*.log); TF32 off; the count of tensor-core instructions
-     (HMMA/HGMMA, from cuobjdump -sass) in each flash forward kernel: the
-     bf16 kernel must have some.
+     (HMMA/HGMMA, from cuobjdump -sass) in each flash forward kernel (the
+     bf16 kernel must have some) and in each paged prefill kernel (every
+     one must have some).
   2. each kernel against its plain PyTorch version on the card, at the
      main paths' full shapes (internlm2_1_8b: H 16, H_kv 8, D 128, block
      256): paged decode and prefill for int8, fp8_e4m3 and int4 pages; flat
@@ -22,8 +23,12 @@ Phases, each fatal on failure (no fallback anywhere):
      (4, 8, 2048, 128), per channel at (4, 8, 1000, 128) and blocked at a
      flush's (4, 8, 256, 128). Times from CUDA events, the L2 cache
      flushed and the host's enqueue kept off the clock before each launch;
-     the flash forward's achieved TFLOP/s and paged decode's GB/s beside
-     them; the paged decode call once more with any host sync an error.
+     the flash forward's and paged prefill's achieved TFLOP/s and the
+     decode kernels' GB/s beside them, the decode kernels' split counts,
+     the worst multiple of the tolerance over the checks, paged prefill's
+     second bound (its split bf16 products at the tensor-core peak) and
+     its row tiles past `valid` checked to be 0.0; the paged and flat
+     decode calls once more with any host sync an error.
   3. the paper's kernels at its eight (T, D) sizes: quantize per channel,
      quantize blocked (block 256) and dequantize through `kernels.ops`
      (launches counted), each bitwise against its plain version, Eq. 9
@@ -75,6 +80,7 @@ ATOL, RTOL = 1e-5, 1e-4
 # bf16 ulp
 ATOL_BF16 = RTOL_BF16 = 2.0 ** -8
 FLASH_TILE = 64                # keys per kernel tile (csrc/flash_fwd.cu)
+PREFILL_ROWS = 64              # query rows per tile (csrc/paged_prefill.cu)
 # the full-width train step's loss through the kernel vs through the
 # plain flash forward, bf16 model: relative
 LOSS_RTOL = 1e-3
@@ -283,7 +289,7 @@ def check_prefill(dev, gen):
         n_pages = B * NT + 1
         pool = make_pool(kv_dtype, n_pages, Hkv, D, ps, gen, dev)
         table = page_table(B, NT, n_pages, gen, dev)
-        row = {"dtype": kv_dtype, "max_abs_err": 0.0}
+        row = {"dtype": kv_dtype, "max_abs_err": 0.0, "worst_tol_ratio": 0.0}
         for di, (C, hl, vd) in enumerate(dispatches):
             hist = torch.tensor(hl, dtype=torch.int32, device=dev)
             valid = torch.tensor(vd, dtype=torch.int32, device=dev)
@@ -299,27 +305,36 @@ def check_prefill(dev, gen):
             want = QP.paged_prefill_plain(*args)
             got4 = got.reshape(B, H, C, D)
             want4 = want.reshape(B, H, C, D)
-            for b in range(B):               # rows past `valid` are garbage
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"paged prefill {kv_dtype} C={C}: a "
+                                     f"non-finite output")
+            for b in range(B):               # the caller drops rows past valid
                 g, w = got4[b, :, :vd[b]], want4[b, :, :vd[b]]
                 err = float((g - w).abs().max())
                 ex = excess(g, w)
-                if ex > 1.0 or not bool(torch.isfinite(g).all()):
+                if ex > 1.0:
                     raise AssertionError(
                         f"paged prefill {kv_dtype} C={C} row {b}: kernel vs "
                         f"plain off by {err:.3e} ({ex:.2f}x tolerance)")
                 row["max_abs_err"] = max(row["max_abs_err"], err)
+                row["worst_tol_ratio"] = max(row["worst_tol_ratio"], ex)
+                dead = -(-vd[b] // PREFILL_ROWS) * PREFILL_ROWS
+                if dead < C and float(got4[b, :, dead:].abs().max()):
+                    raise AssertionError(
+                        f"paged prefill {kv_dtype} C={C} row {b}: a row tile "
+                        f"past valid={vd[b]} is not 0.0")
             if di:
                 continue
             # timing at the full chunk: the main path's dispatch shape
             ms = time_cold_ms(lambda: QP.paged_prefill_cuda(*args), 10)
             plain_ms = time_cold_ms(lambda: QP.paged_prefill_plain(*args),
                                     3, 1)
-            flops = nbytes = 0.0
+            flops = hflops = nbytes = 0.0
             pages = 0
             for b in range(B):
                 n = vd[b]                    # rows that matter: qpos < valid
-                keys = n * hl[b] + n * (n + 1) // 2
-                flops += 4 * D * H * keys
+                flops += 4 * D * H * (n * hl[b] + n * (n + 1) // 2)
+                hflops += 4 * D * H * n * hl[b]
                 pages += -(-hl[b] // ps)
                 nbytes += kv_bytes(hl[b], Hkv, D, kv_dtype)
             nbytes += (q.numel() + k.numel() + v.numel()) * 4 \
@@ -327,6 +342,11 @@ def check_prefill(dev, gen):
                 + q.numel() * 4
             bound = max(nbytes / HBM_BYTES_PER_S,
                         flops / F32_FLOP_PER_S) * 1e3
+            # the kernel's own design: bf16 tensor-core products, 3 a
+            # history (row, key) pair, 6 a chunk pair, for Q.K and P.V each
+            tc_flops = 3 * hflops + 6 * (flops - hflops)
+            bound_tc = max(nbytes / HBM_BYTES_PER_S,
+                           tc_flops / BF16_FLOP_PER_S) * 1e3
             kh, vh = dequant_bf16(pool, table[:, :hb], kv_dtype)
             kall = torch.cat([kh, k.bfloat16()], dim=2)
             vall = torch.cat([vh, v.bfloat16()], dim=2)
@@ -343,14 +363,20 @@ def check_prefill(dev, gen):
             row.update({"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                         "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
                         >= flops / F32_FLOP_PER_S else "operations",
-                        "library_ms": lib_ms})
-            log(f"[prefill] {kv_dtype} C={C}: kernel {ms:.4f} ms plain "
-                f"{plain_ms:.4f} ms sdpa(bf16) {lib_ms:.4f} ms bound "
-                f"{bound:.5f} ms ({row['bound_by']}: {flops / 1e9:.2f} "
-                f"GFLOP at 67 TFLOP/s f32, {nbytes / 1e6:.1f} MB at "
-                f"3.35 TB/s)")
+                        "library_ms": lib_ms, "bound_tc_ms": bound_tc,
+                        "tflop_per_s": flops / ms / 1e9})
+            log(f"[prefill] {kv_dtype} C={C}: kernel {ms:.4f} ms "
+                f"({row['tflop_per_s']:.1f} TFLOP/s of the counted float32 "
+                f"work) plain {plain_ms:.4f} ms sdpa(bf16) {lib_ms:.4f} ms "
+                f"bound {bound:.5f} ms ({row['bound_by']}: "
+                f"{flops / 1e9:.2f} GFLOP at 67 TFLOP/s f32, "
+                f"{nbytes / 1e6:.1f} MB at 3.35 TB/s); the design's bound "
+                f"{bound_tc:.5f} ms ({tc_flops / 1e9:.2f} GFLOP of split "
+                f"bf16 products at 989 TFLOP/s)")
         log(f"[prefill] {kv_dtype}: max_abs_err {row['max_abs_err']:.3e} "
-            f"over both dispatches (tol {ATOL:g} + {RTOL:g}|ref|)")
+            f"over both dispatches (tol {ATOL:g} + {RTOL:g}|ref|, worst "
+            f"{row['worst_tol_ratio']:.3f}x); every output finite, row "
+            f"tiles past valid 0.0")
         out["per_dtype"].append(row)
     out["check_shapes"] = "; ".join(
         f"C={C} q ({B},{H},{C},{D}) hist_len {hl} valid {vd}"
@@ -405,6 +431,7 @@ def _flat_check(label, args, kernel=None):
 def check_flat_decode(dev, gen):
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import ops
     from repro_torch.kernels import quant_attention as QA
     from repro_torch.kernels import quantize as QK
     B, H, Hkv, D, T, bs = 4, 16, 8, 128, 2048, 256
@@ -421,6 +448,9 @@ def check_flat_decode(dev, gen):
     kp = torch.randn((B, Hkv, Tp, D), generator=gen, device=dev)
     vp = torch.randn((B, Hkv, Tp, D), generator=gen, device=dev)
     full = i32([T] * B)                  # timing: every row at length T
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = {t: QA.flat_decode_splits(B, Hkv, H // Hkv, t, sms)
+              for t in (T, Tp)}
     out = {"per_mode": []}
     for mode in ("per_block", "per_channel"):
         kq, ks, vq, vs = _flat_quant(mode, k, v, bs)
@@ -431,6 +461,14 @@ def check_flat_decode(dev, gen):
                 q, *_flat_quant(mode, kp, vp, bs), lp, wp))
             err, ex = max(err, e2), max(ex, x2)
         targs = (q, kq, ks, vq, vs, full, full)
+        # the serving call adds no host sync: it must run with any sync an
+        # error (the split count comes from shapes, never from lengths)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ops.quant_attention_decode_partials(q, kq, ks, vq, vs, full,
+                                                window=full)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
         ms = time_cold_ms(lambda: QA.flat_decode_partials_cuda(*targs), 50)
         plain_ms = time_cold_ms(lambda: QA.flat_decode_partials_plain(*targs),
                                 5)
@@ -444,22 +482,28 @@ def check_flat_decode(dev, gen):
         qb = q.bfloat16()[:, :, None]
         lib_ms = time_cold_ms(lambda: F.scaled_dot_product_attention(
             qb, kb, vb, enable_gqa=True), 50)
-        row = {"mode": mode, "max_abs_err": err, "ms": ms,
-               "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-               "library_ms": lib_ms}
+        row = {"mode": mode, "max_abs_err": err, "worst_tol_ratio": ex,
+               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+               "bound_by": by, "library_ms": lib_ms,
+               "gb_per_s": nbytes / ms / 1e6}
         out["per_mode"].append(row)
         log(f"[flat_decode] {mode}: max_abs_err {err:.3e} (tol {ATOL:g} + "
-            f"{RTOL:g}|ref|, {ex:.3f}x) kernel {ms:.4f} ms plain "
-            f"{plain_ms:.4f} ms sdpa(bf16) {lib_ms:.4f} ms bound "
-            f"{bound:.5f} ms ({by}: {nbytes / 1e6:.2f} MB at 3.35 TB/s, "
-            f"{flops / 1e9:.3f} GFLOP at 67 TFLOP/s f32)")
+            f"{RTOL:g}|ref|, worst {ex:.3f}x) kernel {ms:.4f} ms "
+            f"({row['gb_per_s']:.0f} GB/s of 3350) plain {plain_ms:.4f} ms "
+            f"sdpa(bf16) {lib_ms:.4f} ms bound {bound:.5f} ms ({by}: "
+            f"{nbytes / 1e6:.2f} MB at 3.35 TB/s, {flops / 1e9:.3f} GFLOP "
+            f"at 67 TFLOP/s f32); no host sync under "
+            f"set_sync_debug_mode('error')")
+    log(f"[flat_decode] (splits, slots a split) on {sms} SMs: timed T {T} "
+        f"{splits[T]}, T {Tp} {splits[Tp]}")
     out["check_shapes"] = (f"q ({B},{H},{D}) f32; k/v ({B},{Hkv},{T},{D}) "
                            f"int8, block {bs} or per channel; lengths "
                            f"{lengths.tolist()} windows {windows.tolist()}; "
                            f"per channel also k/v ({B},{Hkv},{Tp},{D}) "
                            f"lengths {lp.tolist()}")
     out["timed_shapes"] = (f"k/v ({B},{Hkv},{T},{D}), lengths {[T] * B}; "
-                           f"L2 flushed")
+                           f"L2 flushed; (splits, slots a split) "
+                           f"{splits[T]}")
     return out
 
 
@@ -582,29 +626,50 @@ def check_flash(dev, gen):
     return worst
 
 
-def flash_mma_count() -> dict:
-    """Tensor-core instructions (HMMA / HGMMA) in the built flash library's
-    SASS (cuobjdump from the CUDA toolkit), by kernel: the bf16 kernel must
-    have some, the float32 kernel none."""
+def sass_mma_counts(lib: str) -> dict:
+    """Tensor-core instructions (HMMA / HGMMA) in a built library's SASS
+    (cuobjdump from the CUDA toolkit), by kernel function (mangled name)."""
     import os
     import shutil
     from repro_torch.kernels import _build
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(_build.lib_path("flash_fwd"))],
+    sass = subprocess.run([tool, "-sass", str(_build.lib_path(lib))],
                           capture_output=True, text=True, check=True,
                           timeout=120).stdout
-    counts = {"bf16 (flash_fwd_tc_kernel)": 0, "float32 (flash_fwd_kernel)": 0}
-    key = None
+    counts, key = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            key = ("bf16 (flash_fwd_tc_kernel)" if "flash_fwd_tc_kernel" in line
-                   else "float32 (flash_fwd_kernel)"
-                   if "flash_fwd_kernel" in line else None)
+            key = line.split("Function :")[1].strip()
+            counts[key] = 0
         elif key and ("HMMA" in line or "HGMMA" in line):
             counts[key] += 1
+    return counts
+
+
+def flash_mma_count() -> dict:
+    """HMMA / HGMMA instructions in the flash library's two kernels: the
+    bf16 kernel must have some, the float32 kernel none."""
+    counts = {"bf16 (flash_fwd_tc_kernel)": 0, "float32 (flash_fwd_kernel)": 0}
+    for fn, n in sass_mma_counts("flash_fwd").items():
+        key = ("bf16 (flash_fwd_tc_kernel)" if "flash_fwd_tc_kernel" in fn
+               else "float32 (flash_fwd_kernel)"
+               if "flash_fwd_kernel" in fn else None)
+        if key:
+            counts[key] += n
     if not counts["bf16 (flash_fwd_tc_kernel)"]:
         raise AssertionError(f"no HMMA/HGMMA in the bf16 flash kernel: {counts}")
+    return counts
+
+
+def prefill_mma_count() -> dict:
+    """HMMA / HGMMA instructions in each paged prefill kernel (one per head
+    width and page format): every one must have some."""
+    counts = {fn: n for fn, n in sass_mma_counts("paged_prefill").items()
+              if "paged_prefill_kernel" in fn}
+    if not counts or not all(counts.values()):
+        raise AssertionError(f"a paged prefill kernel has no HMMA/HGMMA: "
+                             f"{counts}")
     return counts
 
 
@@ -1136,9 +1201,14 @@ def kernels_line(decode, prefill, flat, quant, paper, flash, seed, mma,
             "shapes": {"checked": res["check_shapes"],
                        "timed": res["timed_shapes"]},
             "per_dtype": res["per_dtype"],
+            **({"sass_mma": res["sass_mma"]} if "sass_mma" in res else {}),
             **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms",
-                                        "bound_by", "library_ms", "gb_per_s")
+                                        "bound_by", "library_ms", "gb_per_s",
+                                        "bound_tc_ms", "tflop_per_s")
                if k in main_row}})
+        if "worst_tol_ratio" in main_row:
+            out[-1]["worst_tol_ratio"] = max(r["worst_tol_ratio"]
+                                             for r in res["per_dtype"])
     for name, res, src, replaces in (
             ("flat_decode", flat, "flat_decode.cu", "quant_attention.py:112"),
             ("seed_decode", seed, "seed_decode.cu", "quant_attention.py:271")):
@@ -1152,7 +1222,11 @@ def kernels_line(decode, prefill, flat, quant, paper, flash, seed, mma,
                        "timed": res["timed_shapes"]},
             "per_mode": res["per_mode"],
             **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms",
-                                        "bound_by", "library_ms")}})
+                                        "bound_by", "library_ms", "gb_per_s")
+               if k in main_row}})
+        if "worst_tol_ratio" in main_row:
+            out[-1]["worst_tol_ratio"] = max(r["worst_tol_ratio"]
+                                             for r in res["per_mode"])
     out.append({
         "name": "flash_fwd", "route": "cuda", "source": csrc + "flash_fwd.cu",
         "replaces": ref + "flash_fwd.py:37", "dtype": "bfloat16 (float32 "
@@ -1231,6 +1305,8 @@ def main() -> int:
 
     mma = flash_mma_count()
     log(f"[sass] HMMA/HGMMA instructions in flash_fwd: {mma}")
+    pmma = prefill_mma_count()
+    log(f"[sass] HMMA/HGMMA instructions in paged_prefill: {pmma}")
 
     gen = torch.Generator(device=dev).manual_seed(0)
     t0 = time.perf_counter()
@@ -1272,6 +1348,7 @@ def main() -> int:
     path_counts.update(train_full_width(dev))
     log(f"[train] phase in {time.perf_counter() - t0:.1f} s")
 
+    prefill["sass_mma"] = pmma
     kernels = kernels_line(decode, prefill, flat, quant, paper, flash, seed,
                            mma, path_counts)
     if any(k["launches"] < 1 for k in kernels):

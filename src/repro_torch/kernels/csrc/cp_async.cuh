@@ -1,6 +1,7 @@
 // Shared by the kernels that stage tiles with cp.async (flash_fwd.cu,
-// paged_decode.cu): 16-byte copies from device to shared memory that skip
-// the registers, committed in groups and awaited by count.
+// paged_decode.cu, flat_decode.cu, paged_prefill.cu): 16-byte copies from
+// device to shared memory that skip the registers, committed in groups and
+// awaited by count.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -1,8 +1,8 @@
-// Shared by the decode kernels (paged_decode.cu, flat_decode.cu): the
-// shared memory of one (kv head, batch row) block and the fold of one
+// Used by the seed baseline alone (seed_decode.cu, through flat_walk.cuh):
+// the shared memory of one (kv head, batch row) block and the fold of one
 // dequantized tile of keys and values into the float32 online-softmax state
-// of the G queries of a GQA group. Each kernel keeps only its own tile
-// loader (pages through a table, or a contiguous row) and its own mask.
+// of the G queries of a GQA group. The walk (tile loader and mask) is
+// flat_walk.cuh's. Paged and flat decode have split walks of their own.
 #pragma once
 
 #include "page_dequant.cuh"

@@ -45,6 +45,7 @@
 #include <cuda_bf16.h>
 
 #include "cp_async.cuh"
+#include "mma.cuh"
 #include "page_dequant.cuh"
 
 namespace {
@@ -231,35 +232,6 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 // -- bfloat16 on the tensor cores ---------------------------------------------
 
 constexpr int kTcThreads = 128;  // 4 warps x 16 query rows
-
-// four 8 x 8 bf16 matrices from shared memory, lane i giving row i % 8 of
-// matrix i / 8; .trans hands each thread a column pair instead of a row pair
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// d += a (16 x 16 bf16, row major) . b (16 x 8 bf16, column major), float32
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// (lo, hi) rounded to nearest-even bf16, lo in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 template <int D>
 struct TcSmem {

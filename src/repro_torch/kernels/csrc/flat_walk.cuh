@@ -1,6 +1,6 @@
-// Shared by the contiguous-cache decode kernels (flat_decode.cu,
-// seed_decode.cu): one query token per (batch row, q head) attends over its
-// row's int8 cache (B, H_kv, T, D) with one float32 scale row per token
+// Used by the seed baseline alone (seed_decode.cu); flat decode has a split
+// walk of its own (flat_decode.cu). One query token per (batch row, q head)
+// attends over its row's int8 cache (B, H_kv, T, D) with one float32 scale row per token
 // block (nb = T / bs rows) or per channel (nb = 1); token t dequantizes as
 // q * scale[t / bs]. Slot t is live when t < min(len, T) and its ring age
 // (len - 1 - t) mod T is below the row's window. Outputs are the
@@ -11,8 +11,9 @@
 // memory; the block walks 64-token tiles, each read once with 4-byte loads
 // along D, dequantized to float32 into shared memory and folded into the
 // float32 online-softmax state by decode_tile.cuh. kSkipDead walks only the
-// row's ceil(min(len, T) / 64) live tiles (the flat kernel); without it the
-// block walks every tile of T and masks the dead slots (the seed baseline).
+// row's ceil(min(len, T) / 64) live tiles (no user since flat decode split
+// its walk); without it the block walks every tile of T and masks the dead
+// slots (the seed baseline).
 #pragma once
 
 #include "decode_tile.cuh"

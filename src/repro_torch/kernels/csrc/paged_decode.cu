@@ -26,57 +26,12 @@
 // only the bytes it copied itself, so the walk needs no barrier. A stage's
 // logits are reduced over the row's lanes by shuffles and folded into the
 // thread's own online-softmax state; the block's row groups merge once, at
-// the end, through shared memory.
+// the end, through shared memory. The row-group and split merges are
+// decode_split.cuh's, shared with flat_decode.cu.
 #include "cp_async.cuh"
-#include "page_dequant.cuh"
+#include "decode_split.cuh"
 
 namespace {
-
-constexpr int kThreads = 128;
-constexpr int kStages = 4;
-
-// the 16 values of token `tk` (0, or 1 for int4's high nibble) in 16 bytes
-// of a packed page row, times their scales
-template <int KV>
-__device__ __forceinline__ void dequant16(const uint4& w, int tk, const float (&sc)[16],
-                                          float (&x)[16]) {
-  const int8_t* by = reinterpret_cast<const int8_t*>(&w);
-#pragma unroll
-  for (int d = 0; d < 16; ++d) {
-    float f;
-    if (KV == KV_INT4) {
-      const int8_t b = by[d];
-      f = static_cast<float>(tk ? (b >> 4)
-                                : (static_cast<int8_t>(static_cast<uint8_t>(b) << 4) >> 4));
-    } else if (KV == KV_FP8) {
-      __nv_fp8_e4m3 e;
-      e.__x = static_cast<__nv_fp8_storage_t>(by[d]);
-      f = static_cast<float>(e);
-    } else {
-      f = static_cast<float>(by[d]);
-    }
-    x[d] = f * sc[d];
-  }
-}
-
-template <int D, int KV>
-struct Walk {
-  static constexpr int CH = D / 16;                   // threads a packed row
-  static constexpr int RS = kThreads / CH;            // rows a sweep
-  static constexpr int NR = RS >= 64 ? 1 : 64 / RS;   // rows a thread, a stage
-  static constexpr int SR = RS * NR;                  // packed rows a stage
-  static constexpr int TPR = KV == KV_INT4 ? 2 : 1;   // tokens a packed row
-  static constexpr size_t stage_bytes = 2ull * SR * D;   // K and V
-  template <int GB>
-  static constexpr size_t merge_bytes() {
-    return sizeof(float) * (static_cast<size_t>(RS) * GB * (D + 2));
-  }
-  template <int GB>
-  static constexpr size_t smem_bytes() {
-    return kStages * stage_bytes > merge_bytes<GB>() ? kStages * stage_bytes
-                                                     : merge_bytes<GB>();
-  }
-};
 
 // grid (H_kv * nqb, B, nsplit); block (kv head, query pair qb, row b, split
 // sp) attends queries h * G + qb * GB + [0, GB) (those below G) over the
@@ -93,12 +48,13 @@ __global__ void __launch_bounds__(kThreads) paged_decode_split_kernel(
     float* __restrict__ m_part,           // (B, H, nsplit)
     float* __restrict__ l_part,
     int H, int Hkv, int G, int ps, int ps_packed, int NT, int pps, float scale) {
-  using W = Walk<D, KV>;
-  constexpr int CH = W::CH, RS = W::RS, NR = W::NR, SR = W::SR, TPR = W::TPR;
+  using W = Walk<D>;
+  constexpr int CH = W::CH, RS = W::RS, NR = W::NR, SR = W::SR;
+  constexpr int TPR = KV == KV_INT4 ? 2 : 1;  // tokens a packed row
   extern __shared__ __align__(16) unsigned char pd_smem[];
   const int nqb = (G + GB - 1) / GB;
   const int h = blockIdx.x / nqb, qb = blockIdx.x % nqb;
-  const int b = blockIdx.y, sp = blockIdx.z, nsplit = gridDim.z;
+  const int b = blockIdx.y, sp = blockIdx.z;
   const int tid = threadIdx.x, rg = tid / CH, c = tid % CH;
   const int row_stride = Hkv * D;
 
@@ -135,26 +91,9 @@ __global__ void __launch_bounds__(kThreads) paged_decode_split_kernel(
 
   // this thread's GB queries and output slice: channels c * 16 + [0, 16)
   float qr[GB][16], acc[GB][16], m[GB], l[GB];
-#pragma unroll
-  for (int g = 0; g < GB; ++g) {
-    const int hq = h * G + qb * GB + g;
-    const bool ok = qb * GB + g < G;
-    const float4* src =
-        reinterpret_cast<const float4*>(q + (static_cast<size_t>(b) * H + hq) * D + c * 16);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (ok) x = src[j];
-      qr[g][4 * j] = x.x;
-      qr[g][4 * j + 1] = x.y;
-      qr[g][4 * j + 2] = x.z;
-      qr[g][4 * j + 3] = x.w;
-    }
-#pragma unroll
-    for (int d = 0; d < 16; ++d) acc[g][d] = 0.f;
-    m[g] = -1e30f;
-    l[g] = 0.f;
-  }
+  init_queries<GB>(qr, acc, m, l,
+                   q + (static_cast<size_t>(b) * H + h * G + qb * GB) * D + c * 16, D,
+                   G - qb * GB);
 
   float ksc[16], vsc[16];
   for (int s = 0; s < n_stages; ++s) {
@@ -198,23 +137,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_split_kernel(
         }
       }
     }
-    // fold into this thread's online softmax
-#pragma unroll
-    for (int g = 0; g < GB; ++g) {
-      float mx = m[g];
-#pragma unroll
-      for (int j = 0; j < NR * TPR; ++j) mx = fmaxf(mx, x[g][j]);
-      const float a = expf(m[g] - mx);
-      m[g] = mx;
-      l[g] *= a;
-#pragma unroll
-      for (int d = 0; d < 16; ++d) acc[g][d] *= a;
-#pragma unroll
-      for (int j = 0; j < NR * TPR; ++j) {
-        x[g][j] = expf(x[g][j] - mx);
-        l[g] += x[g][j];
-      }
-    }
+    fold_logits<GB, NR * TPR>(x, m, l, acc);
 #pragma unroll
     for (int i = 0; i < NR; ++i) {
       const uint4 w = *reinterpret_cast<const uint4*>(vd + (rg + i * RS) * D + c * 16);
@@ -233,65 +156,8 @@ __global__ void __launch_bounds__(kThreads) paged_decode_split_kernel(
   }
   cp_async_wait<0>();
   __syncthreads();  // every thread is past the ring: its memory holds the merge
-
-  // merge the RS row groups: acc [RS][GB][D], then m and l [RS][GB]
-  float* red = reinterpret_cast<float*>(pd_smem);
-  float* red_m = red + RS * GB * D;
-  float* red_l = red_m + RS * GB;
-#pragma unroll
-  for (int g = 0; g < GB; ++g) {
-    float4* dst = reinterpret_cast<float4*>(red + (rg * GB + g) * D + c * 16);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      dst[j] = make_float4(acc[g][4 * j], acc[g][4 * j + 1], acc[g][4 * j + 2], acc[g][4 * j + 3]);
-    if (c == 0) {
-      red_m[rg * GB + g] = m[g];
-      red_l[rg * GB + g] = l[g];
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < GB * D; i += kThreads) {
-    const int g = i / D, d = i % D;
-    if (qb * GB + g >= G) continue;
-    float mb = -1e30f;
-    for (int r = 0; r < RS; ++r) mb = fmaxf(mb, red_m[r * GB + g]);
-    float ob = 0.f, lb = 0.f;
-    for (int r = 0; r < RS; ++r) {
-      const float w = expf(red_m[r * GB + g] - mb);
-      ob += red[(r * GB + g) * D + d] * w;
-      lb += red_l[r * GB + g] * w;
-    }
-    const size_t row = static_cast<size_t>(b) * H + h * G + qb * GB + g;
-    o_part[(row * nsplit + sp) * D + d] = ob;
-    if (d == 0) {
-      m_part[row * nsplit + sp] = mb;
-      l_part[row * nsplit + sp] = lb;
-    }
-  }
-}
-
-// one block of D threads per (row, head): the splits' partials merged into
-// the unnormalized (o, m, l) of the contract
-__global__ void merge_splits_kernel(const float* __restrict__ o_part,
-                                    const float* __restrict__ m_part,
-                                    const float* __restrict__ l_part, float* __restrict__ o,
-                                    float* __restrict__ m, float* __restrict__ l, int nsplit) {
-  const size_t row = blockIdx.x;
-  const int d = threadIdx.x, D = blockDim.x;
-  const float* mp = m_part + row * nsplit;
-  float mb = -1e30f;
-  for (int s = 0; s < nsplit; ++s) mb = fmaxf(mb, mp[s]);
-  float ob = 0.f, lb = 0.f;
-  for (int s = 0; s < nsplit; ++s) {
-    const float w = expf(mp[s] - mb);
-    ob += o_part[(row * nsplit + s) * D + d] * w;
-    lb += l_part[row * nsplit + s] * w;
-  }
-  o[row * D + d] = ob;
-  if (d == 0) {
-    m[row] = mb;
-    l[row] = lb;
-  }
+  store_split<D, GB, RS>(reinterpret_cast<float*>(pd_smem), acc, m, l, rg, c, G, qb,
+                         static_cast<size_t>(b) * H + h * G, sp, o_part, m_part, l_part);
 }
 
 struct Args {
@@ -310,7 +176,7 @@ struct Args {
 template <int D, int KV, int GB>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   static size_t allowed = 48 * 1024;
-  constexpr size_t smem = Walk<D, KV>::template smem_bytes<GB>();
+  constexpr size_t smem = Walk<D>::template smem_bytes<GB>();
   cudaError_t e = allow_smem(paged_decode_split_kernel<D, KV, GB>, smem, allowed);
   if (e != cudaSuccess) return e;
   const int G = a.H / a.Hkv, nqb = (G + GB - 1) / GB;

@@ -11,7 +11,8 @@ row's page walk across blocks and merges the splits' partials
 Flat (port of ``_flat_decode_kernel``): one query token per row attends
 over the contiguous int8 cache (B, H_kv, T, D) with one scale row per
 token block or per channel; slots past ``min(length, T)`` and ring slots
-older than the row's window are masked.
+older than the row's window are masked. Its kernel splits each row's slots
+into runs of ``flat_decode_splits`` and merges them as the paged one does.
 
 Seed (port of ``_decode_kernel``, the reference's baseline under vmap):
 the flat kernel's result with the baseline's cost, every tile of T walked
@@ -104,6 +105,23 @@ def decode_splits(B: int, Hkv: int, G: int, NT: int, sms: int):
     return -(-NT // pps), pps
 
 
+FLAT_TILE = 64     # slots a split of the flat walk is a multiple of
+
+
+def flat_decode_splits(B: int, Hkv: int, G: int, T: int, sms: int):
+    """(splits, slots per split) of the flat decode kernel's walk over T
+    slots: about two blocks per SM over B * H_kv * ceil(G / 2) (kv head,
+    query pair) blocks where T allows, a split a whole number of
+    FLAT_TILE-slot tiles, rounded up (on an H100, 8 splits of 256 slots at
+    4 rows x 2048 ran faster than 11 of 192). From host-known shapes only:
+    reading the lengths or windows would sync."""
+    blocks = B * Hkv * (1 if G == 1 else -(-G // 2))
+    want = -(-2 * sms // blocks)
+    tiles = -(-T // FLAT_TILE)
+    per = -(-tiles // want)
+    return -(-tiles // per), per * FLAT_TILE
+
+
 _ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 10 + \
     [ctypes.c_float, ctypes.c_void_p]
 
@@ -189,12 +207,14 @@ paged_decode_partials_cuda.launches = 0
 
 # -- flat decode over the contiguous cache ------------------------------------
 
-def flat_decode_partials_plain(q, k_q, k_s, v_q, v_s, lengths, windows):
+def flat_decode_partials_plain(q, k_q, k_s, v_q, v_s, lengths, windows,
+                               slots: tuple[int, int] | None = None):
     """q (B, H, D) float32; k_q/v_q (B, H_kv, T, D) int8; k_s/v_s
     (B, H_kv, nb, D) float32, nb = 1 (per channel) or T / block; lengths
     (B,) int32 absolute tokens written (a ring may exceed T); windows (B,)
-    int32 ring-age budget. Returns (o (B, H, D), m (B, H, 1), l (B, H, 1))
-    float32."""
+    int32 ring-age budget; ``slots`` (t0, t1): only slots in [t0, t1) take
+    part (one split of the kernel's walk). Returns (o (B, H, D), m (B, H,
+    1), l (B, H, 1)) float32."""
     B, H, D = q.shape
     _, Hkv, T, _ = k_q.shape
     G = H // Hkv
@@ -207,11 +227,14 @@ def flat_decode_partials_plain(q, k_q, k_s, v_q, v_s, lengths, windows):
     k, v = deq(k_q, k_s), deq(v_q, v_s)
     qg = q.float().reshape(B, Hkv, G, D)
     logits = torch.einsum("bhgd,bhtd->bhgt", qg, k) * logit_scale(D)
-    slots = torch.arange(T, device=q.device)[None]
+    t = torch.arange(T, device=q.device)[None]
     ln = lengths.to(device=q.device, dtype=torch.int64)[:, None]
-    age = torch.remainder(ln - 1 - slots, T)
-    mask = ((slots < torch.clamp_max(ln, T))
-            & (age < windows.to(q.device)[:, None]))[:, None, None, :]
+    age = torch.remainder(ln - 1 - t, T)
+    mask = ((t < torch.clamp_max(ln, T))
+            & (age < windows.to(q.device)[:, None]))
+    if slots is not None:
+        mask &= (t >= slots[0]) & (t < slots[1])
+    mask = mask[:, None, None, :]
     logits = torch.where(mask, logits, torch.full_like(logits, _NEG_INF))
     m = torch.amax(logits, dim=-1, keepdim=True)
     p = torch.exp(logits - m) * mask.float()
@@ -220,14 +243,15 @@ def flat_decode_partials_plain(q, k_q, k_s, v_q, v_s, lengths, windows):
     return o.reshape(B, H, D), m.reshape(B, H, 1), l.reshape(B, H, 1)
 
 
-_FLAT_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + \
+_SEED_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + \
+    [ctypes.c_float, ctypes.c_void_p]
+_FLAT_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + \
     [ctypes.c_float, ctypes.c_void_p]
 
 
-def _flat_launch(lib, fn_name, counter, q, k_q, k_s, v_q, v_s, lengths,
-                 windows):
-    """Check the contiguous decode kernels' arguments, launch ``fn_name``
-    of library ``lib`` and count the launch on ``counter``."""
+def _flat_check(lib, q, k_q, k_s, v_q, v_s, lengths, windows):
+    """Check the contiguous decode kernels' arguments; returns the
+    outputs (o, m, l), allocated."""
     B, H, D = q.shape
     _, Hkv, T, _ = k_q.shape
     nb = k_s.shape[2]
@@ -242,36 +266,61 @@ def _flat_launch(lib, fn_name, counter, q, k_q, k_s, v_q, v_s, lengths,
     _check(v_s, "v_s", torch.float32, (B, Hkv, nb, D))
     _check(lengths, "lengths", torch.int32, (B,))
     _check(windows, "windows", torch.int32, (B,))
-    fn = _build.load(lib, fn_name, _FLAT_ARGTYPES)
-    o = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
-    m = torch.empty((B, H, 1), dtype=torch.float32, device=q.device)
-    l = torch.empty((B, H, 1), dtype=torch.float32, device=q.device)
-    rc = fn(q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
-            v_s.data_ptr(), lengths.data_ptr(), windows.data_ptr(),
-            o.data_ptr(), m.data_ptr(), l.data_ptr(), B, H, Hkv, D, T, nb,
-            logit_scale(D), torch.cuda.current_stream(q.device).cuda_stream)
-    if rc:
-        raise RuntimeError(f"{lib} kernel launch failed: CUDA error {rc}")
-    counter.launches += 1
-    return o, m, l
+    return tuple(torch.empty(shape, dtype=torch.float32, device=q.device)
+                 for shape in ((B, H, D), (B, H, 1), (B, H, 1)))
 
 
 def flat_decode_partials_cuda(q, k_q, k_s, v_q, v_s, lengths, windows):
-    """Launch the CUDA kernel (same contract as the plain version; q must
-    be float32). Counts each launch in ``flat_decode_partials_cuda.
-    launches``."""
-    return _flat_launch("flat_decode", "flat_decode_partials",
-                        flat_decode_partials_cuda, q, k_q, k_s, v_q, v_s,
-                        lengths, windows)
+    """Launch the CUDA kernels (same contract as the plain version; q must
+    be float32): the split slot walk, then, with more than one split, the
+    merge of its float32 partials (scratch from `torch.empty`;
+    `flat_decode_splits` sizes it). Counts each call in
+    ``flat_decode_partials_cuda.launches``."""
+    o, m, l = _flat_check("flat decode", q, k_q, k_s, v_q, v_s, lengths,
+                          windows)
+    _check_aligned(q=q, k_q=k_q, v_q=v_q, k_s=k_s, v_s=v_s)
+    B, H, D = q.shape
+    _, Hkv, T, _ = k_q.shape
+    fn = _build.load("flat_decode", "flat_decode_partials", _FLAT_ARGTYPES)
+    nsplit, tps = flat_decode_splits(B, Hkv, H // Hkv, T,
+                                     _sm_count(q.device))
+    # scratch: o_s (B, H, nsplit, D), then m_s and l_s (B, H, nsplit)
+    n = B * H * nsplit if nsplit > 1 else 0
+    scratch = torch.empty((n * (D + 2),), dtype=torch.float32,
+                          device=q.device)
+    base = scratch.data_ptr()
+    rc = fn(q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
+            v_s.data_ptr(), lengths.data_ptr(), windows.data_ptr(),
+            o.data_ptr(), m.data_ptr(), l.data_ptr(),
+            base, base + 4 * n * D, base + 4 * n * (D + 1),
+            B, H, Hkv, D, T, k_s.shape[2], tps, nsplit, logit_scale(D),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc:
+        raise RuntimeError(f"flat decode kernel launch failed: CUDA error "
+                           f"{rc}")
+    flat_decode_partials_cuda.launches += 1
+    return o, m, l
 
 
 def seed_decode_partials_cuda(q, k_q, k_s, v_q, v_s, lengths, windows):
     """Launch the seed-baseline kernel: the contract of
     `flat_decode_partials_plain`, every tile of T walked. Counts each
     launch in ``seed_decode_partials_cuda.launches``."""
-    return _flat_launch("seed_decode", "seed_decode_partials",
-                        seed_decode_partials_cuda, q, k_q, k_s, v_q, v_s,
-                        lengths, windows)
+    o, m, l = _flat_check("seed decode", q, k_q, k_s, v_q, v_s, lengths,
+                          windows)
+    B, H, D = q.shape
+    _, Hkv, T, _ = k_q.shape
+    fn = _build.load("seed_decode", "seed_decode_partials", _SEED_ARGTYPES)
+    rc = fn(q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
+            v_s.data_ptr(), lengths.data_ptr(), windows.data_ptr(),
+            o.data_ptr(), m.data_ptr(), l.data_ptr(), B, H, Hkv, D, T,
+            k_s.shape[2], logit_scale(D),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc:
+        raise RuntimeError(f"seed decode kernel launch failed: CUDA error "
+                           f"{rc}")
+    seed_decode_partials_cuda.launches += 1
+    return o, m, l
 
 
 flat_decode_partials_cuda.launches = 0

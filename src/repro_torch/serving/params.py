@@ -47,6 +47,9 @@ class SamplingParams:
             raise ValueError(f"top_k must be >= 0 (got {self.top_k})")
         if self.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
+        if not isinstance(self.priority, int):
+            raise ValueError(f"priority must be an int "
+                             f"(got {self.priority!r})")
         if self.kv_cache_dtype is not None and \
                 self.kv_cache_dtype not in KV_DTYPES:
             raise ValueError(f"kv_cache_dtype must be one of {KV_DTYPES} or "
@@ -64,6 +67,10 @@ class SamplingParams:
     def greedy(cls, **kw) -> "SamplingParams":
         return cls(temperature=0.0, **kw)
 
+    @property
+    def is_greedy(self) -> bool:
+        return self.temperature <= 0.0
+
 
 def default_detokenize(ids: Sequence[int]) -> str:
     """Each id renders as ``<id>``, so ``stop=("<7>",)`` stops on token 7."""
@@ -72,13 +79,17 @@ def default_detokenize(ids: Sequence[int]) -> str:
 
 @dataclasses.dataclass
 class EngineConfig:
-    """One object configuring the serving stack (field names and defaults
-    as the reference's). Ported: ``batch``, ``max_len``, ``eos_id``,
-    ``paged`` (False: the contiguous backend, the default; True: the page
-    pool), ``n_pages``, ``chunk``, ``prefill_chunk`` (paged only),
-    ``detokenize`` and a uniform ``kv_cache_dtype`` (other than int8:
-    paged only). Every option below that is set to anything but its off
-    value raises `NotImplementedError`."""
+    """One object configuring the serving stack: the reference's field
+    names and defaults, with one difference: ``stall_ticks`` defaults to
+    None (the reference's 500 arms a stall watchdog that is not ported
+    yet, ROADMAP queue 1, item 9). Ported: ``batch``, ``max_len``,
+    ``eos_id``, ``paged`` (False: the contiguous backend, the default;
+    True: the page pool), ``n_pages``, ``chunk``, ``prefill_chunk`` (paged
+    only), ``detokenize`` and a uniform ``kv_cache_dtype`` (other than
+    int8: paged only). ``preempt_loop_limit`` is accepted and inert: it
+    bounds preemption, which comes with overload (item 9). Every other
+    option below that is set to anything but its off value raises
+    `NotImplementedError`."""
     batch: int = 4
     max_len: int = 128
     eos_id: int | None = None
@@ -92,6 +103,7 @@ class EngineConfig:
     kv_cache_dtype: object = "int8"
     watermark: int | None = None
     aging_ticks: int = 0
+    preempt_loop_limit: int = 8
     stall_ticks: int | None = None
     fault_injector: object | None = None
     host_pages: int | None = None

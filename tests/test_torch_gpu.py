@@ -1,8 +1,11 @@
 """The port's CUDA kernels on the card (``gpu`` marker): each kernel against
 its plain PyTorch version on the same CUDA tensors — the paged kernels for
 int8, fp8_e4m3 and int4 pages (paged decode also at batches that give
-one, two, four and eight splits of the page walk), the flat decode kernel
-and the seed baseline per block and per channel (ring windows included),
+one, two, four and eight splits of the page walk; paged prefill also at
+chunks of 512 and 1024 with row tiles past `valid`, which must come out
+0.0), the flat decode kernel and the seed baseline per block and per
+channel (ring windows included; flat decode also at batches 2 to 40, from
+16 splits of its slot walk to one, window 0 and T 1032),
 the flash forward (float32 on the CUDA cores and bfloat16 on the tensor
 cores; causal, windowed, offset, ragged, GQA groups of 1 to 8), the
 quantize/dequantize family — at the smoke shapes and at internlm2_1_8b's
@@ -176,6 +179,80 @@ def test_flat_decode_kernel_matches_plain(per_channel, width, cuda_device):
     assert QA.seed_decode_partials_cuda.launches == before + 1
     for g, w in zip(got, QA.flat_decode_partials_plain(*args)):
         torch.testing.assert_close(g, w, **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("per_channel", [False, True],
+                         ids=["per_block", "per_channel"])
+@pytest.mark.parametrize("B", [2, 4, 10, 40])
+def test_flat_decode_split_walk_matches_plain(B, per_channel, cuda_device):
+    """At internlm2_1_8b's widths the batch sets the split
+    (`flat_decode_splits`: 16 splits of 128 slots at B 2 down to one split
+    at B 40), per block at T 2048 and per channel at the generate cache's
+    T 1032; lengths leave most splits of a row dead, one row is a ring
+    (past T, in a window), one has window 0."""
+    H, Hkv, D, bs = WIDTHS[1]
+    T = 1032 if per_channel else 2048
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=cuda_device)
+    cycle = [(0, T), (1, T), (63, T), (64, T), (65, T), (T, T),
+             (T + 300, 1024), (T, 0), (700, T), (T - 1, 500)]
+    lengths = i32([cycle[i % len(cycle)][0] for i in range(B)])
+    windows = i32([cycle[i % len(cycle)][1] for i in range(B)])
+    k = torch.randn((B, Hkv, T, D), generator=gen, device=cuda_device)
+    v = torch.randn((B, Hkv, T, D), generator=gen, device=cuda_device)
+    quant = (QK.quantize_per_channel_plain if per_channel
+             else lambda x: QK.quantize_blocked_plain(x, bs))
+    (kq, ks), (vq, vs) = quant(k), quant(v)
+    if per_channel:
+        ks, vs = ks[:, :, None].contiguous(), vs[:, :, None].contiguous()
+    args = (torch.randn((B, H, D), generator=gen, device=cuda_device), kq,
+            ks, vq, vs, lengths, windows)
+    got = QA.flat_decode_partials_cuda(*args)
+    torch.cuda.synchronize()
+    want = QA.flat_decode_partials_plain(*args)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **TOL)
+    dead = (lengths == 0) | (windows == 0)        # exactly the plain's
+    assert float(got[0][dead].abs().max()) == 0.0
+    assert float(got[2][dead].abs().max()) == 0.0
+    assert bool((got[1][dead] == want[1][dead]).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", DTYPES)
+@pytest.mark.parametrize("C", [512, 1024])
+def test_prefill_kernel_dead_tiles_match_plain(C, kv_dtype, cuda_device):
+    """internlm2_1_8b's widths, chunks of 512 and 1024: every row below
+    `valid` against the plain version, with and without history; every
+    output finite; a 64-row tile whose positions are all at or past
+    `valid` exactly 0.0."""
+    H, Hkv, D, ps = WIDTHS[1]
+    G, NT = H // Hkv, 8
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    hist = [0, 256, 1024, 1792]
+    valid = [C, C // 2 - 1, 1, 64]
+    B = len(hist)
+    pool = _pool(kv_dtype, B * NT + 1, Hkv, D, ps, gen, cuda_device)
+    table = _table(B, NT, B * NT + 1, gen, cuda_device)
+    q = torch.randn((B, H, C, D), generator=gen, device=cuda_device)
+    k = torch.randn((B, Hkv, C, D), generator=gen, device=cuda_device)
+    v = torch.randn((B, Hkv, C, D), generator=gen, device=cuda_device)
+    qg = (q.reshape(B, Hkv, G * C, D) * QA.logit_scale(D)).contiguous()
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=cuda_device)
+    for hb in (0, NT):
+        args = (qg, k, v, *pool, table, i32(hist), i32(valid), hb, kv_dtype)
+        got = QP.paged_prefill_cuda(*args)
+        torch.cuda.synchronize()
+        want = QP.paged_prefill_plain(*args)
+        assert bool(torch.isfinite(got).all())
+        got4, want4 = got.reshape(B, H, C, D), want.reshape(B, H, C, D)
+        for b in range(B):
+            torch.testing.assert_close(got4[b, :, :valid[b]],
+                                       want4[b, :, :valid[b]], **TOL)
+            dead_from = -(-valid[b] // 64) * 64    # first dead tile's row
+            if dead_from < C:
+                assert float(got4[b, :, dead_from:].abs().max()) == 0.0
 
 
 # (B, H, H_kv, S, T, D, causal, window, kv_offset)

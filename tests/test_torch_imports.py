@@ -1,8 +1,9 @@
 """The port stands alone: every module of `repro_torch` (the training
 path's too: `training`, `optim`, `data`, `checkpoint`, `runtime`,
 `launch.train`, `kernels.flash_fwd`) imports in a fresh interpreter where
-`jax` and the reference package `repro` cannot be imported, `chip_smoke.py` imports neither, and `chip_smoke.py` copied
-alone into an empty directory fails without printing a result."""
+`jax` and the reference package `repro` cannot be imported, `chip_smoke.py`
+and `chip_ab.py` import neither, and `chip_smoke.py` copied alone into an
+empty directory fails without printing a result."""
 import os
 import re
 import subprocess
@@ -48,6 +49,13 @@ def test_every_port_module_imports_without_jax_or_the_reference():
 
 def test_chip_smoke_imports_neither_jax_nor_the_reference():
     src = (ROOT / "chip_smoke.py").read_text()
+    bad = re.findall(r"^\s*(?:import|from)\s+(?:jax|jaxlib|repro)\b(?!_torch)"
+                     r".*$", src, flags=re.M)
+    assert not bad, bad
+
+
+def test_chip_ab_imports_neither_jax_nor_the_reference():
+    src = (ROOT / "chip_ab.py").read_text()
     bad = re.findall(r"^\s*(?:import|from)\s+(?:jax|jaxlib|repro)\b(?!_torch)"
                      r".*$", src, flags=re.M)
     assert not bad, bad
