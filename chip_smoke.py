@@ -15,20 +15,23 @@ Phases, each fatal on failure (no fallback anywhere):
      main paths' full shapes (internlm2_1_8b: H 16, H_kv 8, D 128, block
      256): paged decode and prefill for int8, fp8_e4m3 and int4 pages; flat
      decode and the seed baseline per block and per channel (mixed lengths,
-     an empty row and a ring row, length 3000 in a window of 1024; flat per
-     channel also the generate path's T = 1032, partial last tiles); the
+     an empty row and a ring row, length 3000 in a window of 1024; both
+     per channel also at the generate path's T = 1032, partial last tiles;
+     the seed timed at full lengths and at lengths 1, which must take at
+     least SEED_LEN1_MIN of the first: it reads every slot); the
      flash forward in bf16 at the training shape (4, 16, 2048, 128) causal
      and the contiguous prefill's 1536 rebuild, with a window and
      kv_offset, and at an odd S in float32; the quantize family bitwise at
      (4, 8, 2048, 128), per channel at (4, 8, 1000, 128) and blocked at a
-     flush's (4, 8, 256, 128). Times from CUDA events, the L2 cache
-     flushed and the host's enqueue kept off the clock before each launch;
+     flush's (4, 8, 256, 128) (also timed there beside its bound). Times
+     from CUDA events, the L2 cache flushed and the host's enqueue kept
+     off the clock before each launch;
      the flash forward's and paged prefill's achieved TFLOP/s and the
      decode kernels' GB/s beside them, the decode kernels' split counts,
      the worst multiple of the tolerance over the checks, paged prefill's
      second bound (its split bf16 products at the tensor-core peak) and
-     its row tiles past `valid` checked to be 0.0; the paged and flat
-     decode calls once more with any host sync an error.
+     its row tiles past `valid` checked to be 0.0; the paged, flat and
+     seed decode calls once more with any host sync an error.
   3. the paper's kernels at its eight (T, D) sizes: quantize per channel,
      quantize blocked (block 256) and dequantize through `kernels.ops`
      (launches counted), each bitwise against its plain version, Eq. 9
@@ -84,6 +87,9 @@ PREFILL_ROWS = 64              # query rows per tile (csrc/paged_prefill.cu)
 # the full-width train step's loss through the kernel vs through the
 # plain flash forward, bf16 model: relative
 LOSS_RTOL = 1e-3
+# the seed baseline reads and folds every slot of T whatever the lengths:
+# its time at lengths 1 over its time at full lengths must reach this
+SEED_LEN1_MIN = 0.8
 
 
 def log(*a):
@@ -509,10 +515,14 @@ def check_flat_decode(dev, gen):
 
 def check_seed_decode(dev, gen):
     """The seed baseline at the contiguous engine's decode shape, per block
-    and per channel, mixed lengths (one empty, one ring row in a window);
-    timed at full length as flat decode is (the same live bytes)."""
+    and per channel, mixed lengths (one empty, one ring row in a window;
+    per channel also the generate path's T = 1032 with a row of length 1,
+    whose later splits are wholly dead); timed at full length as flat
+    decode is (the same bytes), and at lengths 1, where it must still take
+    at least SEED_LEN1_MIN of that time: it reads and folds every slot."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import ops
     from repro_torch.kernels import quant_attention as QA
     from repro_torch.kernels import quantize as QK
     B, H, Hkv, D, T, bs = 4, 16, 8, 128, 2048, 256
@@ -521,15 +531,40 @@ def check_seed_decode(dev, gen):
     k = torch.randn((B, Hkv, T, D), generator=gen, device=dev)
     v = torch.randn((B, Hkv, T, D), generator=gen, device=dev)
     q = torch.randn((B, H, D), generator=gen, device=dev)
-    full = i32([T] * B)
+    Tp = 1032
+    lp, wp = i32([1032, 1, 700, 0]), i32([Tp, Tp, 100, Tp])
+    kp = torch.randn((B, Hkv, Tp, D), generator=gen, device=dev)
+    vp = torch.randn((B, Hkv, Tp, D), generator=gen, device=dev)
+    full, ones = i32([T] * B), i32([1] * B)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = {t: QA.flat_decode_splits(B, Hkv, H // Hkv, t, sms)
+              for t in (T, Tp)}
     out = {"per_mode": []}
     for mode in ("per_block", "per_channel"):
         kq, ks, vq, vs = _flat_quant(mode, k, v, bs)
         err, ex = _flat_check(f"seed decode {mode}",
                               (q, kq, ks, vq, vs, lengths, windows),
                               QA.seed_decode_partials_cuda)
+        if mode == "per_channel":
+            e2, x2 = _flat_check(f"seed decode {mode} T={Tp}", (
+                q, *_flat_quant(mode, kp, vp, bs), lp, wp),
+                QA.seed_decode_partials_cuda)
+            err, ex = max(err, e2), max(ex, x2)
+        # the baseline's entry adds no host sync either (splits from shapes)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ops.quant_attention_decode_partials_vmap(q, kq, ks, vq, vs, full,
+                                                     window=full)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
         targs = (q, kq, ks, vq, vs, full, full)
         ms = time_cold_ms(lambda: QA.seed_decode_partials_cuda(*targs), 50)
+        ms1 = time_cold_ms(lambda: QA.seed_decode_partials_cuda(
+            q, kq, ks, vq, vs, ones, full), 50)
+        if ms1 < SEED_LEN1_MIN * ms:
+            raise AssertionError(f"seed decode {mode}: {ms1:.4f} ms at "
+                                 f"lengths 1 < {SEED_LEN1_MIN} x {ms:.4f} ms "
+                                 f"at full lengths: it must read every slot")
         plain_ms = time_cold_ms(lambda: QA.flat_decode_partials_plain(*targs),
                                 5)
         nb = ks.shape[2]
@@ -542,18 +577,28 @@ def check_seed_decode(dev, gen):
         qb = q.bfloat16()[:, :, None]
         lib_ms = time_cold_ms(lambda: F.scaled_dot_product_attention(
             qb, kb, vb, enable_gqa=True), 50)
-        row = {"mode": mode, "max_abs_err": err, "ms": ms,
+        row = {"mode": mode, "max_abs_err": err, "worst_tol_ratio": ex,
+               "ms": ms, "ms_lengths_1": ms1, "lengths_1_over_full": ms1 / ms,
                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-               "library_ms": lib_ms}
+               "library_ms": lib_ms, "gb_per_s": nbytes / ms / 1e6}
         out["per_mode"].append(row)
         log(f"[seed_decode] {mode}: max_abs_err {err:.3e} (tol {ATOL:g} + "
-            f"{RTOL:g}|ref|, {ex:.3f}x) kernel {ms:.4f} ms plain "
-            f"{plain_ms:.4f} ms sdpa(bf16) {lib_ms:.4f} ms bound "
-            f"{bound:.5f} ms ({by}: {nbytes / 1e6:.2f} MB at 3.35 TB/s)")
+            f"{RTOL:g}|ref|, worst {ex:.3f}x) kernel {ms:.4f} ms "
+            f"({row['gb_per_s']:.0f} GB/s of 3350), at lengths 1 {ms1:.4f} ms "
+            f"({ms1 / ms:.3f}x full, >= {SEED_LEN1_MIN}) plain {plain_ms:.4f} "
+            f"ms sdpa(bf16) {lib_ms:.4f} ms bound {bound:.5f} ms ({by}: "
+            f"{nbytes / 1e6:.2f} MB at 3.35 TB/s); no host sync under "
+            f"set_sync_debug_mode('error')")
+    log(f"[seed_decode] (splits, slots a split) on {sms} SMs: timed T {T} "
+        f"{splits[T]}, T {Tp} {splits[Tp]}")
     out["check_shapes"] = (f"q ({B},{H},{D}) f32; k/v ({B},{Hkv},{T},{D}) "
                            f"int8, block {bs} or per channel; lengths "
-                           f"{lengths.tolist()} windows {windows.tolist()}")
-    out["timed_shapes"] = f"k/v ({B},{Hkv},{T},{D}), lengths {[T] * B}"
+                           f"{lengths.tolist()} windows {windows.tolist()}; "
+                           f"per channel also k/v ({B},{Hkv},{Tp},{D}) "
+                           f"lengths {lp.tolist()} windows {wp.tolist()}")
+    out["timed_shapes"] = (f"k/v ({B},{Hkv},{T},{D}), lengths {[T] * B} "
+                           f"and {[1] * B}; L2 flushed; (splits, slots a "
+                           f"split) {splits[T]}")
     return out
 
 
@@ -771,6 +816,22 @@ def check_quantize(dev, gen):
     log(f"[quantize] bitwise also at {tuple(xp.shape)} (absmax, quantize "
         f"with scales, dequantize of one scale row) and {tuple(xf.shape)} "
         f"(quantize blocked: a block flush)")
+    # the blocked kernel at the flush's shape, where its blocks must fill
+    # the card: one token block a (row, kv head) matrix
+    n, nmat = xf.numel(), xf.numel() // (bs * 128)
+    fbound, fby = bound_of(4 * n + n + 4 * nmat * 128, 6 * n)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lanes = QK.blocked_lanes(nmat, bs, 128, bs, sms)
+    flush = {"shape": str(tuple(xf.shape)), "block": bs, "lanes": lanes,
+             "blocks": -(-128 // (4 * lanes)) * nmat,
+             "ms": time_cold_ms(lambda: QK.quantize_blocked_cuda(xf, bs), 50),
+             "plain_ms": time_cold_ms(
+                 lambda: QK.quantize_blocked_plain(xf, bs), 5),
+             "bound_ms": fbound, "bound_by": fby}
+    log(f"[quantize] quantize_blocked at a flush {tuple(xf.shape)}: kernel "
+        f"{flush['ms']:.4f} ms plain {flush['plain_ms']:.4f} ms bound "
+        f"{fbound:.5f} ms ({fby}); {flush['blocks']} blocks of "
+        f"{4 * lanes}-column slabs on {sms} SMs")
     for name, r in rows.items():
         lib = (f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None
                else "none")
@@ -778,6 +839,7 @@ def check_quantize(dev, gen):
             f"plain {r['plain_ms']:.4f} ms library {lib} bound "
             f"{r['bound_ms']:.5f} ms ({r['bound_by']}: "
             f"{r['bytes'] / 1e6:.2f} MB at 3.35 TB/s)")
+    rows["quantize_blocked"]["flush"] = flush
     return {"rows": rows, "shape": f"x {shape} f32 U(-1,1), block {bs}",
             "also": f"x {tuple(xp.shape)} per channel, {tuple(xf.shape)} "
                     f"blocked (bf16 values)"}
@@ -1258,6 +1320,7 @@ def kernels_line(decode, prefill, flat, quant, paper, flash, seed, mma,
                        **{k: z["kernels"][name][k] for k in (
                            "ms", "plain_ms", "bound_ms", "library_ms")}}
                       for z in paper["sizes"]],
+            **({"flush": r["flush"]} if "flush" in r else {}),
             **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")}})
     for e in out:

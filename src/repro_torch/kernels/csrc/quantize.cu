@@ -14,12 +14,19 @@
 // of one warp; rows stride by 8 inside the block. Reductions over T run in
 // registers, then shared memory, then (absmax only, whose T axis is split
 // across blocks) an integer atomicMax on the float bits, which orders
-// non-negative floats exactly. The blocked kernel reduces its block's rows
-// and then reads them again (from L2) to quantize: one kernel, no scratch.
+// non-negative floats exactly.
+// The blocked kernel reads each element from device memory once: a block
+// owns a (token block, column slab) whole and keeps its rows in registers
+// from the absmax to the quantize, so no block waits on another. The slab
+// is as narrow as the rows need (L lanes of 16 bytes a row, kThreads / L
+// rows a sweep, at most kRegRows sweeps: 8 lanes, 128-byte rows, at block
+// 256) and narrower still where the grid would not fill the card; only a
+// token block of more than 2048 rows (one lane) reads its last rows twice.
 //
 // Bitwise equal to the plain PyTorch versions: the scale a product with
 // float32(1/127), values an IEEE division by it (__fdiv_rn), round half to
-// even (rintf); max is order-free; no fast-math anywhere.
+// even (rintf); max is order-free, so any partition of a reduction is
+// exact; no fast-math anywhere.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -32,6 +39,7 @@ constexpr int kThreads = kLanes * kRowGroups;
 constexpr int kCols = 4 * kLanes;
 constexpr int kAbsmaxRows = 256;              // T rows per absmax block
 constexpr int kRows = 64;                     // T rows per quantize/dequantize block
+constexpr int kRegRows = 8;                   // sweeps a blocked-quantize thread holds
 constexpr float kQmax = 127.f;
 constexpr float kInvQmax = 1.f / 127.f;      // float32(1/127), folded exactly
 constexpr float kEps = 1e-30f;
@@ -116,41 +124,76 @@ __global__ void __launch_bounds__(kThreads) quantize_scales_kernel(
   }
 }
 
+__device__ __forceinline__ float4 shfl_xor4(float4 v, int off) {
+  return make_float4(__shfl_xor_sync(0xffffffffu, v.x, off),
+                     __shfl_xor_sync(0xffffffffu, v.y, off),
+                     __shfl_xor_sync(0xffffffffu, v.z, off),
+                     __shfl_xor_sync(0xffffffffu, v.w, off));
+}
+
 // Per (token block y, channel): absmax over the block's bs rows, the scale
-// row, then the block's int8 values. Grid (ceil(D / 128), T / bs, N).
-__global__ void __launch_bounds__(kThreads) quantize_blocked_kernel(
+// row, then the block's int8 values. Grid (ceil(D / (4 L)), T / bs, N): a
+// block owns a slab of 4 L columns of one token block, L lanes a row (16
+// bytes each) and kThreads / L rows a sweep, and holds up to kRegRows
+// sweeps in registers from the absmax to the quantize. Three blocks an SM
+// leave it 80 registers a thread: without the hint ptxas keeps 64 and
+// spills up to 44 bytes.
+template <int L>
+__global__ void __launch_bounds__(kThreads, 3) quantize_blocked_kernel(
     const float* __restrict__ x, int8_t* __restrict__ q, float* __restrict__ scales,
     int T, int D, int bs) {
-  __shared__ float4 red[kRowGroups][kLanes];
-  const int lane = threadIdx.x % kLanes, rg = threadIdx.x / kLanes;
-  const int col = blockIdx.x * kCols + 4 * lane;
-  const int nb = gridDim.y;
-  const size_t base = (static_cast<size_t>(blockIdx.z) * T +
-                       static_cast<size_t>(blockIdx.y) * bs) * D + col;
+  constexpr int RS = kThreads / L;  // rows a sweep
+  __shared__ float4 red[kThreads / 32][L];
+  const int lane = threadIdx.x % L, row = threadIdx.x / L, warp = threadIdx.x / 32;
+  const int col = blockIdx.x * 4 * L + 4 * lane;
+  const bool in = col < D;
+  const float* xb = x + (static_cast<size_t>(blockIdx.z) * T +
+                         static_cast<size_t>(blockIdx.y) * bs) * D + col;
+  int8_t* qb = q + (xb - x);
+
+  // rows row + k * RS: all loads issued before any is used
+  float4 v[kRegRows];
+#pragma unroll
+  for (int k = 0; k < kRegRows; ++k) {
+    const int t = row + k * RS;
+    v[k] = in && t < bs ? load4(xb + static_cast<size_t>(t) * D)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
   float4 m = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (col < D) {
-#pragma unroll 4
-    for (int t = rg; t < bs; t += kRowGroups)
-      m = abs_max4(m, load4(x + base + static_cast<size_t>(t) * D));
-  }
-  red[rg][lane] = m;
+#pragma unroll
+  for (int k = 0; k < kRegRows; ++k) m = abs_max4(m, v[k]);
+  // rows past the registers' sweeps are read again to quantize
+  for (int t = row + kRegRows * RS; in && t < bs; t += RS)
+    m = abs_max4(m, load4(xb + static_cast<size_t>(t) * D));
+  // the warp's rows (lanes L apart share columns), then the block's warps
+#pragma unroll
+  for (int off = 16; off >= L; off /= 2) m = max4(m, shfl_xor4(m, off));
+  if (threadIdx.x % 32 < L) red[warp][lane] = m;
   __syncthreads();
-  if (rg == 0) {
-    for (int g = 1; g < kRowGroups; ++g) m = max4(m, red[g][lane]);
-    const float4 s = make_float4(scale_of(m.x), scale_of(m.y), scale_of(m.z), scale_of(m.w));
-    red[0][lane] = s;
-    if (col < D)
-      *reinterpret_cast<float4*>(
-          scales + (static_cast<size_t>(blockIdx.z) * nb + blockIdx.y) * D + col) = s;
+#pragma unroll
+  for (int w = 0; w < kThreads / 32; ++w) m = max4(m, red[w][lane]);
+  if (!in) return;
+  const float4 s = make_float4(scale_of(m.x), scale_of(m.y), scale_of(m.z), scale_of(m.w));
+  if (row == 0)
+    *reinterpret_cast<float4*>(
+        scales + (static_cast<size_t>(blockIdx.z) * gridDim.y + blockIdx.y) * D + col) = s;
+#pragma unroll
+  for (int k = 0; k < kRegRows; ++k) {
+    const int t = row + k * RS;
+    if (t < bs) *reinterpret_cast<char4*>(qb + static_cast<size_t>(t) * D) = quant4(v[k], s);
   }
-  __syncthreads();
-  if (col >= D) return;
-  const float4 s = red[0][lane];
-#pragma unroll 4
-  for (int t = rg; t < bs; t += kRowGroups) {
-    const size_t off = base + static_cast<size_t>(t) * D;
-    *reinterpret_cast<char4*>(q + off) = quant4(load4(x + off), s);
+  for (int t = row + kRegRows * RS; t < bs; t += RS) {
+    const size_t off = static_cast<size_t>(t) * D;
+    *reinterpret_cast<char4*>(qb + off) = quant4(load4(xb + off), s);
   }
+}
+
+template <int L>
+cudaError_t launch_blocked(const float* x, int8_t* q, float* scales, int N, int T, int D,
+                           int bs, cudaStream_t stream) {
+  const dim3 grid((D + 4 * L - 1) / (4 * L), T / bs, N);
+  quantize_blocked_kernel<L><<<grid, kThreads, 0, stream>>>(x, q, scales, T, D, bs);
+  return cudaGetLastError();
 }
 
 __device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
@@ -213,13 +256,22 @@ extern "C" int quantize_with_scales(const float* x, const float* absmax, int8_t*
   return cudaGetLastError();
 }
 
+// lanes: 16-byte lanes a row, a power of two from 1 to 32 (the wrapper's
+// quantize.blocked_lanes picks it)
 extern "C" int quantize_blocked(const float* x, int8_t* q, float* scales, int N, int T,
-                                int D, int bs, void* stream) {
+                                int D, int bs, int lanes, void* stream) {
   if (bad_shape(N, T, D) || bs <= 0 || T % bs || T / bs > 65535)
     return cudaErrorInvalidValue;
-  quantize_blocked_kernel<<<grid_of(N, T, D, bs), kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(x, q, scales, T, D, bs);
-  return cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (lanes) {
+    case 1: return launch_blocked<1>(x, q, scales, N, T, D, bs, s);
+    case 2: return launch_blocked<2>(x, q, scales, N, T, D, bs, s);
+    case 4: return launch_blocked<4>(x, q, scales, N, T, D, bs, s);
+    case 8: return launch_blocked<8>(x, q, scales, N, T, D, bs, s);
+    case 16: return launch_blocked<16>(x, q, scales, N, T, D, bs, s);
+    case 32: return launch_blocked<32>(x, q, scales, N, T, D, bs, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int dequantize(const int8_t* q, const float* scales, void* out, int N, int T,

@@ -95,10 +95,11 @@ def quant_attention_decode_partials_vmap(q, k_q, k_s, v_q, v_s, length, *,
                                          window=None,
                                          block_t: int | None = None):
     """The seed baseline: the partials of `quant_attention_decode_partials`
-    from a kernel that walks every ``block_t`` tile of T (dead ones
-    masked, not skipped). ``block_t`` defaults as the reference's
-    (T / nb per block; 256 per channel where it divides T) and must
-    divide T into 1 or nb scale rows' worth of tiles."""
+    from a kernel that reads and folds every slot of T (dead ones masked,
+    not skipped). ``block_t`` is the reference's tile: it defaults as the
+    reference's (T / nb per block; 256 per channel where it divides T)
+    and must divide T into 1 or nb scale rows' worth of tiles; the CUDA
+    kernel walks flat decode's splits instead, over the same slots."""
     B = q.shape[0]
     T, nb = k_q.shape[2], k_s.shape[2]
     if block_t is None:

@@ -15,8 +15,9 @@ older than the row's window are masked. Its kernel splits each row's slots
 into runs of ``flat_decode_splits`` and merges them as the paged one does.
 
 Seed (port of ``_decode_kernel``, the reference's baseline under vmap):
-the flat kernel's result with the baseline's cost, every tile of T walked
-and the dead slots masked. Its plain version is the flat one.
+the flat kernel's result with the baseline's cost, every slot of T copied
+and folded and the dead ones masked. Its kernel is flat decode's split
+walk with the dead-slot skip left out; its plain version is the flat one.
 
 All return UNNORMALIZED flash partials ``(o, m, l)`` so the caller can
 merge them with the fp residual tail; a row with nothing to attend yields
@@ -109,9 +110,9 @@ FLAT_TILE = 64     # slots a split of the flat walk is a multiple of
 
 
 def flat_decode_splits(B: int, Hkv: int, G: int, T: int, sms: int):
-    """(splits, slots per split) of the flat decode kernel's walk over T
-    slots: about two blocks per SM over B * H_kv * ceil(G / 2) (kv head,
-    query pair) blocks where T allows, a split a whole number of
+    """(splits, slots per split) of the flat decode and seed kernels' walk
+    over T slots: about two blocks per SM over B * H_kv * ceil(G / 2)
+    (kv head, query pair) blocks where T allows, a split a whole number of
     FLAT_TILE-slot tiles, rounded up (on an H100, 8 splits of 256 slots at
     4 rows x 2048 ran faster than 11 of 192). From host-known shapes only:
     reading the lengths or windows would sync."""
@@ -243,20 +244,21 @@ def flat_decode_partials_plain(q, k_q, k_s, v_q, v_s, lengths, windows,
     return o.reshape(B, H, D), m.reshape(B, H, 1), l.reshape(B, H, 1)
 
 
-_SEED_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + \
-    [ctypes.c_float, ctypes.c_void_p]
 _FLAT_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + \
     [ctypes.c_float, ctypes.c_void_p]
 
 
-def _flat_check(lib, q, k_q, k_s, v_q, v_s, lengths, windows):
-    """Check the contiguous decode kernels' arguments; returns the
-    outputs (o, m, l), allocated."""
+def _flat_split_launch(lib, q, k_q, k_s, v_q, v_s, lengths, windows):
+    """Check the arguments of one of the contiguous cache's split walks
+    (library ``lib``, csrc/flat_split.cuh), launch it and, with more than
+    one split, the merge of its float32 partials (scratch from
+    `torch.empty`; `flat_decode_splits` sizes it). Returns (o, m, l)."""
+    label = lib.replace("_", " ")
     B, H, D = q.shape
     _, Hkv, T, _ = k_q.shape
     nb = k_s.shape[2]
     if D not in HEAD_DIMS or H % Hkv or T % nb:
-        raise ValueError(f"{lib} kernel takes head_dim in {HEAD_DIMS}, "
+        raise ValueError(f"{label} kernel takes head_dim in {HEAD_DIMS}, "
                          f"H % H_kv == 0 and T % nb == 0 (got D={D}, H={H}, "
                          f"H_kv={Hkv}, T={T}, nb={nb})")
     _check(q, "q", torch.float32)
@@ -266,22 +268,10 @@ def _flat_check(lib, q, k_q, k_s, v_q, v_s, lengths, windows):
     _check(v_s, "v_s", torch.float32, (B, Hkv, nb, D))
     _check(lengths, "lengths", torch.int32, (B,))
     _check(windows, "windows", torch.int32, (B,))
-    return tuple(torch.empty(shape, dtype=torch.float32, device=q.device)
-                 for shape in ((B, H, D), (B, H, 1), (B, H, 1)))
-
-
-def flat_decode_partials_cuda(q, k_q, k_s, v_q, v_s, lengths, windows):
-    """Launch the CUDA kernels (same contract as the plain version; q must
-    be float32): the split slot walk, then, with more than one split, the
-    merge of its float32 partials (scratch from `torch.empty`;
-    `flat_decode_splits` sizes it). Counts each call in
-    ``flat_decode_partials_cuda.launches``."""
-    o, m, l = _flat_check("flat decode", q, k_q, k_s, v_q, v_s, lengths,
-                          windows)
     _check_aligned(q=q, k_q=k_q, v_q=v_q, k_s=k_s, v_s=v_s)
-    B, H, D = q.shape
-    _, Hkv, T, _ = k_q.shape
-    fn = _build.load("flat_decode", "flat_decode_partials", _FLAT_ARGTYPES)
+    o, m, l = (torch.empty(shape, dtype=torch.float32, device=q.device)
+               for shape in ((B, H, D), (B, H, 1), (B, H, 1)))
+    fn = _build.load(lib, f"{lib}_partials", _FLAT_ARGTYPES)
     nsplit, tps = flat_decode_splits(B, Hkv, H // Hkv, T,
                                      _sm_count(q.device))
     # scratch: o_s (B, H, nsplit, D), then m_s and l_s (B, H, nsplit)
@@ -293,34 +283,32 @@ def flat_decode_partials_cuda(q, k_q, k_s, v_q, v_s, lengths, windows):
             v_s.data_ptr(), lengths.data_ptr(), windows.data_ptr(),
             o.data_ptr(), m.data_ptr(), l.data_ptr(),
             base, base + 4 * n * D, base + 4 * n * (D + 1),
-            B, H, Hkv, D, T, k_s.shape[2], tps, nsplit, logit_scale(D),
+            B, H, Hkv, D, T, nb, tps, nsplit, logit_scale(D),
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc:
-        raise RuntimeError(f"flat decode kernel launch failed: CUDA error "
-                           f"{rc}")
-    flat_decode_partials_cuda.launches += 1
+        raise RuntimeError(f"{label} kernel launch failed: CUDA error {rc}")
     return o, m, l
+
+
+def flat_decode_partials_cuda(q, k_q, k_s, v_q, v_s, lengths, windows):
+    """Launch the CUDA kernels (same contract as the plain version; q must
+    be float32): the split walk over the live slots, then the merge.
+    Counts each call in ``flat_decode_partials_cuda.launches``."""
+    out = _flat_split_launch("flat_decode", q, k_q, k_s, v_q, v_s, lengths,
+                             windows)
+    flat_decode_partials_cuda.launches += 1
+    return out
 
 
 def seed_decode_partials_cuda(q, k_q, k_s, v_q, v_s, lengths, windows):
-    """Launch the seed-baseline kernel: the contract of
-    `flat_decode_partials_plain`, every tile of T walked. Counts each
-    launch in ``seed_decode_partials_cuda.launches``."""
-    o, m, l = _flat_check("seed decode", q, k_q, k_s, v_q, v_s, lengths,
-                          windows)
-    B, H, D = q.shape
-    _, Hkv, T, _ = k_q.shape
-    fn = _build.load("seed_decode", "seed_decode_partials", _SEED_ARGTYPES)
-    rc = fn(q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
-            v_s.data_ptr(), lengths.data_ptr(), windows.data_ptr(),
-            o.data_ptr(), m.data_ptr(), l.data_ptr(), B, H, Hkv, D, T,
-            k_s.shape[2], logit_scale(D),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    if rc:
-        raise RuntimeError(f"seed decode kernel launch failed: CUDA error "
-                           f"{rc}")
+    """Launch the seed-baseline kernels: the contract of
+    `flat_decode_partials_plain`, flat decode's split walk with every slot
+    of T copied and folded (dead ones masked, not skipped), then the
+    merge. Counts each call in ``seed_decode_partials_cuda.launches``."""
+    out = _flat_split_launch("seed_decode", q, k_q, k_s, v_q, v_s, lengths,
+                             windows)
     seed_decode_partials_cuda.launches += 1
-    return o, m, l
+    return out
 
 
 flat_decode_partials_cuda.launches = 0

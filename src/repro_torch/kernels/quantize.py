@@ -10,7 +10,9 @@ launch quantizes every (row, kv head) matrix of a cache at once:
                         absmax over T, then s = max(absmax, 1e-30) / 127
                         and q = clip(round(x / max(s, 1e-30)), +-127)
   quantize_blocked      ``_quantize_blocked_kernel``: per (token block,
-                        channel) absmax and quantize in one kernel,
+                        channel) absmax and quantize in one kernel that
+                        reads each element once (a block holds a token
+                        block's column slab in registers),
                         s = max(absmax, 1e-30) / 127, q = clip(round(x / s))
   dequantize            ``_dequantize_kernel``: q * s per scale row, to
                         float32 or bfloat16
@@ -42,7 +44,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.quant_attention import _check
+from repro_torch.kernels.quant_attention import _check, _sm_count
 
 QMAX = 127.0
 _EPS = 1e-30
@@ -167,9 +169,37 @@ def quantize_per_channel_cuda(x: torch.Tensor):
     return quantize_with_scales_cuda(x, absmax_cuda(x))
 
 
+# the blocked kernel's kThreads and kRegRows (csrc/quantize.cu)
+BLOCKED_THREADS = 256  # threads a block
+BLOCKED_SWEEPS = 8     # row sweeps a thread holds in registers
+
+
+def blocked_lanes(N: int, T: int, D: int, block_size: int, sms: int) -> int:
+    """16-byte lanes a row in the blocked kernel: a block owns a slab of
+    4 x lanes columns of one token block, BLOCKED_THREADS / lanes rows a
+    sweep. As wide as D needs (at most 32: 128 columns), narrowed until
+    the block's rows fit in BLOCKED_SWEEPS sweeps, then, while the grid
+    gives fewer than two blocks an SM, halved again (not below 4 lanes,
+    64-byte rows, nor to a sweep taller than the token block). At block
+    256 and D 128: 8 lanes; at a flush (N 32, T 256) on 132 SMs, 4. From
+    shapes and the SM count only."""
+    lanes = 32
+    while lanes > 1 and 4 * (lanes // 2) >= D:
+        lanes //= 2
+    while lanes > 1 and -(-block_size * lanes // BLOCKED_THREADS) > \
+            BLOCKED_SWEEPS:
+        lanes //= 2
+    blocks = lambda n: -(-D // (4 * n)) * (T // block_size) * N
+    while lanes > 4 and BLOCKED_THREADS // (lanes // 2) <= block_size and \
+            blocks(lanes) < 2 * sms:
+        lanes //= 2
+    return lanes
+
+
 def quantize_blocked_cuda(x: torch.Tensor, block_size: int):
-    """Same contract as `quantize_blocked_plain`; x must be float32.
-    Counts each launch in ``quantize_blocked_cuda.launches``."""
+    """Same contract as `quantize_blocked_plain`; x must be float32; the
+    kernel's slab width from `blocked_lanes`. Counts each launch in
+    ``quantize_blocked_cuda.launches``."""
     lead, N, T, D = _matrices(x)
     if T % block_size:
         raise ValueError(f"T={T} not a multiple of block_size={block_size}")
@@ -178,12 +208,14 @@ def quantize_blocked_cuda(x: torch.Tensor, block_size: int):
         raise ValueError(f"{nb} token blocks: the kernel takes <= 65535")
     _check(x, "x", torch.float32)
     fn = _build.load("quantize", "quantize_blocked",
-                     [_P, _P, _P, _I, _I, _I, _I, _P])
+                     [_P, _P, _P, _I, _I, _I, _I, _I, _P])
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     scales = torch.empty((*lead, nb, D), dtype=torch.float32,
                          device=x.device)
     _raise_on(fn(x.data_ptr(), q.data_ptr(), scales.data_ptr(), N, T, D,
-                 block_size, _stream(x)), "quantize-blocked")
+                 block_size, blocked_lanes(N, T, D, block_size,
+                                           _sm_count(x.device)), _stream(x)),
+              "quantize-blocked")
     quantize_blocked_cuda.launches += 1
     return q, scales
 

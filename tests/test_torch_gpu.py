@@ -4,14 +4,15 @@ int8, fp8_e4m3 and int4 pages (paged decode also at batches that give
 one, two, four and eight splits of the page walk; paged prefill also at
 chunks of 512 and 1024 with row tiles past `valid`, which must come out
 0.0), the flat decode kernel and the seed baseline per block and per
-channel (ring windows included; flat decode also at batches 2 to 40, from
-16 splits of its slot walk to one, window 0 and T 1032),
+channel (ring windows included; both also at batches 2 to 40, from
+16 splits of their slot walk to one, window 0 and T 1032),
 the flash forward (float32 on the CUDA cores and bfloat16 on the tensor
 cores; causal, windowed, offset, ragged, GQA groups of 1 to 8), the
 quantize/dequantize family — at the smoke shapes and at internlm2_1_8b's
-widths; the smoke engines' greedy tokens on the card against the CPU
-(paged and contiguous, and `greedy_generate`); and the smoke train step's
-loss on the card against the CPU. Skipped where there is no card; imports
+widths (the blocked kernel's slabs also at a flush, at blocks of 24
+and 8 and at D 16 to 8192); the smoke engines' greedy tokens on the card
+against the CPU (paged and contiguous, and `greedy_generate`); and the
+smoke train step's loss on the card against the CPU. Skipped where there is no card; imports
 no JAX (the card's machine has none).
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
@@ -220,6 +221,47 @@ def test_flat_decode_split_walk_matches_plain(B, per_channel, cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("per_channel", [False, True],
+                         ids=["per_block", "per_channel"])
+@pytest.mark.parametrize("B", [2, 4, 10, 40])
+def test_seed_decode_split_walk_matches_plain(B, per_channel, cuda_device):
+    """The seed baseline walks flat decode's splits (16 of 128 slots at B 2
+    down to one at B 40) but copies and folds every slot of each, dead ones
+    masked: lengths 0, 1, partial, full and a ring row, windows (one of
+    0), per block at T 2048 and per channel at T 1032; a split wholly past
+    a row's live slots must still add nothing."""
+    H, Hkv, D, bs = WIDTHS[1]
+    T = 1032 if per_channel else 2048
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=cuda_device)
+    cycle = [(0, T), (1, T), (63, T), (T, T), (T + 300, 1024), (700, T),
+             (T, 0), (65, 40), (T - 1, 500), (300, T)]
+    lengths = i32([cycle[i % len(cycle)][0] for i in range(B)])
+    windows = i32([cycle[i % len(cycle)][1] for i in range(B)])
+    k = torch.randn((B, Hkv, T, D), generator=gen, device=cuda_device)
+    v = torch.randn((B, Hkv, T, D), generator=gen, device=cuda_device)
+    quant = (QK.quantize_per_channel_plain if per_channel
+             else lambda x: QK.quantize_blocked_plain(x, bs))
+    (kq, ks), (vq, vs) = quant(k), quant(v)
+    if per_channel:
+        ks, vs = ks[:, :, None].contiguous(), vs[:, :, None].contiguous()
+    args = (torch.randn((B, H, D), generator=gen, device=cuda_device), kq,
+            ks, vq, vs, lengths, windows)
+    before = QA.seed_decode_partials_cuda.launches
+    got = ops.quant_attention_decode_partials_vmap(*args[:6],
+                                                   window=windows)
+    torch.cuda.synchronize()
+    assert QA.seed_decode_partials_cuda.launches == before + 1
+    want = QA.flat_decode_partials_plain(*args)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **TOL)
+    dead = (lengths == 0) | (windows == 0)        # exactly the plain's
+    assert float(got[0][dead].abs().max()) == 0.0
+    assert float(got[2][dead].abs().max()) == 0.0
+    assert bool((got[1][dead] == want[1][dead]).all())
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("kv_dtype", DTYPES)
 @pytest.mark.parametrize("C", [512, 1024])
 def test_prefill_kernel_dead_tiles_match_plain(C, kv_dtype, cuda_device):
@@ -328,6 +370,30 @@ def test_quantize_kernels_bitwise(shape, bs, cuda_device):
     before = QK.quantize_blocked_cuda.launches
     ops.quantize_blocked(x, bs)
     assert QK.quantize_blocked_cuda.launches == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,bs", [((4, 8, 256, 128), 256),
+                                      ((2, 2, 48, 16), 24),
+                                      ((1, 1, 1032, 64), 8),
+                                      ((1, 1, 4096, 8192), 256)],
+                         ids=["flush", "bs24-D16", "bs8-D64", "D8192"])
+def test_quantize_blocked_slab_bitwise(shape, bs, cuda_device):
+    """The blocked kernel's slabs (`blocked_lanes`: 4 lanes at a flush, 8
+    at D 8192, a sweep taller than the block at 24, D 16 and 64 narrower
+    than one 128-column slab) bitwise against the plain version, with an
+    all-zero channel and one of absmax 1e-29."""
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    x = torch.rand(shape, generator=gen, device=cuda_device) * 2 - 1
+    x[..., 2] = 0.0
+    x[..., 3] *= 1e-29
+    x[..., 0, 3] = 1e-29
+    before = QK.quantize_blocked_cuda.launches
+    got = QK.quantize_blocked_cuda(x, bs)
+    torch.cuda.synchronize()
+    assert QK.quantize_blocked_cuda.launches == before + 1
+    for g, w in zip(got, QK.quantize_blocked_plain(x, bs)):
+        _bitwise(g, w)
 
 
 def _to(x, device):
