@@ -22,8 +22,12 @@ Phases, each fatal on failure (no fallback anywhere):
      flash forward in bf16 at the training shape (4, 16, 2048, 128) causal
      and the contiguous prefill's 1536 rebuild, with a window and
      kv_offset, and at an odd S in float32; the quantize family bitwise at
-     (4, 8, 2048, 128), per channel at (4, 8, 1000, 128) and blocked at a
-     flush's (4, 8, 256, 128) (also timed there beside its bound). Times
+     (4, 8, 2048, 128), per channel at (4, 8, 1000, 128) (also timed there,
+     each kernel and the pair back to back) and blocked at a flush's (4, 8,
+     256, 128) (also timed there beside its bound), and with NaN and inf
+     channels (NaN where the plain versions have it, every other bit
+     equal, int8 0 in those channels as in the reference); an empty launch
+     timed as the kernels are, the harness's floor. Times
      from CUDA events, the L2 cache flushed and the host's enqueue kept
      off the clock before each launch;
      the flash forward's and paged prefill's achieved TFLOP/s and the
@@ -35,7 +39,10 @@ Phases, each fatal on failure (no fallback anywhere):
   3. the paper's kernels at its eight (T, D) sizes: quantize per channel,
      quantize blocked (block 256) and dequantize through `kernels.ops`
      (launches counted), each bitwise against its plain version, Eq. 9
-     checked (with float32 rounding slack), errors and times printed.
+     checked (with float32 rounding slack), errors and times printed (the
+     per-channel pair also back to back); then the pair at each distinct
+     (T, D) that --grad-compression quantizes (internlm2_1_8b's 12 stacked
+     gradient leaves), bitwise and timed.
   4. CPU <-> card parity: the smoke config in float32 on the card
      (kernels) and on the CPU (plain versions): identical greedy tokens
      from the paged LLMEngine, the contiguous LLMEngine and greedy_generate
@@ -113,22 +120,31 @@ _FLUSH = []
 
 # cycles the card spins after the L2 flush, about 0.1 ms: the host enqueues
 # the timed call meanwhile, so the events time the card's work and not the
-# wrapper's Python (which takes up to ~0.1 ms a call)
+# wrapper's Python (which takes up to ~0.1 ms a call); a call of two
+# wrappers (the per-channel pair) spins four times as long
 SPIN_CYCLES = 200_000
+PAIR_SPIN = 4 * SPIN_CYCLES
 
 
-def time_cold_ms(fn, iters: int, warmup: int = 1) -> float:
-    """Mean ms of ``fn`` with the 50 MB L2 cache evicted (a 256 MB write)
-    before each launch; CUDA events bracket ``fn`` alone, and a spin on
-    the card after the flush keeps the host's enqueue off the clock."""
+def time_cold_ms(fn, iters: int, warmup: int = 1,
+                 spin: int = SPIN_CYCLES, clean: bool = False) -> float:
+    """Mean ms of ``fn`` with the 50 MB L2 cache evicted (a 256 MB write,
+    which leaves the L2 full of dirty lines: a cold read pays their
+    write-back; ``clean``: a 256 MB read, which leaves clean lines) before
+    each launch; CUDA events bracket ``fn`` alone, and a spin of ``spin``
+    cycles on the card after the flush keeps the host's enqueue off the
+    clock."""
     import torch
     if not _FLUSH:
         _FLUSH.append(torch.empty(64 << 20, dtype=torch.float32,
                                   device="cuda"))
     pairs = []
     for i in range(warmup + iters):
-        _FLUSH[0].zero_()
-        torch.cuda._sleep(SPIN_CYCLES)
+        if clean:
+            _FLUSH[0].sum()
+        else:
+            _FLUSH[0].zero_()
+        torch.cuda._sleep(spin)
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
         t0.record()
@@ -152,6 +168,18 @@ def same_bits(a, b) -> bool:
     import torch
     return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
         a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8)))
+
+
+def same_bits_nan(a, b) -> bool:
+    """NaN at the same positions, every other bit equal."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.dtype.is_floating_point:
+        return same_bits(a, b)
+    nan = torch.isnan(b)
+    return bool(torch.equal(torch.isnan(a), nan)) and same_bits(a[~nan],
+                                                                b[~nan])
 
 
 def excess(got, want, atol=ATOL, rtol=RTOL) -> float:
@@ -718,26 +746,81 @@ def prefill_mma_count() -> dict:
     return counts
 
 
+def _time_rows(specs: dict, iters: int, plain_iters: int,
+               clean: bool = False) -> dict:
+    """Each (kernel, plain, bytes, operations, library call or None, its
+    name) of ``specs`` timed with the L2 flushed beside its bound (with
+    ``clean``, the kernel also after a flush that leaves clean lines:
+    "ms_clean_l2"); "pair" (two wrappers back to back) with the longer
+    spin."""
+    rows = {}
+    for name, (kern, plain, nbytes, flops, lib, lib_name) in specs.items():
+        bound, by = bound_of(nbytes, flops)
+        spin = PAIR_SPIN if name == "pair" else SPIN_CYCLES
+        rows[name] = {
+            "ms": time_cold_ms(kern, iters, spin=spin),
+            **({"ms_clean_l2": time_cold_ms(kern, iters, spin=spin,
+                                            clean=True)} if clean else {}),
+            "plain_ms": time_cold_ms(plain, plain_iters),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": time_cold_ms(lib, iters) if lib else None,
+            "library": lib_name, "bytes": nbytes}
+    return rows
+
+
+def per_channel_rows(x, iters: int, plain_iters: int) -> dict:
+    """The per-channel pair on float32 x (..., T, D): each kernel bitwise
+    against its plain version, then each and the two back to back
+    (`quantize_per_channel_cuda`, bound: the sum of theirs) timed
+    (`_time_rows`, also after a flush that leaves the L2 clean). Launches
+    here are comparisons, not the main path."""
+    import torch
+    from repro_torch.kernels import quantize as QK
+    T, D = x.shape[-2:]
+    n = x.numel()
+    N = n // (T * D)
+    am = QK.absmax_cuda(x)
+    q, s = QK.quantize_with_scales_cuda(x, am)
+    torch.cuda.synchronize()
+    if not (same_bits(am, QK.absmax_plain(x)) and all(
+            same_bits(g, w) for g, w in zip(
+                (q, s), QK.quantize_with_scales_plain(x, am)))):
+        raise AssertionError(f"per-channel pair at {tuple(x.shape)}: kernel "
+                             f"and plain version differ (must be bitwise)")
+    a_bytes, q_bytes = 4 * n + 4 * N * D, 5 * n + 8 * N * D
+    return _time_rows({
+        "absmax": (lambda: QK.absmax_cuda(x), lambda: QK.absmax_plain(x),
+                   a_bytes, 2 * n,
+                   lambda: torch.linalg.vector_norm(x, float("inf"), dim=-2),
+                   "torch.linalg.vector_norm(x, inf, dim=-2)"),
+        "quantize_with_scales": (
+            lambda: QK.quantize_with_scales_cuda(x, am),
+            lambda: QK.quantize_with_scales_plain(x, am), q_bytes, 4 * n, None,
+            "none: no single PyTorch call rounds x / s half to even into "
+            "symmetric +-127 int8 (torch.quantize_per_channel adds a zero "
+            "point and clamps to [-128, 127])"),
+        "pair": (lambda: QK.quantize_per_channel_cuda(x),
+                 lambda: QK.quantize_per_channel_plain(x), a_bytes + q_bytes,
+                 6 * n, None, "none")}, iters, plain_iters, clean=True)
+
+
 def quantize_family(x, bs: int, iters: int, plain_iters: int) -> dict:
-    """The four quantize kernels on float32 x (..., T, D): each bitwise
-    against its plain version, then timed with the L2 flushed (kernel,
-    plain version, one PyTorch call where one computes the same function)
-    beside its bound. Launches here are comparisons, not the main path."""
+    """The four quantize kernels on float32 x (..., T, D), and the
+    per-channel pair back to back: each bitwise against its plain version,
+    then timed with the L2 flushed (kernel, plain version, one PyTorch call
+    where one computes the same function) beside its bound. Launches here
+    are comparisons, not the main path."""
     import torch
     from repro_torch.kernels import quantize as QK
     T, D = x.shape[-2:]
     n = x.numel()
     N, nb = n // (T * D), T // bs
-    am = QK.absmax_cuda(x)
-    q, s = QK.quantize_with_scales_cuda(x, am)
+    rows = per_channel_rows(x, iters, plain_iters)
     bq, bsc = QK.quantize_blocked_cuda(x, bs)
     deq = QK.dequantize_cuda(bq, bsc)
     deq16 = QK.dequantize_cuda(bq, bsc, torch.bfloat16)
     torch.cuda.synchronize()
     for name, got, want in (
-            ("absmax", (am,), (QK.absmax_plain(x),)),
-            ("quantize_with_scales", (q, s),
-             QK.quantize_with_scales_plain(x, am)),
             ("quantize_blocked", (bq, bsc), QK.quantize_blocked_plain(x, bs)),
             ("dequantize", (deq, deq16),
              (QK.dequantize_plain(bq, bsc),
@@ -745,19 +828,7 @@ def quantize_family(x, bs: int, iters: int, plain_iters: int) -> dict:
         if not all(same_bits(g, w) for g, w in zip(got, want)):
             raise AssertionError(f"{name} at {tuple(x.shape)}: kernel and "
                                  f"plain version differ (must be bitwise)")
-    inf = float("inf")
-    specs = {   # kernel, plain, bytes, operations, library call and its name
-        "absmax": (lambda: QK.absmax_cuda(x), lambda: QK.absmax_plain(x),
-                   4 * n + 4 * N * D, 2 * n,
-                   lambda: torch.linalg.vector_norm(x, inf, dim=-2),
-                   "torch.linalg.vector_norm(x, inf, dim=-2)"),
-        "quantize_with_scales": (
-            lambda: QK.quantize_with_scales_cuda(x, am),
-            lambda: QK.quantize_with_scales_plain(x, am),
-            4 * n + 4 * N * D + n + 4 * N * D, 4 * n, None,
-            "none: no single PyTorch call rounds x / s half to even into "
-            "symmetric +-127 int8 (torch.quantize_per_channel adds a zero "
-            "point and clamps to [-128, 127])"),
+    rows.update(_time_rows({
         "quantize_blocked": (
             lambda: QK.quantize_blocked_cuda(x, bs),
             lambda: QK.quantize_blocked_plain(x, bs),
@@ -769,18 +840,51 @@ def quantize_family(x, bs: int, iters: int, plain_iters: int) -> dict:
             lambda: QK.dequantize_plain(bq, bsc),
             n + 4 * N * nb * D + 4 * n, n,
             lambda: torch.mul(bq.view(N, nb, bs, D), bsc.view(N, nb, 1, D)),
-            "torch.mul(int8 values, float32 scale rows) -> float32"),
-    }
-    rows = {}
-    for name, (kern, plain, nbytes, flops, lib, lib_name) in specs.items():
-        bound, by = bound_of(nbytes, flops)
-        rows[name] = {
-            "ms": time_cold_ms(kern, iters),
-            "plain_ms": time_cold_ms(plain, plain_iters),
-            "bound_ms": bound, "bound_by": by,
-            "library_ms": time_cold_ms(lib, iters) if lib else None,
-            "library": lib_name, "bytes": nbytes}
+            "torch.mul(int8 values, float32 scale rows) -> float32")},
+        iters, plain_iters))
     return rows
+
+
+def with_nan_inf(x):
+    """x with a NaN in channel 5, +inf in 6, -inf in 7, NaN and inf in 8
+    (one row each, of every matrix)."""
+    x = x.clone()
+    x[..., 1, 5] = float("nan")
+    x[..., -1, 6] = float("inf")
+    x[..., 0, 7] = float("-inf")
+    x[..., 0, 8] = float("nan")
+    x[..., -1, 8] = float("inf")
+    return x
+
+
+def check_nan_inf(x, bs: int) -> str:
+    """The three quantize kernels on x with NaN and inf channels against
+    their plain versions (NaN at the same positions, every other bit
+    equal), and the reference's answer on the card: NaN / inf scales,
+    int8 0 for every value of those channels."""
+    import torch
+    from repro_torch.kernels import quantize as QK
+    x = with_nan_inf(x)
+    am = QK.absmax_cuda(x)
+    q, s = QK.quantize_with_scales_cuda(x, am)
+    bq, bsc = QK.quantize_blocked_cuda(x, bs)
+    torch.cuda.synchronize()
+    pam = QK.absmax_plain(x)
+    pq, ps = QK.quantize_with_scales_plain(x, pam)
+    pbq, pbs = QK.quantize_blocked_plain(x, bs)
+    for name, got, want in (("absmax", (am,), (pam,)),
+                            ("quantize_with_scales", (q, s), (pq, ps)),
+                            ("quantize_blocked", (bq, bsc), (pbq, pbs))):
+        if not all(same_bits_nan(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"{name} at {tuple(x.shape)} with NaN/inf "
+                                 f"channels: kernel and plain version differ")
+    if not (bool(torch.isnan(ps[..., [5, 8]]).all())
+            and bool(torch.isinf(ps[..., [6, 7]]).all())
+            and not bool(pq[..., 5:9].any())):
+        raise AssertionError("per-channel plain version on the card: NaN/inf "
+                             "channels not NaN/inf scales with int8 0")
+    return (f"{tuple(x.shape)}: channels with NaN / +inf / -inf / both, "
+            f"NaN positions equal and every other bit, int8 0 there")
 
 
 def check_quantize(dev, gen):
@@ -816,6 +920,20 @@ def check_quantize(dev, gen):
     log(f"[quantize] bitwise also at {tuple(xp.shape)} (absmax, quantize "
         f"with scales, dequantize of one scale row) and {tuple(xf.shape)} "
         f"(quantize blocked: a block flush)")
+    nan_inf = [check_nan_inf(x, bs), check_nan_inf(xp, 8)]
+    log(f"[quantize] NaN and inf as the reference: {'; '.join(nan_inf)}")
+    # the harness's fixed cost: an empty launch (a spin of 0 cycles)
+    floor = time_cold_ms(lambda: torch.cuda._sleep(0), 100)
+    floor_clean = time_cold_ms(lambda: torch.cuda._sleep(0), 100, clean=True)
+    log(f"[quantize] empty launch, timed as every kernel here: {floor:.5f} "
+        f"ms (L2 left clean: {floor_clean:.5f}; the floor under any kernel "
+        f"time)")
+    generate = per_channel_rows(xp, 50, 5)
+    for name, r in generate.items():
+        log(f"[quantize] {name} {tuple(xp.shape)} (the generate prefill): "
+            f"kernel {r['ms']:.5f} ms (L2 left clean: "
+            f"{r['ms_clean_l2']:.5f}) plain {r['plain_ms']:.4f} ms bound "
+            f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
     # the blocked kernel at the flush's shape, where its blocks must fill
     # the card: one token block a (row, kv head) matrix
     n, nmat = xf.numel(), xf.numel() // (bs * 128)
@@ -835,14 +953,20 @@ def check_quantize(dev, gen):
     for name, r in rows.items():
         lib = (f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None
                else "none")
-        log(f"[quantize] {name} {shape}: bitwise; kernel {r['ms']:.4f} ms "
-            f"plain {r['plain_ms']:.4f} ms library {lib} bound "
+        clean = (f" (L2 left clean: {r['ms_clean_l2']:.5f})"
+                 if "ms_clean_l2" in r else "")
+        log(f"[quantize] {name} {shape}: bitwise; kernel {r['ms']:.5f} ms"
+            f"{clean} plain {r['plain_ms']:.4f} ms library {lib} bound "
             f"{r['bound_ms']:.5f} ms ({r['bound_by']}: "
             f"{r['bytes'] / 1e6:.2f} MB at 3.35 TB/s)")
     rows["quantize_blocked"]["flush"] = flush
     return {"rows": rows, "shape": f"x {shape} f32 U(-1,1), block {bs}",
             "also": f"x {tuple(xp.shape)} per channel, {tuple(xf.shape)} "
-                    f"blocked (bf16 values)"}
+                    f"blocked (bf16 values); NaN and inf channels at "
+                    f"{shape} and {tuple(xp.shape)}",
+            "generate": generate, "generate_shape": str(tuple(xp.shape)),
+            "floor_ms": floor, "floor_clean_l2_ms": floor_clean,
+            "nan_inf": nan_inf}
 
 
 # -- phase 3: the paper's kernels at the paper's sizes ------------------------
@@ -860,6 +984,7 @@ PAPER_SIZES = [
 ]
 QUANT_KERNELS = ("absmax", "quantize_with_scales", "quantize_blocked",
                  "dequantize")
+PAIR = ("absmax", "quantize_with_scales")
 
 
 def _quant_counts():
@@ -915,6 +1040,10 @@ def paper_phase(dev, gen):
                       "blocked_max_abs_err": berr,
                       "l2_err": l2, "l2_per_element": l2 / (T * D) ** 0.5,
                       "attn_err_raw": attn, "kernels": rows})
+        log(f"[paper] {name} ({T}x{D}) per channel: " + ", ".join(
+            f"{k} {rows[k]['ms']:.5f} ms (L2 left clean "
+            f"{rows[k]['ms_clean_l2']:.5f}; bound {rows[k]['bound_ms']:.5f})"
+            for k in ("absmax", "quantize_with_scales", "pair")))
         log(f"[paper] {name} ({T}x{D}): max_abs_err {err:.8f} vs s/2 "
             f"{eq9:.8f} (blocked {berr:.8f} vs {beq9:.8f}; slack "
             f"{slack:.3g}), l2/elem "
@@ -928,6 +1057,45 @@ def paper_phase(dev, gen):
         raise AssertionError(f"paper path skipped a kernel: {launches}")
     log(f"[paper] path launches {launches}")
     return {"sizes": sizes, "launches": launches}
+
+
+def grad_shapes():
+    """{(T, D): leaves}: the matrices --grad-compression quantizes per
+    channel each step, internlm2_1_8b's stacked gradient leaves reshaped
+    as `optim.compression` does (shapes only: the leaves are built on the
+    meta device)."""
+    import collections
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    params = T.stack_layers(T.init_params(get_config("internlm2_1_8b"),
+                                          torch.Generator(), device="meta"))
+    return collections.Counter(
+        (math.prod(leaf.shape[:-1]), leaf.shape[-1]) if leaf.ndim > 1
+        else (1, leaf.shape[0]) for leaf in _leaves(params))
+
+
+def grad_phase(dev, gen):
+    """The per-channel pair at each distinct compressed-gradient shape:
+    bitwise, then timed (`per_channel_rows`)."""
+    import torch
+    shapes = grad_shapes()
+    if sum(shapes.values()) != 12:
+        raise AssertionError(f"expected 12 stacked leaves: {shapes}")
+    out = []
+    for (T, D), leaves in sorted(shapes.items()):
+        x = torch.rand((T, D), generator=gen, device=dev) * 2 - 1
+        big = x.numel() >= 1 << 26
+        rows = per_channel_rows(x, 5 if big else 30, 2 if big else 5)
+        out.append({"T": T, "D": D, "leaves": leaves, **rows})
+        log(f"[grad] ({T}x{D}) x{leaves}: bitwise; " + ", ".join(
+            f"{k} {r['ms']:.5f} ms (L2 left clean {r['ms_clean_l2']:.5f}; "
+            f"bound {r['bound_ms']:.5f}, plain {r['plain_ms']:.3f})"
+            for k, r in rows.items()))
+        del x
+        torch.cuda.empty_cache()
+    return out
 
 
 # -- phase 4: CPU <-> card parity --------------------------------------------
@@ -1235,8 +1403,8 @@ def _leaves(x):
         yield x
 
 
-def kernels_line(decode, prefill, flat, quant, paper, flash, seed, mma,
-                 path_counts):
+def kernels_line(decode, prefill, flat, quant, paper, grad, flash, seed,
+                 mma, path_counts):
     """One entry per hand-written kernel: the keys of every entry of the
     kernels line, its launches summed over the main paths that ran it."""
     launches = {k: sum(c.get(k, 0) for c in path_counts.values())
@@ -1314,15 +1482,33 @@ def kernels_line(decode, prefill, flat, quant, paper, flash, seed, mma,
             "max_abs_err": 0.0,
             "tol": "bitwise", "library": r["library"],
             "shapes": {"checked": f"{quant['shape']}; {quant['also']}; "
-                                  f"the paper sizes",
+                                  f"the paper sizes"
+                                  + ("; the compressed gradients' shapes"
+                                     if name in PAIR else ""),
                        "timed": quant["shape"] + "; L2 flushed"},
             "paper": [{"name": z["name"], "T": z["T"], "D": z["D"],
                        **{k: z["kernels"][name][k] for k in (
-                           "ms", "plain_ms", "bound_ms", "library_ms")}}
+                           "ms", "plain_ms", "bound_ms", "library_ms")},
+                       **({"pair_ms": z["kernels"]["pair"]["ms"],
+                           "pair_bound_ms": z["kernels"]["pair"]["bound_ms"]}
+                          if name in PAIR else {})}
                       for z in paper["sizes"]],
             **({"flush": r["flush"]} if "flush" in r else {}),
-            **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                 "library_ms")}})
+            **({"nan_inf": quant["nan_inf"]} if name != "dequantize"
+               else {}),
+            **({"generate": {"shape": quant["generate_shape"],
+                             **quant["generate"][name]},
+                "pair": {"timed": quant["rows"]["pair"],
+                         "generate": quant["generate"]["pair"]},
+                "grad": [{"T": g["T"], "D": g["D"], "leaves": g["leaves"],
+                          **g[name], "pair_ms": g["pair"]["ms"],
+                          "pair_bound_ms": g["pair"]["bound_ms"]}
+                         for g in grad],
+                "floor_ms": quant["floor_ms"],
+                "floor_clean_l2_ms": quant["floor_clean_l2_ms"]}
+               if name in PAIR else {}),
+            **{k: r[k] for k in ("ms", "ms_clean_l2", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms") if k in r}})
     for e in out:
         e["launches"] = launches[e["name"]]
         e["launches_by_path"] = by_path[e["name"]]
@@ -1382,7 +1568,9 @@ def main() -> int:
     log(f"[kernels] checked in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     paper = paper_phase(dev, gen)
-    log(f"[paper] phase in {time.perf_counter() - t0:.1f} s")
+    grad = grad_phase(dev, gen)
+    log(f"[paper] phase in {time.perf_counter() - t0:.1f} s (gradient "
+        f"shapes included)")
     t0 = time.perf_counter()
     parity_smoke(dev)
     log(f"[parity] in {time.perf_counter() - t0:.1f} s")
@@ -1412,8 +1600,8 @@ def main() -> int:
     log(f"[train] phase in {time.perf_counter() - t0:.1f} s")
 
     prefill["sass_mma"] = pmma
-    kernels = kernels_line(decode, prefill, flat, quant, paper, flash, seed,
-                           mma, path_counts)
+    kernels = kernels_line(decode, prefill, flat, quant, paper, grad, flash,
+                           seed, mma, path_counts)
     if any(k["launches"] < 1 for k in kernels):
         raise AssertionError("a kernel was launched on no main path")
     log(f"[total] {time.perf_counter() - t_start:.1f} s")

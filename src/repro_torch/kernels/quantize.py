@@ -30,7 +30,9 @@ scale (IEEE division, never a reciprocal), rounded half to even and
 clipped, so the kernels equal the plain versions bit for bit. The plain
 versions divide by tensors, never by Python scalars: on a CUDA tensor
 PyTorch turns a division by a scalar into a multiplication by its
-reciprocal.
+reciprocal. A channel (per block: a block's channel) that holds a NaN has
+a NaN scale, one that holds an inf an inf scale, and every int8 value of
+either is 0, as in the reference; the kernels give the same.
 
 The CUDA kernels (``csrc/quantize.cu``) run on CUDA tensors; the plain
 versions are what a CPU tensor gets, and what the kernels are held
@@ -44,7 +46,8 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.quant_attention import _check, _sm_count
+from repro_torch.kernels.quant_attention import (_check, _check_aligned,
+                                                 _sm_count)
 
 QMAX = 127.0
 _EPS = 1e-30
@@ -131,15 +134,88 @@ def _raise_on(rc: int, what: str):
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
 
 
+# the per-channel pair's block shape (csrc/quantize.cu: kThreads, kRegRows)
+PC_THREADS = 256
+PC_BATCH = 8         # rows whose loads a thread issues before it uses one
+PC_BLOCKS_PER_SM = 2
+# most blocks that split one absmax slab's T: one thread block cluster
+# (csrc/quantize.cu: kMaxCluster; past 8, a size Hopper allows on request)
+PC_CLUSTER = 16
+ABSMAX_BLOCKS_PER_SM = 4   # the absmax grid: about one wave of the card
+# quantize pass: rows a thread (most, least), more while the grid fills
+# the card
+QUANT_ROWS = (2, 1)
+
+
+def chunk_rows(T: int, splits: int, lanes: int) -> int:
+    """Rows a chunk of the per-channel kernels: T over ``splits``, rounded
+    up to whole sweeps of PC_THREADS / lanes rows (csrc: chunk_rows)."""
+    rs, rows = PC_THREADS // lanes, -(-T // splits)
+    return -(-rows // rs) * rs
+
+
+def _chunks(N: int, T: int, D: int, lanes: int, cols: int, rows: tuple,
+            sms: int) -> int:
+    """Chunks of T for slabs of ``cols`` columns, PC_THREADS / lanes rows a
+    sweep: rows[0] rows a thread, halved (not below rows[1]) while the grid
+    gives fewer than PC_BLOCKS_PER_SM blocks an SM."""
+    rs, (per, least) = PC_THREADS // lanes, rows
+    slabs = -(-D // cols) * N
+    while per > least and slabs * -(-T // (rs * per)) < \
+            PC_BLOCKS_PER_SM * sms:
+        per //= 2
+    return -(-T // chunk_rows(T, -(-T // (rs * per)), lanes))
+
+
+def absmax_plan(N: int, T: int, D: int, sms: int) -> tuple[int, int]:
+    """(lanes, chunks) of the absmax: a block owns a slab of 4 x lanes
+    columns of one chunk of T (`chunk_rows` rows), and a slab's chunks are
+    one thread block cluster (at most PC_CLUSTER). 8 lanes (128-byte rows;
+    narrower where D is), 4 where even PC_CLUSTER chunks a slab would give
+    under PC_BLOCKS_PER_SM blocks an SM; then as many chunks as make about
+    ABSMAX_BLOCKS_PER_SM blocks an SM, a sweep of rows or more each. At
+    (32, 1000 or 2048, 128) on 132 SMs: 8 lanes, 4 chunks (512 blocks); at
+    131072 x 8192, 2 chunks. From shapes and the SM count only."""
+    lanes = 8
+    while lanes > 1 and 4 * (lanes // 2) >= D:
+        lanes //= 2
+    slabs = lambda n: -(-D // (4 * n)) * N
+    if lanes == 8 and slabs(8) * PC_CLUSTER < PC_BLOCKS_PER_SM * sms:
+        lanes = 4
+    chunks = min(PC_CLUSTER,
+                 max(1, ABSMAX_BLOCKS_PER_SM * sms // slabs(lanes)),
+                 -(-T // (PC_THREADS // lanes)))
+    return lanes, -(-T // chunk_rows(T, chunks, lanes))
+
+
+def quantize_plan(N: int, T: int, D: int, sms: int) -> tuple[int, int, int]:
+    """(lanes, vec, chunks) of the quantize pass: a thread owns 4 x vec
+    consecutive columns of a row (vec 2 where D allows: one 8-byte store),
+    a slab of 4 x vec x lanes columns as wide as D needs (at most 32
+    lanes), QUANT_ROWS rows a thread (`_chunks`). At (32, 2048, 128) on
+    132 SMs: 16 lanes, vec 2, 64 chunks (2048 blocks)."""
+    vec = 2 if D % 8 == 0 else 1
+    lanes = 32
+    while lanes > 1 and 4 * vec * (lanes // 2) >= D:
+        lanes //= 2
+    return lanes, vec, _chunks(N, T, D, lanes, 4 * vec * lanes, QUANT_ROWS,
+                               sms)
+
+
 def absmax_cuda(x: torch.Tensor) -> torch.Tensor:
-    """Column absmax over T of float32 (..., T, D) -> (..., D). Counts
-    each launch in ``absmax_cuda.launches``."""
+    """Column absmax over T of float32 (..., T, D) -> (..., D), one launch
+    on the grid of `absmax_plan`: the blocks that split a slab's T are one
+    thread block cluster, folded through shared memory. Counts each launch
+    in ``absmax_cuda.launches``."""
     lead, N, T, D = _matrices(x)
     _check(x, "x", torch.float32)
-    fn = _build.load("quantize", "absmax_cols", [_P, _P, _I, _I, _I, _P])
-    out = torch.zeros((*lead, D), dtype=torch.float32, device=x.device)
-    _raise_on(fn(x.data_ptr(), out.data_ptr(), N, T, D, _stream(x)),
-              "absmax")
+    _check_aligned(x=x)
+    fn = _build.load("quantize", "absmax_cols",
+                     [_P, _P, _I, _I, _I, _I, _I, _P])
+    lanes, splits = absmax_plan(N, T, D, _sm_count(x.device))
+    out = torch.empty((*lead, D), dtype=torch.float32, device=x.device)
+    _raise_on(fn(x.data_ptr(), out.data_ptr(), N, T, D, lanes, splits,
+                 _stream(x)), "absmax")
     absmax_cuda.launches += 1
     return out
 
@@ -147,17 +223,19 @@ def absmax_cuda(x: torch.Tensor) -> torch.Tensor:
 def quantize_with_scales_cuda(x: torch.Tensor, absmax: torch.Tensor):
     """Second pass of the per-channel quantize: float32 (..., T, D) and
     its column absmax (..., D) -> (int8 (..., T, D), float32 scales
-    (..., D)). Counts each launch in ``quantize_with_scales_cuda.
-    launches``."""
+    (..., D)), on the grid of `quantize_plan`. Counts each launch in
+    ``quantize_with_scales_cuda.launches``."""
     lead, N, T, D = _matrices(x)
     _check(x, "x", torch.float32)
     _check(absmax, "absmax", torch.float32, (*lead, D))
+    _check_aligned(x=x, absmax=absmax)
     fn = _build.load("quantize", "quantize_with_scales",
-                     [_P, _P, _P, _P, _I, _I, _I, _P])
+                     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
+    lanes, vec, splits = quantize_plan(N, T, D, _sm_count(x.device))
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     scales = torch.empty((*lead, D), dtype=torch.float32, device=x.device)
     _raise_on(fn(x.data_ptr(), absmax.data_ptr(), q.data_ptr(),
-                 scales.data_ptr(), N, T, D, _stream(x)),
+                 scales.data_ptr(), N, T, D, lanes, vec, splits, _stream(x)),
               "quantize-with-scales")
     quantize_with_scales_cuda.launches += 1
     return q, scales

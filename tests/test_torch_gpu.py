@@ -26,6 +26,7 @@ the quantize family bitwise; the train
 step's loss within 1e-5 relative, its grad_norm 1e-4 (float32, cuBLAS
 against the CPU's sums)."""
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -394,6 +395,172 @@ def test_quantize_blocked_slab_bitwise(shape, bs, cuda_device):
     assert QK.quantize_blocked_cuda.launches == before + 1
     for g, w in zip(got, QK.quantize_blocked_plain(x, bs)):
         _bitwise(g, w)
+
+
+def _pc_input(shape, seed, dev):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.rand(shape, generator=gen, device=dev) * 2 - 1
+    x[..., 2] = 0.0                                # an all-zero channel
+    x[..., 3] *= 1e-29                             # absmax below 127e-30
+    x[..., 0, 3] = 1e-29
+    return x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(4, 8, 1000, 128), (4, 8, 2048, 128),
+                                   (1, 2048), (24, 2048), (1, 1, 4096, 8192)],
+                         ids=["generate", "timed", "T1", "T24", "D8192"])
+def test_per_channel_pair_bitwise(shape, cuda_device):
+    """The per-channel pair on its grids (`absmax_plan`, `quantize_plan`)
+    at the generate prefill, the timed shape, one row and 24 (gradients of
+    norms) and D 8192, each kernel bitwise against its plain version."""
+    x = _pc_input(shape, 11, cuda_device)
+    before = [QK.absmax_cuda.launches, QK.quantize_with_scales_cuda.launches]
+    am = QK.absmax_cuda(x)
+    got = QK.quantize_with_scales_cuda(x, am)
+    torch.cuda.synchronize()
+    assert [QK.absmax_cuda.launches, QK.quantize_with_scales_cuda.launches] \
+        == [before[0] + 1, before[1] + 1]
+    _bitwise(am, QK.absmax_plain(x))
+    for g, w in zip(got, QK.quantize_with_scales_plain(x, am)):
+        _bitwise(g, w)
+
+
+def _with_nan_inf(x):
+    """NaN in channel 5, +inf in channel 6, -inf in channel 7 (one row each),
+    a NaN and an inf together in channel 8."""
+    x = x.clone()
+    x[..., 1, 5] = float("nan")
+    x[..., -1, 6] = float("inf")
+    x[..., 0, 7] = float("-inf")
+    x[..., 0, 8] = float("nan")
+    x[..., -1, 8] = float("inf")
+    return x
+
+
+def _same_with_nan(got, want):
+    """NaN at the same positions, every other bit equal."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if got.dtype.is_floating_point:
+        nan = torch.isnan(want)
+        assert torch.equal(torch.isnan(got), nan)
+        got, want = got[~nan], want[~nan]
+    _bitwise(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,bs", [((4, 8, 1000, 128), 8),
+                                      ((4, 8, 2048, 128), 256),
+                                      ((1, 1, 4096, 8192), 256),
+                                      ((2, 2, 40, 16), 8)],
+                         ids=["generate", "timed", "D8192", "smoke"])
+def test_quantize_kernels_nan_inf_match_plain(shape, bs, cuda_device):
+    """A channel holding a NaN gets a NaN absmax and scale, one holding an
+    inf an inf scale, and every value of both int8 0, as the reference
+    gives them: the three quantize kernels against their plain versions
+    (NaN positions equal, every other bit equal), the plain versions'
+    int8 0 checked on the card."""
+    x = _with_nan_inf(_pc_input(shape, 5, cuda_device))
+    am = QK.absmax_cuda(x)
+    q, s = QK.quantize_with_scales_cuda(x, am)
+    bq, bsc = QK.quantize_blocked_cuda(x, bs)
+    torch.cuda.synchronize()
+    pam = QK.absmax_plain(x)
+    pq, ps = QK.quantize_with_scales_plain(x, pam)
+    pbq, pbs = QK.quantize_blocked_plain(x, bs)
+    for g, w in ((am, pam), (q, pq), (s, ps), (bq, pbq), (bsc, pbs)):
+        _same_with_nan(g, w)
+    assert torch.isnan(ps[..., 5]).all() and torch.isnan(ps[..., 8]).all()
+    assert torch.isinf(ps[..., 6]).all() and torch.isinf(ps[..., 7]).all()
+    assert not pq[..., 5:9].any()
+    for c, row in ((5, 1), (6, shape[-2] - 1), (7, 0)):    # the blocks hit
+        blk = row // bs
+        assert (pbs[..., blk, c].isnan() if c == 5
+                else pbs[..., blk, c].isinf()).all()
+        assert not pbq[..., blk * bs:(blk + 1) * bs, c].any()
+
+
+@pytest.mark.gpu
+def test_absmax_back_to_back(cuda_device):
+    """Back-to-back absmax launches on shapes of several grids and output
+    sizes, with and without a cluster split of T, larger and smaller in
+    turns and twice over: every result bitwise and each output its own, so
+    nothing one launch leaves behind reaches the next."""
+    shapes = [(1, 65536, 256), (4, 8, 2048, 128), (1, 8192, 2048),
+              (3, 5000, 64), (1, 24, 2048), (1, 131072, 1024),
+              (2, 4, 1032, 128), (1, 49152, 1024), (1, 1, 16)]
+    xs = [_pc_input(s, i, cuda_device) for i, s in enumerate(shapes)]
+    want = [QK.absmax_plain(x) for x in xs]
+    got = [QK.absmax_cuda(x) for _ in range(2) for x in xs for _ in range(3)]
+    torch.cuda.synchronize()
+    for i, g in enumerate(got):
+        _bitwise(g, want[i // 3 % len(xs)])
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    splits = {QK.absmax_plan(math.prod(s[:-2]), *s[-2:], sms)[1] > 1
+              for s in shapes}
+    assert splits == {True, False}, splits
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(4, 8, 2048, 128), (1, 131072, 1024),
+                                   (1, 24, 2048)],
+                         ids=["timed", "paper", "T24"])
+def test_absmax_is_one_kernel(shape, cuda_device):
+    """One absmax_cuda call runs exactly one device kernel: no fill before
+    it, with a cluster split of T or without."""
+    x = _pc_input(shape, 2, cuda_device)
+    QK.absmax_cuda(x)                         # builds
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        QK.absmax_cuda(x)
+        torch.cuda.synchronize()
+    device = [e.name for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(device) == 1 and "absmax_kernel" in device[0], device
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(4, 8, 1000, 128), (1, 49152, 1024)],
+                         ids=["generate", "grad"])
+def test_per_channel_pair_replays_in_a_cuda_graph(shape, cuda_device):
+    """The pair captured once in a CUDA graph and replayed on new inputs,
+    each with a smaller absmax than the one before: every replay bitwise
+    against the plain versions of its own input."""
+    x = _pc_input(shape, 6, cuda_device)
+    QK.quantize_per_channel_cuda(x)           # builds outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        q, s = QK.quantize_per_channel_cuda(x)
+    for scale in (1.0, 0.5, 0.25):
+        x.copy_(_pc_input(shape, 7 + int(4 * scale), cuda_device) * scale)
+        graph.replay()
+        torch.cuda.synchronize()
+        pq, ps = QK.quantize_per_channel_plain(x)
+        _bitwise(q, pq)
+        _bitwise(s, ps)
+
+
+@pytest.mark.gpu
+def test_per_channel_pair_no_host_sync(cuda_device):
+    """The pair at the generate prefill's shape and a paper size, with any
+    host sync an error."""
+    xs = [_pc_input(s, 4, cuda_device)
+          for s in ((4, 8, 1000, 128), (1, 65536, 256))]
+    for x in xs:
+        QK.quantize_per_channel_cuda(x)       # builds and allocates first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [QK.quantize_per_channel_cuda(x) for x in xs]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for x, (q, s) in zip(xs, got):
+        pq, ps = QK.quantize_per_channel_plain(x)
+        _bitwise(q, pq)
+        _bitwise(s, ps)
 
 
 def _to(x, device):
