@@ -46,10 +46,27 @@ Phases, each fatal on failure (no fallback anywhere):
   4. CPU <-> card parity: the smoke config in float32 on the card
      (kernels) and on the CPU (plain versions): identical greedy tokens
      from the paged LLMEngine, the contiguous LLMEngine and greedy_generate
-     (per block and per channel).
+     (per block and per channel); threefry bits on the card bit for bit
+     against the committed known answers of jax 0.9 and against the CPU;
+     identical tokens of seeded sampled requests mixed with greedy ones
+     (temperature 0.7 top_k 50, 1.0 top_p 0.9, 0.8 top_k 40 top_p 0.95)
+     through the paged and the contiguous LLMEngine and sampled
+     `generate`, and of the prefix cache's hit-against-miss and
+     shared-prefix protocols with identical counters (a differing sampled
+     token fails after its step and the gap between the draw's two
+     leading perturbed logits are printed).
   5. the slices at full width: internlm2_1_8b with random bf16 weights from
      a seeded torch.Generator serves 5 greedy requests through the paged
-     LLMEngine and through the contiguous one (batch 4, max_len 2048), and
+     LLMEngine and through the contiguous one (batch 4, max_len 2048); the
+     paged engine serves them again with requests 1, 3 and 4 sampled
+     (greedy rows must equal the greedy run's, sampled rows must differ
+     from it; then a sampled decode step at the served lengths runs with
+     any host sync an error), and with the prefix cache (prefill_chunk
+     512, a 1536-token shared prefix: a warm rerun and three requests
+     together each adopt 6 pages, compute 1536 prefill tokens fewer and
+     give their cold runs' tokens; the counters are the reference's
+     logic's, every page cached or free at drain; TTFT cold and warm
+     printed beside the card's name and power limit); it
      runs greedy_generate per block (a block flush in every layer) and per
      channel (batch 4, 1000-token prompts, 32 steps); the seed baseline
      runs over the contiguous cache's shape beside flat decode; then, the
@@ -1152,6 +1169,173 @@ def parity_smoke(dev):
             + ("" if paged else ", greedy_generate included"))
 
 
+# (temperature, top_k, top_p, seed) mixes of the sampled phases: a greedy
+# row beside the three sampled settings chip_smoke serves
+SAMPLED_MIX = [dict(temperature=0.0),
+               dict(temperature=0.7, top_k=50, seed=11),
+               dict(temperature=1.0, top_p=0.9, seed=12),
+               dict(temperature=0.8, top_k=40, top_p=0.95, seed=None)]
+
+
+def draw_gap(params, cfg, hist, sp, uid: int, step: int) -> float:
+    """Diagnosis of a token that differs between card and CPU: the gap
+    between the two largest perturbed logits (filtered logits plus the
+    gumbel noise of ``fold_in(key, step)``; the raw logits for a greedy
+    row) of the draw that follows ``hist``, on the CPU. A gap within ~1e-6
+    is a near-tie that float32 rounding may decide either way."""
+    import numpy as np
+    import torch
+    from repro_torch.models import prng
+    from repro_torch.models import sampling as SMP
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.params import request_key
+    toks = torch.as_tensor(np.asarray(hist, np.int32))[None]
+    bs = cfg.quant.block_size
+    state = T.init_decode_state(cfg, 1, -(-(toks.shape[1] + 1) // bs) * bs,
+                                device="cpu")
+    S0 = toks.shape[1] // bs * bs
+    if S0:
+        logits, state = T.prefill(params, toks[:, :S0], cfg, state)
+    pos = torch.full((1,), S0, dtype=torch.int32)
+    for j in range(S0, toks.shape[1]):
+        logits, state = T.decode_step(params, toks[:, j:j + 1], cfg, state,
+                                      pos)
+        pos = pos + 1
+    z = logits[:, :cfg.vocab].float()
+    if not sp.is_greedy:
+        z = SMP._filter_logits(z / sp.temperature,
+                               torch.tensor([sp.top_k], dtype=torch.int32),
+                               torch.tensor([sp.top_p], dtype=torch.float32))
+        key = torch.as_tensor(request_key(uid, sp).astype(np.int64))[None]
+        z = z + prng.gumbel(SMP.fold_keys(key, torch.tensor([step])),
+                            cfg.vocab)
+    top = torch.topk(z[0], 2).values
+    return float(top[0] - top[1])
+
+
+def _first_difference(cpu, card):
+    for r, (a, b) in enumerate(zip(cpu, card)):
+        for j, (x, y) in enumerate(zip(a, b)):
+            if x != y:
+                return r, j
+        if len(a) != len(b):
+            return r, min(len(a), len(b))
+    return None
+
+
+def parity_sampling(dev):
+    """Phase 4, sampling and the prefix cache: threefry on the card against
+    the committed known answers and the CPU; then the smoke model in
+    float32, card (kernels) against CPU (plain versions): seeded sampled
+    requests mixed with greedy ones through the paged and the contiguous
+    LLMEngine, sampled `generate`, and the prefix-cache protocols of
+    tests/test_prefix_cache.py (hit against miss, a prefix shared across
+    requests) with their counters. A differing token fails after its step
+    and draw gap are printed."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import prng
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import (EngineConfig, LLMEngine, SamplingParams,
+                                     generate)
+    key = prng.fold_in(prng.PRNGKey(7, device=dev), 3)
+    bits = prng.random_bits(key, 4)
+    if (tuple(key.tolist()) != prng.KNOWN_FOLD_7_3
+            or tuple(bits.tolist()) != prng.KNOWN_BITS_7_3):
+        raise AssertionError(f"threefry on the card: fold_in(PRNGKey(7), 3) "
+                             f"= {key.tolist()}, bits {bits.tolist()}; want "
+                             f"{prng.KNOWN_FOLD_7_3}, {prng.KNOWN_BITS_7_3}")
+    keys = torch.stack([prng.fold_in(prng.PRNGKey(s), j) for s, j in
+                        ((0, 0), (11, 5), (12, 47), (2**31 - 1, 9))])
+    if not torch.equal(prng.random_bits(keys.to(dev), 92544).cpu(),
+                       prng.random_bits(keys, 92544)):
+        raise AssertionError("threefry bits at (4, 92544): card != CPU")
+    log("[parity] threefry on the card: the committed known answers of jax "
+        "0.9 and (4, 92544) bits bit for bit against the CPU")
+
+    base = dataclasses.replace(get_config("internlm2_1_8b", smoke=True),
+                               dtype="float32")
+    params = T.init_params(base, torch.Generator().manual_seed(0),
+                           device="cpu")
+    on = {"cpu": params, str(dev): _to(params, dev)}
+    rng = np.random.RandomState(7)
+    prompts = [rng.randint(0, base.vocab, (n,)).astype(np.int32)
+               for n in (13, 70, 5, 40, 21)]
+    sps = [SamplingParams(max_new_tokens=n, **SAMPLED_MIX[i % 4])
+           for i, n in enumerate((8, 9, 5, 7, 8))]
+
+    def check(label, streams, hists=None):
+        at = _first_difference(streams["cpu"], streams[str(dev)])
+        if at is None:
+            return
+        r, j = at
+        msg = (f"smoke f32 {label}: tokens differ at request {r}, step {j}: "
+               f"cpu {streams['cpu'][r]} vs card {streams[str(dev)][r]}")
+        if hists is not None:
+            hist = np.concatenate([hists[r], streams["cpu"][r][:j]])
+            gap = draw_gap(params, base, hist, sps[r], r, j)
+            msg += f"; the draw's two leading perturbed logits {gap:.3e} apart"
+        log(f"[parity] {msg}")
+        raise AssertionError(msg)
+
+    for paged in (True, False):
+        label = "paged" if paged else "contiguous"
+        streams = {d: [o.token_ids for o in LLMEngine(
+            p, base, EngineConfig(batch=2, max_len=128, paged=paged),
+            device=d).generate(prompts, sps)] for d, p in on.items()}
+        check(f"sampled {label}", streams, prompts)
+        log(f"[parity] smoke f32 sampled {label}: "
+            f"{sum(map(len, streams['cpu']))} tokens of greedy and seeded "
+            f"sampled requests identical on cpu and card")
+    batch = np.stack([p[:13] for p in (prompts[0], prompts[1], prompts[3],
+                                       prompts[4])])
+    gen_sps = [SamplingParams(**kw) for kw in SAMPLED_MIX]
+    streams = {d: generate(p, base, batch, steps=8, sampling=gen_sps,
+                           device=d).cpu().tolist() for d, p in on.items()}
+    check("sampled generate", streams)
+    log("[parity] smoke f32 sampled generate: 4x8 tokens identical on cpu "
+        "and card")
+
+    rng = np.random.RandomState(1)
+    prompt = rng.randint(0, base.vocab, (40,)).astype(np.int32)
+    shared = rng.randint(0, base.vocab, (32,)).astype(np.int32)
+    tails = [np.concatenate([shared, rng.randint(0, base.vocab, (8,))])
+             .astype(np.int32) for _ in range(3)]
+    greedy = SamplingParams.greedy
+    streams, counters = {}, {}
+    for d, p in on.items():
+        cfg = EngineConfig(batch=1, max_len=64, paged=True,
+                           prefix_cache=True, prefill_chunk=16)
+        eng = LLMEngine(p, base, cfg, device=d)
+        toks = [eng.generate([prompt], greedy(max_new_tokens=6))[0].token_ids
+                for _ in range(2)]
+        rep = eng.pool_report()
+        eng = LLMEngine(p, base, dataclasses.replace(cfg, batch=2),
+                        device=d)
+        toks += [o.token_ids for o in eng.generate(
+            tails, greedy(max_new_tokens=4))]
+        rep2 = eng.pool_report()
+        streams[d] = toks
+        counters[d] = [{k: r[k] for k in ("page_hits", "page_misses",
+                                          "reclaims", "cow_retargets",
+                                          "pages_cached", "pages_free",
+                                          "prefill_tokens_computed")}
+                       for r in (rep, rep2)]
+    check("prefix cache", streams)
+    c = counters[str(dev)]
+    if c != counters["cpu"] or streams["cpu"][0] != streams["cpu"][1] \
+            or c[0]["page_hits"] < 1 or c[1]["page_hits"] < 1:
+        raise AssertionError(f"smoke f32 prefix cache: counters cpu "
+                             f"{counters['cpu']} card {c}, tokens "
+                             f"{streams['cpu']}")
+    log(f"[parity] smoke f32 prefix cache: hit against miss and a shared "
+        f"prefix, tokens and counters identical on cpu and card "
+        f"({json.dumps(c)})")
+
+
 # -- phase 5: the slices at full width ---------------------------------------
 
 def _counters():
@@ -1187,17 +1371,14 @@ def _run_path(dev, label: str, needs: tuple, fn):
 
 
 def serve_full_width(dev, params, cfg, paged: bool):
-    import numpy as np
     from repro_torch.serving import EngineConfig, LLMEngine, SamplingParams
     label = "paged" if paged else "contiguous"
     needs = (("paged_decode", "paged_prefill") if paged
              else ("flat_decode", "quantize_blocked", "flash_fwd"))
     eng = LLMEngine(params, cfg, EngineConfig(batch=4, max_len=2048,
                                               paged=paged), device=dev)
-    rng = np.random.RandomState(0)
-    lens = (1500, 900, 300, 37, 1100)
-    prompts = [rng.randint(0, cfg.vocab, (n,)).astype(np.int32)
-               for n in lens]
+    prompts = serve_prompts(cfg)
+    lens = tuple(len(p) for p in prompts)
     sp = SamplingParams.greedy(max_new_tokens=48)
     outs, wall, counts, peak = _run_path(
         dev, f"serve {label}", needs, lambda: eng.generate(prompts, sp))
@@ -1219,6 +1400,201 @@ def serve_full_width(dev, params, cfg, paged: bool):
         f"{rep['ttft_s_p50'] * 1e3:.1f} ms, {rep['ticks']} ticks, launches "
         f"{counts}, max_memory_allocated {peak / 2**30:.2f} GiB")
     log(f"[serve {label}] " + json.dumps(res))
+    return counts, [o.token_ids for o in outs]
+
+
+def serve_prompts(cfg):
+    """Phase 5's five prompts (1500/900/300/37/1100 tokens)."""
+    import numpy as np
+    rng = np.random.RandomState(0)
+    return [rng.randint(0, cfg.vocab, (n,)).astype(np.int32)
+            for n in (1500, 900, 300, 37, 1100)]
+
+
+def sampled_serve_full_width(dev, params, cfg, greedy_tokens, card: str):
+    """The paged LLMEngine at full width serving phase 5's prompts with
+    requests 0 and 2 greedy and 1, 3, 4 sampled (SAMPLED_MIX's settings;
+    request 4 seeded from its uid): every request finishes by length, the
+    greedy rows equal the greedy paged run's tokens, each sampled row
+    differs from its greedy stream; then one sampled decode step over 4
+    rows at the served lengths runs with any host sync an error."""
+    import numpy as np
+    import torch
+    from repro_torch.models import sampling as SMP
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import EngineConfig, LLMEngine, SamplingParams
+    from repro_torch.serving.params import sampling_arrays
+    mix = [SAMPLED_MIX[0], SAMPLED_MIX[1], SAMPLED_MIX[0], SAMPLED_MIX[2],
+           SAMPLED_MIX[3]]
+    sps = [SamplingParams(max_new_tokens=48, **kw) for kw in mix]
+    prompts = serve_prompts(cfg)
+    eng = LLMEngine(params, cfg, EngineConfig(batch=4, max_len=2048,
+                                              paged=True), device=dev)
+    outs, wall, counts, peak = _run_path(
+        dev, "serve paged sampled", ("paged_decode", "paged_prefill"),
+        lambda: eng.generate(prompts, sps))
+    toks = [o.token_ids for o in outs]
+    if [o.finish_reason for o in outs] != ["length"] * 5 \
+            or any(len(t) != 48 for t in toks):
+        raise AssertionError("sampled paged requests did not all finish by "
+                             "length")
+    if toks[0] != greedy_tokens[0] or toks[2] != greedy_tokens[2]:
+        raise AssertionError("a greedy row beside sampled rows differs from "
+                             "the greedy paged run")
+    same = [i for i in (1, 3, 4) if toks[i] == greedy_tokens[i]]
+    if same:
+        raise AssertionError(f"sampled requests {same} reproduced their "
+                             f"greedy streams: sampling is inert")
+    if not all(0 <= t < cfg.vocab for t in sum(toks, [])):
+        raise AssertionError("a sampled token lies outside the vocabulary")
+    # one sampled decode step at the served lengths, inputs on the card
+    # first (a host-to-device copy is itself a sync)
+    B, ps = 4, cfg.quant.block_size
+    state = eng.batcher._init_state(B)
+    nt = 2048 // ps
+    table = torch.arange(1, 1 + B * nt, dtype=torch.int32,
+                         device=dev).reshape(B, nt)
+    lengths = torch.tensor([1548, 948, 348, 85], dtype=torch.int32,
+                           device=dev)
+    for c in state:
+        c.page_table, c.length = table, lengths
+    samp = SMP.device_arrays(sampling_arrays(
+        [sps[i] for i in (1, 0, 3, 4)], uids=[1, 0, 3, 4],
+        steps=[48] * B), dev)
+    tok = torch.tensor([[t[-1]] for t in toks[:B]], dtype=torch.int32,
+                       device=dev)
+    mask = torch.ones((B,), dtype=torch.bool, device=dev)
+    T.decode_scan(params, tok, cfg, state, lengths, steps=1, row_mask=mask,
+                  sampling=samp)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        T.decode_scan(params, tok, cfg, state, lengths + 1, steps=2,
+                      row_mask=mask, sampling=samp)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    # what one draw costs a decode step: the sampler against the greedy
+    # argmax on the head's logits, wall time per call (host enqueue
+    # included, as the step pays it)
+    logits = torch.randn((B, T.padded_vocab(cfg)), device=dev,
+                         dtype=torch.bfloat16,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    draw_ms = {}
+    for name, fn in (("sample_at_step", lambda: SMP.sample_at_step(
+            logits, samp["temperature"], samp["top_k"], samp["top_p"],
+            samp["key"], samp["step"], vocab=cfg.vocab)),
+                     ("greedy", lambda: SMP.greedy(logits, cfg.vocab))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        draw_ms[name] = (time.perf_counter() - t0) / 20 * 1e3
+    rep = eng.pool_report()
+    gen_tokens = sum(map(len, toks))
+    res = {"backend": "paged sampled", "requests": 5,
+           "sampling": [{k: v for k, v in kw.items()} for kw in mix],
+           "generated_tokens": gen_tokens, "wall_s": wall,
+           "tokens_per_s": gen_tokens / wall, "ttft_s_p50": rep["ttft_s_p50"],
+           "ticks": rep["ticks"], "launches": counts,
+           "draw_ms_per_call": draw_ms,
+           "max_memory_allocated_bytes": peak, "card": card}
+    log(f"[serve paged sampled] 5/5 requests finished by length (0 and 2 "
+        f"greedy = the greedy run's tokens; 1, 3, 4 sampled, each off its "
+        f"greedy stream): {gen_tokens} tokens in {wall:.3f} s "
+        f"({res['tokens_per_s']:.2f} tok/s), TTFT p50 "
+        f"{rep['ttft_s_p50'] * 1e3:.1f} ms, {rep['ticks']} ticks, launches "
+        f"{counts}; a sampled decode step with no host sync under "
+        f"set_sync_debug_mode('error'); one draw at ({B}, {cfg.vocab}) "
+        f"{draw_ms['sample_at_step']:.3f} ms a call against the greedy "
+        f"argmax's {draw_ms['greedy']:.3f} ms (wall, enqueue included); "
+        f"{card}")
+    log("[serve paged sampled] " + json.dumps(res))
+    return counts
+
+
+def prefix_serve_full_width(dev, params, cfg, card: str):
+    """The paged LLMEngine at full width with the prefix cache
+    (prefill_chunk 512): a 1536-token shared prefix (6 pages). Request A
+    (prefix + 200 tokens) cold, then again: the warm run adopts 6 pages,
+    computes 1536 prefill tokens fewer and gives the cold run's tokens.
+    Then three requests (prefix + 37 / 300 / 400) together: each adopts 6
+    pages and gives its cold solo run's tokens on an engine without the
+    prefix cache. The counters are the reference's logic for this
+    sequence; at drain every page is cached or free."""
+    import numpy as np
+    from repro_torch.serving import EngineConfig, LLMEngine, SamplingParams
+    rng = np.random.RandomState(3)
+    prefix = rng.randint(0, cfg.vocab, (1536,)).astype(np.int32)
+    tail = lambda n: np.concatenate(
+        [prefix, rng.randint(0, cfg.vocab, (n,))]).astype(np.int32)
+    a, three = tail(200), [tail(n) for n in (37, 300, 400)]
+    sp = SamplingParams.greedy(max_new_tokens=48)
+    config = EngineConfig(batch=4, max_len=2048, paged=True,
+                          prefill_chunk=512)
+    miss = LLMEngine(params, cfg, config, device=dev)
+    solo = []
+    for p in three:
+        before = miss.pool_report()["prefill_tokens_computed"]
+        solo.append(miss.generate([p], sp)[0].token_ids)
+        if miss.pool_report()["prefill_tokens_computed"] - before != len(p):
+            raise AssertionError("a miss run skipped prefill tokens")
+    eng = LLMEngine(params, cfg, EngineConfig(
+        batch=4, max_len=2048, paged=True, prefix_cache=True,
+        prefill_chunk=512), device=dev)
+    steps = []
+
+    def path():
+        for label, ps in (("cold", [a]), ("warm", [a]), ("three", three)):
+            before = eng.pool_report()
+            outs = eng.generate(ps, sp)
+            steps.append((label, before, eng.pool_report(), outs))
+
+    _, wall, counts, peak = _run_path(
+        dev, "serve paged prefix", ("paged_decode", "paged_prefill"), path)
+    delta = {label: {k: after[k] - before[k] for k in
+                     ("page_hits", "page_misses", "reclaims",
+                      "cow_retargets", "prefill_tokens_computed")}
+             for label, before, after, _ in steps}
+    want = {"cold": {"page_hits": 0, "page_misses": 6, "reclaims": 0,
+                     "cow_retargets": 0, "prefill_tokens_computed": 1736},
+            "warm": {"page_hits": 6, "page_misses": 0, "reclaims": 0,
+                     "cow_retargets": 0, "prefill_tokens_computed": 200},
+            "three": {"page_hits": 18, "page_misses": 2, "reclaims": 0,
+                      "cow_retargets": 0,
+                      "prefill_tokens_computed": 37 + 300 + 400}}
+    if delta != want:
+        raise AssertionError(f"prefix counters {delta}, want {want}")
+    outs = {label: o for label, _, _, o in steps}
+    if outs["warm"][0].token_ids != outs["cold"][0].token_ids:
+        raise AssertionError("the warm (hit) run's tokens differ from the "
+                             "cold run's")
+    got = [o.token_ids for o in outs["three"]]
+    if got != solo:
+        raise AssertionError(f"hit runs differ from their cold solo runs: "
+                             f"{[g == s for g, s in zip(got, solo)]}")
+    if any(o.finish_reason != "length" for o in outs["three"]):
+        raise AssertionError("a prefix-cached request did not finish by "
+                             "length")
+    rep = eng.pool_report()
+    if rep["pages_cached"] + rep["pages_free"] != rep["pages_total"] or \
+            rep["pages_allocated"] != 0:
+        raise AssertionError(f"pages leaked at drain: {rep}")
+    ttft = {k: outs[k][0].metrics["ttft_s"] for k in ("cold", "warm")}
+    res = {"backend": "paged prefix", "prefix_tokens": 1536,
+           "prefill_chunk": 512, "counters": delta, "ttft_s": ttft,
+           "pages_cached": rep["pages_cached"], "wall_s": wall,
+           "launches": counts, "max_memory_allocated_bytes": peak,
+           "card": card}
+    log(f"[serve paged prefix] warm rerun adopts 6 pages, 1536 prefill "
+        f"tokens fewer, tokens = cold; three requests adopt 6 pages each, "
+        f"tokens = their cold solo runs; counters {delta}; TTFT cold "
+        f"{ttft['cold'] * 1e3:.1f} ms warm {ttft['warm'] * 1e3:.1f} ms; "
+        f"{rep['pages_cached']} pages cached at drain; launches {counts}; "
+        f"{card}")
+    log("[serve paged prefix] " + json.dumps(res))
     return counts
 
 
@@ -1573,6 +1949,7 @@ def main() -> int:
         f"shapes included)")
     t0 = time.perf_counter()
     parity_smoke(dev)
+    parity_sampling(dev)
     log(f"[parity] in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -1583,9 +1960,16 @@ def main() -> int:
     n_params = sum(p.numel() for p in _leaves(params))
     log(f"[serve] {cfg.name}: {n_params / 1e9:.3f} B params bf16 on the card "
         f"in {time.perf_counter() - t0:.2f} s")
+    paged_counts, greedy_tokens = serve_full_width(dev, params, cfg,
+                                                   paged=True)
     path_counts = {
-        "serve paged": serve_full_width(dev, params, cfg, paged=True),
-        "serve contiguous": serve_full_width(dev, params, cfg, paged=False),
+        "serve paged": paged_counts,
+        "serve contiguous": serve_full_width(dev, params, cfg,
+                                             paged=False)[0],
+        "serve paged sampled": sampled_serve_full_width(
+            dev, params, cfg, greedy_tokens, card),
+        "serve paged prefix": prefix_serve_full_width(dev, params, cfg,
+                                                      card),
         "greedy_generate per_block": generate_full_width(dev, params, cfg,
                                                          "per_block"),
         "greedy_generate per_channel": generate_full_width(dev, params, cfg,

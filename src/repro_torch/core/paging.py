@@ -1,5 +1,6 @@
 """Paged quantized KV cache — page pool + page-table views, and the
-host-side free-list allocator (port of ``repro.core.paging``).
+host-side allocator with the prefix cache's content-hash index (port of
+``repro.core.paging``).
 
 ``PagePool`` holds the physical pages of one layer:
     k_q, v_q    (n_pages, tokens_packed, H_kv, D)  int8 / float8_e4m3fn
@@ -20,57 +21,192 @@ layers is never mutated under another layer.
 Invariants (as the reference): page_size == quantization block size; page
 0 is a sentinel that is never allocated — unmapped table entries point at
 it and masked rows scatter into it, so its contents are garbage by design
-and always masked out by ``length``.
+and always masked out by ``length``. A page is written only by the flush
+or prefill scatter that fills it, so sharing one (prefix hits, `fork_row`)
+needs no device copy: copy-on-write retargets a table entry on the host
+before the flush, and the fp residual holds the page's whole content.
 """
 from __future__ import annotations
 
+import hashlib
+
+import numpy as np
 import torch
 
 from repro_torch.configs.base import torch_dtype
 from repro_torch.core import quantization as Q
+from repro_torch.core.tiering import LRUEvictor
 
 SENTINEL_PAGE = 0
 
 
-class HostPageAllocator:
-    """Host-authoritative page allocator: a free list plus per-page
-    refcounts (the free-list part of the reference's allocator; its prefix
-    index, LRU, deferred and in-flight populations are ROADMAP queue 1,
-    items 8-10). Pages 1..n_pages-1 are allocatable."""
+_CHAIN_SEED = b"repro-paged-int8-v1"
 
-    def __init__(self, n_pages: int):
+
+def chain_hashes(tokens, page_size: int, parent: bytes | None = None):
+    """Hash chain over a page-aligned token stream: digest i is
+    ``blake2b(digest_{i-1} || tokens of page i)`` (16 bytes), so equal
+    digests mean equal full prefixes. ``parent`` continues a chain (a
+    previous digest); the seed is the reference's, so both packages index
+    a page under the same bytes. Callers hash only a prompt's full pages,
+    unpadded: the partial last page lives in the fp residual."""
+    toks = np.ascontiguousarray(np.asarray(tokens, dtype=np.int32))
+    if toks.ndim != 1 or toks.size % page_size:
+        raise ValueError(f"token stream of shape {toks.shape} is not a "
+                         f"multiple of page_size={page_size}")
+    h = parent if parent is not None else _CHAIN_SEED
+    out = []
+    for i in range(toks.size // page_size):
+        blk = toks[i * page_size:(i + 1) * page_size].tobytes()
+        h = hashlib.blake2b(h + blk, digest_size=16).digest()
+        out.append(h)
+    return out
+
+
+class HostPageAllocator:
+    """Host-authoritative page allocator: free list, per-page refcounts and,
+    with ``prefix_cache``, the content-hash index of automatic prefix
+    caching (the reference's allocator without its fault injector, host
+    tier and in-flight populations, ROADMAP queue 1, items 9-10).
+
+    Pages 1..n_pages-1 are in exactly one population: ``free`` (holding
+    nothing), ``ref`` (page -> refcount > 0) or ``lru`` (refcount 0 but
+    still indexed: hittable, and reclaimed oldest first when ``alloc``
+    runs out of free pages). ``index`` maps chain digests (`chain_hashes`)
+    to pages and ``hash_of`` is its inverse; an indexed page's content
+    never changes (`ensure_private` is the copy-on-write gate)."""
+
+    def __init__(self, n_pages: int, *, prefix_cache: bool = False):
         if n_pages < 2:
             raise ValueError("need >= 2 pages (page 0 is the sentinel)")
         self.n_pages = n_pages
+        self.prefix_cache = prefix_cache
         self.free: list[int] = list(range(1, n_pages))
         self.ref: dict[int, int] = {}
+        self.index: dict[bytes, int] = {}
+        self.hash_of: dict[int, bytes] = {}
+        self.lru = LRUEvictor()
+        self.hits = 0           # pages resolved from the index
+        self.misses = 0         # prompt pages that had to be computed
+        self.reclaims = 0       # cached pages evicted to satisfy alloc
+        self.cow_retargets = 0  # shared pages replaced before a flush
 
     @property
     def n_free(self) -> int:
-        """Pages an admission may claim."""
+        """Truly free pages (cached pages still hold data)."""
         return len(self.free)
 
+    @property
+    def n_cached(self) -> int:
+        """Evictable cached pages (refcount 0, still indexed)."""
+        return len(self.lru)
+
+    @property
+    def available(self) -> int:
+        """Pages an admission may claim: free plus reclaimable."""
+        return len(self.free) + len(self.lru)
+
+    def available_after_adopt(self, chain) -> int:
+        """Pages allocatable once ``chain``'s digests are adopted: adopted
+        pages that sit on the LRU stop being reclaimable."""
+        on_lru = sum(1 for h in chain if self.index.get(h) in self.lru)
+        return self.available - on_lru
+
     def alloc(self, n: int) -> list[int]:
-        """Claim ``n`` pages (refcount 1 each); raises past capacity."""
-        if n > len(self.free):
-            raise ValueError(f"alloc({n}) exceeds available={len(self.free)}")
-        ids = [self.free.pop() for _ in range(n)]
+        """Claim ``n`` pages (refcount 1 each): free pages first, then
+        cached pages reclaimed oldest first (each un-indexed). Raises past
+        capacity; admission gates on `available_after_adopt`."""
+        if n > self.available:
+            raise ValueError(f"alloc({n}) exceeds available={self.available}")
+        ids = [self.free.pop() for _ in range(min(n, len(self.free)))]
+        while len(ids) < n:
+            page = self.lru.pop_victim()
+            del self.index[self.hash_of.pop(page)]
+            self.reclaims += 1
+            ids.append(page)
         for p in ids:
             self.ref[p] = 1
         return ids
 
+    def incref(self, page: int) -> None:
+        """Add a reference to an already referenced page (sharing)."""
+        if self.ref.get(page, 0) <= 0:
+            raise ValueError(f"incref of unreferenced page {page}")
+        self.ref[page] += 1
+
     def release(self, pages) -> None:
-        """Drop one reference per page; a page reaching 0 returns to the
-        free list. A count below 0 is a refcounting bug and raises."""
+        """Drop one reference per page. A page reaching 0 goes to the LRU
+        (most recent end) if it is indexed, else to the free list. A count
+        below 0 is a refcounting bug and raises."""
         for p in pages:
             c = self.ref.get(p, 0) - 1
             if c < 0:
                 raise ValueError(f"refcount underflow on page {p}")
             if c:
                 self.ref[p] = c
+                continue
+            del self.ref[p]
+            if p in self.hash_of:
+                self.lru.cache(p)
             else:
-                del self.ref[p]
                 self.free.append(p)
+
+    def match(self, chain) -> int:
+        """Length of ``chain``'s longest prefix resident in the index (0
+        without ``prefix_cache``). No refcount changes."""
+        if not self.prefix_cache:
+            return 0
+        n = 0
+        for h in chain:
+            if h not in self.index:
+                break
+            n += 1
+        return n
+
+    def adopt(self, chain) -> list[int]:
+        """Take a reference on each digest's page (reviving cached pages);
+        returns the pages in chain order and counts them as hits."""
+        ids = []
+        for h in chain:
+            p = self.index[h]
+            if p in self.lru:
+                self.lru.uncache(p)
+                self.ref[p] = 1
+            else:
+                self.ref[p] += 1
+            ids.append(p)
+        self.hits += len(ids)
+        return ids
+
+    def register(self, page: int, digest: bytes) -> bool:
+        """Publish a fully written page under its chain digest. The first
+        writer wins: a digest already indexed leaves ``page`` a private
+        duplicate (returns False). A page holds one digest; registering it
+        under a second raises."""
+        if not self.prefix_cache or digest in self.index:
+            return False
+        if page in self.hash_of:
+            raise ValueError(f"page {page} is already registered; a page "
+                             f"holds exactly one digest (immutable content)")
+        self.index[digest] = page
+        self.hash_of[page] = digest
+        return True
+
+    def ensure_private(self, page: int) -> int | None:
+        """Copy-on-write gate before a row flushes into ``page``: None when
+        the row owns it alone and it is unindexed; otherwise a new page
+        (this row's reference on the shared one dropped) that the caller
+        retargets its table entry to. No device copy is needed: the flush
+        writes the whole page from the row's fp residual."""
+        if self.ref.get(page, 0) <= 1 and page not in self.hash_of:
+            return None
+        if not self.available:
+            raise ValueError("copy-on-write retarget needs a free page: "
+                             "leave pool headroom when forking")
+        new = self.alloc(1)[0]
+        self.release([page])
+        self.cow_retargets += 1
+        return new
 
 
 def live_page_count(tables, lengths, page_size: int) -> int:
@@ -250,6 +386,23 @@ class PagedQuantizedKVCache:
             self.length = torch.where(row_mask, new_len, self.length)
             self.resid_k = torch.where(rm, rk, self.resid_k)
             self.resid_v = torch.where(rm, rv, self.resid_v)
+        return self
+
+    def fork_row(self, src: int, dst: int) -> "PagedQuantizedKVCache":
+        """Clone row ``src``'s view into row ``dst``: page table row, fp
+        residual and length. The physical pages become shared: the caller
+        takes references (`HostPageAllocator.incref`) and, before either
+        row flushes into a still-shared page, retargets it through
+        `HostPageAllocator.ensure_private` (the residual copied here is the
+        private page content, so no device copy is needed)."""
+        def copy_row(x):
+            x = x.clone()
+            x[dst] = x[src]
+            return x
+        self.page_table = copy_row(self.page_table)
+        self.resid_k = copy_row(self.resid_k)
+        self.resid_v = copy_row(self.resid_v)
+        self.length = copy_row(self.length)
         return self
 
     def append(self, k: torch.Tensor, v: torch.Tensor, row_mask=None

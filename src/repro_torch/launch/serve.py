@@ -5,9 +5,12 @@ with random weights from a seeded `torch.Generator`.
         --max-len 2048 --batch 4 --requests 5 --prompt-len 1000 --max-new 48
 
 The contiguous cache by default; ``--paged`` serves from the page pool
-(implied by ``--prefill-chunk`` and by a ``--kv-cache-dtype`` other than
-int8). Runs on the card by default (``--device cuda``) and fails without
-one.
+(implied by ``--prefix-cache``, ``--prefill-chunk`` and a
+``--kv-cache-dtype`` other than int8). ``--temperature`` / ``--top-k`` /
+``--top-p`` / ``--seed`` sample every request (greedy by default);
+``--shared-prefix N`` gives every prompt the same first N tokens, which
+``--prefix-cache`` then shares. Runs on the card by default (``--device
+cuda``) and fails without one.
 """
 from __future__ import annotations
 
@@ -28,6 +31,9 @@ def main(argv=None):
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=12)
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="first N prompt tokens identical across requests "
+                         "(a shared system prompt, for --prefix-cache)")
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--paged", action="store_true",
                     help="paged KV cache + page-budget admission over "
@@ -37,6 +43,10 @@ def main(argv=None):
     ap.add_argument("--chunk", type=int, default=None,
                     help="max decode tokens per dispatch (rounded down to a "
                          "power of two); default: to the next completion")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="automatic prefix caching: a prompt's full pages "
+                         "resolve from a content-hash index instead of being "
+                         "computed again (implies --paged)")
     ap.add_argument("--prefill-chunk", type=int, default=None,
                     help="prompt tokens per prefill dispatch (rounded up to "
                          "a page multiple; default 4 pages; implies --paged)")
@@ -44,13 +54,23 @@ def main(argv=None):
                     choices=list(KV_DTYPES),
                     help="page storage format (default int8; another "
                          "implies --paged)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (0 = exact greedy argmax, "
+                         "the default)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="keep only the k most likely tokens (0 = off)")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="nucleus sampling mass (1.0 = off)")
+    ap.add_argument("--seed", type=int, default=None,
+                    help="per-request PRNG seed base: request i uses seed+i "
+                         "(default: derived from each request's uid)")
     ap.add_argument("--stop", action="append", default=None,
                     help="stop string (repeatable); token id T renders as "
                          "'<T>'")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     kv_dtype = args.kv_cache_dtype or "int8"
-    if args.prefill_chunk or kv_dtype != "int8":
+    if args.prefix_cache or args.prefill_chunk or kv_dtype != "int8":
         args.paged = True
 
     import dataclasses
@@ -75,23 +95,31 @@ def main(argv=None):
     params = transformer.init_params(cfg, gen, device=device)
     eng = LLMEngine(params, cfg, EngineConfig(
         batch=args.batch, max_len=args.max_len, paged=args.paged,
-        n_pages=args.pages, chunk=args.chunk,
+        n_pages=args.pages, chunk=args.chunk, prefix_cache=args.prefix_cache,
         prefill_chunk=args.prefill_chunk, kv_cache_dtype=kv_dtype),
         device=device)
     rng = np.random.RandomState(0)
-    prompts = [rng.randint(0, cfg.vocab, (args.prompt_len,)).astype(np.int32)
-               for _ in range(args.requests)]
-    sp = SamplingParams.greedy(stop=tuple(args.stop or ()),
-                               max_new_tokens=args.max_new)
+    shared_n = min(args.shared_prefix, args.prompt_len)
+    shared = rng.randint(0, cfg.vocab, (shared_n,)).astype(np.int32)
+    prompts = [np.concatenate([
+        shared, rng.randint(0, cfg.vocab, (args.prompt_len - shared_n,))
+        .astype(np.int32)]) for _ in range(args.requests)]
+    sps = [SamplingParams(
+        temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
+        seed=None if args.seed is None else args.seed + i,
+        stop=tuple(args.stop or ()), max_new_tokens=args.max_new)
+        for i in range(args.requests)]
     t0 = time.perf_counter()
-    outs = eng.generate(prompts, sp)
+    outs = eng.generate(prompts, sps)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
     total = sum(len(o.token_ids) for o in outs)
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")
-    print(f"[serve] completed {len(outs)}/{args.requests} requests (greedy), "
+    mode = ("greedy" if args.temperature == 0 else
+            f"T={args.temperature} top_k={args.top_k} top_p={args.top_p}")
+    print(f"[serve] completed {len(outs)}/{args.requests} requests ({mode}), "
           f"{total} tokens in {dt:.3f}s on {where} "
           f"({total / dt:.1f} tok/s over {eng.ticks} ticks)")
     rep = eng.pool_report()
@@ -100,7 +128,12 @@ def main(argv=None):
     if args.paged:
         print(f"[serve] page pool: {rep['pages_total']} pages "
               f"({rep['kv_cache_dtype']}), {rep['pages_free']} free after "
-              f"drain")
+              f"drain, {rep['pages_cached']} cached")
+        if args.prefix_cache:
+            print(f"[serve] prefix cache: hit rate "
+                  f"{rep['page_hit_rate']:.2f} ({rep['page_hits']} hits / "
+                  f"{rep['page_misses']} misses), {rep['reclaims']} "
+                  f"reclaims")
     else:
         print(f"[serve] contiguous int8 cache ({cfg.quant.granularity})")
     for o in outs[:3]:

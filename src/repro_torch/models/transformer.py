@@ -262,16 +262,28 @@ def decode_step(params, token, cfg, state, pos, *, row_mask=None):
 
 
 def decode_scan(params, token, cfg, state, pos, *, steps: int,
-                row_mask=None):
-    """Greedy decode of ``steps`` tokens. ``token`` (B, 1) is the pending
-    token (sampled, not yet fed), ``pos`` (B,) its position. Returns
-    (pending (B, 1), state, emitted (steps, B)): emitted[j] is the token
-    fed at step j. Argmax takes the first index on ties."""
+                row_mask=None, sampling=None):
+    """Decode ``steps`` tokens. ``token`` (B, 1) is the pending token
+    (sampled, not yet fed), ``pos`` (B,) its position. Returns (pending
+    (B, 1), state, emitted (steps, B)): emitted[j] is the token fed at step
+    j. ``sampling=None`` is greedy argmax (first index on ties); otherwise
+    a dict of per-row tensors on the card — temperature, top_k, top_p,
+    key (B, 2) base keys and step (B,) the index of each row's next token
+    (`models.sampling.device_arrays`) — and step j of row i draws with
+    ``fold_in(key[i], step[i] + j)``."""
     toks = []
+    step = None if sampling is None else sampling["step"]
     for _ in range(steps):
         logits, state = decode_step(params, token, cfg, state, pos,
                                     row_mask=row_mask)
         toks.append(token[:, 0])
-        token = SMP.greedy(logits, cfg.vocab)[:, None]
+        if sampling is None:
+            token = SMP.greedy(logits, cfg.vocab)[:, None]
+        else:
+            token = SMP.sample_at_step(
+                logits, sampling["temperature"], sampling["top_k"],
+                sampling["top_p"], sampling["key"], step,
+                vocab=cfg.vocab)[:, None]
+            step = step + 1
         pos = pos + 1
     return token, state, torch.stack(toks)

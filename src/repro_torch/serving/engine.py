@@ -10,8 +10,8 @@ per-row page tables, admission by varlen chunked prefill).
 step; `make_chunk_prefill_fn` the paged chunk-prefill step;
 `generate` / `greedy_generate` the reference generation path (contiguous:
 a block-multiple prefill, the prompt's remainder fed through decode, then
-greedy decode). PyTorch runs eagerly, so these are plain closures and
-loops (the reference jits them).
+greedy or seeded sampled decode). PyTorch runs eagerly, so these are
+plain closures and loops (the reference jits them).
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.models import sampling as SMP
 from repro_torch.models import transformer
+from repro_torch.serving.params import SamplingParams, sampling_arrays
 
 
 def make_serve_fns(cfg, *, max_len: int, paged: bool = False,
@@ -70,12 +71,12 @@ def generate(params, cfg, prompts, *, steps: int, sampling=None,
 
     The prompt splits into a block-multiple prefix ``S0`` (none when S is
     shorter than a block), prefilled at once, and a remainder fed token by
-    token through decode (teacher-forced); then greedy decode. ``max_len``
+    token through decode (teacher-forced); then decode. ``max_len``
     defaults to S + steps rounded up to the block (8 in per_channel mode).
-    ``sampling=None`` is exact greedy argmax, the only arm ported."""
-    if sampling is not None:
-        raise NotImplementedError("sampled generate needs the threefry "
-                                  "sampler port (ROADMAP queue 1, item 6)")
+    ``sampling`` is None (exact greedy argmax), one `SamplingParams` for
+    every row or a sequence of one per row; row i's seed defaults to i.
+    Token 0 is drawn from the prefill's logits, the rest in the scan. Stop
+    conditions are the scheduler's, not handled here."""
     device = transformer.check_device(device)
     if params["embed"].device != device:
         raise ValueError(f"params live on {params['embed'].device}, "
@@ -88,6 +89,13 @@ def generate(params, cfg, prompts, *, steps: int, sampling=None,
     init_state, prefill_fn, decode_fn = make_serve_fns(
         cfg, max_len=max_len, device=device)
     S0 = max(bs, (S // bs) * bs) if S >= bs else 0
+    samp = None
+    if sampling is not None:
+        sps = ([sampling] * B if isinstance(sampling, SamplingParams)
+               else list(sampling))
+        if len(sps) != B:
+            raise ValueError(f"got {len(sps)} SamplingParams for {B} rows")
+        samp = SMP.device_arrays(sampling_arrays(sps), device)
     state = init_state(B)
     if S0:
         logits, state = prefill_fn(params, prompts[:, :S0], state)
@@ -95,9 +103,15 @@ def generate(params, cfg, prompts, *, steps: int, sampling=None,
     for j in range(S0, S):                  # teacher-forced remainder
         logits, state = decode_fn(params, prompts[:, j:j + 1], state, pos)
         pos = pos + 1
-    tok0 = SMP.greedy(logits, cfg.vocab)[:, None]
+    if samp is None:
+        tok0 = SMP.greedy(logits, cfg.vocab)[:, None]
+    else:
+        tok0 = SMP.sample_at_step(
+            logits, samp["temperature"], samp["top_k"], samp["top_p"],
+            samp["key"], samp["step"], vocab=cfg.vocab)[:, None]
+        samp = dict(samp, step=samp["step"] + 1)
     _, _, toks = transformer.decode_scan(params, tok0, cfg, state, pos,
-                                         steps=steps)
+                                         steps=steps, sampling=samp)
     return toks.T
 
 

@@ -97,6 +97,9 @@ class LLMEngine:
         req = self.batcher.abort(uid)
         return None if req is None else self._snapshot(req)
 
+    def has_unfinished(self) -> bool:
+        return bool(self._live)
+
     def generate(self, prompts: Sequence, sampling_params:
                  SamplingParams | Sequence[SamplingParams] | None = None,
                  *, max_ticks: int = 10_000) -> list[RequestOutput]:

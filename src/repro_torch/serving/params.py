@@ -3,14 +3,19 @@ of ``repro.serving.params``).
 
 Field names are the reference's. Options whose machinery is not ported
 yet raise `NotImplementedError` naming their ROADMAP item instead of
-being silently ignored.
+being silently ignored. `sampling_arrays` compiles a batch of
+`SamplingParams` into the per-row arrays the decode paths draw with
+(`models.sampling.sample_at_step`).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Sequence
 
+import numpy as np
+
 from repro_torch.core.quantization import KV_DTYPES
+from repro_torch.models import prng
 
 # finish reasons a request can end with
 FINISH_REASONS = ("stop_token", "stop_string", "length", "aborted")
@@ -22,8 +27,10 @@ def _not_ported(what: str, item: str):
 
 @dataclasses.dataclass(frozen=True)
 class SamplingParams:
-    """Per-request settings. ``temperature == 0`` is exact greedy argmax,
-    the only arm ported (sampling needs ROADMAP queue 1, item 6).
+    """Per-request settings. ``temperature == 0`` is exact greedy argmax;
+    ``top_k`` 0 and ``top_p`` 1.0 disable their filters. ``seed`` fixes
+    the request's PRNG stream (token i is drawn with
+    ``fold_in(PRNGKey(seed), i)``); None derives it from the request uid.
     ``stop_token_ids`` finish a request when the NEXT token is one of them
     (the stop token itself is not emitted); ``stop`` strings are matched
     against the detokenized generated stream."""
@@ -54,9 +61,6 @@ class SamplingParams:
                 self.kv_cache_dtype not in KV_DTYPES:
             raise ValueError(f"kv_cache_dtype must be one of {KV_DTYPES} or "
                              f"None (got {self.kv_cache_dtype!r})")
-        if self.temperature > 0:
-            _not_ported("temperature > 0 (seeded sampling)",
-                        "ROADMAP queue 1, item 6")
         if self.priority != 0:
             _not_ported("request priorities", "ROADMAP queue 1, item 9")
         object.__setattr__(self, "stop_token_ids",
@@ -77,6 +81,43 @@ def default_detokenize(ids: Sequence[int]) -> str:
     return "".join(f"<{int(t)}>" for t in ids)
 
 
+def request_key(uid: int, params: SamplingParams) -> np.ndarray:
+    """The request's base PRNG key, (2,) uint32: ``PRNGKey(seed)``, the
+    seed being the request uid when ``params.seed`` is None."""
+    seed = params.seed if params.seed is not None else uid
+    return prng.PRNGKey(seed).numpy().astype(np.uint32)
+
+
+def sampling_arrays(params: Sequence[SamplingParams], *,
+                    uids: Sequence[int] | None = None,
+                    steps: Sequence[int] | None = None,
+                    keys: Sequence[np.ndarray | None] | None = None) -> dict:
+    """A batch of `SamplingParams` as per-row numpy arrays: temperature,
+    top_k, top_p (B,), key (B, 2) uint32 base keys, step (B,) int32 (the
+    index of each row's NEXT token). ``keys`` gives precomputed base keys
+    (None entries fall back to `request_key`); greedy rows never draw and
+    keep a zero key."""
+    B = len(params)
+    uids = list(uids) if uids is not None else list(range(B))
+    steps = list(steps) if steps is not None else [0] * B
+    out = {
+        "temperature": np.zeros((B,), np.float32),
+        "top_k": np.zeros((B,), np.int32),
+        "top_p": np.ones((B,), np.float32),
+        "key": np.zeros((B, 2), np.uint32),
+        "step": np.asarray(steps, np.int32),
+    }
+    for i, sp in enumerate(params):
+        out["temperature"][i] = sp.temperature
+        out["top_k"][i] = sp.top_k
+        out["top_p"][i] = sp.top_p
+        if not sp.is_greedy:
+            pre = keys[i] if keys is not None else None
+            out["key"][i] = pre if pre is not None \
+                else request_key(uids[i], sp)
+    return out
+
+
 @dataclasses.dataclass
 class EngineConfig:
     """One object configuring the serving stack: the reference's field
@@ -84,9 +125,10 @@ class EngineConfig:
     None (the reference's 500 arms a stall watchdog that is not ported
     yet, ROADMAP queue 1, item 9). Ported: ``batch``, ``max_len``,
     ``eos_id``, ``paged`` (False: the contiguous backend, the default;
-    True: the page pool), ``n_pages``, ``chunk``, ``prefill_chunk`` (paged
-    only), ``detokenize`` and a uniform ``kv_cache_dtype`` (other than
-    int8: paged only). ``preempt_loop_limit`` is accepted and inert: it
+    True: the page pool), ``n_pages``, ``chunk``, ``prefix_cache`` and
+    ``prefill_chunk`` (paged only: the batcher raises ValueError
+    otherwise), ``detokenize`` and a uniform ``kv_cache_dtype`` (other
+    than int8: paged only). ``preempt_loop_limit`` is accepted and inert: it
     bounds preemption, which comes with overload (item 9). Every other
     option below that is set to anything but its off value raises
     `NotImplementedError`."""
@@ -115,8 +157,6 @@ class EngineConfig:
             _not_ported("the dequantize-gather prefill oracle "
                         "(use_fused_prefill=False)",
                         "ROADMAP queue 1, item 13")
-        if self.prefix_cache:
-            _not_ported("prefix caching", "ROADMAP queue 1, item 8")
         if (self.host_pages is not None or self.evictor != "lru"
                 or self.host_tier_dtype is not None):
             _not_ported("the host swap tier (host_pages / evictor / "

@@ -16,15 +16,27 @@ UNPADDED prompt plus its decode budget (`pages_for_request`) and feeds the
 prompt by varlen chunked prefill: ``prefill_chunk`` tokens per dispatch
 (default 4 pages), full chunks page-aligned, the final partial chunk at a
 power-of-two page width with a per-row valid length, interleaved tick by
-tick with decode so a long prompt never stalls running rows. Decode ticks
-scan up to ``chunk`` tokens per dispatch, never past the smallest
-remaining budget, rounded down to a power of two. Stop tokens, the engine
-``eos_id`` and stop strings finish a row; tokens past a mid-chunk stop are
-discarded (decode is causal).
+tick with decode so a long prompt never stalls running rows. With
+``prefix_cache`` each prompt's full pages are hashed (`chain_hashes`);
+admission adopts the resident prefix by refcount (rounded down to a chunk
+boundary and never the final chunk, so hit and miss runs chunk alike and
+give the same tokens), each chunk's completed pages are published as they
+are written, and a released row's fully kept decode pages are published
+under the prompt's extended chain. Decode ticks scan up to ``chunk``
+tokens per dispatch, never past the smallest remaining budget, rounded
+down to a power of two. Stop tokens, the engine ``eos_id`` and stop
+strings finish a row; tokens past a mid-chunk stop are discarded (decode
+is causal).
 
-Not ported yet (they raise in `EngineConfig`): prefix caching, overload
-(watermark admission, preemption, priorities, the stall watchdog), the
-host swap tier, mixed precision plans and sampled requests.
+Both backends draw per request (`SamplingParams`): token i of a request
+with base key k is drawn with ``fold_in(k, i)`` on the card, whether it
+comes from prefill logits, a per-token tick or a decode scan, so a seeded
+stream does not depend on the batch or the chunking. A dispatch whose
+read rows are all greedy takes the plain argmax.
+
+Not ported yet (they raise in `EngineConfig`): overload (watermark
+admission, preemption, priorities, the stall watchdog), the host swap
+tier and mixed precision plans.
 """
 from __future__ import annotations
 
@@ -35,12 +47,14 @@ from collections import deque
 import numpy as np
 import torch
 
-from repro_torch.core.paging import HostPageAllocator, live_page_count
+from repro_torch.core.paging import (SENTINEL_PAGE, HostPageAllocator,
+                                     chain_hashes, live_page_count)
 from repro_torch.models import sampling as SMP
 from repro_torch.models import transformer as T
 from repro_torch.serving.engine import make_chunk_prefill_fn, make_serve_fns
 from repro_torch.serving.params import (EngineConfig, SamplingParams,
-                                        default_detokenize)
+                                        default_detokenize, request_key,
+                                        sampling_arrays)
 
 
 def pages_for_request(prompt_len: int, max_new: int, page_size: int) -> int:
@@ -85,9 +99,11 @@ class ContinuousBatcher:
         self.paged = config.paged
         if self.paged and cfg.quant.granularity != "per_block":
             raise ValueError("paged serving requires per_block quantization")
-        if config.prefill_chunk is not None and not self.paged:
-            raise ValueError("chunked prefill requires the paged backend "
-                             "(paged=True)")
+        if (config.prefix_cache or config.prefill_chunk is not None) \
+                and not self.paged:
+            raise ValueError("prefix caching / chunked prefill require the "
+                             "paged backend (paged=True)")
+        self.prefix_cache = bool(config.prefix_cache)
         self.config = config
         self.params, self.cfg = params, cfg
         self.batch, self.max_len = config.batch, config.max_len
@@ -108,9 +124,18 @@ class ContinuousBatcher:
             self.max_blocks = self.max_len // self.page_size
             self.n_pages = (config.n_pages if config.n_pages is not None
                             else self.batch * self.max_blocks + 1)
-            self.allocator = HostPageAllocator(self.n_pages)
+            self.allocator = HostPageAllocator(
+                self.n_pages, prefix_cache=self.prefix_cache)
             self.tables = np.zeros((self.batch, self.max_blocks), np.int32)
             self.row_pages: list[list[int]] = [[] for _ in range(self.batch)]
+            # per row: the unpadded prompt and the hash chain of its full
+            # pages, kept until release for decode-page promotion
+            self.streams: list[np.ndarray | None] = [None] * self.batch
+            self.row_chain: list[list[bytes] | None] = [None] * self.batch
+            # copy-on-write scan before decode, armed only by a caller that
+            # shares flush targets between rows (`fork_row`): the
+            # scheduler's own decode flushes only private pages
+            self.cow_armed = False
             pc = config.prefill_chunk or 4 * self.page_size
             self.prefill_chunk_tokens = -(-pc // self.page_size) * \
                 self.page_size
@@ -167,13 +192,48 @@ class ContinuousBatcher:
         length; at least one block)."""
         return -(-max(n, 1) // self.block) * self.block
 
-    # -- lifecycle helpers -------------------------------------------------
-    def _sample_rows(self, logits) -> np.ndarray:
-        temps = [r.sampling.temperature if r is not None else 0.0
-                 for r in self.rows]
-        return SMP.sample_at_step(logits, temps,
-                                  vocab=self.cfg.vocab).cpu().numpy()
+    # -- per-request sampling ------------------------------------------------
+    def _req_key(self, r: Request) -> np.ndarray:
+        """The request's base key, derived once and kept on the request."""
+        k = getattr(r, "_base_key", None)
+        if k is None:
+            k = r._base_key = request_key(r.uid, r.sampling)
+        return k
 
+    def _needs_sampling(self, idxs) -> bool:
+        """True when a row whose draw is read samples (a sampled row still
+        mid-prefill does not take greedy decoders off the argmax)."""
+        return any(self.rows[i] is not None
+                   and not self.rows[i].sampling.is_greedy for i in idxs)
+
+    def _sampling_arrays(self, offset: int) -> dict:
+        """Per-row sampling tensors on the batcher's device for the whole
+        batch (empty rows greedy). Each row's next token index is its generated count
+        plus ``offset``: 0 for the first token from prefill logits, 1 in
+        decode (the pending token holds index len(generated))."""
+        sps, keys, steps = [], [], []
+        for r in self.rows:
+            sps.append(r.sampling if r is not None
+                       else SamplingParams.greedy())
+            keys.append(self._req_key(r)
+                        if r is not None and not r.sampling.is_greedy
+                        else None)
+            steps.append((len(r.generated) if r is not None else 0) + offset)
+        return SMP.device_arrays(sampling_arrays(sps, steps=steps, keys=keys),
+                                 self.device)
+
+    def _sample_rows(self, logits, idxs, *, offset: int) -> np.ndarray:
+        """Next token of every row, honouring each request's parameters
+        (the decode scan's draw, at the host boundary); ``idxs`` are the
+        rows whose draw the caller reads."""
+        if not self._needs_sampling(idxs):
+            return SMP.greedy(logits, self.cfg.vocab).cpu().numpy()
+        s = self._sampling_arrays(offset)
+        return SMP.sample_at_step(
+            logits, s["temperature"], s["top_k"], s["top_p"], s["key"],
+            s["step"], vocab=self.cfg.vocab).cpu().numpy()
+
+    # -- lifecycle helpers -------------------------------------------------
     def _record_first_token(self, r: Request):
         if r.first_token_time is None:
             r.first_token_time = time.perf_counter()
@@ -321,23 +381,32 @@ class ContinuousBatcher:
         contiguous cache; paged rows outside ``row_mask`` stay frozen)."""
         n = self._chunk_len(active)
         self.decode_tokens_computed += n * len(active)
+        if self.paged and self.cow_armed and self._cow_retarget(active, n):
+            self._sync_device()          # retargeted tables before the scan
         tok, pos = self._dev(self.tok), self._dev(self.pos)
         mask = None if row_mask is None else self._dev(row_mask)
         if n == 1:
             logits, self.state = self._decode(self.params, tok, self.state,
                                               pos, mask)
-            return self._finish_tick(active, self._sample_rows(logits))
+            return self._finish_tick(
+                active, self._sample_rows(logits, active, offset=1))
+        sampling = (self._sampling_arrays(1)
+                    if self._needs_sampling(active) else None)
         pending, self.state, toks = T.decode_scan(
             self.params, tok, self.cfg, self.state, pos, steps=n,
-            row_mask=mask)
+            row_mask=mask, sampling=sampling)
         return self._finish_chunk(active, toks.cpu().numpy(),
                                   pending.cpu().numpy())
 
     def _release_row(self, i: int):
-        """Free row ``i``; paged, its pages return to the free list. The
-        device table and length stay stale until the next `_sync_device`
-        (before any page is handed out again); the dead row's output is
-        discarded."""
+        """Free row ``i``. Paged: with the prefix cache its fully kept
+        decode pages are first published (`_promote_on_release`); then each
+        page drops one reference — pages still shared survive, indexed
+        ones park on the LRU, the rest are free. The device table and
+        length stay stale until the next `_sync_device` (before any page is
+        handed out again); the dead row's output is discarded."""
+        if self.paged and self.prefix_cache:
+            self._promote_on_release(i)
         self.rows[i] = None
         self.pos[i] = 0
         self.tok[i, 0] = 0
@@ -346,6 +415,30 @@ class ContinuousBatcher:
             self.row_pages[i] = []
             self.tables[i, :] = 0
             self.prefilling.pop(i, None)
+            self.streams[i] = None
+            self.row_chain[i] = None
+
+    def _promote_on_release(self, i: int):
+        """Publish a finishing row's decode pages under its prompt's chain
+        extended over the generated tokens, so a prompt that continues the
+        conversation (prompt + completion + a new turn) hits them. The
+        extension starts at the prompt's partial tail, and only pages whose
+        tokens were all kept are published (not ones reaching past a
+        mid-scan stop)."""
+        r, stream, chain = self.rows[i], self.streams[i], self.row_chain[i]
+        if r is None or stream is None:
+            return
+        ps = self.page_size
+        S, nb = len(stream), len(stream) // ps
+        kept = S + len(r.generated)
+        if kept // ps <= nb:
+            return
+        ext = np.concatenate([stream[nb * ps:],
+                              np.asarray(r.generated, np.int32)])
+        ext = ext[:(kept // ps) * ps - nb * ps]
+        parent = chain[-1] if chain else None
+        for j, h in enumerate(chain_hashes(ext, ps, parent=parent)):
+            self.allocator.register(int(self.tables[i, nb + j]), h)
 
     def _sync_device(self):
         """Push the host page tables and per-row lengths (active rows:
@@ -400,7 +493,7 @@ class ContinuousBatcher:
                 toks[i, S - len(h):] = h       # left-pad
             logits, self.state = self._prefill(self.params, self._dev(toks),
                                                self.state)
-            nxt = self._sample_rows(logits)
+            nxt = self._sample_rows(logits, active, offset=0)
             for i in active:
                 r = self.rows[i]
                 if not r.generated and int(nxt[i]) in self._stop_ids(r):
@@ -418,28 +511,55 @@ class ContinuousBatcher:
         return done + self._decode_tick(active)
 
     # -- varlen chunked admission --------------------------------------------
+    def _cap_hits(self, match_pages: int, prompt_len: int) -> int:
+        """Usable hit length in tokens for a prompt of ``prompt_len``
+        tokens whose full pages match ``match_pages`` deep: rounded down to
+        a chunk boundary (the rest then chunks as a miss run does, which
+        keeps hit and miss tokens equal) and below the final chunk (which
+        always computes: the first token is drawn from its logits)."""
+        cp = self.prefill_chunk_tokens
+        n_chunks = -(-prompt_len // cp)
+        hit_chunks = min(match_pages // (cp // self.page_size), n_chunks - 1)
+        return max(hit_chunks, 0) * cp
+
     def _admit_chunked(self) -> bool:
-        """Admit queued requests FCFS into free rows; each takes its full
-        reservation (`pages_for_request`) and starts its prefill cursor at
-        0. Returns True when page tables changed."""
+        """Admit queued requests FCFS into free rows. Each hashes its
+        prompt's full pages, adopts the resident prefix (`_cap_hits`) by
+        refcount, allocates the rest of its reservation
+        (`pages_for_request`; cached pages reclaimed oldest first) and
+        starts its prefill cursor past the hits. A head that does not fit
+        waits (admission gates on `available_after_adopt`). Returns True
+        when page tables changed."""
+        ps = self.page_size
         changed = False
         for i in range(self.batch):
             if self.rows[i] is not None or not self.queue:
                 continue
             cand = self.queue[0]
             S = len(cand.prompt)
-            init = pages_for_request(S, cand.max_new_tokens, self.page_size)
-            if init > self.allocator.n_free:
+            nb = S // ps                         # hashable full pages
+            init = pages_for_request(S, cand.max_new_tokens, ps)
+            toks = np.asarray(cand.prompt, np.int32)
+            chain = chain_hashes(toks[:nb * ps], ps) if self.prefix_cache \
+                else []
+            hit_toks = (self._cap_hits(self.allocator.match(chain), S)
+                        if self.prefix_cache else 0)
+            hit = hit_toks // ps                 # adopted pages
+            if init - hit > self.allocator.available_after_adopt(chain[:hit]):
                 break                            # wait for releases
             self.queue.popleft()
-            ids = self.allocator.alloc(init)
+            ids = (self.allocator.adopt(chain[:hit]) if hit else []) \
+                + self.allocator.alloc(init - hit)
+            if self.prefix_cache:
+                self.allocator.misses += nb - hit
             self.rows[i] = cand
             self.row_pages[i] = ids
             self.tables[i, :] = 0
             self.tables[i, :init] = ids
-            self.prefilling[i] = {"toks": np.asarray(cand.prompt, np.int32),
-                                  "cursor": 0, "S": S}
-            self.pos[i] = 0
+            self.streams[i] = toks
+            self.row_chain[i] = chain
+            self.prefilling[i] = {"toks": toks, "cursor": hit_toks, "S": S}
+            self.pos[i] = hit_toks
             self.tok[i, 0] = 0
             changed = True
         return changed
@@ -469,11 +589,14 @@ class ContinuousBatcher:
 
     def _advance_prefill(self) -> list[Request]:
         """Advance one prompt chunk for the mid-prefill rows whose next
-        chunk has the round-robin head's dispatch width; rows finishing
-        their prompt draw their first token. Returns requests whose first
-        draw was a stop token (finished with empty output)."""
+        chunk has the round-robin head's dispatch width; with the prefix
+        cache, each chunk's completed pages are published at once (a
+        concurrent identical prompt can adopt them); rows finishing their
+        prompt draw their first token. Returns requests whose first draw
+        was a stop token (finished with empty output)."""
         if not self.prefilling:
             return []
+        ps = self.page_size
         order = sorted(self.prefilling)
         head = order[self._pf_rr % len(order)]
         self._pf_rr += 1
@@ -497,14 +620,22 @@ class ContinuousBatcher:
             self._dev(valid), self._dev(mask))
         self.prefill_tokens_computed += int(valid.sum())
         sampled = None
+        finishing = [i for i in group
+                     if rem_of[i] <= self.prefill_chunk_tokens]
         done: list[Request] = []
         for i in group:
             st = self.prefilling[i]
-            st["cursor"] += int(valid[i])
+            c = int(valid[i])
+            if self.prefix_cache:
+                # pages fully inside [cursor, cursor + c) are final
+                for b in range(st["cursor"] // ps, (st["cursor"] + c) // ps):
+                    self.allocator.register(int(self.tables[i, b]),
+                                            self.row_chain[i][b])
+            st["cursor"] += c
             self.pos[i] = st["cursor"]
             if st["cursor"] == st["S"]:
-                if sampled is None:
-                    sampled = self._sample_rows(logits)
+                if sampled is None:      # token index 0 for finishing rows
+                    sampled = self._sample_rows(logits, finishing, offset=0)
                 del self.prefilling[i]
                 r = self.rows[i]
                 if int(sampled[i]) in self._stop_ids(r):
@@ -515,6 +646,25 @@ class ContinuousBatcher:
                 self.tok[i, 0] = sampled[i]
                 self._record_first_token(r)
         return done
+
+    def _cow_retarget(self, active: list[int], n: int) -> bool:
+        """Copy-on-write before an n-step decode scan: every page the scan
+        will flush into must be private (a shared or indexed page is
+        immutable). Returns True if tables changed."""
+        ps = self.page_size
+        changed = False
+        for i in active:
+            pos = int(self.pos[i])
+            for b in range(pos // ps, (pos + n) // ps):
+                page = int(self.tables[i, b])
+                if page == SENTINEL_PAGE:
+                    continue
+                new = self.allocator.ensure_private(page)
+                if new is not None:
+                    self.row_pages[i][self.row_pages[i].index(page)] = new
+                    self.tables[i, b] = new
+                    changed = True
+        return changed
 
     def _step_paged(self) -> list[Request]:
         if self.state is None:
@@ -535,7 +685,10 @@ class ContinuousBatcher:
     # -- introspection -----------------------------------------------------
     def pool_report(self) -> dict:
         """Ticks, token counters and TTFT percentiles; paged, also the page
-        occupancy."""
+        populations: ``pages_allocated`` referenced, ``pages_cached`` on the
+        LRU (refcount 0, still hittable), ``pages_live`` the distinct
+        pages holding tokens; with the prefix cache, the allocator's hit,
+        miss, reclaim and copy-on-write counters."""
         if not self.paged:
             return {"ticks": self.ticks,
                     "decode_tokens_computed": self.decode_tokens_computed,
@@ -543,15 +696,22 @@ class ContinuousBatcher:
         lengths = [int(self.pos[i]) if r is not None else 0
                    for i, r in enumerate(self.rows)]
         a = self.allocator
-        allocated = (self.n_pages - 1) - a.n_free
+        allocated = (self.n_pages - 1) - a.n_free - a.n_cached
         live = live_page_count(self.tables, lengths, self.page_size)
-        return {"kv_cache_dtype": self.kv_cache_dtype,
-                "pages_total": self.n_pages - 1,
-                "pages_free": a.n_free,
-                "pages_allocated": allocated,
-                "pages_live": live,
-                "utilization": live / max(allocated, 1),
-                "ticks": self.ticks,
-                "prefill_tokens_computed": self.prefill_tokens_computed,
-                "decode_tokens_computed": self.decode_tokens_computed,
-                **self.lifecycle_report()}
+        rep = {"kv_cache_dtype": self.kv_cache_dtype,
+               "pages_total": self.n_pages - 1,
+               "pages_free": a.n_free,
+               "pages_cached": a.n_cached,
+               "pages_allocated": allocated,
+               "pages_live": live,
+               "utilization": live / max(allocated, 1),
+               "ticks": self.ticks,
+               "prefill_tokens_computed": self.prefill_tokens_computed,
+               "decode_tokens_computed": self.decode_tokens_computed,
+               **self.lifecycle_report()}
+        if self.prefix_cache:
+            rep.update({"page_hits": a.hits, "page_misses": a.misses,
+                        "page_hit_rate": a.hits / max(a.hits + a.misses, 1),
+                        "reclaims": a.reclaims,
+                        "cow_retargets": a.cow_retargets})
+        return rep

@@ -12,7 +12,10 @@ quantize/dequantize family — at the smoke shapes and at internlm2_1_8b's
 widths (the blocked kernel's slabs also at a flush, at blocks of 24
 and 8 and at D 16 to 8192); the smoke engines' greedy tokens on the card
 against the CPU (paged and contiguous, and `greedy_generate`); and the
-smoke train step's loss on the card against the CPU. Skipped where there is no card; imports
+smoke train step's loss on the card against the CPU; threefry bits on the card
+against the committed known answers and the CPU, the sampler with no host
+sync, and seeded sampled and prefix-cached smoke tokens on the card
+against the CPU. Skipped where there is no card; imports
 no JAX (the card's machine has none).
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
@@ -661,3 +664,94 @@ def test_smoke_train_step_loss_matches_cpu(cuda_device):
     assert FF.flash_fwd_cuda.launches >= before + 2 * cfg.n_layers
     assert card["loss"] == pytest.approx(cpu["loss"], rel=1e-5)
     assert card["grad_norm"] == pytest.approx(cpu["grad_norm"], rel=1e-4)
+
+
+@pytest.mark.gpu
+def test_prng_bits_on_card_equal_constants(cuda_device):
+    """threefry on the card: the committed known answers of jax 0.9, and
+    keys, bits and uniforms at (4, 92544) bit for bit against the CPU."""
+    from repro_torch.models import prng
+    key = prng.PRNGKey(7, device=cuda_device)
+    folded = prng.fold_in(key, 3)
+    assert tuple(key.tolist()) == prng.KNOWN_KEY_7
+    assert tuple(folded.tolist()) == prng.KNOWN_FOLD_7_3
+    assert tuple(prng.random_bits(folded, 4).tolist()) == prng.KNOWN_BITS_7_3
+    keys = torch.stack([prng.fold_in(prng.PRNGKey(s), j)
+                        for s, j in ((0, 0), (11, 5), (2**31 - 1, 47),
+                                     (12, 2**31 - 1))])
+    card = keys.to(cuda_device)
+    assert torch.equal(prng.random_bits(card, 92544).cpu(),
+                       prng.random_bits(keys, 92544))
+    u_card = prng.uniform(card, 92544, minval=1.1754944e-38).cpu()
+    u_cpu = prng.uniform(keys, 92544, minval=1.1754944e-38)
+    assert torch.equal(u_card.view(torch.int32), u_cpu.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_sampler_no_host_sync(cuda_device):
+    """`sample_at_step` at the full vocabulary with mixed rows, with any
+    host sync an error."""
+    from repro_torch.models import sampling as SMP
+    from repro_torch.serving.params import SamplingParams, sampling_arrays
+    sps = [SamplingParams(temperature=0.7, top_k=50, seed=11),
+           SamplingParams.greedy(),
+           SamplingParams(temperature=1.0, top_p=0.9, seed=12),
+           SamplingParams(temperature=0.8, top_k=40, top_p=0.95)]
+    s = SMP.device_arrays(sampling_arrays(sps, steps=[3, 0, 7, 1]),
+                          cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    logits = torch.randn((4, 92544 + 64), generator=gen, device=cuda_device)
+    args = (logits, s["temperature"], s["top_k"], s["top_p"], s["key"],
+            s["step"])
+    want = SMP.sample_at_step(*args, vocab=92544)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = SMP.sample_at_step(*args, vocab=92544)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got, want)
+    assert int(got[1]) == int(logits[1, :92544].argmax())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [False, True])
+def test_sampled_smoke_tokens_match_cpu(paged, cuda_device):
+    """Seeded sampled requests mixed with greedy ones, and (paged) the
+    prefix cache's hit-against-miss protocol: the same tokens on the card
+    (kernels) and on the CPU (plain versions)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import EngineConfig, LLMEngine, SamplingParams
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("internlm2_1_8b", smoke=True),
+                              dtype="float32")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    rng = np.random.RandomState(9)
+    shared = rng.randint(0, cfg.vocab, (32,)).astype(np.int32)
+    prompts = [np.concatenate([shared, rng.randint(0, cfg.vocab, (n,))])
+               .astype(np.int32) for n in (8, 3, 17, 9)]
+    sps = [SamplingParams.greedy(max_new_tokens=8),
+           SamplingParams(temperature=0.7, top_k=50, seed=11,
+                          max_new_tokens=8),
+           SamplingParams(temperature=1.0, top_p=0.9, seed=12,
+                          max_new_tokens=8),
+           SamplingParams(temperature=0.8, top_k=40, top_p=0.95,
+                          max_new_tokens=8)]
+
+    def run(device, p):
+        eng = LLMEngine(p, cfg, EngineConfig(
+            batch=2, max_len=128, paged=paged, prefix_cache=paged,
+            prefill_chunk=16 if paged else None), device=device)
+        toks = [o.token_ids for o in eng.generate(prompts, sps)]
+        toks += [o.token_ids for o in eng.generate(prompts[:1], sps[:1])]
+        rep = eng.pool_report()
+        return toks, {k: rep[k] for k in ("page_hits", "page_misses")
+                      if k in rep}
+
+    card, cpu = run(cuda_device, _to(params, cuda_device)), run("cpu", params)
+    assert card == cpu
+    assert card[0][0] == card[0][-1]
+    if paged:
+        assert card[1]["page_hits"] > 0
