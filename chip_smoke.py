@@ -54,7 +54,10 @@ Phases, each fatal on failure (no fallback anywhere):
      `generate`, and of the prefix cache's hit-against-miss and
      shared-prefix protocols with identical counters (a differing sampled
      token fails after its step and the gap between the draw's two
-     leading perturbed logits are printed).
+     leading perturbed logits are printed); the overload protocols of
+     tests/test_overload.py (fast resume against the unpressured run,
+     recompute resume, transient allocation faults, delayed reclaim) with
+     identical tokens and pool reports.
   5. the slices at full width: internlm2_1_8b with random bf16 weights from
      a seeded torch.Generator serves 5 greedy requests through the paged
      LLMEngine and through the contiguous one (batch 4, max_len 2048); the
@@ -66,7 +69,15 @@ Phases, each fatal on failure (no fallback anywhere):
      together each adopt 6 pages, compute 1536 prefill tokens fewer and
      give their cold runs' tokens; the counters are the reference's
      logic's, every page cached or free at drain; TTFT cold and warm
-     printed beside the card's name and power limit); it
+     printed beside the card's name and power limit), and under overload
+     (prefix cache, chunk 1, watermark 0, a pool of 7 pages of 256: (a) a
+     greedy and a sampled request preempted by held pages and resumed fast
+     give the unpressured run's tokens bit for bit; (b) resumed by
+     recompute, they keep the tokens before the preemption and the pending
+     token; (c) a 2x oversubscribed burst of 8 requests at mixed
+     priorities drains with full budgets, its preemptions, resumes,
+     stalls, goodput and TTFT printed, then a watermark decode step runs
+     with any host sync an error); it
      runs greedy_generate per block (a block flush in every layer) and per
      channel (batch 4, 1000-token prompts, 32 steps); the seed baseline
      runs over the contiguous cache's shape beside flat decode; then, the
@@ -1336,6 +1347,136 @@ def parity_sampling(dev):
         f"({json.dumps(c)})")
 
 
+def _overload_report(rep: dict) -> dict:
+    """A pool report without its wall-clock TTFT percentiles."""
+    return {k: v for k, v in rep.items() if not k.startswith("ttft")}
+
+
+def overload_protocols(params, cfg, d) -> dict:
+    """The overload protocols of tests/test_overload.py on device ``d``
+    (the smoke model): fast resume (``hold_pages`` 18 over ticks 12-30
+    against the same run unpressured), recompute resume (the suspended
+    row's cached pages reclaimed before re-admission), transient
+    allocation faults and delayed reclaim (each against a fault-free run).
+    Returns each protocol's tokens and pool reports."""
+    import numpy as np
+    from repro_torch.core.paging import PoolFaultInjector
+    from repro_torch.serving import (ContinuousBatcher, EngineConfig,
+                                     Request, SamplingParams)
+    rng = np.random.RandomState(0)
+    p0, p1 = [rng.randint(0, cfg.vocab, (n,)).astype(np.int32)
+              for n in (9, 11)]
+    greedy = SamplingParams.greedy
+
+    def batcher(inj, **kw):
+        return ContinuousBatcher(params, cfg, EngineConfig(
+            max_len=64, paged=True, chunk=1, fault_injector=inj, **kw),
+            device=d)
+
+    def resume_run(pressure: bool, recompute: bool):
+        inj = PoolFaultInjector(seed=1)
+        b = batcher(inj, batch=2, n_pages=24, prefix_cache=True,
+                    watermark=1)
+        b.submit(Request(uid=0, prompt=p0,
+                         sampling=greedy(max_new_tokens=20)))
+        b.submit(Request(uid=1, prompt=p1, sampling=(
+            greedy(max_new_tokens=20) if recompute else SamplingParams(
+                temperature=0.9, seed=7, max_new_tokens=20))))
+        outs, snap = {}, None
+        for t in range(400):
+            if pressure and t == 12:
+                inj.hold_pages = 18
+            if pressure and not recompute and t == 30:
+                inj.hold_pages = 0
+            if recompute and t == 16 and b._suspended and snap is None:
+                uid = next(iter(b._suspended))
+                s = b._suspended[uid]
+                snap = [uid, [int(x) for x in s["full_toks"]], s["pending"]]
+                inj.hold_pages = 0
+                b.allocator.release(b.allocator.alloc(b.allocator.available))
+            for r in b.step():
+                outs[r.uid] = list(r.generated)
+            if len(outs) == 2:
+                return {"tokens": outs, "snapshot": snap,
+                        "report": _overload_report(b.pool_report())}
+        raise AssertionError(f"overload protocol on {d}: requests did not "
+                             f"complete")
+
+    def drain_three(inj, **kw):
+        b = batcher(inj, **kw)
+        for u, n in enumerate((9, 11, 7)):
+            b.submit(Request(uid=u, prompt=np.random.RandomState(u).randint(
+                0, cfg.vocab, (n,)).astype(np.int32),
+                sampling=greedy(max_new_tokens=8)))
+        done = b.run_to_completion(max_ticks=800)
+        return {"tokens": {r.uid: r.generated for r in done},
+                "report": _overload_report(b.pool_report())}
+
+    return {
+        "fast resume": [resume_run(False, False), resume_run(True, False)],
+        "recompute resume": [resume_run(True, True)],
+        "transient alloc faults": [
+            drain_three(None, batch=2, n_pages=24, prefix_cache=True),
+            drain_three(PoolFaultInjector(seed=11, p_alloc_fail=0.5),
+                        batch=2, n_pages=24, prefix_cache=True)],
+        "delayed reclaim": [
+            drain_three(None, batch=1, n_pages=8),
+            drain_three(PoolFaultInjector(seed=3, reclaim_delay=3),
+                        batch=1, n_pages=8)]}
+
+
+def parity_overload(dev):
+    """Phase 4, overload: `overload_protocols` on the CPU (plain versions)
+    and on the card (kernels), the smoke model in float32. Tokens and pool
+    reports must be identical, and each protocol must do what it claims:
+    the fast resume gives the unpressured streams, the recompute resume
+    keeps the prefix and the pending token, the faults fire and change no
+    token."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    base = dataclasses.replace(get_config("internlm2_1_8b", smoke=True),
+                               dtype="float32")
+    params = T.init_params(base, torch.Generator().manual_seed(0),
+                           device="cpu")
+    runs = {"cpu": overload_protocols(params, base, "cpu"),
+            "card": overload_protocols(_to(params, dev), base, dev)}
+    for name, cpu in runs["cpu"].items():
+        card = runs["card"][name]
+        if card != cpu:
+            raise AssertionError(f"smoke f32 overload {name}: card != cpu: "
+                                 f"cpu {cpu} card {card}")
+    r = runs["card"]
+    base_run, pressured = r["fast resume"]
+    rep = pressured["report"]
+    if base_run["report"]["preemptions"] or rep["preemptions"] < 1 \
+            or rep["preempt_fast_resumes"] < 1 \
+            or pressured["tokens"] != base_run["tokens"]:
+        raise AssertionError(f"smoke f32 fast resume: {r['fast resume']}")
+    (rec,) = r["recompute resume"]
+    uid, full, pending = rec["snapshot"]
+    S = (9, 11)[uid]
+    got = rec["tokens"][uid]
+    n = len(full) - S
+    if rec["report"]["preempt_recompute_resumes"] < 1 \
+            or got[:n] != full[S:] or got[n] != pending or len(got) != 20:
+        raise AssertionError(f"smoke f32 recompute resume: {rec}")
+    for name, key in (("transient alloc faults",
+                       "injected_alloc_fault_ticks"),
+                      ("delayed reclaim", "injected_delayed_releases")):
+        clean, faulty = r[name]
+        if faulty["tokens"] != clean["tokens"] or faulty["report"][key] < 1:
+            raise AssertionError(f"smoke f32 {name}: {r[name]}")
+    log(f"[parity] smoke f32 overload: fast resume (= unpressured, greedy "
+        f"and seeded; {rep['preemptions']} preemption(s)), recompute resume "
+        f"(prefix and pending token kept), transient alloc faults "
+        f"({r['transient alloc faults'][1]['report']['injected_alloc_fault_ticks']} blocked "
+        f"ticks) and delayed reclaim, tokens and pool reports identical on "
+        f"cpu and card")
+
+
 # -- phase 5: the slices at full width ---------------------------------------
 
 def _counters():
@@ -1596,6 +1737,233 @@ def prefix_serve_full_width(dev, params, cfg, card: str):
         f"{card}")
     log("[serve paged prefix] " + json.dumps(res))
     return counts
+
+
+def _overload_engine(params, cfg, dev, **kw):
+    from repro_torch.serving import EngineConfig, LLMEngine
+    return LLMEngine(params, cfg, EngineConfig(
+        batch=4, max_len=2048, paged=True, prefix_cache=True,
+        prefill_chunk=512, chunk=1, watermark=0, n_pages=8, **kw),
+        device=dev)
+
+
+def overload_pair(params, cfg, dev, mode: str):
+    """Run (a) or (b) of `overload_serve_full_width`: request 0 (prompt
+    250, greedy) and request 1 (prompt 506, temperature 0.9, seed 7), 24
+    tokens each, on a pool of 7 pages. ``mode`` "base": no pressure;
+    "fast": the injector holds the whole pool from the first tick both
+    rows decode until 2 ticks after the first preemption (request 0's
+    growth past its page preempts request 1, whose pages stay indexed);
+    "recompute": as "fast", and when the pressure lifts the suspended
+    row's cached pages are reclaimed (allocated and released), so its
+    resume prefills prompt + generated again. Returns (tokens by uid,
+    pool report, the snapshot [uid, generated, pending] at reclaim)."""
+    import numpy as np
+    from repro_torch.core.paging import PoolFaultInjector
+    from repro_torch.serving import SamplingParams
+    inj = PoolFaultInjector(seed=1)
+    eng = _overload_engine(params, cfg, dev, fault_injector=inj)
+    b = eng.batcher
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(0, cfg.vocab, (n,)).astype(np.int32)
+               for n in (250, 506)]
+    eng.add_request(prompts[0], SamplingParams.greedy(max_new_tokens=24))
+    eng.add_request(prompts[1], SamplingParams(temperature=0.9, seed=7,
+                                               max_new_tokens=24))
+    outs, snap, lift_at = {}, None, None
+    for _ in range(400):
+        decoding = [r for i, r in enumerate(b.rows)
+                    if r is not None and i not in b.prefilling]
+        if mode != "base" and lift_at is None and len(decoding) == 2 \
+                and not inj.hold_pages:
+            inj.hold_pages = b.n_pages - 1
+        if lift_at is None and b.preemptions:
+            lift_at = b.ticks + 2
+        if lift_at is not None and b.ticks == lift_at and inj.hold_pages:
+            inj.hold_pages = 0
+            if mode == "recompute":
+                uid = next(iter(b._suspended))
+                s = b._suspended[uid]
+                snap = [uid, [int(t) for t in s["full_toks"][
+                    len(prompts[uid]):]], s["pending"]]
+                b.allocator.release(b.allocator.alloc(b.allocator.available))
+        for o in eng.step():
+            if o.finished:
+                outs[o.uid] = o.token_ids
+        if len(outs) == 2:
+            return outs, eng.pool_report(), snap
+    raise AssertionError(f"serve paged overload ({mode}): requests did not "
+                         f"complete")
+
+
+def overload_burst(params, cfg, dev):
+    """(c) of `overload_serve_full_width`: 8 requests at once on a pool of
+    7 pages (half the 14 the four largest concurrent worst cases need),
+    prompts 250/500/760/1010, budgets 8/32/16/24 and priorities 1/0/0/0
+    cycled, aging every 4 ticks. Returns (outputs, pool report, the
+    prompts' total length)."""
+    import numpy as np
+    from repro_torch.serving import SamplingParams
+    eng = _overload_engine(params, cfg, dev, aging_ticks=4)
+    rng = np.random.RandomState(6)
+    lens, news, prios = (250, 500, 760, 1010), (8, 32, 16, 24), (1, 0, 0, 0)
+    uids = []
+    for k in range(8):
+        uids.append(eng.add_request(
+            rng.randint(0, cfg.vocab, (lens[k % 4],)).astype(np.int32),
+            SamplingParams.greedy(max_new_tokens=news[k % 4]),
+            priority=prios[k % 4]))
+    outs = {}
+    for _ in range(4000):
+        for o in eng.step():
+            if o.finished:
+                outs[o.uid] = o
+        if len(outs) == len(uids):
+            break
+    else:
+        raise AssertionError("serve paged overload (c): the burst did not "
+                             "drain")
+    for k, u in enumerate(uids):
+        o = outs[u]
+        if o.finish_reason != "length" or len(o.token_ids) != news[k % 4]:
+            raise AssertionError(f"burst request {u} ended {o.finish_reason} "
+                                 f"after {len(o.token_ids)} tokens")
+    return [outs[u] for u in uids], eng.pool_report(), 2 * sum(lens), eng
+
+
+def watermark_decode_without_sync(eng, cfg, dev):
+    """The growth pass and a decode step of a batcher with a watermark set,
+    each with any host sync an error: 2 requests (prompts 250) decode to
+    their first page boundary, where the pass grows both rows by a page
+    (no preemption: 4 of 7 pages) before the step on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import SamplingParams
+    b = eng.batcher
+    rng = np.random.RandomState(7)
+    for _ in range(2):
+        eng.add_request(rng.randint(0, cfg.vocab, (250,)).astype(np.int32),
+                        SamplingParams.greedy(max_new_tokens=16))
+    for _ in range(16):
+        rows = [i for i, r in enumerate(b.rows) if r is not None]
+        if len(rows) == 2 and not b.prefilling and \
+                all(b.pos[i] == 256 for i in rows):
+            break
+        eng.step()
+    else:
+        raise AssertionError("watermark sync check: the rows did not reach "
+                             "their page boundary")
+    preemptions = b.preemptions
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        active, n, grew = b._ensure_decode_pages(rows)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if active != rows or not grew or b.preemptions != preemptions:
+        raise AssertionError(f"watermark sync check: the growth pass gave "
+                             f"rows {active} (grew {grew}), preemptions "
+                             f"{preemptions} -> {b.preemptions}")
+    b._sync_device()                 # the grown tables (a host-to-device copy)
+    mask = np.zeros((b.batch,), bool)
+    mask[active] = True
+    tok, pos, row_mask = b._dev(b.tok), b._dev(b.pos), b._dev(mask)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        T.decode_scan(b.params, tok, cfg, b.state, pos, steps=n,
+                      row_mask=row_mask)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def overload_serve_full_width(dev, params, cfg, card: str) -> dict:
+    """Phase 5, serve paged overload: internlm2_1_8b at full width, paged
+    int8 with the prefix cache (page 256, prefill_chunk 512, chunk 1),
+    watermark 0, a pool of 7 pages. (a) fast resume: the pressured run's
+    greedy and sampled streams equal the unpressured run's, bit for bit;
+    (b) recompute resume: the tokens before the preemption and the pending
+    token kept, 24 tokens in all (later tokens may differ at quantization
+    noise: the count is printed, not gated); (c) a 2x oversubscribed burst
+    of 8 requests drains with every budget met, then a watermark decode
+    step runs with any host sync an error. Paged decode and prefill launch
+    in each run. Returns each run's launch counts by path name."""
+    needs = ("paged_decode", "paged_prefill")
+    label = "serve paged overload"
+    (base, brep, _), _, c0, _ = _run_path(
+        dev, f"{label} (a) unpressured", needs,
+        lambda: overload_pair(params, cfg, dev, "base"))
+    (fast, frep, _), wall_a, c1, _ = _run_path(
+        dev, f"{label} (a) fast resume", needs,
+        lambda: overload_pair(params, cfg, dev, "fast"))
+    if brep["preemptions"] or frep["preemptions"] < 1 \
+            or frep["preempt_fast_resumes"] < 1:
+        raise AssertionError(f"{label} (a): preemptions {brep['preemptions']}"
+                             f" unpressured, {frep['preemptions']} pressured "
+                             f"with {frep['preempt_fast_resumes']} fast "
+                             f"resumes")
+    if fast != base:
+        raise AssertionError(f"{label} (a): the fast resume's tokens differ "
+                             f"from the unpressured run's: {fast} vs {base}")
+    (rec, rrep, snap), wall_b, c2, _ = _run_path(
+        dev, f"{label} (b) recompute resume", needs,
+        lambda: overload_pair(params, cfg, dev, "recompute"))
+    uid, gen, pending = snap
+    got = rec[uid]
+    if rrep["preempt_recompute_resumes"] < 1 or got[:len(gen)] != gen \
+            or got[len(gen)] != pending or len(got) != 24:
+        raise AssertionError(f"{label} (b): recompute resumes "
+                             f"{rrep['preempt_recompute_resumes']}, tokens "
+                             f"{got}, kept {gen} + pending {pending}")
+    later = sum(x != y for x, y in zip(got[len(gen) + 1:],
+                                       base[uid][len(gen) + 1:]))
+    (outs, crep, prompt_tokens, eng), wall_c, c3, peak = _run_path(
+        dev, f"{label} (c) 2x burst", needs,
+        lambda: overload_burst(params, cfg, dev))
+    watermark_decode_without_sync(eng, cfg, dev)
+    useful = prompt_tokens + sum(len(o.token_ids) for o in outs)
+    computed = crep["prefill_tokens_computed"] + \
+        crep["decode_tokens_computed"]
+    keys = ("preemptions", "preempt_fast_resumes",
+            "preempt_recompute_resumes", "decode_stall_ticks",
+            "prefill_tokens_computed", "decode_tokens_computed", "ticks")
+    res = {"backend": "paged overload", "page": cfg.quant.block_size,
+           "pages_usable": 7, "watermark": 0,
+           "a_fast_resume": {"tokens_equal": True, "wall_s": wall_a,
+                             **{k: frep[k] for k in keys}},
+           "b_recompute_resume": {"later_tokens_differing": later,
+                                  "kept_tokens": len(gen), "wall_s": wall_b,
+                                  **{k: rrep[k] for k in keys}},
+           "c_burst": {"requests": len(outs), "wall_s": wall_c,
+                       "goodput_frac": useful / computed,
+                       "ttft_s_p50": crep["ttft_s_p50"],
+                       "ttft_s_p99": crep["ttft_s_p99"],
+                       "max_memory_allocated_bytes": peak,
+                       **{k: crep[k] for k in keys}},
+           "launches": {"a": {k: c0[k] + c1[k] for k in c0}, "b": c2,
+                        "c": c3},
+           "card": card}
+    log(f"[{label}] (a) {frep['preemptions']} preemption(s), "
+        f"{frep['preempt_fast_resumes']} fast resume(s), greedy and sampled "
+        f"streams = the unpressured run's bit for bit; (b) "
+        f"{rrep['preempt_recompute_resumes']} recompute resume(s), "
+        f"{len(gen)} tokens and the pending token kept, {later} of "
+        f"{24 - len(gen) - 1} later tokens differ from the unpressured run "
+        f"(not gated); (c) 8/8 requests drained with full budgets: "
+        f"{crep['preemptions']} preemptions ({crep['preempt_fast_resumes']} "
+        f"fast / {crep['preempt_recompute_resumes']} recompute), "
+        f"{crep['decode_stall_ticks']} stalled row-ticks, goodput "
+        f"{useful / computed:.4f}, TTFT p50 {crep['ttft_s_p50'] * 1e3:.1f} "
+        f"ms p99 {crep['ttft_s_p99'] * 1e3:.1f} ms, {crep['ticks']} ticks "
+        f"in {wall_c:.3f} s; the growth pass (2 rows grown) and a watermark "
+        f"decode step with no host sync under set_sync_debug_mode('error'); "
+        f"{card}")
+    log(f"[{label}] " + json.dumps(res))
+    return {f"{label} (a) fast resume": res["launches"]["a"],
+            f"{label} (b) recompute resume": c2,
+            f"{label} (c) 2x burst": c3}
 
 
 def generate_full_width(dev, params, cfg, granularity: str):
@@ -1950,6 +2318,7 @@ def main() -> int:
     t0 = time.perf_counter()
     parity_smoke(dev)
     parity_sampling(dev)
+    parity_overload(dev)
     log(f"[parity] in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -1970,6 +2339,7 @@ def main() -> int:
             dev, params, cfg, greedy_tokens, card),
         "serve paged prefix": prefix_serve_full_width(dev, params, cfg,
                                                       card),
+        **overload_serve_full_width(dev, params, cfg, card),
         "greedy_generate per_block": generate_full_width(dev, params, cfg,
                                                          "per_block"),
         "greedy_generate per_channel": generate_full_width(dev, params, cfg,

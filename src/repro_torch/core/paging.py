@@ -1,6 +1,6 @@
-"""Paged quantized KV cache — page pool + page-table views, and the
-host-side allocator with the prefix cache's content-hash index (port of
-``repro.core.paging``).
+"""Paged quantized KV cache — page pool + page-table views, the
+host-side allocator with the prefix cache's content-hash index, and the
+seeded pool fault injector (port of ``repro.core.paging``).
 
 ``PagePool`` holds the physical pages of one layer:
     k_q, v_q    (n_pages, tokens_packed, H_kv, D)  int8 / float8_e4m3fn
@@ -63,29 +63,89 @@ def chain_hashes(tokens, page_size: int, parent: bytes | None = None):
     return out
 
 
+class PoolFaultInjector:
+    """Seeded fault injector for `HostPageAllocator` (the reference's,
+    draw for draw): it drives the scheduler's overload recovery from tests
+    and benchmarks instead of waiting for real pressure. Deterministic
+    given the seed and the tick sequence:
+
+      * ``p_alloc_fail`` — per-tick probability that every admission and
+        growth gate reports zero available pages for that tick (drawn once
+        per `HostPageAllocator.tick`, never per query, so the gates of one
+        tick agree);
+      * ``hold_pages`` — this many pages withheld from the gates
+        (`available`, `available_after_adopt`); mutable at any time, so a
+        test can squeeze the pool mid-run and let it go later;
+      * ``reclaim_delay`` — a page whose refcount reaches 0 parks this many
+        ticks (``deferred``) before it reaches the LRU or the free list.
+
+    The host swap tier's knobs, ``p_swap_fail`` and ``swap_delay``, belong
+    to the tier, which is not ported (ROADMAP queue 1, item 10): they are
+    accepted at 0 only. Faults touch the gates only; `alloc` and
+    copy-on-write check physical capacity, so an allocation that passed
+    its gate never fails."""
+
+    def __init__(self, seed: int = 0, *, p_alloc_fail: float = 0.0,
+                 hold_pages: int = 0, reclaim_delay: int = 0,
+                 p_swap_fail: float = 0.0, swap_delay: int = 0):
+        if not 0.0 <= p_alloc_fail <= 1.0:
+            raise ValueError(f"p_alloc_fail={p_alloc_fail} not in [0, 1]")
+        if not 0.0 <= p_swap_fail <= 1.0:
+            raise ValueError(f"p_swap_fail={p_swap_fail} not in [0, 1]")
+        if hold_pages < 0 or reclaim_delay < 0 or swap_delay < 0:
+            raise ValueError("hold_pages / reclaim_delay / swap_delay "
+                             "must be >= 0")
+        if p_swap_fail or swap_delay:
+            raise NotImplementedError(
+                "p_swap_fail / swap_delay inject faults into the host swap "
+                "tier, which is not ported yet (ROADMAP queue 1, item 10)")
+        self._rng = np.random.RandomState(seed)
+        self.p_alloc_fail = p_alloc_fail
+        self.hold_pages = hold_pages
+        self.reclaim_delay = reclaim_delay
+        self.blocked = False        # are this tick's gates blocked?
+        self.alloc_fault_ticks = 0  # ticks whose gates reported 0 pages
+        self.delayed_releases = 0   # pages that took the deferred path
+
+    def tick(self) -> None:
+        """Advance one scheduler tick: draw whether its gates are blocked."""
+        self.blocked = (self.p_alloc_fail > 0.0
+                        and bool(self._rng.random_sample() < self.p_alloc_fail))
+        if self.blocked:
+            self.alloc_fault_ticks += 1
+
+
 class HostPageAllocator:
     """Host-authoritative page allocator: free list, per-page refcounts and,
     with ``prefix_cache``, the content-hash index of automatic prefix
-    caching (the reference's allocator without its fault injector, host
-    tier and in-flight populations, ROADMAP queue 1, items 9-10).
+    caching (the reference's allocator without its host tier and in-flight
+    population, ROADMAP queue 1, item 10).
 
     Pages 1..n_pages-1 are in exactly one population: ``free`` (holding
-    nothing), ``ref`` (page -> refcount > 0) or ``lru`` (refcount 0 but
+    nothing), ``ref`` (page -> refcount > 0), ``lru`` (refcount 0 but
     still indexed: hittable, and reclaimed oldest first when ``alloc``
-    runs out of free pages). ``index`` maps chain digests (`chain_hashes`)
-    to pages and ``hash_of`` is its inverse; an indexed page's content
-    never changes (`ensure_private` is the copy-on-write gate)."""
+    runs out of free pages) or, with an injector's ``reclaim_delay``,
+    ``deferred`` (page -> the tick it leaves for the LRU or the free list).
+    ``index`` maps chain digests (`chain_hashes`) to pages and ``hash_of``
+    is its inverse; an indexed page's content never changes
+    (`ensure_private` is the copy-on-write gate). An attached
+    `PoolFaultInjector` depresses the gates (`available`,
+    `available_after_adopt`), never `alloc`."""
 
-    def __init__(self, n_pages: int, *, prefix_cache: bool = False):
+    def __init__(self, n_pages: int, *, prefix_cache: bool = False,
+                 injector: PoolFaultInjector | None = None):
         if n_pages < 2:
             raise ValueError("need >= 2 pages (page 0 is the sentinel)")
         self.n_pages = n_pages
         self.prefix_cache = prefix_cache
+        self.injector = injector
         self.free: list[int] = list(range(1, n_pages))
         self.ref: dict[int, int] = {}
         self.index: dict[bytes, int] = {}
         self.hash_of: dict[int, bytes] = {}
         self.lru = LRUEvictor()
+        self.deferred: dict[int, int] = {}   # page -> tick it is disposed
+        self._tick = 0
         self.hits = 0           # pages resolved from the index
         self.misses = 0         # prompt pages that had to be computed
         self.reclaims = 0       # cached pages evicted to satisfy alloc
@@ -102,22 +162,59 @@ class HostPageAllocator:
         return len(self.lru)
 
     @property
-    def available(self) -> int:
-        """Pages an admission may claim: free plus reclaimable."""
+    def _physical(self) -> int:
+        """Pages physically allocatable, faults ignored (what `alloc` and
+        copy-on-write check)."""
         return len(self.free) + len(self.lru)
+
+    @property
+    def available(self) -> int:
+        """Pages an admission may claim: free plus reclaimable, 0 on an
+        injector's blocked tick, less its ``hold_pages``."""
+        inj = self.injector
+        if inj is not None:
+            if inj.blocked:
+                return 0
+            return max(0, self._physical - inj.hold_pages)
+        return self._physical
 
     def available_after_adopt(self, chain) -> int:
         """Pages allocatable once ``chain``'s digests are adopted: adopted
-        pages that sit on the LRU stop being reclaimable."""
+        pages that sit on the LRU stop being reclaimable. Injected faults
+        depress it as they do `available`."""
         on_lru = sum(1 for h in chain if self.index.get(h) in self.lru)
-        return self.available - on_lru
+        inj = self.injector
+        if inj is not None:
+            if inj.blocked:
+                return 0
+            return max(0, self._physical - on_lru - inj.hold_pages)
+        return self._physical - on_lru
+
+    def tick(self) -> None:
+        """Advance one scheduler tick: the injector's draw, then the
+        deferred pages whose delay has run out go to the LRU or the free
+        list."""
+        self._tick += 1
+        if self.injector is not None:
+            self.injector.tick()
+            for p in [p for p, t in self.deferred.items() if t <= self._tick]:
+                del self.deferred[p]
+                self._dispose(p)
+
+    def _dispose(self, page: int) -> None:
+        """A refcount-0 page goes to the LRU (most recent end) if it is
+        indexed, else to the free list."""
+        if page in self.hash_of:
+            self.lru.cache(page)
+        else:
+            self.free.append(page)
 
     def alloc(self, n: int) -> list[int]:
         """Claim ``n`` pages (refcount 1 each): free pages first, then
         cached pages reclaimed oldest first (each un-indexed). Raises past
-        capacity; admission gates on `available_after_adopt`."""
-        if n > self.available:
-            raise ValueError(f"alloc({n}) exceeds available={self.available}")
+        physical capacity; admission gates on `available_after_adopt`."""
+        if n > self._physical:
+            raise ValueError(f"alloc({n}) exceeds available={self._physical}")
         ids = [self.free.pop() for _ in range(min(n, len(self.free)))]
         while len(ids) < n:
             page = self.lru.pop_victim()
@@ -135,9 +232,12 @@ class HostPageAllocator:
         self.ref[page] += 1
 
     def release(self, pages) -> None:
-        """Drop one reference per page. A page reaching 0 goes to the LRU
-        (most recent end) if it is indexed, else to the free list. A count
-        below 0 is a refcounting bug and raises."""
+        """Drop one reference per page. A page reaching 0 is disposed
+        (`_dispose`), or with an injector's ``reclaim_delay`` parks in
+        ``deferred`` until `tick` disposes of it. A count below 0 is a
+        refcounting bug and raises."""
+        inj = self.injector
+        delay = inj.reclaim_delay if inj is not None else 0
         for p in pages:
             c = self.ref.get(p, 0) - 1
             if c < 0:
@@ -146,10 +246,11 @@ class HostPageAllocator:
                 self.ref[p] = c
                 continue
             del self.ref[p]
-            if p in self.hash_of:
-                self.lru.cache(p)
+            if delay:
+                self.deferred[p] = self._tick + delay
+                inj.delayed_releases += 1
             else:
-                self.free.append(p)
+                self._dispose(p)
 
     def match(self, chain) -> int:
         """Length of ``chain``'s longest prefix resident in the index (0
@@ -164,13 +265,17 @@ class HostPageAllocator:
         return n
 
     def adopt(self, chain) -> list[int]:
-        """Take a reference on each digest's page (reviving cached pages);
-        returns the pages in chain order and counts them as hits."""
+        """Take a reference on each digest's page (reviving cached and
+        deferred pages); returns the pages in chain order and counts them
+        as hits."""
         ids = []
         for h in chain:
             p = self.index[h]
             if p in self.lru:
                 self.lru.uncache(p)
+                self.ref[p] = 1
+            elif p in self.deferred:
+                del self.deferred[p]
                 self.ref[p] = 1
             else:
                 self.ref[p] += 1
@@ -200,7 +305,7 @@ class HostPageAllocator:
         writes the whole page from the row's fp residual."""
         if self.ref.get(page, 0) <= 1 and page not in self.hash_of:
             return None
-        if not self.available:
+        if not self._physical:
             raise ValueError("copy-on-write retarget needs a free page: "
                              "leave pool headroom when forking")
         new = self.alloc(1)[0]

@@ -9,7 +9,10 @@ The contiguous cache by default; ``--paged`` serves from the page pool
 ``--kv-cache-dtype`` other than int8). ``--temperature`` / ``--top-k`` /
 ``--top-p`` / ``--seed`` sample every request (greedy by default);
 ``--shared-prefix N`` gives every prompt the same first N tokens, which
-``--prefix-cache`` then shares. Runs on the card by default (``--device
+``--prefix-cache`` then shares. ``--watermark N`` admits optimistically
+(implies ``--paged``) and preempts under pool pressure; ``--priority P``
+raises every even-numbered request to priority P and ``--aging-ticks``
+ages queued requests. Runs on the card by default (``--device
 cuda``) and fails without one.
 """
 from __future__ import annotations
@@ -54,6 +57,19 @@ def main(argv=None):
                     choices=list(KV_DTYPES),
                     help="page storage format (default int8; another "
                          "implies --paged)")
+    ap.add_argument("--watermark", type=int, default=None,
+                    help="optimistic admission: reserve the prompt's pages "
+                         "plus this many pages of decode headroom instead "
+                         "of the worst case; decode grows reservations and "
+                         "preempts the lowest-priority row under pool "
+                         "pressure (implies --paged)")
+    ap.add_argument("--priority", type=int, default=0,
+                    help="priority of every even-numbered request (odd "
+                         "ones stay at 0): higher is admitted first and "
+                         "preempted last")
+    ap.add_argument("--aging-ticks", type=int, default=0,
+                    help="a queued request gains +1 effective priority per "
+                         "this many ticks waited (0 = off)")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="sampling temperature (0 = exact greedy argmax, "
                          "the default)")
@@ -70,7 +86,8 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     kv_dtype = args.kv_cache_dtype or "int8"
-    if args.prefix_cache or args.prefill_chunk or kv_dtype != "int8":
+    if (args.prefix_cache or args.prefill_chunk
+            or args.watermark is not None or kv_dtype != "int8"):
         args.paged = True
 
     import dataclasses
@@ -96,7 +113,8 @@ def main(argv=None):
     eng = LLMEngine(params, cfg, EngineConfig(
         batch=args.batch, max_len=args.max_len, paged=args.paged,
         n_pages=args.pages, chunk=args.chunk, prefix_cache=args.prefix_cache,
-        prefill_chunk=args.prefill_chunk, kv_cache_dtype=kv_dtype),
+        prefill_chunk=args.prefill_chunk, watermark=args.watermark,
+        aging_ticks=args.aging_ticks, kv_cache_dtype=kv_dtype),
         device=device)
     rng = np.random.RandomState(0)
     shared_n = min(args.shared_prefix, args.prompt_len)
@@ -107,7 +125,8 @@ def main(argv=None):
     sps = [SamplingParams(
         temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
         seed=None if args.seed is None else args.seed + i,
-        stop=tuple(args.stop or ()), max_new_tokens=args.max_new)
+        stop=tuple(args.stop or ()), max_new_tokens=args.max_new,
+        priority=args.priority if i % 2 == 0 else 0)
         for i in range(args.requests)]
     t0 = time.perf_counter()
     outs = eng.generate(prompts, sps)
@@ -129,6 +148,14 @@ def main(argv=None):
         print(f"[serve] page pool: {rep['pages_total']} pages "
               f"({rep['kv_cache_dtype']}), {rep['pages_free']} free after "
               f"drain, {rep['pages_cached']} cached")
+        if args.watermark is not None:
+            resumes = (rep['preempt_fast_resumes']
+                       + rep['preempt_recompute_resumes'])
+            print(f"[serve] overload: {rep['preemptions']} preemptions "
+                  f"({rep['preempt_fast_resumes']} fast / "
+                  f"{rep['preempt_recompute_resumes']} recompute of "
+                  f"{resumes} resumes), "
+                  f"{rep['decode_stall_ticks']} stalled row-ticks")
         if args.prefix_cache:
             print(f"[serve] prefix cache: hit rate "
                   f"{rep['page_hit_rate']:.2f} ({rep['page_hits']} hits / "

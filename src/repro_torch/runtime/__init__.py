@@ -1,5 +1,6 @@
 from repro_torch.runtime.fault import (HeartbeatMonitor, RestartPolicy,
-                                       StragglerReport, run_with_restarts)
+                                       StallWatchdog, StragglerReport,
+                                       run_with_restarts)
 
-__all__ = ["HeartbeatMonitor", "RestartPolicy", "StragglerReport",
-           "run_with_restarts"]
+__all__ = ["HeartbeatMonitor", "RestartPolicy", "StallWatchdog",
+           "StragglerReport", "run_with_restarts"]

@@ -1,6 +1,5 @@
-"""Fault tolerance & straggler mitigation for the training loop (a copy
-of ``repro.runtime.fault``; ``StallWatchdog`` waits for the overload
-item, ROADMAP queue 1, item 9).
+"""Fault tolerance & straggler mitigation for the training loop, and the
+serving scheduler's stall watchdog (a copy of ``repro.runtime.fault``).
 
 CPU-testable control plane around the training loop:
 
@@ -13,6 +12,10 @@ CPU-testable control plane around the training loop:
 * run_with_restarts — supervisor: runs a step loop, checkpoint-restores on
   exceptions, enforces the restart budget. A SIGTERM/preemption appears as
   an exception and takes the same path.
+* StallWatchdog — tick-count no-progress detector of the serving
+  scheduler: it counts logical ticks, not wall time, so a scheduler loop
+  that spins (every tick returns, none advances a request) is caught
+  although heartbeats look healthy.
 
 On restart the loop re-initializes from the newest checkpoint
 (checkpoint/manager.py), which holds whole tensors, not device shards.
@@ -57,6 +60,30 @@ class HeartbeatMonitor:
 
     def hung(self) -> bool:
         return (time.monotonic() - self._last_beat) > self.hang_timeout_s
+
+
+class StallWatchdog:
+    """Declare a stall after ``limit`` consecutive no-progress ticks.
+
+    `observe(progressed, busy)` is called once per scheduler tick:
+    ``progressed`` means some request advanced this tick (a token
+    appended, a prefill cursor moved, an admission, a completion);
+    ``busy`` means work is in flight (idle ticks are not stalls). Returns
+    True when the stall budget is spent; the caller raises its diagnostic
+    (`serving.scheduler.StallError`). ``limit=None`` disarms it."""
+
+    def __init__(self, limit: int | None):
+        if limit is not None and limit < 1:
+            raise ValueError(f"stall limit must be >= 1 (got {limit})")
+        self.limit = limit
+        self.stalled_ticks = 0
+
+    def observe(self, progressed: bool, busy: bool) -> bool:
+        if progressed or not busy:
+            self.stalled_ticks = 0
+            return False
+        self.stalled_ticks += 1
+        return self.limit is not None and self.stalled_ticks >= self.limit
 
 
 class RestartPolicy:

@@ -45,9 +45,12 @@ class LLMEngine:
         self._next_uid = 0
 
     def add_request(self, prompt, sampling_params: SamplingParams | None
-                    = None, *, uid: int | None = None) -> int:
+                    = None, *, uid: int | None = None,
+                    priority: int | None = None) -> int:
         """Queue one request (1-D int token array); returns its uid
-        (auto-assigned when None). Default sampling: exact greedy."""
+        (auto-assigned when None). Default sampling: exact greedy.
+        ``priority`` overrides ``sampling_params.priority`` (higher is
+        admitted first and preempted last)."""
         sp = sampling_params or SamplingParams.greedy()
         if uid is None:
             while self._next_uid in self.batcher._inflight_uids:
@@ -55,7 +58,7 @@ class LLMEngine:
             uid = self._next_uid
             self._next_uid += 1
         req = Request(uid=uid, prompt=np.asarray(prompt, np.int32),
-                      sampling=sp)
+                      sampling=sp, priority=priority)
         self.batcher.submit(req)
         self._live[uid] = req
         self._emitted[uid] = 0

@@ -33,7 +33,8 @@ class SamplingParams:
     ``fold_in(PRNGKey(seed), i)``); None derives it from the request uid.
     ``stop_token_ids`` finish a request when the NEXT token is one of them
     (the stop token itself is not emitted); ``stop`` strings are matched
-    against the detokenized generated stream."""
+    against the detokenized generated stream. ``priority``: higher is
+    admitted first and preempted last under overload."""
     temperature: float = 1.0
     top_k: int = 0
     top_p: float = 1.0
@@ -61,8 +62,6 @@ class SamplingParams:
                 self.kv_cache_dtype not in KV_DTYPES:
             raise ValueError(f"kv_cache_dtype must be one of {KV_DTYPES} or "
                              f"None (got {self.kv_cache_dtype!r})")
-        if self.priority != 0:
-            _not_ported("request priorities", "ROADMAP queue 1, item 9")
         object.__setattr__(self, "stop_token_ids",
                            tuple(int(t) for t in self.stop_token_ids))
         object.__setattr__(self, "stop", tuple(self.stop))
@@ -121,17 +120,22 @@ def sampling_arrays(params: Sequence[SamplingParams], *,
 @dataclasses.dataclass
 class EngineConfig:
     """One object configuring the serving stack: the reference's field
-    names and defaults, with one difference: ``stall_ticks`` defaults to
-    None (the reference's 500 arms a stall watchdog that is not ported
-    yet, ROADMAP queue 1, item 9). Ported: ``batch``, ``max_len``,
-    ``eos_id``, ``paged`` (False: the contiguous backend, the default;
-    True: the page pool), ``n_pages``, ``chunk``, ``prefix_cache`` and
-    ``prefill_chunk`` (paged only: the batcher raises ValueError
-    otherwise), ``detokenize`` and a uniform ``kv_cache_dtype`` (other
-    than int8: paged only). ``preempt_loop_limit`` is accepted and inert: it
-    bounds preemption, which comes with overload (item 9). Every other
-    option below that is set to anything but its off value raises
-    `NotImplementedError`."""
+    names and defaults. Ported: ``batch``, ``max_len``, ``eos_id``,
+    ``paged`` (False: the contiguous backend, the default; True: the page
+    pool), ``n_pages``, ``chunk``, ``prefix_cache`` and ``prefill_chunk``
+    (paged only: the batcher raises ValueError otherwise), ``detokenize``,
+    a uniform ``kv_cache_dtype`` (other than int8: paged only) and the
+    overload controls: ``watermark`` (paged only: admission reserves the
+    prompt's pages plus this many pages of decode headroom instead of the
+    worst case, decode grows the reservation and preempts under pressure;
+    None keeps the worst case), ``aging_ticks`` (a queued request gains +1
+    effective priority per that many ticks waited; 0 is off),
+    ``preempt_loop_limit`` (preemptions without progress before
+    `PoolExhaustedError`), ``stall_ticks`` (ticks without progress with
+    work in flight before `StallError`; None disarms the watchdog) and
+    ``fault_injector`` (paged only: a `core.paging.PoolFaultInjector` on
+    the page allocator). Every other option below that is set to anything
+    but its off value raises `NotImplementedError`."""
     batch: int = 4
     max_len: int = 128
     eos_id: int | None = None
@@ -146,7 +150,7 @@ class EngineConfig:
     watermark: int | None = None
     aging_ticks: int = 0
     preempt_loop_limit: int = 8
-    stall_ticks: int | None = None
+    stall_ticks: int | None = 500
     fault_injector: object | None = None
     host_pages: int | None = None
     evictor: str = "lru"
@@ -161,12 +165,6 @@ class EngineConfig:
                 or self.host_tier_dtype is not None):
             _not_ported("the host swap tier (host_pages / evictor / "
                         "host_tier_dtype)", "ROADMAP queue 1, item 10")
-        if (self.watermark is not None or self.aging_ticks
-                or self.fault_injector is not None
-                or self.stall_ticks is not None):
-            _not_ported("overload controls (watermark / aging_ticks / "
-                        "fault_injector / stall_ticks)",
-                        "ROADMAP queue 1, item 9")
         if not isinstance(self.kv_cache_dtype, str):
             _not_ported("mixed per-layer precision plans",
                         "ROADMAP queue 1, item 11")

@@ -1,8 +1,9 @@
 """Host-side continuous-batching scheduler over the quantized cache (port
 of ``repro.serving.scheduler``, both backends).
 
-A fixed pool of ``batch`` rows; empty rows refill from a FCFS request
-queue between device steps.
+A fixed pool of ``batch`` rows; empty rows refill from the request queue
+between device steps, highest effective priority first (FCFS within a
+priority).
 
 Contiguous backend (``EngineConfig.paged=False``, the default): the cache
 has one length for every row, so a tick that admits requests rebuilds the
@@ -34,9 +35,25 @@ comes from prefill logits, a per-token tick or a decode scan, so a seeded
 stream does not depend on the batch or the chunking. A dispatch whose
 read rows are all greedy takes the plain argmax.
 
-Not ported yet (they raise in `EngineConfig`): overload (watermark
-admission, preemption, priorities, the stall watchdog), the host swap
-tier and mixed precision plans.
+Overload (paged; the reference's logic, counters and messages): with
+``EngineConfig.watermark`` set, admission reserves the stream's pages plus
+``watermark`` pages of decode headroom instead of the worst case, and a
+growth pass before each decode chunk maps every page the chunk can flush
+into. When the pool cannot cover the growth, a victim (lowest priority,
+then latest arrival; never the last running row) is preempted: its fp
+residual and pending token are kept, its pages release through promotion
+so they stay hittable, and it re-queues. Re-admission adopts the resident
+pages and restores the residual (fast resume, the same tokens as a run
+never preempted) or, when pages were reclaimed, re-prefills prompt +
+generated with the pending token restored, never redrawn (recompute
+resume). Queued requests age (+1 priority per ``aging_ticks``); a
+preemption loop without progress raises `PoolExhaustedError` and
+``stall_ticks`` ticks without progress raise `StallError`, each with the
+per-request state. A seeded `core.paging.PoolFaultInjector` on the
+allocator drives these paths.
+
+Not ported yet (they raise in `EngineConfig`): the host swap tier (and
+with it preemption by swap) and mixed precision plans.
 """
 from __future__ import annotations
 
@@ -51,10 +68,24 @@ from repro_torch.core.paging import (SENTINEL_PAGE, HostPageAllocator,
                                      chain_hashes, live_page_count)
 from repro_torch.models import sampling as SMP
 from repro_torch.models import transformer as T
+from repro_torch.runtime.fault import StallWatchdog
 from repro_torch.serving.engine import make_chunk_prefill_fn, make_serve_fns
 from repro_torch.serving.params import (EngineConfig, SamplingParams,
                                         default_detokenize, request_key,
                                         sampling_arrays)
+
+
+class PoolExhaustedError(RuntimeError):
+    """The scheduler preempted ``EngineConfig.preempt_loop_limit`` times
+    without any request advancing: the pool cannot serve the committed
+    working set. The message lists every page holder (uid -> pages), the
+    pool and the per-request state."""
+
+
+class StallError(RuntimeError):
+    """No request advanced for ``EngineConfig.stall_ticks`` consecutive
+    ticks with work in flight; carries the per-request state (queued,
+    preempted, mid-prefill cursor, decoding position) and the pool's."""
 
 
 def pages_for_request(prompt_len: int, max_new: int, page_size: int) -> int:
@@ -69,12 +100,13 @@ class Request:
     a decode budget (None = ``sampling.max_new_tokens``), and the decoded
     output in ``generated``. ``finish_reason`` is one of
     `serving.params.FINISH_REASONS`; timestamps are `time.perf_counter`
-    seconds."""
+    seconds. ``priority`` None takes ``sampling.priority`` at submit."""
     uid: int
     prompt: np.ndarray
     max_new_tokens: int | None = None
     sampling: SamplingParams = dataclasses.field(
         default_factory=SamplingParams.greedy)
+    priority: int | None = None
     generated: list[int] = dataclasses.field(default_factory=list)
     done: bool = False
     finish_reason: str | None = None
@@ -103,6 +135,24 @@ class ContinuousBatcher:
                 and not self.paged:
             raise ValueError("prefix caching / chunked prefill require the "
                              "paged backend (paged=True)")
+        if (config.watermark is not None
+                or config.fault_injector is not None) and not self.paged:
+            raise ValueError("watermark admission / pool fault injection "
+                             "require the paged backend (paged=True)")
+        if config.watermark is not None and config.watermark < 0:
+            raise ValueError(f"watermark must be >= 0 "
+                             f"(got {config.watermark})")
+        self.watermark = config.watermark
+        self.aging_ticks = int(config.aging_ticks or 0)
+        self.preempt_loop_limit = config.preempt_loop_limit
+        self._watchdog = StallWatchdog(config.stall_ticks)
+        self._seq = 0               # arrival order: the FCFS tie-break
+        self._progressed = False
+        self._preempts_since_progress = 0
+        self.preemptions = 0
+        self.preempt_fast_resumes = 0
+        self.preempt_recompute_resumes = 0
+        self.decode_stall_ticks = 0
         self.prefix_cache = bool(config.prefix_cache)
         self.config = config
         self.params, self.cfg = params, cfg
@@ -125,9 +175,19 @@ class ContinuousBatcher:
             self.n_pages = (config.n_pages if config.n_pages is not None
                             else self.batch * self.max_blocks + 1)
             self.allocator = HostPageAllocator(
-                self.n_pages, prefix_cache=self.prefix_cache)
+                self.n_pages, prefix_cache=self.prefix_cache,
+                injector=config.fault_injector)
             self.tables = np.zeros((self.batch, self.max_blocks), np.int32)
             self.row_pages: list[list[int]] = [[] for _ in range(self.batch)]
+            # preemption: uid -> snapshot (pending token, fp residual, full
+            # token stream and its hash chain); per row, where this
+            # residency's decoding starts in `generated`, and the pending
+            # token a recompute resume restores instead of drawing
+            self._suspended: dict[int, dict] = {}
+            self.gen_base = [0] * self.batch
+            self._resume_tok: dict[int, int] = {}
+            # uid -> (toks, chain) of a head blocked on the pool, hashed once
+            self._admit_memo: dict[int, tuple] = {}
             # per row: the unpadded prompt and the hash chain of its full
             # pages, kept until release for decode-page promotion
             self.streams: list[np.ndarray | None] = [None] * self.batch
@@ -157,10 +217,14 @@ class ContinuousBatcher:
 
     def submit(self, req: Request):
         """Queue a request. Every check runs before any state changes, so a
-        rejected request leaves the batcher as it was."""
+        rejected request leaves the batcher and the request as they were.
+        The worst-case page count is checked against the whole pool even
+        under a watermark: a request that fits alone lets the last running
+        row always grow to its budget."""
         if req.uid in self._inflight_uids:
             raise ValueError(f"request uid {req.uid} is already in flight "
-                             f"(queued or running)")
+                             f"(queued or running); uids are the lifecycle "
+                             f"handle and must be unique until completion")
         want = req.sampling.kv_cache_dtype
         if want is not None and want != self.kv_cache_dtype:
             raise ValueError(f"request {req.uid}: kv_cache_dtype={want!r} "
@@ -183,7 +247,12 @@ class ContinuousBatcher:
             raise ValueError(f"request {req.uid}: prompt+max_new exceeds "
                              f"max_len={self.max_len}")
         req.max_new_tokens = budget
+        if req.priority is None:
+            req.priority = req.sampling.priority
         req.submit_time = time.perf_counter()
+        req._submit_tick = self.ticks       # the aging clock
+        req._arrival = self._seq            # the FCFS tie-break
+        self._seq += 1
         self._inflight_uids.add(req.uid)
         self.queue.append(req)
 
@@ -191,6 +260,24 @@ class ContinuousBatcher:
         """``n`` tokens rounded up to the block (the contiguous prefill
         length; at least one block)."""
         return -(-max(n, 1) // self.block) * self.block
+
+    # -- priorities and aging ------------------------------------------------
+    def _queue_priority(self, r: Request) -> int:
+        """A queued request's effective priority: its own plus one per
+        ``aging_ticks`` waited (running rows do not age)."""
+        p = r.priority if r.priority is not None else 0
+        if self.aging_ticks:
+            p += (self.ticks - getattr(r, "_submit_tick", self.ticks)) \
+                // self.aging_ticks
+        return p
+
+    def _next_candidate_index(self) -> int:
+        """Queue index of the next admission candidate: highest effective
+        priority, then arrival. A head blocked on the pool does not yield
+        to a smaller later request (that would starve it again)."""
+        return min(range(len(self.queue)),
+                   key=lambda k: (-self._queue_priority(self.queue[k]),
+                                  getattr(self.queue[k], "_arrival", k)))
 
     # -- per-request sampling ------------------------------------------------
     def _req_key(self, r: Request) -> np.ndarray:
@@ -279,6 +366,9 @@ class ContinuousBatcher:
         for idx, r in enumerate(self.queue):
             if r.uid == uid:
                 del self.queue[idx]
+                if self.paged:
+                    self._admit_memo.pop(uid, None)
+                    self._suspended.pop(uid, None)
                 self._finish(r, "aborted")
                 self.aborted_requests += 1
                 return r
@@ -303,11 +393,58 @@ class ContinuousBatcher:
     def step(self) -> list[Request]:
         """One scheduler tick: admit, prefill (a rebuild of the batch, or
         one paged chunk), decode one chunk for the rows past prefill.
-        Returns requests finished now."""
+        Returns requests finished now. Raises `StallError` when no request
+        advanced for ``stall_ticks`` ticks with work in flight."""
         self.ticks += 1
-        return self._step_paged() if self.paged else self._step_contiguous()
+        self._progressed = False
+        done = self._step_paged() if self.paged else self._step_contiguous()
+        if done:
+            self._progressed = True
+        if self._progressed:
+            self._preempts_since_progress = 0
+        busy = bool(self.queue) or any(r is not None for r in self.rows)
+        if self._watchdog.observe(self._progressed, busy):
+            raise StallError(
+                f"scheduler stalled: no request advanced in "
+                f"{self._watchdog.limit} consecutive ticks with work in "
+                f"flight; {self._stuck_report()}")
+        return done
+
+    def _stuck_report(self) -> str:
+        """Per-request state (queued, preempted, mid-prefill cursor,
+        decoding position) and the pool's occupancy and injector counters,
+        for `StallError` and `run_to_completion`."""
+        parts = []
+        for r in self.queue:
+            tag = ("queued(preempted)" if self.paged
+                   and r.uid in self._suspended else "queued")
+            parts.append(f"uid {r.uid}: {tag}")
+        for i, r in enumerate(self.rows):
+            if r is None:
+                continue
+            if self.paged and i in self.prefilling:
+                st = self.prefilling[i]
+                parts.append(f"uid {r.uid}: mid-prefill "
+                             f"{st['cursor']}/{st['S']}")
+            else:
+                parts.append(f"uid {r.uid}: decoding pos={int(self.pos[i])} "
+                             f"generated={len(r.generated)}")
+        rep = "per-request state: [" + "; ".join(parts) + "]"
+        if self.paged:
+            a = self.allocator
+            rep += (f"; pool: available={a.available} free={a.n_free} "
+                    f"cached={a.n_cached} preemptions={self.preemptions}")
+            if a.injector is not None:
+                rep += (f"; injector: fault_ticks="
+                        f"{a.injector.alloc_fault_ticks} "
+                        f"held={a.injector.hold_pages} "
+                        f"deferred={len(a.deferred)}")
+        return rep
 
     def run_to_completion(self, max_ticks: int = 10_000) -> list[Request]:
+        """Drain the queue; returns the requests that finished. Raises
+        RuntimeError with the per-request state when ``max_ticks`` runs out
+        with requests in flight."""
         out = []
         for _ in range(max_ticks):
             out.extend(self.step())
@@ -315,8 +452,11 @@ class ContinuousBatcher:
                 return out
         stranded = sorted([r.uid for r in self.queue] +
                           [r.uid for r in self.rows if r is not None])
-        raise RuntimeError(f"run_to_completion: max_ticks={max_ticks} "
-                           f"exhausted with requests {stranded} in flight")
+        raise RuntimeError(
+            f"run_to_completion: max_ticks={max_ticks} exhausted with "
+            f"{len(stranded)} request(s) still in flight (uids {stranded}); "
+            f"{self._stuck_report()}; raise max_ticks or check for an "
+            f"admission deadlock")
 
     # -- decode ------------------------------------------------------------
     _EOS_CHUNK_CAP = 8
@@ -376,10 +516,15 @@ class ContinuousBatcher:
         return done
 
     def _decode_tick(self, active: list[int],
-                     row_mask: np.ndarray | None = None) -> list[Request]:
+                     row_mask: np.ndarray | None = None,
+                     n: int | None = None) -> list[Request]:
         """Decode one chunk for the active rows (all rows advance in the
-        contiguous cache; paged rows outside ``row_mask`` stay frozen)."""
-        n = self._chunk_len(active)
+        contiguous cache; paged rows outside ``row_mask`` stay frozen).
+        ``n`` is the chunk length the growth pass sized pages for (None:
+        `_chunk_len`)."""
+        if n is None:
+            n = self._chunk_len(active)
+        self._progressed = True
         self.decode_tokens_computed += n * len(active)
         if self.paged and self.cow_armed and self._cow_retarget(active, n):
             self._sync_device()          # retargeted tables before the scan
@@ -417,6 +562,8 @@ class ContinuousBatcher:
             self.prefilling.pop(i, None)
             self.streams[i] = None
             self.row_chain[i] = None
+            self.gen_base[i] = 0
+            self._resume_tok.pop(i, None)
 
     def _promote_on_release(self, i: int):
         """Publish a finishing row's decode pages under its prompt's chain
@@ -424,17 +571,20 @@ class ContinuousBatcher:
         conversation (prompt + completion + a new turn) hits them. The
         extension starts at the prompt's partial tail, and only pages whose
         tokens were all kept are published (not ones reaching past a
-        mid-scan stop)."""
+        mid-scan stop). A resumed row's stream already holds the tokens
+        generated before its preemption, so its extension starts at
+        ``gen_base``."""
         r, stream, chain = self.rows[i], self.streams[i], self.row_chain[i]
         if r is None or stream is None:
             return
         ps = self.page_size
+        gb = self.gen_base[i]
         S, nb = len(stream), len(stream) // ps
-        kept = S + len(r.generated)
+        kept = S + len(r.generated) - gb
         if kept // ps <= nb:
             return
         ext = np.concatenate([stream[nb * ps:],
-                              np.asarray(r.generated, np.int32)])
+                              np.asarray(r.generated[gb:], np.int32)])
         ext = ext[:(kept // ps) * ps - nb * ps]
         parent = chain[-1] if chain else None
         for j, h in enumerate(chain_hashes(ext, ps, parent=parent)):
@@ -451,15 +601,17 @@ class ContinuousBatcher:
 
     # -- contiguous backend --------------------------------------------------
     def _admit_rows(self) -> list[int]:
-        """Fill empty rows FCFS, deferring a candidate whose admission would
-        overflow the cache after the rebuild: the rebuild restarts every
-        active row at the group's padded history length S, so each row's S
-        plus remaining budget must fit max_len."""
+        """Fill empty rows in priority order (`_next_candidate_index`),
+        deferring a candidate whose admission would overflow the cache
+        after the rebuild: the rebuild restarts every active row at the
+        group's padded history length S, so each row's S plus remaining
+        budget must fit max_len."""
         active = [r for r in self.rows if r is not None]
         new: list[int] = []
         free = [i for i in range(self.batch) if self.rows[i] is None]
         while free[len(new):] and self.queue:
-            cand = self.queue[0]
+            k = self._next_candidate_index()
+            cand = self.queue[k]
             group = active + [self.rows[i] for i in new] + [cand]
             S = self._pad(max(len(r.prompt) + len(r.generated)
                               for r in group))
@@ -467,9 +619,11 @@ class ContinuousBatcher:
                    for r in group):
                 break                          # wait until rows free up
             i = free[len(new)]
-            self.queue.popleft()
+            del self.queue[k]
             self.rows[i] = cand
             new.append(i)
+        if new:
+            self._progressed = True
         return new
 
     def _step_contiguous(self) -> list[Request]:
@@ -522,32 +676,55 @@ class ContinuousBatcher:
         hit_chunks = min(match_pages // (cp // self.page_size), n_chunks - 1)
         return max(hit_chunks, 0) * cp
 
+    def _initial_pages(self, stream_len: int, max_new: int) -> int:
+        """Pages reserved at admission: the worst case
+        (`pages_for_request`) without a watermark; with one, the stream's
+        own pages plus ``watermark`` pages of decode headroom (never more
+        than the worst case)."""
+        total = pages_for_request(stream_len, max_new, self.page_size)
+        if self.watermark is None:
+            return total
+        return min(total,
+                   -(-max(stream_len, 1) // self.page_size) + self.watermark)
+
     def _admit_chunked(self) -> bool:
-        """Admit queued requests FCFS into free rows. Each hashes its
-        prompt's full pages, adopts the resident prefix (`_cap_hits`) by
-        refcount, allocates the rest of its reservation
-        (`pages_for_request`; cached pages reclaimed oldest first) and
-        starts its prefill cursor past the hits. A head that does not fit
-        waits (admission gates on `available_after_adopt`). Returns True
-        when page tables changed."""
+        """Admit queued requests into free rows in priority order
+        (`_next_candidate_index`; a blocked head waits, no bypass). Each
+        hashes its prompt's full pages, adopts the resident prefix
+        (`_cap_hits`) by refcount, allocates the rest of its reservation
+        (`_initial_pages`; cached pages reclaimed oldest first) and starts
+        its prefill cursor past the hits. A preempted request re-admits
+        through `_admit_resume`. Admission gates on
+        `available_after_adopt`. Returns True when page tables changed."""
         ps = self.page_size
         changed = False
         for i in range(self.batch):
             if self.rows[i] is not None or not self.queue:
                 continue
-            cand = self.queue[0]
+            k = self._next_candidate_index()
+            cand = self.queue[k]
+            if cand.uid in self._suspended:
+                if not self._admit_resume(i, k, cand):
+                    break                        # wait for releases
+                changed = True
+                continue
             S = len(cand.prompt)
             nb = S // ps                         # hashable full pages
-            init = pages_for_request(S, cand.max_new_tokens, ps)
-            toks = np.asarray(cand.prompt, np.int32)
-            chain = chain_hashes(toks[:nb * ps], ps) if self.prefix_cache \
-                else []
+            init = self._initial_pages(S, cand.max_new_tokens)
+            if cand.uid in self._admit_memo:     # a blocked head's retry
+                toks, chain = self._admit_memo[cand.uid]
+            else:
+                toks = np.asarray(cand.prompt, np.int32)
+                chain = (chain_hashes(toks[:nb * ps], ps)
+                         if self.prefix_cache else [])
+                self._admit_memo[cand.uid] = (toks, chain)
             hit_toks = (self._cap_hits(self.allocator.match(chain), S)
                         if self.prefix_cache else 0)
             hit = hit_toks // ps                 # adopted pages
             if init - hit > self.allocator.available_after_adopt(chain[:hit]):
                 break                            # wait for releases
-            self.queue.popleft()
+            del self.queue[k]
+            self._admit_memo.pop(cand.uid, None)
             ids = (self.allocator.adopt(chain[:hit]) if hit else []) \
                 + self.allocator.alloc(init - hit)
             if self.prefix_cache:
@@ -558,11 +735,65 @@ class ContinuousBatcher:
             self.tables[i, :init] = ids
             self.streams[i] = toks
             self.row_chain[i] = chain
+            self.gen_base[i] = 0
             self.prefilling[i] = {"toks": toks, "cursor": hit_toks, "S": S}
             self.pos[i] = hit_toks
             self.tok[i, 0] = 0
             changed = True
+        if changed:
+            self._progressed = True
         return changed
+
+    def _admit_resume(self, i: int, k: int, cand: Request) -> bool:
+        """Re-admit the preempted request ``cand`` (queue index ``k``) into
+        row ``i``. Fast resume: every full page of the suspended stream
+        (prompt + generated) is still indexed and the residual snapshot
+        exists, so the row adopts those pages, gets its residual and
+        pending token back and rejoins decode without prefill; its tokens
+        are a never-preempted run's (the same pages, the same residual,
+        draws indexed by token). Recompute resume: some page was
+        reclaimed, so the stream is prefilled again over whatever hits
+        remain, and the pending token is restored at the prefill boundary,
+        not drawn again (the recomputed cache may differ at quantization
+        noise). Returns False when the pool cannot host the resume yet."""
+        ps = self.page_size
+        snap = self._suspended[cand.uid]
+        full, fchain = snap["full_toks"], snap["full_chain"]
+        Sf, nbf = len(full), len(full) // ps
+        rem = cand.max_new_tokens - len(cand.generated)
+        init = self._initial_pages(Sf, rem)
+        resident = self.allocator.match(fchain) if self.prefix_cache else 0
+        fast = resident >= nbf and snap["resid"] is not None
+        hit_toks = 0 if fast or not self.prefix_cache else \
+            self._cap_hits(resident, Sf)
+        hit = nbf if fast else hit_toks // ps
+        if init - hit > self.allocator.available_after_adopt(fchain[:hit]):
+            return False
+        ids = (self.allocator.adopt(fchain[:hit]) if hit else []) \
+            + self.allocator.alloc(init - hit)
+        if self.prefix_cache and not fast:
+            self.allocator.misses += nbf - hit
+        del self.queue[k]
+        del self._suspended[cand.uid]
+        self.rows[i] = cand
+        self.row_pages[i] = ids
+        self.tables[i, :] = 0
+        self.tables[i, :init] = ids
+        self.streams[i] = full
+        self.row_chain[i] = fchain
+        self.gen_base[i] = len(cand.generated)
+        if fast:
+            self.pos[i] = Sf
+            self.tok[i, 0] = snap["pending"]
+            self._restore_resid(i, snap["resid"])
+            self.preempt_fast_resumes += 1
+        else:
+            self.prefilling[i] = {"toks": full, "cursor": hit_toks, "S": Sf}
+            self.pos[i] = hit_toks
+            self.tok[i, 0] = 0
+            self._resume_tok[i] = snap["pending"]
+            self.preempt_recompute_resumes += 1
+        return True
 
     def _chunk_prefill_fn(self, max_start: int):
         """Chunk fn for a dispatch whose deepest cursor is ``max_start``
@@ -618,10 +849,13 @@ class ContinuousBatcher:
         logits, self.state = self._chunk_prefill_fn(int(start.max()))(
             self.params, self._dev(toks), self.state, self._dev(start),
             self._dev(valid), self._dev(mask))
+        self._progressed = True
         self.prefill_tokens_computed += int(valid.sum())
         sampled = None
+        # a recompute resume restores its pending token: it draws nothing
         finishing = [i for i in group
-                     if rem_of[i] <= self.prefill_chunk_tokens]
+                     if rem_of[i] <= self.prefill_chunk_tokens
+                     and i not in self._resume_tok]
         done: list[Request] = []
         for i in group:
             st = self.prefilling[i]
@@ -634,6 +868,13 @@ class ContinuousBatcher:
             st["cursor"] += c
             self.pos[i] = st["cursor"]
             if st["cursor"] == st["S"]:
+                rtok = self._resume_tok.pop(i, None)
+                if rtok is not None:
+                    # a recompute resume is complete: its pending token was
+                    # drawn (and its first token timed) before preemption
+                    del self.prefilling[i]
+                    self.tok[i, 0] = rtok
+                    continue
                 if sampled is None:      # token index 0 for finishing rows
                     sampled = self._sample_rows(logits, finishing, offset=0)
                 del self.prefilling[i]
@@ -646,6 +887,132 @@ class ContinuousBatcher:
                 self.tok[i, 0] = sampled[i]
                 self._record_first_token(r)
         return done
+
+    # -- preemption --------------------------------------------------------
+    def _snapshot_resid(self, i: int) -> list:
+        """Row ``i``'s fp residual (its partial page) in every layer, as
+        copies on the batcher's device: with the pending token, all of the
+        row's state that is not in immutable pages. No host sync."""
+        return [(c.resid_k[i].clone(), c.resid_v[i].clone())
+                for c in self.state]
+
+    def _restore_resid(self, i: int, snaps: list) -> None:
+        """Write a `_snapshot_resid` snapshot back into row ``i`` of each
+        layer's residual, in place."""
+        for c, (k, v) in zip(self.state, snaps):
+            c.resid_k[i].copy_(k)
+            c.resid_v[i].copy_(v)
+
+    def _pick_victim(self) -> int | None:
+        """The running row to preempt: lowest priority, then latest
+        arrival. Never the last running row: it can always grow to its
+        budget (its worst case fits the pool, checked at submit), which
+        guarantees progress."""
+        running = [i for i, r in enumerate(self.rows) if r is not None]
+        if len(running) <= 1:
+            return None
+        return min(running,
+                   key=lambda i: (self.rows[i].priority
+                                  if self.rows[i].priority is not None else 0,
+                                  -getattr(self.rows[i], "_arrival", i)))
+
+    def _preempt_row(self, i: int) -> None:
+        """Suspend row ``i`` and re-queue its request. A decoding row keeps
+        a snapshot (pending token, residuals, full token stream and its
+        hash chain) for `_admit_resume`; its release publishes its pages
+        (`_promote_on_release`), so they park on the LRU still indexed and
+        a fast resume adopts them back. A row mid-prefill re-queues plainly
+        unless it is a recompute resume, which keeps its pending token.
+        Past ``preempt_loop_limit`` preemptions without progress, raises
+        `PoolExhaustedError`."""
+        r = self.rows[i]
+        self._preempts_since_progress += 1
+        if self._preempts_since_progress > self.preempt_loop_limit:
+            holders = {rr.uid: len(self.row_pages[j])
+                       for j, rr in enumerate(self.rows) if rr is not None}
+            raise PoolExhaustedError(
+                f"pool exhausted: {self._preempts_since_progress} "
+                f"preemption(s) without any request advancing (limit "
+                f"{self.preempt_loop_limit}); page holders "
+                f"(uid -> pages): {holders}; "
+                f"available={self.allocator.available} of "
+                f"{self.n_pages - 1}; {self._stuck_report()}")
+        self.preemptions += 1
+        ps = self.page_size
+        if i in self.prefilling:
+            rtok = self._resume_tok.pop(i, None)
+            if rtok is not None:
+                self._suspended[r.uid] = {
+                    "pending": rtok, "resid": None,
+                    "full_toks": self.streams[i],
+                    "full_chain": list(self.row_chain[i])}
+        else:
+            full = np.concatenate(
+                [self.streams[i],
+                 np.asarray(r.generated[self.gen_base[i]:], np.int32)])
+            self._suspended[r.uid] = {
+                "pending": int(self.tok[i, 0]),
+                "resid": self._snapshot_resid(i),
+                "full_toks": full,
+                "full_chain": (chain_hashes(full[:(len(full) // ps) * ps], ps)
+                               if self.prefix_cache else [])}
+        self._release_row(i)
+        r._submit_tick = self.ticks         # its aging clock restarts
+        self.queue.append(r)
+
+    def _ensure_decode_pages(self, active: list[int]
+                             ) -> tuple[list[int], int, bool]:
+        """The growth pass before a decode chunk under a watermark: every
+        page the n-step chunk can flush into must be mapped first (an
+        unmapped block would flush into the sentinel). Grows each active
+        row's reservation to cover pos + n; when the pool cannot, preempts
+        victims (`_pick_victim`) until it can, and when none is left stalls
+        the lowest-priority needy rows for this tick (they keep their pages
+        and retry). Host only. Returns (rows to decode, n, tables
+        changed)."""
+        ps = self.page_size
+        changed = False
+        for _ in range(4 * self.batch + 8):      # a bound, never reached
+            if not active:
+                return active, 0, changed
+            n = self._chunk_len(active)
+            need = {}
+            for i in active:
+                want = -(-(int(self.pos[i]) + n) // ps)
+                have = len(self.row_pages[i])
+                if want > have:
+                    need[i] = want - have
+            if not need:
+                return active, n, changed
+            if sum(need.values()) <= self.allocator.available:
+                # highest priority grows first
+                for i in sorted(need,
+                                key=lambda j: (-(self.rows[j].priority or 0),
+                                               getattr(self.rows[j],
+                                                       "_arrival", j))):
+                    ids = self.allocator.alloc(need[i])
+                    have = len(self.row_pages[i])
+                    self.tables[i, have:have + len(ids)] = ids
+                    self.row_pages[i].extend(ids)
+                return active, n, True
+            victim = self._pick_victim()
+            if victim is None:
+                # stall the lowest-priority needy rows until the rest fit;
+                # loop again, as n can change with the set
+                order = sorted(need,
+                               key=lambda j: ((self.rows[j].priority or 0),
+                                              -getattr(self.rows[j],
+                                                       "_arrival", j)))
+                while order and sum(need[j] for j in order) \
+                        > self.allocator.available:
+                    drop = order.pop(0)
+                    self.decode_stall_ticks += 1
+                    active = [i for i in active if i != drop]
+                continue
+            self._preempt_row(victim)
+            changed = True
+            active = [i for i in active if self.rows[i] is not None]
+        return [], 0, changed                    # the bound: stall the tick
 
     def _cow_retarget(self, active: list[int], n: int) -> bool:
         """Copy-on-write before an n-step decode scan: every page the scan
@@ -667,17 +1034,28 @@ class ContinuousBatcher:
         return changed
 
     def _step_paged(self) -> list[Request]:
+        """One paged tick: the allocator's tick (injector draw, deferred
+        pages), admission, one prefill chunk, under a watermark the growth
+        pass, then one decode chunk for the rows past prefill. Without a
+        watermark the worst-case reservation makes growth impossible and
+        the pass does not run."""
         if self.state is None:
             self.state = self._init_state(self.batch)
+        self.allocator.tick()
         if self._admit_chunked():
             self._sync_device()
         done = self._advance_prefill()
         active = [i for i, r in enumerate(self.rows)
                   if r is not None and i not in self.prefilling]
+        n = None
+        if active and self.watermark is not None:
+            active, n, grew = self._ensure_decode_pages(active)
+            if grew:
+                self._sync_device()
         if active:
             row_mask = np.zeros((self.batch,), bool)
             row_mask[active] = True
-            done = done + self._decode_tick(active, row_mask)
+            done = done + self._decode_tick(active, row_mask, n=n)
         if done:
             self._sync_device()
         return done
@@ -687,8 +1065,10 @@ class ContinuousBatcher:
         """Ticks, token counters and TTFT percentiles; paged, also the page
         populations: ``pages_allocated`` referenced, ``pages_cached`` on the
         LRU (refcount 0, still hittable), ``pages_live`` the distinct
-        pages holding tokens; with the prefix cache, the allocator's hit,
-        miss, reclaim and copy-on-write counters."""
+        pages holding tokens; the overload counters (preemptions, fast and
+        recompute resumes, stalled row-ticks); with the prefix cache, the
+        allocator's hit, miss, reclaim and copy-on-write counters; with a
+        fault injector, its counters and the deferred pages."""
         if not self.paged:
             return {"ticks": self.ticks,
                     "decode_tokens_computed": self.decode_tokens_computed,
@@ -696,7 +1076,8 @@ class ContinuousBatcher:
         lengths = [int(self.pos[i]) if r is not None else 0
                    for i, r in enumerate(self.rows)]
         a = self.allocator
-        allocated = (self.n_pages - 1) - a.n_free - a.n_cached
+        allocated = (self.n_pages - 1) - a.n_free - a.n_cached \
+            - len(a.deferred)
         live = live_page_count(self.tables, lengths, self.page_size)
         rep = {"kv_cache_dtype": self.kv_cache_dtype,
                "pages_total": self.n_pages - 1,
@@ -705,6 +1086,10 @@ class ContinuousBatcher:
                "pages_allocated": allocated,
                "pages_live": live,
                "utilization": live / max(allocated, 1),
+               "preemptions": self.preemptions,
+               "preempt_fast_resumes": self.preempt_fast_resumes,
+               "preempt_recompute_resumes": self.preempt_recompute_resumes,
+               "decode_stall_ticks": self.decode_stall_ticks,
                "ticks": self.ticks,
                "prefill_tokens_computed": self.prefill_tokens_computed,
                "decode_tokens_computed": self.decode_tokens_computed,
@@ -714,4 +1099,10 @@ class ContinuousBatcher:
                         "page_hit_rate": a.hits / max(a.hits + a.misses, 1),
                         "reclaims": a.reclaims,
                         "cow_retargets": a.cow_retargets})
+        if a.injector is not None:
+            rep.update({
+                "injected_alloc_fault_ticks": a.injector.alloc_fault_ticks,
+                "injected_delayed_releases": a.injector.delayed_releases,
+                "injected_held_pages": a.injector.hold_pages,
+                "pages_deferred": len(a.deferred)})
         return rep

@@ -1,9 +1,7 @@
 """The port's request and engine parameters against the reference's: the
-same dataclass fields with the same defaults, apart from the one
-difference the port's `EngineConfig` docstring names (``stall_ticks``
-defaults to None until the stall watchdog is ported); and, on the same
-inputs, the same ``is_greedy`` and the same refusal of a priority that is
-not an int."""
+same dataclass fields with the same defaults; and, on the same inputs,
+the same ``is_greedy`` and the same refusal of a priority that is not an
+int."""
 import dataclasses
 
 import pytest
@@ -13,7 +11,7 @@ from repro.serving import SamplingParams as RefSamplingParams
 from repro_torch.serving import EngineConfig, SamplingParams
 
 # field -> (reference default, port default): the documented differences
-DIFFERENCES = {"stall_ticks": (500, None)}
+DIFFERENCES = {}
 
 
 def _defaults(cls):

@@ -79,18 +79,11 @@ def test_generate_matches_reference_engine(pallas_interpret):
 
 
 @pytest.mark.parametrize("option", [
-    dict(host_pages=8), dict(evictor="freq"), dict(host_tier_dtype="int4"), dict(watermark=2),
-    dict(aging_ticks=4), dict(fault_injector=object()), dict(stall_ticks=50),
+    dict(host_pages=8), dict(evictor="freq"), dict(host_tier_dtype="int4"),
     dict(kv_cache_dtype=("int8", "int4")), dict(use_fused_prefill=False)])
 def test_unported_engine_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         EngineConfig(**option)
-
-
-@pytest.mark.parametrize("option", [dict(temperature=0.0, priority=2)])
-def test_unported_sampling_options_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SamplingParams(**option)
 
 
 def test_entry_points_default_to_the_card():
@@ -117,3 +110,34 @@ def test_serve_cli_on_cpu(capsys):
                        "--prompt-len", "13", "--max-new", "4", "--paged",
                        "--device", "cpu"]) == 0
     assert "completed 3/3 requests" in capsys.readouterr().out
+
+
+def test_serve_cli_overload_counters_match_reference(capsys):
+    """The overload flags through both serve CLIs on the CPU: 5 requests on
+    2 rows, a 5-page pool, watermark 0, priority 2 on the even requests,
+    aging every 3 ticks. Admission and preemption depend on lengths,
+    budgets and priorities only (no stop condition is set), so the two
+    CLIs' overload counters and tick counts agree although their random
+    weights differ."""
+    from repro.launch import serve as ref_serve
+    from repro_torch.launch import serve
+    argv = ["--arch", "internlm2_1_8b", "--smoke", "--batch", "2",
+            "--max-len", "64", "--requests", "5", "--prompt-len", "13",
+            "--max-new", "12", "--chunk", "1", "--pages", "6",
+            "--watermark", "0", "--priority", "2", "--aging-ticks", "3"]
+    lines = []
+    for main, extra in ((ref_serve.main, []), (serve.main, ["--device",
+                                                            "cpu"])):
+        assert main(argv + extra) == 0
+        out = capsys.readouterr().out
+        assert "completed 5/5 requests" in out
+        lines.append([ln for ln in out.splitlines()
+                      if "[serve] overload:" in ln
+                      or "[serve] page pool:" in ln
+                      or " ticks)" in ln])
+    ref, port = lines
+    overload = [ln for ln in port if "overload:" in ln]
+    assert overload and overload == [ln for ln in ref if "overload:" in ln]
+    assert " 0 preemptions" not in overload[0]
+    assert [ln.split("over ")[-1] for ln in port if " ticks)" in ln] == \
+        [ln.split("over ")[-1] for ln in ref if " ticks)" in ln]
