@@ -57,7 +57,12 @@ Phases, each fatal on failure (no fallback anywhere):
      leading perturbed logits are printed); the overload protocols of
      tests/test_overload.py (fast resume against the unpressured run,
      recompute resume, transient allocation faults, delayed reclaim) with
-     identical tokens and pool reports.
+     identical tokens and pool reports; the tier protocols of
+     tests/test_tiering.py (hit == miss through the host tier with the lru
+     and freq evictors, the forced swap restore of a greedy and a seeded
+     row, a swap fault falling back to recompute, swap_delay riding the
+     in-flight population, a demote / promote interleaving) and the live
+     dtype flip, with identical tokens, reports and populations.
   5. the slices at full width: internlm2_1_8b with random bf16 weights from
      a seeded torch.Generator serves 5 greedy requests through the paged
      LLMEngine and through the contiguous one (batch 4, max_len 2048); the
@@ -77,7 +82,18 @@ Phases, each fatal on failure (no fallback anywhere):
      token; (c) a 2x oversubscribed burst of 8 requests at mixed
      priorities drains with full budgets, its preemptions, resumes,
      stalls, goodput and TTFT printed, then a watermark decode step runs
-     with any host sync an error); it
+     with any host sync an error), and with the host tier (pinned records,
+     stream-ordered copies: (a) a greedy and a sampled row preempted after
+     8 tokens and every cached device page reclaimed resume by 2 swap
+     restores with the unpressured run's tokens bit for bit; (b) the
+     1536-token prefix, demoted by two fillers on a 9-page pool, is
+     promoted back and adopted as 6 hits with its cold tokens, TTFT cold,
+     device-warm and host-warm printed; (c) int4 at rest completes; (d)
+     under swap_delay 2 the preemption pass, a promotion and a decode step
+     with it in flight make no host sync; (e) the idle dtype flip int8 ->
+     fp8_e4m3 serves a fresh fp8 engine's tokens and memory_allocated
+     falls back; one page's copy out and in timed by CUDA events against
+     the link's bound, beside its re-prefill); it
      runs greedy_generate per block (a block flush in every layer) and per
      channel (batch 4, 1000-token prompts, 32 steps); the seed baseline
      runs over the contiguous cache's shape beside flat decode; then, the
@@ -105,6 +121,7 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 F32_FLOP_PER_S = 67e12         # H100 SXM float32 peak outside the tensor cores
 BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 dense tensor-core peak
+PCIE_BYTES_PER_S = 64e9        # H100 SXM host link, PCIe Gen5 x16, each way
 DTYPES = ("int8", "fp8_e4m3", "int4")
 # kernel vs plain version, both float32 on the card; sums run in another
 # order (tile-wise online softmax vs one softmax), so elementwise
@@ -1477,6 +1494,227 @@ def parity_overload(dev):
         f"cpu and card")
 
 
+def tiering_protocols(params, cfg, d) -> dict:
+    """The tier protocols of tests/test_tiering.py on device ``d`` (the
+    smoke model, host tier of 32 pages): hit == miss (three shared
+    prefixes revisited through a pool of 9 pages, with the "lru" and the
+    "freq" evictor and with a 3-page tier whose capacity LRU drops records
+    and reuses their host slots, against a run without the tier); the
+    forced swap restore (a greedy and a seeded row preempted after 10
+    tokens, every cached page then reclaimed: with the tier, without it,
+    and with every swap lost, against the unpressured run); swap_delay 3
+    riding the in-flight population; a demote / promote interleaving; and
+    the dtype flip (int8 -> fp8_e4m3 idle, against an engine built on
+    fp8_e4m3; the error of a flip with a row resident). Returns tokens and
+    reports."""
+    import numpy as np
+    from repro_torch.core.paging import PoolFaultInjector
+    from repro_torch.serving import (ContinuousBatcher, EngineConfig,
+                                     Request, SamplingParams)
+    greedy = SamplingParams.greedy
+
+    def batcher(**kw):
+        return ContinuousBatcher(params, cfg, EngineConfig(
+            batch=2, max_len=64, paged=True, chunk=1, **kw), device=d)
+
+    def population(a):
+        return [sorted(a.free), sorted(a.lru), sorted(a.inflight),
+                sorted(a.ref), sorted(a.deferred)]
+
+    def grouped(host_pages, evictor="lru", b=None):
+        b = b or batcher(n_pages=10, prefix_cache=True, prefill_chunk=8,
+                         watermark=1, host_pages=host_pages, evictor=evictor)
+        rng = np.random.RandomState(0)
+        shared = [rng.randint(0, cfg.vocab, (24,)).astype(np.int32)
+                  for _ in range(3)]
+        outs, uid = {}, 0
+        for _ in range(2):
+            for g in shared:
+                p = np.concatenate([g, rng.randint(0, cfg.vocab, (4,))
+                                    .astype(np.int32)])
+                b.submit(Request(uid=uid, prompt=p,
+                                 sampling=greedy(max_new_tokens=4)))
+                uid += 1
+                for _t in range(300):
+                    for r in b.step():
+                        outs[r.uid] = list(r.generated)
+                    if uid == len(outs):
+                        break
+        return outs, b
+
+    def submit_pair(b, n=(17, 19)):
+        rng = np.random.RandomState(3)
+        p0 = rng.randint(0, cfg.vocab, (n[0],)).astype(np.int32)
+        p1 = rng.randint(0, cfg.vocab, (n[1],)).astype(np.int32)
+        b.submit(Request(uid=0, prompt=p0, sampling=greedy(max_new_tokens=16)))
+        b.submit(Request(uid=1, prompt=p1, sampling=SamplingParams(
+            temperature=0.9, seed=7, max_new_tokens=16)))
+
+    def drain(b, outs):
+        for _ in range(400):
+            for r in b.step():
+                outs[r.uid] = list(r.generated)
+            if len(outs) == 2:
+                return outs
+        raise AssertionError(f"tier protocol on {d}: requests did not "
+                             f"complete")
+
+    def forced(inj=None, host_pages=32):
+        b = batcher(n_pages=24, prefix_cache=True, watermark=1,
+                    host_pages=host_pages, fault_injector=inj)
+        submit_pair(b)
+        outs = {}
+        for _ in range(200):
+            for r in b.step():
+                outs[r.uid] = list(r.generated)
+            rows = [r for r in b.rows if r is not None]
+            if len(rows) == 2 and not b.prefilling \
+                    and all(len(r.generated) >= 10 for r in rows):
+                break
+        for i in (0, 1):
+            b._preempt_row(i)
+        a = b.allocator
+        a.release(a.alloc(len(a.free) + len(a.lru)))
+        return {"tokens": drain(b, outs),
+                "report": _overload_report(b.pool_report())}
+
+    base = batcher(n_pages=24, prefix_cache=True, watermark=1)
+    submit_pair(base)
+    base = drain(base, {})
+    b = batcher(n_pages=24, prefix_cache=True, watermark=1, host_pages=32,
+                fault_injector=PoolFaultInjector(5, swap_delay=3))
+    b.submit(Request(uid=0, prompt=np.random.RandomState(3).randint(
+        0, cfg.vocab, (17,)).astype(np.int32),
+        sampling=greedy(max_new_tokens=16)))
+    for _ in range(200):
+        b.step()
+        if b.rows[0] is not None and 0 not in b.prefilling \
+                and len(b.rows[0].generated) >= 10:
+            break
+    b._preempt_row(0)
+    a = b.allocator
+    a.release(a.alloc(len(a.free) + len(a.lru)))
+    waits, delayed = [], {}
+    for _ in range(400):
+        for r in b.step():
+            delayed[r.uid] = list(r.generated)
+        if a.inflight:
+            waits.append(b._stuck_report())
+        if delayed:
+            break
+    _, g = grouped(32)
+    a, tier = g.allocator, g._tiering
+    a.injector = PoolFaultInjector(9, swap_delay=2)
+    trace = []
+    for step in range(12):
+        if step % 3 == 0 and len(a.lru):
+            page = next(iter(a.lru))
+            trace.append(g._demote_to_host(page, a.hash_of[page]))
+        elif step % 3 == 1:
+            for h in list(tier.pages):
+                if h not in a.index and h not in a.inflight_digests \
+                        and a.available > 0:
+                    trace.append(g._issue_prefetch([h], 0, 1))
+                    break
+        else:
+            a.tick()
+        trace.append(population(a))
+    for _ in range(6):
+        a.tick()
+    trace.append(population(a))
+    flip = batcher(n_pages=24, prefill_chunk=8)
+    submit_pair(flip, (11, 11))
+    first = drain(flip, {})
+    flip.config.kv_cache_dtype = "fp8_e4m3"
+    submit_pair(flip, (11, 11))
+    flipped = drain(flip, {})
+    fresh = batcher(n_pages=24, prefill_chunk=8, kv_cache_dtype="fp8_e4m3")
+    submit_pair(fresh, (11, 11))
+    resident = batcher(n_pages=24)
+    submit_pair(resident)
+    resident.step()
+    resident.config.kv_cache_dtype = "int4"
+    try:
+        resident.step()
+        flip_error = None
+    except RuntimeError as e:
+        flip_error = str(e)
+    return {
+        "hit == miss": [grouped(None)[0]] + [
+            {"tokens": o, "report": _overload_report(gb.pool_report())}
+            for o, gb in (grouped(n, ev) for n, ev in (
+                (32, "lru"), (32, "freq"), (3, "lru")))],
+        "swap restore": [base, forced(), forced(host_pages=None)],
+        "swap fault": [forced(PoolFaultInjector(5, p_swap_fail=1.0))],
+        "swap delay": [delayed, waits, _overload_report(b.pool_report())],
+        "interleaving": [trace, _overload_report(g.pool_report())],
+        "dtype flip": [first, flipped, drain(fresh, {}), flip_error]}
+
+
+def parity_tiering(dev):
+    """Phase 4, the tiered cache: `tiering_protocols` on the CPU (plain
+    versions) and on the card (kernels, pinned host tier, stream-ordered
+    copies), the smoke model in float32. Tokens, reports, stuck reports
+    and populations must be identical, and each protocol must do what it
+    claims: the tier's runs give the runs without it, the swap restores
+    give the unpressured streams, a lost swap recomputes, a delayed swap
+    swap-waits, the idle flip serves the fresh engine's tokens."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    base = dataclasses.replace(get_config("internlm2_1_8b", smoke=True),
+                               dtype="float32")
+    params = T.init_params(base, torch.Generator().manual_seed(0),
+                           device="cpu")
+    runs = {"cpu": tiering_protocols(params, base, "cpu"),
+            "card": tiering_protocols(_to(params, dev), base, dev)}
+    for name, cpu in runs["cpu"].items():
+        if runs["card"][name] != cpu:
+            raise AssertionError(f"smoke f32 tier {name}: card != cpu: cpu "
+                                 f"{cpu} card {runs['card'][name]}")
+    r = runs["card"]
+    plain, lru, freq, small = r["hit == miss"]
+    if any(x["tokens"] != plain for x in (lru, freq, small)) or any(
+            x["report"][k] < 1 for x in (lru, freq, small)
+            for k in ("demotions", "promotions", "prefetch_page_hits")) \
+            or small["report"]["host_evictions"] < 1:
+        raise AssertionError(f"smoke f32 tier hit == miss: {r['hit == miss']}")
+    base, swapped, recomputed = r["swap restore"]
+    if swapped["tokens"] != base or recomputed["tokens"] != base \
+            or swapped["report"]["preempt_swap_restores"] != 2 \
+            or swapped["report"]["preempt_recompute_resumes"] \
+            or recomputed["report"]["preempt_recompute_resumes"] < 1:
+        raise AssertionError(f"smoke f32 swap restore: {r['swap restore']}")
+    (faulted,) = r["swap fault"]
+    if faulted["tokens"] != swapped["tokens"] \
+            or faulted["report"]["injected_swap_faults"] < 1 \
+            or faulted["report"]["preempt_swap_restores"]:
+        raise AssertionError(f"smoke f32 swap fault: {faulted}")
+    delayed, waits, rep = r["swap delay"]
+    if delayed.get(0) != base[0] or not waits \
+            or not all("swap-wait" in w for w in waits) \
+            or rep["pages_inflight"]:
+        raise AssertionError(f"smoke f32 swap delay: {r['swap delay']}")
+    trace, rep = r["interleaving"]
+    if trace[-1][2] or rep["prefetch_issued"] < 1:
+        raise AssertionError(f"smoke f32 interleaving: {r['interleaving']}")
+    first, flipped, fresh, err = r["dtype flip"]
+    if flipped != fresh or not err or "resident" not in err:
+        raise AssertionError(f"smoke f32 dtype flip: {r['dtype flip']}")
+    log(f"[parity] smoke f32 tiered cache: hit == miss through the host "
+        f"tier (lru, freq, a 3-page tier: {lru['report']['promotions']} / "
+        f"{freq['report']['promotions']} / {small['report']['promotions']} "
+        f"promotions, {small['report']['host_evictions']} host evictions), "
+        f"swap restore of a "
+        f"greedy and a seeded row (= unpressured, 2 swap restores), swap "
+        f"fault -> recompute, swap_delay in flight ({len(waits)} swap-wait "
+        f"ticks), demote/promote interleaving, dtype flip int8 -> fp8_e4m3 "
+        f"(= fresh engine; resident flip raises): tokens, reports and "
+        f"populations identical on cpu and card")
+
+
 # -- phase 5: the slices at full width ---------------------------------------
 
 def _counters():
@@ -1966,6 +2204,405 @@ def overload_serve_full_width(dev, params, cfg, card: str) -> dict:
             f"{label} (c) 2x burst": c3}
 
 
+def _tier_engine(params, cfg, dev, **kw):
+    from repro_torch.serving import EngineConfig, LLMEngine
+    return LLMEngine(params, cfg, EngineConfig(
+        max_len=2048, paged=True, prefix_cache=True, prefill_chunk=512,
+        chunk=1, **kw), device=dev)
+
+
+def _no_sync(fn):
+    """Run ``fn`` with any host sync an error (on the card)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def probe_decode(b, cfg, row: int):
+    """One decode step of ``row`` with any host sync an error, on the
+    batcher's current state; the per-row tensors it rebinds (residuals,
+    lengths) are put back after, so the engine's next step computes the
+    same token again (the page it may flush gets the same bytes)."""
+    import numpy as np
+    from repro_torch.models import transformer as T
+    b._sync_device()
+    mask = np.zeros((b.batch,), bool)
+    mask[row] = True
+    tok, pos, row_mask = b._dev(b.tok), b._dev(b.pos), b._dev(mask)
+    kept = [(c.resid_k, c.resid_v, c.length) for c in b.state]
+    _no_sync(lambda: T.decode_scan(b.params, tok, cfg, b.state, pos,
+                                   steps=1, row_mask=row_mask))
+    for c, (rk, rv, n) in zip(b.state, kept):
+        c.resid_k, c.resid_v, c.length = rk, rv, n
+
+
+def tier_pair(params, cfg, dev, mode: str):
+    """(a) and (d) of `tiered_serve_full_width`: request 0 (prompt 520,
+    greedy) and request 1 (prompt 780, temperature 0.9, seed 7), 24 tokens
+    each, batch 2, watermark 1, a pool of 15 pages. ``mode`` "base": no
+    tier, no pressure; "swap": host tier of 32 pages, both rows preempted
+    once each has decoded 8 tokens, then every cached device page
+    reclaimed, so both resume from the host tier; "delay": the injector's
+    swap_delay 2, row 1 preempted (the preemption pass with any host sync
+    an error), the cached pages reclaimed, row 1's promotion issued and a
+    decode step of row 0 run while it is in flight, both with any host
+    sync an error. Returns (tokens by uid, pool report)."""
+    import numpy as np
+    from repro_torch.core.paging import PoolFaultInjector
+    from repro_torch.serving import SamplingParams
+    kw = {} if mode == "base" else dict(host_pages=32)
+    if mode == "delay":
+        kw["fault_injector"] = PoolFaultInjector(5, swap_delay=2)
+    eng = _tier_engine(params, cfg, dev, batch=2, watermark=1, n_pages=16,
+                       **kw)
+    b = eng.batcher
+    rng = np.random.RandomState(8)
+    prompts = [rng.randint(0, cfg.vocab, (n,)).astype(np.int32)
+               for n in (520, 780)]
+    eng.add_request(prompts[0], SamplingParams.greedy(max_new_tokens=24))
+    eng.add_request(prompts[1], SamplingParams(temperature=0.9, seed=7,
+                                               max_new_tokens=24))
+    outs, forced = {}, mode == "base"
+    for _ in range(400):
+        rows = [r for r in b.rows if r is not None]
+        if not forced and len(rows) == 2 and not b.prefilling \
+                and all(len(r.generated) >= 8 for r in rows):
+            forced = True
+            a = b.allocator
+            if mode == "swap":
+                for i in (0, 1):
+                    b._preempt_row(i)
+                a.release(a.alloc(len(a.free) + len(a.lru)))
+            else:
+                _no_sync(lambda: b._preempt_row(1))
+                a.release(a.alloc(len(a.free) + len(a.lru)))
+                chain = b._suspended[1]["full_chain"]
+                issued = _no_sync(
+                    lambda: b._issue_prefetch(chain, 0, len(chain)))
+                if not issued or len(a.inflight) != issued:
+                    raise AssertionError(f"serve paged tiered (d): "
+                                         f"{issued} promotions issued, "
+                                         f"{len(a.inflight)} in flight")
+                probe_decode(b, cfg, 0)
+        for o in eng.step():
+            if o.finished:
+                outs[o.uid] = o.token_ids
+        if len(outs) == 2:
+            return outs, eng.pool_report()
+    raise AssertionError(f"serve paged tiered ({mode}): requests did not "
+                         f"complete")
+
+
+def tier_revisit(params, cfg, dev, host_tier_dtype=None):
+    """(b) and (c): batch 1, a pool of 8 usable pages, host tier of 32.
+    Request A (chip_smoke's 1536-token prefix + 200 tokens, 16 new) cold,
+    again at once (device-warm: adopts 6 pages; skipped for (c)), then two
+    1700-token fillers (2 new: they only need the pages) that reclaim, and
+    so demote, every page of A's prefix, then A again (host-warm: its 6
+    pages promoted and adopted).
+    Returns {label: (report before, report after, output)} (with the
+    engine's construction time, its host slab allocated, under "built_s")
+    and the engine."""
+    import numpy as np
+    from repro_torch.core.paging import chain_hashes
+    from repro_torch.serving import SamplingParams
+    t0 = time.perf_counter()
+    eng = _tier_engine(params, cfg, dev, batch=1, n_pages=9, host_pages=32,
+                       host_tier_dtype=host_tier_dtype)
+    steps = {"built_s": time.perf_counter() - t0}
+    rng = np.random.RandomState(3)
+    prefix = rng.randint(0, cfg.vocab, (1536,)).astype(np.int32)
+    a = np.concatenate([prefix, rng.randint(0, cfg.vocab, (200,))]
+                       ).astype(np.int32)
+    fillers = [rng.randint(0, cfg.vocab, (1700,)).astype(np.int32)
+               for _ in range(2)]
+    sp = {"filler": SamplingParams.greedy(max_new_tokens=2)}
+    plan = [("cold", a)] + ([("device warm", a)] if host_tier_dtype is None
+                            else []) \
+        + [("filler", f) for f in fillers] + [("host warm", a)]
+    for label, p in plan:
+        before = eng.pool_report()
+        if label == "host warm":
+            chain = chain_hashes(prefix, cfg.quant.block_size)
+            dev_pages = eng.batcher.allocator.match(chain)
+            hosted = eng.batcher._tiering.run_length(chain)
+            if dev_pages or hosted != len(chain):
+                raise AssertionError(f"serve paged tiered: before the host-"
+                                     f"warm run {dev_pages} prefix pages are "
+                                     f"on the device, {hosted} on the host")
+        out = eng.generate([p], sp.get(label, SamplingParams.greedy(
+            max_new_tokens=16)))[0]
+        steps[label] = (before, eng.pool_report(), out)
+    return steps, eng
+
+
+def _delta(steps, label, keys):
+    before, after, _ = steps[label]
+    return {k: after[k] - before[k] for k in keys}
+
+
+def tier_copy_times(b, cfg, dev, card: str) -> dict:
+    """One full-width page (every layer's K, V and scale rows) out to
+    pinned host memory and back, timed with CUDA events (20 each after a
+    warm-up; the L2 holds the page, the link is the limit): the bare
+    copies, and the scheduler's demote (gather + copy) and promote (copy +
+    scatter on the side stream) of one page on the host clock. Beside
+    them the link's bound, the rate of a 256 MiB pinned copy, and the
+    re-prefill of one page (256 tokens at positions 0 and 1280) on the
+    host clock, against its bound at the bf16 peak."""
+    import numpy as np
+    import torch
+    from repro_torch.core.paging import page_bytes_for
+    L, ps, H, D = cfg.n_layers, cfg.quant.block_size, cfg.n_kv_heads, \
+        cfg.head_dim
+    nbytes = page_bytes_for(ps, H, D, "int8") * L
+    q = torch.randint(-127, 128, (1, L, 2, ps, H, D), dtype=torch.int8,
+                      device=dev)
+    s = torch.rand((1, L, 2, H, D), device=dev)
+    hq = torch.empty(q.shape, dtype=q.dtype, pin_memory=True)
+    hs = torch.empty(s.shape, dtype=s.dtype, pin_memory=True)
+
+    def events(fn, n=20):
+        fn()
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(n):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / n
+
+    out_ms = events(lambda: (hq.copy_(q, non_blocking=True),
+                             hs.copy_(s, non_blocking=True)))
+    in_ms = events(lambda: (q.copy_(hq, non_blocking=True),
+                            s.copy_(hs, non_blocking=True)))
+    big = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    hbig = torch.empty(big.shape, dtype=big.dtype, pin_memory=True)
+    rate_out = big.numel() / events(lambda: hbig.copy_(big, non_blocking=True),
+                                    5) / 1e6
+    rate_in = big.numel() / events(lambda: big.copy_(hbig, non_blocking=True),
+                                   5) / 1e6
+    del big, hbig
+
+    def wall(fn, n=10):
+        fn()
+        torch.cuda.synchronize()
+        t = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            t.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(t))
+
+    a, tier = b.allocator, b._tiering
+    page = a.free[-1] if a.free else next(iter(a.lru))
+    fake = iter(range(1 << 30))
+
+    def demote():
+        b._demote_queue.append((page, b"timing-%d" % next(fake)))
+        b._flush_demotions()
+    demote_ms = wall(demote)
+    rec = next(iter(tier.pages.values())).wait()
+    promote_ms = wall(lambda: b._write_host_pages([page], [rec]))
+    fn0, fnd = b._chunk_prefill_fn(0), b._chunk_prefill_fn(1280)
+    tok = b._dev(np.random.RandomState(0).randint(
+        0, cfg.vocab, (b.batch, ps)).astype(np.int32))
+    valid = b._dev(np.full((b.batch,), ps, np.int32))
+    mask = b._dev(np.ones((b.batch,), bool))
+
+    def prefill(fn, start):
+        st = b._dev(np.full((b.batch,), start, np.int32))
+        return lambda: fn(b.params, tok, b.state, st, valid, mask)
+    reprefill0 = wall(prefill(fn0, 0))
+    reprefill_deep = wall(prefill(fnd, 1280))
+    n_params = sum(p.numel() for p in _leaves(b.params["layers"]))
+    res = {"page_bytes": nbytes, "link_bound_ms":
+           nbytes / PCIE_BYTES_PER_S * 1e3,
+           "copy_out_ms": out_ms, "copy_in_ms": in_ms,
+           "link_GBps_out_256MiB": rate_out, "link_GBps_in_256MiB": rate_in,
+           "scheduler_demote_ms": demote_ms,
+           "scheduler_promote_ms": promote_ms,
+           "reprefill_ms_pos0": reprefill0,
+           "reprefill_ms_pos1280": reprefill_deep,
+           "reprefill_bound_ms": 2 * ps * n_params / BF16_FLOP_PER_S * 1e3,
+           "non_embedding_params": n_params,
+           "copy_cost_tokens": (out_ms + in_ms) / (reprefill0 / ps),
+           "card": card}
+    log(f"[serve paged tiered] one page ({nbytes} bytes, {L} layers): out "
+        f"{out_ms:.4f} ms, in {in_ms:.4f} ms (events; the link's bound "
+        f"{res['link_bound_ms']:.4f} ms at {PCIE_BYTES_PER_S / 1e9:.0f} GB/s "
+        f"each way, PCIe Gen5 x16; 256 MiB copies ran at {rate_out:.1f} / "
+        f"{rate_in:.1f} GB/s out / in); the scheduler's demote "
+        f"{demote_ms:.3f} ms and promote {promote_ms:.3f} ms (host clock); "
+        f"re-prefill of one page {reprefill0:.3f} ms at position 0, "
+        f"{reprefill_deep:.3f} ms at 1280 (bound {res['reprefill_bound_ms']:.3f}"
+        f" ms: 256 tokens x {n_params / 1e9:.3f} G params at the bf16 peak); a "
+        f"round trip costs {res['copy_cost_tokens']:.2f} prefill tokens "
+        f"(SwapCostModel: 1); {card}")
+    return res
+
+
+def tier_flip(params, cfg, dev) -> dict:
+    """(e): the paged int8 engine serves two requests (300 and 500
+    tokens, 16 new), is flipped to fp8_e4m3 while idle, and serves them
+    again: tokens equal to an engine built on fp8_e4m3; right after the
+    flip the old pools are gone (memory_allocated back at its level before
+    the engine was built)."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import EngineConfig, LLMEngine, SamplingParams
+    rng = np.random.RandomState(9)
+    prompts = [rng.randint(0, cfg.vocab, (n,)).astype(np.int32)
+               for n in (300, 500)]
+    sp = SamplingParams.greedy(max_new_tokens=16)
+    torch.cuda.synchronize()
+    level = torch.cuda.memory_allocated(dev)
+    eng = LLMEngine(params, cfg, EngineConfig(batch=2, max_len=1024,
+                                              paged=True), device=dev)
+    eng.generate(prompts, sp)
+    torch.cuda.synchronize()
+    serving = torch.cuda.memory_allocated(dev)
+    eng.batcher.config.kv_cache_dtype = "fp8_e4m3"
+    eng.batcher._ensure_backend_dtype()
+    torch.cuda.synchronize()
+    flipped = torch.cuda.memory_allocated(dev)
+    toks = [o.token_ids for o in eng.generate(prompts, sp)]
+    fresh = LLMEngine(params, cfg, EngineConfig(
+        batch=2, max_len=1024, paged=True, kv_cache_dtype="fp8_e4m3"),
+        device=dev)
+    want = [o.token_ids for o in fresh.generate(prompts, sp)]
+    if toks != want or eng.pool_report()["kv_cache_dtype"] != "fp8_e4m3":
+        raise AssertionError("serve paged tiered (e): the flipped engine's "
+                             "tokens differ from a fresh fp8_e4m3 engine's")
+    if flipped > level:
+        raise AssertionError(f"serve paged tiered (e): memory_allocated "
+                             f"{flipped} after the flip, {level} before the "
+                             f"engine: the old pools were not freed")
+    return {"allocated_before_engine": level, "allocated_serving": serving,
+            "allocated_after_flip": flipped}
+
+
+def tiered_serve_full_width(dev, params, cfg, card: str) -> dict:
+    """Phase 5, serve paged tiered: internlm2_1_8b at full width, paged
+    int8 with the prefix cache (page 256, prefill_chunk 512, chunk 1) and
+    a host tier (pinned, the copies stream-ordered). (a) a forced swap
+    restore of a greedy and a seeded row equals the unpressured run bit
+    for bit, 2 swap restores and no recompute; (b) a 1536-token prefix
+    demoted by fillers and served again promotes and adopts its 6 pages,
+    computes 1536 prefill tokens fewer and gives its cold tokens (TTFT
+    cold, device-warm, host-warm); (c) int4 at rest completes; (d) under
+    swap_delay 2, the preemption pass, the promotion and a decode step
+    with it in flight make no host sync, and the streams stay the
+    unpressured run's; (e) the idle dtype flip int8 -> fp8_e4m3 serves a
+    fresh fp8 engine's tokens and frees the old pools. Then the copy and
+    re-prefill times of one page. Returns each run's launch counts."""
+    needs = ("paged_decode", "paged_prefill")
+    label = "serve paged tiered"
+    (base, _), _, c0, _ = _run_path(
+        dev, f"{label} (a) unpressured", needs,
+        lambda: tier_pair(params, cfg, dev, "base"))
+    (swap, srep), wall_a, c1, peak_a = _run_path(
+        dev, f"{label} (a) swap restore", needs,
+        lambda: tier_pair(params, cfg, dev, "swap"))
+    if swap != base or srep["preempt_swap_restores"] != 2 \
+            or srep["preempt_recompute_resumes"] \
+            or srep["preempt_by_swap"] != 2:
+        raise AssertionError(f"{label} (a): tokens equal {swap == base}, "
+                             f"report {srep}")
+    (steps, eng), wall_b, c2, peak_b = _run_path(
+        dev, f"{label} (b) host-warm revisit", needs,
+        lambda: tier_revisit(params, cfg, dev))
+    keys = ("promotions", "prefetch_page_hits", "page_hits",
+            "prefill_tokens_computed")
+    warm = _delta(steps, "host warm", keys)
+    dwarm = _delta(steps, "device warm", keys)
+    want = {"promotions": 6, "prefetch_page_hits": 6, "page_hits": 6,
+            "prefill_tokens_computed": 200}
+    cold_tokens = steps["cold"][2].token_ids
+    if warm != want or dwarm != dict(want, promotions=0,
+                                     prefetch_page_hits=0) \
+            or steps["host warm"][2].token_ids != cold_tokens \
+            or steps["device warm"][2].token_ids != cold_tokens:
+        raise AssertionError(f"{label} (b): host warm {warm}, device warm "
+                             f"{dwarm}, want {want}; tokens equal "
+                             f"{steps['host warm'][2].token_ids == cold_tokens}")
+    brep = steps["host warm"][1]
+    ttft = {k: steps[k][2].metrics["ttft_s"]
+            for k in ("cold", "device warm", "host warm")}
+    host_bytes = brep["host_bytes"]
+    slab = eng.batcher._host_slab
+    slab_bytes = sum(t.nbytes for t in slab.q + slab.s)
+    copies = tier_copy_times(eng.batcher, cfg, dev, card)
+    del eng
+    (steps4, _), wall_c, c3, _ = _run_path(
+        dev, f"{label} (c) int4 at rest", needs,
+        lambda: tier_revisit(params, cfg, dev, host_tier_dtype="int4"))
+    crep = steps4["host warm"][1]
+    (delay, drep), wall_d, c4, _ = _run_path(
+        dev, f"{label} (d) swap_delay 2", needs,
+        lambda: tier_pair(params, cfg, dev, "delay"))
+    if delay != base or drep["preempt_swap_restores"] != 1 \
+            or drep["pages_inflight"]:
+        raise AssertionError(f"{label} (d): tokens equal {delay == base}, "
+                             f"report {drep}")
+    flip, wall_e, c5, _ = _run_path(dev, f"{label} (e) dtype flip", needs,
+                                    lambda: tier_flip(params, cfg, dev))
+    rkeys = ("preemptions", "preempt_by_swap", "preempt_swap_restores",
+             "preempt_fast_resumes", "preempt_recompute_resumes",
+             "demotions", "promotions", "prefetch_issued",
+             "prefetch_page_hits", "host_pages_used", "host_bytes")
+    res = {"backend": "paged tiered", "page": cfg.quant.block_size,
+           "a_swap_restore": {"tokens_equal": True, "wall_s": wall_a,
+                              "max_memory_allocated_bytes": peak_a,
+                              **{k: srep[k] for k in rkeys}},
+           "b_host_warm": {"counters": warm, "device_warm": dwarm,
+                           "ttft_s": ttft, "wall_s": wall_b,
+                           "host_bytes": host_bytes,
+                           "pinned_slab_bytes": slab_bytes,
+                           "engine_built_s": steps["built_s"],
+                           "max_memory_allocated_bytes": peak_b,
+                           **{k: brep[k] for k in rkeys}},
+           "c_int4_at_rest": {"wall_s": wall_c,
+                              **{k: crep[k] for k in rkeys}},
+           "d_swap_delay": {"tokens_equal": True, "no_host_sync": True,
+                            "wall_s": wall_d,
+                            **{k: drep[k] for k in rkeys}},
+           "e_dtype_flip": {"tokens_equal_fresh_fp8": True,
+                            "wall_s": wall_e, **flip},
+           "copy": copies,
+           "launches": {"a": {k: c0[k] + c1[k] for k in c0}, "b": c2,
+                        "c": c3, "d": c4, "e": c5},
+           "card": card}
+    log(f"[{label}] (a) {srep['preempt_by_swap']} preempt-by-swap, "
+        f"{srep['preempt_swap_restores']} swap restores, 0 recompute: greedy "
+        f"and sampled streams = the unpressured run's bit for bit; (b) "
+        f"host-warm revisit promotes and adopts 6 pages, 1536 prefill tokens "
+        f"fewer, tokens = cold; TTFT cold {ttft['cold'] * 1e3:.1f} ms, "
+        f"device-warm {ttft['device warm'] * 1e3:.1f} ms, host-warm "
+        f"{ttft['host warm'] * 1e3:.1f} ms; host tier {brep['host_pages_used']}"
+        f" pages, {host_bytes} bytes held in a pinned slab of {slab_bytes} "
+        f"(engine built in {steps['built_s']:.3f} s); (c) int4 at rest: "
+        f"{crep['demotions']} demotions, {crep['promotions']} promotions "
+        f"(tokens not gated); (d) swap_delay 2: preemption pass, promotion "
+        f"and a decode step in flight with no host sync, streams = "
+        f"unpressured; (e) int8 -> fp8_e4m3 flip: tokens = fresh fp8 "
+        f"engine, memory_allocated {flip['allocated_serving']} serving -> "
+        f"{flip['allocated_after_flip']} after the flip (before the engine "
+        f"{flip['allocated_before_engine']}); {card}")
+    log(f"[{label}] " + json.dumps(res))
+    return {f"{label} (a) swap restore": res["launches"]["a"],
+            f"{label} (b) host-warm revisit": c2,
+            f"{label} (c) int4 at rest": c3,
+            f"{label} (d) swap_delay 2": c4, f"{label} (e) dtype flip": c5}
+
+
 def generate_full_width(dev, params, cfg, granularity: str):
     """greedy_generate, 4 prompts of 1000 tokens, 32 steps. Per channel
     (the paper's setting): one 1000-token prefill (block 8), 32 decode
@@ -2319,6 +2956,7 @@ def main() -> int:
     parity_smoke(dev)
     parity_sampling(dev)
     parity_overload(dev)
+    parity_tiering(dev)
     log(f"[parity] in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -2340,6 +2978,7 @@ def main() -> int:
         "serve paged prefix": prefix_serve_full_width(dev, params, cfg,
                                                       card),
         **overload_serve_full_width(dev, params, cfg, card),
+        **tiered_serve_full_width(dev, params, cfg, card),
         "greedy_generate per_block": generate_full_width(dev, params, cfg,
                                                          "per_block"),
         "greedy_generate per_channel": generate_full_width(dev, params, cfg,

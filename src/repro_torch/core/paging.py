@@ -1,6 +1,7 @@
 """Paged quantized KV cache — page pool + page-table views, the
-host-side allocator with the prefix cache's content-hash index, and the
-seeded pool fault injector (port of ``repro.core.paging``).
+host-side allocator with the prefix cache's content-hash index and the
+host tier's in-flight population, and the seeded pool fault injector
+(port of ``repro.core.paging``).
 
 ``PagePool`` holds the physical pages of one layer:
     k_q, v_q    (n_pages, tokens_packed, H_kv, D)  int8 / float8_e4m3fn
@@ -35,7 +36,7 @@ import torch
 
 from repro_torch.configs.base import torch_dtype
 from repro_torch.core import quantization as Q
-from repro_torch.core.tiering import LRUEvictor
+from repro_torch.core import tiering as TIER
 
 SENTINEL_PAGE = 0
 
@@ -79,11 +80,18 @@ class PoolFaultInjector:
       * ``reclaim_delay`` — a page whose refcount reaches 0 parks this many
         ticks (``deferred``) before it reaches the LRU or the free list.
 
-    The host swap tier's knobs, ``p_swap_fail`` and ``swap_delay``, belong
-    to the tier, which is not ported (ROADMAP queue 1, item 10): they are
-    accepted at 0 only. Faults touch the gates only; `alloc` and
-    copy-on-write check physical capacity, so an allocation that passed
-    its gate never fails."""
+    And the host tier's two:
+
+      * ``p_swap_fail`` — per-prefetch probability (one seeded draw per
+        `swap_fault` call, from the same stream) that the host record is
+        lost at promotion: the tier drops it, the digest stops matching,
+        and the requester recomputes instead of stalling;
+      * ``swap_delay`` — every prefetch lands this many ticks late (the
+        page rides the allocator's in-flight population until
+        `HostPageAllocator.tick` publishes it).
+
+    Faults touch the gates only; `alloc` and copy-on-write check physical
+    capacity, so an allocation that passed its gate never fails."""
 
     def __init__(self, seed: int = 0, *, p_alloc_fail: float = 0.0,
                  hold_pages: int = 0, reclaim_delay: int = 0,
@@ -95,17 +103,16 @@ class PoolFaultInjector:
         if hold_pages < 0 or reclaim_delay < 0 or swap_delay < 0:
             raise ValueError("hold_pages / reclaim_delay / swap_delay "
                              "must be >= 0")
-        if p_swap_fail or swap_delay:
-            raise NotImplementedError(
-                "p_swap_fail / swap_delay inject faults into the host swap "
-                "tier, which is not ported yet (ROADMAP queue 1, item 10)")
         self._rng = np.random.RandomState(seed)
         self.p_alloc_fail = p_alloc_fail
         self.hold_pages = hold_pages
         self.reclaim_delay = reclaim_delay
+        self.p_swap_fail = p_swap_fail
+        self.swap_delay = swap_delay
         self.blocked = False        # are this tick's gates blocked?
         self.alloc_fault_ticks = 0  # ticks whose gates reported 0 pages
         self.delayed_releases = 0   # pages that took the deferred path
+        self.swap_faults = 0        # host records lost at promotion
 
     def tick(self) -> None:
         """Advance one scheduler tick: draw whether its gates are blocked."""
@@ -114,26 +121,41 @@ class PoolFaultInjector:
         if self.blocked:
             self.alloc_fault_ticks += 1
 
+    def swap_fault(self) -> bool:
+        """One prefetch's draw: True when its host record is to be lost."""
+        hit = (self.p_swap_fail > 0.0
+               and bool(self._rng.random_sample() < self.p_swap_fail))
+        if hit:
+            self.swap_faults += 1
+        return hit
+
 
 class HostPageAllocator:
-    """Host-authoritative page allocator: free list, per-page refcounts and,
-    with ``prefix_cache``, the content-hash index of automatic prefix
-    caching (the reference's allocator without its host tier and in-flight
-    population, ROADMAP queue 1, item 10).
+    """Host-authoritative page allocator: free list, per-page refcounts,
+    with ``prefix_cache`` the content-hash index of automatic prefix
+    caching, and with a `tiering.HostTier` the host swap tier's half (the
+    reference's allocator).
 
     Pages 1..n_pages-1 are in exactly one population: ``free`` (holding
     nothing), ``ref`` (page -> refcount > 0), ``lru`` (refcount 0 but
-    still indexed: hittable, and reclaimed oldest first when ``alloc``
-    runs out of free pages) or, with an injector's ``reclaim_delay``,
-    ``deferred`` (page -> the tick it leaves for the LRU or the free list).
-    ``index`` maps chain digests (`chain_hashes`) to pages and ``hash_of``
-    is its inverse; an indexed page's content never changes
-    (`ensure_private` is the copy-on-write gate). An attached
-    `PoolFaultInjector` depresses the gates (`available`,
+    still indexed: hittable, reclaimed in the `tiering.Evictor` policy's
+    order when ``alloc`` runs out of free pages), ``inflight`` (page ->
+    (digest, tick it lands): staging a host-to-device promotion,
+    `begin_prefetch` to `finish_prefetch`) or, with an injector's
+    ``reclaim_delay``, ``deferred`` (page -> the tick it leaves for the
+    LRU or the free list). ``index`` maps chain digests (`chain_hashes`)
+    to pages and ``hash_of`` is its inverse; an indexed page's content
+    never changes (`ensure_private` is the copy-on-write gate). With a
+    host tier, a reclaimed victim is offered to ``demote_hook(page,
+    digest)`` before its index entry dies, and ``demote_flush()`` (when
+    set) runs once after the victims of one `alloc`, so the caller can
+    batch the copies; `match_tiered` counts host and in-flight digests.
+    An attached `PoolFaultInjector` depresses the gates (`available`,
     `available_after_adopt`), never `alloc`."""
 
     def __init__(self, n_pages: int, *, prefix_cache: bool = False,
-                 injector: PoolFaultInjector | None = None):
+                 injector: PoolFaultInjector | None = None,
+                 evictor=None, host_tier=None):
         if n_pages < 2:
             raise ValueError("need >= 2 pages (page 0 is the sentinel)")
         self.n_pages = n_pages
@@ -143,13 +165,24 @@ class HostPageAllocator:
         self.ref: dict[int, int] = {}
         self.index: dict[bytes, int] = {}
         self.hash_of: dict[int, bytes] = {}
-        self.lru = LRUEvictor()
+        if evictor is None:
+            evictor = "lru"
+        self.lru: TIER.Evictor = (TIER.make_evictor(evictor)
+                                  if isinstance(evictor, str) else evictor)
         self.deferred: dict[int, int] = {}   # page -> tick it is disposed
+        self.host_tier = host_tier
+        self.demote_hook = None     # (page, digest), set by the scheduler
+        self.demote_flush = None    # () after one alloc's victims
+        self.inflight: dict[int, tuple[bytes, int]] = {}  # page->(h, ready)
+        self.inflight_digests: dict[bytes, int] = {}      # inverse
+        self._promoted: set[int] = set()     # device pages of host origin
         self._tick = 0
         self.hits = 0           # pages resolved from the index
         self.misses = 0         # prompt pages that had to be computed
         self.reclaims = 0       # cached pages evicted to satisfy alloc
         self.cow_retargets = 0  # shared pages replaced before a flush
+        self.prefetch_issued = 0   # host-to-device promotions started
+        self.promote_hits = 0      # promoted pages later adopted by a row
 
     @property
     def n_free(self) -> int:
@@ -191,15 +224,19 @@ class HostPageAllocator:
         return self._physical - on_lru
 
     def tick(self) -> None:
-        """Advance one scheduler tick: the injector's draw, then the
-        deferred pages whose delay has run out go to the LRU or the free
-        list."""
+        """Advance one scheduler tick: the injector's draw, the deferred
+        pages whose delay has run out go to the LRU or the free list, and
+        in-flight promotions whose delay has run out are published
+        (`finish_prefetch`)."""
         self._tick += 1
         if self.injector is not None:
             self.injector.tick()
             for p in [p for p, t in self.deferred.items() if t <= self._tick]:
                 del self.deferred[p]
                 self._dispose(p)
+        for p in [p for p, (_, t) in self.inflight.items()
+                  if t <= self._tick]:
+            self.finish_prefetch(p)
 
     def _dispose(self, page: int) -> None:
         """A refcount-0 page goes to the LRU (most recent end) if it is
@@ -211,16 +248,26 @@ class HostPageAllocator:
 
     def alloc(self, n: int) -> list[int]:
         """Claim ``n`` pages (refcount 1 each): free pages first, then
-        cached pages reclaimed oldest first (each un-indexed). Raises past
-        physical capacity; admission gates on `available_after_adopt`."""
+        cached pages reclaimed in the evictor's victim order, each offered
+        to ``demote_hook`` (with a host tier) before it is un-indexed.
+        Raises past physical capacity; admission gates on
+        `available_after_adopt`."""
         if n > self._physical:
             raise ValueError(f"alloc({n}) exceeds available={self._physical}")
         ids = [self.free.pop() for _ in range(min(n, len(self.free)))]
+        demoted = False
         while len(ids) < n:
             page = self.lru.pop_victim()
-            del self.index[self.hash_of.pop(page)]
+            digest = self.hash_of.pop(page)
+            del self.index[digest]
+            self._promoted.discard(page)
+            if self.demote_hook is not None and self.host_tier is not None:
+                self.demote_hook(page, digest)
+                demoted = True
             self.reclaims += 1
             ids.append(page)
+        if demoted and self.demote_flush is not None:
+            self.demote_flush()
         for p in ids:
             self.ref[p] = 1
         return ids
@@ -264,10 +311,64 @@ class HostPageAllocator:
             n += 1
         return n
 
+    def match_tiered(self, chain) -> tuple[int, int]:
+        """``(dev, swap)``: the device-resident prefix (`match`) and the
+        run beyond it restorable without recompute (digests on the host
+        tier or already in flight back to the device). No state changes."""
+        dev = self.match(chain)
+        swap = 0
+        if self.prefix_cache and self.host_tier is not None:
+            for h in chain[dev:]:
+                if h in self.inflight_digests or h in self.host_tier:
+                    swap += 1
+                else:
+                    break
+        return dev, swap
+
+    def begin_prefetch(self, digest: bytes, delay: int = 0) -> int:
+        """Claim a device page to receive the host record ``digest`` and
+        park it in flight; the caller issues the copy. It is published
+        (`finish_prefetch`) at once for ``delay`` 0, else by `tick`
+        ``delay`` ticks from now. An in-flight page is neither free,
+        cached, referenced nor matched by `match`."""
+        page = self.alloc(1)[0]
+        del self.ref[page]
+        self.inflight[page] = (digest, self._tick + delay)
+        self.inflight_digests[digest] = page
+        self.prefetch_issued += 1
+        if delay <= 0:
+            self.finish_prefetch(page)
+        return page
+
+    def finish_prefetch(self, page: int) -> bool:
+        """Publish a landed promotion under its digest on the cached set.
+        If the digest was registered meanwhile (a prefill computed the same
+        content first), the staging page goes back to the free list.
+        Returns True iff published."""
+        digest, _ = self.inflight.pop(page)
+        del self.inflight_digests[digest]
+        if self.prefix_cache and digest not in self.index \
+                and page not in self.hash_of:
+            self.index[digest] = page
+            self.hash_of[page] = digest
+            self._promoted.add(page)
+            self.lru.cache(page)
+            return True
+        self.free.append(page)
+        return False
+
+    def abort_prefetch(self, page: int) -> None:
+        """Cancel an in-flight promotion: the page goes back to the free
+        list and the digest stops being in flight."""
+        digest, _ = self.inflight.pop(page)
+        del self.inflight_digests[digest]
+        self.free.append(page)
+
     def adopt(self, chain) -> list[int]:
         """Take a reference on each digest's page (reviving cached and
         deferred pages); returns the pages in chain order and counts them
-        as hits."""
+        as hits (a promoted page's first adoption also as a prefetch
+        hit)."""
         ids = []
         for h in chain:
             p = self.index[h]
@@ -279,6 +380,9 @@ class HostPageAllocator:
                 self.ref[p] = 1
             else:
                 self.ref[p] += 1
+            if p in self._promoted:         # first adoption after a swap-in
+                self._promoted.discard(p)
+                self.promote_hits += 1
             ids.append(p)
         self.hits += len(ids)
         return ids
@@ -343,12 +447,15 @@ def _as_bytes(t: torch.Tensor) -> torch.Tensor:
 
 class PagePool:
     """Physical page storage of one layer (see module docstring). The
-    allocation policy lives in `HostPageAllocator`."""
+    allocation policy lives in `HostPageAllocator`; ``n_free`` is a host
+    int mirroring its free count (the scheduler's `_sync_device` sets it),
+    where the reference keeps a device free stack."""
 
     def __init__(self, k_q, v_q, k_s, v_s, page_size: int, kv_dtype: str):
         self.k_q, self.v_q, self.k_s, self.v_s = k_q, v_q, k_s, v_s
         self.page_size = page_size
         self.kv_dtype = kv_dtype
+        self.n_free = k_q.shape[0] - 1
 
     @staticmethod
     def init(n_pages: int, page_size: int, kv_heads: int, head_dim: int,

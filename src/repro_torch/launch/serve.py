@@ -9,7 +9,10 @@ The contiguous cache by default; ``--paged`` serves from the page pool
 ``--kv-cache-dtype`` other than int8). ``--temperature`` / ``--top-k`` /
 ``--top-p`` / ``--seed`` sample every request (greedy by default);
 ``--shared-prefix N`` gives every prompt the same first N tokens, which
-``--prefix-cache`` then shares. ``--watermark N`` admits optimistically
+``--prefix-cache`` then shares; ``--host-pages N`` adds a host swap tier
+of N pages (implies ``--prefix-cache``), ``--evictor`` picks the device
+eviction policy and ``--host-tier-dtype`` stores demoted pages in a
+cheaper dtype. ``--watermark N`` admits optimistically
 (implies ``--paged``) and preempts under pool pressure; ``--priority P``
 raises every even-numbered request to priority P and ``--aging-ticks``
 ages queued requests. Runs on the card by default (``--device
@@ -57,6 +60,21 @@ def main(argv=None):
                     choices=list(KV_DTYPES),
                     help="page storage format (default int8; another "
                          "implies --paged)")
+    ap.add_argument("--host-pages", type=int, default=None,
+                    help="host-RAM swap tier capacity in pages: cold "
+                         "prefix pages are copied to host memory on "
+                         "reclaim instead of vanishing and promoted back "
+                         "at hash-match time, a copy instead of a "
+                         "re-prefill (implies --paged and --prefix-cache)")
+    ap.add_argument("--evictor", default="lru", choices=["lru", "freq"],
+                    help="device-pool eviction policy: 'lru' reclaims "
+                         "oldest first, 'freq' the lowest hits-per-byte "
+                         "page first")
+    ap.add_argument("--host-tier-dtype", default=None,
+                    choices=list(KV_DTYPES),
+                    help="store demoted pages recompressed to this dtype "
+                         "on the host tier (int4 halves host bytes; lossy; "
+                         "default: the device dtype, bitwise restores)")
     ap.add_argument("--watermark", type=int, default=None,
                     help="optimistic admission: reserve the prompt's pages "
                          "plus this many pages of decode headroom instead "
@@ -86,6 +104,8 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     kv_dtype = args.kv_cache_dtype or "int8"
+    if args.host_pages is not None:
+        args.prefix_cache = True     # the host tier keys on chain digests
     if (args.prefix_cache or args.prefill_chunk
             or args.watermark is not None or kv_dtype != "int8"):
         args.paged = True
@@ -114,8 +134,9 @@ def main(argv=None):
         batch=args.batch, max_len=args.max_len, paged=args.paged,
         n_pages=args.pages, chunk=args.chunk, prefix_cache=args.prefix_cache,
         prefill_chunk=args.prefill_chunk, watermark=args.watermark,
-        aging_ticks=args.aging_ticks, kv_cache_dtype=kv_dtype),
-        device=device)
+        aging_ticks=args.aging_ticks, kv_cache_dtype=kv_dtype,
+        host_pages=args.host_pages, evictor=args.evictor,
+        host_tier_dtype=args.host_tier_dtype), device=device)
     rng = np.random.RandomState(0)
     shared_n = min(args.shared_prefix, args.prompt_len)
     shared = rng.randint(0, cfg.vocab, (shared_n,)).astype(np.int32)
@@ -146,8 +167,10 @@ def main(argv=None):
           f"{rep['ttft_s_p90'] * 1e3:.1f}/{rep['ttft_s_p99'] * 1e3:.1f} ms")
     if args.paged:
         print(f"[serve] page pool: {rep['pages_total']} pages "
-              f"({rep['kv_cache_dtype']}), {rep['pages_free']} free after "
-              f"drain, {rep['pages_cached']} cached")
+              f"({rep['kv_cache_dtype']}, "
+              f"{rep['pages_vs_int8_equal_hbm']:.2f}x pages vs int8 at "
+              f"equal HBM), {rep['pages_free']} free after drain, "
+              f"{rep['pages_cached']} cached")
         if args.watermark is not None:
             resumes = (rep['preempt_fast_resumes']
                        + rep['preempt_recompute_resumes'])
@@ -161,6 +184,16 @@ def main(argv=None):
                   f"{rep['page_hit_rate']:.2f} ({rep['page_hits']} hits / "
                   f"{rep['page_misses']} misses), {rep['reclaims']} "
                   f"reclaims")
+        if args.host_pages is not None:
+            print(f"[serve] host tier ({args.evictor} evictor, "
+                  f"dtype={rep['host_tier_dtype'] or rep['kv_cache_dtype']}"
+                  f"): {rep['host_pages_used']}/{rep['host_pages_capacity']} "
+                  f"pages ({rep['host_bytes'] / 2**20:.2f} MiB), "
+                  f"{rep['demotions']} demotions / "
+                  f"{rep['promotions']} promotions, prefetch hit rate "
+                  f"{rep['prefetch_hit_rate']:.2f}, "
+                  f"{rep['preempt_by_swap']} preempt-by-swap / "
+                  f"{rep['preempt_swap_restores']} swap-restores")
     else:
         print(f"[serve] contiguous int8 cache ({cfg.quant.granularity})")
     for o in outs[:3]:

@@ -15,6 +15,7 @@ plain closures and loops (the reference jits them).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.models import sampling as SMP
@@ -123,10 +124,19 @@ def greedy_generate(params, cfg, prompts, *, steps: int,
                     max_len=max_len, device=device)
 
 
-def kv_cache_memory_report(cfg, batch: int, seq: int, scheduler=None) -> dict:
-    """Paper Table 1 for this arch: cache bytes at fp32 / bf16 / int8; with
-    the scheduler, its TTFT percentiles (pool occupancy is in
-    `ContinuousBatcher.pool_report`)."""
+def kv_cache_memory_report(cfg, batch: int, seq: int, paged_cache=None,
+                           scheduler=None) -> dict:
+    """Paper Table 1 for this arch: cache bytes at fp32 / bf16 / int8.
+
+    ``paged_cache`` (a `PagedQuantizedKVCache`, or the batcher's list of
+    them, one a layer, whose allocator moves every layer alike) adds the
+    pool's occupancy as the reference reports it: ``pool_pages_allocated``
+    every page off the free list (cached pages included),
+    ``pool_pages_live`` the distinct pages holding tokens, one layer's
+    ``pool_page_bytes``, their ratio and bytes. ``scheduler`` adds its TTFT
+    percentiles and abort count and, with a host tier, the tier's pages,
+    bytes and utilization against its own capacity (``host_tier_*``): a
+    demoted page counts on exactly one tier."""
     rep = {
         "fp32_bytes": cfg.kv_cache_bytes(batch, seq, 4),
         "bf16_bytes": cfg.kv_cache_bytes(batch, seq, 2),
@@ -134,6 +144,38 @@ def kv_cache_memory_report(cfg, batch: int, seq: int, scheduler=None) -> dict:
         "compression_vs_fp32": 4.0,
         "compression_vs_bf16": 2.0,
     }
+    if isinstance(paged_cache, list):
+        paged_cache = paged_cache[0]
+    if paged_cache is not None:
+        from repro_torch.core.paging import live_page_count
+        pool = paged_cache.pool
+        n_pages = pool.k_q.shape[0]
+        capacity = n_pages - 1                   # page 0 is the sentinel
+        tables = paged_cache.page_table.cpu().numpy()
+        lengths = np.minimum(paged_cache.length.cpu().numpy(),
+                             paged_cache.max_blocks * pool.page_size)
+        live = live_page_count(tables, lengths, pool.page_size)
+        page_bytes = sum(t.numel() * t.element_size() for t in
+                         (pool.k_q, pool.v_q, pool.k_s, pool.v_s)) // n_pages
+        allocated = capacity - pool.n_free
+        rep.update({
+            "kv_cache_dtype": pool.kv_dtype,
+            "pool_pages_total": capacity,
+            "pool_pages_allocated": allocated,
+            "pool_pages_live": live,
+            "pool_page_bytes": page_bytes,
+            "pool_utilization": live / max(allocated, 1),
+            "pool_bytes_allocated": allocated * page_bytes,
+        })
     if scheduler is not None:
         rep.update(scheduler.lifecycle_report())
+        tier = getattr(scheduler, "_tiering", None)
+        if tier is not None:
+            rep.update({
+                "host_tier_pages_capacity": tier.capacity,
+                "host_tier_pages_used": len(tier),
+                "host_tier_bytes": tier.nbytes,
+                "host_tier_utilization": len(tier) / max(tier.capacity, 1),
+                "host_tier_dtype": tier.dtype,
+            })
     return rep

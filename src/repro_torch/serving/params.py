@@ -14,7 +14,8 @@ from typing import Callable, Sequence
 
 import numpy as np
 
-from repro_torch.core.quantization import KV_DTYPES
+from repro_torch.core.quantization import KV_DTYPES, kv_storage_dtype
+from repro_torch.core.tiering import EVICTORS
 from repro_torch.models import prng
 
 # finish reasons a request can end with
@@ -134,8 +135,15 @@ class EngineConfig:
     `PoolExhaustedError`), ``stall_ticks`` (ticks without progress with
     work in flight before `StallError`; None disarms the watchdog) and
     ``fault_injector`` (paged only: a `core.paging.PoolFaultInjector` on
-    the page allocator). Every other option below that is set to anything
-    but its off value raises `NotImplementedError`."""
+    the page allocator), and the tiered cache: ``host_pages`` (a host swap
+    tier of that many pages; needs ``paged`` and ``prefix_cache``, whose
+    chain digests are its page handle), ``evictor`` (``"lru"`` or
+    ``"freq"``, `core.tiering.EVICTORS`) and ``host_tier_dtype`` (demoted
+    pages stored recompressed to that dtype: lossy, so restores are no
+    longer bitwise; None keeps the device bytes). ``kv_cache_dtype`` is
+    read again every paged tick: a flip on an idle engine rebuilds the
+    pools. Mixed precision plans and ``use_fused_prefill=False`` raise
+    `NotImplementedError`."""
     batch: int = 4
     max_len: int = 128
     eos_id: int | None = None
@@ -161,10 +169,6 @@ class EngineConfig:
             _not_ported("the dequantize-gather prefill oracle "
                         "(use_fused_prefill=False)",
                         "ROADMAP queue 1, item 13")
-        if (self.host_pages is not None or self.evictor != "lru"
-                or self.host_tier_dtype is not None):
-            _not_ported("the host swap tier (host_pages / evictor / "
-                        "host_tier_dtype)", "ROADMAP queue 1, item 10")
         if not isinstance(self.kv_cache_dtype, str):
             _not_ported("mixed per-layer precision plans",
                         "ROADMAP queue 1, item 11")
@@ -178,3 +182,22 @@ class EngineConfig:
             raise ValueError(
                 f"kv_cache_dtype={self.kv_cache_dtype!r} requires "
                 f"paged=True (the contiguous backends are int8-only)")
+        if self.evictor not in EVICTORS:
+            raise ValueError(f"evictor={self.evictor!r} is not a registered "
+                             f"policy; expected one of {sorted(EVICTORS)} "
+                             f"(DESIGN.md §11)")
+        if self.host_pages is not None:
+            if self.host_pages < 1:
+                raise ValueError(f"host_pages must be >= 1 "
+                                 f"(got {self.host_pages})")
+            if not (self.paged and self.prefix_cache):
+                raise ValueError(
+                    "host_pages requires paged=True and prefix_cache=True: "
+                    "chain digests are the host tier's page handle "
+                    "(DESIGN.md §11)")
+        if self.host_tier_dtype is not None:
+            kv_storage_dtype(self.host_tier_dtype)   # validates the name
+            if self.host_pages is None:
+                raise ValueError("host_tier_dtype without host_pages: "
+                                 "there is no host tier to recompress for "
+                                 "(DESIGN.md §11)")

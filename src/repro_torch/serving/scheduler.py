@@ -52,11 +52,21 @@ preemption loop without progress raises `PoolExhaustedError` and
 per-request state. A seeded `core.paging.PoolFaultInjector` on the
 allocator drives these paths.
 
-Not ported yet (they raise in `EngineConfig`): the host swap tier (and
-with it preemption by swap) and mixed precision plans.
+Tiered cache (paged, ``host_pages`` with the prefix cache): a reclaimed
+cached page is first copied to a host tier (pinned host tensors on the
+card) under its chain digest; admission promotes a hosted continuation
+of a prompt's chain back into device pages before it adopts hits, and a
+preempted row's pages are copied to the tier at once (preempt-by-swap),
+so a resume whose device pages were reclaimed restores them bit for bit
+instead of recomputing. The copies run on CUDA streams in order with the
+in-place page writes and make no host sync. ``kv_cache_dtype`` is read
+again every tick: a flip on an idle engine rebuilds the pools.
+
+Not ported yet (they raise in `EngineConfig`): mixed precision plans.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from collections import deque
@@ -64,8 +74,12 @@ from collections import deque
 import numpy as np
 import torch
 
+from repro_torch.core import tiering as TIER
 from repro_torch.core.paging import (SENTINEL_PAGE, HostPageAllocator,
-                                     chain_hashes, live_page_count)
+                                     _as_bytes, chain_hashes,
+                                     live_page_count, page_bytes_for)
+from repro_torch.core.quantization import (KV_DTYPES, kv_storage_dtype,
+                                           packed_tokens)
 from repro_torch.models import sampling as SMP
 from repro_torch.models import transformer as T
 from repro_torch.runtime.fault import StallWatchdog
@@ -153,6 +167,20 @@ class ContinuousBatcher:
         self.preempt_fast_resumes = 0
         self.preempt_recompute_resumes = 0
         self.decode_stall_ticks = 0
+        # the tiered cache: host tier, cost model, uid -> pages in flight of
+        # a swap-waiting request; inert without host_pages
+        self._tiering = None
+        self._swap_cost = None
+        self._swap_wait: dict[int, int] = {}
+        self.preempt_by_swap = 0
+        self.preempt_swap_restores = 0
+        # reclaim victims waiting for their batched device-to-host copy;
+        # promoted pages in flight -> (copy's event, records); the side
+        # stream of promotions (card only)
+        self._demote_queue: list[tuple[int, bytes]] = []
+        self._promo_events: dict[int, tuple] = {}
+        self._copy_stream = None
+        self._host_slab = None
         self.prefix_cache = bool(config.prefix_cache)
         self.config = config
         self.params, self.cfg = params, cfg
@@ -169,14 +197,17 @@ class ContinuousBatcher:
         self.block = (cfg.quant.block_size
                       if cfg.quant.granularity == "per_block" else 8)
         self.n_pages = None
+        # the pools' storage format; config.kv_cache_dtype is the wanted
+        # one, the two differ between a flip and the next paged tick
+        self.kv_cache_dtype = config.kv_cache_dtype
         if self.paged:
             self.page_size = cfg.quant.block_size
             self.max_blocks = self.max_len // self.page_size
             self.n_pages = (config.n_pages if config.n_pages is not None
                             else self.batch * self.max_blocks + 1)
-            self.allocator = HostPageAllocator(
-                self.n_pages, prefix_cache=self.prefix_cache,
-                injector=config.fault_injector)
+            if config.host_pages is not None:
+                self._swap_cost = TIER.SwapCostModel(self.page_size)
+            self._new_allocator()
             self.tables = np.zeros((self.batch, self.max_blocks), np.int32)
             self.row_pages: list[list[int]] = [[] for _ in range(self.batch)]
             # preemption: uid -> snapshot (pending token, fp residual, full
@@ -202,7 +233,6 @@ class ContinuousBatcher:
             self._chunk_prefill_fns: dict[int, object] = {}
             self.prefilling: dict[int, dict] = {}   # row -> toks/cursor/S
             self._pf_rr = 0
-        self.kv_cache_dtype = config.kv_cache_dtype
         self._init_state, self._prefill, self._decode = make_serve_fns(
             cfg, max_len=self.max_len, paged=self.paged, n_pages=self.n_pages,
             kv_cache_dtype=self.kv_cache_dtype, device=self.device)
@@ -215,6 +245,42 @@ class ContinuousBatcher:
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
 
+    def _new_allocator(self):
+        """A fresh allocator and, with ``host_pages``, an empty host tier
+        and its host slab (pinned on the card, allocated here once), wired
+        to the demotion hooks."""
+        c = self.config
+        if c.host_pages is not None:
+            self._tiering = TIER.HostTier(c.host_pages,
+                                          dtype=c.host_tier_dtype)
+            m = self.cfg
+            tp = packed_tokens(self.page_size,
+                               c.host_tier_dtype or self.kv_cache_dtype)
+            self._host_slab = TIER.HostSlab(
+                c.host_pages, (m.n_layers, 2, tp, m.n_kv_heads, m.head_dim),
+                (m.n_layers, 2, m.n_kv_heads, m.head_dim), device=self.device)
+            self._tiering.on_remove = self._host_slab.release
+        self.allocator = HostPageAllocator(
+            self.n_pages, prefix_cache=self.prefix_cache,
+            injector=c.fault_injector, evictor=c.evictor,
+            host_tier=self._tiering)
+        if self._tiering is not None:
+            self.allocator.demote_hook = self._queue_demotion
+            self.allocator.demote_flush = self._flush_demotions
+
+    def _want_dtype(self) -> str:
+        """The storage format ``config.kv_cache_dtype`` asks for now (a
+        live field, validated as `EngineConfig` does)."""
+        want = self.config.kv_cache_dtype
+        if not isinstance(want, str) or want.endswith(".json"):
+            raise NotImplementedError("mixed per-layer precision plans are "
+                                      "not ported yet (ROADMAP queue 1, "
+                                      "item 11)")
+        if want not in KV_DTYPES:
+            raise ValueError(f"unknown kv_cache_dtype {want!r}; expected "
+                             f"one of {KV_DTYPES}")
+        return want
+
     def submit(self, req: Request):
         """Queue a request. Every check runs before any state changes, so a
         rejected request leaves the batcher and the request as they were.
@@ -225,11 +291,13 @@ class ContinuousBatcher:
             raise ValueError(f"request uid {req.uid} is already in flight "
                              f"(queued or running); uids are the lifecycle "
                              f"handle and must be unique until completion")
-        want = req.sampling.kv_cache_dtype
-        if want is not None and want != self.kv_cache_dtype:
-            raise ValueError(f"request {req.uid}: kv_cache_dtype={want!r} "
-                             f"does not match the engine's pool backend "
-                             f"({self.kv_cache_dtype!r})")
+        want, engine = req.sampling.kv_cache_dtype, self._want_dtype()
+        if want is not None and want != engine:
+            raise ValueError(
+                f"request {req.uid}: kv_cache_dtype={want!r} does not match "
+                f"the engine's pool backend ({engine!r}); the pool carries "
+                f"ONE storage format — flip EngineConfig.kv_cache_dtype on "
+                f"an idle engine instead (DESIGN.md §9)")
         budget = (req.max_new_tokens if req.max_new_tokens is not None
                   else req.sampling.max_new_tokens)
         if self.paged:
@@ -369,6 +437,7 @@ class ContinuousBatcher:
                 if self.paged:
                     self._admit_memo.pop(uid, None)
                     self._suspended.pop(uid, None)
+                    self._swap_wait.pop(uid, None)
                 self._finish(r, "aborted")
                 self.aborted_requests += 1
                 return r
@@ -397,6 +466,7 @@ class ContinuousBatcher:
         advanced for ``stall_ticks`` ticks with work in flight."""
         self.ticks += 1
         self._progressed = False
+        self._ensure_backend_dtype()
         done = self._step_paged() if self.paged else self._step_contiguous()
         if done:
             self._progressed = True
@@ -418,6 +488,9 @@ class ContinuousBatcher:
         for r in self.queue:
             tag = ("queued(preempted)" if self.paged
                    and r.uid in self._suspended else "queued")
+            if self.paged and r.uid in self._swap_wait:
+                tag += (f" swap-wait:{self._swap_wait[r.uid]} "
+                        f"page(s) in flight")
             parts.append(f"uid {r.uid}: {tag}")
         for i, r in enumerate(self.rows):
             if r is None:
@@ -434,12 +507,55 @@ class ContinuousBatcher:
             a = self.allocator
             rep += (f"; pool: available={a.available} free={a.n_free} "
                     f"cached={a.n_cached} preemptions={self.preemptions}")
+            if self._tiering is not None:
+                rep += (f"; host tier: hosted={len(self._tiering)} "
+                        f"inflight={len(a.inflight)}")
             if a.injector is not None:
                 rep += (f"; injector: fault_ticks="
                         f"{a.injector.alloc_fault_ticks} "
                         f"held={a.injector.hold_pages} "
-                        f"deferred={len(a.deferred)}")
+                        f"deferred={len(a.deferred)} "
+                        f"swap_faults={a.injector.swap_faults}")
         return rep
+
+    def _ensure_backend_dtype(self):
+        """Honour a live flip of ``config.kv_cache_dtype``. The storage
+        format is in every page and index entry, so the flip cannot happen
+        in place: on a tick with nothing resident (no row, no prefill, no
+        preemption snapshot) the pools, the allocator, the host tier and
+        the per-row tables are rebuilt empty for the new dtype (the old
+        pools are dropped, so their device memory goes back); queued
+        requests hold no pages and ride the rebuild. Anything resident
+        raises: re-quantizing live pages would corrupt their streams."""
+        want = self._want_dtype()
+        if want == self.kv_cache_dtype:
+            return
+        if not self.paged:
+            raise RuntimeError(
+                f"kv_cache_dtype={want!r} requires the paged backend")
+        if (any(r is not None for r in self.rows) or self.prefilling
+                or self._suspended):
+            raise RuntimeError(
+                f"cannot flip kv_cache_dtype to {want!r} with rows "
+                f"resident in the pool; drain the engine first "
+                f"(DESIGN.md §9, §10)")
+        self.kv_cache_dtype = want
+        self._init_state, self._prefill, self._decode = make_serve_fns(
+            self.cfg, max_len=self.max_len, paged=True, n_pages=self.n_pages,
+            kv_cache_dtype=want, device=self.device)
+        self.state = None                      # rebuilt next tick
+        self._demote_queue.clear()
+        self._promo_events.clear()
+        self._new_allocator()
+        self._swap_wait.clear()
+        self.tables[:] = 0
+        self.row_pages = [[] for _ in range(self.batch)]
+        self.streams = [None] * self.batch
+        self.row_chain = [None] * self.batch
+        self.gen_base = [0] * self.batch
+        self._suspended.clear()
+        self._admit_memo.clear()
+        self._resume_tok.clear()
 
     def run_to_completion(self, max_ticks: int = 10_000) -> list[Request]:
         """Drain the queue; returns the requests that finished. Raises
@@ -592,12 +708,14 @@ class ContinuousBatcher:
 
     def _sync_device(self):
         """Push the host page tables and per-row lengths (active rows:
-        ``pos``; free rows: 0) into every layer's cache."""
+        ``pos``; free rows: 0) into every layer's cache, and the free
+        count into each pool's host mirror."""
         lengths = np.where(np.asarray([r is not None for r in self.rows]),
                            self.pos, 0).astype(np.int32)
         table, length = self._dev(self.tables), self._dev(lengths)
         for c in self.state:
             c.page_table, c.length = table, length
+            c.pool.n_free = self.allocator.n_free
 
     # -- contiguous backend --------------------------------------------------
     def _admit_rows(self) -> list[int]:
@@ -693,8 +811,10 @@ class ContinuousBatcher:
         hashes its prompt's full pages, adopts the resident prefix
         (`_cap_hits`) by refcount, allocates the rest of its reservation
         (`_initial_pages`; cached pages reclaimed oldest first) and starts
-        its prefill cursor past the hits. A preempted request re-admits
-        through `_admit_resume`. Admission gates on
+        its prefill cursor past the hits. With a host tier, the chain's
+        hosted continuation is promoted first (`_prefetch_for_admission`)
+        and the head waits while copies are in flight. A preempted request
+        re-admits through `_admit_resume`. Admission gates on
         `available_after_adopt`. Returns True when page tables changed."""
         ps = self.page_size
         changed = False
@@ -718,6 +838,11 @@ class ContinuousBatcher:
                 chain = (chain_hashes(toks[:nb * ps], ps)
                          if self.prefix_cache else [])
                 self._admit_memo[cand.uid] = (toks, chain)
+            # start the promotions of the chain's hosted continuation; the
+            # head swap-waits while they are in flight
+            if self._tiering is not None and \
+                    self._prefetch_for_admission(cand.uid, chain, S):
+                break
             hit_toks = (self._cap_hits(self.allocator.match(chain), S)
                         if self.prefix_cache else 0)
             hit = hit_toks // ps                 # adopted pages
@@ -751,11 +876,16 @@ class ContinuousBatcher:
         exists, so the row adopts those pages, gets its residual and
         pending token back and rejoins decode without prefill; its tokens
         are a never-preempted run's (the same pages, the same residual,
-        draws indexed by token). Recompute resume: some page was
-        reclaimed, so the stream is prefilled again over whatever hits
-        remain, and the pending token is restored at the prefill boundary,
-        not drawn again (the recomputed cache may differ at quantization
-        noise). Returns False when the pool cannot host the resume yet."""
+        draws indexed by token). Swap restore: with a host tier, pages
+        reclaimed since the preemption but held on the tier are promoted
+        (the request swap-waits while copies are in flight) and the fast
+        path then adopts them, bit for bit the same (verbatim bytes; a
+        ``host_tier_dtype`` is the lossy exception). Recompute resume:
+        some page is gone, so the stream is prefilled again over whatever
+        hits remain, and the pending token is restored at the prefill
+        boundary, not drawn again (the recomputed cache may differ at
+        quantization noise). Returns False when the pool cannot host the
+        resume yet."""
         ps = self.page_size
         snap = self._suspended[cand.uid]
         full, fchain = snap["full_toks"], snap["full_chain"]
@@ -763,6 +893,16 @@ class ContinuousBatcher:
         rem = cand.max_new_tokens - len(cand.generated)
         init = self._initial_pages(Sf, rem)
         resident = self.allocator.match(fchain) if self.prefix_cache else 0
+        if (self._tiering is not None and resident < nbf
+                and snap["resid"] is not None):
+            dev, swap = self.allocator.match_tiered(fchain)
+            if dev + swap >= nbf and swap > 0 \
+                    and self._swap_cost.prefer_swap(nbf - dev):
+                snap["swapped"] = True
+                if self._prefetch_for_admission(cand.uid, fchain, Sf,
+                                                want_pages=nbf):
+                    return False                 # swap-wait
+                resident = self.allocator.match(fchain)
         fast = resident >= nbf and snap["resid"] is not None
         hit_toks = 0 if fast or not self.prefix_cache else \
             self._cap_hits(resident, Sf)
@@ -775,6 +915,7 @@ class ContinuousBatcher:
             self.allocator.misses += nbf - hit
         del self.queue[k]
         del self._suspended[cand.uid]
+        self._swap_wait.pop(cand.uid, None)
         self.rows[i] = cand
         self.row_pages[i] = ids
         self.tables[i, :] = 0
@@ -787,6 +928,8 @@ class ContinuousBatcher:
             self.tok[i, 0] = snap["pending"]
             self._restore_resid(i, snap["resid"])
             self.preempt_fast_resumes += 1
+            if snap.get("swapped"):
+                self.preempt_swap_restores += 1
         else:
             self.prefilling[i] = {"toks": full, "cursor": hit_toks, "S": Sf}
             self.pos[i] = hit_toks
@@ -888,6 +1031,227 @@ class ContinuousBatcher:
                 self._record_first_token(r)
         return done
 
+    # -- the host tier ------------------------------------------------------
+    # Pools are written in place, so the copies are ordered by streams: a
+    # demotion is enqueued on the current stream, before the write that
+    # reuses its page; a promotion runs on a side stream after everything
+    # already enqueued, and the current stream waits on its event when the
+    # page is published, before any kernel reads it. Host tensors are
+    # pinned and every copy is non-blocking: no host sync.
+    def _on_card(self) -> bool:
+        return self.device.type == "cuda"
+
+    def _index_tensor(self, pages) -> torch.Tensor:
+        """Page ids as an int64 tensor on the batcher's device (through
+        pinned memory on the card: no host sync)."""
+        t = torch.tensor(pages, dtype=torch.int64)
+        if self._on_card():
+            t = t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def _queue_demotion(self, page: int, digest: bytes) -> bool:
+        """The allocator's ``demote_hook``: queue indexed ``page`` for a
+        copy to the host tier under ``digest`` (`_flush_demotions` copies
+        the queue). Skips a digest already held (the first copy is the
+        copy), no pools yet, or a copy the cost model prices above a
+        recompute. Returns True iff queued."""
+        tier = self._tiering
+        if tier is None or self.state is None or digest in tier \
+                or any(h == digest for _, h in self._demote_queue):
+            return False
+        if not self._swap_cost.prefer_swap(1):
+            return False
+        self._demote_queue.append((page, digest))
+        return True
+
+    def _flush_demotions(self) -> None:
+        """Copy the queued pages to the host tier: per layer one
+        index_select of the pages from each pool tensor, repacked on the
+        device to ``host_tier_dtype`` when set, then per page one
+        non-blocking copy of its values and one of its scales into a slot
+        of the host slab, enqueued before any later write to those pages.
+        Each page becomes one record (in queue order; a full tier drops
+        its coldest record first), its bytes views of the slot, readable
+        on the host after its ``ready`` event."""
+        queue, self._demote_queue = self._demote_queue, []
+        if not queue:
+            return
+        tier, slab, card = self._tiering, self._host_slab, self._on_card()
+        ids = self._index_tensor([p for p, _ in queue])
+
+        def gather(k, v):               # -> (n, L, 2, ...)
+            return torch.stack([torch.stack([k(c).index_select(0, ids),
+                                             v(c).index_select(0, ids)], 1)
+                                for c in self.state], 1)
+        q = gather(lambda c: _as_bytes(c.pool.k_q),
+                   lambda c: _as_bytes(c.pool.v_q))
+        s = gather(lambda c: c.pool.k_s, lambda c: c.pool.v_s)
+        src = self.kv_cache_dtype
+        dst = tier.dtype or src
+        if dst != src:
+            q, s = TIER.repack_page(q.view(kv_storage_dtype(src)), s, src, dst)
+            q = _as_bytes(q)
+        L = len(self.state)
+        recs = []
+        for j, (_, digest) in enumerate(queue):
+            if len(tier) >= tier.capacity:
+                tier.evict_oldest()
+            slot = slab.take()
+            hq, hs = slab.q[slot], slab.s[slot]
+            hq.copy_(q[j], non_blocking=card)
+            hs.copy_(s[j], non_blocking=card)
+            tier.put(digest, [(hq[l, 0], hs[l, 0], hq[l, 1], hs[l, 1])
+                              for l in range(L)], [dst] * L,
+                     blocks=(hq, hs), slot=slot)
+            recs.append(tier.pages[digest])
+        if card:
+            ready = torch.cuda.Event()
+            ready.record()
+            for r in recs:
+                r.ready = ready
+
+    def _demote_to_host(self, page: int, digest: bytes) -> bool:
+        """Copy one indexed device page to the host tier under ``digest``
+        now (`_queue_demotion`, then `_flush_demotions`). Returns True iff
+        a new record was stored."""
+        queued = self._queue_demotion(page, digest)
+        self._flush_demotions()
+        return queued
+
+    def _demote_chain(self, chain) -> int:
+        """Copy every device-resident page of ``chain`` to the host tier
+        in one batch (preempt-by-swap). Returns the pages copied."""
+        n = sum(self._queue_demotion(self.allocator.index[h], h)
+                for h in chain if h in self.allocator.index)
+        self._flush_demotions()
+        return n
+
+    def _write_host_pages(self, pages: list[int], recs) -> None:
+        """Promotion: copy host records into device ``pages``. On the card
+        on a side stream that first waits for everything already enqueued
+        (a demotion of the page's old content among it) and for each
+        record's own copy out: one non-blocking copy per record in, the
+        repack to the pool's dtype on the device when the record's
+        differs, then one scatter per pool tensor per layer; its event is
+        waited on by the current stream when the page is published
+        (`_sync_promotions`)."""
+        last = {p: r for p, r in zip(pages, recs)}   # a page reused: last
+        pages, recs = list(last), list(last.values())
+        card = self._on_card()
+        ids = self._index_tensor(pages)
+        side = None
+        if card:
+            if self._copy_stream is None:
+                self._copy_stream = torch.cuda.Stream(device=self.device)
+            side = self._copy_stream
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            for r in recs:
+                if r.ready is not None:
+                    side.wait_event(r.ready)
+        with torch.cuda.stream(side) if card else contextlib.nullcontext():
+            q0, s0 = recs[0].blocks
+            q = torch.empty((len(recs),) + tuple(q0.shape), dtype=q0.dtype,
+                            device=self.device)
+            s = torch.empty((len(recs),) + tuple(s0.shape), dtype=s0.dtype,
+                            device=self.device)
+            for j, r in enumerate(recs):
+                q[j].copy_(r.blocks[0], non_blocking=card)
+                s[j].copy_(r.blocks[1], non_blocking=card)
+            src, dst = recs[0].dtypes[0], self.kv_cache_dtype
+            if src != dst:
+                q, s = TIER.repack_page(q.view(kv_storage_dtype(src)), s,
+                                        src, dst)
+                q = _as_bytes(q)
+            for l, c in enumerate(self.state):
+                c.pool.write(ids, q[:, l, 0], s[:, l, 0], q[:, l, 1],
+                             s[:, l, 1])
+        if not card:
+            return
+        ids.record_stream(side)
+        for c in self.state:
+            for t in (c.pool.k_q, c.pool.v_q, c.pool.k_s, c.pool.v_s):
+                t.record_stream(side)
+        done = torch.cuda.Event()
+        done.record(side)
+        for r in recs:
+            r.read = done
+        for p in pages:
+            self._promo_events[p] = (done, recs)
+        self._sync_promotions()
+
+    def _sync_promotions(self) -> None:
+        """The current stream waits on the copy of every promoted page
+        that has left the in-flight population (published, or aborted and
+        free again), before any kernel can read or rewrite it."""
+        a = self.allocator
+        for p in [p for p in self._promo_events if p not in a.inflight]:
+            torch.cuda.current_stream(self.device).wait_event(
+                self._promo_events.pop(p)[0])
+
+    def _issue_prefetch(self, chain, lo: int, n: int) -> int:
+        """Start promotions of the hosted digests ``chain[lo:lo+n]``: a
+        staging page each (`HostPageAllocator.begin_prefetch`, published
+        at once or after the injector's ``swap_delay`` ticks), then the
+        copies (`_write_host_pages`). An injected swap fault loses the
+        record instead (the run ends there, the requester recomputes).
+        Returns the copies started."""
+        a, tier, slab = self.allocator, self._tiering, self._host_slab
+        inj = a.injector
+        pages, recs = [], []
+        for h in chain[lo:lo + n]:
+            if h in a.index or h in a.inflight_digests:
+                continue                 # already resident or staging
+            if h not in tier.pages or a.available < 1:
+                break
+            if inj is not None and inj.swap_fault():
+                tier.drop(h)
+                break
+            delay = inj.swap_delay if inj is not None else 0
+            rec = tier.pages[h]
+            slab.hold(rec)               # its bytes stay until copied in
+            pages.append(a.begin_prefetch(h, delay))
+            if h in tier.pages:
+                recs.append(tier.get(h))
+            else:
+                # the staging page's own reclaim demoted a page that pushed
+                # this record off a full tier: its held bytes still promote
+                # (the reference raises KeyError here)
+                rec.hits += 1
+                tier.promotions += 1
+                recs.append(rec)
+        if pages:
+            self._write_host_pages(pages, recs)
+        for rec in recs:
+            slab.unhold(rec)
+        return len(pages)
+
+    def _prefetch_for_admission(self, uid: int, chain, prompt_len: int,
+                                want_pages: int | None = None) -> bool:
+        """Promote the hosted continuation of ``chain`` for a candidate
+        before it is admitted. ``want_pages`` caps the useful depth (the
+        `_cap_hits` grid for a fresh prompt; the whole stream for a
+        resume). Returns True while copies it needs are in flight: the
+        candidate swap-waits (``_swap_wait``, shown by the stuck report)
+        instead of recomputing pages a copy restores for less."""
+        a = self.allocator
+        dev, swap = a.match_tiered(chain)
+        if want_pages is None:
+            want_pages = self._cap_hits(dev + swap, prompt_len) \
+                // self.page_size
+        want_pages = min(want_pages, dev + swap)
+        if want_pages <= dev or \
+                not self._swap_cost.prefer_swap(want_pages - dev):
+            self._swap_wait.pop(uid, None)
+            return False
+        self._issue_prefetch(chain, dev, want_pages - dev)
+        in_flight = sum(1 for h in chain[dev:want_pages]
+                        if h in a.inflight_digests)
+        if in_flight:
+            self._swap_wait[uid] = in_flight
+            return True
+        self._swap_wait.pop(uid, None)
+        return False
+
     # -- preemption --------------------------------------------------------
     def _snapshot_resid(self, i: int) -> list:
         """Row ``i``'s fp residual (its partial page) in every layer, as
@@ -921,11 +1285,14 @@ class ContinuousBatcher:
         a snapshot (pending token, residuals, full token stream and its
         hash chain) for `_admit_resume`; its release publishes its pages
         (`_promote_on_release`), so they park on the LRU still indexed and
-        a fast resume adopts them back. A row mid-prefill re-queues plainly
-        unless it is a recompute resume, which keeps its pending token.
-        Past ``preempt_loop_limit`` preemptions without progress, raises
-        `PoolExhaustedError`."""
+        a fast resume adopts them back. With a host tier those pages are
+        also copied to it at once (preempt-by-swap), so a resume after the
+        device copies were reclaimed restores instead of recomputing. A
+        row mid-prefill re-queues plainly unless it is a recompute resume,
+        which keeps its pending token. Past ``preempt_loop_limit``
+        preemptions without progress, raises `PoolExhaustedError`."""
         r = self.rows[i]
+        swap_chain = None
         self._preempts_since_progress += 1
         if self._preempts_since_progress > self.preempt_loop_limit:
             holders = {rr.uid: len(self.row_pages[j])
@@ -950,13 +1317,19 @@ class ContinuousBatcher:
             full = np.concatenate(
                 [self.streams[i],
                  np.asarray(r.generated[self.gen_base[i]:], np.int32)])
+            fchain = (chain_hashes(full[:(len(full) // ps) * ps], ps)
+                      if self.prefix_cache else [])
             self._suspended[r.uid] = {
                 "pending": int(self.tok[i, 0]),
                 "resid": self._snapshot_resid(i),
                 "full_toks": full,
-                "full_chain": (chain_hashes(full[:(len(full) // ps) * ps], ps)
-                               if self.prefix_cache else [])}
+                "full_chain": fchain}
+            swap_chain = fchain
         self._release_row(i)
+        if (swap_chain and self._tiering is not None
+                and self._swap_cost.prefer_swap(len(swap_chain))):
+            if self._demote_chain(swap_chain):
+                self.preempt_by_swap += 1
         r._submit_tick = self.ticks         # its aging clock restarts
         self.queue.append(r)
 
@@ -1042,6 +1415,8 @@ class ContinuousBatcher:
         if self.state is None:
             self.state = self._init_state(self.batch)
         self.allocator.tick()
+        if self._promo_events:
+            self._sync_promotions()
         if self._admit_chunked():
             self._sync_device()
         done = self._advance_prefill()
@@ -1064,11 +1439,16 @@ class ContinuousBatcher:
     def pool_report(self) -> dict:
         """Ticks, token counters and TTFT percentiles; paged, also the page
         populations: ``pages_allocated`` referenced, ``pages_cached`` on the
-        LRU (refcount 0, still hittable), ``pages_live`` the distinct
-        pages holding tokens; the overload counters (preemptions, fast and
-        recompute resumes, stalled row-ticks); with the prefix cache, the
-        allocator's hit, miss, reclaim and copy-on-write counters; with a
-        fault injector, its counters and the deferred pages."""
+        LRU (refcount 0, still hittable), ``pages_inflight`` staging a
+        promotion, ``pages_live`` the distinct pages holding tokens and
+        ``device_bytes_live`` their bytes over every layer; the dtype's
+        ``pages_vs_int8_equal_hbm`` and ``kv_page_bytes_saved_vs_int8_frac``;
+        the overload counters (preemptions, fast and recompute resumes,
+        stalled row-ticks); with the prefix cache, the allocator's hit,
+        miss, reclaim and copy-on-write counters; with a host tier, its
+        occupancy and bytes (against its own capacity), its traffic and
+        the cost model's prices; with a fault injector, its counters and
+        the deferred pages."""
         if not self.paged:
             return {"ticks": self.ticks,
                     "decode_tokens_computed": self.decode_tokens_computed,
@@ -1077,15 +1457,24 @@ class ContinuousBatcher:
                    for i, r in enumerate(self.rows)]
         a = self.allocator
         allocated = (self.n_pages - 1) - a.n_free - a.n_cached \
-            - len(a.deferred)
+            - len(a.deferred) - len(a.inflight)
         live = live_page_count(self.tables, lengths, self.page_size)
+        pb = lambda dt: page_bytes_for(self.page_size, self.cfg.n_kv_heads,
+                                       self.cfg.head_dim, dt)
+        stack_bytes = pb(self.kv_cache_dtype) * self.cfg.n_layers
+        int8_bytes = pb("int8") * self.cfg.n_layers
         rep = {"kv_cache_dtype": self.kv_cache_dtype,
+               "pages_vs_int8_equal_hbm": int8_bytes / stack_bytes,
+               "kv_page_bytes_saved_vs_int8_frac":
+                   1.0 - stack_bytes / int8_bytes,
                "pages_total": self.n_pages - 1,
                "pages_free": a.n_free,
                "pages_cached": a.n_cached,
                "pages_allocated": allocated,
+               "pages_inflight": len(a.inflight),
                "pages_live": live,
                "utilization": live / max(allocated, 1),
+               "device_bytes_live": live * stack_bytes,
                "preemptions": self.preemptions,
                "preempt_fast_resumes": self.preempt_fast_resumes,
                "preempt_recompute_resumes": self.preempt_recompute_resumes,
@@ -1099,10 +1488,35 @@ class ContinuousBatcher:
                         "page_hit_rate": a.hits / max(a.hits + a.misses, 1),
                         "reclaims": a.reclaims,
                         "cow_retargets": a.cow_retargets})
+        if self._tiering is not None:
+            t, cm = self._tiering, self._swap_cost
+            rep.update({
+                "host_pages_capacity": t.capacity,
+                "host_pages_used": len(t),
+                "host_utilization": len(t) / max(t.capacity, 1),
+                "host_bytes": t.nbytes,
+                "host_tier_dtype": t.dtype,
+                "evictor": self.config.evictor,
+                "demotions": t.demotions,
+                "promotions": t.promotions,
+                "host_evictions": t.host_evictions,
+                "host_lost_records": t.lost,
+                "prefetch_issued": a.prefetch_issued,
+                "prefetch_page_hits": a.promote_hits,
+                "prefetch_hit_rate":
+                    a.promote_hits / max(a.prefetch_issued, 1),
+                "preempt_by_swap": self.preempt_by_swap,
+                "preempt_swap_restores": self.preempt_swap_restores,
+                "swap_cost_tokens_per_page": cm.swap_cost(1),
+                "recompute_cost_tokens_per_page": cm.recompute_cost(1),
+                "est_prefill_tokens_saved_by_swap":
+                    a.promote_hits * (cm.recompute_cost(1)
+                                      - cm.swap_cost(1))})
         if a.injector is not None:
             rep.update({
                 "injected_alloc_fault_ticks": a.injector.alloc_fault_ticks,
                 "injected_delayed_releases": a.injector.delayed_releases,
                 "injected_held_pages": a.injector.hold_pages,
+                "injected_swap_faults": a.injector.swap_faults,
                 "pages_deferred": len(a.deferred)})
         return rep

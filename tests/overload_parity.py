@@ -1,10 +1,10 @@
-"""Helpers of the overload parity tests (tests/test_torch_overload*.py):
+"""Helpers of the serving parity tests (tests/test_torch_overload*.py,
+tests/test_torch_tiering*.py, tests/test_torch_pool_report.py):
 the smoke model in float32 in both packages (the reference's weights
 bridged into the port), one interface over either package's serving
 types, and the runner that holds the port's outcome of a protocol to the
 reference's."""
 import dataclasses
-import re
 
 import jax
 import numpy as np
@@ -63,10 +63,10 @@ class Pkg:
 
 
 def alloc_invariant(a) -> bool:
-    """free + ref + lru + deferred partition the allocatable pages (the
-    reference's allocator adds its host tier's in-flight population)."""
+    """free + ref + lru + deferred + inflight (promotions staging from the
+    host tier) partition the allocatable pages."""
     pops = [set(a.free), set(a.ref), set(a.lru), set(a.deferred),
-            set(getattr(a, "inflight", ()))]
+            set(a.inflight)]
     total = sum(len(p) for p in pops)
     return total == a.n_pages - 1 and len(set().union(*pops)) == total
 
@@ -77,9 +77,10 @@ def _comparable(report: dict) -> dict:
 
 
 def error_text(e: Exception) -> str:
-    """An error's message without the host tier's swap-fault counter,
-    which only the reference's injector has (the tier is not ported)."""
-    return re.sub(r" swap_faults=\d+", "", str(e))
+    """An error's message, as the parity tests compare it (the stuck
+    report's injector part, ``swap_faults=`` included, is the port's
+    too)."""
+    return str(e)
 
 
 def run_both(models, protocol):
@@ -102,3 +103,34 @@ def run_both(models, protocol):
                     "injected_delayed_releases", "injected_held_pages"):
             assert (key in a) == (key in b), key
     return po, pr
+
+
+def grouped_run(pkg, host_pages, evictor="lru", host_tier_dtype=None,
+                groups=3, rounds=2):
+    """The tier protocols' workload (tests/test_tiering.py): ``groups``
+    shared 24-token prefixes, each + 4 tokens, served one request at a
+    time for ``rounds`` rounds through a pool of 9 pages too small to keep
+    every group resident, so revisits promote from the host tier (or
+    recompute without one). Returns (tokens by uid, batcher)."""
+    b = pkg.batcher(batch=2, max_len=64, paged=True, n_pages=10, chunk=1,
+                    prefix_cache=True, prefill_chunk=8, watermark=1,
+                    host_pages=host_pages, evictor=evictor,
+                    host_tier_dtype=host_tier_dtype)
+    rng = np.random.RandomState(0)
+    shared = [rng.randint(0, pkg.cfg.vocab, (24,)).astype(np.int32)
+              for _ in range(groups)]
+    outs, uid = {}, 0
+    for _ in range(rounds):
+        for g in shared:
+            p = np.concatenate([g, rng.randint(0, pkg.cfg.vocab, (4,))
+                                .astype(np.int32)])
+            b.submit(pkg.Request(uid=uid, prompt=p, sampling=pkg
+                                 .SamplingParams.greedy(max_new_tokens=4)))
+            uid += 1
+            for _t in range(300):
+                for r in b.step():
+                    outs[r.uid] = list(r.generated)
+                if uid == len(outs):
+                    break
+            assert alloc_invariant(b.allocator)
+    return outs, b

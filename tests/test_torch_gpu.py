@@ -15,7 +15,11 @@ against the CPU (paged and contiguous, and `greedy_generate`); and the
 smoke train step's loss on the card against the CPU; threefry bits on the card
 against the committed known answers and the CPU, the sampler with no host
 sync, and seeded sampled and prefix-cached smoke tokens on the card
-against the CPU. Skipped where there is no card; imports
+against the CPU; the host tier: a demoted page's record holds its bytes
+from before the page's overwrite, a swap restore equal to the
+unpressured run and to the CPU's, and no host sync in the preemption
+pass, a promotion or a decode step with one in flight. Skipped where
+there is no card; imports
 no JAX (the card's machine has none).
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
@@ -755,3 +759,161 @@ def test_sampled_smoke_tokens_match_cpu(paged, cuda_device):
     assert card[0][0] == card[0][-1]
     if paged:
         assert card[1]["page_hits"] > 0
+
+
+def _tier_engine(device, params, cfg, **kw):
+    from repro_torch.serving import ContinuousBatcher, EngineConfig
+    return ContinuousBatcher(params, cfg, EngineConfig(
+        batch=2, max_len=64, paged=True, n_pages=24, chunk=1,
+        prefix_cache=True, watermark=1, **kw), device=device)
+
+
+def _smoke_f32():
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("internlm2_1_8b", smoke=True),
+                              dtype="float32")
+    return cfg, T.init_params(cfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+
+
+def _decode_pair(b, cfg, until=10):
+    """Submit a greedy and a seeded request; step until both decode with
+    at least ``until`` tokens each. Returns the finished outputs (none)."""
+    from repro_torch.serving import Request, SamplingParams
+    rng = np.random.RandomState(3)
+    p0, p1 = (rng.randint(0, cfg.vocab, (n,)).astype(np.int32)
+              for n in (17, 19))
+    b.submit(Request(uid=0, prompt=p0,
+                     sampling=SamplingParams.greedy(max_new_tokens=16)))
+    b.submit(Request(uid=1, prompt=p1, sampling=SamplingParams(
+        temperature=0.9, seed=7, max_new_tokens=16)))
+    outs = {}
+    for _ in range(200):
+        for r in b.step():
+            outs[r.uid] = list(r.generated)
+        rows = [r for r in b.rows if r is not None]
+        if len(rows) == 2 and not b.prefilling \
+                and all(len(r.generated) >= until for r in rows):
+            return outs
+    raise AssertionError("the rows did not reach decode")
+
+
+def _drain(b, outs):
+    for _ in range(400):
+        for r in b.step():
+            outs[r.uid] = list(r.generated)
+        if len(outs) == 2:
+            return outs
+    raise AssertionError("the requests did not complete")
+
+
+@pytest.mark.gpu
+def test_demotion_copies_the_page_before_its_overwrite(cuda_device):
+    """Reclaim demotes every cached page to the host tier and the pools are
+    overwritten at once, in the same tick with no synchronize between: the
+    records hold the bytes from before the overwrite (stream order, not a
+    host sync, protects them)."""
+    cfg, params = _smoke_f32()
+    b = _tier_engine(cuda_device, _to(params, cuda_device), cfg,
+                     host_pages=32)
+    outs = _drain(b, _decode_pair(b, cfg, until=1))
+    a = b.allocator
+    cached = list(a.lru)
+    assert len(cached) >= 4 and outs
+    digests = [a.hash_of[p] for p in cached]
+    before = [(c.pool.k_q[cached].clone(), c.pool.v_s[cached].clone())
+              for c in b.state]
+    ids = a.alloc(len(a.free) + len(a.lru))
+    idx = torch.tensor(ids, device=cuda_device)
+    for c in b.state:                  # the overwrite, right behind the copy
+        c.pool.k_q.view(torch.int8).index_fill_(0, idx, 77)
+        c.pool.v_s.index_fill_(0, idx, -1.0)
+    tier = b._tiering
+    assert tier.demotions == len(cached)
+    for j, h in enumerate(digests):
+        rec = tier.pages[h].wait()
+        for (kq, _, _, vs), (bk, bv) in zip(rec.payloads, before):
+            assert torch.equal(kq, bk[j].cpu()) and torch.equal(vs, bv[j].cpu())
+            assert kq.is_pinned()
+
+
+@pytest.mark.gpu
+def test_swap_restore_on_card_equals_unpressured(cuda_device):
+    """Both rows preempted mid-decode, every cached device page reclaimed:
+    the resume restores from the host tier, and the greedy and seeded
+    streams equal the unpressured run's on the card and the CPU's swap
+    restore, bit for bit."""
+    cfg, params = _smoke_f32()
+    dev_params = _to(params, cuda_device)
+
+    def forced(device, p):
+        b = _tier_engine(device, p, cfg, host_pages=32)
+        outs = _decode_pair(b, cfg)
+        for i in (0, 1):
+            b._preempt_row(i)
+        a = b.allocator
+        a.release(a.alloc(len(a.free) + len(a.lru)))
+        return _drain(b, outs), b.pool_report()
+
+    base = _tier_engine(cuda_device, dev_params, cfg)
+    base = _drain(base, _decode_pair(base, cfg))
+    card, rep = forced(cuda_device, dev_params)
+    cpu, _ = forced("cpu", params)
+    assert card == base == cpu
+    assert rep["preempt_swap_restores"] == 2 and rep["promotions"] >= 1
+    assert rep["preempt_recompute_resumes"] == 0
+
+
+@pytest.mark.gpu
+def test_no_host_sync_with_a_promotion_in_flight(cuda_device):
+    """With swap_delay 2: the preemption pass (preempt-by-swap copies the
+    row's pages out), the promotion (side-stream copies in) and a decode
+    step of the other row while that promotion is in flight, each with any
+    host sync an error; the restored stream equals the unpressured one."""
+    from repro_torch.core.paging import PoolFaultInjector
+    from repro_torch.models import transformer as T
+    cfg, params = _smoke_f32()
+    dev_params = _to(params, cuda_device)
+    base = _tier_engine(cuda_device, dev_params, cfg)
+    base = _drain(base, _decode_pair(base, cfg))
+    b = _tier_engine(cuda_device, dev_params, cfg, host_pages=32,
+                     fault_injector=PoolFaultInjector(5, swap_delay=2))
+    outs = _decode_pair(b, cfg)
+    a = b.allocator
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        b._preempt_row(1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert b.preempt_by_swap == 1
+    a.release(a.alloc(len(a.free) + len(a.lru)))
+    chain = b._suspended[1]["full_chain"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        issued = b._issue_prefetch(chain, 0, len(chain))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert issued == len(chain) and len(a.inflight) == issued
+    b._sync_device()
+    mask = np.zeros((b.batch,), bool)
+    mask[0] = True
+    tok, pos, row_mask = b._dev(b.tok), b._dev(b.pos), b._dev(mask)
+    kept = [(c.resid_k, c.resid_v, c.length) for c in b.state]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        T.decode_scan(b.params, tok, cfg, b.state, pos, steps=1,
+                      row_mask=row_mask)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    for c, (rk, rv, n) in zip(b.state, kept):
+        c.resid_k, c.resid_v, c.length = rk, rv, n
+    # the probe's residuals and lengths put back: the engine computes row
+    # 0's step again (a page it flushed gets the same bytes)
+    assert _drain(b, outs) == base
+    assert b.preempt_swap_restores == 1 and not a.inflight

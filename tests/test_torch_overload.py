@@ -263,9 +263,14 @@ def test_injector_refuses_what_the_reference_refuses(kw):
 
 @pytest.mark.parametrize("kw", [dict(p_swap_fail=0.25), dict(swap_delay=2)])
 def test_injector_swap_knobs_wait_for_the_host_tier(kw):
-    RPG.PoolFaultInjector(0, **kw)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        PG.PoolFaultInjector(0, **kw)
+    """The host tier's knobs, ported with the tier: accepted as the
+    reference accepts them, and the swap draws are the reference's."""
+    ref, port = RPG.PoolFaultInjector(0, **kw), PG.PoolFaultInjector(0, **kw)
+    assert (port.p_swap_fail, port.swap_delay) == \
+        (ref.p_swap_fail, ref.swap_delay)
+    assert [ref.swap_fault() for _ in range(40)] == \
+        [port.swap_fault() for _ in range(40)]
+    assert port.swap_faults == ref.swap_faults
 
 
 def _state(a):

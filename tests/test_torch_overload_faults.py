@@ -5,8 +5,8 @@ preemption loop's `PoolExhaustedError`, `run_to_completion`'s stuck-state
 delayed reclaim — the protocols of tests/test_overload.py, each run
 through both packages (the smoke model in float32 with bridged weights,
 the reference on its Pallas kernels in interpret mode): identical tokens,
-`pool_report` counters, error types and messages (the reference's
-injector adds its host tier's swap-fault count, which is left out)."""
+`pool_report` counters, error types and messages (the stuck report's
+``swap_faults=`` included)."""
 import jax
 import pytest
 

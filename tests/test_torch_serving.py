@@ -79,7 +79,8 @@ def test_generate_matches_reference_engine(pallas_interpret):
 
 
 @pytest.mark.parametrize("option", [
-    dict(host_pages=8), dict(evictor="freq"), dict(host_tier_dtype="int4"),
+    dict(kv_cache_dtype="PLAN_kv_mixed.json"), dict(kv_cache_dtype=["int8"]),
+    dict(kv_cache_dtype={"layers": ["int8", "int4"]}),
     dict(kv_cache_dtype=("int8", "int4")), dict(use_fused_prefill=False)])
 def test_unported_engine_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
