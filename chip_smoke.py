@@ -62,7 +62,13 @@ Phases, each fatal on failure (no fallback anywhere):
      and freq evictors, the forced swap restore of a greedy and a seeded
      row, a swap fault falling back to recompute, swap_delay riding the
      in-flight population, a demote / promote interleaving) and the live
-     dtype flip, with identical tokens, reports and populations.
+     dtype flip, with identical tokens, reports and populations; mixed
+     per-layer precision plans (PLAN2 = ("int8", "int4") on the 2-layer
+     model, ("int8", "fp8_e4m3", "int4") on a 3-layer one): five requests
+     with the prefix cache, hit == miss, the rejected dtype request, the
+     idle flips int8 -> plan -> int8 and the grouped revisit through a
+     6-page host tier with and without int4 at rest, with identical
+     tokens, reports and errors.
   5. the slices at full width: internlm2_1_8b with random bf16 weights from
      a seeded torch.Generator serves 5 greedy requests through the paged
      LLMEngine and through the contiguous one (batch 4, max_len 2048); the
@@ -93,7 +99,16 @@ Phases, each fatal on failure (no fallback anywhere):
      with it in flight make no host sync; (e) the idle dtype flip int8 ->
      fp8_e4m3 serves a fresh fp8 engine's tokens and memory_allocated
      falls back; one page's copy out and in timed by CUDA events against
-     the link's bound, beside its re-prefill); it
+     the link's bound, beside its re-prefill), and with the per-layer plan
+     P24 = ("int8", "fp8_e4m3", "int4") x 8 passed as a JSON path ((a) the
+     five prompts: pools at their dtypes and shapes, pool bytes, capacity
+     ratio and saved fraction as predicted, layer 0's prompt pages bit for
+     bit the uniform int8 run's, paged decode and prefill launched equally
+     for each dtype; (b) an all-int8 plan gives the uniform run's tokens;
+     (c) the prefix cell cold then warm; (d) the tier revisit with and
+     without int4 at rest, host bytes a page as predicted, demote and
+     promote without host sync; (e) a mixed decode step without host
+     sync; (f) idle flips int8 -> P24 -> int8 freeing the old pools); it
      runs greedy_generate per block (a block flush in every layer) and per
      channel (batch 4, 1000-token prompts, 32 steps); the seed baseline
      runs over the contiguous cache's shape beside flat decode; then, the
@@ -1715,6 +1730,128 @@ def parity_tiering(dev):
         f"populations identical on cpu and card")
 
 
+P24_DTYPES = ("int8", "fp8_e4m3", "int4") * 8   # serve paged mixed's plan
+
+
+def mixed_protocols(params, cfg, d, plan) -> dict:
+    """Mixed-plan protocols on device ``d`` (the smoke model at
+    len(plan) layers): five prompts on 2 rows with the prefix cache
+    (tokens, report), prefix hit == miss, the submit contract (a request
+    naming a dtype is rejected), the idle flips int8 -> plan -> int8
+    (against a fresh plan engine and the first int8 run), and the grouped
+    revisit through a 6-page host tier with host_tier_dtype None and int4
+    (tokens, reports, the first record's per-layer dtypes and bytes)."""
+    import numpy as np
+    from repro_torch.serving import (ContinuousBatcher, EngineConfig,
+                                     Request, SamplingParams)
+    greedy = SamplingParams.greedy
+
+    def batcher(**kw):
+        kw.setdefault("max_len", 128)
+        return ContinuousBatcher(params, cfg, EngineConfig(
+            batch=2, paged=True, **kw), device=d)
+
+    rng = np.random.RandomState(11)
+    prompts = [rng.randint(0, cfg.vocab, (n,)).astype(np.int32)
+               for n in (13, 70, 5, 40, 21)]
+
+    def serve(b, uid0=0, ps=prompts, max_new=6):
+        for i, p in enumerate(ps):
+            b.submit(Request(uid=uid0 + i, prompt=p,
+                             sampling=greedy(max_new_tokens=max_new)))
+        return {r.uid - uid0: list(r.generated)
+                for r in b.run_to_completion(600)}
+
+    out = {}
+    b = batcher(prefix_cache=True, prefill_chunk=16, kv_cache_dtype=plan)
+    out["serve"] = [serve(b), _overload_report(b.pool_report())]
+    miss = serve(b, 10, prompts[1:2])
+    out["hit == miss"] = [miss, serve(b, 20, prompts[1:2]),
+                          _overload_report(b.pool_report())]
+    try:
+        b.submit(Request(uid=99, prompt=prompts[0],
+                         sampling=greedy(kv_cache_dtype="int8")))
+        out["submit"] = None
+    except ValueError as e:
+        out["submit"] = [str(e), len(b.queue)]
+    f = batcher(prefill_chunk=16)
+    first = serve(f, 0, prompts[:2])
+    f.config.kv_cache_dtype = plan
+    flipped = serve(f, 10, prompts[:2])
+    fresh = serve(batcher(prefill_chunk=16, kv_cache_dtype=plan), 10,
+                  prompts[:2])
+    f.config.kv_cache_dtype = "int8"
+    out["flips"] = [first, flipped, fresh, serve(f, 20, prompts[:2])]
+    for htd in (None, "int4"):
+        g = batcher(max_len=64, n_pages=10, chunk=1, prefix_cache=True,
+                    prefill_chunk=8, watermark=1, host_pages=6,
+                    host_tier_dtype=htd, kv_cache_dtype=plan)
+        shared = [rng.randint(0, cfg.vocab, (24,)).astype(np.int32)
+                  for _ in range(3)]
+        toks = {}
+        for r_ in range(2):
+            for j, s in enumerate(shared):
+                p = np.concatenate([s, rng.randint(0, cfg.vocab, (4,))
+                                    .astype(np.int32)])
+                toks.update(serve(g, 100 * r_ + 10 * j, [p], 4))
+        rec = next(iter(g._tiering.pages.values()))
+        out[f"tier {htd}"] = [toks, _overload_report(g.pool_report()),
+                              list(rec.dtypes), rec.nbytes]
+    return out
+
+
+def parity_mixed(dev):
+    """Phase 4, mixed per-layer precision plans: `mixed_protocols` on the
+    CPU (plain versions) and on the card (kernels) for PLAN2 ("int8",
+    "int4") on the 2-layer smoke model and ("int8", "fp8_e4m3", "int4")
+    on a 3-layer one, float32: tokens, reports and error texts identical,
+    and each protocol doing what it claims (hit == miss, the flips serve
+    the fresh plan engine's and the first run's tokens, a dtype request
+    rejected before queueing, the tier promoting with per-layer records)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    for plan in (("int8", "int4"), ("int8", "fp8_e4m3", "int4")):
+        base = dataclasses.replace(get_config("internlm2_1_8b", smoke=True),
+                                   dtype="float32", n_layers=len(plan))
+        params = T.init_params(base, torch.Generator().manual_seed(0),
+                               device="cpu")
+        runs = {"cpu": mixed_protocols(params, base, "cpu", plan),
+                "card": mixed_protocols(_to(params, dev), base, dev, plan)}
+        for name, cpu in runs["cpu"].items():
+            if runs["card"][name] != cpu:
+                raise AssertionError(
+                    f"smoke f32 mixed {plan} {name}: card != cpu: cpu {cpu} "
+                    f"card {runs['card'][name]}")
+        r = runs["card"]
+        toks, rep = r["serve"]
+        miss, hit, hrep = r["hit == miss"]
+        first, flipped, fresh, back = r["flips"]
+        if rep["kv_cache_dtype"] != "mixed" \
+                or rep["kv_cache_layer_dtypes"] != list(plan) \
+                or any(len(t) != 6 for t in toks.values()) \
+                or miss != hit or hrep["page_hits"] < 1 \
+                or flipped != fresh or back != first \
+                or not r["submit"] or "plan" not in r["submit"][0] \
+                or r["submit"][1]:
+            raise AssertionError(f"smoke f32 mixed {plan}: {r}")
+        for htd in (None, "int4"):
+            _, trep, dtypes, _ = r[f"tier {htd}"]
+            if trep["promotions"] < 1 or dtypes != [htd or dt
+                                                    for dt in plan]:
+                raise AssertionError(f"smoke f32 mixed {plan} tier {htd}: "
+                                     f"{r[f'tier {htd}']}")
+        log(f"[parity] smoke f32 mixed plan {'/'.join(plan)}: served (5 "
+            f"requests, pool_report 'mixed'), hit == miss, flips int8 -> "
+            f"plan -> int8 (= fresh plan engine, = first run), a dtype "
+            f"request rejected, host tier {r['tier None'][1]['promotions']} / "
+            f"{r['tier int4'][1]['promotions']} promotions (records "
+            f"{r['tier None'][3]} / {r['tier int4'][3]} bytes): tokens, "
+            f"reports and errors identical on cpu and card")
+
+
 # -- phase 5: the slices at full width ---------------------------------------
 
 def _counters():
@@ -1739,6 +1876,8 @@ def _run_path(dev, label: str, needs: tuple, fn):
     torch.cuda.reset_peak_memory_stats(dev)
     for c in counters.values():
         c.launches = 0
+        for k in getattr(c, "launches_by_dtype", {}):
+            c.launches_by_dtype[k] = 0
     t0 = time.perf_counter()
     res = fn()
     torch.cuda.synchronize()
@@ -1756,6 +1895,7 @@ def serve_full_width(dev, params, cfg, paged: bool):
              else ("flat_decode", "quantize_blocked", "flash_fwd"))
     eng = LLMEngine(params, cfg, EngineConfig(batch=4, max_len=2048,
                                               paged=paged), device=dev)
+    owner = track_pages(eng.batcher) if paged else None
     prompts = serve_prompts(cfg)
     lens = tuple(len(p) for p in prompts)
     sp = SamplingParams.greedy(max_new_tokens=48)
@@ -1779,7 +1919,43 @@ def serve_full_width(dev, params, cfg, paged: bool):
         f"{rep['ttft_s_p50'] * 1e3:.1f} ms, {rep['ticks']} ticks, launches "
         f"{counts}, max_memory_allocated {peak / 2**30:.2f} GiB")
     log(f"[serve {label}] " + json.dumps(res))
-    return counts, [o.token_ids for o in outs]
+    return counts, [o.token_ids for o in outs], (
+        layer0_prompt_pages(eng.batcher, owner) if paged else None)
+
+
+def track_pages(b) -> dict:
+    """Record after every tick of batcher ``b`` which row holds each page:
+    page -> (uid, index in the row's pages, prompt length); the last entry
+    is the page's last holder."""
+    owner = {}
+    step = b.step
+
+    def tracked():
+        done = step()
+        for i, r in enumerate(b.rows):
+            if r is not None:
+                for j, p in enumerate(b.row_pages[i]):
+                    owner[p] = (r.uid, j, len(r.prompt))
+        return done
+    b.step = tracked
+    return owner
+
+
+def layer0_prompt_pages(b, owner) -> dict:
+    """Layer 0's pages that hold prompt tokens only (a full page of its
+    last holder's prompt), copied to the host: their holders and their
+    values and scales as raw bits."""
+    import torch
+    from repro_torch.core.paging import _as_bytes
+    pages = sorted(p for p, (_, j, S) in owner.items()
+                   if j < S // b.page_size)
+    pool = b.state[0].pool
+    ids = torch.tensor(pages, device=pool.k_q.device)
+    return {"holders": {p: owner[p][:2] for p in pages},
+            **{n: _as_bytes(getattr(pool, n)).index_select(0, ids).cpu()
+               for n in ("k_q", "v_q")},
+            **{n: getattr(pool, n).index_select(0, ids).view(
+                torch.int32).cpu() for n in ("k_s", "v_s")}}
 
 
 def serve_prompts(cfg):
@@ -2297,7 +2473,8 @@ def tier_pair(params, cfg, dev, mode: str):
                          f"complete")
 
 
-def tier_revisit(params, cfg, dev, host_tier_dtype=None):
+def tier_revisit(params, cfg, dev, host_tier_dtype=None,
+                 kv_cache_dtype="int8"):
     """(b) and (c): batch 1, a pool of 8 usable pages, host tier of 32.
     Request A (chip_smoke's 1536-token prefix + 200 tokens, 16 new) cold,
     again at once (device-warm: adopts 6 pages; skipped for (c)), then two
@@ -2312,7 +2489,8 @@ def tier_revisit(params, cfg, dev, host_tier_dtype=None):
     from repro_torch.serving import SamplingParams
     t0 = time.perf_counter()
     eng = _tier_engine(params, cfg, dev, batch=1, n_pages=9, host_pages=32,
-                       host_tier_dtype=host_tier_dtype)
+                       host_tier_dtype=host_tier_dtype,
+                       kv_cache_dtype=kv_cache_dtype)
     steps = {"built_s": time.perf_counter() - t0}
     rng = np.random.RandomState(3)
     prefix = rng.randint(0, cfg.vocab, (1536,)).astype(np.int32)
@@ -2601,6 +2779,319 @@ def tiered_serve_full_width(dev, params, cfg, card: str) -> dict:
             f"{label} (b) host-warm revisit": c2,
             f"{label} (c) int4 at rest": c3,
             f"{label} (d) swap_delay 2": c4, f"{label} (e) dtype flip": c5}
+
+
+# serve paged mixed at page 256, H_kv 8, D 128 (the predictions of PERF.md,
+# from `page_bytes_for`): one page of one layer, the P24 stack's page, the
+# 33 pages of phase 5's pools, a demoted page on the host (as the device
+# holds it, and all int4)
+MIXED_PRED = {"page_int8": 532_480, "page_fp8_e4m3": 532_480,
+              "page_int4": 270_336, "stack": 10_682_368,
+              "stack_int8": 12_779_520, "pools": 352_518_144,
+              "host_page": 10_682_368, "host_page_int4": 6_488_064}
+
+
+def _by_dtype() -> dict:
+    """The paged kernels' launches by page dtype since the last reset."""
+    from repro_torch.kernels import quant_attention as QA
+    from repro_torch.kernels import quant_prefill as QP
+    return {"paged_decode": dict(QA.paged_decode_partials_cuda
+                                 .launches_by_dtype),
+            "paged_prefill": dict(QP.paged_prefill_cuda.launches_by_dtype)}
+
+
+def _even_by_dtype(label, by, counts, n_layers):
+    """A stack of 8 layers of each dtype: per kernel, each dtype launched
+    equally often, the sum the kernel's launches, a multiple of the layer
+    count (one launch per layer per step or chunk)."""
+    for k, d in by.items():
+        if len(set(d.values())) != 1 or sum(d.values()) != counts[k] \
+                or counts[k] % n_layers or not counts[k]:
+            raise AssertionError(f"{label}: {k} launches by dtype {d}, "
+                                 f"{counts[k]} in all")
+
+
+def mixed_flips(params, cfg, dev, plan_path) -> dict:
+    """(f): a paged int8 engine serves two requests (300 and 500 tokens,
+    16 new), is flipped while idle to P24 and back to int8, serving them
+    after each flip: after P24 the tokens of an engine built on P24, after
+    int8 again its first tokens; right after each flip memory_allocated is
+    back at its level before the engine (the old pools freed, the new ones
+    built at the next tick)."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import EngineConfig, LLMEngine, SamplingParams
+    rng = np.random.RandomState(9)
+    prompts = [rng.randint(0, cfg.vocab, (n,)).astype(np.int32)
+               for n in (300, 500)]
+    sp = SamplingParams.greedy(max_new_tokens=16)
+    torch.cuda.synchronize()
+    level = torch.cuda.memory_allocated(dev)
+    eng = LLMEngine(params, cfg, EngineConfig(batch=2, max_len=1024,
+                                              paged=True), device=dev)
+    serve = lambda e: [o.token_ids for o in e.generate(prompts, sp)]
+    first = serve(eng)
+    res = {"allocated_before_engine": level}
+    runs = {}
+    for label, spec in (("P24", plan_path), ("int8", "int8")):
+        eng.batcher.config.kv_cache_dtype = spec
+        eng.batcher._ensure_backend_dtype()
+        torch.cuda.synchronize()
+        res[f"allocated_after_flip_to_{label}"] = \
+            torch.cuda.memory_allocated(dev)
+        runs[label] = serve(eng)
+        if res[f"allocated_after_flip_to_{label}"] > level:
+            raise AssertionError(f"serve paged mixed (f): memory_allocated "
+                                 f"{res} after the flip to {label}: the "
+                                 f"old pools were not freed")
+    fresh = serve(LLMEngine(params, cfg, EngineConfig(
+        batch=2, max_len=1024, paged=True, kv_cache_dtype=plan_path),
+        device=dev))
+    if runs["P24"] != fresh or runs["int8"] != first:
+        raise AssertionError("serve paged mixed (f): flipped tokens differ "
+                             "from a fresh P24 engine's or the first run's")
+    return res
+
+
+def mixed_serve_full_width(dev, params, cfg, card: str, uniform_tokens,
+                           uniform_layer0) -> dict:
+    """Phase 5, serve paged mixed: internlm2_1_8b at full width, paged,
+    with the plan P24 = ("int8", "fp8_e4m3", "int4") x 8, written to a
+    JSON file in a temporary directory and passed by path. (a) phase 5's
+    five greedy prompts: each layer's pool at its dtype and shape, the
+    pools' bytes and `pool_report` ("mixed", the 24 dtypes, the capacity
+    ratio and saved fraction) against MIXED_PRED, layer 0's prompt pages
+    byte for byte the uniform int8 run's, each dtype's paged decode and
+    prefill launches 8 per step or chunk; (b) an all-int8 `PrecisionPlan`
+    serves the uniform run's tokens; (c) the prefix cell's 1736-token
+    prompt cold then warm (decode chunk 1): 6 hits, 200 prefill tokens,
+    the same tokens; (d) the tier revisit (host tier of 32 pages, the
+    prefix demoted by two fillers and promoted back) with host_tier_dtype
+    None and int4: host bytes per record against MIXED_PRED, host-warm
+    tokens = cold, a demotion and a promotion of one page with any host
+    sync an error; (e) on (c)'s engine, a decode step of a resident row
+    with any host sync an error; (f) `mixed_flips`. Returns each run's
+    launch counts."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.core.paging import page_bytes_for
+    from repro_torch.core.quantization import (PrecisionPlan, kv_storage_dtype,
+                                               packed_tokens)
+    from repro_torch.serving import EngineConfig, LLMEngine, SamplingParams
+    label, needs = "serve paged mixed", ("paged_decode", "paged_prefill")
+    L, ps, H, D = cfg.n_layers, cfg.quant.block_size, cfg.n_kv_heads, \
+        cfg.head_dim
+    if L != len(P24_DTYPES):
+        raise AssertionError(f"{label}: P24 covers {len(P24_DTYPES)} layers, "
+                             f"the model has {L}")
+    pb = {dt: page_bytes_for(ps, H, D, dt) for dt in DTYPES}
+    got = {**{f"page_{dt}": pb[dt] for dt in DTYPES},
+           "stack": sum(pb[dt] for dt in P24_DTYPES),
+           "stack_int8": pb["int8"] * L}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_plan_"))
+    try:
+        plan_path = str(tmp / "P24.json")
+        Path(plan_path).write_text(json.dumps(
+            PrecisionPlan(P24_DTYPES).to_json()))
+        config = dict(batch=4, max_len=2048, paged=True)
+        prompts = serve_prompts(cfg)
+        sp = SamplingParams.greedy(max_new_tokens=48)
+
+        # (a) serve
+        eng = LLMEngine(params, cfg, EngineConfig(
+            **config, kv_cache_dtype=plan_path), device=dev)
+        owner = track_pages(eng.batcher)
+        outs, wall_a, c_a, peak_a = _run_path(
+            dev, f"{label} (a)", needs, lambda: eng.generate(prompts, sp))
+        by_a = _by_dtype()
+        _even_by_dtype(f"{label} (a)", by_a, c_a, L)
+        b = eng.batcher
+        if [o.finish_reason for o in outs] != ["length"] * 5 \
+                or any(len(o.token_ids) != 48 for o in outs) \
+                or not all(0 <= t < cfg.vocab for o in outs
+                           for t in o.token_ids):
+            raise AssertionError(f"{label} (a): requests did not all finish "
+                                 f"by length with in-vocabulary tokens")
+        for layer, (c, dt) in enumerate(zip(b.state, P24_DTYPES)):
+            want = (b.n_pages, packed_tokens(ps, dt), H, D)
+            if c.pool.kv_dtype != dt or tuple(c.pool.k_q.shape) != want \
+                    or c.pool.k_q.dtype != kv_storage_dtype(dt):
+                raise AssertionError(f"{label} (a): layer {layer} pool "
+                                     f"{c.pool.kv_dtype} {c.pool.k_q.dtype} "
+                                     f"{tuple(c.pool.k_q.shape)}, want {dt} "
+                                     f"{want}")
+        got["pools"] = sum(t.numel() * t.element_size() for c in b.state
+                           for t in (c.pool.k_q, c.pool.v_q, c.pool.k_s,
+                                     c.pool.v_s))
+        rep = eng.pool_report()
+        ratio, saved = rep["pages_vs_int8_equal_hbm"], \
+            rep["kv_page_bytes_saved_vs_int8_frac"]
+        if rep["kv_cache_dtype"] != "mixed" \
+                or rep["kv_cache_layer_dtypes"] != list(P24_DTYPES) \
+                or ratio != got["stack_int8"] / got["stack"] \
+                or saved != 1 - got["stack"] / got["stack_int8"] \
+                or b.n_pages != 33:
+            raise AssertionError(f"{label} (a): pool_report {rep}")
+        layer0 = layer0_prompt_pages(b, owner)
+        if layer0["holders"] != uniform_layer0["holders"] or any(
+                not torch.equal(layer0[n], uniform_layer0[n])
+                for n in ("k_q", "v_q", "k_s", "v_s")):
+            raise AssertionError(f"{label} (a): layer 0's prompt pages "
+                                 f"differ from the uniform int8 run's")
+        tokens = [o.token_ids for o in outs]
+        del eng, b
+
+        # (b) an all-int8 plan is the uniform engine
+        eng = LLMEngine(params, cfg, EngineConfig(
+            **config, kv_cache_dtype=PrecisionPlan(("int8",) * L)),
+            device=dev)
+        outs_b, wall_b, c_b, _ = _run_path(
+            dev, f"{label} (b)", needs, lambda: eng.generate(prompts, sp))
+        if eng.batcher.kv_cache_dtype != "int8" \
+                or [o.token_ids for o in outs_b] != uniform_tokens:
+            raise AssertionError(f"{label} (b): the all-int8 plan's tokens "
+                                 f"differ from the uniform paged run's")
+        del eng
+
+        # (c) prefix cache, then (e) a decode step without host sync
+        rng = np.random.RandomState(3)
+        prefix = rng.randint(0, cfg.vocab, (1536,)).astype(np.int32)
+        a = np.concatenate([prefix, rng.randint(0, cfg.vocab, (200,))]
+                           ).astype(np.int32)
+        eng = LLMEngine(params, cfg, EngineConfig(
+            **config, prefix_cache=True, prefill_chunk=512, chunk=1,
+            kv_cache_dtype=plan_path), device=dev)
+        steps = []
+
+        def prefix_path():
+            for run in ("cold", "warm"):
+                before = eng.pool_report()
+                out = eng.generate([a], sp)[0]
+                steps.append((run, before, eng.pool_report(), out))
+        _, wall_c, c_c, _ = _run_path(dev, f"{label} (c)", needs,
+                                      prefix_path)
+        delta = {run: {k: after[k] - before[k] for k in (
+            "page_hits", "page_misses", "prefill_tokens_computed")}
+            for run, before, after, _ in steps}
+        want = {"cold": {"page_hits": 0, "page_misses": 6,
+                         "prefill_tokens_computed": 1736},
+                "warm": {"page_hits": 6, "page_misses": 0,
+                         "prefill_tokens_computed": 200}}
+        same = steps[0][3].token_ids == steps[1][3].token_ids
+        if delta != want or not same:
+            raise AssertionError(f"{label} (c): counters {delta}, want "
+                                 f"{want}; tokens equal {same}")
+        ttft_c = {run: out.metrics["ttft_s"] for run, _, _, out in steps}
+        b = eng.batcher
+        uid = eng.add_request(prompts[2], SamplingParams.greedy(
+            max_new_tokens=8))
+        for _ in range(50):
+            eng.step()
+            row = next((i for i, r in enumerate(b.rows)
+                        if r is not None and r.uid == uid), None)
+            if row is not None and row not in b.prefilling \
+                    and b.rows[row].generated:
+                break
+        else:
+            raise AssertionError(f"{label} (e): the request never decoded")
+        probe_decode(b, cfg, row)
+        while eng.has_unfinished():
+            eng.step()
+        del eng, b
+
+        # (d) host tier, device dtypes and int4 at rest
+        tiers, c_d = {}, {}
+        for htd in (None, "int4"):
+            key = "int4" if htd else "verbatim"
+            (tsteps, teng), wall, c_d[key], _ = _run_path(
+                dev, f"{label} (d) {key}", needs,
+                lambda: tier_revisit(params, cfg, dev, host_tier_dtype=htd,
+                                     kv_cache_dtype=plan_path))
+            warm = _delta(tsteps, "host warm", (
+                "promotions", "prefetch_page_hits", "page_hits",
+                "prefill_tokens_computed"))
+            trep = tsteps["host warm"][1]
+            tb = teng.batcher
+            rec = next(iter(tb._tiering.pages.values()))
+            per_page = trep["host_bytes"] / max(trep["host_pages_used"], 1)
+            if warm != {"promotions": 6, "prefetch_page_hits": 6,
+                        "page_hits": 6, "prefill_tokens_computed": 200} \
+                    or rec.nbytes != per_page \
+                    or rec.dtypes != [htd or dt for dt in P24_DTYPES] \
+                    or (htd is None and tsteps["host warm"][2].token_ids
+                        != tsteps["cold"][2].token_ids):
+                raise AssertionError(f"{label} (d) {key}: host warm {warm}, "
+                                     f"{per_page} host bytes a page, record "
+                                     f"dtypes {rec.dtypes}")
+            got["host_page" + ("_int4" if htd else "")] = rec.nbytes
+            a_ = tb.allocator
+            page = a_.free[-1] if a_.free else next(iter(a_.lru))
+
+            def demote():
+                tb._demote_queue.append((page, b"no-sync-" + key.encode()))
+                tb._flush_demotions()
+            _no_sync(demote)
+            fresh_rec = tb._tiering.pages[b"no-sync-" + key.encode()]
+            _no_sync(lambda: tb._write_host_pages([page], [fresh_rec]))
+            torch.cuda.synchronize()
+            tiers[key] = {"host_warm": warm, "wall_s": wall,
+                          "ttft_s": {k: tsteps[k][2].metrics["ttft_s"]
+                                     for k in ("cold", "host warm")},
+                          **{k: trep[k] for k in (
+                              "demotions", "promotions", "host_pages_used",
+                              "host_bytes")},
+                          "host_bytes_per_page": rec.nbytes}
+            del teng, tb
+
+        # (f) flips
+        flips, wall_f, c_f, _ = _run_path(
+            dev, f"{label} (f)", needs,
+            lambda: mixed_flips(params, cfg, dev, plan_path))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if got != MIXED_PRED:
+        raise AssertionError(f"{label}: measured {got}, predicted "
+                             f"{MIXED_PRED}")
+    res = {"backend": "paged mixed", "plan": "(int8, fp8_e4m3, int4) x 8",
+           "bytes": got, "pages_vs_int8_equal_hbm": ratio,
+           "kv_page_bytes_saved_vs_int8_frac": saved,
+           "a_serve": {"wall_s": wall_a, "tokens_per_s":
+                       sum(map(len, tokens)) / wall_a,
+                       "max_memory_allocated_bytes": peak_a,
+                       "launches_by_dtype": by_a,
+                       "decode_launches_per_step": L,
+                       "layer0_prompt_pages_equal_uniform": len(
+                           layer0["holders"])},
+           "b_all_int8_plan": {"tokens_equal_uniform": True,
+                               "wall_s": wall_b},
+           "c_prefix": {"counters": delta, "ttft_s": ttft_c,
+                        "wall_s": wall_c},
+           "d_tier": tiers, "e_decode_no_host_sync": True,
+           "f_flips": {"wall_s": wall_f, **flips},
+           "launches": {"a": c_a, "b": c_b, "c": c_c, **c_d, "f": c_f},
+           "card": card}
+    log(f"[{label}] (a) 24 pools at their dtypes, {got['pools']} bytes at "
+        f"33 pages ({got['stack']} a page of the stack against "
+        f"{got['stack_int8']} for int8; predicted {MIXED_PRED['pools']}), "
+        f"pages_vs_int8_equal_hbm {ratio:.4f}, saved {saved:.4f}; layer 0's "
+        f"{len(layer0['holders'])} prompt pages = the uniform int8 run's bit "
+        f"for bit; launches by dtype {by_a}; {sum(map(len, tokens))} tokens "
+        f"in {wall_a:.3f} s; (b) all-int8 plan = uniform tokens; (c) warm "
+        f"run 6 hits, 200 prefill tokens, tokens = cold, TTFT "
+        f"{ttft_c['cold'] * 1e3:.1f} / {ttft_c['warm'] * 1e3:.1f} ms; (d) "
+        f"host bytes a page {got['host_page']} / {got['host_page_int4']} "
+        f"(int4 at rest), host-warm = cold, demote and promote with no host "
+        f"sync; (e) a mixed decode step with no host sync; (f) flips int8 -> "
+        f"P24 -> int8, memory_allocated {flips}; {card}")
+    log(f"[{label}] " + json.dumps(res))
+    return {f"{label} (a)": c_a, f"{label} (b) all-int8 plan": c_b,
+            f"{label} (c) prefix": c_c,
+            f"{label} (d) tier": {k: c_d["verbatim"][k] + c_d["int4"][k]
+                                  for k in c_a},
+            f"{label} (f) flips": c_f}
 
 
 def generate_full_width(dev, params, cfg, granularity: str):
@@ -2957,6 +3448,7 @@ def main() -> int:
     parity_sampling(dev)
     parity_overload(dev)
     parity_tiering(dev)
+    parity_mixed(dev)
     log(f"[parity] in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -2967,8 +3459,8 @@ def main() -> int:
     n_params = sum(p.numel() for p in _leaves(params))
     log(f"[serve] {cfg.name}: {n_params / 1e9:.3f} B params bf16 on the card "
         f"in {time.perf_counter() - t0:.2f} s")
-    paged_counts, greedy_tokens = serve_full_width(dev, params, cfg,
-                                                   paged=True)
+    paged_counts, greedy_tokens, layer0 = serve_full_width(dev, params, cfg,
+                                                           paged=True)
     path_counts = {
         "serve paged": paged_counts,
         "serve contiguous": serve_full_width(dev, params, cfg,
@@ -2979,6 +3471,8 @@ def main() -> int:
                                                       card),
         **overload_serve_full_width(dev, params, cfg, card),
         **tiered_serve_full_width(dev, params, cfg, card),
+        **mixed_serve_full_width(dev, params, cfg, card, greedy_tokens,
+                                 layer0),
         "greedy_generate per_block": generate_full_width(dev, params, cfg,
                                                          "per_block"),
         "greedy_generate per_channel": generate_full_width(dev, params, cfg,

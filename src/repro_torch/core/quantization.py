@@ -10,10 +10,16 @@ axis, the token axis the SECOND-TO-LAST.
 Page formats (``KV_DTYPES``): int8 (qmax 127), fp8_e4m3 (qmax 448, stored
 as ``torch.float8_e4m3fn``) and int4 (qmax 7, two tokens per byte: token
 2i in the low nibble of byte i, token 2i+1 in the high nibble).
+
+A per-layer precision plan (`PrecisionPlan`, `resolve_kv_dtype_spec`,
+`layer_kv_dtypes`) assigns one of those formats to each layer; a plan
+whose layers all agree collapses to that dtype string.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Literal
 
 import torch
@@ -69,6 +75,20 @@ class QuantConfig:
         if self.granularity == "per_block" and self.block_size % 8 != 0:
             raise ValueError(f"block_size must be a multiple of 8, "
                              f"got {self.block_size}")
+
+    @property
+    def compression_ratio(self) -> float:
+        """Bytes of the unquantized reference over bytes of the stored
+        element (scale rows ignored: D floats against T * D elements)."""
+        return _itemsize(self.ref_dtype) / _itemsize(self.cache_dtype)
+
+
+def _itemsize(dtype) -> int:
+    """Bytes per element of a dtype given by name ("bfloat16",
+    "float8_e4m3fn", ...) or as a `torch.dtype`."""
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype)
+    return dtype.itemsize
 
 
 # ---------------------------------------------------------------------------
@@ -175,6 +195,12 @@ def quantize_fp8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return q, scales
 
 
+def dequantize_fp8(q: torch.Tensor, scales: torch.Tensor,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Inverse of `quantize_fp8`: x_hat = float32(q) * s."""
+    return (q.float() * scales[..., None, :].float()).to(dtype)
+
+
 def pack_int4(q: torch.Tensor) -> torch.Tensor:
     """Pack int4-valued int8 tokens two per byte along the token axis
     (token 2i -> low nibble of byte i, 2i+1 -> high nibble)."""
@@ -213,6 +239,14 @@ def quantize_int4(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     if T % 2 != 0:
         q = torch.cat([q, q.new_zeros((*lead, 1, D))], dim=-2)
     return pack_int4(q), scales
+
+
+def dequantize_int4(packed: torch.Tensor, scales: torch.Tensor,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Inverse of `quantize_int4`: 2 * (packed tokens) tokens, an odd
+    count's zero pad token included (it dequantizes to 0.0)."""
+    q = unpack_int4(packed)
+    return (q.float() * scales[..., None, :].float()).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -275,3 +309,136 @@ def quantize_page_matrix(x: torch.Tensor, kv_dtype: str = "int8"
         return quantize_int4(x)
     raise QuantizationError(f"unknown kv_cache_dtype {kv_dtype!r}; "
                             f"expected one of {KV_DTYPES}")
+
+
+# ---------------------------------------------------------------------------
+# Per-layer precision plans
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PrecisionPlan:
+    """One KV storage format (of ``KV_DTYPES``) per transformer layer:
+    ``layer_dtypes[l]`` for layer l. ``ppl_budget_pct`` and
+    ``measured_delta_pct`` carry the perplexity budget the plan was chosen
+    under and the full mixed stack's measured delta, as the profiler that
+    wrote it recorded them."""
+
+    layer_dtypes: tuple[str, ...]
+    ppl_budget_pct: float | None = None
+    measured_delta_pct: float | None = None
+
+    def __post_init__(self):
+        dts = tuple(self.layer_dtypes)
+        if not dts:
+            raise QuantizationError("PrecisionPlan needs at least one layer")
+        for i, dt in enumerate(dts):
+            if dt not in KV_DTYPES:
+                raise QuantizationError(
+                    f"PrecisionPlan layer {i}: unknown kv dtype {dt!r}; "
+                    f"expected one of {KV_DTYPES}")
+        object.__setattr__(self, "layer_dtypes", dts)
+
+    @property
+    def n_layers(self) -> int:
+        return len(self.layer_dtypes)
+
+    @property
+    def is_uniform(self) -> bool:
+        """True when every layer has the same dtype (the plan is then that
+        dtype string)."""
+        return len(set(self.layer_dtypes)) == 1
+
+    @classmethod
+    def from_json(cls, obj: dict) -> "PrecisionPlan":
+        """A plan from its JSON dict: the profiler's schema
+        ``{"layers": [{"layer": 0, "kv_dtype": "int4", ...}, ...]}`` or
+        the compact ``{"layer_dtypes": ["int8", "int4", ...]}``."""
+        if not isinstance(obj, dict):
+            raise QuantizationError(
+                f"precision plan must be a dict, got {type(obj).__name__}")
+        if "layer_dtypes" in obj:
+            dts = tuple(obj["layer_dtypes"])
+        elif "layers" in obj:
+            rows = sorted(obj["layers"], key=lambda r: int(r["layer"]))
+            want = list(range(len(rows)))
+            got = [int(r["layer"]) for r in rows]
+            if got != want:
+                raise QuantizationError(
+                    f"precision plan layers must be 0..{len(rows) - 1} "
+                    f"exactly once, got {got}")
+            dts = tuple(r["kv_dtype"] for r in rows)
+        else:
+            raise QuantizationError(
+                "precision plan dict needs a 'layers' or 'layer_dtypes' key")
+        return cls(layer_dtypes=dts,
+                   ppl_budget_pct=obj.get("ppl_budget_pct"),
+                   measured_delta_pct=obj.get("measured_delta_pct"))
+
+    @classmethod
+    def load(cls, path: str) -> "PrecisionPlan":
+        """Read a plan JSON file (`from_json`'s schemas)."""
+        if not os.path.exists(path):
+            raise QuantizationError(f"precision plan file not found: {path!r}")
+        with open(path) as f:
+            return cls.from_json(json.load(f))
+
+    def to_json(self) -> dict:
+        """The canonical plan JSON (round-trips through `from_json`)."""
+        out: dict = {
+            "version": 1,
+            "kind": "kv_precision_plan",
+            "layers": [{"layer": i, "kv_dtype": dt}
+                       for i, dt in enumerate(self.layer_dtypes)],
+        }
+        if self.ppl_budget_pct is not None:
+            out["ppl_budget_pct"] = self.ppl_budget_pct
+        if self.measured_delta_pct is not None:
+            out["measured_delta_pct"] = self.measured_delta_pct
+        return out
+
+
+def resolve_kv_dtype_spec(spec, n_layers: int | None = None):
+    """Normalize a ``kv_cache_dtype`` spec: a dtype string of
+    ``KV_DTYPES``, a `PrecisionPlan`, a plan dict, a path to a plan JSON or
+    a per-layer sequence of dtype strings. Returns a dtype string when
+    every layer agrees (so an all-int8 plan is the default engine) and
+    otherwise the tuple of per-layer dtypes. With ``n_layers`` the plan
+    must cover exactly that many layers."""
+    if isinstance(spec, str):
+        if spec in KV_DTYPES:
+            return spec
+        if spec.endswith(".json") or os.sep in spec:
+            spec = PrecisionPlan.load(spec)
+        else:
+            raise QuantizationError(
+                f"unknown kv_cache_dtype {spec!r}; expected one of "
+                f"{KV_DTYPES}, a PrecisionPlan, a plan dict, or a path to a "
+                f"plan JSON (benchmarks/sensitivity.py emits one)")
+    if isinstance(spec, dict):
+        spec = PrecisionPlan.from_json(spec)
+    if isinstance(spec, (list, tuple)):
+        spec = PrecisionPlan(layer_dtypes=tuple(spec))
+    if not isinstance(spec, PrecisionPlan):
+        raise QuantizationError(
+            f"cannot interpret kv_cache_dtype spec of type "
+            f"{type(spec).__name__}; expected one of {KV_DTYPES}, a "
+            f"PrecisionPlan, a plan dict, a per-layer sequence, or a plan "
+            f"JSON path")
+    if n_layers is not None and spec.n_layers != n_layers:
+        raise QuantizationError(
+            f"precision plan covers {spec.n_layers} layers but the model "
+            f"has {n_layers}")
+    if spec.is_uniform:
+        return spec.layer_dtypes[0]
+    return spec.layer_dtypes
+
+
+def layer_kv_dtypes(spec, n_layers: int) -> tuple[str, ...]:
+    """One dtype per layer for any spec `resolve_kv_dtype_spec` takes (a
+    bare dtype string repeats over ``n_layers``; a plan must cover them
+    exactly)."""
+    resolved = resolve_kv_dtype_spec(spec, n_layers=None if isinstance(
+        spec, str) and spec in KV_DTYPES else n_layers)
+    if isinstance(resolved, str):
+        return (resolved,) * n_layers
+    return resolved

@@ -161,7 +161,8 @@ def paged_decode_partials_cuda(q, pool_kq, pool_ks, pool_vq, pool_vs,
     """Launch the CUDA kernels (same contract as the plain version; q must
     be float32): the split page walk, then the merge of its float32
     partials (scratch from `torch.empty`; `decode_splits` sizes it). Counts
-    each call in ``paged_decode_partials_cuda.launches``."""
+    each call in ``paged_decode_partials_cuda.launches`` and, by page
+    dtype, in ``paged_decode_partials_cuda.launches_by_dtype``."""
     B, H, D = q.shape
     P, ps_packed, Hkv, _ = pool_kq.shape
     NT = page_table.shape[1]
@@ -200,10 +201,12 @@ def paged_decode_partials_cuda(q, pool_kq, pool_ks, pool_vq, pool_vs,
         raise RuntimeError(f"paged decode kernel launch failed: CUDA error "
                            f"{rc}")
     paged_decode_partials_cuda.launches += 1
+    paged_decode_partials_cuda.launches_by_dtype[kv_dtype] += 1
     return o, m, l
 
 
 paged_decode_partials_cuda.launches = 0
+paged_decode_partials_cuda.launches_by_dtype = dict.fromkeys(KV_CODES, 0)
 
 
 # -- flat decode over the contiguous cache ------------------------------------

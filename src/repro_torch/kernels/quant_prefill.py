@@ -171,7 +171,8 @@ def paged_prefill_cuda(qg, kc, vc, pool_kq, pool_ks, pool_vq, pool_vs,
                        kv_dtype="int8"):
     """Launch the CUDA kernel (same contract as the plain version; rows of
     a 64-row tile whose positions are all at or past ``valid`` come out as
-    0.0). Counts each launch in ``paged_prefill_cuda.launches``."""
+    0.0). Counts each launch in ``paged_prefill_cuda.launches`` and, by
+    page dtype, in ``paged_prefill_cuda.launches_by_dtype``."""
     B, Hkv, GC, D = qg.shape
     C = kc.shape[2]
     P, ps_packed, _, _ = pool_kq.shape
@@ -209,7 +210,9 @@ def paged_prefill_cuda(qg, kc, vc, pool_kq, pool_ks, pool_vq, pool_vs,
         raise RuntimeError(f"paged prefill kernel launch failed: CUDA error "
                            f"{rc}")
     paged_prefill_cuda.launches += 1
+    paged_prefill_cuda.launches_by_dtype[kv_dtype] += 1
     return out
 
 
 paged_prefill_cuda.launches = 0
+paged_prefill_cuda.launches_by_dtype = dict.fromkeys(KV_CODES, 0)

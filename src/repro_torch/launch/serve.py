@@ -5,9 +5,13 @@ with random weights from a seeded `torch.Generator`.
         --max-len 2048 --batch 4 --requests 5 --prompt-len 1000 --max-new 48
 
 The contiguous cache by default; ``--paged`` serves from the page pool
-(implied by ``--prefix-cache``, ``--prefill-chunk`` and a
-``--kv-cache-dtype`` other than int8). ``--temperature`` / ``--top-k`` /
-``--top-p`` / ``--seed`` sample every request (greedy by default);
+(implied by ``--prefix-cache``, ``--prefill-chunk``, a
+``--kv-cache-dtype`` other than int8 and ``--kv-cache-plan``).
+``--kv-cache-plan PLAN_JSON`` stores each layer at the dtype a per-layer
+precision plan gives it (``PLAN_kv_mixed.json`` is one, for 4 layers:
+``--smoke --layers 4``); it excludes ``--kv-cache-dtype``.
+``--temperature`` / ``--top-k`` / ``--top-p`` / ``--seed`` sample every
+request (greedy by default);
 ``--shared-prefix N`` gives every prompt the same first N tokens, which
 ``--prefix-cache`` then shares; ``--host-pages N`` adds a host swap tier
 of N pages (implies ``--prefix-cache``), ``--evictor`` picks the device
@@ -59,7 +63,12 @@ def main(argv=None):
     ap.add_argument("--kv-cache-dtype", default=None,
                     choices=list(KV_DTYPES),
                     help="page storage format (default int8; another "
-                         "implies --paged)")
+                         "implies --paged). Mutually exclusive with "
+                         "--kv-cache-plan")
+    ap.add_argument("--kv-cache-plan", default=None, metavar="PLAN_JSON",
+                    help="per-layer mixed-precision plan: path to a plan "
+                         "JSON (layer -> kv dtype). Implies --paged; "
+                         "mutually exclusive with --kv-cache-dtype")
     ap.add_argument("--host-pages", type=int, default=None,
                     help="host-RAM swap tier capacity in pages: cold "
                          "prefix pages are copied to host memory on "
@@ -103,11 +112,16 @@ def main(argv=None):
                          "'<T>'")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    kv_dtype = args.kv_cache_dtype or "int8"
+    if args.kv_cache_plan is not None and args.kv_cache_dtype is not None:
+        ap.error("--kv-cache-plan and --kv-cache-dtype are mutually "
+                 "exclusive: a plan assigns every layer's dtype itself "
+                 "(DESIGN.md §10)")
+    kv_spec = (args.kv_cache_plan if args.kv_cache_plan is not None
+               else args.kv_cache_dtype or "int8")
     if args.host_pages is not None:
         args.prefix_cache = True     # the host tier keys on chain digests
     if (args.prefix_cache or args.prefill_chunk
-            or args.watermark is not None or kv_dtype != "int8"):
+            or args.watermark is not None or kv_spec != "int8"):
         args.paged = True
 
     import dataclasses
@@ -134,7 +148,7 @@ def main(argv=None):
         batch=args.batch, max_len=args.max_len, paged=args.paged,
         n_pages=args.pages, chunk=args.chunk, prefix_cache=args.prefix_cache,
         prefill_chunk=args.prefill_chunk, watermark=args.watermark,
-        aging_ticks=args.aging_ticks, kv_cache_dtype=kv_dtype,
+        aging_ticks=args.aging_ticks, kv_cache_dtype=kv_spec,
         host_pages=args.host_pages, evictor=args.evictor,
         host_tier_dtype=args.host_tier_dtype), device=device)
     rng = np.random.RandomState(0)
@@ -171,6 +185,11 @@ def main(argv=None):
               f"{rep['pages_vs_int8_equal_hbm']:.2f}x pages vs int8 at "
               f"equal HBM), {rep['pages_free']} free after drain, "
               f"{rep['pages_cached']} cached")
+        if "kv_cache_layer_dtypes" in rep:
+            print(f"[serve] precision plan: "
+                  f"{'/'.join(rep['kv_cache_layer_dtypes'])} "
+                  f"({rep['kv_page_bytes_saved_vs_int8_frac']:.0%} page "
+                  f"bytes saved vs uniform int8)")
         if args.watermark is not None:
             resumes = (rep['preempt_fast_resumes']
                        + rep['preempt_recompute_resumes'])

@@ -86,18 +86,18 @@ def init_decode_state(cfg, batch: int, max_len: int, *, paged: bool = False,
     """One cache per layer: a contiguous `QuantizedKVCache` (int8 only; a
     ring of the window's block-rounded length under a sliding window), or
     with ``paged=True`` a paged cache over its own pool of ``n_pages``
-    pages (default: dense capacity, batch * max_len / page + sentinel)."""
+    pages (default: dense capacity, batch * max_len / page + sentinel).
+    ``kv_cache_dtype`` is any spec `Q.resolve_kv_dtype_spec` takes (a
+    dtype string, a `PrecisionPlan`, a plan dict or JSON path, a per-layer
+    sequence); layer l's pool stores ``layer_kv_dtypes(spec, L)[l]``."""
     device = check_device(device)
     check_servable(cfg)
-    if kv_cache_dtype not in Q.KV_DTYPES:
-        raise NotImplementedError(
-            f"kv_cache_dtype={kv_cache_dtype!r}: the port takes one uniform "
-            f"dtype of {Q.KV_DTYPES}; mixed per-layer plans are ROADMAP "
-            f"queue 1, item 11")
+    spec = Q.resolve_kv_dtype_spec(kv_cache_dtype, n_layers=cfg.n_layers)
+    layer_dts = Q.layer_kv_dtypes(spec, cfg.n_layers)
     if not paged:
-        if kv_cache_dtype != "int8":
-            raise ValueError(f"kv_cache_dtype={kv_cache_dtype!r} requires the "
-                             f"paged cache (the contiguous backends are "
+        if any(dt != "int8" for dt in layer_dts):
+            raise ValueError(f"kv_cache_dtype={spec!r} requires the paged "
+                             f"cache (the contiguous backends are "
                              f"int8-only)")
         eff = max_len
         if cfg.sliding_window:
@@ -110,8 +110,7 @@ def init_decode_state(cfg, batch: int, max_len: int, *, paged: bool = False,
         n_pages = batch * (max_len // cfg.quant.block_size) + 1
     return [PagedQuantizedKVCache.init(
         batch, cfg.n_kv_heads, max_len, cfg.head_dim, cfg.quant,
-        n_pages=n_pages, kv_dtype=kv_cache_dtype, device=device)
-        for _ in range(cfg.n_layers)]
+        n_pages=n_pages, kv_dtype=dt, device=device) for dt in layer_dts]
 
 
 def stack_layers(tree) -> dict:

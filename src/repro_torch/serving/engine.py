@@ -24,12 +24,13 @@ from repro_torch.serving.params import SamplingParams, sampling_arrays
 
 
 def make_serve_fns(cfg, *, max_len: int, paged: bool = False,
-                   n_pages: int | None = None, kv_cache_dtype: str = "int8",
+                   n_pages: int | None = None, kv_cache_dtype="int8",
                    device="cuda"):
     """Returns (init_state(batch), prefill(params, tokens, state,
     row_mask=None), decode(params, token, state, pos, row_mask=None))
     closed over cfg. ``paged=True`` backs the state with page pools of
-    ``n_pages`` pages per layer; ``kv_cache_dtype`` other than int8
+    ``n_pages`` pages per layer; ``kv_cache_dtype`` (a dtype or a
+    per-layer plan, `transformer.init_decode_state`) other than int8
     requires it."""
     def init_state(batch):
         return transformer.init_decode_state(
@@ -133,7 +134,10 @@ def kv_cache_memory_report(cfg, batch: int, seq: int, paged_cache=None,
     pool's occupancy as the reference reports it: ``pool_pages_allocated``
     every page off the free list (cached pages included),
     ``pool_pages_live`` the distinct pages holding tokens, one layer's
-    ``pool_page_bytes``, their ratio and bytes. ``scheduler`` adds its TTFT
+    ``pool_page_bytes``, their ratio and bytes. A list whose layers differ
+    in dtype (a mixed plan) reports ``kv_cache_dtype`` "mixed", the
+    per-layer ``kv_cache_layer_dtypes`` and the page bytes averaged over
+    the layers (rounded down). ``scheduler`` adds its TTFT
     percentiles and abort count and, with a host tier, the tier's pages,
     bytes and utilization against its own capacity (``host_tier_*``): a
     demoted page counts on exactly one tier."""
@@ -144,7 +148,12 @@ def kv_cache_memory_report(cfg, batch: int, seq: int, paged_cache=None,
         "compression_vs_fp32": 4.0,
         "compression_vs_bf16": 2.0,
     }
+    layer_dtypes = None
     if isinstance(paged_cache, list):
+        dts = [c.pool.kv_dtype for c in paged_cache]
+        if len(set(dts)) > 1:
+            layer_dtypes = dts
+            mixed_bytes = [_page_bytes(c.pool) for c in paged_cache]
         paged_cache = paged_cache[0]
     if paged_cache is not None:
         from repro_torch.core.paging import live_page_count
@@ -155,11 +164,14 @@ def kv_cache_memory_report(cfg, batch: int, seq: int, paged_cache=None,
         lengths = np.minimum(paged_cache.length.cpu().numpy(),
                              paged_cache.max_blocks * pool.page_size)
         live = live_page_count(tables, lengths, pool.page_size)
-        page_bytes = sum(t.numel() * t.element_size() for t in
-                         (pool.k_q, pool.v_q, pool.k_s, pool.v_s)) // n_pages
+        page_bytes = _page_bytes(pool)
         allocated = capacity - pool.n_free
+        if layer_dtypes is not None:
+            page_bytes = sum(mixed_bytes) // len(mixed_bytes)
+            rep["kv_cache_layer_dtypes"] = layer_dtypes
         rep.update({
-            "kv_cache_dtype": pool.kv_dtype,
+            "kv_cache_dtype": ("mixed" if layer_dtypes is not None
+                               else pool.kv_dtype),
             "pool_pages_total": capacity,
             "pool_pages_allocated": allocated,
             "pool_pages_live": live,
@@ -179,3 +191,9 @@ def kv_cache_memory_report(cfg, batch: int, seq: int, paged_cache=None,
                 "host_tier_dtype": tier.dtype,
             })
     return rep
+
+
+def _page_bytes(pool) -> int:
+    """One page of one layer's pool: values and scale rows, K and V."""
+    return sum(t.numel() * t.element_size() for t in
+               (pool.k_q, pool.v_q, pool.k_s, pool.v_s)) // pool.k_q.shape[0]

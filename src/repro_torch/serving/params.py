@@ -14,7 +14,8 @@ from typing import Callable, Sequence
 
 import numpy as np
 
-from repro_torch.core.quantization import KV_DTYPES, kv_storage_dtype
+from repro_torch.core.quantization import (KV_DTYPES, kv_storage_dtype,
+                                           resolve_kv_dtype_spec)
 from repro_torch.core.tiering import EVICTORS
 from repro_torch.models import prng
 
@@ -125,8 +126,8 @@ class EngineConfig:
     ``paged`` (False: the contiguous backend, the default; True: the page
     pool), ``n_pages``, ``chunk``, ``prefix_cache`` and ``prefill_chunk``
     (paged only: the batcher raises ValueError otherwise), ``detokenize``,
-    a uniform ``kv_cache_dtype`` (other than int8: paged only) and the
-    overload controls: ``watermark`` (paged only: admission reserves the
+    ``kv_cache_dtype`` (anything but int8: paged only) and the overload
+    controls: ``watermark`` (paged only: admission reserves the
     prompt's pages plus this many pages of decode headroom instead of the
     worst case, decode grows the reservation and preempts under pressure;
     None keeps the worst case), ``aging_ticks`` (a queued request gains +1
@@ -140,10 +141,14 @@ class EngineConfig:
     chain digests are its page handle), ``evictor`` (``"lru"`` or
     ``"freq"``, `core.tiering.EVICTORS`) and ``host_tier_dtype`` (demoted
     pages stored recompressed to that dtype: lossy, so restores are no
-    longer bitwise; None keeps the device bytes). ``kv_cache_dtype`` is
-    read again every paged tick: a flip on an idle engine rebuilds the
-    pools. Mixed precision plans and ``use_fused_prefill=False`` raise
-    `NotImplementedError`."""
+    longer bitwise; None keeps the device bytes). ``kv_cache_dtype`` is a
+    uniform dtype string or a per-layer precision plan (a
+    `core.quantization.PrecisionPlan`, a plan dict, a path to a plan JSON
+    or a per-layer dtype sequence), resolved at construction: a plan whose
+    layers agree becomes that dtype string (an all-int8 plan is the
+    default engine), a mixed one the tuple of per-layer dtypes. It is read
+    again every paged tick: a flip on an idle engine rebuilds the pools.
+    ``use_fused_prefill=False`` raises `NotImplementedError`."""
     batch: int = 4
     max_len: int = 128
     eos_id: int | None = None
@@ -169,15 +174,8 @@ class EngineConfig:
             _not_ported("the dequantize-gather prefill oracle "
                         "(use_fused_prefill=False)",
                         "ROADMAP queue 1, item 13")
-        if not isinstance(self.kv_cache_dtype, str):
-            _not_ported("mixed per-layer precision plans",
-                        "ROADMAP queue 1, item 11")
-        if self.kv_cache_dtype not in KV_DTYPES:
-            if self.kv_cache_dtype.endswith(".json"):
-                _not_ported("mixed per-layer precision plans",
-                            "ROADMAP queue 1, item 11")
-            raise ValueError(f"unknown kv_cache_dtype {self.kv_cache_dtype!r};"
-                             f" expected one of {KV_DTYPES}")
+        # the layer count is checked where the model is known (the batcher)
+        self.kv_cache_dtype = resolve_kv_dtype_spec(self.kv_cache_dtype)
         if self.kv_cache_dtype != "int8" and not self.paged:
             raise ValueError(
                 f"kv_cache_dtype={self.kv_cache_dtype!r} requires "

@@ -59,10 +59,14 @@ of a prompt's chain back into device pages before it adopts hits, and a
 preempted row's pages are copied to the tier at once (preempt-by-swap),
 so a resume whose device pages were reclaimed restores them bit for bit
 instead of recomputing. The copies run on CUDA streams in order with the
-in-place page writes and make no host sync. ``kv_cache_dtype`` is read
-again every tick: a flip on an idle engine rebuilds the pools.
+in-place page writes and make no host sync.
 
-Not ported yet (they raise in `EngineConfig`): mixed precision plans.
+Storage formats (paged): ``kv_cache_dtype`` is one dtype for every layer
+or a per-layer precision plan (`core.quantization.resolve_kv_dtype_spec`):
+each layer has its own pool at its own dtype, a host record holds each
+layer's page in its own format, and a request may name no dtype of its
+own under a plan. The spec is read again every tick: a flip (between
+dtypes, plans, or the two) on an idle engine rebuilds the pools.
 """
 from __future__ import annotations
 
@@ -78,8 +82,7 @@ from repro_torch.core import tiering as TIER
 from repro_torch.core.paging import (SENTINEL_PAGE, HostPageAllocator,
                                      _as_bytes, chain_hashes,
                                      live_page_count, page_bytes_for)
-from repro_torch.core.quantization import (KV_DTYPES, kv_storage_dtype,
-                                           packed_tokens)
+from repro_torch.core import quantization as Q
 from repro_torch.models import sampling as SMP
 from repro_torch.models import transformer as T
 from repro_torch.runtime.fault import StallWatchdog
@@ -197,9 +200,10 @@ class ContinuousBatcher:
         self.block = (cfg.quant.block_size
                       if cfg.quant.granularity == "per_block" else 8)
         self.n_pages = None
-        # the pools' storage format; config.kv_cache_dtype is the wanted
+        # the pools' storage format (a dtype string, or a tuple of one per
+        # layer under a mixed plan); config.kv_cache_dtype is the wanted
         # one, the two differ between a flip and the next paged tick
-        self.kv_cache_dtype = config.kv_cache_dtype
+        self.kv_cache_dtype = self._want_dtype_spec()
         if self.paged:
             self.page_size = cfg.quant.block_size
             self.max_blocks = self.max_len // self.page_size
@@ -245,19 +249,32 @@ class ContinuousBatcher:
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
 
+    def _layer_dtypes(self) -> tuple[str, ...]:
+        """The pools' dtype, one per layer."""
+        return Q.layer_kv_dtypes(self.kv_cache_dtype, self.cfg.n_layers)
+
     def _new_allocator(self):
         """A fresh allocator and, with ``host_pages``, an empty host tier
         and its host slab (pinned on the card, allocated here once), wired
-        to the demotion hooks."""
+        to the demotion hooks. A slot holds one page of every layer: the
+        values as one run of bytes, layer after layer, each in its host
+        dtype (``host_tier_dtype``, else the layer's own; an int4 layer
+        takes half the bytes), and the float32 scales (L, 2, H_kv, D);
+        ``_host_layout`` gives each layer's (offset, bytes, host dtype)."""
         c = self.config
         if c.host_pages is not None:
             self._tiering = TIER.HostTier(c.host_pages,
                                           dtype=c.host_tier_dtype)
             m = self.cfg
-            tp = packed_tokens(self.page_size,
-                               c.host_tier_dtype or self.kv_cache_dtype)
+            self._host_layout, off = [], 0
+            for dt in self._layer_dtypes():
+                hd = c.host_tier_dtype or dt
+                n = 2 * Q.packed_tokens(self.page_size, hd) * m.n_kv_heads \
+                    * m.head_dim
+                self._host_layout.append((off, n, hd))
+                off += n
             self._host_slab = TIER.HostSlab(
-                c.host_pages, (m.n_layers, 2, tp, m.n_kv_heads, m.head_dim),
+                c.host_pages, (off,),
                 (m.n_layers, 2, m.n_kv_heads, m.head_dim), device=self.device)
             self._tiering.on_remove = self._host_slab.release
         self.allocator = HostPageAllocator(
@@ -268,18 +285,14 @@ class ContinuousBatcher:
             self.allocator.demote_hook = self._queue_demotion
             self.allocator.demote_flush = self._flush_demotions
 
-    def _want_dtype(self) -> str:
+    def _want_dtype_spec(self):
         """The storage format ``config.kv_cache_dtype`` asks for now (a
-        live field, validated as `EngineConfig` does)."""
-        want = self.config.kv_cache_dtype
-        if not isinstance(want, str) or want.endswith(".json"):
-            raise NotImplementedError("mixed per-layer precision plans are "
-                                      "not ported yet (ROADMAP queue 1, "
-                                      "item 11)")
-        if want not in KV_DTYPES:
-            raise ValueError(f"unknown kv_cache_dtype {want!r}; expected "
-                             f"one of {KV_DTYPES}")
-        return want
+        live field, resolved as at construction): a dtype string, or the
+        tuple of per-layer dtypes of a mixed plan, whose length must be
+        the model's layer count."""
+        return Q.resolve_kv_dtype_spec(
+            getattr(self.config, "kv_cache_dtype", "int8"),
+            n_layers=self.cfg.n_layers)
 
     def submit(self, req: Request):
         """Queue a request. Every check runs before any state changes, so a
@@ -291,13 +304,21 @@ class ContinuousBatcher:
             raise ValueError(f"request uid {req.uid} is already in flight "
                              f"(queued or running); uids are the lifecycle "
                              f"handle and must be unique until completion")
-        want, engine = req.sampling.kv_cache_dtype, self._want_dtype()
+        want, engine = req.sampling.kv_cache_dtype, self._want_dtype_spec()
         if want is not None and want != engine:
+            if isinstance(engine, str):
+                raise ValueError(
+                    f"request {req.uid}: kv_cache_dtype={want!r} does "
+                    f"not match the engine's pool backend "
+                    f"({engine!r}); the pool carries ONE storage "
+                    f"format — flip EngineConfig.kv_cache_dtype on an idle "
+                    f"engine instead (DESIGN.md §9)")
             raise ValueError(
-                f"request {req.uid}: kv_cache_dtype={want!r} does not match "
-                f"the engine's pool backend ({engine!r}); the pool carries "
-                f"ONE storage format — flip EngineConfig.kv_cache_dtype on "
-                f"an idle engine instead (DESIGN.md §9)")
+                f"request {req.uid}: kv_cache_dtype={want!r} "
+                f"contradicts the engine's mixed per-layer precision plan "
+                f"({'/'.join(engine)}); plan-driven engines accept "
+                f"only requests with kv_cache_dtype=None — the plan, not "
+                f"the request, owns layer precision (DESIGN.md §10)")
         budget = (req.max_new_tokens if req.max_new_tokens is not None
                   else req.sampling.max_new_tokens)
         if self.paged:
@@ -519,15 +540,16 @@ class ContinuousBatcher:
         return rep
 
     def _ensure_backend_dtype(self):
-        """Honour a live flip of ``config.kv_cache_dtype``. The storage
-        format is in every page and index entry, so the flip cannot happen
-        in place: on a tick with nothing resident (no row, no prefill, no
-        preemption snapshot) the pools, the allocator, the host tier and
-        the per-row tables are rebuilt empty for the new dtype (the old
-        pools are dropped, so their device memory goes back); queued
-        requests hold no pages and ride the rebuild. Anything resident
-        raises: re-quantizing live pages would corrupt their streams."""
-        want = self._want_dtype()
+        """Honour a live flip of ``config.kv_cache_dtype`` (a dtype or a
+        per-layer plan, either way). The storage format is in every page
+        and index entry, so the flip cannot happen in place: on a tick
+        with nothing resident (no row, no prefill, no preemption snapshot)
+        the pools, the allocator, the host tier and the per-row tables are
+        rebuilt empty for the new spec (the old pools are dropped, so their
+        device memory goes back); queued requests hold no pages and ride
+        the rebuild. Anything resident raises: re-quantizing live pages
+        would corrupt their streams."""
+        want = self._want_dtype_spec()
         if want == self.kv_cache_dtype:
             return
         if not self.paged:
@@ -1064,34 +1086,60 @@ class ContinuousBatcher:
         self._demote_queue.append((page, digest))
         return True
 
+    def _layer_groups(self, dtypes) -> dict:
+        """Layer indices grouped by ``dtypes[l]`` (a key per layer), in
+        layer order: the layers one batched repack or gather serves."""
+        groups: dict = {}
+        for l, key in enumerate(dtypes):
+            groups.setdefault(key, []).append(l)
+        return groups
+
+    def _host_views(self, hq, hs) -> list:
+        """A slot's per-layer ``(k_q, k_s, v_q, v_s)`` views (values as
+        bytes in the layer's host dtype, float32 scales)."""
+        m = self.cfg
+        out = []
+        for l, (off, n, _) in enumerate(self._host_layout):
+            q = hq[off:off + n].view(2, -1, m.n_kv_heads, m.head_dim)
+            out.append((q[0], hs[l, 0], q[1], hs[l, 1]))
+        return out
+
     def _flush_demotions(self) -> None:
-        """Copy the queued pages to the host tier: per layer one
-        index_select of the pages from each pool tensor, repacked on the
-        device to ``host_tier_dtype`` when set, then per page one
-        non-blocking copy of its values and one of its scales into a slot
-        of the host slab, enqueued before any later write to those pages.
-        Each page becomes one record (in queue order; a full tier drops
-        its coldest record first), its bytes views of the slot, readable
-        on the host after its ``ready`` event."""
+        """Copy the queued pages to the host tier: per group of layers
+        sharing a dtype one index_select of the pages from each pool
+        tensor, repacked on the device to ``host_tier_dtype`` when set
+        (a layer already in it is copied as it is), laid out as the slab's
+        slot (`_new_allocator`), then per page one non-blocking copy of
+        its values and one of its scales into a slot of the host slab,
+        enqueued before any later write to those pages. Each page becomes
+        one record (in queue order; a full tier drops its coldest record
+        first), its bytes views of the slot, readable on the host after
+        its ``ready`` event."""
         queue, self._demote_queue = self._demote_queue, []
         if not queue:
             return
         tier, slab, card = self._tiering, self._host_slab, self._on_card()
         ids = self._index_tensor([p for p, _ in queue])
-
-        def gather(k, v):               # -> (n, L, 2, ...)
-            return torch.stack([torch.stack([k(c).index_select(0, ids),
-                                             v(c).index_select(0, ids)], 1)
-                                for c in self.state], 1)
-        q = gather(lambda c: _as_bytes(c.pool.k_q),
-                   lambda c: _as_bytes(c.pool.v_q))
-        s = gather(lambda c: c.pool.k_s, lambda c: c.pool.v_s)
-        src = self.kv_cache_dtype
-        dst = tier.dtype or src
-        if dst != src:
-            q, s = TIER.repack_page(q.view(kv_storage_dtype(src)), s, src, dst)
-            q = _as_bytes(q)
-        L = len(self.state)
+        n, L = len(queue), len(self.state)
+        qs, ss = [None] * L, [None] * L
+        for src, ls in self._layer_groups(self._layer_dtypes()).items():
+            cs = [self.state[l] for l in ls]
+            q = torch.stack([torch.stack(
+                [_as_bytes(c.pool.k_q).index_select(0, ids),
+                 _as_bytes(c.pool.v_q).index_select(0, ids)], 1)
+                for c in cs], 1)                  # (n, layers, 2, tp, H, D)
+            s = torch.stack([torch.stack([c.pool.k_s.index_select(0, ids),
+                                          c.pool.v_s.index_select(0, ids)], 1)
+                             for c in cs], 1)
+            dst = tier.dtype or src
+            if dst != src:
+                q, s = TIER.repack_page(q.view(Q.kv_storage_dtype(src)), s,
+                                        src, dst)
+                q = _as_bytes(q)
+            for j, l in enumerate(ls):
+                qs[l], ss[l] = q[:, j].reshape(n, -1), s[:, j]
+        q, s = torch.cat(qs, 1), torch.stack(ss, 1)
+        dtypes = [hd for _, _, hd in self._host_layout]
         recs = []
         for j, (_, digest) in enumerate(queue):
             if len(tier) >= tier.capacity:
@@ -1100,8 +1148,7 @@ class ContinuousBatcher:
             hq, hs = slab.q[slot], slab.s[slot]
             hq.copy_(q[j], non_blocking=card)
             hs.copy_(s[j], non_blocking=card)
-            tier.put(digest, [(hq[l, 0], hs[l, 0], hq[l, 1], hs[l, 1])
-                              for l in range(L)], [dst] * L,
+            tier.put(digest, self._host_views(hq, hs), dtypes,
                      blocks=(hq, hs), slot=slot)
             recs.append(tier.pages[digest])
         if card:
@@ -1131,10 +1178,10 @@ class ContinuousBatcher:
         on a side stream that first waits for everything already enqueued
         (a demotion of the page's old content among it) and for each
         record's own copy out: one non-blocking copy per record in, the
-        repack to the pool's dtype on the device when the record's
-        differs, then one scatter per pool tensor per layer; its event is
-        waited on by the current stream when the page is published
-        (`_sync_promotions`)."""
+        repack to each layer's pool dtype on the device where the record's
+        differs (one per group of layers alike), then one scatter per pool
+        tensor per layer; its event is waited on by the current stream
+        when the page is published (`_sync_promotions`)."""
         last = {p: r for p, r in zip(pages, recs)}   # a page reused: last
         pages, recs = list(last), list(last.values())
         card = self._on_card()
@@ -1157,14 +1204,21 @@ class ContinuousBatcher:
             for j, r in enumerate(recs):
                 q[j].copy_(r.blocks[0], non_blocking=card)
                 s[j].copy_(r.blocks[1], non_blocking=card)
-            src, dst = recs[0].dtypes[0], self.kv_cache_dtype
-            if src != dst:
-                q, s = TIER.repack_page(q.view(kv_storage_dtype(src)), s,
-                                        src, dst)
-                q = _as_bytes(q)
-            for l, c in enumerate(self.state):
-                c.pool.write(ids, q[:, l, 0], s[:, l, 0], q[:, l, 1],
-                             s[:, l, 1])
+            m, n = self.cfg, len(recs)
+            views = [q[:, off:off + size].view(n, 2, -1, m.n_kv_heads,
+                                                m.head_dim)
+                     for off, size, _ in self._host_layout]
+            pairs = list(zip(recs[0].dtypes, self._layer_dtypes()))
+            for (src, dst), ls in self._layer_groups(pairs).items():
+                gq, gs = [views[l] for l in ls], [s[:, l] for l in ls]
+                if src != dst:
+                    rq, rs = TIER.repack_page(
+                        torch.stack(gq, 1).view(Q.kv_storage_dtype(src)),
+                        torch.stack(gs, 1), src, dst)
+                    gq, gs = rq.unbind(1), rs.unbind(1)
+                for l, lq, ls_ in zip(ls, gq, gs):
+                    self.state[l].pool.write(ids, lq[:, 0], ls_[:, 0],
+                                             lq[:, 1], ls_[:, 1])
         if not card:
             return
         ids.record_stream(side)
@@ -1461,9 +1515,11 @@ class ContinuousBatcher:
         live = live_page_count(self.tables, lengths, self.page_size)
         pb = lambda dt: page_bytes_for(self.page_size, self.cfg.n_kv_heads,
                                        self.cfg.head_dim, dt)
-        stack_bytes = pb(self.kv_cache_dtype) * self.cfg.n_layers
-        int8_bytes = pb("int8") * self.cfg.n_layers
-        rep = {"kv_cache_dtype": self.kv_cache_dtype,
+        layer_dts = self._layer_dtypes()
+        stack_bytes = sum(pb(dt) for dt in layer_dts)
+        int8_bytes = pb("int8") * len(layer_dts)
+        spec = self.kv_cache_dtype
+        rep = {"kv_cache_dtype": spec if isinstance(spec, str) else "mixed",
                "pages_vs_int8_equal_hbm": int8_bytes / stack_bytes,
                "kv_page_bytes_saved_vs_int8_frac":
                    1.0 - stack_bytes / int8_bytes,
@@ -1483,6 +1539,8 @@ class ContinuousBatcher:
                "prefill_tokens_computed": self.prefill_tokens_computed,
                "decode_tokens_computed": self.decode_tokens_computed,
                **self.lifecycle_report()}
+        if not isinstance(spec, str):
+            rep["kv_cache_layer_dtypes"] = list(layer_dts)
         if self.prefix_cache:
             rep.update({"page_hits": a.hits, "page_misses": a.misses,
                         "page_hit_rate": a.hits / max(a.hits + a.misses, 1),

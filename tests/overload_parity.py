@@ -106,7 +106,7 @@ def run_both(models, protocol):
 
 
 def grouped_run(pkg, host_pages, evictor="lru", host_tier_dtype=None,
-                groups=3, rounds=2):
+                groups=3, rounds=2, kv_cache_dtype="int8"):
     """The tier protocols' workload (tests/test_tiering.py): ``groups``
     shared 24-token prefixes, each + 4 tokens, served one request at a
     time for ``rounds`` rounds through a pool of 9 pages too small to keep
@@ -115,7 +115,8 @@ def grouped_run(pkg, host_pages, evictor="lru", host_tier_dtype=None,
     b = pkg.batcher(batch=2, max_len=64, paged=True, n_pages=10, chunk=1,
                     prefix_cache=True, prefill_chunk=8, watermark=1,
                     host_pages=host_pages, evictor=evictor,
-                    host_tier_dtype=host_tier_dtype)
+                    host_tier_dtype=host_tier_dtype,
+                    kv_cache_dtype=kv_cache_dtype)
     rng = np.random.RandomState(0)
     shared = [rng.randint(0, pkg.cfg.vocab, (24,)).astype(np.int32)
               for _ in range(groups)]

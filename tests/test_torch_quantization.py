@@ -1,7 +1,10 @@
 """Page quantizers of the port against the reference: identical inputs give
 bitwise-identical page bytes and float32 scales for int8, fp8_e4m3 and
-int4; plus the numeric behaviours both frameworks must share (round half
-to even, the fp8 cast, arithmetic `>>` on int8, first-index argmax)."""
+int4; the per-channel fp8 and int4 quantizers' dequantized float32
+bitwise and `QuantConfig.compression_ratio` for every stored and
+reference format; plus the numeric behaviours both frameworks must share
+(round half to even, the fp8 cast, arithmetic `>>` on int8, first-index
+argmax)."""
 import jax
 import jax.numpy as jnp
 import ml_dtypes
@@ -53,6 +56,43 @@ def test_quantize_page_matrix_bitwise(kv_dtype, T):
     pq, ps = Q.quantize_page_matrix(to_torch(xb), kv_dtype)
     _bitwise(rq, pq)
     _bitwise(rs, ps)
+
+
+@pytest.mark.parametrize("fmt,T", [("fp8", 8), ("int4", 8), ("int4", 7),
+                                   ("fp8", 1)])
+def test_dequantize_fp8_and_int4_bitwise(fmt, T):
+    """quantize_fp8 / quantize_int4 then dequantize_fp8 / dequantize_int4
+    (float32 and bfloat16 out): the same bits in both packages; an odd
+    int4 count comes back with its zero pad token."""
+    x = _x((2, 3, T, 16), seed=2)
+    rquant, rdeq = (getattr(RQ, f"quantize_{fmt}"),
+                    getattr(RQ, f"dequantize_{fmt}"))
+    pquant, pdeq = (getattr(Q, f"quantize_{fmt}"),
+                    getattr(Q, f"dequantize_{fmt}"))
+    rq, rs = rquant(jnp.asarray(x))
+    pq, ps = pquant(torch.from_numpy(x))
+    _bitwise(rq, pq)
+    _bitwise(rs, ps)
+    for rdt, pdt in ((jnp.float32, torch.float32),
+                     (jnp.bfloat16, torch.bfloat16)):
+        _bitwise(rdeq(rq, rs, rdt), pdeq(pq, ps, pdt))
+    assert pdeq(pq, ps).shape[-2] == T + (T % 2 if fmt == "int4" else 0)
+
+
+@pytest.mark.parametrize("cache", ["int8", "float8_e4m3fn"])
+@pytest.mark.parametrize("ref", ["float32", "bfloat16", "float16", "int8"])
+def test_compression_ratio_matches_reference(cache, ref):
+    """`QuantConfig.compression_ratio` (reference bytes over stored bytes,
+    dtypes by name in the port) equals the reference's for each pair."""
+    want = RQ.QuantConfig(cache_dtype=getattr(jnp, cache),
+                          ref_dtype=getattr(jnp, ref)).compression_ratio
+    assert Q.QuantConfig(cache_dtype=cache,
+                         ref_dtype=ref).compression_ratio == want
+    assert Q.QuantConfig(cache_dtype=getattr(torch, cache),
+                         ref_dtype=getattr(torch, ref)).compression_ratio \
+        == want
+    assert Q.QuantConfig().compression_ratio == \
+        RQ.QuantConfig().compression_ratio == 2.0
 
 
 def test_round_half_to_even():

@@ -4,7 +4,8 @@ reference on its Pallas kernels in interpret mode) gives identical token
 streams, finish reasons and scheduler ticks for 5 requests on 2 batch
 rows — prompts with a partial page, several chunks, a mid-stream
 admission, a stop token and a stop string. Plus: options that are not
-ported raise, and entry points default to the card. (Sampling and the
+ported raise, plan forms resolve as the reference's, and entry points
+default to the card. (Sampling and the
 prefix cache, which used to raise here, are held against the reference
 in tests/test_torch_sampling.py and tests/test_torch_prefix_cache.py.)"""
 import dataclasses
@@ -78,13 +79,31 @@ def test_generate_matches_reference_engine(pallas_interpret):
         assert rep[key] == rrep[key], key
 
 
-@pytest.mark.parametrize("option", [
-    dict(kv_cache_dtype="PLAN_kv_mixed.json"), dict(kv_cache_dtype=["int8"]),
-    dict(kv_cache_dtype={"layers": ["int8", "int4"]}),
-    dict(kv_cache_dtype=("int8", "int4")), dict(use_fused_prefill=False)])
+@pytest.mark.parametrize("option", [dict(use_fused_prefill=False)])
 def test_unported_engine_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         EngineConfig(**option)
+
+
+def _outcome(make):
+    try:
+        return "ok", make().kv_cache_dtype
+    except Exception as e:                     # noqa: BLE001
+        return type(e).__name__, str(e)
+
+
+@pytest.mark.parametrize("option", [
+    dict(kv_cache_dtype="PLAN_kv_mixed.json"), dict(kv_cache_dtype=["int8"]),
+    dict(kv_cache_dtype={"layers": ["int8", "int4"]}),
+    dict(kv_cache_dtype=("int8", "int4"))])
+def test_plan_engine_options_match_reference(option):
+    """Plan forms that the port used to refuse: `EngineConfig` resolves
+    them as the reference's does (the spec, or the error's type and
+    message), unpaged and paged."""
+    for paged in (False, True):
+        got = [_outcome(lambda: cls(paged=paged, **option))
+               for cls in (RefEngineConfig, EngineConfig)]
+        assert got[0] == got[1]
 
 
 def test_entry_points_default_to_the_card():
