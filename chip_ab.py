@@ -15,9 +15,15 @@ build/parent`):
 
 It builds ROOT's kernels, then runs ROOT's own `chip_smoke.py` path
 functions at internlm2_1_8b's full width (random bf16 weights, seed 0):
-contiguous and paged serving (5 greedy requests, batch 4, max_len 2048)
-and `greedy_generate` per block and per channel (4 x 1000-token prompts,
-32 steps); then one more per-channel generate under `torch.profiler`: the
+contiguous and paged serving (5 greedy requests, batch 4, max_len 2048;
+where ROOT's paged server replays captured CUDA graphs, the paged cell
+also with every step dispatched eagerly, and one decode chunk of the
+rows decoding replayed and run eagerly under `torch.profiler`: the busy
+share of each; where ROOT has chip_smoke's long cell, two requests of
+512 new tokens graphed against eager) and `greedy_generate` per block
+and per channel (4 x
+1000-token prompts, 32 steps); then one more per-channel generate under
+`torch.profiler`: the
 device's busy time (the CUDA kernels' self time, summed) against the wall
 time, and the kernels that took most of it; and one `--grad-compression`
 train step (batch 4 x 2048) under `torch.profiler`. Both profiles also
@@ -138,6 +144,17 @@ def main() -> int:
             ("per_channel", lambda: CS.generate_full_width(dev, params, cfg,
                                                            "per_channel"))):
         out[name] = _last_json(fn)
+    if not pair_only and hasattr(CS, "decode_chunk_probe"):
+        from repro_torch.serving import SamplingParams
+        greedy = [SamplingParams.greedy(max_new_tokens=48)] * 5
+        out["paged_eager"] = _last_json(lambda: CS.serve_full_width(
+            dev, params, cfg, paged=True, eager=True))
+        eng, _, _ = CS.graph_cell(dev, params, cfg, greedy, "paged graphed")
+        out["paged_decode_chunk"] = CS.decode_chunk_probe(eng, cfg, greedy)
+        del eng
+    if not pair_only and hasattr(CS, "long_generation"):
+        out["long"] = _last_json(lambda: CS.long_generation(
+            dev, params, cfg, out["card"], against="eager"))
 
     gc = dataclasses.replace(cfg, quant=QuantConfig("per_channel"))
     prompts = np.random.RandomState(1).randint(0, gc.vocab, (4, 1000))

@@ -71,11 +71,25 @@ Phases, each fatal on failure (no fallback anywhere):
      tokens, reports and errors.
   5. the slices at full width: internlm2_1_8b with random bf16 weights from
      a seeded torch.Generator serves 5 greedy requests through the paged
-     LLMEngine and through the contiguous one (batch 4, max_len 2048); the
-     paged engine serves them again with requests 1, 3 and 4 sampled
+     LLMEngine and through the contiguous one (batch 4, max_len 2048). Every
+     paged engine dispatches its decode ticks, decode-scan chunks, sampler
+     draws and prompt chunks as replays of captured CUDA graphs (the
+     default on the card; a chunk of n decode steps replays one step's
+     graph n times); the decode dispatches probed for host syncs below
+     run as a tick runs them (table and length pushes, uploads, graph
+     replays) on the engines' live state. The paged engine serves
+     them again with requests 1, 3 and 4 sampled
      (greedy rows must equal the greedy run's, sampled rows must differ
      from it; then a sampled decode step at the served lengths runs with
-     any host sync an error), and with the prefix cache (prefill_chunk
+     any host sync an error); the paged and the sampled cell each graphed
+     (captures included), eager (every step dispatched eagerly) and
+     graphed again (replays only): tokens, pool pages and scales and
+     launch counts identical graphed and eager, tok/s, TTFT p50 and peak
+     memory each way, the graphs and their pool's bytes, and one decode
+     chunk replayed with no host sync and profiled graphed and eager (the
+     device's busy share; the traced paged kernels equal the counters),
+     then 2 x 512 new tokens under the default chunk graphed against one
+     token a tick; and with the prefix cache (prefill_chunk
      512, a 1536-token shared prefix: a warm rerun and three requests
      together each adopt 6 pages, compute 1536 prefill tokens fewer and
      give their cold runs' tokens; the counters are the reference's
@@ -123,6 +137,7 @@ Exits non-zero without a CUDA device or without the repository's src/.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -1888,13 +1903,18 @@ def _run_path(dev, label: str, needs: tuple, fn):
     return res, wall, counts, torch.cuda.max_memory_allocated(dev)
 
 
-def serve_full_width(dev, params, cfg, paged: bool):
+def serve_full_width(dev, params, cfg, paged: bool, eager: bool = False):
+    """Phase 5's five greedy requests through the paged (captured graphs,
+    or with ``eager`` every step dispatched eagerly) or the contiguous
+    LLMEngine. Returns (launch counts, tokens, layer 0's prompt pages)."""
     from repro_torch.serving import EngineConfig, LLMEngine, SamplingParams
-    label = "paged" if paged else "contiguous"
+    label = ("paged eager" if eager else "paged") if paged else "contiguous"
     needs = (("paged_decode", "paged_prefill") if paged
              else ("flat_decode", "quantize_blocked", "flash_fwd"))
     eng = LLMEngine(params, cfg, EngineConfig(batch=4, max_len=2048,
                                               paged=paged), device=dev)
+    if eager:
+        eng.batcher._dispatch.enabled = False
     owner = track_pages(eng.batcher) if paged else None
     prompts = serve_prompts(cfg)
     lens = tuple(len(p) for p in prompts)
@@ -1914,6 +1934,8 @@ def serve_full_width(dev, params, cfg, paged: bool):
            "tokens_per_s": gen_tokens / wall, "ttft_s_p50": rep["ttft_s_p50"],
            "ticks": rep["ticks"], "launches": counts,
            "max_memory_allocated_bytes": peak}
+    if paged:
+        res["graphs"] = graph_report(eng.batcher)
     log(f"[serve {label}] 5/5 requests finished by length: {gen_tokens} "
         f"tokens in {wall:.3f} s ({res['tokens_per_s']:.2f} tok/s), TTFT p50 "
         f"{rep['ttft_s_p50'] * 1e3:.1f} ms, {rep['ticks']} ticks, launches "
@@ -1921,6 +1943,20 @@ def serve_full_width(dev, params, cfg, paged: bool):
     log(f"[serve {label}] " + json.dumps(res))
     return counts, [o.token_ids for o in outs], (
         layer0_prompt_pages(eng.batcher, owner) if paged else None)
+
+
+def graph_report(b) -> dict:
+    """What the batcher's dispatch captured and replayed: each graph's
+    step, argument shapes and warm-up / capture ms, the totals, and the
+    bytes its generation's graph pool holds."""
+    d = b._dispatch
+    return {"enabled": d.enabled, "captures": d.captures,
+            "capture_ms": d.capture_s * 1e3, "replays": d.replays,
+            "graph_pool_bytes": d.pool_bytes() if d.enabled else 0,
+            "captured": [{"step": c["step"], "shapes": c["shapes"],
+                          "warm_ms": c["warm_s"] * 1e3,
+                          "capture_ms": c["capture_s"] * 1e3}
+                         for c in d.captured]}
 
 
 def track_pages(b) -> dict:
@@ -2011,8 +2047,9 @@ def sampled_serve_full_width(dev, params, cfg, greedy_tokens, card: str):
                          device=dev).reshape(B, nt)
     lengths = torch.tensor([1548, 948, 348, 85], dtype=torch.int32,
                            device=dev)
-    for c in state:
-        c.page_table, c.length = table, lengths
+    for c in state:             # a step advances each layer's own length
+        c.page_table = table
+        c.length.copy_(lengths)
     samp = SMP.device_arrays(sampling_arrays(
         [sps[i] for i in (1, 0, 3, 4)], uids=[1, 0, 3, 4],
         steps=[48] * B), dev)
@@ -2249,10 +2286,10 @@ def watermark_decode_without_sync(eng, cfg, dev):
     """The growth pass and a decode step of a batcher with a watermark set,
     each with any host sync an error: 2 requests (prompts 250) decode to
     their first page boundary, where the pass grows both rows by a page
-    (no preemption: 4 of 7 pages) before the step on the card."""
+    (no preemption: 4 of 7 pages) before the step, replayed from the
+    engine's graph on the card (`probe_decode`)."""
     import numpy as np
     import torch
-    from repro_torch.models import transformer as T
     from repro_torch.serving import SamplingParams
     b = eng.batcher
     rng = np.random.RandomState(7)
@@ -2279,18 +2316,7 @@ def watermark_decode_without_sync(eng, cfg, dev):
         raise AssertionError(f"watermark sync check: the growth pass gave "
                              f"rows {active} (grew {grew}), preemptions "
                              f"{preemptions} -> {b.preemptions}")
-    b._sync_device()                 # the grown tables (a host-to-device copy)
-    mask = np.zeros((b.batch,), bool)
-    mask[active] = True
-    tok, pos, row_mask = b._dev(b.tok), b._dev(b.pos), b._dev(mask)
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        T.decode_scan(b.params, tok, cfg, b.state, pos, steps=n,
-                      row_mask=row_mask)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
+    probe_decode(b, active, n)
 
 
 def overload_serve_full_width(dev, params, cfg, card: str) -> dict:
@@ -2398,22 +2424,53 @@ def _no_sync(fn):
         torch.cuda.set_sync_debug_mode("default")
 
 
-def probe_decode(b, cfg, row: int):
-    """One decode step of ``row`` with any host sync an error, on the
-    batcher's current state; the per-row tensors it rebinds (residuals,
-    lengths) are put back after, so the engine's next step computes the
-    same token again (the page it may flush gets the same bytes)."""
+def _kept(b):
+    """The residuals and lengths a decode step advances, copied."""
+    return [(c.resid_k.clone(), c.resid_v.clone(), c.length.clone())
+            for c in b.state]
+
+
+def _put_back(b, kept):
+    for c, (rk, rv, ln) in zip(b.state, kept):
+        c.resid_k.copy_(rk)
+        c.resid_v.copy_(rv)
+        c.length.copy_(ln)
+
+
+def probe_decode(b, rows, n: int = 1) -> int:
+    """One decode dispatch of ``rows`` (a list, or one row; ``n`` steps) on
+    the batcher's live state, as a tick runs it up to its read of the
+    tokens, with any host sync an error: the tables and lengths pushed
+    (`_sync_device`), the inputs uploaded (pinned, non-blocking), the
+    sampling arrays where a row samples, and the dispatch
+    (`_launch_decode`): replays of the graphs the engine's own ticks
+    captured, or the eager steps where its dispatch is disabled. The
+    residuals and lengths it advances are put back after, so the engine's
+    next step computes the same tokens again (a page it may flush gets the
+    same bytes). Returns the replays made."""
     import numpy as np
-    from repro_torch.models import transformer as T
-    b._sync_device()
+    import torch
+    rows = [rows] if isinstance(rows, int) else list(rows)
     mask = np.zeros((b.batch,), bool)
-    mask[row] = True
-    tok, pos, row_mask = b._dev(b.tok), b._dev(b.pos), b._dev(mask)
-    kept = [(c.resid_k, c.resid_v, c.length) for c in b.state]
-    _no_sync(lambda: T.decode_scan(b.params, tok, cfg, b.state, pos,
-                                   steps=1, row_mask=row_mask))
-    for c, (rk, rv, n) in zip(b.state, kept):
-        c.resid_k, c.resid_v, c.length = rk, rv, n
+    mask[rows] = True
+    d = b._dispatch
+    kept, captures, replays = _kept(b), d.captures, d.replays
+
+    def launch():
+        b._sync_device()
+        b._launch_decode(rows, mask, n)
+    _no_sync(launch)
+    torch.cuda.synchronize()
+    _put_back(b, kept)
+    made = d.replays - replays
+    want = 0 if not d.enabled else n if n > 1 else \
+        1 + b._needs_sampling(rows)
+    fresh = d.captures - captures
+    if fresh or made != want:
+        raise AssertionError(f"decode probe ({n} steps): {fresh} graphs "
+                             f"captured and {made} replays, want 0 and "
+                             f"{want}")
+    return made
 
 
 def tier_pair(params, cfg, dev, mode: str):
@@ -2463,7 +2520,7 @@ def tier_pair(params, cfg, dev, mode: str):
                     raise AssertionError(f"serve paged tiered (d): "
                                          f"{issued} promotions issued, "
                                          f"{len(a.inflight)} in flight")
-                probe_decode(b, cfg, 0)
+                probe_decode(b, 0)
         for o in eng.step():
             if o.finished:
                 outs[o.uid] = o.token_ids
@@ -2590,13 +2647,14 @@ def tier_copy_times(b, cfg, dev, card: str) -> dict:
     rec = next(iter(tier.pages.values())).wait()
     promote_ms = wall(lambda: b._write_host_pages([page], [rec]))
     fn0, fnd = b._chunk_prefill_fn(0), b._chunk_prefill_fn(1280)
-    tok = b._dev(np.random.RandomState(0).randint(
+    on = lambda a: torch.as_tensor(a, device=dev)
+    tok = on(np.random.RandomState(0).randint(
         0, cfg.vocab, (b.batch, ps)).astype(np.int32))
-    valid = b._dev(np.full((b.batch,), ps, np.int32))
-    mask = b._dev(np.ones((b.batch,), bool))
+    valid = on(np.full((b.batch,), ps, np.int32))
+    mask = on(np.ones((b.batch,), bool))
 
     def prefill(fn, start):
-        st = b._dev(np.full((b.batch,), start, np.int32))
+        st = on(np.full((b.batch,), start, np.int32))
         return lambda: fn(b.params, tok, b.state, st, valid, mask)
     reprefill0 = wall(prefill(fn0, 0))
     reprefill_deep = wall(prefill(fnd, 1280))
@@ -2997,7 +3055,7 @@ def mixed_serve_full_width(dev, params, cfg, card: str, uniform_tokens,
                 break
         else:
             raise AssertionError(f"{label} (e): the request never decoded")
-        probe_decode(b, cfg, row)
+        probe_decode(b, row)
         while eng.has_unfinished():
             eng.step()
         del eng, b
@@ -3092,6 +3150,300 @@ def mixed_serve_full_width(dev, params, cfg, card: str, uniform_tokens,
             f"{label} (d) tier": {k: c_d["verbatim"][k] + c_d["int4"][k]
                                   for k in c_a},
             f"{label} (f) flips": c_f}
+
+
+def same_pools(b1, b2) -> bool:
+    """Every layer's pool pages and scale rows the same bits in two
+    batchers (page 0, the sentinel, is garbage by design)."""
+    return all(same_bits(getattr(c1.pool, n)[1:], getattr(c2.pool, n)[1:])
+               for c1, c2 in zip(b1.state, b2.state)
+               for n in ("k_q", "v_q", "k_s", "v_s"))
+
+
+def graph_cell(dev, params, cfg, sps, label: str, eager: bool = False,
+               eng=None, prompts=None, chunk=None):
+    """Phase 5's five prompts (or ``prompts``) through a fresh paged
+    LLMEngine (batch 4, max_len 2048, ``chunk``; ``eager``: every step
+    dispatched eagerly), or again through ``eng`` with the same uids (the
+    seeded streams repeat). Returns (engine, tokens, record)."""
+    from repro_torch.serving import EngineConfig, LLMEngine
+    if eng is None:
+        eng = LLMEngine(params, cfg, EngineConfig(
+            batch=4, max_len=2048, paged=True, chunk=chunk), device=dev)
+        eng.batcher._dispatch.enabled = not eager
+    else:
+        eng._next_uid = 0
+        eng.batcher._ttfts.clear()
+    outs, wall, counts, peak = _run_path(
+        dev, label, ("paged_decode", "paged_prefill"),
+        lambda: eng.generate(prompts or serve_prompts(cfg), sps))
+    toks = [o.token_ids for o in outs]
+    n = sum(map(len, toks))
+    return eng, toks, {
+        "wall_s": wall, "generated_tokens": n, "tokens_per_s": n / wall,
+        "ttft_s_p50": eng.pool_report()["ttft_s_p50"],
+        "max_memory_allocated_bytes": peak, "launches": counts,
+        "launches_by_dtype": _by_dtype()}
+
+
+def _traced(prof, name: str) -> int:
+    """Launches of the CUDA kernels named ``name`` in a profiler trace."""
+    return sum(e.count for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")
+               and name in e.key)
+
+
+def _trace_counts(windows: list, label: str) -> list:
+    """(counted, traced) launches of windows that ran the same dispatch:
+    the profiler may lose a device record at a window's edge (one in 24
+    seen) but never invents one, while a graph that dropped or repeated a
+    kernel would do so in every window. So no window traces more than it
+    counted, and one traces exactly what it counted."""
+    if not windows or any(t > c for c, t in windows) \
+            or all(t != c for c, t in windows):
+        raise AssertionError(f"{label}: launches (counted, traced) "
+                             f"{windows}")
+    return windows
+
+
+@contextlib.contextmanager
+def _cuda_trace():
+    """torch.profiler's CUDA activity, the window padded by 50 ms of idle
+    on each side."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+
+
+def decode_chunk_probe(eng, cfg, sps) -> dict:
+    """On a served graphed engine: the five prompts again. The first tick
+    that replays a chunk prefill (and captures nothing) is profiled
+    (`torch.profiler`, CUDA activity): the ``paged_prefill_kernel``
+    launches in the trace are what the replays added to the counter
+    (`_trace_counts`, over each such tick before two rows decode).
+    Once two rows decode, their next decode chunk (the length the
+    scheduler would take) is dispatched as a tick would (`probe_decode`,
+    no host sync), then profiled once graphed and once eager on the same
+    live state: the CUDA kernels' self time over the call's wall time,
+    which ends in a synchronize, and the device span between CUDA events
+    around it; and a 4-step chunk profiled three times each way, whose
+    ``paged_decode_split_kernel`` launches in the trace are the counter's
+    advance (steps x layers; `_trace_counts`). The residuals and lengths
+    are put back after each. The requests then drain."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import quant_attention as QA
+    from repro_torch.kernels import quant_prefill as QP
+    b, d = eng.batcher, eng.batcher._dispatch
+    for p, sp in zip(serve_prompts(cfg), sps):
+        eng.add_request(p, sp)
+    prefill = []
+    for _ in range(200):
+        active = [i for i, r in enumerate(b.rows)
+                  if r is not None and i not in b.prefilling]
+        if len(active) >= 2:
+            break
+        c0, captures = QP.paged_prefill_cuda.launches, d.captures
+        with _cuda_trace() as prof:
+            eng.step()
+        counted = QP.paged_prefill_cuda.launches - c0
+        if counted and d.captures == captures:
+            prefill.append((counted, _traced(prof, "paged_prefill_kernel")))
+    else:
+        raise AssertionError("serve paged graphs: two rows never decoded")
+    _trace_counts(prefill, "serve paged graphs: replayed prefill ticks")
+    n = b._chunk_len(active)
+    mask = np.zeros((b.batch,), bool)
+    mask[active] = True
+    kept = _kept(b)                 # its graph captured, if it is not yet
+    b._launch_decode(active, mask, n)
+    torch.cuda.synchronize()
+    _put_back(b, kept)
+    probe_decode(b, active, n)
+    out = {"chunk_steps": n, "sampled": b._needs_sampling(active),
+           "rows": len(active), "prefill_ticks_counted_traced": prefill}
+    k = min(n, 4)
+    for mode in ("graphed", "eager"):
+        d.enabled = mode == "graphed"
+        kept = _kept(b)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        with _cuda_trace() as prof:
+            t0 = time.perf_counter()
+            e0.record()
+            b._launch_decode(active, mask, n)
+            e1.record()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        _put_back(b, kept)
+        kernels = [e for e in prof.key_averages()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        busy = sum(e.self_device_time_total for e in kernels) / 1e6
+        windows = []
+        for _ in range(3):
+            kept, c0 = _kept(b), QA.paged_decode_partials_cuda.launches
+            with _cuda_trace() as prof:
+                b._launch_decode(active, mask, k)
+            _put_back(b, kept)
+            windows.append((QA.paged_decode_partials_cuda.launches - c0,
+                            _traced(prof, "paged_decode_split_kernel")))
+        if any(c != k * cfg.n_layers for c, _ in windows):
+            raise AssertionError(f"serve paged graphs ({mode}): {k} steps "
+                                 f"counted {windows}")
+        _trace_counts(windows, f"serve paged graphs ({mode}): {k}-step "
+                               f"decode chunks")
+        out[mode] = {"wall_ms": wall * 1e3, "device_kernel_ms": busy * 1e3,
+                     "busy_share": busy / wall,
+                     "event_span_ms": e0.elapsed_time(e1),
+                     "kernel_launches_traced": sum(e.count for e in kernels),
+                     f"paged_decode_{k}_steps_counted_traced": windows}
+    d.enabled = True
+    while eng.has_unfinished():
+        eng.step()
+    return out
+
+
+def graphs_serve_full_width(dev, params, cfg, card: str,
+                            greedy_tokens) -> dict:
+    """Phase 5, serve paged graphs: the paged cell (five greedy requests)
+    and the sampled cell (requests 1, 3, 4 sampled as in `serve paged
+    sampled`), each served on the card graphed (a fresh engine: its
+    captures included), eager (a fresh engine, every step dispatched
+    eagerly) and graphed again (the first engine, replays only). Graphed
+    tokens equal eager tokens, the paged cell's equal `serve paged`'s;
+    every layer's pool pages and scales are the same bits graphed and
+    eager; the launch counters, advanced through replays, equal the eager
+    launches (in all and by page dtype). Prints tok/s, TTFT p50 and
+    max_memory_allocated each way, the graphs (steps, shapes, warm-up and
+    capture ms) and the graph pool's bytes, and per cell one decode chunk
+    replayed with no host sync and its device busy share graphed against
+    eager (`decode_chunk_probe`); then the long cell (`long_generation`).
+    Returns each run's launch counts."""
+    from repro_torch.serving import SamplingParams
+    label = "serve paged graphs"
+    mix = [SAMPLED_MIX[0], SAMPLED_MIX[1], SAMPLED_MIX[0], SAMPLED_MIX[2],
+           SAMPLED_MIX[3]]
+    cells = {"paged": [SamplingParams.greedy(max_new_tokens=48)] * 5,
+             "sampled": [SamplingParams(max_new_tokens=48, **kw)
+                         for kw in mix]}
+    res, counts = {"card": card}, {}
+    for cell, sps in cells.items():
+        geng, gtoks, graphed = graph_cell(dev, params, cfg, sps,
+                                          f"{label} {cell} graphed")
+        eeng, etoks, eager = graph_cell(dev, params, cfg, sps,
+                                        f"{label} {cell} eager", eager=True)
+        pools_equal = same_pools(geng.batcher, eeng.batcher)
+        del eeng
+        if gtoks != etoks or (cell == "paged" and gtoks != greedy_tokens):
+            raise AssertionError(f"{label} {cell}: graphed tokens differ "
+                                 f"from the eager (or the served) tokens")
+        if not pools_equal:
+            raise AssertionError(f"{label} {cell}: graphed and eager pools "
+                                 f"differ in their pages or scales")
+        for k in ("launches", "launches_by_dtype"):
+            if graphed[k] != eager[k]:
+                raise AssertionError(f"{label} {cell}: {k} graphed "
+                                     f"{graphed[k]}, eager {eager[k]}")
+        _, wtoks, warm = graph_cell(dev, params, cfg, sps,
+                                    f"{label} {cell} graphed warm", eng=geng)
+        if wtoks != gtoks:
+            raise AssertionError(f"{label} {cell}: the warm rerun's tokens "
+                                 f"differ")
+        graphs = graph_report(geng.batcher)
+        chunk = decode_chunk_probe(geng, cfg, sps)
+        del geng
+        res[cell] = {"graphed": graphed, "eager": eager,
+                     "graphed_warm": warm, "graphs": graphs,
+                     "decode_chunk": chunk, "tokens_equal": True,
+                     "pools_equal": True}
+        counts[f"{label} {cell}"] = graphed["launches"]
+        log(f"[{label}] {cell}: tokens graphed = eager"
+            f"{' = serve paged' if cell == 'paged' else ''}, pools the "
+            f"same bits, launches {graphed['launches']} both ways; "
+            f"graphed (captures included) {graphed['tokens_per_s']:.2f} "
+            f"tok/s, TTFT p50 {graphed['ttft_s_p50'] * 1e3:.1f} ms; graphed "
+            f"warm {warm['tokens_per_s']:.2f} tok/s, TTFT p50 "
+            f"{warm['ttft_s_p50'] * 1e3:.1f} ms; eager "
+            f"{eager['tokens_per_s']:.2f} tok/s, TTFT p50 "
+            f"{eager['ttft_s_p50'] * 1e3:.1f} ms; max_memory_allocated "
+            f"{graphed['max_memory_allocated_bytes']} / "
+            f"{eager['max_memory_allocated_bytes']} bytes; "
+            f"{graphs['captures']} graphs captured in "
+            f"{graphs['capture_ms']:.1f} ms, {graphs['replays']} replays, "
+            f"graph pool {graphs['graph_pool_bytes']} bytes; one "
+            f"{chunk['chunk_steps']}-step decode chunk replayed with no host "
+            f"sync, busy share graphed {chunk['graphed']['busy_share']:.4f} "
+            f"({chunk['graphed']['wall_ms']:.2f} ms) against eager "
+            f"{chunk['eager']['busy_share']:.4f} "
+            f"({chunk['eager']['wall_ms']:.2f} ms); {card}")
+    res["long"], counts[f"{label} long"] = long_generation(dev, params, cfg,
+                                                          card)
+    log(f"[{label}] " + json.dumps(res))
+    return counts
+
+
+def long_generation(dev, params, cfg, card: str, against: str = "tick"):
+    """Two requests of 512 new tokens (prompts 300 and 37; one greedy,
+    one sampled as SAMPLED_MIX[1]) under the default chunk (no stop
+    condition: a row decoding alone takes its whole budget as one
+    512-step chunk), graphed on a fresh engine. A chunk of any length
+    replays the one decode-scan step graph of its shape key, so what is
+    captured does not grow with the chunk. Held against a fresh engine
+    that decodes one token a tick (``against`` "tick": chunk 1, the
+    decode and sampler graphs, the draws' steps uploaded each tick) or
+    dispatches every step eagerly ("eager", chip_ab's: ~1000 eager steps,
+    minutes): the same tokens and pools, and against eager the same
+    launch counts (ticks of one token decode both rows in each step, so
+    fewer). Returns (record, the graphed run's launch counts)."""
+    from repro_torch.serving import SamplingParams
+    label = "serve paged graphs long"
+    prompts = serve_prompts(cfg)[2:4]
+    sps = [SamplingParams.greedy(max_new_tokens=512),
+           SamplingParams(max_new_tokens=512, **SAMPLED_MIX[1])]
+    geng, gtoks, graphed = graph_cell(dev, params, cfg, sps,
+                                      f"{label} graphed", prompts=prompts)
+    oeng, otoks, other = graph_cell(
+        dev, params, cfg, sps, f"{label} {against}", prompts=prompts,
+        eager=against == "eager", chunk=1 if against == "tick" else None)
+    if gtoks != otoks or list(map(len, gtoks)) != [512, 512]:
+        raise AssertionError(f"{label}: graphed scan tokens differ from the "
+                             f"{against} run's (lengths "
+                             f"{list(map(len, gtoks))})")
+    if not same_pools(geng.batcher, oeng.batcher):
+        raise AssertionError(f"{label}: the pools differ from the "
+                             f"{against} run's")
+    if against == "eager" and graphed["launches"] != other["launches"]:
+        raise AssertionError(f"{label}: launches graphed "
+                             f"{graphed['launches']}, {against} "
+                             f"{other['launches']}")
+    graphs = graph_report(geng.batcher)
+    chunks = sorted(n for n, _ in geng.batcher._chunk_fns)
+    scans = [c for c in graphs["captured"] if c["step"] == "decode_scan_step"]
+    if max(chunks) < 256 or not 1 <= len(scans) <= 2:
+        raise AssertionError(f"{label}: chunk lengths {chunks}, "
+                             f"{len(scans)} decode-scan step graphs")
+    other["graphs"] = graph_report(oeng.batcher)
+    del geng, oeng
+    res = {"chunk_lengths": chunks, "graphed": graphed, against: other,
+           "graphs": graphs, "tokens_equal": True, "pools_equal": True}
+    log(f"[{label}] 2 x 512 tokens, chunks {chunks}: tokens graphed = "
+        f"{against}, pools the same bits, launches {graphed['launches']} / "
+        f"{other['launches']}; graphed (captures included) "
+        f"{graphed['wall_s']:.3f} s, "
+        f"{graphed['tokens_per_s']:.2f} tok/s, TTFT p50 "
+        f"{graphed['ttft_s_p50'] * 1e3:.1f} ms; {against} "
+        f"{other['wall_s']:.3f} s, {other['tokens_per_s']:.2f} tok/s, TTFT "
+        f"p50 {other['ttft_s_p50'] * 1e3:.1f} ms; {graphs['captures']} graphs "
+        f"({len(scans)} decode-scan step) captured in "
+        f"{graphs['capture_ms']:.1f} ms, {graphs['replays']} replays; "
+        f"{card}")
+    log(f"[{label}] " + json.dumps(res))
+    return res, graphed["launches"]
 
 
 def generate_full_width(dev, params, cfg, granularity: str):
@@ -3467,6 +3819,7 @@ def main() -> int:
                                              paged=False)[0],
         "serve paged sampled": sampled_serve_full_width(
             dev, params, cfg, greedy_tokens, card),
+        **graphs_serve_full_width(dev, params, cfg, card, greedy_tokens),
         "serve paged prefix": prefix_serve_full_width(dev, params, cfg,
                                                       card),
         **overload_serve_full_width(dev, params, cfg, card),

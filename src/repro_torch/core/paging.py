@@ -14,10 +14,14 @@ host tier's in-flight population, and the seeded pool fault injector
 
 The layout is the reference's, byte for byte, so the two pools can be
 compared directly. Unlike the reference, which is functional and rebuilds
-the (donated) pool on every write, the port writes pages IN PLACE
-(``index_copy_``); the small per-row tensors (residuals, lengths) are
-rebound to new tensors, so a page table or length tensor shared between
-layers is never mutated under another layer.
+the (donated) pool on every write, the port writes every tensor of the
+state IN PLACE: pages through ``index_copy_``, residuals, lengths and
+page-table rows through ``copy_`` / ``add_``. A tensor keeps its address
+for the life of the cache, so a captured CUDA graph can replay a step
+over it (`serving.dispatch`). A length tensor is written by its own
+layer's steps and must not be shared between layers; a page table is
+only read by steps (and written by `fork_row` alike in every layer), so
+layers may share one.
 
 Invariants (as the reference): page_size == quantization block size; page
 0 is a sentinel that is never allocated — unmapped table entries point at
@@ -487,7 +491,8 @@ class PagePool:
 
 class PagedQuantizedKVCache:
     """Per-row page-table view over a `PagePool` (see module docstring).
-    `prefill_at` and `append` write the pool in place and return ``self``."""
+    `prefill_at`, `append` and `fork_row` write the pool, the residuals,
+    the lengths and the table in place and return ``self``."""
 
     def __init__(self, pool: PagePool, page_table: torch.Tensor,
                  resid_k: torch.Tensor, resid_v: torch.Tensor,
@@ -591,30 +596,25 @@ class PagedQuantizedKVCache:
 
         rk, rv = gat(k), gat(v)
         new_len = start_block * ps + valid_t
-        if row_mask is None:
-            self.length, self.resid_k, self.resid_v = new_len, rk, rv
-        else:
+        if row_mask is not None:
             rm = row_mask[:, None, None, None]
-            self.length = torch.where(row_mask, new_len, self.length)
-            self.resid_k = torch.where(rm, rk, self.resid_k)
-            self.resid_v = torch.where(rm, rv, self.resid_v)
+            new_len = torch.where(row_mask, new_len, self.length)
+            rk = torch.where(rm, rk, self.resid_k)
+            rv = torch.where(rm, rv, self.resid_v)
+        self.length.copy_(new_len)
+        self.resid_k.copy_(rk)
+        self.resid_v.copy_(rv)
         return self
 
     def fork_row(self, src: int, dst: int) -> "PagedQuantizedKVCache":
-        """Clone row ``src``'s view into row ``dst``: page table row, fp
-        residual and length. The physical pages become shared: the caller
-        takes references (`HostPageAllocator.incref`) and, before either
-        row flushes into a still-shared page, retargets it through
+        """Copy row ``src``'s view into row ``dst``, in place: page table
+        row, fp residual and length. The physical pages become shared: the
+        caller takes references (`HostPageAllocator.incref`) and, before
+        either row flushes into a still-shared page, retargets it through
         `HostPageAllocator.ensure_private` (the residual copied here is the
         private page content, so no device copy is needed)."""
-        def copy_row(x):
-            x = x.clone()
+        for x in (self.page_table, self.resid_k, self.resid_v, self.length):
             x[dst] = x[src]
-            return x
-        self.page_table = copy_row(self.page_table)
-        self.resid_k = copy_row(self.resid_k)
-        self.resid_v = copy_row(self.resid_v)
-        self.length = copy_row(self.length)
         return self
 
     def append(self, k: torch.Tensor, v: torch.Tensor, row_mask=None
@@ -645,8 +645,9 @@ class PagedQuantizedKVCache:
         self.pool.write(pid, fq_k.transpose(1, 2), fs_k,
                         fq_v.transpose(1, 2), fs_v)
         clear = full[:, None, None, None]
-        self.resid_k = torch.where(clear, torch.zeros_like(resid_k), resid_k)
-        self.resid_v = torch.where(clear, torch.zeros_like(resid_v), resid_v)
-        advance = 1 if row_mask is None else row_mask.to(torch.int32)
-        self.length = self.length + advance
+        self.resid_k.copy_(torch.where(clear, torch.zeros_like(resid_k),
+                                       resid_k))
+        self.resid_v.copy_(torch.where(clear, torch.zeros_like(resid_v),
+                                       resid_v))
+        self.length.add_(1 if row_mask is None else row_mask.to(torch.int32))
         return self

@@ -29,7 +29,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, counted
 from repro_torch.kernels.quant_attention import (HEAD_DIMS, _check,
                                                    _check_aligned, logit_scale)
 
@@ -118,4 +118,4 @@ def flash_fwd_cuda(q, k, v, causal: bool = True, window: int | None = None,
     return out, m, l
 
 
-flash_fwd_cuda.launches = 0
+counted(flash_fwd_cuda)

@@ -34,7 +34,7 @@ import ctypes
 import torch
 
 from repro_torch.core import quantization as Q
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, counted
 
 _NEG_INF = -1e30
 KV_CODES = {"int8": 0, "fp8_e4m3": 1, "int4": 2}
@@ -205,8 +205,7 @@ def paged_decode_partials_cuda(q, pool_kq, pool_ks, pool_vq, pool_vs,
     return o, m, l
 
 
-paged_decode_partials_cuda.launches = 0
-paged_decode_partials_cuda.launches_by_dtype = dict.fromkeys(KV_CODES, 0)
+counted(paged_decode_partials_cuda, KV_CODES)
 
 
 # -- flat decode over the contiguous cache ------------------------------------
@@ -314,5 +313,5 @@ def seed_decode_partials_cuda(q, k_q, k_s, v_q, v_s, lengths, windows):
     return out
 
 
-flat_decode_partials_cuda.launches = 0
-seed_decode_partials_cuda.launches = 0
+counted(flat_decode_partials_cuda)
+counted(seed_decode_partials_cuda)

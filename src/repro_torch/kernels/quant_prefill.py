@@ -23,7 +23,7 @@ import ctypes
 import torch
 
 from repro_torch.core import quantization as Q
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, counted
 from repro_torch.kernels.quant_attention import (HEAD_DIMS, KV_CODES,
                                                  _check, _check_aligned,
                                                  page_dequant)
@@ -214,5 +214,4 @@ def paged_prefill_cuda(qg, kc, vc, pool_kq, pool_ks, pool_vq, pool_vs,
     return out
 
 
-paged_prefill_cuda.launches = 0
-paged_prefill_cuda.launches_by_dtype = dict.fromkeys(KV_CODES, 0)
+counted(paged_prefill_cuda, KV_CODES)

@@ -45,7 +45,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, counted
 from repro_torch.kernels.quant_attention import (_check, _check_aligned,
                                                  _sm_count)
 
@@ -322,7 +322,7 @@ def dequantize_cuda(x_q: torch.Tensor, scales: torch.Tensor,
     return out
 
 
-absmax_cuda.launches = 0
-quantize_with_scales_cuda.launches = 0
-quantize_blocked_cuda.launches = 0
-dequantize_cuda.launches = 0
+counted(absmax_cuda)
+counted(quantize_with_scales_cuda)
+counted(quantize_blocked_cuda)
+counted(dequantize_cuda)

@@ -4,8 +4,12 @@
 Parameters are a dict: ``embed`` (Vp, d), ``lm_head`` (d, Vp),
 ``final_norm``, and ``layers`` — one dict per layer (norm1, attn, norm2,
 mlp). The reference stacks layers on a leading axis for ``lax.scan``; the
-port keeps a list and loops, and `decode_scan` is a Python loop. The
-serving state is a list of per-layer caches: contiguous
+port keeps a list and loops over layers, and `decode_scan` over its
+steps (`decode_scan_step`, in place on a carry whose indices live on the
+device). On the card the paged server captures a decode step, one step of
+a scan, or a prompt chunk as one CUDA graph and replays it, a scan's step
+once per step (`serving.dispatch`, the counterpart of the reference's
+jit); the functions here are what it captures. The serving state is a list of per-layer caches: contiguous
 `QuantizedKVCache`s (the default) or paged `PagedQuantizedKVCache`s.
 `forward_train` recomputes each block in the backward
 (`torch.utils.checkpoint`), as the reference's per-block
@@ -260,6 +264,46 @@ def decode_step(params, token, cfg, state, pos, *, row_mask=None):
     return _head(params, x[:, -1]), state
 
 
+def scan_carry(token, pos, steps: int) -> dict:
+    """The loop state of a decode scan of ``steps`` steps, on ``token``'s
+    device: ``tok`` (B, 1) the pending token and ``pos`` (B,) its position
+    (copies of the arguments), ``emitted`` (steps, B) the tokens fed and
+    ``j`` (1,) the step index."""
+    B = token.shape[0]
+    return {"tok": token.to(torch.int32).clone(),
+            "pos": pos.to(torch.int32).clone(),
+            "emitted": torch.empty((steps, B), dtype=torch.int32,
+                                   device=token.device),
+            "j": torch.zeros((1,), dtype=torch.int64, device=token.device)}
+
+
+def decode_scan_step(params, cfg, state, carry, *, row_mask=None,
+                     sampling=None):
+    """One step of `decode_scan`, in place on ``carry`` (`scan_carry`):
+    feeds ``tok`` at ``pos`` and writes it into row ``j`` of ``emitted``,
+    draws the next pending token into ``tok`` (greedy, or from
+    ``sampling`` at its ``step``), then advances ``pos``, ``j`` and
+    ``sampling["step"]`` by one. Returns the state. Every index it takes
+    lives on the device, so one captured step replays as every step of a
+    scan."""
+    tok = carry["tok"]
+    logits, state = decode_step(params, tok, cfg, state, carry["pos"],
+                                row_mask=row_mask)
+    carry["emitted"].index_copy_(0, carry["j"], tok.view(1, -1))
+    if sampling is None:
+        nxt = SMP.greedy(logits, cfg.vocab)
+    else:
+        nxt = SMP.sample_at_step(
+            logits, sampling["temperature"], sampling["top_k"],
+            sampling["top_p"], sampling["key"], sampling["step"],
+            vocab=cfg.vocab)
+        sampling["step"].add_(1)
+    tok.copy_(nxt.view(-1, 1))
+    carry["pos"].add_(1)
+    carry["j"].add_(1)
+    return state
+
+
 def decode_scan(params, token, cfg, state, pos, *, steps: int,
                 row_mask=None, sampling=None):
     """Decode ``steps`` tokens. ``token`` (B, 1) is the pending token
@@ -269,20 +313,12 @@ def decode_scan(params, token, cfg, state, pos, *, steps: int,
     a dict of per-row tensors on the card — temperature, top_k, top_p,
     key (B, 2) base keys and step (B,) the index of each row's next token
     (`models.sampling.device_arrays`) — and step j of row i draws with
-    ``fold_in(key[i], step[i] + j)``."""
-    toks = []
-    step = None if sampling is None else sampling["step"]
+    ``fold_in(key[i], step[i] + j)``. The arguments are left as passed:
+    the steps (`decode_scan_step`) advance copies."""
+    carry = scan_carry(token, pos, steps)
+    if sampling is not None:
+        sampling = dict(sampling, step=sampling["step"].clone())
     for _ in range(steps):
-        logits, state = decode_step(params, token, cfg, state, pos,
-                                    row_mask=row_mask)
-        toks.append(token[:, 0])
-        if sampling is None:
-            token = SMP.greedy(logits, cfg.vocab)[:, None]
-        else:
-            token = SMP.sample_at_step(
-                logits, sampling["temperature"], sampling["top_k"],
-                sampling["top_p"], sampling["key"], step,
-                vocab=cfg.vocab)[:, None]
-            step = step + 1
-        pos = pos + 1
-    return token, state, torch.stack(toks)
+        state = decode_scan_step(params, cfg, state, carry,
+                                 row_mask=row_mask, sampling=sampling)
+    return carry["tok"], state, carry["emitted"]

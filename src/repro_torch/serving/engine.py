@@ -10,8 +10,10 @@ per-row page tables, admission by varlen chunked prefill).
 step; `make_chunk_prefill_fn` the paged chunk-prefill step;
 `generate` / `greedy_generate` the reference generation path (contiguous:
 a block-multiple prefill, the prompt's remainder fed through decode, then
-greedy or seeded sampled decode). PyTorch runs eagerly, so these are
-plain closures and loops (the reference jits them).
+greedy or seeded sampled decode). These are plain closures and loops;
+where the reference jits them, the paged scheduler captures its steps as
+CUDA graphs on the card (`serving.dispatch`), and `generate` runs
+eagerly (ROADMAP queue 1, item 16's remainder).
 """
 from __future__ import annotations
 

@@ -67,11 +67,26 @@ each layer has its own pool at its own dtype, a host record holds each
 layer's page in its own format, and a request may name no dtype of its
 own under a plan. The spec is read again every tick: a flip (between
 dtypes, plans, or the two) on an idle engine rebuilds the pools.
+
+Dispatch (the reference's jitted entries): per-token ticks go through
+``_decode``, decode-scan chunks through ``_chunk_fns`` keyed ``(n,
+kv_cache_dtype)``, draws at the host boundary through ``_sample_fn`` and
+prompt chunks through ``_chunk_prefill_fns`` keyed ``(hist_blocks, True,
+kv_cache_dtype)``. ``_decode``, ``_sample_fn``, the prompt chunks and
+``_scan_step`` (one step of a scan, `models.transformer.decode_scan_step`,
+which an n-step chunk calls n times) are each a `serving.dispatch.Step`:
+on the card, with the paged backend, one captured CUDA graph per shape
+key, replayed; on the CPU and on the contiguous backend, the eager
+function. So a chunk's length never shapes a graph: a scan of any length
+replays the same step. The paged state's tensors and the step inputs
+(`_Inputs`) keep their addresses until the state is rebuilt, which starts
+a new graph generation.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import time
 from collections import deque
 
@@ -86,6 +101,7 @@ from repro_torch.core import quantization as Q
 from repro_torch.models import sampling as SMP
 from repro_torch.models import transformer as T
 from repro_torch.runtime.fault import StallWatchdog
+from repro_torch.serving.dispatch import GraphDispatch
 from repro_torch.serving.engine import make_chunk_prefill_fn, make_serve_fns
 from repro_torch.serving.params import (EngineConfig, SamplingParams,
                                         default_detokenize, request_key,
@@ -103,6 +119,55 @@ class StallError(RuntimeError):
     """No request advanced for ``EngineConfig.stall_ticks`` consecutive
     ticks with work in flight; carries the per-request state (queued,
     preempted, mid-prefill cursor, decoding position) and the pool's."""
+
+
+class _Inputs:
+    """The step functions' tensor inputs, persistent on the batcher's
+    device and refilled before each dispatch (`ContinuousBatcher._upload`):
+    the pending token, positions and row mask, the per-row sampling
+    arrays, the decode scan's carry (`models.transformer.scan_carry` of
+    up to ``max_len`` steps, whose ``tok`` and ``pos`` are these), the
+    chunk prefill's tokens (one buffer per dispatch width), starts, valid
+    counts and mask; paged, the page table every layer shares (no step
+    writes it) and the lengths `_sync_device` copies into each layer's
+    own. They live with the paged state, so a flip frees them with the
+    pools."""
+
+    def __init__(self, batch: int, max_len: int, max_blocks: int | None,
+                 device):
+        z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=device)
+        self.carry = T.scan_carry(z((batch, 1), torch.int32),
+                                  z((batch,), torch.int32), max_len)
+        self.tok, self.pos = self.carry["tok"], self.carry["pos"]
+        self.mask = z((batch,), torch.bool)
+        self.sampling = {"temperature": z((batch,), torch.float32),
+                         "top_k": z((batch,), torch.int32),
+                         "top_p": z((batch,), torch.float32),
+                         "key": z((batch, 2), torch.int64),
+                         "step": z((batch,), torch.int32)}
+        self.start = z((batch,), torch.int32)
+        self.valid = z((batch,), torch.int32)
+        self.pf_mask = z((batch,), torch.bool)
+        self.tokens: dict[int, torch.Tensor] = {}
+        self.table = self.length = None
+        if max_blocks is not None:
+            self.table = z((batch, max_blocks), torch.int32)
+            self.length = z((batch,), torch.int32)
+
+    def chunk_tokens(self, width: int) -> torch.Tensor:
+        t = self.tokens.get(width)
+        if t is None:
+            t = self.tokens[width] = torch.zeros(
+                (self.tok.shape[0], width), dtype=torch.int32,
+                device=self.tok.device)
+        return t
+
+
+def _scan_step(cfg, params, state, carry, row_mask, sampling):
+    """`models.transformer.decode_scan_step` in a step's argument order
+    (weights, state, then the tensor inputs)."""
+    return T.decode_scan_step(params, cfg, state, carry, row_mask=row_mask,
+                              sampling=sampling)
 
 
 def pages_for_request(prompt_len: int, max_new: int, page_size: int) -> int:
@@ -234,20 +299,74 @@ class ContinuousBatcher:
             pc = config.prefill_chunk or 4 * self.page_size
             self.prefill_chunk_tokens = -(-pc // self.page_size) * \
                 self.page_size
-            self._chunk_prefill_fns: dict[int, object] = {}
+            # (hist_blocks, use_fused_prefill, kv dtype spec) -> chunk step
+            self._chunk_prefill_fns: dict[tuple, object] = {}
             self.prefilling: dict[int, dict] = {}   # row -> toks/cursor/S
             self._pf_rr = 0
-        self._init_state, self._prefill, self._decode = make_serve_fns(
-            cfg, max_len=self.max_len, paged=self.paged, n_pages=self.n_pages,
-            kv_cache_dtype=self.kv_cache_dtype, device=self.device)
+        # the compiled dispatch: graphs on the card for the paged backend
+        # (the contiguous cache keeps its length on the host: eager)
+        self._dispatch = GraphDispatch(
+            self.device, enabled=self.paged and self._on_card())
+        # (steps, kv dtype spec) -> decode-scan chunk step
+        self._chunk_fns: dict[tuple, object] = {}
+        self._sample_fn = self._dispatch.step(
+            functools.partial(SMP.sample_at_step, vocab=cfg.vocab),
+            name="sample", copy_in=(0,))
+        self._make_serve_fns()
+        self._inputs: _Inputs | None = None
         self.queue: deque[Request] = deque()
         self.rows: list[Request | None] = [None] * self.batch
         self.pos = np.zeros((self.batch,), np.int32)
         self.tok = np.zeros((self.batch, 1), np.int32)
         self.state = None
 
-    def _dev(self, a: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(a, device=self.device)
+    def _make_serve_fns(self):
+        """The state initializer, the contiguous prefill and the per-token
+        decode step for the current storage format (the reference jits
+        the last two again at a flip)."""
+        self._init_state, self._prefill, decode = make_serve_fns(
+            self.cfg, max_len=self.max_len, paged=self.paged,
+            n_pages=self.n_pages, kv_cache_dtype=self.kv_cache_dtype,
+            device=self.device)
+        self._decode = self._dispatch.step(decode, name="decode",
+                                           opaque=(0, 2), state_arg=2)
+        self._scan_step = self._dispatch.step(
+            functools.partial(_scan_step, self.cfg), name="decode_scan_step",
+            opaque=(0, 1), state_arg=1)
+        # what a capture's warm-up runs on: a paged state of the live one's
+        # structure (batch, table width, per-layer dtypes) over 2 pages
+        self._dispatch.scratch = functools.partial(
+            T.init_decode_state, self.cfg, self.batch, self.max_len,
+            paged=True, n_pages=2, kv_cache_dtype=self.kv_cache_dtype,
+            device=self.device)
+
+    def _new_state(self) -> list:
+        """A fresh paged state and its step inputs; every layer reads the
+        inputs' page table."""
+        state = self._init_state(self.batch)
+        self._inputs = _Inputs(self.batch, self.max_len, self.max_blocks,
+                              self.device)
+        for c in state:
+            c.page_table = self._inputs.table
+        return state
+
+    def _bufs(self) -> _Inputs:
+        if self._inputs is None:          # contiguous: no table, no lengths
+            self._inputs = _Inputs(self.batch, self.max_len, None,
+                                  self.device)
+        return self._inputs
+
+    def _upload(self, dst: torch.Tensor, a) -> torch.Tensor:
+        """Copy host array ``a`` into the persistent tensor ``dst``, in
+        order on the current stream. On the card through a pinned block
+        of the caching host allocator, which keeps the block until the
+        copy has landed, so the next tick's upload never rewrites bytes
+        still in flight: no host sync."""
+        src = torch.from_numpy(np.ascontiguousarray(a))
+        if self._on_card():
+            src = src.pin_memory()
+        dst.copy_(src, non_blocking=True)
+        return dst
 
     def _layer_dtypes(self) -> tuple[str, ...]:
         """The pools' dtype, one per layer."""
@@ -383,10 +502,11 @@ class ContinuousBatcher:
                    and not self.rows[i].sampling.is_greedy for i in idxs)
 
     def _sampling_arrays(self, offset: int) -> dict:
-        """Per-row sampling tensors on the batcher's device for the whole
-        batch (empty rows greedy). Each row's next token index is its generated count
-        plus ``offset``: 0 for the first token from prefill logits, 1 in
-        decode (the pending token holds index len(generated))."""
+        """Per-row sampling tensors for the whole batch (empty rows
+        greedy), uploaded into the persistent buffers. Each row's next
+        token index is its generated count plus ``offset``: 0 for the
+        first token from prefill logits, 1 in decode (the pending token
+        holds index len(generated))."""
         sps, keys, steps = [], [], []
         for r in self.rows:
             sps.append(r.sampling if r is not None
@@ -395,19 +515,27 @@ class ContinuousBatcher:
                         if r is not None and not r.sampling.is_greedy
                         else None)
             steps.append((len(r.generated) if r is not None else 0) + offset)
-        return SMP.device_arrays(sampling_arrays(sps, steps=steps, keys=keys),
-                                 self.device)
+        arrays = sampling_arrays(sps, steps=steps, keys=keys)
+        arrays["key"] = arrays["key"].astype(np.int64)
+        out = self._bufs().sampling
+        for k, t in out.items():
+            self._upload(t, arrays[k])
+        return out
+
+    def _draw(self, logits, idxs, *, offset: int) -> torch.Tensor:
+        """Next token of every row on the device, honouring each request's
+        parameters (the decode scan's draw, at the host boundary, through
+        ``_sample_fn``); ``idxs`` are the rows whose draw the caller
+        reads."""
+        if not self._needs_sampling(idxs):
+            return SMP.greedy(logits, self.cfg.vocab)
+        s = self._sampling_arrays(offset)
+        return self._sample_fn(logits, s["temperature"], s["top_k"],
+                               s["top_p"], s["key"], s["step"])
 
     def _sample_rows(self, logits, idxs, *, offset: int) -> np.ndarray:
-        """Next token of every row, honouring each request's parameters
-        (the decode scan's draw, at the host boundary); ``idxs`` are the
-        rows whose draw the caller reads."""
-        if not self._needs_sampling(idxs):
-            return SMP.greedy(logits, self.cfg.vocab).cpu().numpy()
-        s = self._sampling_arrays(offset)
-        return SMP.sample_at_step(
-            logits, s["temperature"], s["top_k"], s["top_p"], s["key"],
-            s["step"], vocab=self.cfg.vocab).cpu().numpy()
+        """`_draw`, read on the host."""
+        return self._draw(logits, idxs, offset=offset).cpu().numpy()
 
     # -- lifecycle helpers -------------------------------------------------
     def _record_first_token(self, r: Request):
@@ -562,10 +690,12 @@ class ContinuousBatcher:
                 f"resident in the pool; drain the engine first "
                 f"(DESIGN.md §9, §10)")
         self.kv_cache_dtype = want
-        self._init_state, self._prefill, self._decode = make_serve_fns(
-            self.cfg, max_len=self.max_len, paged=True, n_pages=self.n_pages,
-            kv_cache_dtype=want, device=self.device)
         self.state = None                      # rebuilt next tick
+        self._inputs = None
+        # the graphs point into the old state: dropped, never replayed;
+        # the keys stay, as the reference's trace caches do
+        self._dispatch.new_generation()
+        self._make_serve_fns()
         self._demote_queue.clear()
         self._promo_events.clear()
         self._new_allocator()
@@ -666,20 +796,54 @@ class ContinuousBatcher:
         self.decode_tokens_computed += n * len(active)
         if self.paged and self.cow_armed and self._cow_retarget(active, n):
             self._sync_device()          # retargeted tables before the scan
-        tok, pos = self._dev(self.tok), self._dev(self.pos)
-        mask = None if row_mask is None else self._dev(row_mask)
+        out = self._launch_decode(active, row_mask, n)
+        if n == 1:
+            return self._finish_tick(active, out.cpu().numpy())
+        pending, toks = out
+        return self._finish_chunk(active, toks.cpu().numpy(),
+                                  pending.cpu().numpy())
+
+    def _launch_decode(self, active: list[int], row_mask, n: int):
+        """Enqueue one decode chunk of ``n`` steps, reading nothing back:
+        the uploads into the persistent inputs, then ``_decode`` and the
+        draw (n == 1) or the n-step scan (`_chunk_fn`). Returns the draws
+        (B,) on the device (n == 1), else (pending (B, 1), emitted (n, B))
+        in the persistent buffers, valid until the next dispatch."""
+        b = self._bufs()
+        tok, pos = self._upload(b.tok, self.tok), self._upload(b.pos, self.pos)
+        mask = None if row_mask is None else self._upload(b.mask, row_mask)
         if n == 1:
             logits, self.state = self._decode(self.params, tok, self.state,
                                               pos, mask)
-            return self._finish_tick(
-                active, self._sample_rows(logits, active, offset=1))
+            return self._draw(logits, active, offset=1)
         sampling = (self._sampling_arrays(1)
                     if self._needs_sampling(active) else None)
-        pending, self.state, toks = T.decode_scan(
-            self.params, tok, self.cfg, self.state, pos, steps=n,
-            row_mask=mask, sampling=sampling)
-        return self._finish_chunk(active, toks.cpu().numpy(),
-                                  pending.cpu().numpy())
+        self.state = self._chunk_fn(n)(self.params, self.state, mask,
+                                       sampling)
+        return b.tok, b.carry["emitted"][:n]
+
+    def _chunk_fn(self, n: int):
+        """The n-step decode scan, keyed ``(n, kv_cache_dtype)`` as the
+        reference's jitted chunk fns (one entry per storage format, and a
+        flip back finds its key): n calls of ``_scan_step`` on the
+        persistent carry, so every length replays the same graph, and a
+        flip, which rebuilds ``_scan_step``, never serves another
+        format's."""
+        key = (n, self.kv_cache_dtype)
+        fn = self._chunk_fns.get(key)
+        if fn is None:
+            fn = self._chunk_fns[key] = functools.partial(self._scan, n)
+        return fn
+
+    def _scan(self, n: int, params, state, row_mask, sampling):
+        """``n`` steps of the decode scan from the uploaded ``tok`` and
+        ``pos``: the carry's step index is reset, then each step is one
+        call (on the card, one replay) of ``_scan_step``."""
+        carry = self._inputs.carry
+        carry["j"].zero_()
+        for _ in range(n):
+            state = self._scan_step(params, state, carry, row_mask, sampling)
+        return state
 
     def _release_row(self, i: int):
         """Free row ``i``. Paged: with the prefix cache its fully kept
@@ -734,9 +898,11 @@ class ContinuousBatcher:
         count into each pool's host mirror."""
         lengths = np.where(np.asarray([r is not None for r in self.rows]),
                            self.pos, 0).astype(np.int32)
-        table, length = self._dev(self.tables), self._dev(lengths)
+        b = self._inputs
+        self._upload(b.table, self.tables)
+        self._upload(b.length, lengths)
         for c in self.state:
-            c.page_table, c.length = table, length
+            c.length.copy_(b.length)
             c.pool.n_free = self.allocator.n_free
 
     # -- contiguous backend --------------------------------------------------
@@ -785,8 +951,9 @@ class ContinuousBatcher:
             toks = np.zeros((self.batch, S), np.int32)
             for i, h in hist.items():
                 toks[i, S - len(h):] = h       # left-pad
-            logits, self.state = self._prefill(self.params, self._dev(toks),
-                                               self.state)
+            logits, self.state = self._prefill(
+                self.params, torch.as_tensor(toks, device=self.device),
+                self.state)
             nxt = self._sample_rows(logits, active, offset=0)
             for i in active:
                 r = self.rows[i]
@@ -961,16 +1128,21 @@ class ContinuousBatcher:
         return True
 
     def _chunk_prefill_fn(self, max_start: int):
-        """Chunk fn for a dispatch whose deepest cursor is ``max_start``
+        """Chunk step for a dispatch whose deepest cursor is ``max_start``
         tokens: the history walk is bounded by the cursor in pages rounded
-        up to a power of two (the reference's compile set)."""
+        up to a power of two (the reference's compile set). Keyed
+        ``(hist_blocks, True, kv_cache_dtype)`` as the reference's: the
+        fused flag is True (the port refuses ``use_fused_prefill=False``,
+        ROADMAP queue 1, item 13)."""
         blocks = -(-max_start // self.page_size)
         hb = 0 if blocks == 0 else min(1 << (blocks - 1).bit_length(),
                                        self.max_blocks)
-        fn = self._chunk_prefill_fns.get(hb)
+        key = (hb, True, self.kv_cache_dtype)
+        fn = self._chunk_prefill_fns.get(key)
         if fn is None:
-            fn = self._chunk_prefill_fns[hb] = make_chunk_prefill_fn(
-                self.cfg, hist_blocks=hb)
+            fn = self._chunk_prefill_fns[key] = self._dispatch.step(
+                make_chunk_prefill_fn(self.cfg, hist_blocks=hb),
+                name=f"chunk_prefill[{hb}]", opaque=(0, 2), state_arg=2)
         return fn
 
     def _chunk_width(self, rem: int) -> int:
@@ -1011,9 +1183,11 @@ class ContinuousBatcher:
             start[i] = st["cursor"]
             valid[i] = c
             mask[i] = True
+        b = self._inputs
         logits, self.state = self._chunk_prefill_fn(int(start.max()))(
-            self.params, self._dev(toks), self.state, self._dev(start),
-            self._dev(valid), self._dev(mask))
+            self.params, self._upload(b.chunk_tokens(w), toks), self.state,
+            self._upload(b.start, start), self._upload(b.valid, valid),
+            self._upload(b.pf_mask, mask))
         self._progressed = True
         self.prefill_tokens_computed += int(valid.sum())
         sampled = None
@@ -1467,7 +1641,7 @@ class ContinuousBatcher:
         watermark the worst-case reservation makes growth impossible and
         the pass does not run."""
         if self.state is None:
-            self.state = self._init_state(self.batch)
+            self.state = self._new_state()
         self.allocator.tick()
         if self._promo_events:
             self._sync_promotions()

@@ -18,8 +18,12 @@ sync, and seeded sampled and prefix-cached smoke tokens on the card
 against the CPU; the host tier: a demoted page's record holds its bytes
 from before the page's overwrite, a swap restore equal to the
 unpressured run and to the CPU's, and no host sync in the preemption
-pass, a promotion or a decode step with one in flight. Skipped where
-there is no card; imports
+pass, a promotion or a decode step with one in flight; the compiled
+dispatch: captured-graph serving against eager on the card and against
+the CPU (greedy, seeded, rows masked while others prefill, a per-layer
+plan, a swap restore: tokens, pool bits and launch counts), a flip
+dropping the old graphs and their memory, and replayed decode chunks
+and ticks with no host sync. Skipped where there is no card; imports
 no JAX (the card's machine has none).
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
@@ -873,7 +877,6 @@ def test_no_host_sync_with_a_promotion_in_flight(cuda_device):
     step of the other row while that promotion is in flight, each with any
     host sync an error; the restored stream equals the unpressured one."""
     from repro_torch.core.paging import PoolFaultInjector
-    from repro_torch.models import transformer as T
     cfg, params = _smoke_f32()
     dev_params = _to(params, cuda_device)
     base = _tier_engine(cuda_device, dev_params, cfg)
@@ -898,22 +901,244 @@ def test_no_host_sync_with_a_promotion_in_flight(cuda_device):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert issued == len(chain) and len(a.inflight) == issued
-    b._sync_device()
-    mask = np.zeros((b.batch,), bool)
-    mask[0] = True
-    tok, pos, row_mask = b._dev(b.tok), b._dev(b.pos), b._dev(mask)
-    kept = [(c.resid_k, c.resid_v, c.length) for c in b.state]
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        T.decode_scan(b.params, tok, cfg, b.state, pos, steps=1,
-                      row_mask=row_mask)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    for c, (rk, rv, n) in zip(b.state, kept):
-        c.resid_k, c.resid_v, c.length = rk, rv, n
-    # the probe's residuals and lengths put back: the engine computes row
-    # 0's step again (a page it flushed gets the same bytes)
+    # row 0's decode step with the promotion in flight, replayed from the
+    # engine's own graph and then dispatched eagerly; the probe's residuals
+    # and lengths put back each time: the engine computes row 0's step
+    # again (a page it flushed gets the same bytes)
+    assert _probe_decode(b, [0]) == 1
+    b._dispatch.enabled = False
+    assert _probe_decode(b, [0]) == 0
+    b._dispatch.enabled = True
     assert _drain(b, outs) == base
     assert b.preempt_swap_restores == 1 and not a.inflight
+
+
+# -- the compiled dispatch: captured CUDA graphs on the paged path ----------
+
+def _probe_decode(b, rows, n=1):
+    """chip_smoke's `probe_decode`: one decode dispatch of ``rows`` on the
+    batcher's live state as a tick runs it up to its read (tables and
+    lengths pushed, inputs uploaded, the replays of the engine's own
+    graphs), with any host sync an error; the residuals and lengths it
+    advances are put back."""
+    import sys
+    from pathlib import Path
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from chip_smoke import probe_decode
+    return probe_decode(b, rows, n)
+
+
+def _launch_counts():
+    return (QA.paged_decode_partials_cuda.launches,
+            dict(QA.paged_decode_partials_cuda.launches_by_dtype),
+            QP.paged_prefill_cuda.launches,
+            dict(QP.paged_prefill_cuda.launches_by_dtype))
+
+
+def _count_delta(after, before):
+    return tuple(a - b if isinstance(a, int) else
+                 {k: a[k] - b[k] for k in a} for a, b in zip(after, before))
+
+
+GRAPH_SPS = {
+    "greedy": [None] * 5,
+    "sampled": [None, dict(temperature=0.7, top_k=50, seed=11), None,
+                dict(temperature=1.0, top_p=0.9, seed=12),
+                dict(temperature=0.8, top_k=40, top_p=0.95)]}
+GRAPH_CASES = {
+    "greedy": ("greedy", dict(batch=2, max_len=128)),
+    "sampled-chunk4": ("sampled", dict(batch=2, max_len=128, chunk=4)),
+    "masked-prefill16": ("sampled", dict(batch=3, max_len=128,
+                                         prefill_chunk=16, chunk=2)),
+    "plan-int8-int4": ("greedy", dict(batch=2, max_len=128, prefill_chunk=8,
+                                      kv_cache_dtype=("int8", "int4"))),
+    "tier-swap-restore": ("tier", {}),
+}
+
+
+def _graph_case(name, device, params, cfg, eager=False):
+    """Serve one of GRAPH_CASES; returns (tokens, batcher, launch counts
+    of the run). ``eager`` forces eager dispatch on the card."""
+    from repro_torch.serving import (EngineConfig, LLMEngine, SamplingParams)
+    mix, config = GRAPH_CASES[name]
+    before = _launch_counts()
+    if mix == "tier":
+        b = _tier_engine(device, params, cfg, host_pages=32)
+        b._dispatch.enabled = b._dispatch.enabled and not eager
+        outs = _decode_pair(b, cfg)
+        for i in (0, 1):
+            b._preempt_row(i)
+        a = b.allocator
+        a.release(a.alloc(len(a.free) + len(a.lru)))
+        toks = _drain(b, outs)
+        assert b.preempt_swap_restores == 2
+    else:
+        eng = LLMEngine(params, cfg, EngineConfig(paged=True, **config),
+                        device=device)
+        b = eng.batcher
+        b._dispatch.enabled = b._dispatch.enabled and not eager
+        rng = np.random.RandomState(7)
+        prompts = [rng.randint(0, cfg.vocab, (n,)).astype(np.int32)
+                   for n in (13, 70, 5, 40, 21)]
+        sps = [SamplingParams(max_new_tokens=9, **sp) if sp else
+               SamplingParams.greedy(max_new_tokens=9)
+               for sp in GRAPH_SPS[mix]]
+        toks = [o.token_ids for o in eng.generate(prompts, sps)]
+    torch.cuda.synchronize()
+    return toks, b, _count_delta(_launch_counts(), before)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(GRAPH_CASES))
+def test_graphed_serving_equals_eager_and_cpu(case, cuda_device):
+    """The paged engine replaying captured graphs (the default on the
+    card) against the same engine forced eager on the card and against
+    the CPU: identical tokens (greedy and seeded, rows masked while others
+    prefill, a per-layer plan, a swap restore through the host tier),
+    every layer's pool pages and scales the same bits, and the launch
+    counters advanced through the replays exactly as the eager launches
+    did."""
+    cfg, params = _smoke_f32()
+    dev_params = _to(params, cuda_device)
+    graphed, gb, gcounts = _graph_case(case, cuda_device, dev_params, cfg)
+    eager, eb, ecounts = _graph_case(case, cuda_device, dev_params, cfg,
+                                     eager=True)
+    cpu, _, _ = _graph_case(case, "cpu", params, cfg)
+    assert graphed == eager == cpu
+    d = gb._dispatch
+    assert d.enabled and d.captures > 0 and d.replays > d.captures
+    assert eb._dispatch.captures == 0
+    assert gcounts == ecounts and gcounts[0] > 0 and gcounts[2] > 0
+    for gc, ec in zip(gb.state, eb.state):
+        for n in ("k_q", "v_q", "k_s", "v_s"):
+            g, e = getattr(gc.pool, n)[1:], getattr(ec.pool, n)[1:]
+            assert torch.equal(g.view(torch.uint8) if g.dtype != torch.float32
+                               else g.view(torch.int32),
+                               e.view(torch.uint8) if e.dtype != torch.float32
+                               else e.view(torch.int32)), n
+
+
+@pytest.mark.gpu
+def test_long_budget_replays_one_scan_graph(cuda_device):
+    """Two requests of 200 new tokens (one seeded) under the default chunk
+    (no stop condition: chunks of 128 steps and down): the tokens graphed
+    equal eager and the CPU's, and what is captured does not grow with
+    the chunk: every chunk length replays the decode-scan step's graph of
+    its shape key."""
+    from repro_torch.serving import EngineConfig, LLMEngine, SamplingParams
+    cfg, params = _smoke_f32()
+    dev_params = _to(params, cuda_device)
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(0, cfg.vocab, (n,)).astype(np.int32)
+               for n in (13, 21)]
+    sps = [SamplingParams.greedy(max_new_tokens=200),
+           SamplingParams(temperature=0.8, top_k=40, seed=3,
+                          max_new_tokens=200)]
+
+    def serve(device, p, eager=False):
+        eng = LLMEngine(p, cfg, EngineConfig(batch=2, max_len=256,
+                                             paged=True), device=device)
+        b = eng.batcher
+        b._dispatch.enabled = b._dispatch.enabled and not eager
+        return [o.token_ids for o in eng.generate(prompts, sps)], b
+
+    graphed, gb = serve(cuda_device, dev_params)
+    eager, _ = serve(cuda_device, dev_params, eager=True)
+    cpu, _ = serve("cpu", params)
+    assert graphed == eager == cpu and list(map(len, graphed)) == [200, 200]
+    chunks = {n for n, _ in gb._chunk_fns}
+    scans = [c for c in gb._dispatch.captured
+             if c["step"] == "decode_scan_step"]
+    assert max(chunks) >= 64 and len(chunks) >= 3
+    assert 1 <= len(scans) <= 2
+    assert gb._dispatch.replays >= sum(chunks)
+
+
+def _pool_segments(pool) -> int:
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+
+@pytest.mark.gpu
+def test_flip_drops_the_graphs_and_their_memory(cuda_device):
+    """An idle flip int8 -> int4 drops every graph of the old generation
+    (none replays again), memory_allocated falls back to its level before
+    the engine and the old graph pool is released; the keys survive, a
+    flip back recaptures, and each side serves a fresh engine's tokens."""
+    from repro_torch.serving import EngineConfig, LLMEngine, SamplingParams
+    cfg, params = _smoke_f32()
+    p = _to(params, cuda_device)
+    rng = np.random.RandomState(9)
+    prompts = [rng.randint(0, cfg.vocab, (n,)).astype(np.int32)
+               for n in (30, 50)]
+    sp = SamplingParams.greedy(max_new_tokens=6)
+    conf = dict(batch=2, max_len=128, paged=True, prefill_chunk=16)
+    serve = lambda e: [o.token_ids for o in e.generate(prompts, sp)]
+    serve(LLMEngine(p, cfg, EngineConfig(**conf), device=cuda_device))
+    torch.cuda.synchronize()
+    level = torch.cuda.memory_allocated(cuda_device)
+    eng = LLMEngine(p, cfg, EngineConfig(**conf), device=cuda_device)
+    b = eng.batcher
+    first = serve(eng)
+    d = b._dispatch
+    steps = lambda: list(d._steps)
+    pool, gen, captures = d.pool, d.generation, d.captures
+    assert captures > 0 and d.pool_bytes() > 0
+    keys = set(b._chunk_prefill_fns) | set(b._chunk_fns)
+    b.config.kv_cache_dtype = "int4"
+    b._ensure_backend_dtype()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(cuda_device) <= level
+    assert d.generation == gen + 1 and not any(s.graphs for s in steps())
+    torch.cuda.empty_cache()
+    assert _pool_segments(pool) == 0
+    flipped = serve(eng)
+    fresh = serve(LLMEngine(p, cfg, EngineConfig(kv_cache_dtype="int4",
+                                                 **conf), device=cuda_device))
+    assert flipped == fresh and d.captures > captures
+    assert keys <= set(b._chunk_prefill_fns) | set(b._chunk_fns)
+    captures = d.captures
+    b.config.kv_cache_dtype = "int8"
+    assert serve(eng) == first and d.captures > captures
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mix", ["greedy", "sampled"])
+def test_replayed_decode_chunk_makes_no_host_sync(mix, cuda_device):
+    """A 4-step decode-scan chunk (greedy; one row seeded) and, under a
+    watermark, a per-token tick, each replayed from the engine's graph
+    with any host sync an error; the engine then finishes as if never
+    probed."""
+    from repro_torch.serving import (ContinuousBatcher, EngineConfig,
+                                     Request, SamplingParams)
+    cfg, params = _smoke_f32()
+    p = _to(params, cuda_device)
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(0, cfg.vocab, (n,)).astype(np.int32)
+               for n in (17, 19)]
+    sps = [SamplingParams.greedy(max_new_tokens=16),
+           SamplingParams.greedy(max_new_tokens=16) if mix == "greedy" else
+           SamplingParams(temperature=0.9, seed=7, max_new_tokens=16)]
+
+    def run(probe, **conf):
+        b = ContinuousBatcher(p, cfg, EngineConfig(
+            batch=2, max_len=64, paged=True, **conf), device=cuda_device)
+        for i, (pr, s) in enumerate(zip(prompts, sps)):
+            b.submit(Request(uid=i, prompt=pr, sampling=s))
+        outs, probed = {}, False
+        for _ in range(200):
+            for r in b.step():
+                outs[r.uid] = list(r.generated)
+            rows = [r for r in b.rows if r is not None]
+            if probe and not probed and len(rows) == 2 \
+                    and not b.prefilling and len(rows[0].generated) >= 4:
+                _probe_decode(b, [0, 1], n=conf.get("chunk", 1))
+                probed = True
+            if len(outs) == 2:
+                return outs
+        raise AssertionError("the requests did not complete")
+
+    for conf in (dict(chunk=4), dict(chunk=1, watermark=1, n_pages=12)):
+        assert run(True, **conf) == run(False, **conf)
