@@ -18,7 +18,11 @@ Phases, each fatal on failure (no fallback anywhere):
      an empty row and a ring row, length 3000 in a window of 1024; both
      per channel also at the generate path's T = 1032, partial last tiles;
      the seed timed at full lengths and at lengths 1, which must take at
-     least SEED_LEN1_MIN of the first: it reads every slot); the
+     least SEED_LEN1_MIN of the first: it reads every slot); paged decode,
+     paged prefill (both dispatches), flat decode (both granularities)
+     and the bf16 flash forward (the 1536 rebuild) also at the other
+     served models' H / H_kv 32 / 32, 24 / 8 and 40 / 8 (GQA groups 1, 3
+     and 5; correctness only, the timed shapes unchanged); the
      flash forward in bf16 at the training shape (4, 16, 2048, 128) causal
      and the contiguous prefill's 1536 rebuild, with a window and
      kv_offset, and at an odd S in float32; the quantize family bitwise at
@@ -68,7 +72,10 @@ Phases, each fatal on failure (no fallback anywhere):
      with the prefix cache, hit == miss, the rejected dtype request, the
      idle flips int8 -> plan -> int8 and the grouped revisit through a
      6-page host tier with and without int4 at rest, with identical
-     tokens, reports and errors.
+     tokens, reports and errors; the smoke configs of llama3_2_3b,
+     codeqwen1_5_7b, qwen2_5_32b and qwen2_moe_a2_7b in float32 with
+     seeded non-zero QKV biases: identical greedy tokens from the paged
+     and the contiguous LLMEngine.
   5. the slices at full width: internlm2_1_8b with random bf16 weights from
      a seeded torch.Generator serves 5 greedy requests through the paged
      LLMEngine and through the contiguous one (batch 4, max_len 2048). Every
@@ -126,7 +133,22 @@ Phases, each fatal on failure (no fallback anywhere):
      runs greedy_generate per block (a block flush in every layer) and per
      channel (batch 4, 1000-token prompts, 32 steps); the seed baseline
      runs over the contiguous cache's shape beside flat decode; then, the
-     serving weights freed, the train CLI's entry point takes 3 steps at
+     serving weights freed, the other served models one at a time, each
+     freed before the next (random bf16 weights from a seeded generator,
+     QKV biases seeded non-zero): llama3_2_3b, codeqwen1_5_7b,
+     qwen2_5_32b (64 layers, 65.5 GB of weights) and qwen2_moe_a2_7b
+     (60 experts, top 4, 4 shared) serve the five prompts through the
+     paged LLMEngine graphed on a fresh engine and graphed again (the
+     same tokens, 48 a request inside the vocabulary; the decode-scan
+     step and chunk prefill captured; paged decode and prefill launched
+     n_layers times a step and a chunk), with parameter bytes, tok/s,
+     TTFT p50, peak memory, captures and one replayed decode step's
+     device time against the weights it streams at 3.35 TB/s; the MoE
+     also eager (tokens, pool bits and launches = graphed), with
+     requests 1, 3 and 4 sampled graphed and eager, and a decode step
+     and chunk replayed with any host sync an error; llama3_2_3b and the
+     MoE also through the contiguous LLMEngine; then the train CLI's
+     entry point takes 3 steps at
      batch 4 x 2048 and 1 more with --grad-compression (step 0's loss held
      against the plain flash forward's). The kernels' launch counters are
      set to 0 just before each path and must be > 0 just after for every
@@ -138,6 +160,7 @@ Exits non-zero without a CUDA device or without the repository's src/.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import subprocess
@@ -165,6 +188,10 @@ ATOL, RTOL = 1e-5, 1e-4
 # bf16 ulp
 ATOL_BF16 = RTOL_BF16 = 2.0 ** -8
 FLASH_TILE = 64                # keys per kernel tile (csrc/flash_fwd.cu)
+# (H, H_kv) of the other served models at D 128, checked beside the main
+# path's 16 / 8: GQA groups 1 (codeqwen1_5_7b; MHA, as qwen2_moe_a2_7b's
+# 16 / 16), 3 (llama3_2_3b) and 5 (qwen2_5_32b)
+GROUP_WIDTHS = ((32, 32), (24, 8), (40, 8))
 PREFILL_ROWS = 64              # query rows per tile (csrc/paged_prefill.cu)
 # the full-width train step's loss through the kernel vs through the
 # plain flash forward, bf16 model: relative
@@ -329,6 +356,23 @@ def check_decode(dev, gen):
         if ex > 1.0 or not all(bool(torch.isfinite(g).all()) for g in got):
             raise AssertionError(f"paged decode {kv_dtype}: kernel vs plain "
                                  f"off by {err:.3e} ({ex:.2f}x tolerance)")
+        for H2, Hkv2 in GROUP_WIDTHS:        # the other served groups
+            pool2 = make_pool(kv_dtype, n_pages, Hkv2, D, ps, gen, dev)
+            q2 = torch.randn((B, H2, D), generator=gen, device=dev)
+            a2 = (q2, *pool2, table, lengths, kv_dtype)
+            got2 = QA.paged_decode_partials_cuda(*a2)
+            torch.cuda.synchronize()
+            want2 = QA.paged_decode_partials_plain(*a2)
+            e2 = max(float((g - w).abs().max()) for g, w in zip(got2, want2))
+            x2 = max(excess(g, w) for g, w in zip(got2, want2))
+            if x2 > 1.0 or not all(bool(torch.isfinite(g).all())
+                                   for g in got2):
+                raise AssertionError(
+                    f"paged decode {kv_dtype} H/H_kv {H2}/{Hkv2}: kernel vs "
+                    f"plain off by {e2:.3e} ({x2:.2f}x tolerance)")
+            log(f"[decode] {kv_dtype} H/H_kv {H2}/{Hkv2} (G {H2 // Hkv2}): "
+                f"max_abs_err {e2:.3e} ({x2:.3f}x tolerance)")
+            err, ex = max(err, e2), max(ex, x2)
         # timing at the main path's decode shape
         tl = torch.tensor(t_len, dtype=torch.int32, device=dev)
         tq, ttab = q[:tB].contiguous(), table[:tB].contiguous()
@@ -376,7 +420,8 @@ def check_decode(dev, gen):
     out["check_shapes"] = (f"q ({B},{H},{D}) f32; pool ({B * NT + 1},ps_packed,"
                            f"{Hkv},{D}); page_table ({B},{NT}); lengths "
                            f"{lengths.tolist()}; (splits, pages a split) "
-                           f"{splits[B]}")
+                           f"{splits[B]}; also H/H_kv "
+                           f"{', '.join(f'{a}/{b}' for a, b in GROUP_WIDTHS)}")
     out["timed_shapes"] = (f"q ({tB},{H},{D}); page {ps}; lengths {t_len}; "
                            f"(splits, pages a split) {splits[tB]}")
     return out
@@ -399,6 +444,17 @@ def check_prefill(dev, gen):
         pool = make_pool(kv_dtype, n_pages, Hkv, D, ps, gen, dev)
         table = page_table(B, NT, n_pages, gen, dev)
         row = {"dtype": kv_dtype, "max_abs_err": 0.0, "worst_tol_ratio": 0.0}
+        for H2, Hkv2 in GROUP_WIDTHS:        # the other served groups
+            pool2 = make_pool(kv_dtype, n_pages, Hkv2, D, ps, gen, dev)
+            for C, hl, vd in dispatches:
+                e2, x2 = _prefill_check(
+                    f"paged prefill {kv_dtype} H/H_kv {H2}/{Hkv2} C={C}",
+                    B, H2, Hkv2, C, D, hl, vd, pool2, table, ps, kv_dtype,
+                    gen, dev)
+                row["max_abs_err"] = max(row["max_abs_err"], e2)
+                row["worst_tol_ratio"] = max(row["worst_tol_ratio"], x2)
+            log(f"[prefill] {kv_dtype} H/H_kv {H2}/{Hkv2} (G {H2 // Hkv2}): "
+                f"both dispatches within tolerance, row tiles past valid 0.0")
         for di, (C, hl, vd) in enumerate(dispatches):
             hist = torch.tensor(hl, dtype=torch.int32, device=dev)
             valid = torch.tensor(vd, dtype=torch.int32, device=dev)
@@ -489,7 +545,8 @@ def check_prefill(dev, gen):
         out["per_dtype"].append(row)
     out["check_shapes"] = "; ".join(
         f"C={C} q ({B},{H},{C},{D}) hist_len {hl} valid {vd}"
-        for C, hl, vd in dispatches)
+        for C, hl, vd in dispatches) + (
+        f"; also H/H_kv {', '.join(f'{a}/{b}' for a, b in GROUP_WIDTHS)}")
     out["timed_shapes"] = (f"C=1024 q ({B},{H},1024,{D}) hist_len "
                            f"{dispatches[0][1]} valid {dispatches[0][2]}, "
                            f"hist_blocks 8, page {ps}")
@@ -502,6 +559,45 @@ def check_prefill(dev, gen):
                              "the kernel for CUDA tensors")
     return out
 
+
+
+def _prefill_check(label, B, H, Hkv, C, D, hl, vd, pool, table, ps,
+                   kv_dtype, gen, dev):
+    """Paged prefill against its plain version on fresh q / k / v at
+    (B, H, H_kv, C, D) over ``pool``: rows below ``valid`` within the
+    tolerance, row tiles past it 0.0. Returns (max |err|, multiple of the
+    tolerance)."""
+    import torch
+    from repro_torch.kernels import quant_attention as QA
+    from repro_torch.kernels import quant_prefill as QP
+    G = H // Hkv
+    hist = torch.tensor(hl, dtype=torch.int32, device=dev)
+    valid = torch.tensor(vd, dtype=torch.int32, device=dev)
+    hb = 1 << (-(-max(hl) // ps) - 1).bit_length()
+    q = torch.randn((B, H, C, D), generator=gen, device=dev)
+    k = torch.randn((B, Hkv, C, D), generator=gen, device=dev)
+    v = torch.randn((B, Hkv, C, D), generator=gen, device=dev)
+    qg = (q.reshape(B, Hkv, G * C, D) * QA.logit_scale(D)).contiguous()
+    args = (qg, k, v, *pool, table, hist, valid, hb, kv_dtype)
+    got = QP.paged_prefill_cuda(*args)
+    torch.cuda.synchronize()
+    want = QP.paged_prefill_plain(*args)
+    got4, want4 = got.reshape(B, H, C, D), want.reshape(B, H, C, D)
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{label}: a non-finite output")
+    err = ex = 0.0
+    for b in range(B):
+        g, w = got4[b, :, :vd[b]], want4[b, :, :vd[b]]
+        e, x = float((g - w).abs().max()), excess(g, w)
+        if x > 1.0:
+            raise AssertionError(f"{label} row {b}: kernel vs plain off by "
+                                 f"{e:.3e} ({x:.2f}x tolerance)")
+        err, ex = max(err, e), max(ex, x)
+        dead = -(-vd[b] // PREFILL_ROWS) * PREFILL_ROWS
+        if dead < C and float(got4[b, :, dead:].abs().max()):
+            raise AssertionError(f"{label} row {b}: a row tile past "
+                                 f"valid={vd[b]} is not 0.0")
+    return err, ex
 
 
 def _flat_quant(mode, k, v, bs):
@@ -569,6 +665,17 @@ def check_flat_decode(dev, gen):
             e2, x2 = _flat_check(f"flat decode {mode} T={Tp}", (
                 q, *_flat_quant(mode, kp, vp, bs), lp, wp))
             err, ex = max(err, e2), max(ex, x2)
+        for H2, Hkv2 in GROUP_WIDTHS:        # the other served groups
+            k2 = torch.randn((B, Hkv2, T, D), generator=gen, device=dev)
+            v2 = torch.randn((B, Hkv2, T, D), generator=gen, device=dev)
+            q2 = torch.randn((B, H2, D), generator=gen, device=dev)
+            e2, x2 = _flat_check(
+                f"flat decode {mode} H/H_kv {H2}/{Hkv2}",
+                (q2, *_flat_quant(mode, k2, v2, bs), lengths, windows))
+            log(f"[flat_decode] {mode} H/H_kv {H2}/{Hkv2} (G {H2 // Hkv2}): "
+                f"max_abs_err {e2:.3e} ({x2:.3f}x tolerance)")
+            err, ex = max(err, e2), max(ex, x2)
+            del k2, v2
         targs = (q, kq, ks, vq, vs, full, full)
         # the serving call adds no host sync: it must run with any sync an
         # error (the split count comes from shapes, never from lengths)
@@ -609,7 +716,8 @@ def check_flat_decode(dev, gen):
                            f"int8, block {bs} or per channel; lengths "
                            f"{lengths.tolist()} windows {windows.tolist()}; "
                            f"per channel also k/v ({B},{Hkv},{Tp},{D}) "
-                           f"lengths {lp.tolist()}")
+                           f"lengths {lp.tolist()}; also H/H_kv "
+                           f"{', '.join(f'{a}/{b}' for a, b in GROUP_WIDTHS)}")
     out["timed_shapes"] = (f"k/v ({B},{Hkv},{T},{D}), lengths {[T] * B}; "
                            f"L2 flushed; (splits, slots a split) "
                            f"{splits[T]}")
@@ -728,6 +836,14 @@ def check_flash(dev, gen):
          256, 512),
         ("odd S f32", (2, 16, 8, 999, 999, 128), torch.float32, True, None,
          0),
+        # the other served groups at the contiguous prefill's rebuild: G 1
+        # (64 positions a tile), 3 (21 in 63 rows), 5 (12 in 60 rows)
+        *((f"prefill 1536 H/H_kv {h}/{hk}", (4, h, hk, 1536, 1536, 128),
+           torch.bfloat16, True, None, 0) for h, hk in GROUP_WIDTHS),
+        ("G 3 window+offset", (2, 24, 8, 300, 812, 128), torch.bfloat16,
+         True, 256, 512),
+        ("G 5 odd S f32", (2, 40, 8, 999, 999, 128), torch.float32, True,
+         None, 0),
     ]
     worst = {"max_abs_err": 0.0}
     for label, shape, dt, causal, window, off in cases:
@@ -1867,6 +1983,66 @@ def parity_mixed(dev):
             f"reports and errors identical on cpu and card")
 
 
+# -- the other served architectures ------------------------------------------
+
+SERVED = ("llama3_2_3b", "codeqwen1_5_7b", "qwen2_5_32b", "qwen2_moe_a2_7b")
+BIAS_STD = 0.5                 # the seeded QKV biases (init draws zeros)
+
+
+def seeded_biases(params, cfg, seed: int):
+    """QKV biases drawn N(0, BIAS_STD^2) from a numpy seed in place of
+    init's zeros, so a path that dropped a bias would show."""
+    import numpy as np
+    import torch
+    if cfg.qkv_bias:
+        rng = np.random.RandomState(seed)
+        for layer in params["layers"]:
+            for n in ("bq", "bk", "bv"):
+                b = layer["attn"][n]
+                b.copy_(torch.from_numpy(BIAS_STD * rng.randn(
+                    *b.shape).astype(np.float32)).to(b.dtype))
+    return params
+
+
+def parity_archs(dev):
+    """The four other served architectures' smoke configs in float32 with
+    seeded QKV biases: the paged and the contiguous LLMEngine give the same
+    greedy tokens on the card (kernels, graphed paged steps) and on the
+    CPU (plain versions)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import EngineConfig, LLMEngine, SamplingParams
+    for arch in SERVED:
+        cfg = dataclasses.replace(get_config(arch, smoke=True),
+                                  dtype="float32")
+        params = seeded_biases(T.init_params(
+            cfg, torch.Generator().manual_seed(0), device="cpu"), cfg, 1)
+        rng = np.random.RandomState(7)
+        prompts = [rng.randint(0, cfg.vocab, (n,)).astype(np.int32)
+                   for n in (13, 70, 5, 40, 21)]
+        sps = [SamplingParams.greedy(max_new_tokens=n)
+               for n in (8, 9, 5, 7, 8)]
+        for paged in (True, False):
+            streams = {}
+            for d in ("cpu", dev):
+                eng = LLMEngine(_to(params, d), cfg, EngineConfig(
+                    batch=2, max_len=128, paged=paged), device=d)
+                streams[str(d)] = [o.token_ids
+                                   for o in eng.generate(prompts, sps)]
+            label = f"{arch} smoke f32 {'paged' if paged else 'contiguous'}"
+            if streams["cpu"] != streams[str(dev)]:
+                raise AssertionError(f"{label}: greedy tokens differ: cpu "
+                                     f"{streams['cpu']} vs card "
+                                     f"{streams[str(dev)]}")
+            log(f"[parity] {label}: {sum(map(len, streams['cpu']))} greedy "
+                f"tokens identical on cpu (plain versions) and card "
+                f"(kernels)")
+
+
 # -- phase 5: the slices at full width ---------------------------------------
 
 def _counters():
@@ -1903,12 +2079,15 @@ def _run_path(dev, label: str, needs: tuple, fn):
     return res, wall, counts, torch.cuda.max_memory_allocated(dev)
 
 
-def serve_full_width(dev, params, cfg, paged: bool, eager: bool = False):
+def serve_full_width(dev, params, cfg, paged: bool, eager: bool = False,
+                     tag: str = ""):
     """Phase 5's five greedy requests through the paged (captured graphs,
     or with ``eager`` every step dispatched eagerly) or the contiguous
-    LLMEngine. Returns (launch counts, tokens, layer 0's prompt pages)."""
+    LLMEngine (``tag`` names the model in the log). Returns (launch
+    counts, tokens, layer 0's prompt pages)."""
     from repro_torch.serving import EngineConfig, LLMEngine, SamplingParams
     label = ("paged eager" if eager else "paged") if paged else "contiguous"
+    label = f"{tag} {label}" if tag else label
     needs = (("paged_decode", "paged_prefill") if paged
              else ("flat_decode", "quantize_blocked", "flash_fwd"))
     eng = LLMEngine(params, cfg, EngineConfig(batch=4, max_len=2048,
@@ -3446,6 +3625,195 @@ def long_generation(dev, params, cfg, card: str, against: str = "tick"):
     return res, graphed["launches"]
 
 
+def weight_bytes(params, cfg) -> dict:
+    """Bytes of the parameters: all of them; what a decode step streams
+    (all but the embedding table, of which it gathers B rows: an MoE's
+    dispatch runs every expert over its capacity slots, so every expert's
+    weights); and, for an MoE, what one token's route needs (the k experts
+    it picks in each layer, not the other E - k)."""
+    total = sum(t.numel() * t.element_size() for t in _leaves(params))
+    emb = params["embed"]
+    out = {"params": sum(t.numel() for t in _leaves(params)), "total": total,
+           "decode_step": total - emb.numel() * emb.element_size()}
+    if cfg.n_experts:
+        m = params["layers"][0]["moe"]
+        expert = sum(m[n][0].numel() * m[n].element_size()
+                     for n in ("w_gate", "w_up", "w_down"))
+        out["routed_per_token"] = total - cfg.n_layers * (
+            cfg.n_experts - cfg.top_k) * expert
+    return out
+
+
+def decode_step_time(eng, cfg, sps, probe: bool = False) -> dict:
+    """On a served graphed engine: the five prompts again, stepped until
+    two rows decode; then one decode step of those rows (n = 1: the
+    decode graph and the draw's) once to capture what it needs, and
+    timed five times by CUDA events around the dispatch, the rows'
+    residuals and lengths put back after each: the least. With ``probe``
+    the dispatch of one step and of the scheduler's next chunk then run
+    with any host sync an error (`probe_decode`). The requests then
+    drain."""
+    import numpy as np
+    import torch
+    b = eng.batcher
+    for p, sp in zip(serve_prompts(cfg), sps):
+        eng.add_request(p, sp)
+    for _ in range(200):
+        active = [i for i, r in enumerate(b.rows)
+                  if r is not None and i not in b.prefilling]
+        if len(active) >= 2:
+            break
+        eng.step()
+    else:
+        raise AssertionError(f"{cfg.name}: two rows never decoded")
+    mask = np.zeros((b.batch,), bool)
+    mask[active] = True
+    n = b._chunk_len(active)
+    for steps in sorted({1, n}):        # capture what the probes replay
+        kept = _kept(b)
+        b._launch_decode(active, mask, steps)
+        torch.cuda.synchronize()
+        _put_back(b, kept)
+    times = []
+    for _ in range(5):
+        kept = _kept(b)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        e0.record()
+        b._launch_decode(active, mask, 1)
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+        _put_back(b, kept)
+    out = {"rows": len(active), "step_ms": min(times), "step_ms_all": times}
+    if probe:
+        out["probe_replays"] = {1: probe_decode(b, active, 1),
+                                n: probe_decode(b, active, n)}
+    while eng.has_unfinished():
+        eng.step()
+    return out
+
+
+def arch_full_width(dev, arch: str, card: str) -> dict:
+    """Phase 5 for one of the other served architectures, at full width
+    with random bf16 weights from a seeded torch.Generator (QKV biases
+    seeded non-zero): the five greedy prompts through the paged LLMEngine
+    graphed on a fresh engine (captures included) and graphed again on
+    it (replays only: the same tokens), every request 48 tokens inside
+    the vocabulary; paged decode launched n_layers times a decode step and
+    paged prefill n_layers times a chunk; one replayed decode step's
+    device time against the weights it streams at 3.35 TB/s. The MoE
+    also runs the prompts eager (tokens, pool bits and launches equal to
+    graphed), the sampled mix (requests 1, 3 and 4 sampled) graphed and
+    eager, and a decode step and chunk probed for host syncs; it and
+    llama3_2_3b also serve the contiguous backend. Returns the launch
+    counts by path."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import SamplingParams
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params = seeded_biases(T.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev), cfg, 0)
+    torch.cuda.synchronize()
+    wb = weight_bytes(params, cfg)
+    log(f"[{arch}] {wb['params']} params, {wb['total']} bytes (bf16; "
+        f"norms, router and gate float32) on the card in "
+        f"{time.perf_counter() - t0:.2f} s ({cfg.n_layers} layers, H/H_kv "
+        f"{cfg.n_heads}/{cfg.n_kv_heads}, d {cfg.d_model}); "
+        f"memory_allocated {torch.cuda.memory_allocated(dev)}; {card}")
+    label = f"serve {arch} paged"
+    greedy = [SamplingParams.greedy(max_new_tokens=48)] * 5
+    geng, toks, graphed = graph_cell(dev, params, cfg, greedy,
+                                     f"{label} graphed")
+    if list(map(len, toks)) != [48] * 5 or not all(
+            0 <= t < cfg.vocab for ts in toks for t in ts):
+        raise AssertionError(f"{label}: token budgets {list(map(len, toks))}"
+                             f" or a token outside the vocabulary")
+    if cfg.n_experts:                   # eager beside the first graphed run
+        eeng, etoks, eager = graph_cell(dev, params, cfg, greedy,
+                                        f"{label} eager", eager=True)
+        if etoks != toks or not same_pools(geng.batcher, eeng.batcher) \
+                or eager["launches"] != graphed["launches"]:
+            raise AssertionError(f"{label}: eager tokens, pools or "
+                                 f"launches differ from graphed")
+        del eeng
+    _, wtoks, warm = graph_cell(dev, params, cfg, greedy,
+                                f"{label} graphed again", eng=geng)
+    if wtoks != toks:
+        raise AssertionError(f"{label}: graphed again gives other tokens")
+    L, counts = cfg.n_layers, graphed["launches"]
+    if counts["paged_decode"] % L or counts["paged_prefill"] % L:
+        raise AssertionError(f"{label}: launches {counts} are not whole "
+                             f"steps of {L} layers")
+    graphs = graph_report(geng.batcher)
+    steps = {c["step"].split("[")[0] for c in graphs["captured"]}
+    if not {"decode_scan_step", "chunk_prefill"} <= steps:
+        raise AssertionError(f"{label}: captured {sorted(steps)}")
+    step = decode_step_time(geng, cfg, greedy, probe=bool(cfg.n_experts))
+    bound_ms = wb["decode_step"] / HBM_BYTES_PER_S * 1e3
+    res = {"arch": arch, "card": card, "weight_bytes": wb,
+           "graphed": graphed, "graphed_again": warm, "graphs": graphs,
+           "decode_step": step, "decode_step_bound_ms": bound_ms,
+           "decode_steps": counts["paged_decode"] // L,
+           "prefill_chunks": counts["paged_prefill"] // L}
+    out = {f"{label} graphed": counts}
+    log(f"[{label}] 5/5 requests, 240 tokens: graphed (captures included) "
+        f"{graphed['tokens_per_s']:.2f} tok/s, TTFT p50 "
+        f"{graphed['ttft_s_p50'] * 1e3:.1f} ms; graphed again "
+        f"{warm['tokens_per_s']:.2f} tok/s, TTFT p50 "
+        f"{warm['ttft_s_p50'] * 1e3:.1f} ms, same tokens; "
+        f"max_memory_allocated {graphed['max_memory_allocated_bytes']} "
+        f"bytes; {graphs['captures']} graphs captured in "
+        f"{graphs['capture_ms']:.1f} ms; paged_decode {counts['paged_decode']}"
+        f" launches = {L} layers x {res['decode_steps']} steps, "
+        f"paged_prefill {counts['paged_prefill']} = {L} x "
+        f"{res['prefill_chunks']} chunks; one replayed decode step "
+        f"{step['step_ms']:.3f} ms on the device against "
+        f"{bound_ms:.3f} ms to stream {wb['decode_step']} weight bytes at "
+        f"3.35 TB/s ({bound_ms / step['step_ms']:.3f} of the bound)"
+        + (f"; one token's route needs {wb['routed_per_token']} of them"
+           if cfg.n_experts else "") + f"; {card}")
+    if cfg.n_experts:
+        mix = [SAMPLED_MIX[0], SAMPLED_MIX[1], SAMPLED_MIX[0],
+               SAMPLED_MIX[2], SAMPLED_MIX[3]]
+        sps = [SamplingParams(max_new_tokens=48, **kw) for kw in mix]
+        seng, stoks, sgraphed = graph_cell(dev, params, cfg, sps,
+                                           f"{label} sampled graphed")
+        teng, ttoks, seager = graph_cell(dev, params, cfg, sps,
+                                         f"{label} sampled eager",
+                                         eager=True)
+        if stoks != ttoks or not same_pools(seng.batcher, teng.batcher):
+            raise AssertionError(f"{label} sampled: graphed and eager "
+                                 f"tokens or pools differ")
+        if [stoks[i] for i in (0, 2)] != [toks[i] for i in (0, 2)] or \
+                any(stoks[i] == toks[i] for i in (1, 3)):
+            raise AssertionError(f"{label} sampled: greedy rows differ "
+                                 f"from the greedy run or sampled rows "
+                                 f"equal it")
+        del seng, teng
+        res.update({"eager": eager, "sampled_graphed": sgraphed,
+                    "sampled_eager": seager})
+        out[f"{label} sampled graphed"] = sgraphed["launches"]
+        log(f"[{label}] eager: tokens, pool bits and launches equal "
+            f"graphed; {eager['tokens_per_s']:.2f} tok/s, TTFT p50 "
+            f"{eager['ttft_s_p50'] * 1e3:.1f} ms; sampled (requests 1, 3, 4"
+            f") graphed = eager tokens and pools, greedy rows = the greedy "
+            f"run's; graphed {sgraphed['tokens_per_s']:.2f} tok/s, eager "
+            f"{seager['tokens_per_s']:.2f} tok/s; decode step and a "
+            f"{max(step['probe_replays'])}-step chunk replayed with no host "
+            f"sync; {card}")
+    del geng
+    if arch in ("llama3_2_3b", "qwen2_moe_a2_7b"):
+        out[f"serve {arch} contiguous"] = serve_full_width(
+            dev, params, cfg, paged=False, tag=arch)[0]
+    log(f"[{label}] " + json.dumps(res))
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 def generate_full_width(dev, params, cfg, granularity: str):
     """greedy_generate, 4 prompts of 1000 tokens, 32 steps. Per channel
     (the paper's setting): one 1000-token prefill (block 8), 32 decode
@@ -3801,6 +4169,7 @@ def main() -> int:
     parity_overload(dev)
     parity_tiering(dev)
     parity_mixed(dev)
+    parity_archs(dev)
     log(f"[parity] in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -3833,8 +4202,16 @@ def main() -> int:
         "paper": paper["launches"],
         "seed baseline": seed_path(dev, gen)}
     log(f"[serve] phase in {time.perf_counter() - t0:.1f} s")
-    del params                     # the serving weights make way for training
+    del params                     # the serving weights make way for the
+    gc.collect()                   # other models, one at a time
     torch.cuda.empty_cache()
+    for arch in SERVED:
+        t0 = time.perf_counter()
+        path_counts.update(arch_full_width(dev, arch, card))
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[{arch}] phase in {time.perf_counter() - t0:.1f} s, "
+            f"memory_allocated after {torch.cuda.memory_allocated(dev)}")
     t0 = time.perf_counter()
     path_counts.update(train_full_width(dev))
     log(f"[train] phase in {time.perf_counter() - t0:.1f} s")

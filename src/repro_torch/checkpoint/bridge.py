@@ -2,14 +2,17 @@
 numpy arrays, and the port's trees.
 
 The reference stacks its layers on a leading ``n_groups`` axis under
-``tree["blocks"]["p0"]`` (one attention block per group for a dense
-stack) and holds ``embed``, ``lm_head`` and ``final_norm`` beside it; the
+``tree["blocks"]["p0"]`` (one block per group for a stack of one block
+kind) and holds ``embed``, ``lm_head`` and ``final_norm`` beside it; the
 port keeps a list of per-layer dicts under ``layers``. Arrays go through
 float32, which is exact for bfloat16 (numpy's ml_dtypes bfloat16 cannot
 go through `torch.from_numpy`).
 
 - `params_from_numpy`: the reference's ``init_params`` tree -> the port's
-  parameters, in the config's dtype (norm scales float32) on ``device``.
+  parameters, in the config's dtype (norm scales, an MoE's router and
+  shared-expert gate float32) on ``device``: attention with its QKV
+  biases, and an MLP or an MoE (stacked experts (E, d, f) / (E, f, d),
+  shared experts) per layer.
 - `opt_state_from_numpy`: the reference's ``init_opt_state`` tree (m, v,
   master, step, optional grad_err) -> the port's (`training.step`).
 - `tree_to_numpy`: the port's parameters (or moments, master weights) ->
@@ -41,16 +44,21 @@ def _tensor(a, dtype, device) -> torch.Tensor:
                                                         dtype=dtype)
 
 
+# the leaves the reference keeps in float32 whatever the model's dtype: the
+# norm scales and an MoE's router and shared-expert gate
+_F32 = {"final_norm", "norm1", "norm2", "router", "shared_gate"}
+
+
 def _port_layout(tree, cfg, device, dtype_of) -> dict:
     """Reference layout -> port layout; each leaf a tensor of
-    ``dtype_of(is_norm)``, layers as copies (not views of a stack)."""
+    ``dtype_of(is_float32_leaf)``, layers as copies (not views of a
+    stack)."""
     ref = _stacked_ref(tree, cfg)
-    norms = {"final_norm", "norm1", "norm2"}
 
-    def conv(node, norm=False):
+    def conv(node, f32=False):
         if isinstance(node, dict):
-            return {k: conv(v, norm or k in norms) for k, v in node.items()}
-        return _tensor(node, dtype_of(norm), device)
+            return {k: conv(v, f32 or k in _F32) for k, v in node.items()}
+        return _tensor(node, dtype_of(f32), device)
     port = unstack_layers(conv(ref))
     port["layers"] = tree_map(lambda x: x.clone(), port["layers"])
     return port
@@ -60,7 +68,7 @@ def params_from_numpy(tree, cfg, device) -> dict:
     check_servable(cfg)
     dt = cfg.activation_dtype
     return _port_layout(tree, cfg, device,
-                        lambda norm: torch.float32 if norm else dt)
+                        lambda f32: torch.float32 if f32 else dt)
 
 
 def opt_state_from_numpy(tree, cfg, device) -> dict:

@@ -4,9 +4,12 @@ with random weights from a seeded `torch.Generator`.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2_1_8b \
         --max-len 2048 --batch 4 --requests 5 --prompt-len 1000 --max-new 48
 
-The contiguous cache by default; ``--paged`` serves from the page pool
-(implied by ``--prefix-cache``, ``--prefill-chunk``, a
-``--kv-cache-dtype`` other than int8 and ``--kv-cache-plan``).
+``--arch`` is any ported architecture: internlm2_1_8b, llama3_2_3b,
+codeqwen1_5_7b, qwen2_5_32b (QKV bias) or qwen2_moe_a2_7b (MoE, QKV
+bias); ``--smoke`` takes its reduced config. The contiguous cache by
+default; ``--paged`` serves from the page pool (implied by
+``--prefix-cache``, ``--prefill-chunk``, a ``--kv-cache-dtype`` other
+than int8 and ``--kv-cache-plan``).
 ``--kv-cache-plan PLAN_JSON`` stores each layer at the dtype a per-layer
 precision plan gives it (``PLAN_kv_mixed.json`` is one, for 4 layers:
 ``--smoke --layers 4``); it excludes ``--kv-cache-dtype``.
@@ -30,10 +33,13 @@ import time
 
 
 def main(argv=None):
+    from repro_torch.configs import ARCHS
     from repro_torch.core.quantization import KV_DTYPES
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True,
+                    help=f"one of {', '.join(ARCHS)} (dashes or "
+                    f"underscores)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--layers", type=int, default=None,
                     help="override the architecture's layer count")

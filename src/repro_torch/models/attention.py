@@ -1,5 +1,6 @@
 """GQA attention: training, and serving over the quantized KV cache (port
-of ``repro.models.attention`` for dense stacks).
+of ``repro.models.attention`` for full-attention stacks, with or without
+QKV bias).
 
 Training:
     train(...)          full causal (optionally sliding-window) attention,
@@ -38,19 +39,28 @@ from repro_torch.models.common import apply_rope, dense_init
 def init(cfg, gen: torch.Generator, device) -> dict:
     d, hd, dt = cfg.d_model, cfg.head_dim, cfg.activation_dtype
     nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
-    return {"wq": dense_init(gen, d, nq, dt, device),
-            "wk": dense_init(gen, d, nkv, dt, device),
-            "wv": dense_init(gen, d, nkv, dt, device),
-            "wo": dense_init(gen, nq, d, dt, device)}
+    p = {"wq": dense_init(gen, d, nq, dt, device),
+         "wk": dense_init(gen, d, nkv, dt, device),
+         "wv": dense_init(gen, d, nkv, dt, device),
+         "wo": dense_init(gen, nq, d, dt, device)}
+    if cfg.qkv_bias:
+        for name, n in (("bq", nq), ("bk", nkv), ("bv", nkv)):
+            p[name] = torch.zeros((n,), dtype=dt, device=device)
+    return p
 
 
 def _project_qkv(p, x, cfg, positions):
-    """x (B, S, d) -> q (B, H, S, hd), k/v (B, Hkv, S, hd), RoPE applied."""
+    """x (B, S, d) -> q (B, H, S, hd), k/v (B, Hkv, S, hd), RoPE applied.
+    A bias joins the product after it is rounded to the activation dtype,
+    as in the reference (a fused ``addmm`` would add it before)."""
     B, S, _ = x.shape
     hd = cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, hd).transpose(1, 2)
-    k = (x @ p["wk"]).reshape(B, S, cfg.n_kv_heads, hd).transpose(1, 2)
-    v = (x @ p["wv"]).reshape(B, S, cfg.n_kv_heads, hd).transpose(1, 2)
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, S, cfg.n_heads, hd).transpose(1, 2)
+    k = k.reshape(B, S, cfg.n_kv_heads, hd).transpose(1, 2)
+    v = v.reshape(B, S, cfg.n_kv_heads, hd).transpose(1, 2)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v

@@ -8,8 +8,9 @@ import torch.nn.functional as F
 from repro_torch.models.common import dense_init
 
 
-def init(cfg, gen: torch.Generator, device) -> dict:
-    d, dff, dt = cfg.d_model, cfg.d_ff, cfg.activation_dtype
+def init(cfg, gen: torch.Generator, device, d_ff: int | None = None) -> dict:
+    """``d_ff`` overrides the config's width (an MoE's shared experts)."""
+    d, dff, dt = cfg.d_model, d_ff or cfg.d_ff, cfg.activation_dtype
     return {"w_gate": dense_init(gen, d, dff, dt, device),
             "w_up": dense_init(gen, d, dff, dt, device),
             "w_down": dense_init(gen, dff, d, dt, device)}

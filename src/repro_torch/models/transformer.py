@@ -1,10 +1,12 @@
 """Decoder-only transformer for training and serving (port of
-``repro.models.transformer``, dense full-attention stacks).
+``repro.models.transformer``, full-attention stacks of ``"attn"`` and
+``"moe"`` blocks).
 
 Parameters are a dict: ``embed`` (Vp, d), ``lm_head`` (d, Vp),
 ``final_norm``, and ``layers`` — one dict per layer (norm1, attn, norm2,
-mlp). The reference stacks layers on a leading axis for ``lax.scan``; the
-port keeps a list and loops over layers, and `decode_scan` over its
+and mlp for an ``"attn"`` block or moe for a ``"moe"`` one). The
+reference stacks layers on a leading axis for ``lax.scan``; the port
+keeps a list and loops over layers, and `decode_scan` over its
 steps (`decode_scan_step`, in place on a carry whose indices live on the
 device). On the card the paged server captures a decode step, one step of
 a scan, or a prompt chunk as one CUDA graph and replays it, a scan's step
@@ -24,7 +26,7 @@ from repro_torch.core import quantization as Q
 from repro_torch.core.kvcache import QuantizedKVCache
 from repro_torch.core.paging import PagedQuantizedKVCache
 from repro_torch.core.tree import leaves, tree_map
-from repro_torch.models import attention, mlp
+from repro_torch.models import attention, mlp, moe
 from repro_torch.models import sampling as SMP
 from repro_torch.models.common import (dense_init, embed_init, rmsnorm,
                                        rmsnorm_init)
@@ -49,14 +51,17 @@ def check_device(device) -> torch.device:
 
 
 def check_servable(cfg) -> None:
-    """The port serves dense full-attention stacks only (the ring cache of
-    sliding windows is ported, but no servable config reaches it yet)."""
-    bad = [k for k in cfg.block_pattern if k != "attn"]
-    if bad or cfg.sliding_window or cfg.tie_embeddings or cfg.qkv_bias \
+    """The port serves full-attention RMSNorm stacks of "attn" and "moe"
+    blocks, with or without QKV bias (the reference's paged server takes
+    the same kinds; the ring cache of sliding windows is ported, but no
+    servable config reaches it yet)."""
+    bad = [k for k in cfg.block_pattern if k not in ("attn", "moe")]
+    if bad or cfg.sliding_window or cfg.tie_embeddings \
             or cfg.mrope_sections or cfg.norm != "rmsnorm":
         raise NotImplementedError(
-            f"{cfg.name}: the port serves dense full-attention RMSNorm "
-            f"stacks only; other architectures are ROADMAP queue 1, item 15")
+            f"{cfg.name}: the port serves full-attention RMSNorm stacks of "
+            f"attn and moe blocks only; other architectures are ROADMAP "
+            f"queue 1, item 15")
 
 
 def init_params(cfg, generator: torch.Generator | None = None, *,
@@ -74,13 +79,15 @@ def init_params(cfg, generator: torch.Generator | None = None, *,
         "lm_head": dense_init(generator, cfg.d_model, Vp, dt, device),
         "layers": [],
     }
-    for _ in range(cfg.n_layers):
-        params["layers"].append({
-            "norm1": rmsnorm_init(cfg.d_model, device),
-            "attn": attention.init(cfg, generator, device),
-            "norm2": rmsnorm_init(cfg.d_model, device),
-            "mlp": mlp.init(cfg, generator, device),
-        })
+    for i in range(cfg.n_layers):
+        layer = {"norm1": rmsnorm_init(cfg.d_model, device),
+                 "attn": attention.init(cfg, generator, device),
+                 "norm2": rmsnorm_init(cfg.d_model, device)}
+        if cfg.block_kind(i) == "moe":
+            layer["moe"] = moe.init(cfg, generator, device)
+        else:
+            layer["mlp"] = mlp.init(cfg, generator, device)
+        params["layers"].append(layer)
     return params
 
 
@@ -138,12 +145,15 @@ def unstack_layers(tree) -> dict:
 
 
 def check_trainable(cfg) -> None:
-    """The port trains the dense family only (and, through `init_params`,
-    the dense stacks it serves)."""
-    if cfg.family != "dense":
+    """The port trains the dense family without QKV bias only (and,
+    through `init_params`, the stacks it serves); MoE and QKV-bias models
+    are served, their training waits on a slice that tests it."""
+    if cfg.family != "dense" or cfg.qkv_bias:
+        what = f"{cfg.family!r} models" if cfg.family != "dense" \
+            else "QKV-bias models"
         raise NotImplementedError(
-            f"{cfg.name}: the port trains the dense family only; "
-            f"{cfg.family!r} models are ROADMAP queue 1, item 15")
+            f"{cfg.name}: the port trains the dense family without QKV "
+            f"bias only; {what} are ROADMAP queue 1, item 15")
 
 
 # -- training -----------------------------------------------------------------
@@ -206,6 +216,8 @@ def _block_serve(p, x, cfg, positions, cache, mode: str, row_mask=None,
     else:
         raise ValueError(f"unknown serving mode {mode!r}")
     x = x + h.to(x.dtype)
+    if "moe" in p:
+        return x + moe.apply(p["moe"], rmsnorm(p["norm2"], x), cfg)[0]
     return x + mlp.apply(p["mlp"], rmsnorm(p["norm2"], x))
 
 

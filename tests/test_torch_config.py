@@ -1,5 +1,8 @@
-"""The port's configs equal the reference's, field by field."""
+"""The port's configs equal the reference's, field by field: internlm2_1_8b
+and the four served beside it (llama3_2_3b, codeqwen1_5_7b, qwen2_5_32b,
+qwen2_moe_a2_7b), full and smoke; an architecture not yet ported raises."""
 import dataclasses
+import importlib
 
 import jax
 import numpy as np
@@ -21,10 +24,11 @@ def _same(ref_val, port_val):
     return ref_val == port_val
 
 
-@pytest.mark.parametrize("variant", ["config", "smoke"])
-def test_every_field_matches_reference(variant):
-    ref = getattr(ref_cfg, variant)()
-    port = getattr(port_cfg, variant)()
+NEW_ARCHS = ("llama3_2_3b", "codeqwen1_5_7b", "qwen2_5_32b",
+             "qwen2_moe_a2_7b")
+
+
+def _fields_match(ref, port, variant):
     ref_fields = [f.name for f in dataclasses.fields(ref)]
     assert [f.name for f in dataclasses.fields(port)] == ref_fields
     for name in ref_fields:
@@ -37,6 +41,21 @@ def test_every_field_matches_reference(variant):
             assert _same(rv, pv), (variant, name, rv, pv)
 
 
+@pytest.mark.parametrize("variant", ["config", "smoke"])
+def test_every_field_matches_reference(variant):
+    _fields_match(getattr(ref_cfg, variant)(), getattr(port_cfg, variant)(),
+                  variant)
+
+
+@pytest.mark.parametrize("variant", ["config", "smoke"])
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_served_arch_fields_match_reference(arch, variant):
+    ref = getattr(importlib.import_module(f"repro.configs.{arch}"), variant)
+    port = getattr(importlib.import_module(f"repro_torch.configs.{arch}"),
+                   variant)
+    _fields_match(ref(), port(), variant)
+
+
 @pytest.mark.parametrize("smoke", [False, True])
 def test_registry_resolves_like_reference(smoke):
     for name in ("internlm2_1_8b", "internlm2-1_8b"):
@@ -44,4 +63,12 @@ def test_registry_resolves_like_reference(smoke):
             port_cfg, "smoke" if smoke else "config")()
         assert get_config(name, smoke).name == ref_get(name, smoke).name
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("llama3_2_3b")
+        get_config("mixtral_8x22b")
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_served_arch_resolves_like_reference(arch, smoke):
+    for name in (arch, arch.replace("_", "-")):
+        got, ref = get_config(name, smoke), ref_get(name, smoke)
+        _fields_match(ref, got, "smoke" if smoke else "config")

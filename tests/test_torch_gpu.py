@@ -7,12 +7,18 @@ chunks of 512 and 1024 with row tiles past `valid`, which must come out
 channel (ring windows included; both also at batches 2 to 40, from
 16 splits of their slot walk to one, window 0 and T 1032),
 the flash forward (float32 on the CUDA cores and bfloat16 on the tensor
-cores; causal, windowed, offset, ragged, GQA groups of 1 to 8), the
+cores; causal, windowed, offset, ragged, GQA groups of 1 to 8, and at
+D 128 the served models' groups 1, 3 and 5), the paged kernels and flat
+decode also at H / H_kv 32 / 32, 24 / 8 and 40 / 8 (codeqwen1_5_7b,
+llama3_2_3b, qwen2_5_32b), the
 quantize/dequantize family — at the smoke shapes and at internlm2_1_8b's
 widths (the blocked kernel's slabs also at a flush, at blocks of 24
 and 8 and at D 16 to 8192); the smoke engines' greedy tokens on the card
 against the CPU (paged and contiguous, and `greedy_generate`); and the
-smoke train step's loss on the card against the CPU; threefry bits on the card
+smoke train step's loss on the card against the CPU; the other served
+architectures' smoke tokens (llama3_2_3b, codeqwen1_5_7b, qwen2_5_32b,
+qwen2_moe_a2_7b; QKV biases non-zero) on both backends against the CPU;
+threefry bits on the card
 against the committed known answers and the CPU, the sampler with no host
 sync, and seeded sampled and prefix-cached smoke tokens on the card
 against the CPU; the host tier: a demoted page's record holds its bytes
@@ -53,8 +59,11 @@ from torch_parity import cuda_device  # noqa: F401  (fixture)
 
 DTYPES = ["int8", "fp8_e4m3", "int4"]
 TOL = dict(atol=1e-5, rtol=1e-4)
-# (H, H_kv, D, page) — the smoke config's widths and the full model's
-WIDTHS = [(4, 2, 16, 8), (16, 8, 128, 256)]
+# (H, H_kv, D, page) — the smoke config's widths and the full model's,
+# then the other served models' GQA groups: G = 1 (codeqwen1_5_7b; MHA, as
+# qwen2_moe_a2_7b), 3 (llama3_2_3b) and 5 (qwen2_5_32b)
+WIDTHS = [(4, 2, 16, 8), (16, 8, 128, 256), (32, 32, 128, 256),
+          (24, 8, 128, 256), (40, 8, 128, 256)]
 
 
 def _pool(kv_dtype, n_pages, Hkv, D, ps, gen, dev):
@@ -320,7 +329,15 @@ FLASH_CASES = [(2, 4, 2, 37, 37, 16, True, None, 0),
                (2, 8, 8, 100, 100, 64, True, None, 0),
                (1, 16, 2, 77, 77, 128, True, None, 0),
                # a 64-key window starting mid-tile, crossing tile edges
-               (1, 16, 8, 150, 214, 128, True, 64, 64)]
+               (1, 16, 8, 150, 214, 128, True, 64, 64),
+               # the served models' groups at D 128: G = 1 (32 / 32), G = 3
+               # (24 / 8: 21 positions in 63 rows a tile) and G = 5 (40 /
+               # 8: 12 positions in 60 rows)
+               (1, 32, 32, 130, 130, 128, True, None, 0),
+               (2, 24, 8, 300, 300, 128, True, None, 0),
+               (1, 24, 8, 257, 300, 128, True, 50, 43),
+               (2, 40, 8, 300, 300, 128, True, None, 0),
+               (1, 40, 8, 200, 264, 128, True, None, 64)]
 
 
 @pytest.mark.gpu
@@ -641,6 +658,39 @@ def test_smoke_engine_tokens_match_cpu(cuda_device):
         return x.to(cuda_device)
 
     assert run(cuda_device, to(params)) == run("cpu", params)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3_2_3b", "codeqwen1_5_7b",
+                                  "qwen2_5_32b", "qwen2_moe_a2_7b"])
+def test_served_arch_smoke_tokens_match_cpu(arch, cuda_device):
+    """The other served architectures' smoke configs (float32, QKV biases
+    drawn non-zero): the paged engine (graphed on the card) and the
+    contiguous one give the CPU's greedy tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import EngineConfig, LLMEngine, SamplingParams
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    for layer in params["layers"]:
+        for name, b in layer["attn"].items():
+            if name.startswith("b"):
+                b.copy_(0.5 * torch.randn(b.shape, generator=gen))
+    rng = np.random.RandomState(7)
+    prompts = [rng.randint(0, cfg.vocab, (n,)).astype(np.int32)
+               for n in (13, 70, 5, 40, 21)]
+    sp = SamplingParams.greedy(max_new_tokens=8)
+
+    def run(device, paged):
+        eng = LLMEngine(_to(params, device), cfg, EngineConfig(
+            batch=2, max_len=128, paged=paged), device=device)
+        return [o.token_ids for o in eng.generate(prompts, sp)]
+
+    for paged in (True, False):
+        assert run(cuda_device, paged) == run("cpu", paged), paged
 
 
 @pytest.mark.gpu
