@@ -17,10 +17,10 @@ Phases, each fatal on failure (no fallback anywhere):
      decode and the seed baseline per block and per channel (mixed lengths,
      an empty row and a ring row, length 3000 in a window of 1024; both
      per channel also at the generate path's T = 1032, partial last tiles;
-     the seed timed at full lengths and at lengths 1, which must take at
-     least SEED_LEN1_MIN of the first: it reads every slot); paged decode,
-     paged prefill (both dispatches), flat decode (both granularities)
-     and the bf16 flash forward (the 1536 rebuild) also at the other
+     the seed timed at full lengths and at lengths 1 in turns, whose
+     median must reach SEED_LEN1_MIN of the first's: it reads every slot);
+     paged decode, paged prefill (both dispatches), flat decode (both
+     granularities) and the bf16 flash forward (the 1536 rebuild) also at the other
      served models' H / H_kv 32 / 32, 24 / 8 and 40 / 8 (GQA groups 1, 3
      and 5; correctness only, the timed shapes unchanged); the
      flash forward in bf16 at the training shape (4, 16, 2048, 128) causal
@@ -39,7 +39,15 @@ Phases, each fatal on failure (no fallback anywhere):
      the worst multiple of the tolerance over the checks, paged prefill's
      second bound (its split bf16 products at the tensor-core peak) and
      its row tiles past `valid` checked to be 0.0; the paged, flat and
-     seed decode calls once more with any host sync an error.
+     seed decode calls once more with any host sync an error; then
+     recurrentgemma_9b's shapes at head width 256 and GQA group 16 (H /
+     H_kv 16 / 1): the flash forward in bf16 and float32, causal with the
+     2048 window over S = 3072 (timed at 4 rows beside SDPA with the
+     window as a boolean mask), flat decode and the seed on a ring of 2048
+     slots (block 256) whose rows have wrapped, windows shortened by the
+     residual tail, an empty row (timed with every slot live), and the
+     blocked quantizer at D 256, block 256, bitwise (a prefill and a
+     flush).
   3. the paper's kernels at its eight (T, D) sizes: quantize per channel,
      quantize blocked (block 256) and dequantize through `kernels.ops`
      (launches counted), each bitwise against its plain version, Eq. 9
@@ -75,7 +83,11 @@ Phases, each fatal on failure (no fallback anywhere):
      tokens, reports and errors; the smoke configs of llama3_2_3b,
      codeqwen1_5_7b, qwen2_5_32b and qwen2_moe_a2_7b in float32 with
      seeded non-zero QKV biases: identical greedy tokens from the paged
-     and the contiguous LLMEngine.
+     and the contiguous LLMEngine; those of recurrentgemma_9b, xlstm_350m
+     and mixtral_8x22b in float32 with the RG-LRU gate vectors seeded per
+     channel: identical greedy tokens from the contiguous LLMEngine
+     (prompts past the window of 16: the ring wraps), and the paged
+     engine's refusal (the reference's ValueError).
   5. the slices at full width: internlm2_1_8b with random bf16 weights from
      a seeded torch.Generator serves 5 greedy requests through the paged
      LLMEngine and through the contiguous one (batch 4, max_len 2048). Every
@@ -147,8 +159,19 @@ Phases, each fatal on failure (no fallback anywhere):
      also eager (tokens, pool bits and launches = graphed), with
      requests 1, 3 and 4 sampled graphed and eager, and a decode step
      and chunk replayed with any host sync an error; llama3_2_3b and the
-     MoE also through the contiguous LLMEngine; then the train CLI's
-     entry point takes 3 steps at
+     MoE also through the contiguous LLMEngine; then recurrentgemma_9b
+     (38 layers, 19.1 GB), xlstm_350m (24 layers) and mixtral_8x22b cut
+     to 4 of its 56 layers (~20.8 GB), one at a time, bf16 weights from a
+     seeded generator (RG-LRU gate vectors seeded), through the
+     contiguous LLMEngine: the five prompts and two past the 2048 window
+     (2500, 3000; mixtral one of 4500 past its 4096), 48 tokens each, with
+     flash forward, flat decode and quantize_blocked launched exactly as
+     predicted from the scheduler's prefills, decode steps and block
+     flushes (xlstm_350m runs no attention kernel), tok/s, TTFT p50, peak
+     memory and the least event-timed decode step against the weight
+     bytes it streams; and, with attention, a prompt of the window's
+     length and 264 tokens, which flush a block into the wrapped ring
+     (launches as predicted); then the train CLI's entry point takes 3 steps at
      batch 4 x 2048 and 1 more with --grad-compression (step 0's loss held
      against the plain flash forward's). The kernels' launch counters are
      set to 0 just before each path and must be > 0 just after for every
@@ -163,6 +186,7 @@ import contextlib
 import gc
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -228,34 +252,44 @@ SPIN_CYCLES = 200_000
 PAIR_SPIN = 4 * SPIN_CYCLES
 
 
-def time_cold_ms(fn, iters: int, warmup: int = 1,
-                 spin: int = SPIN_CYCLES, clean: bool = False) -> float:
-    """Mean ms of ``fn`` with the 50 MB L2 cache evicted (a 256 MB write,
-    which leaves the L2 full of dirty lines: a cold read pays their
-    write-back; ``clean``: a 256 MB read, which leaves clean lines) before
-    each launch; CUDA events bracket ``fn`` alone, and a spin of ``spin``
-    cycles on the card after the flush keeps the host's enqueue off the
-    clock."""
+def time_cold_samples(fns, iters: int, warmup: int = 1,
+                      spin: int = SPIN_CYCLES,
+                      clean: bool = False) -> list[list[float]]:
+    """Per-launch ms of each of ``fns``, launched in turns (fns[0], fns[1],
+    ..., fns[0], ...) so a drift of the card's clock or of the host falls
+    on all of them alike; the L2 cache is evicted before each launch (a
+    256 MB write, which leaves the L2 full of dirty lines: a cold read pays
+    their write-back; ``clean``: a 256 MB read, which leaves clean lines);
+    CUDA events bracket the call alone, and a spin of ``spin`` cycles on
+    the card after the flush keeps the host's enqueue off the clock."""
     import torch
     if not _FLUSH:
         _FLUSH.append(torch.empty(64 << 20, dtype=torch.float32,
                                   device="cuda"))
-    pairs = []
+    pairs = [[] for _ in fns]
     for i in range(warmup + iters):
-        if clean:
-            _FLUSH[0].sum()
-        else:
-            _FLUSH[0].zero_()
-        torch.cuda._sleep(spin)
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        fn()
-        t1.record()
-        if i >= warmup:
-            pairs.append((t0, t1))
+        for fn, got in zip(fns, pairs):
+            if clean:
+                _FLUSH[0].sum()
+            else:
+                _FLUSH[0].zero_()
+            torch.cuda._sleep(spin)
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            fn()
+            t1.record()
+            if i >= warmup:
+                got.append((t0, t1))
     torch.cuda.synchronize()
-    return sum(a.elapsed_time(b) for a, b in pairs) / iters
+    return [[a.elapsed_time(b) for a, b in got] for got in pairs]
+
+
+def time_cold_ms(fn, iters: int, warmup: int = 1,
+                 spin: int = SPIN_CYCLES, clean: bool = False) -> float:
+    """Mean ms of ``fn`` over ``iters`` cold launches (time_cold_samples)."""
+    (ts,) = time_cold_samples([fn], iters, warmup, spin, clean)
+    return sum(ts) / iters
 
 
 def bound_of(nbytes: float, flops: float = 0.0,
@@ -769,13 +803,19 @@ def check_seed_decode(dev, gen):
         finally:
             torch.cuda.set_sync_debug_mode("default")
         targs = (q, kq, ks, vq, vs, full, full)
-        ms = time_cold_ms(lambda: QA.seed_decode_partials_cuda(*targs), 50)
-        ms1 = time_cold_ms(lambda: QA.seed_decode_partials_cuda(
-            q, kq, ks, vq, vs, ones, full), 50)
-        if ms1 < SEED_LEN1_MIN * ms:
-            raise AssertionError(f"seed decode {mode}: {ms1:.4f} ms at "
-                                 f"lengths 1 < {SEED_LEN1_MIN} x {ms:.4f} ms "
-                                 f"at full lengths: it must read every slot")
+        # full lengths and lengths 1 in turns; the check compares medians,
+        # which one launch held up by the host cannot move
+        ts, ts1 = time_cold_samples([
+            lambda: QA.seed_decode_partials_cuda(*targs),
+            lambda: QA.seed_decode_partials_cuda(q, kq, ks, vq, vs, ones,
+                                                 full)], 50)
+        ms, ms1 = sum(ts) / len(ts), sum(ts1) / len(ts1)
+        med, med1 = statistics.median(ts), statistics.median(ts1)
+        if med1 < SEED_LEN1_MIN * med:
+            raise AssertionError(f"seed decode {mode}: median {med1:.4f} ms "
+                                 f"at lengths 1 < {SEED_LEN1_MIN} x median "
+                                 f"{med:.4f} ms at full lengths: it must "
+                                 f"read every slot")
         plain_ms = time_cold_ms(lambda: QA.flat_decode_partials_plain(*targs),
                                 5)
         nb = ks.shape[2]
@@ -789,14 +829,17 @@ def check_seed_decode(dev, gen):
         lib_ms = time_cold_ms(lambda: F.scaled_dot_product_attention(
             qb, kb, vb, enable_gqa=True), 50)
         row = {"mode": mode, "max_abs_err": err, "worst_tol_ratio": ex,
-               "ms": ms, "ms_lengths_1": ms1, "lengths_1_over_full": ms1 / ms,
+               "ms": ms, "ms_lengths_1": ms1, "median_ms": med,
+               "median_ms_lengths_1": med1,
+               "lengths_1_over_full": med1 / med,
                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                "library_ms": lib_ms, "gb_per_s": nbytes / ms / 1e6}
         out["per_mode"].append(row)
         log(f"[seed_decode] {mode}: max_abs_err {err:.3e} (tol {ATOL:g} + "
             f"{RTOL:g}|ref|, worst {ex:.3f}x) kernel {ms:.4f} ms "
             f"({row['gb_per_s']:.0f} GB/s of 3350), at lengths 1 {ms1:.4f} ms "
-            f"({ms1 / ms:.3f}x full, >= {SEED_LEN1_MIN}) plain {plain_ms:.4f} "
+            f"(medians {med1:.4f} / {med:.4f} ms: {med1 / med:.3f}x full, "
+            f">= {SEED_LEN1_MIN}) plain {plain_ms:.4f} "
             f"ms sdpa(bf16) {lib_ms:.4f} ms bound {bound:.5f} ms ({by}: "
             f"{nbytes / 1e6:.2f} MB at 3.35 TB/s); no host sync under "
             f"set_sync_debug_mode('error')")
@@ -888,6 +931,177 @@ def check_flash(dev, gen):
         f"window={w} kv_offset={o}" for label, shape, dt, c, w, o in cases)
     worst["timed_shapes"] = "q (4,16,2048,128), k/v (4,8,2048,128) bf16 causal"
     return worst
+
+
+# recurrentgemma_9b's attention at full width: 16 query heads over one kv
+# head at D 256 (GQA group 16), a 2048-token window, block 256
+D256 = dict(H=16, Hkv=1, D=256, window=2048, bs=256)
+
+
+def check_d256(dev, gen):
+    """recurrentgemma_9b's kernel shapes against the plain versions: the
+    flash forward at D 256, H / H_kv 16 / 1, bf16 and float32, causal with
+    the 2048 window over S = 3072 (a rebuild of the 3000-token prompt);
+    flat decode (and the seed, which shares its walk) at D 256, G 16, per
+    block 256 on a ring of 2048 slots whose rows have wrapped, with the
+    window and the residual tail's shorter budget (window - n_tail), and
+    an empty row; the blocked quantizer at D 256, block 256, at the
+    prefill's (4, 1, 3072, 256) and a flush's (4, 1, 256, 256), bitwise.
+    Each timed with the L2 flushed beside its bound and one PyTorch call
+    (SDPA with the window's boolean mask; SDPA over pre-dequantized bf16
+    K/V). Returns {row name: row}."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_fwd as FF
+    from repro_torch.kernels import quant_attention as QA
+    from repro_torch.kernels import quantize as QK
+    H, Hkv, D, W, bs = (D256[k] for k in ("H", "Hkv", "D", "window", "bs"))
+    rows = {}
+    # flash forward: correctness in both dtypes at B 1, timed in bf16 at
+    # the rebuild's batch of 4 rows
+    S = 3072
+    worst = 0.0
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v = _flash_inputs(1, H, Hkv, S, S, D, dt, gen, dev)
+        got = FF.flash_fwd_cuda(q, k, v, True, W, 0)
+        torch.cuda.synchronize()
+        want = FF.flash_fwd_plain(q, k, v, True, W, 0, FLASH_TILE)
+        atol, rtol = ((ATOL_BF16, RTOL_BF16) if dt == torch.bfloat16
+                      else (ATOL, RTOL))
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        ex = max(excess(got[0], want[0], atol, rtol),
+                 *(excess(g, w) for g, w in zip(got[1:], want[1:])))
+        if ex > 1.0 or not all(bool(torch.isfinite(g).all()) for g in got):
+            raise AssertionError(f"flash forward D 256 {dt}: kernel vs "
+                                 f"plain off by {err:.3e} ({ex:.2f}x)")
+        worst = max(worst, err)
+        log(f"[flash_fwd D256] (1,{H},{Hkv},{S},{S},{D}) {str(dt)[6:]} "
+            f"causal window {W}: max_abs_err {err:.3e} ({ex:.3f}x tolerance)")
+        del q, k, v, got, want
+    B = 4
+    q, k, v = _flash_inputs(B, H, Hkv, S, S, D, torch.bfloat16, gen, dev)
+    qpos = torch.arange(S, device=dev)
+    mask = (qpos[None] <= qpos[:, None]) & (qpos[None] > qpos[:, None] - W)
+    live = int(mask.sum())                      # (query, key) pairs
+    flops = 4 * D * H * B * live
+    nbytes = (q.numel() + k.numel() + v.numel()) * 2 + B * H * S * D * 4 \
+        + 2 * B * H * S * 4
+    bound, by = bound_of(nbytes, flops, BF16_FLOP_PER_S)
+    ms = time_cold_ms(lambda: FF.flash_fwd_cuda(q, k, v, True, W, 0), 10)
+    rows["flash_fwd_d256"] = {
+        "max_abs_err": worst, "ms": ms,
+        "plain_ms": time_cold_ms(
+            lambda: FF.flash_fwd_plain(q, k, v, True, W, 0), 2),
+        "bound_ms": bound, "bound_by": by,
+        "library_ms": time_cold_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True), 10),
+        "library": "torch.nn.functional.scaled_dot_product_attention, bf16 "
+                   "q/k/v, the causal window as a boolean mask",
+        "tflop_per_s": flops / ms / 1e9,
+        "shapes": {"checked": f"(1,{H},{Hkv},{S},{S},{D}) bf16 and float32 "
+                              f"causal window {W}",
+                   "timed": f"q ({B},{H},{S},{D}), k/v ({B},{Hkv},{S},{D}) "
+                            f"bf16 causal window {W}"}}
+    r = rows["flash_fwd_d256"]
+    log(f"[flash_fwd D256] timed ({B},{H},{Hkv},{S},{S},{D}) bf16: kernel "
+        f"{ms:.4f} ms ({r['tflop_per_s']:.1f} TFLOP/s of 989) plain "
+        f"{r['plain_ms']:.2f} ms sdpa(mask) {r['library_ms']:.4f} ms bound "
+        f"{bound:.5f} ms ({by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} "
+        f"MB)")
+    del q, k, v, mask
+    # flat decode on the ring: T = 2048 slots, lengths past T (wrapped)
+    T = W
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)
+    flushed = i32([2816, 2560, 2304, 0])          # block multiples
+    windows = i32([W - 72, W, W - 200, W])        # window - n_tail
+    k = torch.randn((B, Hkv, T, D), generator=gen, device=dev)
+    v = torch.randn((B, Hkv, T, D), generator=gen, device=dev)
+    qd = torch.randn((B, H, D), generator=gen, device=dev)
+    (kq, ks), (vq, vs) = (QK.quantize_blocked_plain(x, bs) for x in (k, v))
+    err = ex = 0.0
+    for name, fn in (("flat decode", QA.flat_decode_partials_cuda),
+                     ("seed decode", QA.seed_decode_partials_cuda)):
+        e, x = _flat_check(f"{name} D256 G16 ring",
+                           (qd, kq, ks, vq, vs, flushed, windows), fn)
+        log(f"[{name.replace(' ', '_')} D256] ({B},{H},{D}) over "
+            f"({B},{Hkv},{T},{D}) int8 block {bs}, lengths "
+            f"{flushed.tolist()} (wrapped) windows {windows.tolist()}: "
+            f"max_abs_err {e:.3e} ({x:.3f}x tolerance)")
+        err, ex = max(err, e), max(ex, x)
+    full, wfull = i32([3072] * B), i32([W] * B)
+    targs = (qd, kq, ks, vq, vs, full, wfull)
+    nb = T // bs
+    nbytes = (2 * B * T * Hkv * D + 2 * B * Hkv * nb * D * 4
+              + 2 * B * H * D * 4 + 2 * B * H * 4 + 2 * B * 4)
+    flops = 4 * D * H * B * T
+    bound, by = bound_of(nbytes, flops)
+    ms = time_cold_ms(lambda: QA.flat_decode_partials_cuda(*targs), 50)
+    kb = QK.dequantize_plain(kq, ks, torch.bfloat16)
+    vb = QK.dequantize_plain(vq, vs, torch.bfloat16)
+    qb = qd.bfloat16()[:, :, None]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows["flat_decode_d256"] = {
+        "max_abs_err": err, "worst_tol_ratio": ex, "ms": ms,
+        "plain_ms": time_cold_ms(
+            lambda: QA.flat_decode_partials_plain(*targs), 5),
+        "bound_ms": bound, "bound_by": by,
+        "library_ms": time_cold_ms(lambda: F.scaled_dot_product_attention(
+            qb, kb, vb, enable_gqa=True), 50),
+        "library": "torch.nn.functional.scaled_dot_product_attention over "
+                   "pre-dequantized bf16 K/V",
+        "gb_per_s": nbytes / ms / 1e6,
+        "kv_reads": -(-(H // Hkv) // 2),
+        "splits": QA.flat_decode_splits(B, Hkv, H // Hkv, T, sms),
+        "shapes": {"checked": f"q ({B},{H},{D}); k/v ({B},{Hkv},{T},{D}) "
+                              f"int8 block {bs}; lengths "
+                              f"{flushed.tolist()} windows "
+                              f"{windows.tolist()}; the seed too",
+                   "timed": f"k/v ({B},{Hkv},{T},{D}), lengths {[3072] * B} "
+                            f"window {W} (every slot live)"}}
+    r = rows["flat_decode_d256"]
+    log(f"[flat_decode D256] timed: kernel {ms:.4f} ms "
+        f"({r['gb_per_s']:.0f} GB/s of 3350 counting each byte once; the "
+        f"G 16 walk reads K/V {r['kv_reads']} times) plain "
+        f"{r['plain_ms']:.4f} ms sdpa(bf16) {r['library_ms']:.4f} ms bound "
+        f"{bound:.5f} ms ({by}: {nbytes / 1e6:.2f} MB); (splits, slots a "
+        f"split) {r['splits']}")
+    del k, v, kq, vq, kb, vb
+    # the blocked quantizer: a prefill's K and a flush's residual
+    x = torch.randn((B, Hkv, S, D), generator=gen, device=dev)
+    xf = torch.randn((B, Hkv, bs, D), generator=gen, device=dev)
+    for xx in (x, xf):
+        got = QK.quantize_blocked_cuda(xx, bs)
+        torch.cuda.synchronize()
+        if not all(same_bits(g, w) for g, w in zip(
+                got, QK.quantize_blocked_plain(xx, bs))):
+            raise AssertionError(f"quantize_blocked D256 at "
+                                 f"{tuple(xx.shape)}: kernel and plain "
+                                 f"version differ (must be bitwise)")
+    n = x.numel()
+    spec = {"quantize_blocked": (
+        lambda: QK.quantize_blocked_cuda(x, bs),
+        lambda: QK.quantize_blocked_plain(x, bs),
+        4 * n + n + 4 * (n // bs), 6 * n, None,
+        "none: no single PyTorch call computes per-(block, channel) scales "
+        "and the int8 values together")}
+    r = _time_rows(spec, 50, 5)["quantize_blocked"]
+    nf = xf.numel()
+    r["flush_ms"] = time_cold_ms(lambda: QK.quantize_blocked_cuda(xf, bs),
+                                 50)
+    r["flush_bound_ms"] = bound_of(5 * nf + 4 * (nf // bs), 6 * nf)[0]
+    r.update({"max_abs_err": 0.0, "lanes": QK.blocked_lanes(
+        B * Hkv, S, D, bs, sms), "shapes": {
+            "checked": f"({B},{Hkv},{S},{D}) and ({B},{Hkv},{bs},{D}) "
+                       f"block {bs}, bitwise",
+            "timed": f"({B},{Hkv},{S},{D}) block {bs}; the flush "
+                     f"({B},{Hkv},{bs},{D})"}})
+    rows["quantize_blocked_d256"] = r
+    log(f"[quantize_blocked D256] bitwise at ({B},{Hkv},{S},{D}) and "
+        f"({B},{Hkv},{bs},{D}); kernel {r['ms']:.4f} ms (bound "
+        f"{r['bound_ms']:.5f} ms, {r['bound_by']}) plain {r['plain_ms']:.4f} "
+        f"ms; flush {r['flush_ms']:.4f} ms (bound {r['flush_bound_ms']:.5f} "
+        f"ms); {r['lanes']} lanes a row")
+    return rows
 
 
 def sass_mma_counts(lib: str) -> dict:
@@ -2041,6 +2255,79 @@ def parity_archs(dev):
             log(f"[parity] {label}: {sum(map(len, streams['cpu']))} greedy "
                 f"tokens identical on cpu (plain versions) and card "
                 f"(kernels)")
+
+
+# the RG-LRU gate vectors: (mean, std) of each channel's draw, in place of
+# init's constants (lam 2, w_a = w_x = 0.5, b_a = b_x = 0), under which a
+# per-channel permutation would pass
+RGLRU_GATES = {"lam": (2.0, 0.5), "w_a": (0.5, 0.25), "w_x": (0.5, 0.25),
+               "b_a": (0.0, 0.25), "b_x": (0.0, 0.25)}
+RECURRENT = ("recurrentgemma_9b", "xlstm_350m", "mixtral_8x22b")
+
+
+def seeded_gates(params, seed: int):
+    """Every RG-LRU layer's gate vectors drawn N(mean, std^2) per channel
+    from a numpy seed (float32, as the reference keeps them)."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    for layer in params["layers"]:
+        g = layer.get("rglru")
+        if g is None:
+            continue
+        for name, (mean, std) in RGLRU_GATES.items():
+            g[name].copy_(torch.from_numpy((mean + std * rng.randn(
+                g[name].shape[0])).astype(np.float32)))
+    return params
+
+
+def parity_recurrent(dev):
+    """The smoke configs of recurrentgemma_9b, xlstm_350m and mixtral_8x22b
+    in float32 (RG-LRU gate vectors seeded per channel): the contiguous
+    LLMEngine gives the same greedy tokens on the card (kernels) and on
+    the CPU (plain versions), prompts longer than the window of 16 (the
+    ring wraps); a paged engine raises the reference's ValueError."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import EngineConfig, LLMEngine, SamplingParams
+    for arch in RECURRENT:
+        cfg = dataclasses.replace(get_config(arch, smoke=True),
+                                  dtype="float32")
+        params = seeded_gates(T.init_params(
+            cfg, torch.Generator().manual_seed(0), device="cpu"), 1)
+        rng = np.random.RandomState(7)
+        prompts = [rng.randint(0, cfg.vocab, (n,)).astype(np.int32)
+                   for n in (13, 70, 5, 40, 21)]
+        sps = [SamplingParams.greedy(max_new_tokens=n)
+               for n in (8, 9, 5, 7, 8)]
+        streams = {}
+        for d in ("cpu", dev):
+            eng = LLMEngine(_to(params, d), cfg, EngineConfig(
+                batch=2, max_len=128), device=d)
+            streams[str(d)] = [o.token_ids for o in eng.generate(prompts, sps)]
+        if streams["cpu"] != streams[str(dev)]:
+            raise AssertionError(f"{arch} smoke f32 contiguous: greedy tokens "
+                                 f"differ: cpu {streams['cpu']} vs card "
+                                 f"{streams[str(dev)]}")
+        try:
+            LLMEngine(_to(params, dev), cfg, EngineConfig(
+                batch=2, max_len=128, paged=True), device=dev).generate(
+                prompts[:1], sps[0])
+        except ValueError as e:
+            refusal = str(e)
+        else:
+            raise AssertionError(f"{arch}: the paged engine served")
+        if not refusal.startswith("paged serving supports full-attention "
+                                  "stacks only"):
+            raise AssertionError(f"{arch}: paged refusal {refusal!r}")
+        log(f"[parity] {arch} smoke f32 contiguous: "
+            f"{sum(map(len, streams['cpu']))} greedy tokens identical on cpu "
+            f"(plain versions) and card (kernels); paged refused: "
+            f"{refusal}")
 
 
 # -- phase 5: the slices at full width ---------------------------------------
@@ -3814,6 +4101,183 @@ def arch_full_width(dev, arch: str, card: str) -> dict:
     return out
 
 
+# phase 5's recurrent and sliding-window models: the five prompts and two
+# past recurrentgemma_9b's 2048 window; mixtral_8x22b cut to 4 of its 56
+# layers (full width; ~20.8 GB) with a prompt past its 4096 window
+RECURRENT_LONG = (2500, 3000)
+MIXTRAL_LAYERS = 4
+MIXTRAL_LONG = 4500
+
+
+def _instrument_steps(b, cfg) -> dict:
+    """Wrap a contiguous batcher's prefill, decode and decode-scan step to
+    count rebuild prefills, decode steps and block flushes (a step that
+    fills the attention caches' current block) and to bracket each decode
+    step by CUDA events (the host's enqueue included: the card waits on
+    it) and the host clock (the enqueue alone)."""
+    import torch
+    attn = [i for i in range(cfg.n_layers)
+            if cfg.block_kind(i) in ("attn", "local_attn", "moe")]
+    rec = {"prefills": 0, "steps": 0, "flushes": 0, "events": [],
+           "host_s": [], "n_attn": len(attn)}
+
+    def step(fn, state_arg):
+        def run(*a, **kw):
+            if attn:
+                c = a[state_arg][attn[0]]
+                rec["flushes"] += c.length % c.block_size == c.block_size - 1
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0 = time.perf_counter()
+            e0.record()
+            out = fn(*a, **kw)
+            e1.record()
+            rec["host_s"].append(time.perf_counter() - t0)
+            rec["events"].append((e0, e1))
+            rec["steps"] += 1
+            return out
+        return run
+
+    def prefill(fn):
+        def run(*a, **kw):
+            rec["prefills"] += 1
+            return fn(*a, **kw)
+        return run
+
+    b._prefill = prefill(b._prefill)
+    b._decode = step(b._decode, 2)
+    b._scan_step = step(b._scan_step, 1)
+    return rec
+
+
+def _serve_as_predicted(dev, params, cfg, max_len, prompts, max_new: int,
+                        label: str) -> dict:
+    """``prompts`` through a fresh contiguous LLMEngine (batch 4), greedy,
+    ``max_new`` tokens each, every request finishing by length inside the
+    vocabulary; the launches must be those predicted from the scheduler's
+    own calls (`_instrument_steps`): flash forward n_attn a rebuild
+    prefill, flat decode n_attn a decode step, quantize_blocked 2 n_attn a
+    prefill and a block flush (K and V). Returns the record."""
+    import numpy as np
+    from repro_torch.serving import EngineConfig, LLMEngine, SamplingParams
+    eng = LLMEngine(params, cfg, EngineConfig(batch=4, max_len=max_len),
+                    device=dev)
+    rec = _instrument_steps(eng.batcher, cfg)
+    n = rec["n_attn"]
+    needs = ("flash_fwd", "flat_decode", "quantize_blocked") if n else ()
+    sp = SamplingParams.greedy(max_new_tokens=max_new)
+    outs, wall, counts, peak = _run_path(
+        dev, label, needs, lambda: eng.generate(prompts, sp))
+    if [o.finish_reason for o in outs] != ["length"] * len(prompts) or any(
+            len(o.token_ids) != max_new for o in outs) or not all(
+            0 <= t < cfg.vocab for o in outs for t in o.token_ids):
+        raise AssertionError(f"{label}: a request did not finish by length "
+                             f"with {max_new} tokens inside the vocabulary")
+    want = {"flash_fwd": n * rec["prefills"], "flat_decode": n * rec["steps"],
+            "quantize_blocked": 2 * n * (rec["prefills"] + rec["flushes"])}
+    if any(counts[k] != v for k, v in want.items()):
+        raise AssertionError(f"{label}: launches {counts} differ from the "
+                             f"predicted {want} ({rec['prefills']} prefills, "
+                             f"{rec['steps']} decode steps, "
+                             f"{rec['flushes']} flushes, {n} attention "
+                             f"layers)")
+    steps_ms = [a.elapsed_time(b) for a, b in rec["events"]]
+    rep = eng.pool_report()
+    gen_tokens = sum(len(o.token_ids) for o in outs)
+    return {"prompt_lens": [len(p) for p in prompts], "max_len": max_len,
+            "max_new": max_new, "generated_tokens": gen_tokens,
+            "wall_s": wall, "tokens_per_s": gen_tokens / wall,
+            "ttft_s_p50": rep["ttft_s_p50"], "ttft_s_p90": rep["ttft_s_p90"],
+            "ticks": rep["ticks"], "launches": counts,
+            "predicted_launches": want, "n_attn": n,
+            "prefills": rec["prefills"], "decode_steps": rec["steps"],
+            "flushes": rec["flushes"], "max_memory_allocated_bytes": peak,
+            "decode_step_ms_min": min(steps_ms),
+            "decode_step_ms_median": float(np.median(steps_ms)),
+            "decode_step_host_ms_median": 1e3 * float(np.median(
+                rec["host_s"]))}
+
+
+def _launch_text(r: dict) -> str:
+    n, c = r["n_attn"], r["launches"]
+    if not n:
+        return ("no attention layer, so the path runs no attention kernel "
+                "and needs none (launches all 0)")
+    return (f"flash_fwd {c['flash_fwd']} = {n} x {r['prefills']} prefills, "
+            f"flat_decode {c['flat_decode']} = {n} x {r['decode_steps']} "
+            f"steps, quantize_blocked {c['quantize_blocked']} = 2 x {n} x "
+            f"({r['prefills']} prefills + {r['flushes']} flushes), as "
+            f"predicted")
+
+
+def recurrent_serve_full_width(dev, arch: str, card: str) -> dict:
+    """One of recurrentgemma_9b (38 layers), xlstm_350m (24) or
+    mixtral_8x22b (4 of 56 layers) at full width, bf16 weights from a
+    seeded generator (RG-LRU gate vectors seeded per channel), through the
+    contiguous LLMEngine (`_serve_as_predicted`): the five prompts and
+    prompts past the window (2500 and 3000; mixtral 4500), 48 tokens
+    each; then, with attention layers, one prompt of the window's length
+    (the ring full at prefill) and 264 tokens, which flush a block into
+    the wrapped ring. Reports tok/s, TTFT p50, peak memory, weight bytes
+    and the least event-timed decode step against the bytes it
+    streams."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = get_config(arch)
+    cut = None
+    long = RECURRENT_LONG
+    if arch == "mixtral_8x22b":
+        cut = f"{MIXTRAL_LAYERS} of {cfg.n_layers} layers"
+        cfg = dataclasses.replace(cfg, n_layers=MIXTRAL_LAYERS)
+        long = (MIXTRAL_LONG,)
+    t0 = time.perf_counter()
+    params = seeded_gates(T.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev), 0)
+    torch.cuda.synchronize()
+    wb = weight_bytes(params, cfg)
+    init_s = time.perf_counter() - t0
+    rng = np.random.RandomState(1)
+    prompts = serve_prompts(cfg) + [
+        rng.randint(0, cfg.vocab, (n,)).astype(np.int32) for n in long]
+    max_len = 8192 if arch == "mixtral_8x22b" else 4096
+    label = f"serve {arch} contiguous"
+    r = _serve_as_predicted(dev, params, cfg, max_len, prompts, 48, label)
+    bound_ms = wb["decode_step"] / HBM_BYTES_PER_S * 1e3
+    res = {"arch": arch, "card": card, "cut": cut, "layers": cfg.n_layers,
+           "weight_bytes": wb, "init_s": init_s, **r,
+           "decode_step_bound_ms": bound_ms}
+    out = {label: r["launches"]}
+    log(f"[{label}] {cfg.n_layers} layers" + (f" ({cut})" if cut else "")
+        + f", {wb['params']} params, {wb['total']} weight bytes; "
+        f"{len(prompts)}/{len(prompts)} requests (prompts "
+        f"{r['prompt_lens']}) finished by length: {r['generated_tokens']} "
+        f"tokens in {r['wall_s']:.3f} s ({r['tokens_per_s']:.2f} tok/s), "
+        f"TTFT p50 {r['ttft_s_p50'] * 1e3:.1f} ms, max_memory_allocated "
+        f"{r['max_memory_allocated_bytes']} bytes; {_launch_text(r)}; a "
+        f"decode step {r['decode_step_ms_min']:.3f} ms least, "
+        f"{r['decode_step_ms_median']:.3f} ms median by CUDA events (host "
+        f"enqueue {r['decode_step_host_ms_median']:.3f} ms median) against "
+        f"{bound_ms:.3f} ms to stream {wb['decode_step']} weight bytes at "
+        f"3.35 TB/s; {card}")
+    if r["n_attn"]:
+        flush = _serve_as_predicted(
+            dev, params, cfg, max_len, [rng.randint(
+                0, cfg.vocab, (cfg.sliding_window,)).astype(np.int32)], 264,
+            f"{label} flush")
+        if flush["flushes"] < 1:
+            raise AssertionError(f"{label} flush: no block flushed")
+        res["flush_cell"] = flush
+        out[f"{label} flush"] = flush["launches"]
+        log(f"[{label} flush] a {cfg.sliding_window}-token prompt (the ring "
+            f"full) and 264 tokens: {_launch_text(flush)}; "
+            f"{flush['tokens_per_s']:.2f} tok/s; {card}")
+    log(f"[{label}] " + json.dumps(res))
+    del params
+    return out, res
+
 def generate_full_width(dev, params, cfg, granularity: str):
     """greedy_generate, 4 prompts of 1000 tokens, 32 steps. Per channel
     (the paper's setting): one 1000-token prefill (block 8), 32 decode
@@ -3996,9 +4460,12 @@ def _leaves(x):
 
 
 def kernels_line(decode, prefill, flat, quant, paper, grad, flash, seed,
-                 mma, path_counts):
+                 mma, path_counts, d256, d256_path):
     """One entry per hand-written kernel: the keys of every entry of the
-    kernels line, its launches summed over the main paths that ran it."""
+    kernels line, its launches summed over the main paths that ran it;
+    then a row per kernel at recurrentgemma_9b's head width 256 (GQA group
+    16) from ``d256`` (`check_d256`), its launches those of the paths
+    named ``d256_path...`` (recurrentgemma_9b served at full width)."""
     launches = {k: sum(c.get(k, 0) for c in path_counts.values())
                 for k in _counters()}
     by_path = {k: {p: c[k] for p, c in path_counts.items() if c.get(k)}
@@ -4101,9 +4568,32 @@ def kernels_line(decode, prefill, flat, quant, paper, grad, flash, seed,
                if name in PAIR else {}),
             **{k: r[k] for k in ("ms", "ms_clean_l2", "plain_ms", "bound_ms",
                                  "bound_by", "library_ms") if k in r}})
+    d256_by = {k: {p: c[k] for p, c in path_counts.items()
+                   if p.startswith(d256_path)} for k in launches}
+    for name, src, replaces, kernel, dtype, tol in (
+            ("flash_fwd_d256", "flash_fwd.cu", "flash_fwd.py:37", "flash_fwd",
+             "bfloat16 (float32 too)",
+             f"out |a-b| <= {ATOL_BF16:g} + {RTOL_BF16:g}|b| (bf16), else "
+             f"and m, l: {ATOL:g} + {RTOL:g}|b|"),
+            ("flat_decode_d256", "flat_decode.cu", "quant_attention.py:112",
+             "flat_decode", "int8", attn_tol),
+            ("quantize_blocked_d256", "quantize.cu", "quantize.py:59",
+             "quantize_blocked", "int8", "bitwise")):
+        r = d256[name]
+        out.append({
+            "name": name, "route": "cuda", "source": csrc + src,
+            "replaces": ref + replaces, "kernel": kernel, "dtype": dtype,
+            "tol": tol, "launches": sum(d256_by[kernel].values()),
+            "launches_by_path": d256_by[kernel],
+            **{k: r[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "library", "shapes", "tflop_per_s", "gb_per_s",
+                "kv_reads", "splits", "worst_tol_ratio", "flush_ms",
+                "flush_bound_ms", "lanes") if k in r}})
     for e in out:
-        e["launches"] = launches[e["name"]]
-        e["launches_by_path"] = by_path[e["name"]]
+        if "launches" not in e:
+            e["launches"] = launches[e["name"]]
+            e["launches_by_path"] = by_path[e["name"]]
         # both key namings in use, same numbers: max_abs_err/max_err,
         # ms/kernel_ms
         e["max_err"], e["kernel_ms"] = e["max_abs_err"], e["ms"]
@@ -4157,6 +4647,7 @@ def main() -> int:
     seed = check_seed_decode(dev, gen)
     flash = check_flash(dev, gen)
     quant = check_quantize(dev, gen)
+    d256 = check_d256(dev, gen)
     log(f"[kernels] checked in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     paper = paper_phase(dev, gen)
@@ -4170,6 +4661,7 @@ def main() -> int:
     parity_tiering(dev)
     parity_mixed(dev)
     parity_archs(dev)
+    parity_recurrent(dev)
     log(f"[parity] in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -4212,13 +4704,26 @@ def main() -> int:
         torch.cuda.empty_cache()
         log(f"[{arch}] phase in {time.perf_counter() - t0:.1f} s, "
             f"memory_allocated after {torch.cuda.memory_allocated(dev)}")
+    t_rec = time.perf_counter()
+    recurrent = {}
+    for arch in RECURRENT:
+        t0 = time.perf_counter()
+        counts, recurrent[arch] = recurrent_serve_full_width(dev, arch, card)
+        path_counts.update(counts)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[{arch}] phase in {time.perf_counter() - t0:.1f} s, "
+            f"memory_allocated after {torch.cuda.memory_allocated(dev)}")
+    log(f"[recurrent] the three models in {time.perf_counter() - t_rec:.1f} "
+        f"s")
     t0 = time.perf_counter()
     path_counts.update(train_full_width(dev))
     log(f"[train] phase in {time.perf_counter() - t0:.1f} s")
 
     prefill["sass_mma"] = pmma
     kernels = kernels_line(decode, prefill, flat, quant, paper, grad, flash,
-                           seed, mma, path_counts)
+                           seed, mma, path_counts, d256,
+                           "serve recurrentgemma_9b contiguous")
     if any(k["launches"] < 1 for k in kernels):
         raise AssertionError("a kernel was launched on no main path")
     log(f"[total] {time.perf_counter() - t_start:.1f} s")

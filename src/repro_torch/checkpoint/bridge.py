@@ -1,23 +1,27 @@
 """Weight bridge between the reference's pytrees, already turned into
 numpy arrays, and the port's trees.
 
-The reference stacks its layers on a leading ``n_groups`` axis under
-``tree["blocks"]["p0"]`` (one block per group for a stack of one block
-kind) and holds ``embed``, ``lm_head`` and ``final_norm`` beside it; the
-port keeps a list of per-layer dicts under ``layers``. Arrays go through
-float32, which is exact for bfloat16 (numpy's ml_dtypes bfloat16 cannot
-go through `torch.from_numpy`).
+The reference stacks its layers by pattern position: ``blocks.p{i}`` for
+i < period (the block pattern's length) holds layer g * period + i at
+index g of a leading ``n_groups`` axis, and the n_layers - n_groups *
+period layers left over follow unstacked in the list ``tail``;
+``embed``, ``lm_head`` and ``final_norm`` sit beside them. The port keeps
+a list of per-layer dicts under ``layers``. Arrays go through float32,
+which is exact for bfloat16 (numpy's ml_dtypes bfloat16 cannot go
+through `torch.from_numpy`).
 
 - `params_from_numpy`: the reference's ``init_params`` tree -> the port's
-  parameters, in the config's dtype (norm scales, an MoE's router and
-  shared-expert gate float32) on ``device``: attention with its QKV
-  biases, and an MLP or an MoE (stacked experts (E, d, f) / (E, f, d),
-  shared experts) per layer.
+  parameters, in the config's dtype (the leaves the reference keeps
+  float32 stay float32: norm scales, an MoE's router and shared-expert
+  gate, the RG-LRU gate vectors, the mLSTM gate projection and bias, the
+  sLSTM bias) on ``device``: each layer's mixer (attention with its QKV
+  biases, RG-LRU, mLSTM or sLSTM) and its MLP or MoE (stacked experts
+  (E, d, f) / (E, f, d), shared experts).
 - `opt_state_from_numpy`: the reference's ``init_opt_state`` tree (m, v,
   master, step, optional grad_err) -> the port's (`training.step`).
 - `tree_to_numpy`: the port's parameters (or moments, master weights) ->
-  the reference's stacked layout, float32 numpy, for leaf-by-leaf
-  comparison.
+  the reference's stacked layout (with the config, its pattern's period
+  and tail), float32 numpy, for leaf-by-leaf comparison.
 """
 from __future__ import annotations
 
@@ -25,18 +29,23 @@ import numpy as np
 import torch
 
 from repro_torch.core.tree import tree_map
-from repro_torch.models.transformer import (check_servable, stack_layers,
-                                            unstack_layers)
+from repro_torch.models.transformer import (check_servable, pattern_layout,
+                                            stack_layers, unstack_layers)
 
 
 def _stacked_ref(tree, cfg) -> dict:
-    """The reference tree without its (empty) tail, checked for a dense
-    stack of cfg.n_layers."""
-    n = np.asarray(tree["blocks"]["p0"]["norm1"]["scale"]).shape[0]
-    if n != cfg.n_layers or tree.get("tail"):
-        raise ValueError(f"expected {cfg.n_layers} stacked layers and no "
-                         f"tail, got {n} and {len(tree.get('tail') or [])}")
-    return {k: v for k, v in tree.items() if k != "tail"}
+    """The reference tree, checked for cfg's layout (`pattern_layout`:
+    blocks p0 .. p{period-1} of n_groups layers each, and the tail)."""
+    period, n_groups, tail = pattern_layout(cfg)
+    blocks, got_tail = tree["blocks"], list(tree.get("tail") or [])
+    got = {k: np.asarray(v["norm1"]["scale"]).shape[0]
+           for k, v in blocks.items()}
+    if got != {f"p{i}": n_groups for i in range(period)} \
+            or len(got_tail) != tail:
+        raise ValueError(f"expected blocks p0..p{period - 1} of {n_groups} "
+                         f"stacked layers and a tail of {tail}, got "
+                         f"{got} and a tail of {len(got_tail)}")
+    return {**tree, "tail": got_tail}
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:
@@ -45,8 +54,10 @@ def _tensor(a, dtype, device) -> torch.Tensor:
 
 
 # the leaves the reference keeps in float32 whatever the model's dtype: the
-# norm scales and an MoE's router and shared-expert gate
-_F32 = {"final_norm", "norm1", "norm2", "router", "shared_gate"}
+# norm scales, an MoE's router and shared-expert gate, the RG-LRU's gate
+# vectors, the mLSTM's gate projection and bias and the sLSTM's bias
+_F32 = {"final_norm", "norm1", "norm2", "router", "shared_gate", "lam",
+        "w_a", "b_a", "w_x", "b_x", "w_if", "b_if", "b"}
 
 
 def _port_layout(tree, cfg, device, dtype_of) -> dict:
@@ -58,6 +69,8 @@ def _port_layout(tree, cfg, device, dtype_of) -> dict:
     def conv(node, f32=False):
         if isinstance(node, dict):
             return {k: conv(v, f32 or k in _F32) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [conv(v, f32) for v in node]
         return _tensor(node, dtype_of(f32), device)
     port = unstack_layers(conv(ref))
     port["layers"] = tree_map(lambda x: x.clone(), port["layers"])
@@ -82,16 +95,21 @@ def opt_state_from_numpy(tree, cfg, device) -> dict:
     out["adam"]["step"] = torch.tensor(int(np.asarray(adam["step"])),
                                        dtype=torch.int32, device=device)
     if "grad_err" in tree:
+        err = _stacked_ref(tree["grad_err"], cfg)
+        if not err["tail"]:
+            del err["tail"]
         out["grad_err"] = tree_map(
-            lambda a: _tensor(a, torch.float32, device),
-            _stacked_ref(tree["grad_err"], cfg))
+            lambda a: _tensor(a, torch.float32, device), err)
     return out
 
 
-def tree_to_numpy(tree) -> dict:
+def tree_to_numpy(tree, cfg=None) -> dict:
     """The port's layout (or the stacked one) -> the reference's stacked
-    layout as float32 numpy, with an empty ``tail``."""
-    stacked = stack_layers(tree) if "layers" in tree else tree
+    layout as float32 numpy: blocks by ``cfg``'s pattern position (one
+    position without a config) and its ``tail`` (empty when there is
+    none)."""
+    period = pattern_layout(cfg)[0] if cfg is not None else 1
+    stacked = stack_layers(tree, period) if "layers" in tree else tree
     out = tree_map(lambda x: x.detach().float().cpu().numpy(), stacked)
-    out["tail"] = []
+    out.setdefault("tail", [])
     return out

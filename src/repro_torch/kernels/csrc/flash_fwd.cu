@@ -42,6 +42,13 @@
 // shared memory; each thread owns a 4 x 4 block of the 64 x 64 logit tile
 // and a 4 x (D / 16) block of the output accumulator in registers; the
 // online-softmax state is per row in shared memory.
+//
+// Head widths 16 to 256. At D 256 (recurrentgemma_9b: 16 query heads over
+// one kv head, so a tile holds 4 positions of the 16 heads) the tiles
+// outgrow the 48 KB default: the bf16 kernel stages 5 x 64 x 264 bf16
+// (165 KB), the float32 one Q, K, V and the logit tile (210 KB), both opted
+// in by allow_smem; the bf16 kernel's output fragment is then 128 float32
+// registers a lane (ptxas reports what spills).
 #include <cuda_bf16.h>
 
 #include "cp_async.cuh"
@@ -500,6 +507,9 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, float* out
                               kv_offset, scale, s);
     case 128:
       return launch_dtype<128>(dtype, q, k, v, out, m, l, B, Hkv, G, S, Tk, causal, window,
+                               kv_offset, scale, s);
+    case 256:
+      return launch_dtype<256>(dtype, q, k, v, out, m, l, B, Hkv, G, S, Tk, causal, window,
                                kv_offset, scale, s);
     default:
       return cudaErrorInvalidValue;

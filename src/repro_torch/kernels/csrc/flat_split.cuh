@@ -28,6 +28,12 @@
 // of the split, with its scale row, and masks the dead ones in the fold
 // (logit -inf, probability 0), as the reference's vmap lowering turns its
 // compute skip into a select that still reads and computes every tile.
+//
+// Head widths 16 to 256. At D 256 sixteen threads share a row and the ring
+// of kStages stages of 64 K and V rows takes 128 KB (opted in by
+// allow_smem). With GB = 2 queries a block, a GQA group of 16 (one kv head,
+// recurrentgemma_9b) is 8 query blocks, each walking the whole row: K/V are
+// read 8 times.
 #pragma once
 
 #include "cp_async.cuh"
@@ -228,6 +234,7 @@ int flat_dispatch(const FlatArgs& a, int D, void* stream) {
     case 32: return flat_launch_g<32, kWalkAll>(a, s);
     case 64: return flat_launch_g<64, kWalkAll>(a, s);
     case 128: return flat_launch_g<128, kWalkAll>(a, s);
+    case 256: return flat_launch_g<256, kWalkAll>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }

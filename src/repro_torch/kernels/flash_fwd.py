@@ -30,7 +30,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, counted
-from repro_torch.kernels.quant_attention import (HEAD_DIMS, _check,
+from repro_torch.kernels.quant_attention import (FLAT_HEAD_DIMS, _check,
                                                    _check_aligned, logit_scale)
 
 _NEG_INF = -1e30
@@ -92,8 +92,9 @@ def flash_fwd_cuda(q, k, v, causal: bool = True, window: int | None = None,
     B, H, S, D = q.shape
     _, Hkv, T, _ = k.shape
     G = H // Hkv if Hkv else 0
-    if D not in HEAD_DIMS or not Hkv or H % Hkv or not 0 < G <= _ROWS:
-        raise ValueError(f"flash forward kernel takes head_dim in {HEAD_DIMS} "
+    if D not in FLAT_HEAD_DIMS or not Hkv or H % Hkv or not 0 < G <= _ROWS:
+        raise ValueError(f"flash forward kernel takes head_dim in "
+                         f"{FLAT_HEAD_DIMS} "
                          f"and H % H_kv == 0 with a group of at most {_ROWS} "
                          f"(got D={D}, H={H}, H_kv={Hkv})")
     if q.dtype not in _DTYPES:

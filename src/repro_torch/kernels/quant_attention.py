@@ -38,7 +38,10 @@ from repro_torch.kernels import _build, counted
 
 _NEG_INF = -1e30
 KV_CODES = {"int8": 0, "fp8_e4m3": 1, "int4": 2}
-HEAD_DIMS = (16, 32, 64, 128)      # head widths the kernels are built for
+HEAD_DIMS = (16, 32, 64, 128)      # head widths the paged kernels take
+# the contiguous cache's kernels (flat decode, the seed) and the flash
+# forward also take 256 (recurrentgemma_9b)
+FLAT_HEAD_DIMS = HEAD_DIMS + (256,)
 
 
 def logit_scale(D: int) -> float:
@@ -259,8 +262,9 @@ def _flat_split_launch(lib, q, k_q, k_s, v_q, v_s, lengths, windows):
     B, H, D = q.shape
     _, Hkv, T, _ = k_q.shape
     nb = k_s.shape[2]
-    if D not in HEAD_DIMS or H % Hkv or T % nb:
-        raise ValueError(f"{label} kernel takes head_dim in {HEAD_DIMS}, "
+    if D not in FLAT_HEAD_DIMS or H % Hkv or T % nb:
+        raise ValueError(f"{label} kernel takes head_dim in "
+                         f"{FLAT_HEAD_DIMS}, "
                          f"H % H_kv == 0 and T % nb == 0 (got D={D}, H={H}, "
                          f"H_kv={Hkv}, T={T}, nb={nb})")
     _check(q, "q", torch.float32)

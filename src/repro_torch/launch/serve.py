@@ -5,11 +5,14 @@ with random weights from a seeded `torch.Generator`.
         --max-len 2048 --batch 4 --requests 5 --prompt-len 1000 --max-new 48
 
 ``--arch`` is any ported architecture: internlm2_1_8b, llama3_2_3b,
-codeqwen1_5_7b, qwen2_5_32b (QKV bias) or qwen2_moe_a2_7b (MoE, QKV
-bias); ``--smoke`` takes its reduced config. The contiguous cache by
-default; ``--paged`` serves from the page pool (implied by
-``--prefix-cache``, ``--prefill-chunk``, a ``--kv-cache-dtype`` other
-than int8 and ``--kv-cache-plan``).
+codeqwen1_5_7b, qwen2_5_32b (QKV bias), qwen2_moe_a2_7b (MoE, QKV
+bias), mixtral_8x22b (MoE, sliding window), recurrentgemma_9b (RG-LRU
+and local attention) or xlstm_350m (mLSTM / sLSTM); ``--smoke`` takes
+its reduced config. The contiguous cache by default; ``--paged`` serves
+from the page pool (implied by ``--prefix-cache``, ``--prefill-chunk``,
+a ``--kv-cache-dtype`` other than int8 and ``--kv-cache-plan``), which
+takes full-attention stacks only: on the last three the first tick
+raises the reference's ``ValueError``, as its paged backend does.
 ``--kv-cache-plan PLAN_JSON`` stores each layer at the dtype a per-layer
 precision plan gives it (``PLAN_kv_mixed.json`` is one, for 4 layers:
 ``--smoke --layers 4``); it excludes ``--kv-cache-dtype``.
@@ -39,7 +42,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True,
                     help=f"one of {', '.join(ARCHS)} (dashes or "
-                    f"underscores)")
+                    f"underscores; --paged takes full-attention stacks "
+                    f"without a sliding window only)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--layers", type=int, default=None,
                     help="override the architecture's layer count")

@@ -1,6 +1,6 @@
 """GQA attention: training, and serving over the quantized KV cache (port
-of ``repro.models.attention`` for full-attention stacks, with or without
-QKV bias).
+of ``repro.models.attention``, with or without QKV bias; ``local`` marks
+a "local_attn" block, whose window is the config's sliding window).
 
 Training:
     train(...)          full causal (optionally sliding-window) attention,
@@ -77,28 +77,34 @@ def _merge_heads(p, out, dtype):
     return out @ p["wo"]
 
 
+def _window(cfg, local: bool):
+    """The reference's window expression: the config's sliding window, for
+    every attention block of a config that has one."""
+    return cfg.sliding_window if (cfg.sliding_window or local) else None
+
+
 # -- training -----------------------------------------------------------------
 
 def train(p, x, cfg, positions, *, local: bool = False, causal: bool = True):
     """x (B, S, d) -> (B, S, d): attention over the sequence itself."""
     q, k, v = _project_qkv(p, x, cfg, positions)
-    window = cfg.sliding_window if (cfg.sliding_window or local) else None
-    out = _sdpa(q, k, v, causal=causal, window=window)
+    out = _sdpa(q, k, v, causal=causal, window=_window(cfg, local))
     return _merge_heads(p, out, x.dtype)
 
 
 # -- serving ------------------------------------------------------------------
 
 def prefill(p, x, cfg, positions, cache: QuantizedKVCache, *,
-            row_mask=None):
-    """Prompt pass over the contiguous cache: causal attention, then the
-    prompt's K/V quantized into the cache. ``row_mask`` is a paged-cache
+            local: bool = False, row_mask=None):
+    """Prompt pass over the contiguous cache: causal (sliding-window)
+    attention, then the prompt's K/V quantized into the cache (a ring
+    keeps the last window's tokens). ``row_mask`` is a paged-cache
     feature: the contiguous cache has one length for every row."""
     if row_mask is not None:
         raise ValueError("row-masked prefill requires the paged cache (the "
                          "contiguous cache has one shared length)")
     q, k, v = _project_qkv(p, x, cfg, positions)
-    out = _sdpa(q, k, v, causal=True, window=cfg.sliding_window)
+    out = _sdpa(q, k, v, causal=True, window=_window(cfg, local))
     cache.prefill(k.float(), v.float())
     return _merge_heads(p, out, x.dtype), cache
 
@@ -125,10 +131,12 @@ def prefill_chunk(p, x, cfg, positions, cache: PagedQuantizedKVCache, *,
     return _merge_heads(p, out.to(x.dtype), x.dtype), cache
 
 
-def decode(p, x, cfg, positions, cache, *, row_mask=None):
+def decode(p, x, cfg, positions, cache, *, local: bool = False,
+           row_mask=None):
     """One-token step: append K/V, then attention over the int8 cache
-    (merged with the exact fp residual tail where there is one).
-    ``row_mask`` (B,) bool freezes unmasked rows' caches (paged only)."""
+    (merged with the exact fp residual tail where there is one; a ring's
+    slots masked by the window). ``row_mask`` (B,) bool freezes unmasked
+    rows' caches (paged only)."""
     q, k, v = _project_qkv(p, x, cfg, positions)          # S == 1
     if isinstance(cache, PagedQuantizedKVCache):
         cache.append(k.float(), v.float(), row_mask=row_mask)
@@ -137,7 +145,7 @@ def decode(p, x, cfg, positions, cache, *, row_mask=None):
         if row_mask is not None:
             raise ValueError("row-masked decode requires the paged cache")
         cache.append(k.float(), v.float())
-        window = cfg.sliding_window if cache.ring else None
+        window = _window(cfg, local) if cache.ring else None
         if cache.per_channel:
             out = ops.quant_attention_decode(
                 q[:, :, 0], cache.k_q, cache.k_s, cache.v_q, cache.v_s,

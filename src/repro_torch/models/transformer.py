@@ -1,18 +1,30 @@
-"""Decoder-only transformer for training and serving (port of
-``repro.models.transformer``, full-attention stacks of ``"attn"`` and
-``"moe"`` blocks).
+"""Decoder-only models for training and serving (port of
+``repro.models.transformer``).
+
+Block kinds (``cfg.block_kind(i)``), as the reference's:
+    attn        pre-norm GQA attention + pre-norm SwiGLU MLP
+    local_attn  the same, sliding-window attention
+    moe         pre-norm GQA attention + pre-norm MoE FFN
+    rglru       pre-norm RG-LRU mixer + pre-norm SwiGLU MLP (`models.rglru`)
+    mlstm/slstm xLSTM mixers (`models.xlstm`; no FFN when cfg.d_ff == 0)
 
 Parameters are a dict: ``embed`` (Vp, d), ``lm_head`` (d, Vp),
-``final_norm``, and ``layers`` — one dict per layer (norm1, attn, norm2,
-and mlp for an ``"attn"`` block or moe for a ``"moe"`` one). The
-reference stacks layers on a leading axis for ``lax.scan``; the port
+``final_norm``, and ``layers`` — one dict per layer (norm1, the mixer
+under its kind's name, then norm2 with mlp or moe where the kind has an
+FFN). The reference stacks layers by pattern position on a leading axis
+for ``lax.scan`` (``blocks.p{i}``, plus an unstacked ``tail``); the port
 keeps a list and loops over layers, and `decode_scan` over its
 steps (`decode_scan_step`, in place on a carry whose indices live on the
 device). On the card the paged server captures a decode step, one step of
 a scan, or a prompt chunk as one CUDA graph and replays it, a scan's step
 once per step (`serving.dispatch`, the counterpart of the reference's
-jit); the functions here are what it captures. The serving state is a list of per-layer caches: contiguous
-`QuantizedKVCache`s (the default) or paged `PagedQuantizedKVCache`s.
+jit); the functions here are what it captures. The serving state is a
+list with one entry per layer: for an attention kind a contiguous
+`QuantizedKVCache` (the default; a ring under a sliding window) or a
+paged `PagedQuantizedKVCache`, for a recurrent kind its state
+(`rglru.RGLRUState`, `xlstm.MLSTMState`, `xlstm.SLSTMState`), updated in
+place like the caches. The paged backend takes full-attention stacks
+only, as the reference's.
 `forward_train` recomputes each block in the backward
 (`torch.utils.checkpoint`), as the reference's per-block
 ``jax.checkpoint(nothing_saveable)``.
@@ -26,7 +38,7 @@ from repro_torch.core import quantization as Q
 from repro_torch.core.kvcache import QuantizedKVCache
 from repro_torch.core.paging import PagedQuantizedKVCache
 from repro_torch.core.tree import leaves, tree_map
-from repro_torch.models import attention, mlp, moe
+from repro_torch.models import attention, mlp, moe, rglru, xlstm
 from repro_torch.models import sampling as SMP
 from repro_torch.models.common import (dense_init, embed_init, rmsnorm,
                                        rmsnorm_init)
@@ -50,18 +62,31 @@ def check_device(device) -> torch.device:
     return device
 
 
-def check_servable(cfg) -> None:
-    """The port serves full-attention RMSNorm stacks of "attn" and "moe"
-    blocks, with or without QKV bias (the reference's paged server takes
-    the same kinds; the ring cache of sliding windows is ported, but no
-    servable config reaches it yet)."""
-    bad = [k for k in cfg.block_pattern if k not in ("attn", "moe")]
-    if bad or cfg.sliding_window or cfg.tie_embeddings \
-            or cfg.mrope_sections or cfg.norm != "rmsnorm":
+ATTN_KINDS = ("attn", "local_attn", "moe")
+_KINDS = ATTN_KINDS + ("rglru", "mlstm", "slstm")
+
+
+def check_servable(cfg, *, paged: bool = False) -> None:
+    """What the port serves: RMSNorm decoder stacks of any of the
+    reference's block kinds, on the contiguous backend; with ``paged``,
+    full-attention stacks without a sliding window only, refused with the
+    reference's `ValueError` as its paged backend refuses them. M-RoPE,
+    tied embeddings and LayerNorm (qwen2_vl_2b, whisper_small) are not
+    ported (`NotImplementedError`)."""
+    bad = [k for k in cfg.block_pattern if k not in _KINDS]
+    if bad or cfg.tie_embeddings or cfg.mrope_sections \
+            or cfg.norm != "rmsnorm":
         raise NotImplementedError(
-            f"{cfg.name}: the port serves full-attention RMSNorm stacks of "
-            f"attn and moe blocks only; other architectures are ROADMAP "
-            f"queue 1, item 15")
+            f"{cfg.name}: the port serves RMSNorm decoder stacks without "
+            f"M-RoPE or tied embeddings only; the other architectures are "
+            f"ROADMAP queue 1, item 15")
+    if paged:
+        bad = [k for k in cfg.block_pattern if k not in ("attn", "moe")]
+        if bad or cfg.sliding_window:
+            raise ValueError(
+                f"paged serving supports full-attention stacks only "
+                f"(got kinds={bad or cfg.block_pattern}, "
+                f"sliding_window={cfg.sliding_window})")
 
 
 def init_params(cfg, generator: torch.Generator | None = None, *,
@@ -80,29 +105,50 @@ def init_params(cfg, generator: torch.Generator | None = None, *,
         "layers": [],
     }
     for i in range(cfg.n_layers):
-        layer = {"norm1": rmsnorm_init(cfg.d_model, device),
-                 "attn": attention.init(cfg, generator, device),
-                 "norm2": rmsnorm_init(cfg.d_model, device)}
-        if cfg.block_kind(i) == "moe":
-            layer["moe"] = moe.init(cfg, generator, device)
-        else:
-            layer["mlp"] = mlp.init(cfg, generator, device)
-        params["layers"].append(layer)
+        params["layers"].append(_block_init(cfg, cfg.block_kind(i),
+                                            generator, device))
     return params
+
+
+def _block_init(cfg, kind: str, gen, device) -> dict:
+    """One layer's parameters, as the reference's ``_block_init``."""
+    p = {"norm1": rmsnorm_init(cfg.d_model, device)}
+    if kind in ATTN_KINDS:
+        p["attn"] = attention.init(cfg, gen, device)
+    elif kind == "rglru":
+        p["rglru"] = rglru.init(cfg, gen, device)
+    elif kind == "mlstm":
+        p["mlstm"] = xlstm.mlstm_init(cfg, gen, device)
+    elif kind == "slstm":
+        p["slstm"] = xlstm.slstm_init(cfg, gen, device)
+    else:
+        raise ValueError(kind)
+    if kind == "moe":
+        p["norm2"] = rmsnorm_init(cfg.d_model, device)
+        p["moe"] = moe.init(cfg, gen, device)
+    elif kind in ("attn", "local_attn", "rglru") and cfg.d_ff > 0:
+        p["norm2"] = rmsnorm_init(cfg.d_model, device)
+        p["mlp"] = mlp.init(cfg, gen, device)
+    return p
 
 
 def init_decode_state(cfg, batch: int, max_len: int, *, paged: bool = False,
                       n_pages: int | None = None, kv_cache_dtype="int8",
                       device="cuda") -> list:
-    """One cache per layer: a contiguous `QuantizedKVCache` (int8 only; a
-    ring of the window's block-rounded length under a sliding window), or
-    with ``paged=True`` a paged cache over its own pool of ``n_pages``
-    pages (default: dense capacity, batch * max_len / page + sentinel).
+    """One entry per layer, by its kind: for attention a contiguous
+    `QuantizedKVCache` (int8 only; a ring of the window's block-rounded
+    length under a sliding window shorter than ``max_len``), or with
+    ``paged=True`` a paged cache over its own pool of ``n_pages`` pages
+    (default: dense capacity, batch * max_len / page + sentinel); for
+    rglru, mlstm and slstm the recurrent state (`rglru.init_state`,
+    `xlstm.mlstm_init_state` without state_quant, `xlstm.slstm_init_state`).
     ``kv_cache_dtype`` is any spec `Q.resolve_kv_dtype_spec` takes (a
     dtype string, a `PrecisionPlan`, a plan dict or JSON path, a per-layer
-    sequence); layer l's pool stores ``layer_kv_dtypes(spec, L)[l]``."""
+    sequence); layer l's pool stores ``layer_kv_dtypes(spec, L)[l]``.
+    ``paged=True`` on a stack with other kinds or a sliding window raises
+    the reference's `ValueError`."""
     device = check_device(device)
-    check_servable(cfg)
+    check_servable(cfg, paged=paged)
     spec = Q.resolve_kv_dtype_spec(kv_cache_dtype, n_layers=cfg.n_layers)
     layer_dts = Q.layer_kv_dtypes(spec, cfg.n_layers)
     if not paged:
@@ -113,10 +159,20 @@ def init_decode_state(cfg, batch: int, max_len: int, *, paged: bool = False,
         eff = max_len
         if cfg.sliding_window:
             eff = min(max_len, _round_block(cfg.sliding_window, cfg))
-        return [QuantizedKVCache.init(batch, cfg.n_kv_heads, eff,
-                                      cfg.head_dim, cfg.quant,
-                                      ring=eff < max_len, device=device)
-                for _ in range(cfg.n_layers)]
+
+        def one(kind):
+            if kind in ATTN_KINDS:
+                return QuantizedKVCache.init(batch, cfg.n_kv_heads, eff,
+                                             cfg.head_dim, cfg.quant,
+                                             ring=eff < max_len,
+                                             device=device)
+            if kind == "rglru":
+                return rglru.init_state(cfg, batch, device)
+            if kind == "mlstm":
+                return xlstm.mlstm_init_state(cfg, batch, state_quant=False,
+                                              device=device)
+            return xlstm.slstm_init_state(cfg, batch, device=device)
+        return [one(cfg.block_kind(i)) for i in range(cfg.n_layers)]
     if n_pages is None:
         n_pages = batch * (max_len // cfg.quant.block_size) + 1
     return [PagedQuantizedKVCache.init(
@@ -124,30 +180,52 @@ def init_decode_state(cfg, batch: int, max_len: int, *, paged: bool = False,
         n_pages=n_pages, kv_dtype=dt, device=device) for dt in layer_dts]
 
 
-def stack_layers(tree) -> dict:
+def pattern_layout(cfg) -> tuple[int, int, int]:
+    """(period, n_groups, tail) of the reference's stacked layout: layer
+    g * period + i is ``blocks.p{i}[g]``, layer n_groups * period + j is
+    ``tail[j]``."""
+    period = len(cfg.block_pattern)
+    n_groups = cfg.n_layers // period
+    return period, n_groups, cfg.n_layers - n_groups * period
+
+
+def stack_layers(tree, period: int = 1) -> dict:
     """The port's layout (``layers``: one dict per layer) -> the
-    reference's (``blocks.p0``: each leaf stacked over layers on axis 0);
-    the other top-level entries unchanged."""
+    reference's: ``blocks.p{i}`` for i < ``period``, each leaf stacked on
+    axis 0 over the n_groups = len(layers) // period groups, and the
+    remaining layers unstacked under ``tail`` (a key only when there is a
+    tail); the other top-level entries unchanged."""
     out = {k: v for k, v in tree.items() if k != "layers"}
     layers = tree["layers"]
-    out["blocks"] = {"p0": tree_map(lambda *xs: torch.stack(xs),
-                                    layers[0], *layers[1:])}
+    n_groups = len(layers) // period
+    out["blocks"] = {}
+    for i in range(period):
+        pos = layers[i:n_groups * period:period]
+        out["blocks"][f"p{i}"] = tree_map(lambda *xs: torch.stack(xs),
+                                          pos[0], *pos[1:])
+    if len(layers) > n_groups * period:
+        out["tail"] = list(layers[n_groups * period:])
     return out
 
 
 def unstack_layers(tree) -> dict:
-    """Inverse of `stack_layers` (the layers are views of the stack)."""
-    out = {k: v for k, v in tree.items() if k != "blocks"}
-    stacked = tree["blocks"]["p0"]
-    n = leaves(stacked)[0].shape[0]
-    out["layers"] = [tree_map(lambda x, i=i: x[i], stacked) for i in range(n)]
+    """Inverse of `stack_layers` (the layers are views of the stack; a
+    ``tail``'s layers follow the groups)."""
+    out = {k: v for k, v in tree.items() if k not in ("blocks", "tail")}
+    blocks = tree["blocks"]
+    period = len(blocks)
+    n = leaves(blocks["p0"])[0].shape[0]
+    out["layers"] = [tree_map(lambda x, g=g: x[g], blocks[f"p{i}"])
+                     for g in range(n) for i in range(period)]
+    out["layers"] += list(tree.get("tail") or [])
     return out
 
 
 def check_trainable(cfg) -> None:
     """The port trains the dense family without QKV bias only (and,
-    through `init_params`, the stacks it serves); MoE and QKV-bias models
-    are served, their training waits on a slice that tests it."""
+    through `init_params`, the stacks it serves); MoE, QKV-bias, hybrid
+    and xLSTM models are served, their training waits on a slice that
+    tests it."""
     if cfg.family != "dense" or cfg.qkv_bias:
         what = f"{cfg.family!r} models" if cfg.family != "dense" \
             else "QKV-bias models"
@@ -199,26 +277,47 @@ def _round_block(n: int, cfg) -> int:
     return -(-n // b) * b
 
 
-def _block_serve(p, x, cfg, positions, cache, mode: str, row_mask=None,
-                 hist_blocks=None, valid=None):
+def _block_serve(p, x, kind: str, cfg, positions, cache, mode: str,
+                 row_mask=None, hist_blocks=None, valid=None):
+    """One layer over x (B, S, d): its mixer by kind (the cache or the
+    recurrent state updated in place), the residual, then its FFN."""
     h = rmsnorm(p["norm1"], x)
-    if mode == "prefill":
-        h, cache = attention.prefill(p["attn"], h, cfg, positions, cache,
-                                     row_mask=row_mask)
-    elif mode == "chunk":
-        h, cache = attention.prefill_chunk(p["attn"], h, cfg, positions,
-                                           cache, row_mask=row_mask,
-                                           hist_blocks=hist_blocks,
-                                           valid=valid)
-    elif mode == "decode":
-        h, cache = attention.decode(p["attn"], h, cfg, positions, cache,
-                                    row_mask=row_mask)
+    if kind in ATTN_KINDS:
+        local = kind == "local_attn"
+        if mode == "prefill":
+            h, cache = attention.prefill(p["attn"], h, cfg, positions, cache,
+                                         local=local, row_mask=row_mask)
+        elif mode == "chunk":
+            h, cache = attention.prefill_chunk(p["attn"], h, cfg, positions,
+                                               cache, row_mask=row_mask,
+                                               hist_blocks=hist_blocks,
+                                               valid=valid)
+        elif mode == "decode":
+            h, cache = attention.decode(p["attn"], h, cfg, positions, cache,
+                                        local=local, row_mask=row_mask)
+        else:
+            raise ValueError(f"unknown serving mode {mode!r}")
     else:
-        raise ValueError(f"unknown serving mode {mode!r}")
+        if mode not in ("prefill", "decode"):
+            raise ValueError(f"{kind} blocks serve prefill and decode only "
+                             f"(got mode {mode!r})")
+        seq = mode == "prefill"
+        if kind == "rglru":
+            h, new = (rglru.apply_seq(p["rglru"], h, cfg) if seq else
+                      rglru.apply_step(p["rglru"], h, cfg, cache))
+        elif kind == "mlstm":
+            h, new = (xlstm.mlstm_seq(p["mlstm"], h, cfg) if seq else
+                      xlstm.mlstm_step(p["mlstm"], h, cfg, cache))
+        else:
+            h, new = (xlstm.slstm_seq(p["slstm"], h, cfg) if seq else
+                      xlstm.slstm_step(p["slstm"], h, cfg, cache))
+        cache.copy_(new)
     x = x + h.to(x.dtype)
     if "moe" in p:
         return x + moe.apply(p["moe"], rmsnorm(p["norm2"], x), cfg)[0]
-    return x + mlp.apply(p["mlp"], rmsnorm(p["norm2"], x))
+    if "mlp" in p:
+        return x + mlp.apply(p["mlp"], rmsnorm(p["norm2"], x))
+    return x
 
 
 def _serve(params, tok, cfg, state, positions, mode: str, row_mask=None,
@@ -227,9 +326,9 @@ def _serve(params, tok, cfg, state, positions, mode: str, row_mask=None,
     (B, S, d) — the head is applied by the caller, only where it reads
     logits (the same numbers as the reference's all-position head)."""
     x = params["embed"][tok]
-    for p, cache in zip(params["layers"], state):
-        x = _block_serve(p, x, cfg, positions, cache, mode, row_mask,
-                         hist_blocks, valid)
+    for i, (p, cache) in enumerate(zip(params["layers"], state)):
+        x = _block_serve(p, x, cfg.block_kind(i), cfg, positions, cache,
+                         mode, row_mask, hist_blocks, valid)
     return x
 
 

@@ -20,7 +20,8 @@ Pallas kernels in interpret mode:
   16 included) equals the reference's;
 - the entry points serve these configs and refuse what is not ported:
   training MoE or QKV-bias models (llama3_2_3b, dense without bias,
-  trains), sliding windows."""
+  trains), M-RoPE; a sliding window serves from the contiguous ring and
+  the paged backend refuses it."""
 import dataclasses
 
 import jax
@@ -165,10 +166,16 @@ def test_entry_points_serve_and_refuse():
             train.main(["--arch", arch, "--smoke", "--device", "cpu",
                         "--steps", "1"])
     T.check_trainable(get_config("internlm2_1_8b", smoke=True))
+    # a sliding window serves from the contiguous ring, not from pages
     window = dataclasses.replace(get_config("qwen2_moe_a2_7b", smoke=True),
                                  sliding_window=16)
+    T.init_params(window, device="cpu")
+    with pytest.raises(ValueError, match="full-attention stacks only"):
+        T.check_servable(window, paged=True)
+    mrope = dataclasses.replace(get_config("qwen2_moe_a2_7b", smoke=True),
+                                mrope_sections=(2, 3, 3))
     with pytest.raises(NotImplementedError, match="item 15"):
-        T.init_params(window, device="cpu")
+        T.init_params(mrope, device="cpu")
 
 
 @pytest.mark.parametrize("arch", ARCHS)

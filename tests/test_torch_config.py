@@ -1,6 +1,8 @@
 """The port's configs equal the reference's, field by field: internlm2_1_8b
-and the four served beside it (llama3_2_3b, codeqwen1_5_7b, qwen2_5_32b,
-qwen2_moe_a2_7b), full and smoke; an architecture not yet ported raises."""
+and the seven served beside it (llama3_2_3b, codeqwen1_5_7b, qwen2_5_32b,
+qwen2_moe_a2_7b, mixtral_8x22b, recurrentgemma_9b, xlstm_350m), full and
+smoke; an architecture not yet ported (qwen2_vl_2b, whisper_small)
+raises, naming the ROADMAP item."""
 import dataclasses
 import importlib
 
@@ -25,7 +27,8 @@ def _same(ref_val, port_val):
 
 
 NEW_ARCHS = ("llama3_2_3b", "codeqwen1_5_7b", "qwen2_5_32b",
-             "qwen2_moe_a2_7b")
+             "qwen2_moe_a2_7b", "mixtral_8x22b", "recurrentgemma_9b",
+             "xlstm_350m")
 
 
 def _fields_match(ref, port, variant):
@@ -62,8 +65,9 @@ def test_registry_resolves_like_reference(smoke):
         assert get_config(name, smoke) == getattr(
             port_cfg, "smoke" if smoke else "config")()
         assert get_config(name, smoke).name == ref_get(name, smoke).name
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("mixtral_8x22b")
+    for name in ("qwen2_vl_2b", "whisper_small"):
+        with pytest.raises(KeyError, match="ROADMAP queue 1, item 15"):
+            get_config(name)
 
 
 @pytest.mark.parametrize("smoke", [False, True])

@@ -29,7 +29,12 @@ dispatch: captured-graph serving against eager on the card and against
 the CPU (greedy, seeded, rows masked while others prefill, a per-layer
 plan, a swap restore: tokens, pool bits and launch counts), a flip
 dropping the old graphs and their memory, and replayed decode chunks
-and ticks with no host sync. Skipped where there is no card; imports
+and ticks with no host sync; recurrentgemma_9b's kernel shapes (the
+flash forward, flat decode and the seed at D 256 and GQA group 16, a
+window shorter than the prompt and a wrapped ring; the blocked quantizer
+at D 256, block 256) and the smoke tokens of recurrentgemma_9b,
+xlstm_350m and mixtral_8x22b on the contiguous backend against the CPU.
+Skipped where there is no card; imports
 no JAX (the card's machine has none).
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
@@ -1192,3 +1197,114 @@ def test_replayed_decode_chunk_makes_no_host_sync(mix, cuda_device):
 
     for conf in (dict(chunk=4), dict(chunk=1, watermark=1, n_pages=12)):
         assert run(True, **conf) == run(False, **conf)
+
+
+# -- recurrentgemma_9b's kernels: head width 256, GQA group 16 ----------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("S,window,off", [(300, 128, 0), (200, 100, 64),
+                                          (130, None, 0)])
+def test_flash_forward_d256_group16_matches_plain(S, window, off, dtype,
+                                                  cuda_device):
+    """16 query heads over one kv head at D 256 (4 positions a 64-row
+    tile), a window shorter than the prompt, an offset."""
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    mk = lambda *shape: torch.randn(shape, generator=gen,
+                                    device=cuda_device).to(dtype)
+    q, k, v = mk(1, 16, S, 256), mk(1, 1, S + off, 256), mk(1, 1, S + off,
+                                                             256)
+    got = ops.flash_prefill(q, k, v, causal=True, window=window,
+                            kv_offset=off)
+    torch.cuda.synchronize()
+    want = FF.flash_fwd_plain(q, k, v, True, window, off, 64)
+    tol = TOL if dtype == torch.float32 else dict(atol=2 ** -8, rtol=2 ** -8)
+    torch.testing.assert_close(got[0], want[0], **tol)
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, w, **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["flat", "seed"])
+@pytest.mark.parametrize("window", [200, 256], ids=["window", "full-ring"])
+def test_flat_decode_d256_wrapped_ring_matches_plain(kernel, window,
+                                                     cuda_device):
+    """A per-block ring of 256 slots (block 64) at D 256 and G 16 whose
+    rows have wrapped (lengths past T), with a window shorter than the
+    ring; an empty row gives o = 0, m = -1e30, l = 0."""
+    B, H, Hkv, D, T, bs = 4, 16, 1, 256, 256, 64
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    k = torch.randn((B, Hkv, T, D), generator=gen, device=cuda_device)
+    v = torch.randn((B, Hkv, T, D), generator=gen, device=cuda_device)
+    q = torch.randn((B, H, D), generator=gen, device=cuda_device)
+    (kq, ks), (vq, vs) = (QK.quantize_blocked_plain(x, bs) for x in (k, v))
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=cuda_device)
+    lengths, windows = i32([700, 300, 100, 0]), i32([window] * B)
+    fn = (QA.flat_decode_partials_cuda if kernel == "flat"
+          else QA.seed_decode_partials_cuda)
+    got = fn(q, kq, ks, vq, vs, lengths, windows)
+    torch.cuda.synchronize()
+    want = QA.flat_decode_partials_plain(q, kq, ks, vq, vs, lengths, windows)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **TOL)
+    o, m, l = got
+    assert float(o[3].abs().max()) == 0.0 and float(l[3].max()) == 0.0
+    assert bool((m[3] == -1e30).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(4, 1, 3072, 256), (4, 1, 256, 256)],
+                         ids=["prefill", "flush"])
+def test_quantize_blocked_d256_bitwise(shape, cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    x = torch.randn(shape, generator=gen, device=cuda_device)
+    q, s = QK.quantize_blocked_cuda(x, 256)
+    pq, ps = QK.quantize_blocked_plain(x, 256)
+    _bitwise(q, pq)
+    _bitwise(s, ps)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["recurrentgemma_9b", "xlstm_350m",
+                                  "mixtral_8x22b"])
+def test_recurrent_smoke_tokens_match_cpu(arch, cuda_device):
+    """The contiguous LLMEngine on the three models' smoke configs in
+    float32 (RG-LRU gate vectors seeded per channel; prompts longer than
+    the window of 16, so the ring wraps): the card's greedy tokens equal
+    the CPU's; a paged engine refuses them."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import EngineConfig, LLMEngine, SamplingParams
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    rng = np.random.RandomState(3)
+    for layer in params["layers"]:
+        if "rglru" in layer:
+            g = layer["rglru"]
+            for name, (mean, std) in (("lam", (2.0, 0.5)),
+                                      ("w_a", (0.5, 0.25)),
+                                      ("w_x", (0.5, 0.25)),
+                                      ("b_a", (0.0, 0.25)),
+                                      ("b_x", (0.0, 0.25))):
+                g[name].copy_(torch.from_numpy((mean + std * rng.randn(
+                    g[name].shape[0])).astype(np.float32)))
+    prompts = [rng.randint(0, cfg.vocab, (n,)).astype(np.int32)
+               for n in (13, 70, 5, 40, 21)]
+    sps = [SamplingParams.greedy(max_new_tokens=n) for n in (8, 9, 5, 7, 8)]
+
+    def run(device, p):
+        eng = LLMEngine(p, cfg, EngineConfig(batch=2, max_len=128),
+                        device=device)
+        return [o.token_ids for o in eng.generate(prompts, sps)]
+
+    before = QA.flat_decode_partials_cuda.launches
+    assert run(cuda_device, _to(params, cuda_device)) == run("cpu", params)
+    attn = any(k != "mlstm" and k != "slstm" for k in cfg.block_pattern)
+    assert (QA.flat_decode_partials_cuda.launches > before) == attn
+    with pytest.raises(ValueError, match="full-attention stacks only"):
+        LLMEngine(_to(params, cuda_device), cfg, EngineConfig(
+            batch=2, max_len=128, paged=True), device=cuda_device).generate(
+            prompts[:1], sps[0])

@@ -101,9 +101,17 @@ def test_prefill_decode_and_greedy_scan_match(pallas_interpret):
 
 
 def test_entry_points_refuse_unported_architectures():
-    cfg = dataclasses.replace(port_cfgs.smoke(), sliding_window=16)
+    # tied embeddings (whisper_small) are not ported; a sliding window is,
+    # on the contiguous cache, and the paged cache refuses it as the
+    # reference's does
+    cfg = dataclasses.replace(port_cfgs.smoke(), tie_embeddings=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.init_params(cfg, device="cpu")
+    window = dataclasses.replace(port_cfgs.smoke(), sliding_window=16)
+    T.init_params(window, device="cpu")
+    assert T.init_decode_state(window, 2, 64, device="cpu")[0].ring
+    with pytest.raises(ValueError, match="full-attention stacks only"):
+        T.init_decode_state(window, 2, 64, paged=True, device="cpu")
     # a mixed plan is served, from the page pool only (the reference's
     # error; tests/test_torch_mixed_plan.py holds the plan paths)
     with pytest.raises(ValueError, match="requires the paged cache"):

@@ -2,8 +2,11 @@
 internlm2_1_8b (tests/test_torch_arch_*.py): the smoke models of both
 packages in float32 with the reference's weights bridged, QKV biases drawn
 non-zero in both trees (the reference's init draws zeros, so a test on it
-would pass with the bias ignored), and the serving protocol of
-tests/test_torch_serving.py run through either package's `LLMEngine`."""
+would pass with the bias ignored), the RG-LRU gate vectors drawn per
+channel in both trees (init draws constants: lam 2, w_a = w_x = 0.5,
+b_a = b_x = 0, under which a channel permutation would pass), and the
+serving protocol of tests/test_torch_serving.py run through either
+package's `LLMEngine`."""
 import dataclasses
 
 import jax
@@ -24,11 +27,31 @@ ARCHS = ("llama3_2_3b", "codeqwen1_5_7b", "qwen2_5_32b", "qwen2_moe_a2_7b")
 PROMPT_LENS = [13, 70, 5, 40, 21]
 MAX_NEW = [6, 9, 5, 7, 8]
 BIAS_STD = 0.5
+# RG-LRU gate vectors: (mean, std) of each channel's draw
+RGLRU_GATES = {"lam": (2.0, 0.5), "w_a": (0.5, 0.25), "w_x": (0.5, 0.25),
+               "b_a": (0.0, 0.25), "b_x": (0.0, 0.25)}
+
+
+def seed_rglru_gates(rparams, seed: int = 3):
+    """Every RG-LRU block's gate vectors (stacked groups and tail) drawn
+    N(mean, std^2) per channel from a numpy seed, in place of init's
+    constants."""
+    rng = np.random.RandomState(seed)
+    blocks = list(rparams["blocks"].values()) + list(rparams["tail"])
+    for b in blocks:
+        if "rglru" not in b:
+            continue
+        for name, (mean, std) in RGLRU_GATES.items():
+            shape = b["rglru"][name].shape
+            b["rglru"][name] = jax.numpy.asarray(
+                (mean + std * rng.randn(*shape)).astype(np.float32))
+    return rparams
 
 
 def smoke_models(arch: str):
     """((reference cfg, params), (port cfg, params)) of ``arch``'s smoke
-    config in float32; with QKV bias, bq / bk / bv seeded N(0, 0.5^2)."""
+    config in float32; with QKV bias, bq / bk / bv seeded N(0, 0.5^2);
+    with RG-LRU blocks, their gate vectors seeded (`seed_rglru_gates`)."""
     rcfg = dataclasses.replace(ref_get_config(arch, smoke=True),
                                dtype="float32")
     pcfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
@@ -39,6 +62,8 @@ def smoke_models(arch: str):
         for name in ("bq", "bk", "bv"):
             attn[name] = jax.numpy.asarray(
                 BIAS_STD * rng.randn(*attn[name].shape).astype(np.float32))
+    if "rglru" in rcfg.block_pattern:
+        seed_rglru_gates(rparams)
     pparams = params_from_numpy(jax.tree.map(np.asarray, rparams), pcfg,
                                 "cpu")
     return (rcfg, rparams), (pcfg, pparams)
