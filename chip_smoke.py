@@ -21,8 +21,8 @@ Phases, each fatal on failure (no fallback anywhere):
      median must reach SEED_LEN1_MIN of the first's: it reads every slot);
      paged decode, paged prefill (both dispatches), flat decode (both
      granularities) and the bf16 flash forward (the 1536 rebuild) also at the other
-     served models' H / H_kv 32 / 32, 24 / 8 and 40 / 8 (GQA groups 1, 3
-     and 5; correctness only, the timed shapes unchanged); the
+     served models' H / H_kv 32 / 32, 24 / 8, 40 / 8 and 12 / 2 (GQA groups
+     1, 3, 5 and 6; correctness only, the timed shapes unchanged); the
      flash forward in bf16 at the training shape (4, 16, 2048, 128) causal
      and the contiguous prefill's 1536 rebuild, with a window and
      kv_offset, and at an odd S in float32; the quantize family bitwise at
@@ -47,7 +47,17 @@ Phases, each fatal on failure (no fallback anywhere):
      slots (block 256) whose rows have wrapped, windows shortened by the
      residual tail, an empty row (timed with every slot live), and the
      blocked quantizer at D 256, block 256, bitwise (a prefill and a
-     flush).
+     flush); then qwen2_vl_2b's GQA group 6 (12 / 2, D 128) and
+     whisper_small's head width 64 (12 / 12), each timed beside its bound
+     and SDPA (`check_g6_d64`): paged decode and prefill (int8), flat
+     decode per block and the bf16 flash forward (the 1536 rebuild) at G 6;
+     the flash forward non-causal in bf16 and float32 at the encoder's
+     (4, 12, 1500, 1500, 64) and at S 256 over T 1500 (partial last
+     tiles), flat decode per channel over a 1504-slot cross cache at
+     length 1500 with an empty row and per block over the 512-slot self
+     cache, quantize_blocked bitwise at (4, 12, 256, 64) and (4, 12, 512,
+     64), the per-channel pair bitwise at (4, 12, 1504, 64) (zero past
+     1500) and (4, 12, 256, 64).
   3. the paper's kernels at its eight (T, D) sizes: quantize per channel,
      quantize blocked (block 256) and dequantize through `kernels.ops`
      (launches counted), each bitwise against its plain version, Eq. 9
@@ -87,7 +97,12 @@ Phases, each fatal on failure (no fallback anywhere):
      and mixtral_8x22b in float32 with the RG-LRU gate vectors seeded per
      channel: identical greedy tokens from the contiguous LLMEngine
      (prompts past the window of 16: the ring wraps), and the paged
-     engine's refusal (the reference's ValueError).
+     engine's refusal (the reference's ValueError); qwen2_vl_2b's
+     (M-RoPE, text mode; QKV biases seeded) beside the four decoder-only
+     models above; whisper_small's through `make_serve_fns` (make_frames
+     frames, 16-token prompts, 12 greedy steps across a block flush):
+     identical tokens, and the refusals (paged, int4, chunk prefill: the
+     reference's ValueErrors; the batcher: the named one).
   5. the slices at full width: internlm2_1_8b with random bf16 weights from
      a seeded torch.Generator serves 5 greedy requests through the paged
      LLMEngine and through the contiguous one (batch 4, max_len 2048). Every
@@ -148,8 +163,9 @@ Phases, each fatal on failure (no fallback anywhere):
      serving weights freed, the other served models one at a time, each
      freed before the next (random bf16 weights from a seeded generator,
      QKV biases seeded non-zero): llama3_2_3b, codeqwen1_5_7b,
-     qwen2_5_32b (64 layers, 65.5 GB of weights) and qwen2_moe_a2_7b
-     (60 experts, top 4, 4 shared) serve the five prompts through the
+     qwen2_5_32b (64 layers, 65.5 GB of weights), qwen2_moe_a2_7b
+     (60 experts, top 4, 4 shared) and qwen2_vl_2b (28 layers, GQA 12 /
+     2, M-RoPE) serve the five prompts through the
      paged LLMEngine graphed on a fresh engine and graphed again (the
      same tokens, 48 a request inside the vocabulary; the decode-scan
      step and chunk prefill captured; paged decode and prefill launched
@@ -158,8 +174,9 @@ Phases, each fatal on failure (no fallback anywhere):
      device time against the weights it streams at 3.35 TB/s; the MoE
      also eager (tokens, pool bits and launches = graphed), with
      requests 1, 3 and 4 sampled graphed and eager, and a decode step
-     and chunk replayed with any host sync an error; llama3_2_3b and the
-     MoE also through the contiguous LLMEngine; then recurrentgemma_9b
+     and chunk replayed with any host sync an error; llama3_2_3b, the
+     MoE and qwen2_vl_2b also through the contiguous LLMEngine; then
+     recurrentgemma_9b
      (38 layers, 19.1 GB), xlstm_350m (24 layers) and mixtral_8x22b cut
      to 4 of its 56 layers (~20.8 GB), one at a time, bf16 weights from a
      seeded generator (RG-LRU gate vectors seeded), through the
@@ -171,7 +188,14 @@ Phases, each fatal on failure (no fallback anywhere):
      memory and the least event-timed decode step against the weight
      bytes it streams; and, with attention, a prompt of the window's
      length and 264 tokens, which flush a block into the wrapped ring
-     (launches as predicted); then the train CLI's entry point takes 3 steps at
+     (launches as predicted); then whisper_small (12 + 12 layers, bf16
+     weights from a seeded generator) through `make_serve_fns`: make_frames
+     frames (4, 1500, 768), 256-token prompts, max_len 512, 48 greedy
+     decode steps, launches exactly as predicted (flash 36, quantize_blocked
+     24, the pair 24 + 24 at the prefill; flat decode 24 a step), the
+     encoder's time, TTFT, tok/s, peak memory and the least event-timed
+     decode step against its weight and cross-cache bytes; then the train
+     CLI's entry point takes 3 steps at
      batch 4 x 2048 and 1 more with --grad-compression (step 0's loss held
      against the plain flash forward's). The kernels' launch counters are
      set to 0 just before each path and must be > 0 just after for every
@@ -214,8 +238,8 @@ ATOL_BF16 = RTOL_BF16 = 2.0 ** -8
 FLASH_TILE = 64                # keys per kernel tile (csrc/flash_fwd.cu)
 # (H, H_kv) of the other served models at D 128, checked beside the main
 # path's 16 / 8: GQA groups 1 (codeqwen1_5_7b; MHA, as qwen2_moe_a2_7b's
-# 16 / 16), 3 (llama3_2_3b) and 5 (qwen2_5_32b)
-GROUP_WIDTHS = ((32, 32), (24, 8), (40, 8))
+# 16 / 16), 3 (llama3_2_3b), 5 (qwen2_5_32b) and 6 (qwen2_vl_2b)
+GROUP_WIDTHS = ((32, 32), (24, 8), (40, 8), (12, 2))
 PREFILL_ROWS = 64              # query rows per tile (csrc/paged_prefill.cu)
 # the full-width train step's loss through the kernel vs through the
 # plain flash forward, bf16 model: relative
@@ -880,7 +904,8 @@ def check_flash(dev, gen):
         ("odd S f32", (2, 16, 8, 999, 999, 128), torch.float32, True, None,
          0),
         # the other served groups at the contiguous prefill's rebuild: G 1
-        # (64 positions a tile), 3 (21 in 63 rows), 5 (12 in 60 rows)
+        # (64 positions a tile), 3 (21 in 63 rows), 5 (12 in 60 rows), 6
+        # (10 in 60 rows)
         *((f"prefill 1536 H/H_kv {h}/{hk}", (4, h, hk, 1536, 1536, 128),
            torch.bfloat16, True, None, 0) for h, hk in GROUP_WIDTHS),
         ("G 3 window+offset", (2, 24, 8, 300, 812, 128), torch.bfloat16,
@@ -1101,6 +1126,361 @@ def check_d256(dev, gen):
         f"{r['bound_ms']:.5f} ms, {r['bound_by']}) plain {r['plain_ms']:.4f} "
         f"ms; flush {r['flush_ms']:.4f} ms (bound {r['flush_bound_ms']:.5f} "
         f"ms); {r['lanes']} lanes a row")
+    return rows
+
+
+# qwen2_vl_2b's attention at full width: 12 query heads over 2 kv heads at
+# D 128 (GQA group 6: 10 positions fill 60 rows of a 64-row tile);
+# whisper_small's: 12 / 12 at D 64, 1500 encoder frames, a cross cache of
+# 1504 slots (1500 rounded up to 8), 256-token prompts, block 256
+G6 = dict(H=12, Hkv=2, D=128, ps=256)
+D64 = dict(H=12, D=64, frames=1500, slots=1504, prompt=256, bs=256)
+
+
+def _timed_row(kern, plain, nbytes, flops, flop_rate, lib, lib_name,
+               iters: int = 20, plain_iters: int = 3, **extra) -> dict:
+    """A kernel timed with the L2 flushed beside its plain version, its
+    bound (bytes at 3.35 TB/s, operations at ``flop_rate``) and one
+    PyTorch call (``lib``, or None where none computes the function)."""
+    bound, by = bound_of(nbytes, flops, flop_rate)
+    ms = time_cold_ms(kern, iters)
+    return {"ms": ms, "plain_ms": time_cold_ms(plain, plain_iters),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": time_cold_ms(lib, iters) if lib else None,
+            "library": lib_name, "bytes": nbytes, "operations": flops,
+            **extra}
+
+
+def _flash_check(label, shape, dt, causal, gen, dev):
+    """The flash forward kernel against its plain version (64-key tiles)
+    on fresh inputs of (B, H, H_kv, S, T, D): (max |err|, multiple of the
+    tolerance, (q, k, v))."""
+    import torch
+    from repro_torch.kernels import flash_fwd as FF
+    q, k, v = _flash_inputs(*shape, dt, gen, dev)
+    got = FF.flash_fwd_cuda(q, k, v, causal)
+    torch.cuda.synchronize()
+    want = FF.flash_fwd_plain(q, k, v, causal, None, 0, FLASH_TILE)
+    atol, rtol = ((ATOL_BF16, RTOL_BF16) if dt == torch.bfloat16
+                  else (ATOL, RTOL))
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    ex = max(excess(got[0], want[0], atol, rtol),
+             *(excess(g, w) for g, w in zip(got[1:], want[1:])))
+    if ex > 1.0 or not all(bool(torch.isfinite(g).all()) for g in got):
+        raise AssertionError(f"flash forward {label}: kernel vs plain off "
+                             f"by {err:.3e} ({ex:.2f}x tolerance)")
+    log(f"[flash_fwd {label}] {shape} {str(dt)[6:]} causal={causal}: "
+        f"max_abs_err {err:.3e} ({ex:.3f}x tolerance)")
+    return err, ex, (q, k, v)
+
+
+def _flash_row(label, shape, causal, gen, dev, worst) -> dict:
+    """bf16 flash forward at ``shape`` timed beside SDPA on the same
+    q / k / v (causal or not, as the path calls it)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_fwd as FF
+    err, ex, (q, k, v) = _flash_check(label, shape, torch.bfloat16, causal,
+                                      gen, dev)
+    B, H, Hkv, S, T, D = shape
+    pairs = B * (S * (S + 1) // 2 if causal else S * T)
+    flops = 4 * D * H * pairs
+    nbytes = (q.numel() + k.numel() + v.numel()) * 2 + B * H * S * D * 4 \
+        + 2 * B * H * S * 4
+    r = _timed_row(lambda: FF.flash_fwd_cuda(q, k, v, causal),
+                   lambda: FF.flash_fwd_plain(q, k, v, causal), nbytes,
+                   flops, BF16_FLOP_PER_S,
+                   lambda: F.scaled_dot_product_attention(
+                       q, k, v, is_causal=causal, enable_gqa=True),
+                   "torch.nn.functional.scaled_dot_product_attention, bf16 "
+                   "q/k/v" + (", causal" if causal else ""), iters=10,
+                   plain_iters=2, max_abs_err=max(worst[0], err),
+                   worst_tol_ratio=max(worst[1], ex))
+    r["tflop_per_s"] = flops / r["ms"] / 1e9
+    log(f"[flash_fwd {label}] timed {shape} bf16 causal={causal}: kernel "
+        f"{r['ms']:.4f} ms ({r['tflop_per_s']:.1f} TFLOP/s of 989) plain "
+        f"{r['plain_ms']:.3f} ms sdpa {r['library_ms']:.4f} ms bound "
+        f"{r['bound_ms']:.5f} ms ({r['bound_by']}: {flops / 1e9:.2f} GFLOP, "
+        f"{nbytes / 1e6:.1f} MB)")
+    return r
+
+
+def _flat_row(label, q, kq, ks, vq, vs, live: int, ref_args, dev) -> dict:
+    """Flat decode checked on ``ref_args`` and timed with every row at
+    ``live`` slots beside SDPA over the live slots' dequantized bf16 K/V
+    (GQA)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import quant_attention as QA
+    from repro_torch.kernels import quantize as QK
+    err, ex = _flat_check(label, ref_args)
+    B, H, D = q.shape
+    Hkv, T, nb = kq.shape[1], kq.shape[2], ks.shape[2]
+    n = torch.full((B,), live, dtype=torch.int32, device=dev)
+    w = torch.full((B,), T, dtype=torch.int32, device=dev)
+    targs = (q, kq, ks, vq, vs, n, w)
+    nbytes = (2 * B * live * Hkv * D + 2 * B * Hkv * nb * D * 4
+              + 2 * B * H * D * 4 + 2 * B * H * 4 + 2 * B * 4)
+    flops = 4 * D * H * B * live
+    kb = QK.dequantize_plain(kq, ks, torch.bfloat16)[:, :, :live]
+    vb = QK.dequantize_plain(vq, vs, torch.bfloat16)[:, :, :live]
+    qb = q.bfloat16()[:, :, None]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    r = _timed_row(lambda: QA.flat_decode_partials_cuda(*targs),
+                   lambda: QA.flat_decode_partials_plain(*targs), nbytes,
+                   flops, F32_FLOP_PER_S,
+                   lambda: F.scaled_dot_product_attention(
+                       qb, kb, vb, enable_gqa=True),
+                   "torch.nn.functional.scaled_dot_product_attention over "
+                   "pre-dequantized bf16 K/V", iters=50, plain_iters=5,
+                   max_abs_err=err, worst_tol_ratio=ex,
+                   splits=QA.flat_decode_splits(B, Hkv, H // Hkv, T, sms))
+    r["gb_per_s"] = nbytes / r["ms"] / 1e6
+    log(f"[flat_decode {label}] max_abs_err {err:.3e} ({ex:.3f}x "
+        f"tolerance); timed ({B},{H},{D}) over ({B},{Hkv},{T},{D}) at "
+        f"{live} live slots: kernel {r['ms']:.4f} ms ({r['gb_per_s']:.0f} "
+        f"GB/s) plain {r['plain_ms']:.4f} ms sdpa {r['library_ms']:.4f} ms "
+        f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}: {nbytes / 1e6:.2f} "
+        f"MB); (splits, slots a split) {r['splits']}")
+    return r
+
+
+def check_g6_d64(dev, gen):
+    """qwen2_vl_2b's and whisper_small's kernel shapes against the plain
+    versions, each timed with the L2 flushed beside its bound and SDPA
+    where SDPA computes the same function. GQA group 6 (H / H_kv 12 / 2,
+    D 128; the three page formats and both paged dispatches are also in
+    check_decode / check_prefill through GROUP_WIDTHS): paged decode
+    (int8, 4 rows at 2048 / 1536 / 1024 / 512), paged prefill (int8, C
+    1024 over 0-1792 history tokens), flat decode per block (T 2048) and
+    the bf16 flash forward at the contiguous prefill's rebuild (4, 12,
+    1536, 128) causal. Head width 64 (whisper_small, 12 / 12): the flash
+    forward non-causal in bf16 and float32 at the encoder's (4, 12, 1500,
+    1500, 64) and cross-attention prefill's S 256 over T 1500 (partial
+    last tiles on both axes); flat decode per channel over the 1504-slot
+    cross cache at length 1500 with an empty row, and per block over the
+    512-slot self cache; `quantize_blocked` bitwise at the self prefill's
+    (4, 12, 256, 64) and (4, 12, 512, 64) (1504 is no multiple of the
+    256 block); the per-channel pair bitwise at (4, 12, 1504, 64) (zero
+    padding past 1500, as the cross cache) and (4, 12, 256, 64). Returns
+    {row name: row}."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import quant_attention as QA
+    from repro_torch.kernels import quant_prefill as QP
+    from repro_torch.kernels import quantize as QK
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)
+    rows = {}
+    H, Hkv, D, ps = (G6[k] for k in ("H", "Hkv", "D", "ps"))
+    G, B, NT = H // Hkv, 4, 8
+    # paged decode
+    n_pages = B * NT + 1
+    pool = make_pool("int8", n_pages, Hkv, D, ps, gen, dev)
+    table = page_table(B, NT, n_pages, gen, dev)
+    t_len = [2048, 1536, 1024, 512]
+    tl = i32(t_len)
+    q = torch.randn((B, H, D), generator=gen, device=dev)
+    args = (q, *pool, table, tl, "int8")
+    got = QA.paged_decode_partials_cuda(*args)
+    torch.cuda.synchronize()
+    want = QA.paged_decode_partials_plain(*args)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    ex = max(excess(g, w) for g, w in zip(got, want))
+    if ex > 1.0:
+        raise AssertionError(f"paged decode G 6: kernel vs plain off by "
+                             f"{err:.3e} ({ex:.2f}x tolerance)")
+    live = sum(t_len)
+    pages = sum(-(-t // ps) for t in t_len)
+    nbytes = (kv_bytes(live, Hkv, D, "int8") + 2 * pages * Hkv * D * 4
+              + pages * 4 + B * 4 + B * H * D * 4 * 2 + B * H * 8)
+    k, v = dequant_bf16(pool, table, "int8")
+    mask = (torch.arange(k.shape[2], device=dev)[None]
+            < tl[:, None])[:, None, None, :]
+    qb = q.bfloat16()[:, :, None]
+    r = _timed_row(lambda: QA.paged_decode_partials_cuda(*args),
+                   lambda: QA.paged_decode_partials_plain(*args), nbytes,
+                   4 * D * H * live, F32_FLOP_PER_S,
+                   lambda: F.scaled_dot_product_attention(
+                       qb, k, v, attn_mask=mask, enable_gqa=True),
+                   "torch.nn.functional.scaled_dot_product_attention over "
+                   "pre-dequantized bf16 K/V, lengths as a mask", iters=50,
+                   plain_iters=5, max_abs_err=err, worst_tol_ratio=ex)
+    r["gb_per_s"] = nbytes / r["ms"] / 1e6
+    r["shapes"] = {"checked": f"q ({B},{H},{D}); int8 pages of {ps}; "
+                              f"lengths {t_len} (fp8 and int4: "
+                              f"check_decode)", "timed": "the same"}
+    rows["paged_decode_g6"] = r
+    log(f"[decode G6] int8 H/H_kv {H}/{Hkv}: max_abs_err {err:.3e} "
+        f"({ex:.3f}x); kernel {r['ms']:.4f} ms ({r['gb_per_s']:.0f} GB/s) "
+        f"plain {r['plain_ms']:.4f} ms sdpa {r['library_ms']:.4f} ms bound "
+        f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
+    del k, v, mask
+    # paged prefill: the full chunk of check_prefill at G 6
+    C, hl, vd = 1024, [0, 256, 1024, 1792], [1024, 511, 1, 1024]
+    err, ex = _prefill_check("paged prefill G 6", B, H, Hkv, C, D, hl, vd,
+                             pool, table, ps, "int8", gen, dev)
+    hist, valid = i32(hl), i32(vd)
+    hb = 1 << (-(-max(hl) // ps) - 1).bit_length()
+    q = torch.randn((B, H, C, D), generator=gen, device=dev)
+    k = torch.randn((B, Hkv, C, D), generator=gen, device=dev)
+    v = torch.randn((B, Hkv, C, D), generator=gen, device=dev)
+    qg = (q.reshape(B, Hkv, G * C, D) * QA.logit_scale(D)).contiguous()
+    args = (qg, k, v, *pool, table, hist, valid, hb, "int8")
+    flops = hflops = 0.0
+    nbytes, pages = 0.0, 0
+    for b in range(B):
+        n = vd[b]
+        flops += 4 * D * H * (n * hl[b] + n * (n + 1) // 2)
+        hflops += 4 * D * H * n * hl[b]
+        pages += -(-hl[b] // ps)
+        nbytes += kv_bytes(hl[b], Hkv, D, "int8")
+    nbytes += (q.numel() + k.numel() + v.numel()) * 4 \
+        + 2 * pages * Hkv * D * 4 + pages * 4 + B * 8 + q.numel() * 4
+    kh, vh = dequant_bf16(pool, table[:, :hb], "int8")
+    kall = torch.cat([kh, k.bfloat16()], dim=2)
+    vall = torch.cat([vh, v.bfloat16()], dim=2)
+    T = kh.shape[2]
+    qpos = torch.arange(C, device=dev)
+    hmask = torch.arange(T, device=dev)[None] < hist[:, None]
+    cmask = (qpos[None, :] <= qpos[:, None])[None] & \
+        (qpos[None, None, :] < valid[:, None, None])
+    mask = torch.cat([hmask[:, None, :].expand(B, C, T), cmask],
+                     dim=-1)[:, None]
+    qb = q.bfloat16()
+    r = _timed_row(lambda: QP.paged_prefill_cuda(*args),
+                   lambda: QP.paged_prefill_plain(*args), nbytes, flops,
+                   F32_FLOP_PER_S,
+                   lambda: F.scaled_dot_product_attention(
+                       qb, kall, vall, attn_mask=mask, enable_gqa=True),
+                   "torch.nn.functional.scaled_dot_product_attention over "
+                   "pre-dequantized bf16 history + the chunk, mask",
+                   iters=10, plain_iters=2, max_abs_err=err,
+                   worst_tol_ratio=ex)
+    tc_flops = 3 * hflops + 6 * (flops - hflops)
+    r["bound_tc_ms"] = bound_of(nbytes, tc_flops, BF16_FLOP_PER_S)[0]
+    r["tflop_per_s"] = flops / r["ms"] / 1e9
+    r["shapes"] = {"checked": f"C={C} q ({B},{H},{C},{D}) hist_len {hl} "
+                              f"valid {vd}, int8 (fp8, int4 and C 512: "
+                              f"check_prefill)", "timed": "the same"}
+    rows["paged_prefill_g6"] = r
+    log(f"[prefill G6] int8 H/H_kv {H}/{Hkv} C={C} ({G * C} query rows a "
+        f"kv head): max_abs_err {err:.3e} ({ex:.3f}x), row tiles past valid "
+        f"0.0; kernel {r['ms']:.4f} ms ({r['tflop_per_s']:.1f} TFLOP/s "
+        f"counted f32) plain {r['plain_ms']:.3f} ms sdpa "
+        f"{r['library_ms']:.4f} ms bound {r['bound_ms']:.5f} ms "
+        f"({r['bound_by']}); the design's bound {r['bound_tc_ms']:.5f} ms")
+    del q, k, v, qg, kall, vall, mask, pool
+    # flat decode per block, T 2048
+    T, bs = 2048, 256
+    k = torch.randn((B, Hkv, T, D), generator=gen, device=dev)
+    v = torch.randn((B, Hkv, T, D), generator=gen, device=dev)
+    q = torch.randn((B, H, D), generator=gen, device=dev)
+    kq, ks, vq, vs = _flat_quant("per_block", k, v, bs)
+    r = _flat_row("G6 per_block", q, kq, ks, vq, vs, T,
+                  (q, kq, ks, vq, vs, i32([2048, 1280, 0, 1000]),
+                   i32([T] * B)), dev)
+    r["shapes"] = {"checked": f"q ({B},{H},{D}); k/v ({B},{Hkv},{T},{D}) "
+                              f"int8 block {bs}; lengths [2048, 1280, 0, "
+                              f"1000]", "timed": f"lengths {[T] * B}"}
+    rows["flat_decode_g6"] = r
+    del k, v, kq, vq
+    # the flash forward at the contiguous prefill's rebuild
+    shape = (4, H, Hkv, 1536, 1536, D)
+    e32, x32, _ = _flash_check("G6", (1, H, Hkv, 999, 999, D),
+                               torch.float32, True, gen, dev)
+    r = _flash_row("G6", shape, True, gen, dev, (e32, x32))
+    r["shapes"] = {"checked": f"{shape} bf16 causal; (1,{H},{Hkv},999,999,"
+                              f"{D}) float32 causal",
+                   "timed": f"{shape} bf16 causal"}
+    rows["flash_fwd_g6"] = r
+    # -- head width 64 (whisper_small) --------------------------------------
+    H, D, S, Tc, P, bs = (D64[k] for k in ("H", "D", "frames", "slots",
+                                           "prompt", "bs"))
+    worst = [0.0, 0.0]
+    for shape in ((4, H, H, P, S, D), (1, H, H, 37, S, D)):
+        for dt in (torch.bfloat16, torch.float32):
+            e, x, _ = _flash_check("D64 cross", shape, dt, False, gen, dev)
+            worst = [max(worst[0], e), max(worst[1], x)]
+    e, x, _ = _flash_check("D64 encoder", (2, H, H, S, S, D), torch.float32,
+                           False, gen, dev)
+    worst = [max(worst[0], e), max(worst[1], x)]
+    shape = (4, H, H, S, S, D)
+    r = _flash_row("D64 encoder", shape, False, gen, dev, worst)
+    cross = _flash_row("D64 cross", (4, H, H, P, S, D), False, gen, dev,
+                       worst)
+    r.update({"cross_" + k: cross[k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "tflop_per_s")})
+    r["shapes"] = {"checked": f"{shape} bf16 and (2,{H},{H},{S},{S},{D}) "
+                              f"float32 non-causal; (4,{H},{H},{P},{S},{D})"
+                              f" and (1,{H},{H},37,{S},{D}) both dtypes",
+                   "timed": f"encoder {shape} bf16 non-causal; cross_*: "
+                            f"(4,{H},{H},{P},{S},{D})"}
+    rows["flash_fwd_d64"] = r
+    # flat decode per channel over the cross cache, and per block over the
+    # self cache
+    k = torch.zeros((B, H, Tc, D), device=dev)
+    v = torch.zeros((B, H, Tc, D), device=dev)
+    k[:, :, :S] = torch.randn((B, H, S, D), generator=gen, device=dev)
+    v[:, :, :S] = torch.randn((B, H, S, D), generator=gen, device=dev)
+    q = torch.randn((B, H, D), generator=gen, device=dev)
+    kq, ks, vq, vs = _flat_quant("per_channel", k, v, bs)
+    r = _flat_row("D64 cross per_channel", q, kq, ks, vq, vs, S,
+                  (q, kq, ks, vq, vs, i32([S, S, 0, S]), i32([Tc] * B)),
+                  dev)
+    ks2 = torch.randn((B, H, 512, D), generator=gen, device=dev)
+    vs2 = torch.randn((B, H, 512, D), generator=gen, device=dev)
+    e, x = _flat_check("flat decode D64 self per_block", (
+        q, *_flat_quant("per_block", ks2, vs2, bs), i32([256, 512, 0, 300]),
+        i32([512] * B)))
+    r["max_abs_err"] = max(r["max_abs_err"], e)
+    r["worst_tol_ratio"] = max(r["worst_tol_ratio"], x)
+    r["shapes"] = {"checked": f"q ({B},{H},{D}); per channel k/v "
+                              f"({B},{H},{Tc},{D}) lengths [{S}, {S}, 0, "
+                              f"{S}]; per block 256 ({B},{H},512,{D}) "
+                              f"lengths [256, 512, 0, 300]",
+                   "timed": f"per channel, every row at {S} of {Tc}"}
+    rows["flat_decode_d64"] = r
+    # the quantizers
+    xp = torch.randn((B, H, P, D), generator=gen, device=dev)
+    x512 = torch.randn((B, H, 512, D), generator=gen, device=dev)
+    for xx in (xp, x512):
+        if not all(same_bits(g, w) for g, w in zip(
+                QK.quantize_blocked_cuda(xx, bs),
+                QK.quantize_blocked_plain(xx, bs))):
+            raise AssertionError(f"quantize_blocked D64 at "
+                                 f"{tuple(xx.shape)}: kernel and plain "
+                                 f"version differ (must be bitwise)")
+    n = xp.numel()
+    r = _time_rows({"quantize_blocked": (
+        lambda: QK.quantize_blocked_cuda(xp, bs),
+        lambda: QK.quantize_blocked_plain(xp, bs), 5 * n + 4 * (n // bs),
+        6 * n, None, "none: no single PyTorch call computes per-(block, "
+        "channel) scales and the int8 values together")}, 50, 5)
+    r = r["quantize_blocked"]
+    r.update({"max_abs_err": 0.0, "shapes": {
+        "checked": f"({B},{H},{P},{D}) and ({B},{H},512,{D}) block {bs}, "
+                   f"bitwise", "timed": f"({B},{H},{P},{D}) block {bs}"}})
+    rows["quantize_blocked_d64"] = r
+    small = per_channel_rows(xp, 20, 3)      # bitwise at the prompt's shape
+    pair = per_channel_rows(k, 50, 5)        # and at the cross cache's
+    for name in PAIR:
+        pair[name].update({"max_abs_err": 0.0, "shapes": {
+            "checked": f"({B},{H},{Tc},{D}) (zero past {S}) and "
+                       f"({B},{H},{P},{D}), bitwise",
+            "timed": f"({B},{H},{Tc},{D})"},
+            "pair_ms": pair["pair"]["ms"],
+            "pair_bound_ms": pair["pair"]["bound_ms"],
+            "prompt_shape_ms": small[name]["ms"]})
+        rows[f"{name}_d64"] = pair[name]
+    log(f"[quantize D64] blocked bitwise at ({B},{H},{P},{D}) and "
+        f"({B},{H},512,{D}): {rows['quantize_blocked_d64']['ms']:.4f} ms "
+        f"(bound {rows['quantize_blocked_d64']['bound_ms']:.5f}); the pair "
+        f"bitwise at ({B},{H},{Tc},{D}) and ({B},{H},{P},{D}): absmax "
+        f"{pair['absmax']['ms']:.4f} + quantize_with_scales "
+        f"{pair['quantize_with_scales']['ms']:.4f} ms, back to back "
+        f"{pair['pair']['ms']:.4f} ms (bound {pair['pair']['bound_ms']:.5f}"
+        f" ms)")
     return rows
 
 
@@ -2199,7 +2579,8 @@ def parity_mixed(dev):
 
 # -- the other served architectures ------------------------------------------
 
-SERVED = ("llama3_2_3b", "codeqwen1_5_7b", "qwen2_5_32b", "qwen2_moe_a2_7b")
+SERVED = ("llama3_2_3b", "codeqwen1_5_7b", "qwen2_5_32b", "qwen2_moe_a2_7b",
+          "qwen2_vl_2b")
 BIAS_STD = 0.5                 # the seeded QKV biases (init draws zeros)
 
 
@@ -2219,8 +2600,9 @@ def seeded_biases(params, cfg, seed: int):
 
 
 def parity_archs(dev):
-    """The four other served architectures' smoke configs in float32 with
-    seeded QKV biases: the paged and the contiguous LLMEngine give the same
+    """The five other served decoder-only architectures' smoke configs
+    (qwen2_vl_2b: M-RoPE in text mode) in float32 with seeded QKV biases:
+    the paged and the contiguous LLMEngine give the same
     greedy tokens on the card (kernels, graphed paged steps) and on the
     CPU (plain versions)."""
     import dataclasses
@@ -2328,6 +2710,119 @@ def parity_recurrent(dev):
             f"{sum(map(len, streams['cpu']))} greedy tokens identical on cpu "
             f"(plain versions) and card (kernels); paged refused: "
             f"{refusal}")
+
+
+WHISPER = "whisper_small"
+WHISPER_PROMPT, WHISPER_MAX_LEN, WHISPER_STEPS = 256, 512, 48
+
+
+def whisper_serve(params, cfg, frames, tokens, steps: int, max_len: int,
+                  device, events: bool = False) -> dict:
+    """`make_serve_fns` on an encoder-decoder: the prefill with the
+    reference's {"frames", "tokens"} batch, then ``steps`` greedy decode
+    steps. Returns the tokens (rows x steps), the final state, the host
+    seconds to the first token (the prefill and its argmax) and, with
+    ``events``, each decode step's CUDA-event ms."""
+    import torch
+    from repro_torch.serving.engine import make_serve_fns
+    B, S = tokens.shape
+    init, prefill, decode = make_serve_fns(cfg, max_len=max_len,
+                                           device=device)
+    state = init(B)
+    t0 = time.perf_counter()
+    logits, state = prefill(params, {"frames": frames, "tokens": tokens},
+                            state)
+    tok = logits[:, :cfg.vocab].argmax(-1).to(torch.int32)
+    out = [tok]
+    if device != "cpu":
+        torch.cuda.synchronize()
+    ttft = time.perf_counter() - t0
+    pos = torch.full((B,), S, dtype=torch.int32, device=device)
+    times = []
+    for _ in range(steps):
+        if events:
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+        logits, state = decode(params, tok[:, None], state, pos)
+        if events:
+            e1.record()
+            times.append((e0, e1))
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{cfg.name}: a non-finite decode logit")
+        tok = logits[:, :cfg.vocab].argmax(-1).to(torch.int32)
+        out.append(tok)
+        pos = pos + 1
+    return {"tokens": torch.stack(out, 1).tolist(), "state": state,
+            "ttft_s": ttft,
+            "step_ms": [a.elapsed_time(b) for a, b in times]}
+
+
+def parity_whisper(dev):
+    """whisper_small's smoke config in float32 through `make_serve_fns`:
+    `make_frames` frames, 16-token prompts and 12 greedy decode steps (a
+    block flush in the self caches) give the same tokens on the card
+    (kernels) and on the CPU (plain versions), the cross caches' lengths
+    equal; the paged backend, a non-int8 dtype, chunk prefill and the
+    batcher are refused (the reference's errors; the batcher's named)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, make_frames
+    from repro_torch.models import encdec
+    from repro_torch.serving import EngineConfig, LLMEngine
+    from repro_torch.serving.engine import (make_chunk_prefill_fn,
+                                            make_serve_fns)
+    cfg = dataclasses.replace(get_config(WHISPER, smoke=True),
+                              dtype="float32")
+    params = encdec.init_params(cfg, torch.Generator().manual_seed(0),
+                                device="cpu")
+    frames = torch.from_numpy(make_frames(DataConfig(
+        seq_len=16, global_batch=2, vocab=cfg.vocab), cfg.d_model,
+        cfg.encoder_seq))
+    toks = torch.from_numpy(np.random.RandomState(3).randint(
+        0, cfg.vocab, (2, 16)).astype(np.int32))
+    runs = {str(d): whisper_serve(_to(params, d), cfg, frames.to(d),
+                                  toks.to(d), 12, 32, d)
+            for d in ("cpu", dev)}
+    cpu, card = runs["cpu"], runs[str(dev)]
+    if cpu["tokens"] != card["tokens"]:
+        raise AssertionError(f"{WHISPER} smoke f32 make_serve_fns: greedy "
+                             f"tokens differ: cpu {cpu['tokens']} vs card "
+                             f"{card['tokens']}")
+    if any(c.length != cfg.encoder_seq for c in
+           cpu["state"]["cross"] + card["state"]["cross"]):
+        raise AssertionError(f"{WHISPER}: cross-cache lengths differ")
+    refusals = []
+    for name, fn in (
+            ("paged", lambda: make_serve_fns(cfg, max_len=32, paged=True,
+                                             device=dev)),
+            ("int4", lambda: make_serve_fns(cfg, max_len=32,
+                                            kv_cache_dtype="int4",
+                                            device=dev)),
+            ("chunk prefill", lambda: make_chunk_prefill_fn(cfg)),
+            ("batcher", lambda: LLMEngine(_to(params, dev), cfg, EngineConfig(
+                batch=2, max_len=32), device=dev)),
+            ("paged batcher", lambda: LLMEngine(
+                _to(params, dev), cfg, EngineConfig(batch=2, max_len=32,
+                                                    paged=True),
+                device=dev))):
+        try:
+            fn()
+        except ValueError as e:
+            refusals.append(f"{name}: {e}")
+        else:
+            raise AssertionError(f"{WHISPER}: {name} was not refused")
+    want = ("paged serving is decoder-only", "a paged-backend feature",
+            "chunked prefill is decoder-only", "is an encoder-decoder model",
+            "paged serving is decoder-only")
+    if not all(w in r for w, r in zip(want, refusals)):
+        raise AssertionError(f"{WHISPER}: refusals {refusals}")
+    log(f"[parity] {WHISPER} smoke f32 make_serve_fns: "
+        f"{sum(map(len, cpu['tokens']))} greedy tokens identical on cpu "
+        f"(plain versions) and card (kernels), a block flushed; refused: "
+        + "; ".join(refusals))
 
 
 # -- phase 5: the slices at full width ---------------------------------------
@@ -4092,7 +4587,7 @@ def arch_full_width(dev, arch: str, card: str) -> dict:
             f"{max(step['probe_replays'])}-step chunk replayed with no host "
             f"sync; {card}")
     del geng
-    if arch in ("llama3_2_3b", "qwen2_moe_a2_7b"):
+    if arch in ("llama3_2_3b", "qwen2_moe_a2_7b", "qwen2_vl_2b"):
         out[f"serve {arch} contiguous"] = serve_full_width(
             dev, params, cfg, paged=False, tag=arch)[0]
     log(f"[{label}] " + json.dumps(res))
@@ -4278,6 +4773,116 @@ def recurrent_serve_full_width(dev, arch: str, card: str) -> dict:
     del params
     return out, res
 
+def whisper_weight_bytes(params) -> dict:
+    """Parameter bytes of an encoder-decoder: all; what one decode step
+    reads (every decoder layer's weights but the cross-attention K / V
+    projections, which run at prefill only, and the tied embedding as the
+    head)."""
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    step = [t for layer in params["dec_layers"]
+            for name, sub in layer.items() for k, t in sub.items()
+            if not (name == "cross_attn" and k in ("wk", "wv"))]
+    return {"params": sum(t.numel() for t in _leaves(params)),
+            "total": nbytes(_leaves(params)),
+            "decode_step": nbytes(step) + nbytes([params["embed"]])}
+
+
+def whisper_full_width(dev, card: str) -> dict:
+    """whisper_small at full width (12 + 12 layers, bf16 weights from a
+    seeded generator) through `make_serve_fns`: `make_frames` frames (4,
+    1500, 768) at seed 0, 256-token prompts (a block multiple, as the
+    per-block self cache takes), max_len 512, then 48 greedy decode steps.
+    The launches must be those predicted: at the prefill flash forward 36
+    (12 encoder layers, 12 self, 12 cross), quantize_blocked 24 (self K
+    and V), absmax and quantize_with_scales 24 each (the cross caches' K
+    and V per channel over 1504 slots); flat decode 24 a decode step (self
+    and cross); no flush (256 + 48 < 512). Reports the encoder's time
+    (CUDA events), TTFT, tok/s, peak memory and the least event-timed
+    decode step against its weight and cross-cache bytes."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, make_frames
+    from repro_torch.models import encdec
+    cfg = get_config(WHISPER)
+    B, S, steps = 4, WHISPER_PROMPT, WHISPER_STEPS
+    t0 = time.perf_counter()
+    params = encdec.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        0), device=dev)
+    torch.cuda.synchronize()
+    wb = whisper_weight_bytes(params)
+    init_s = time.perf_counter() - t0
+    frames = torch.from_numpy(make_frames(DataConfig(
+        seq_len=S, global_batch=B, vocab=cfg.vocab, seed=0), cfg.d_model,
+        cfg.encoder_seq)).to(dev)
+    tokens = torch.from_numpy(np.random.RandomState(1).randint(
+        0, cfg.vocab, (B, S)).astype(np.int32)).to(dev)
+    # the encoder alone, warm, by CUDA events
+    encdec.encode(params, frames, cfg)
+    enc_ms = []
+    for _ in range(3):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        encdec.encode(params, frames, cfg)
+        e1.record()
+        torch.cuda.synchronize()
+        enc_ms.append(e0.elapsed_time(e1))
+    L, E = cfg.n_layers, cfg.n_encoder_layers
+    want = {"flash_fwd": E + 2 * L, "quantize_blocked": 2 * L,
+            "absmax": 2 * L, "quantize_with_scales": 2 * L,
+            "flat_decode": 2 * L * steps, "paged_decode": 0,
+            "paged_prefill": 0, "seed_decode": 0, "dequantize": 0}
+    label = f"serve {WHISPER} make_serve_fns"
+    r, wall, counts, peak = _run_path(
+        dev, label, ("flash_fwd", "quantize_blocked", "absmax",
+                     "quantize_with_scales", "flat_decode"),
+        lambda: whisper_serve(params, cfg, frames, tokens, steps,
+                              WHISPER_MAX_LEN, dev, events=True))
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts} differ from the "
+                             f"predicted {want}")
+    toks = r["tokens"]
+    if len(toks) != B or any(len(t) != steps + 1 for t in toks) or not all(
+            0 <= t < cfg.vocab for ts in toks for t in ts):
+        raise AssertionError(f"{label}: token budgets or a token outside "
+                             f"the vocabulary")
+    cross = r["state"]["cross"]
+    if any(c.length != cfg.encoder_seq or c.max_len != 1504 for c in cross):
+        raise AssertionError(f"{label}: cross caches not at 1500 of 1504")
+    cross_bytes = sum(t.numel() * t.element_size() for c in cross
+                      for t in (c.k_q, c.v_q, c.k_s, c.v_s)) \
+        * cfg.encoder_seq // 1504
+    step_bytes = wb["decode_step"] + cross_bytes
+    bound_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    gen_tokens = B * (steps + 1)
+    res = {"arch": WHISPER, "card": card, "weight_bytes": wb,
+           "init_s": init_s, "encoder_ms": enc_ms, "ttft_s": r["ttft_s"],
+           "wall_s": wall, "generated_tokens": gen_tokens,
+           "tokens_per_s": gen_tokens / wall, "launches": counts,
+           "predicted_launches": want, "max_memory_allocated_bytes": peak,
+           "decode_step_ms_min": min(r["step_ms"]),
+           "decode_step_ms_median": float(np.median(r["step_ms"])),
+           "cross_cache_bytes_read": cross_bytes,
+           "decode_step_bound_ms": bound_ms}
+    log(f"[{label}] 12 + 12 layers, {wb['params']} params, {wb['total']} "
+        f"weight bytes; frames ({B}, {cfg.encoder_seq}, {cfg.d_model}), "
+        f"prompts {B} x {S}: the encoder {min(enc_ms):.3f} ms (least of 3, "
+        f"CUDA events); TTFT {r['ttft_s'] * 1e3:.1f} ms; {gen_tokens} tokens "
+        f"in {wall:.3f} s ({res['tokens_per_s']:.2f} tok/s); "
+        f"max_memory_allocated {peak} bytes; launches as predicted (flash "
+        f"{counts['flash_fwd']} = {E} + 2 x {L}, quantize_blocked "
+        f"{counts['quantize_blocked']}, absmax + quantize_with_scales "
+        f"{counts['absmax']} + {counts['quantize_with_scales']}, flat decode "
+        f"{counts['flat_decode']} = 2 x {L} x {steps}); a decode step "
+        f"{res['decode_step_ms_min']:.3f} ms least, "
+        f"{res['decode_step_ms_median']:.3f} ms median (CUDA events) against "
+        f"{bound_ms:.3f} ms to read {wb['decode_step']} weight bytes and "
+        f"{cross_bytes} cross-cache bytes at 3.35 TB/s; {card}")
+    log(f"[{label}] " + json.dumps(res))
+    del params, r
+    return {label: counts}
+
+
 def generate_full_width(dev, params, cfg, granularity: str):
     """greedy_generate, 4 prompts of 1000 tokens, 32 steps. Per channel
     (the paper's setting): one 1000-token prefill (block 8), 32 decode
@@ -4459,13 +5064,28 @@ def _leaves(x):
         yield x
 
 
+# each kernel's CUDA source and the Pallas kernel it replaces
+KERNEL_SOURCES = {
+    "paged_decode": ("paged_decode.cu", "quant_attention.py:396"),
+    "paged_prefill": ("paged_prefill.cu", "quant_prefill.py:63"),
+    "flat_decode": ("flat_decode.cu", "quant_attention.py:112"),
+    "seed_decode": ("seed_decode.cu", "quant_attention.py:271"),
+    "flash_fwd": ("flash_fwd.cu", "flash_fwd.py:37"),
+    "absmax": ("quantize.cu", "quantize.py:35"),
+    "quantize_with_scales": ("quantize.cu", "quantize.py:49"),
+    "quantize_blocked": ("quantize.cu", "quantize.py:59"),
+    "dequantize": ("quantize.cu", "quantize.py:67")}
+
+
 def kernels_line(decode, prefill, flat, quant, paper, grad, flash, seed,
-                 mma, path_counts, d256, d256_path):
+                 mma, path_counts, extras):
     """One entry per hand-written kernel: the keys of every entry of the
     kernels line, its launches summed over the main paths that ran it;
-    then a row per kernel at recurrentgemma_9b's head width 256 (GQA group
-    16) from ``d256`` (`check_d256`), its launches those of the paths
-    named ``d256_path...`` (recurrentgemma_9b served at full width)."""
+    then a row per kernel at another model's shapes, from each (rows,
+    prefix) of ``extras`` (`check_d256`: recurrentgemma_9b's head width
+    256; `check_g6_d64`: qwen2_vl_2b's GQA group 6 and whisper_small's
+    head width 64), its launches those of the paths whose names start
+    with ``prefix`` (that model served at full width)."""
     launches = {k: sum(c.get(k, 0) for c in path_counts.values())
                 for k in _counters()}
     by_path = {k: {p: c[k] for p, c in path_counts.items() if c.get(k)}
@@ -4568,28 +5188,24 @@ def kernels_line(decode, prefill, flat, quant, paper, grad, flash, seed,
                if name in PAIR else {}),
             **{k: r[k] for k in ("ms", "ms_clean_l2", "plain_ms", "bound_ms",
                                  "bound_by", "library_ms") if k in r}})
-    d256_by = {k: {p: c[k] for p, c in path_counts.items()
-                   if p.startswith(d256_path)} for k in launches}
-    for name, src, replaces, kernel, dtype, tol in (
-            ("flash_fwd_d256", "flash_fwd.cu", "flash_fwd.py:37", "flash_fwd",
-             "bfloat16 (float32 too)",
-             f"out |a-b| <= {ATOL_BF16:g} + {RTOL_BF16:g}|b| (bf16), else "
-             f"and m, l: {ATOL:g} + {RTOL:g}|b|"),
-            ("flat_decode_d256", "flat_decode.cu", "quant_attention.py:112",
-             "flat_decode", "int8", attn_tol),
-            ("quantize_blocked_d256", "quantize.cu", "quantize.py:59",
-             "quantize_blocked", "int8", "bitwise")):
-        r = d256[name]
-        out.append({
-            "name": name, "route": "cuda", "source": csrc + src,
-            "replaces": ref + replaces, "kernel": kernel, "dtype": dtype,
-            "tol": tol, "launches": sum(d256_by[kernel].values()),
-            "launches_by_path": d256_by[kernel],
-            **{k: r[k] for k in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms", "library", "shapes", "tflop_per_s", "gb_per_s",
-                "kv_reads", "splits", "worst_tol_ratio", "flush_ms",
-                "flush_bound_ms", "lanes") if k in r}})
+    flash_tol = (f"out |a-b| <= {ATOL_BF16:g} + {RTOL_BF16:g}|b| (bf16), "
+                 f"else and m, l: {ATOL:g} + {RTOL:g}|b|")
+    for rows, prefix in extras:
+        for name, r in rows.items():
+            kernel = name.rsplit("_", 1)[0]
+            src, replaces = KERNEL_SOURCES[kernel]
+            by = {p: c[kernel] for p, c in path_counts.items()
+                  if p.startswith(prefix) and c.get(kernel)}
+            out.append({
+                "name": name, "route": "cuda", "source": csrc + src,
+                "replaces": ref + replaces, "kernel": kernel,
+                "dtype": ("bfloat16 (float32 too)" if kernel == "flash_fwd"
+                          else "int8"),
+                "tol": (flash_tol if kernel == "flash_fwd" else "bitwise"
+                        if kernel in QUANT_KERNELS else attn_tol),
+                "launches": sum(by.values()), "launches_by_path": by,
+                **{k: v for k, v in r.items() if k not in (
+                    "bytes", "operations")}})
     for e in out:
         if "launches" not in e:
             e["launches"] = launches[e["name"]]
@@ -4648,6 +5264,7 @@ def main() -> int:
     flash = check_flash(dev, gen)
     quant = check_quantize(dev, gen)
     d256 = check_d256(dev, gen)
+    g6d64 = check_g6_d64(dev, gen)
     log(f"[kernels] checked in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     paper = paper_phase(dev, gen)
@@ -4662,6 +5279,7 @@ def main() -> int:
     parity_mixed(dev)
     parity_archs(dev)
     parity_recurrent(dev)
+    parity_whisper(dev)
     log(f"[parity] in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -4717,13 +5335,23 @@ def main() -> int:
     log(f"[recurrent] the three models in {time.perf_counter() - t_rec:.1f} "
         f"s")
     t0 = time.perf_counter()
+    path_counts.update(whisper_full_width(dev, card))
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[{WHISPER}] phase in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     path_counts.update(train_full_width(dev))
     log(f"[train] phase in {time.perf_counter() - t0:.1f} s")
 
     prefill["sass_mma"] = pmma
-    kernels = kernels_line(decode, prefill, flat, quant, paper, grad, flash,
-                           seed, mma, path_counts, d256,
-                           "serve recurrentgemma_9b contiguous")
+    kernels = kernels_line(
+        decode, prefill, flat, quant, paper, grad, flash, seed, mma,
+        path_counts, [
+            (d256, "serve recurrentgemma_9b contiguous"),
+            ({k: r for k, r in g6d64.items() if k.endswith("_g6")},
+             "serve qwen2_vl_2b"),
+            ({k: r for k, r in g6d64.items() if k.endswith("_d64")},
+             f"serve {WHISPER}")])
     if any(k["launches"] < 1 for k in kernels):
         raise AssertionError("a kernel was launched on no main path")
     log(f"[total] {time.perf_counter() - t_start:.1f} s")

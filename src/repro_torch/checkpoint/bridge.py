@@ -5,32 +5,38 @@ The reference stacks its layers by pattern position: ``blocks.p{i}`` for
 i < period (the block pattern's length) holds layer g * period + i at
 index g of a leading ``n_groups`` axis, and the n_layers - n_groups *
 period layers left over follow unstacked in the list ``tail``;
-``embed``, ``lm_head`` and ``final_norm`` sit beside them. The port keeps
-a list of per-layer dicts under ``layers``. Arrays go through float32,
-which is exact for bfloat16 (numpy's ml_dtypes bfloat16 cannot go
-through `torch.from_numpy`).
+``embed``, ``lm_head`` (none with tied embeddings) and ``final_norm``
+sit beside them. The port keeps a list of per-layer dicts under
+``layers``. An encoder-decoder (``cfg.family == "encdec"``) stacks its
+encoder blocks (norm1, attn, norm2, mlp) under ``enc_blocks`` and its
+decoder blocks (norm1, self_attn, norm_x, cross_attn, norm2, mlp) under
+``dec_blocks``, beside ``embed``, ``enc_norm`` and ``final_norm``; the
+port keeps the lists ``enc_layers`` and ``dec_layers``. Arrays go
+through float32, which is exact for bfloat16 (numpy's ml_dtypes
+bfloat16 cannot go through `torch.from_numpy`).
 
 - `params_from_numpy`: the reference's ``init_params`` tree -> the port's
   parameters, in the config's dtype (the leaves the reference keeps
-  float32 stay float32: norm scales, an MoE's router and shared-expert
-  gate, the RG-LRU gate vectors, the mLSTM gate projection and bias, the
-  sLSTM bias) on ``device``: each layer's mixer (attention with its QKV
+  float32 stay float32: norm scales and LayerNorm biases, an MoE's
+  router and shared-expert gate, the RG-LRU gate vectors, the mLSTM gate
+  projection and bias, the sLSTM bias) on ``device``: each layer's mixer (attention with its QKV
   biases, RG-LRU, mLSTM or sLSTM) and its MLP or MoE (stacked experts
   (E, d, f) / (E, f, d), shared experts).
 - `opt_state_from_numpy`: the reference's ``init_opt_state`` tree (m, v,
   master, step, optional grad_err) -> the port's (`training.step`).
 - `tree_to_numpy`: the port's parameters (or moments, master weights) ->
   the reference's stacked layout (with the config, its pattern's period
-  and tail), float32 numpy, for leaf-by-leaf comparison.
+  and tail; an encoder-decoder's two stacks), float32 numpy, for
+  leaf-by-leaf comparison.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.core.tree import tree_map
-from repro_torch.models.transformer import (check_servable, pattern_layout,
-                                            stack_layers, unstack_layers)
+from repro_torch.core.tree import leaves, tree_map
+from repro_torch.models.transformer import (pattern_layout, stack_layers,
+                                            unstack_layers)
 
 
 def _stacked_ref(tree, cfg) -> dict:
@@ -54,31 +60,57 @@ def _tensor(a, dtype, device) -> torch.Tensor:
 
 
 # the leaves the reference keeps in float32 whatever the model's dtype: the
-# norm scales, an MoE's router and shared-expert gate, the RG-LRU's gate
-# vectors, the mLSTM's gate projection and bias and the sLSTM's bias
-_F32 = {"final_norm", "norm1", "norm2", "router", "shared_gate", "lam",
-        "w_a", "b_a", "w_x", "b_x", "w_if", "b_if", "b"}
+# norms (scales, and LayerNorm biases), an MoE's router and shared-expert
+# gate, the RG-LRU's gate vectors, the mLSTM's gate projection and bias and
+# the sLSTM's bias
+_F32 = {"final_norm", "norm1", "norm2", "norm_x", "enc_norm", "bias",
+        "router", "shared_gate", "lam", "w_a", "b_a", "w_x", "b_x", "w_if",
+        "b_if", "b"}
+_ENCDEC = (("enc_blocks", "enc_layers"), ("dec_blocks", "dec_layers"))
+
+
+def _conv(node, dtype_of, device, f32=False):
+    if isinstance(node, dict):
+        return {k: _conv(v, dtype_of, device, f32 or k in _F32)
+                for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [_conv(v, dtype_of, device, f32) for v in node]
+    return _tensor(node, dtype_of(f32), device)
+
+
+def _unstack(stack) -> list:
+    """A stacked tree (leading layer axis) -> one copy a layer."""
+    n = leaves(stack)[0].shape[0]
+    return [tree_map(lambda x, i=i: x[i].clone(), stack) for i in range(n)]
+
+
+def _encdec_layout(tree, cfg, device, dtype_of) -> dict:
+    """The reference's encoder-decoder tree -> the port's, the stacks as
+    per-layer lists."""
+    got = {k: int(np.asarray(tree[k]["norm1"]["scale"]).shape[0])
+           for k, _ in _ENCDEC}
+    want = {"enc_blocks": cfg.n_encoder_layers, "dec_blocks": cfg.n_layers}
+    if got != want:
+        raise ValueError(f"expected {want} stacked layers, got {got}")
+    port = _conv(tree, dtype_of, device)
+    for ref_key, port_key in _ENCDEC:
+        port[port_key] = _unstack(port.pop(ref_key))
+    return port
 
 
 def _port_layout(tree, cfg, device, dtype_of) -> dict:
     """Reference layout -> port layout; each leaf a tensor of
     ``dtype_of(is_float32_leaf)``, layers as copies (not views of a
     stack)."""
+    if cfg.family == "encdec":
+        return _encdec_layout(tree, cfg, device, dtype_of)
     ref = _stacked_ref(tree, cfg)
-
-    def conv(node, f32=False):
-        if isinstance(node, dict):
-            return {k: conv(v, f32 or k in _F32) for k, v in node.items()}
-        if isinstance(node, (list, tuple)):
-            return [conv(v, f32) for v in node]
-        return _tensor(node, dtype_of(f32), device)
-    port = unstack_layers(conv(ref))
+    port = unstack_layers(_conv(ref, dtype_of, device))
     port["layers"] = tree_map(lambda x: x.clone(), port["layers"])
     return port
 
 
 def params_from_numpy(tree, cfg, device) -> dict:
-    check_servable(cfg)
     dt = cfg.activation_dtype
     return _port_layout(tree, cfg, device,
                         lambda f32: torch.float32 if f32 else dt)
@@ -107,7 +139,16 @@ def tree_to_numpy(tree, cfg=None) -> dict:
     """The port's layout (or the stacked one) -> the reference's stacked
     layout as float32 numpy: blocks by ``cfg``'s pattern position (one
     position without a config) and its ``tail`` (empty when there is
-    none)."""
+    none; an encoder-decoder's ``enc_layers`` / ``dec_layers`` stacked
+    back as ``enc_blocks`` / ``dec_blocks``)."""
+    if "dec_layers" in tree:
+        out = {k: v for k, v in tree.items()
+               if k not in ("enc_layers", "dec_layers")}
+        for ref_key, port_key in _ENCDEC:
+            layers = tree[port_key]
+            out[ref_key] = tree_map(lambda *xs: torch.stack(xs), layers[0],
+                                    *layers[1:])
+        return tree_map(lambda x: x.detach().float().cpu().numpy(), out)
     period = pattern_layout(cfg)[0] if cfg is not None else 1
     stacked = stack_layers(tree, period) if "layers" in tree else tree
     out = tree_map(lambda x: x.detach().float().cpu().numpy(), stacked)

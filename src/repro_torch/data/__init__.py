@@ -1,3 +1,4 @@
-from repro_torch.data.pipeline import DataConfig, MemmapDataset, SyntheticLM
+from repro_torch.data.pipeline import (DataConfig, MemmapDataset, SyntheticLM,
+                                       make_frames)
 
-__all__ = ["DataConfig", "MemmapDataset", "SyntheticLM"]
+__all__ = ["DataConfig", "MemmapDataset", "SyntheticLM", "make_frames"]

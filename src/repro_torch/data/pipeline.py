@@ -1,7 +1,6 @@
 """Deterministic, shard-aware token data pipeline (a copy of
 ``repro.data.pipeline``: numpy only, so the two packages give the same
-batches; ``make_frames`` waits for the encoder-decoder architecture,
-ROADMAP queue 1, item 15).
+batches and the same encoder frames).
 
 Two sources:
   * SyntheticLM — seeded Zipf-ish token stream (self-contained; used by the
@@ -93,3 +92,15 @@ class MemmapDataset:
             yield self.batch_at(step)
             step += 1
 
+
+
+def make_frames(cfg: DataConfig, d_model: int, enc_seq: int,
+                step: int = 0) -> np.ndarray:
+    """Stub modality frontend output (whisper frames / vision patches):
+    (local batch, enc_seq, d_model) float32, deterministic in (seed, step,
+    shard)."""
+    rng = np.random.default_rng(
+        np.random.SeedSequence([cfg.seed, step, cfg.shard_id, 7]))
+    B = cfg.global_batch // cfg.num_shards
+    return (rng.standard_normal((B, enc_seq, d_model)) * 0.1).astype(
+        np.float32)

@@ -43,7 +43,9 @@ def main(argv=None):
     ap.add_argument("--arch", required=True,
                     help=f"one of {', '.join(ARCHS)} (dashes or "
                     f"underscores; --paged takes full-attention stacks "
-                    f"without a sliding window only)")
+                    f"without a sliding window only; whisper_small is "
+                    f"refused: the batcher feeds no frames, serve it "
+                    f"through serving.engine.make_serve_fns)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--layers", type=int, default=None,
                     help="override the architecture's layer count")
@@ -143,6 +145,7 @@ def main(argv=None):
     from repro_torch.models import transformer
     from repro_torch.serving import (EngineConfig, LLMEngine, SamplingParams,
                                      kv_cache_memory_report)
+    from repro_torch.serving.engine import check_encdec
 
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.layers is not None:
@@ -152,6 +155,8 @@ def main(argv=None):
     print(f"[serve] {args.arch}: full-size cache at decode_32k "
           f"fp32={rep['fp32_bytes'] / 2**30:.0f}GiB "
           f"int8={rep['int8_bytes'] / 2**30:.0f}GiB (4x reduction)")
+    if cfg.family == "encdec" and args.paged:
+        check_encdec(True, kv_spec)          # the reference's ValueError
     gen = torch.Generator(device=device).manual_seed(0)
     params = transformer.init_params(cfg, gen, device=device)
     eng = LLMEngine(params, cfg, EngineConfig(

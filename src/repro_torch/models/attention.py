@@ -1,10 +1,17 @@
 """GQA attention: training, and serving over the quantized KV cache (port
-of ``repro.models.attention``, with or without QKV bias; ``local`` marks
-a "local_attn" block, whose window is the config's sliding window).
+of ``repro.models.attention``, with or without QKV bias, RoPE or M-RoPE;
+``local`` marks a "local_attn" block, whose window is the config's
+sliding window).
 
 Training:
     train(...)          full causal (optionally sliding-window) attention,
                         no cache: blocked flash attention (`models.flash`)
+Encoder-decoder cross attention (`models.encdec`):
+    cross_train(...)    queries from the decoder, keys / values from the
+                        encoder output, no RoPE, no mask (flash forward,
+                        non-causal); returns the K/V for the cross cache
+    cross_decode(...)   one query over the per-channel int8 cross cache
+                        (the flat decode kernel) at its valid length
 Contiguous cache (`core.kvcache.QuantizedKVCache`):
     prefill(...)        causal attention over the prompt (blocked flash
                         attention, `models.flash`), then quantizes its K/V
@@ -33,7 +40,7 @@ from repro_torch.core.kvcache import QuantizedKVCache
 from repro_torch.core.paging import PagedQuantizedKVCache
 from repro_torch.kernels import ops
 from repro_torch.models import flash
-from repro_torch.models.common import apply_rope, dense_init
+from repro_torch.models.common import apply_mrope, apply_rope, dense_init
 
 
 def init(cfg, gen: torch.Generator, device) -> dict:
@@ -50,9 +57,11 @@ def init(cfg, gen: torch.Generator, device) -> dict:
 
 
 def _project_qkv(p, x, cfg, positions):
-    """x (B, S, d) -> q (B, H, S, hd), k/v (B, Hkv, S, hd), RoPE applied.
-    A bias joins the product after it is rounded to the activation dtype,
-    as in the reference (a fused ``addmm`` would add it before)."""
+    """x (B, S, d) -> q (B, H, S, hd), k/v (B, Hkv, S, hd), RoPE applied
+    (M-RoPE where the config has sections: (B, S) positions broadcast to
+    (B, 3, S), text mode). A bias joins the product after it is rounded
+    to the activation dtype, as in the reference (a fused ``addmm`` would
+    add it before)."""
     B, S, _ = x.shape
     hd = cfg.head_dim
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
@@ -61,8 +70,14 @@ def _project_qkv(p, x, cfg, positions):
     q = q.reshape(B, S, cfg.n_heads, hd).transpose(1, 2)
     k = k.reshape(B, S, cfg.n_kv_heads, hd).transpose(1, 2)
     v = v.reshape(B, S, cfg.n_kv_heads, hd).transpose(1, 2)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.mrope_sections is not None:
+        pos3 = positions if positions.dim() == 3 else \
+            positions[:, None].expand(B, 3, S)
+        q = apply_mrope(q, pos3, cfg.mrope_sections, cfg.rope_theta)
+        k = apply_mrope(k, pos3, cfg.mrope_sections, cfg.rope_theta)
+    else:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -90,6 +105,33 @@ def train(p, x, cfg, positions, *, local: bool = False, causal: bool = True):
     q, k, v = _project_qkv(p, x, cfg, positions)
     out = _sdpa(q, k, v, causal=causal, window=_window(cfg, local))
     return _merge_heads(p, out, x.dtype)
+
+
+def cross_train(p, x, kv_src, cfg):
+    """Encoder-decoder cross attention (training and prefill): queries
+    from x (B, S, d), keys / values from kv_src (B, T, d), the encoder
+    output. No RoPE, no mask. Returns (out (B, S, d), (k, v) (B, Hkv, T,
+    hd)) — the K/V the cross cache quantizes."""
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, hd).transpose(1, 2)
+    k = (kv_src @ p["wk"]).reshape(B, -1, cfg.n_kv_heads, hd).transpose(1, 2)
+    v = (kv_src @ p["wv"]).reshape(B, -1, cfg.n_kv_heads, hd).transpose(1, 2)
+    out = _sdpa(q, k, v, causal=False, window=None)
+    return _merge_heads(p, out, x.dtype), (k, v)
+
+
+def cross_decode(p, x, cfg, cache: QuantizedKVCache):
+    """Decode-time cross attention: one query a row over the per-channel
+    int8 encoder K/V (scales computed once at prefill, paper Eq. 5, never
+    updated), at the cache's valid length."""
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, hd).transpose(1, 2)
+    out = ops.quant_attention_decode(
+        q[:, :, 0], cache.k_q, cache.k_s, cache.v_q, cache.v_s,
+        cache.valid_len)
+    return _merge_heads(p, out[:, :, None].to(x.dtype), x.dtype)
 
 
 # -- serving ------------------------------------------------------------------

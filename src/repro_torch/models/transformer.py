@@ -8,8 +8,9 @@ Block kinds (``cfg.block_kind(i)``), as the reference's:
     rglru       pre-norm RG-LRU mixer + pre-norm SwiGLU MLP (`models.rglru`)
     mlstm/slstm xLSTM mixers (`models.xlstm`; no FFN when cfg.d_ff == 0)
 
-Parameters are a dict: ``embed`` (Vp, d), ``lm_head`` (d, Vp),
-``final_norm``, and ``layers`` — one dict per layer (norm1, the mixer
+Parameters are a dict: ``embed`` (Vp, d), ``lm_head`` (d, Vp; none with
+tied embeddings, whose head is ``embed.T``), ``final_norm``, and
+``layers`` — one dict per layer (norm1, the mixer
 under its kind's name, then norm2 with mlp or moe where the kind has an
 FFN). The reference stacks layers by pattern position on a leading axis
 for ``lax.scan`` (``blocks.p{i}``, plus an unstacked ``tail``); the port
@@ -23,8 +24,11 @@ list with one entry per layer: for an attention kind a contiguous
 `QuantizedKVCache` (the default; a ring under a sliding window) or a
 paged `PagedQuantizedKVCache`, for a recurrent kind its state
 (`rglru.RGLRUState`, `xlstm.MLSTMState`, `xlstm.SLSTMState`), updated in
-place like the caches. The paged backend takes full-attention stacks
-only, as the reference's.
+place like the caches. Norms are RMSNorm or LayerNorm by ``cfg.norm``;
+positions rotate queries and keys by RoPE, or by M-RoPE in text mode
+where the config has sections (qwen2_vl_2b). The paged backend takes
+full-attention stacks only, as the reference's. An encoder-decoder
+(whisper_small) is `models.encdec`, not this module.
 `forward_train` recomputes each block in the backward
 (`torch.utils.checkpoint`), as the reference's per-block
 ``jax.checkpoint(nothing_saveable)``.
@@ -40,8 +44,8 @@ from repro_torch.core.paging import PagedQuantizedKVCache
 from repro_torch.core.tree import leaves, tree_map
 from repro_torch.models import attention, mlp, moe, rglru, xlstm
 from repro_torch.models import sampling as SMP
-from repro_torch.models.common import (dense_init, embed_init, rmsnorm,
-                                       rmsnorm_init)
+from repro_torch.models.common import (dense_init, embed_init, layernorm,
+                                       layernorm_init, rmsnorm, rmsnorm_init)
 
 
 def padded_vocab(cfg) -> int:
@@ -63,23 +67,26 @@ def check_device(device) -> torch.device:
 
 
 ATTN_KINDS = ("attn", "local_attn", "moe")
-_KINDS = ATTN_KINDS + ("rglru", "mlstm", "slstm")
 
 
 def check_servable(cfg, *, paged: bool = False) -> None:
-    """What the port serves: RMSNorm decoder stacks of any of the
-    reference's block kinds, on the contiguous backend; with ``paged``,
+    """What this module serves: decoder stacks of any of the reference's
+    block kinds (RMSNorm or LayerNorm, RoPE or M-RoPE, tied embeddings or
+    a head of their own), on the contiguous backend; with ``paged``,
     full-attention stacks without a sliding window only, refused with the
-    reference's `ValueError` as its paged backend refuses them. M-RoPE,
-    tied embeddings and LayerNorm (qwen2_vl_2b, whisper_small) are not
-    ported (`NotImplementedError`)."""
-    bad = [k for k in cfg.block_pattern if k not in _KINDS]
-    if bad or cfg.tie_embeddings or cfg.mrope_sections \
-            or cfg.norm != "rmsnorm":
-        raise NotImplementedError(
-            f"{cfg.name}: the port serves RMSNorm decoder stacks without "
-            f"M-RoPE or tied embeddings only; the other architectures are "
-            f"ROADMAP queue 1, item 15")
+    reference's `ValueError` as its paged backend refuses them. An
+    encoder-decoder config raises `ValueError`: it needs frames, which
+    these entry points (and the batchers and `generate` above them) do
+    not take, as the reference's do not; `serving.engine.make_serve_fns`
+    serves it (`models.encdec`)."""
+    if cfg.family == "encdec":
+        raise ValueError(
+            f"{cfg.name} is an encoder-decoder model: its prefill needs "
+            f"frames, which the decoder-only entry points, the batchers "
+            f"and generate do not feed (the reference's batcher fails on "
+            f"the missing 'frames'); serve it through "
+            f"serving.engine.make_serve_fns with batch_inputs "
+            f"{{'frames', 'tokens'}}")
     if paged:
         bad = [k for k in cfg.block_pattern if k not in ("attn", "moe")]
         if bad or cfg.sliding_window:
@@ -100,19 +107,31 @@ def init_params(cfg, generator: torch.Generator | None = None, *,
     Vp, dt = padded_vocab(cfg), cfg.activation_dtype
     params = {
         "embed": embed_init(generator, Vp, cfg.d_model, dt, device),
-        "final_norm": rmsnorm_init(cfg.d_model, device),
-        "lm_head": dense_init(generator, cfg.d_model, Vp, dt, device),
-        "layers": [],
+        "final_norm": norm_init(cfg, device),
     }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(generator, cfg.d_model, Vp, dt, device)
+    params["layers"] = []
     for i in range(cfg.n_layers):
         params["layers"].append(_block_init(cfg, cfg.block_kind(i),
                                             generator, device))
     return params
 
 
+def norm_init(cfg, device) -> dict:
+    """A norm's parameters by ``cfg.norm``."""
+    return (rmsnorm_init if cfg.norm == "rmsnorm" else layernorm_init)(
+        cfg.d_model, device)
+
+
+def norm(cfg, p, x):
+    """RMSNorm or LayerNorm by ``cfg.norm``, as the reference's ``_norm``."""
+    return (rmsnorm if cfg.norm == "rmsnorm" else layernorm)(p, x)
+
+
 def _block_init(cfg, kind: str, gen, device) -> dict:
     """One layer's parameters, as the reference's ``_block_init``."""
-    p = {"norm1": rmsnorm_init(cfg.d_model, device)}
+    p = {"norm1": norm_init(cfg, device)}
     if kind in ATTN_KINDS:
         p["attn"] = attention.init(cfg, gen, device)
     elif kind == "rglru":
@@ -124,10 +143,10 @@ def _block_init(cfg, kind: str, gen, device) -> dict:
     else:
         raise ValueError(kind)
     if kind == "moe":
-        p["norm2"] = rmsnorm_init(cfg.d_model, device)
+        p["norm2"] = norm_init(cfg, device)
         p["moe"] = moe.init(cfg, gen, device)
     elif kind in ("attn", "local_attn", "rglru") and cfg.d_ff > 0:
-        p["norm2"] = rmsnorm_init(cfg.d_model, device)
+        p["norm2"] = norm_init(cfg, device)
         p["mlp"] = mlp.init(cfg, gen, device)
     return p
 
@@ -248,16 +267,29 @@ def _embed(params, tok, positions):
 
 
 def _block_train(p, x, cfg, positions):
-    x = x + attention.train(p["attn"], rmsnorm(p["norm1"], x), cfg, positions)
-    return x + mlp.apply(p["mlp"], rmsnorm(p["norm2"], x))
+    x = x + attention.train(p["attn"], norm(cfg, p["norm1"], x), cfg,
+                            positions)
+    return x + mlp.apply(p["mlp"], norm(cfg, p["norm2"], x))
 
 
 def forward_train(params, tokens, cfg, *, positions=None,
                   remat: bool = True):
     """-> (logits (B, S, Vp), aux_loss ()). tokens (B, S) int. With
     ``remat`` each block keeps only its input for the backward and runs
-    its forward again there (flash attention's kernel included)."""
+    its forward again there (flash attention's kernel included). The
+    families `check_trainable` refuses raise."""
     check_trainable(cfg)
+    return forward(params, tokens, cfg, positions=positions, remat=remat)
+
+
+def forward(params, tokens, cfg, *, positions=None, remat: bool = False):
+    """`forward_train`'s computation for any stack of "attn" blocks (QKV
+    bias, M-RoPE, either norm, tied embeddings), without the training
+    check: the reference's ``forward_train`` logits of a model the port
+    serves but does not train yet (qwen2_vl_2b)."""
+    if set(cfg.block_pattern) != {"attn"}:
+        raise ValueError(f"{cfg.name}: the training forward takes 'attn' "
+                         f"blocks only (got {cfg.block_pattern})")
     x, positions = _embed(params, tokens, positions)
     for p in params["layers"]:
         if remat:
@@ -265,8 +297,8 @@ def forward_train(params, tokens, cfg, *, positions=None,
                            use_reentrant=False)
         else:
             x = _block_train(p, x, cfg, positions)
-    return _head(params, x), torch.zeros((), dtype=torch.float32,
-                                         device=x.device)
+    return _head(params, x, cfg), torch.zeros((), dtype=torch.float32,
+                                              device=x.device)
 
 
 # -- serving ------------------------------------------------------------------
@@ -281,7 +313,7 @@ def _block_serve(p, x, kind: str, cfg, positions, cache, mode: str,
                  row_mask=None, hist_blocks=None, valid=None):
     """One layer over x (B, S, d): its mixer by kind (the cache or the
     recurrent state updated in place), the residual, then its FFN."""
-    h = rmsnorm(p["norm1"], x)
+    h = norm(cfg, p["norm1"], x)
     if kind in ATTN_KINDS:
         local = kind == "local_attn"
         if mode == "prefill":
@@ -314,9 +346,9 @@ def _block_serve(p, x, kind: str, cfg, positions, cache, mode: str,
         cache.copy_(new)
     x = x + h.to(x.dtype)
     if "moe" in p:
-        return x + moe.apply(p["moe"], rmsnorm(p["norm2"], x), cfg)[0]
+        return x + moe.apply(p["moe"], norm(cfg, p["norm2"], x), cfg)[0]
     if "mlp" in p:
-        return x + mlp.apply(p["mlp"], rmsnorm(p["norm2"], x))
+        return x + mlp.apply(p["mlp"], norm(cfg, p["norm2"], x))
     return x
 
 
@@ -332,8 +364,9 @@ def _serve(params, tok, cfg, state, positions, mode: str, row_mask=None,
     return x
 
 
-def _head(params, x):
-    return rmsnorm(params["final_norm"], x) @ params["lm_head"]
+def _head(params, x, cfg):
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return norm(cfg, params["final_norm"], x) @ w
 
 
 def prefill(params, tokens, cfg, state, *, positions=None, row_mask=None):
@@ -345,7 +378,7 @@ def prefill(params, tokens, cfg, state, *, positions=None, row_mask=None):
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device)[None].expand(B, S)
     x = _serve(params, tokens, cfg, state, positions, "prefill", row_mask)
-    return _head(params, x[:, -1]), state
+    return _head(params, x[:, -1], cfg), state
 
 
 def prefill_chunk(params, tokens, cfg, state, *, start, row_mask=None,
@@ -364,7 +397,7 @@ def prefill_chunk(params, tokens, cfg, state, *, start, row_mask=None,
     else:
         idx = torch.clamp_min(valid.to(torch.int64) - 1, 0)
         last = x[torch.arange(x.shape[0], device=x.device), idx]
-    return _head(params, last), state
+    return _head(params, last, cfg), state
 
 
 def decode_step(params, token, cfg, state, pos, *, row_mask=None):
@@ -372,7 +405,7 @@ def decode_step(params, token, cfg, state, pos, *, row_mask=None):
     (logits (B, Vp), state)."""
     positions = pos[:, None].to(torch.int32)
     x = _serve(params, token, cfg, state, positions, "decode", row_mask)
-    return _head(params, x[:, -1]), state
+    return _head(params, x[:, -1], cfg), state
 
 
 def scan_carry(token, pos, steps: int) -> dict:

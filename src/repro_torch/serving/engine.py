@@ -7,7 +7,9 @@ rebuilds the batch on admission) and paged (``paged=True``; page pools with
 per-row page tables, admission by varlen chunked prefill).
 
 `make_serve_fns` returns the state initializer, the prefill and the decode
-step; `make_chunk_prefill_fn` the paged chunk-prefill step;
+step (for an encoder-decoder, `models.encdec`'s: its prefill takes the
+reference's ``{"frames", "tokens"}`` batch; contiguous and int8 only);
+`make_chunk_prefill_fn` the paged chunk-prefill step (decoder-only);
 `generate` / `greedy_generate` the reference generation path (contiguous:
 a block-multiple prefill, the prompt's remainder fed through decode, then
 greedy or seeded sampled decode). These are plain closures and loops;
@@ -20,9 +22,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.models import encdec
 from repro_torch.models import sampling as SMP
 from repro_torch.models import transformer
 from repro_torch.serving.params import SamplingParams, sampling_arrays
+
+
+def check_encdec(paged: bool, kv_cache_dtype) -> None:
+    """The reference's refusals for an encoder-decoder's serving."""
+    if paged:
+        raise ValueError("paged serving is decoder-only (whisper's "
+                         "cross-attention cache is write-once)")
+    if kv_cache_dtype != "int8":
+        raise ValueError("kv_cache_dtype is a paged-backend feature")
 
 
 def make_serve_fns(cfg, *, max_len: int, paged: bool = False,
@@ -33,7 +45,28 @@ def make_serve_fns(cfg, *, max_len: int, paged: bool = False,
     closed over cfg. ``paged=True`` backs the state with page pools of
     ``n_pages`` pages per layer; ``kv_cache_dtype`` (a dtype or a
     per-layer plan, `transformer.init_decode_state`) other than int8
-    requires it."""
+    requires it. An encoder-decoder config (``cfg.family == "encdec"``)
+    gets `models.encdec`'s functions: prefill(params, batch_inputs,
+    state, row_mask=None) with ``batch_inputs`` the reference's dict of
+    ``"frames"`` (B, T_enc, d) and ``"tokens"`` (B, S), and decode(params,
+    token, state, pos); paged or a dtype other than int8 raise the
+    reference's `ValueError`."""
+    if cfg.family == "encdec":
+        check_encdec(paged, kv_cache_dtype)
+
+        def init_state(batch):
+            return encdec.init_decode_state(cfg, batch, max_len,
+                                            device=device)
+
+        def prefill_fn(params, batch_inputs, state, row_mask=None):
+            return encdec.prefill(params, batch_inputs["frames"],
+                                  batch_inputs["tokens"], cfg, state)
+
+        def decode_fn(params, token, state, pos):
+            return encdec.decode_step(params, token, cfg, state, pos)
+
+        return init_state, prefill_fn, decode_fn
+
     def init_state(batch):
         return transformer.init_decode_state(
             cfg, batch, max_len, paged=paged, n_pages=n_pages,
@@ -55,8 +88,9 @@ def make_chunk_prefill_fn(cfg, *, hist_blocks: int | None = None):
     tokens (B, C) (C a page multiple), start (B,) resident token counts,
     valid (B,) true tokens per row, row_mask (B,) bool -> (last-valid-
     position logits (B, Vp), state). ``hist_blocks`` bounds each layer's
-    history walk."""
-    transformer.check_servable(cfg)
+    history walk. Decoder-only, as the reference's."""
+    if cfg.family == "encdec":
+        raise ValueError("chunked prefill is decoder-only")
 
     def chunk_prefill(params, tokens, state, start, valid, row_mask):
         return transformer.prefill_chunk(params, tokens, cfg, state,
@@ -80,7 +114,10 @@ def generate(params, cfg, prompts, *, steps: int, sampling=None,
     ``sampling`` is None (exact greedy argmax), one `SamplingParams` for
     every row or a sequence of one per row; row i's seed defaults to i.
     Token 0 is drawn from the prefill's logits, the rest in the scan. Stop
-    conditions are the scheduler's, not handled here."""
+    conditions are the scheduler's, not handled here. Decoder-only: an
+    encoder-decoder config raises `ValueError` (its prefill needs frames,
+    which the reference's ``generate`` does not feed either)."""
+    transformer.check_servable(cfg)
     device = transformer.check_device(device)
     if params["embed"].device != device:
         raise ValueError(f"params live on {params['embed'].device}, "

@@ -20,8 +20,9 @@ Pallas kernels in interpret mode:
   16 included) equals the reference's;
 - the entry points serve these configs and refuse what is not ported:
   training MoE or QKV-bias models (llama3_2_3b, dense without bias,
-  trains), M-RoPE; a sliding window serves from the contiguous ring and
-  the paged backend refuses it."""
+  trains); M-RoPE serves on both backends (tests/test_torch_vlm.py holds
+  qwen2_vl_2b); a sliding window serves from the contiguous ring and the
+  paged backend refuses it."""
 import dataclasses
 
 import jax
@@ -172,10 +173,19 @@ def test_entry_points_serve_and_refuse():
     T.init_params(window, device="cpu")
     with pytest.raises(ValueError, match="full-attention stacks only"):
         T.check_servable(window, paged=True)
+    # M-RoPE serves, on both backends (qwen2_vl_2b's text mode)
     mrope = dataclasses.replace(get_config("qwen2_moe_a2_7b", smoke=True),
                                 mrope_sections=(2, 3, 3))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        T.init_params(mrope, device="cpu")
+    params = T.init_params(mrope, device="cpu")
+    for paged in (False, True):
+        state = T.init_decode_state(mrope, 2, 64, paged=paged, device="cpu")
+        logits, _ = T.prefill_chunk(
+            params, torch.zeros((2, 8), dtype=torch.long), mrope, state,
+            start=torch.zeros((2,), dtype=torch.int32)) if paged else \
+            T.prefill(params, torch.zeros((2, 8), dtype=torch.long), mrope,
+                      state)
+        assert logits.shape == (2, T.padded_vocab(mrope))
+        assert bool(torch.isfinite(logits).all())
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -1,8 +1,8 @@
 """The port's configs equal the reference's, field by field: internlm2_1_8b
-and the seven served beside it (llama3_2_3b, codeqwen1_5_7b, qwen2_5_32b,
-qwen2_moe_a2_7b, mixtral_8x22b, recurrentgemma_9b, xlstm_350m), full and
-smoke; an architecture not yet ported (qwen2_vl_2b, whisper_small)
-raises, naming the ROADMAP item."""
+and the nine served beside it (llama3_2_3b, codeqwen1_5_7b, qwen2_5_32b,
+qwen2_moe_a2_7b, mixtral_8x22b, recurrentgemma_9b, xlstm_350m,
+qwen2_vl_2b, whisper_small), full and smoke; the two registries list the
+same architectures and resolve each name alike."""
 import dataclasses
 import importlib
 
@@ -12,8 +12,9 @@ import pytest
 import torch  # noqa: F401  (both frameworks in one process, as every port test)
 
 from repro.configs import internlm2_1_8b as ref_cfg
+from repro.configs.registry import ARCHS as REF_ARCHS
 from repro.configs.registry import get_config as ref_get
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCHS, get_config
 from repro_torch.configs import internlm2_1_8b as port_cfg
 
 jax.config.update("jax_platform_name", "cpu")
@@ -28,7 +29,7 @@ def _same(ref_val, port_val):
 
 NEW_ARCHS = ("llama3_2_3b", "codeqwen1_5_7b", "qwen2_5_32b",
              "qwen2_moe_a2_7b", "mixtral_8x22b", "recurrentgemma_9b",
-             "xlstm_350m")
+             "xlstm_350m", "qwen2_vl_2b", "whisper_small")
 
 
 def _fields_match(ref, port, variant):
@@ -65,9 +66,14 @@ def test_registry_resolves_like_reference(smoke):
         assert get_config(name, smoke) == getattr(
             port_cfg, "smoke" if smoke else "config")()
         assert get_config(name, smoke).name == ref_get(name, smoke).name
-    for name in ("qwen2_vl_2b", "whisper_small"):
-        with pytest.raises(KeyError, match="ROADMAP queue 1, item 15"):
-            get_config(name)
+    # the reference's last two architectures resolve as its registry
+    # resolves them, and the registries list the same ten
+    for name in ("qwen2_vl_2b", "whisper-small"):
+        _fields_match(ref_get(name, smoke), get_config(name, smoke),
+                      "smoke" if smoke else "config")
+    assert sorted(ARCHS) == sorted(REF_ARCHS)
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("whisper_large")
 
 
 @pytest.mark.parametrize("smoke", [False, True])

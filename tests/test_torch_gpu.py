@@ -8,16 +8,21 @@ channel (ring windows included; both also at batches 2 to 40, from
 16 splits of their slot walk to one, window 0 and T 1032),
 the flash forward (float32 on the CUDA cores and bfloat16 on the tensor
 cores; causal, windowed, offset, ragged, GQA groups of 1 to 8, and at
-D 128 the served models' groups 1, 3 and 5), the paged kernels and flat
-decode also at H / H_kv 32 / 32, 24 / 8 and 40 / 8 (codeqwen1_5_7b,
-llama3_2_3b, qwen2_5_32b), the
+D 128 the served models' groups 1, 3, 5 and 6; non-causal at D 64 over
+whisper_small's 1500 encoder frames, S = T and S != T, partial last
+tiles on both axes), the paged kernels and flat decode also at H / H_kv
+32 / 32, 24 / 8, 40 / 8 and 12 / 2 (codeqwen1_5_7b, llama3_2_3b,
+qwen2_5_32b, qwen2_vl_2b) and at 12 / 12, D 64 (whisper_small), flat
+decode per channel over a cross cache of 1504 slots at length 1500, the
 quantize/dequantize family — at the smoke shapes and at internlm2_1_8b's
 widths (the blocked kernel's slabs also at a flush, at blocks of 24
 and 8 and at D 16 to 8192); the smoke engines' greedy tokens on the card
 against the CPU (paged and contiguous, and `greedy_generate`); and the
 smoke train step's loss on the card against the CPU; the other served
 architectures' smoke tokens (llama3_2_3b, codeqwen1_5_7b, qwen2_5_32b,
-qwen2_moe_a2_7b; QKV biases non-zero) on both backends against the CPU;
+qwen2_moe_a2_7b, qwen2_vl_2b; QKV biases non-zero) on both backends
+against the CPU, and whisper_small's through `make_serve_fns` (frames,
+prefill, greedy decode steps);
 threefry bits on the card
 against the committed known answers and the CPU, the sampler with no host
 sync, and seeded sampled and prefix-cached smoke tokens on the card
@@ -66,9 +71,12 @@ DTYPES = ["int8", "fp8_e4m3", "int4"]
 TOL = dict(atol=1e-5, rtol=1e-4)
 # (H, H_kv, D, page) — the smoke config's widths and the full model's,
 # then the other served models' GQA groups: G = 1 (codeqwen1_5_7b; MHA, as
-# qwen2_moe_a2_7b), 3 (llama3_2_3b) and 5 (qwen2_5_32b)
+# qwen2_moe_a2_7b), 3 (llama3_2_3b), 5 (qwen2_5_32b) and 6 (qwen2_vl_2b:
+# 10 positions in 60 rows of a 64-row tile), and whisper_small's MHA at
+# head width 64
 WIDTHS = [(4, 2, 16, 8), (16, 8, 128, 256), (32, 32, 128, 256),
-          (24, 8, 128, 256), (40, 8, 128, 256)]
+          (24, 8, 128, 256), (40, 8, 128, 256), (12, 2, 128, 256),
+          (12, 12, 64, 256)]
 
 
 def _pool(kv_dtype, n_pages, Hkv, D, ps, gen, dev):
@@ -209,6 +217,35 @@ def test_flat_decode_kernel_matches_plain(per_channel, width, cuda_device):
 
 
 @pytest.mark.gpu
+def test_flat_decode_cross_cache_matches_plain(cuda_device):
+    """whisper_small's cross attention at decode: per channel over 1504
+    slots (the encoder's 1500 frames rounded up to 8, the padding zero)
+    at length 1500, and an empty row."""
+    B, H, D, T, n = 4, 12, 64, 1504, 1500
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    k = torch.zeros((B, H, T, D), device=cuda_device)
+    v = torch.zeros((B, H, T, D), device=cuda_device)
+    k[:, :, :n] = torch.randn((B, H, n, D), generator=gen, device=cuda_device)
+    v[:, :, :n] = torch.randn((B, H, n, D), generator=gen, device=cuda_device)
+    (kq, ks), (vq, vs) = (ops.quantize_per_channel(x) for x in (k, v))
+    for x, want in zip((kq, ks), QK.quantize_per_channel_plain(k)):
+        _bitwise(x, want)
+    ks, vs = ks[:, :, None].contiguous(), vs[:, :, None].contiguous()
+    q = torch.randn((B, H, D), generator=gen, device=cuda_device)
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=cuda_device)
+    args = (q, kq, ks, vq, vs, i32([n, n, 0, n]), i32([T] * B))
+    got = QA.flat_decode_partials_cuda(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, QA.flat_decode_partials_plain(*args)):
+        torch.testing.assert_close(g, w, **TOL)
+    assert float(got[2][2].abs().max()) == 0.0            # empty row: l = 0
+    out = ops.quant_attention_decode(q, kq, ks, vq, vs, n)
+    torch.testing.assert_close(out, ops.quant_attention_decode(
+        q.cpu(), kq.cpu(), ks.cpu(), vq.cpu(), vs.cpu(), n).to(cuda_device),
+        **TOL)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("per_channel", [False, True],
                          ids=["per_block", "per_channel"])
 @pytest.mark.parametrize("B", [2, 4, 10, 40])
@@ -342,7 +379,16 @@ FLASH_CASES = [(2, 4, 2, 37, 37, 16, True, None, 0),
                (2, 24, 8, 300, 300, 128, True, None, 0),
                (1, 24, 8, 257, 300, 128, True, 50, 43),
                (2, 40, 8, 300, 300, 128, True, None, 0),
-               (1, 40, 8, 200, 264, 128, True, None, 64)]
+               (1, 40, 8, 200, 264, 128, True, None, 64),
+               # G = 6 (qwen2_vl_2b, 12 / 2)
+               (2, 12, 2, 300, 300, 128, True, None, 0),
+               (1, 12, 2, 257, 300, 128, True, 50, 43),
+               # whisper_small, non-causal at D 64: the encoder (S = T =
+               # 1500 = 23 x 64 + 28) and cross-attention prefill (256
+               # decoder queries over 1500 frames), partial last tiles
+               (1, 12, 12, 1500, 1500, 64, False, None, 0),
+               (2, 12, 12, 256, 1500, 64, False, None, 0),
+               (1, 12, 12, 37, 1500, 64, False, None, 0)]
 
 
 @pytest.mark.gpu
@@ -667,7 +713,8 @@ def test_smoke_engine_tokens_match_cpu(cuda_device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["llama3_2_3b", "codeqwen1_5_7b",
-                                  "qwen2_5_32b", "qwen2_moe_a2_7b"])
+                                  "qwen2_5_32b", "qwen2_moe_a2_7b",
+                                  "qwen2_vl_2b"])
 def test_served_arch_smoke_tokens_match_cpu(arch, cuda_device):
     """The other served architectures' smoke configs (float32, QKV biases
     drawn non-zero): the paged engine (graphed on the card) and the
@@ -696,6 +743,58 @@ def test_served_arch_smoke_tokens_match_cpu(arch, cuda_device):
 
     for paged in (True, False):
         assert run(cuda_device, paged) == run("cpu", paged), paged
+
+
+@pytest.mark.gpu
+def test_whisper_smoke_serve_fns_match_cpu(cuda_device):
+    """whisper_small's smoke config in float32 through `make_serve_fns`:
+    `make_frames` frames, a 16-token prefill and 12 greedy decode steps
+    (a block flush in the self caches) give the CPU's tokens; the cross
+    caches' lengths equal and scales within 1e-5 relative (the prefill's
+    quantize pair at (2, 4, 24, 16))."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, make_frames
+    from repro_torch.models import encdec
+    from repro_torch.serving.engine import make_serve_fns
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("whisper_small", smoke=True),
+                              dtype="float32")
+    params = encdec.init_params(cfg, torch.Generator().manual_seed(0),
+                                device="cpu")
+    frames = torch.from_numpy(make_frames(DataConfig(
+        seq_len=16, global_batch=2, vocab=cfg.vocab), cfg.d_model,
+        cfg.encoder_seq))
+    toks = torch.from_numpy(np.random.RandomState(3).randint(
+        0, cfg.vocab, (2, 16)).astype(np.int32))
+
+    def run(device, p):
+        init, prefill, decode = make_serve_fns(cfg, max_len=32,
+                                               device=device)
+        logits, state = prefill(p, {"frames": frames.to(device),
+                                    "tokens": toks.to(device)}, init(2))
+        out, pos = [], torch.full((2,), 16, dtype=torch.int32)
+        for _ in range(12):
+            tok = logits[:, :cfg.vocab].argmax(-1).to(torch.int32)
+            out.append(tok.cpu().tolist())
+            logits, state = decode(p, tok[:, None], state, pos.to(device))
+            pos = pos + 1
+        return out, state
+
+    before = (FF.flash_fwd_cuda.launches, QA.flat_decode_partials_cuda.launches)
+    got, state = run(cuda_device, _to(params, cuda_device))
+    want, cpu_state = run("cpu", params)
+    assert got == want
+    L = cfg.n_layers
+    # at prefill one flash forward an encoder layer and two a decoder
+    # layer (self, cross); flat decode twice a decoder layer a step
+    assert FF.flash_fwd_cuda.launches - before[0] == \
+        cfg.n_encoder_layers + 2 * L
+    assert QA.flat_decode_partials_cuda.launches - before[1] == 2 * L * 12
+    for c, w in zip(state["cross"], cpu_state["cross"]):
+        assert c.length == w.length == cfg.encoder_seq
+        for name in ("k_s", "v_s"):
+            torch.testing.assert_close(getattr(c, name).cpu(),
+                                       getattr(w, name), rtol=1e-5, atol=0)
 
 
 @pytest.mark.gpu

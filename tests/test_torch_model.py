@@ -100,13 +100,33 @@ def test_prefill_decode_and_greedy_scan_match(pallas_interpret):
                                   np.asarray(rs["p0"].length)[0])
 
 
-def test_entry_points_refuse_unported_architectures():
-    # tied embeddings (whisper_small) are not ported; a sliding window is,
-    # on the contiguous cache, and the paged cache refuses it as the
-    # reference's does
-    cfg = dataclasses.replace(port_cfgs.smoke(), tie_embeddings=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.init_params(cfg, device="cpu")
+def test_entry_points_refuse_unported_architectures(pallas_interpret):
+    # tied embeddings and LayerNorm serve: the reference's weights (no
+    # lm_head, LayerNorm scales and biases) give its prefill and decode
+    # logits; a sliding window serves on the contiguous cache, and the
+    # paged cache refuses it as the reference's does
+    rcfg, pcfg = (dataclasses.replace(c.smoke(), dtype="float32",
+                                      tie_embeddings=True, norm="layernorm")
+                  for c in (ref_cfgs, port_cfgs))
+    rparams = RT.init_params(rcfg, jax.random.PRNGKey(0))
+    pparams = params_from_numpy(jax.tree.map(np.asarray, rparams), pcfg,
+                                "cpu")
+    assert "lm_head" not in rparams and "lm_head" not in pparams
+    assert pparams["layers"][0]["norm1"]["bias"].dtype == torch.float32
+    assert "lm_head" not in T.init_params(pcfg, device="cpu")
+    toks = np.random.RandomState(2).randint(0, rcfg.vocab, (B, 16))
+    rs = RT.init_decode_state(rcfg, B, MAX_LEN)
+    ps = T.init_decode_state(pcfg, B, MAX_LEN, device="cpu")
+    rl, rs = RT.prefill(rparams, jnp.asarray(toks, jnp.int32), rcfg, rs)
+    pl, ps = T.prefill(pparams, torch.from_numpy(toks), pcfg, ps)
+    np.testing.assert_allclose(pl.numpy(), np.asarray(rl), atol=1e-4)
+    tok = np.array(jnp.argmax(rl[:, :rcfg.vocab], -1), np.int32)[:, None]
+    pos = np.full((B,), 16, np.int32)
+    rl, _ = RT.decode_step(rparams, jnp.asarray(tok), rcfg, rs,
+                           jnp.asarray(pos))
+    pl, _ = T.decode_step(pparams, torch.from_numpy(tok), pcfg, ps,
+                          torch.from_numpy(pos))
+    np.testing.assert_allclose(pl.numpy(), np.asarray(rl), atol=1e-4)
     window = dataclasses.replace(port_cfgs.smoke(), sliding_window=16)
     T.init_params(window, device="cpu")
     assert T.init_decode_state(window, 2, 64, device="cpu")[0].ring
