@@ -197,7 +197,19 @@ Phases, each fatal on failure (no fallback anywhere):
      decode step against its weight and cross-cache bytes; then the train
      CLI's entry point takes 3 steps at
      batch 4 x 2048 and 1 more with --grad-compression (step 0's loss held
-     against the plain flash forward's). The kernels' launch counters are
+     against the plain flash forward's), and trains, one model at a time,
+     each freed before the next (`TRAIN_FAMILIES`): qwen2_vl_2b (28
+     layers, 4 x 2048), xlstm_350m (24 layers, 4 x 2048: no attention),
+     whisper_small (12 + 12 layers, frames (4, 1500, 768), 448 tokens),
+     recurrentgemma_9b cut to 5 of 38 layers (1 x 4096, past its 2048
+     window; then 1 step with --grad-compression over the pattern's
+     period-3 + tail layout) and qwen2_moe_a2_7b cut to 4 of 24 layers (2
+     x 2048), 2 steps each through the same `main` (a cut answered by the
+     config registry): parameter bytes, step ms (step 0 apart), tok/s,
+     peak memory, finite losses and grad norms, flash launches of at
+     least 2 x the attention calls of a forward x steps (whisper's
+     encoder, self and cross: 36), and with attention step 0's loss
+     against the plain flash forward's. The kernels' launch counters are
      set to 0 just before each path and must be > 0 just after for every
      kernel the path runs.
   6. a {"kernels": [...]} line, then the card line, then as the last line
@@ -4962,16 +4974,35 @@ def seed_path(dev, gen):
     return counts
 
 
+def _init_model(cfg, dev):
+    """The train CLI's weights: seed 0 on the card, by family."""
+    import torch
+    from repro_torch.models import encdec
+    from repro_torch.models import transformer as T
+    init = encdec.init_params if cfg.family == "encdec" else T.init_params
+    return init(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+
+
+def _train_batch(cfg, B: int, S: int, dev) -> dict:
+    """The train CLI's batch of step 0 (SyntheticLM seed 0; make_frames
+    frames for an encoder-decoder)."""
+    import torch
+    from repro_torch.data import DataConfig, SyntheticLM, make_frames
+    dcfg = DataConfig(seq_len=S, global_batch=B, vocab=cfg.vocab, seed=0)
+    b = SyntheticLM(dcfg).batch_at(0)
+    if cfg.family == "encdec":
+        b["frames"] = make_frames(dcfg, cfg.d_model, cfg.encoder_seq, 0)
+    return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+
 def _plain_flash_loss(dev, cfg, batch):
     """Step 0's loss of the train CLI's model (seed 0 weights) with the
     forward's attention through the plain flash version on the card, and
     through the kernel, no gradients."""
     import torch
     from repro_torch.kernels import flash_fwd as FF
-    from repro_torch.models import transformer as T
     from repro_torch.training.step import loss_fn
-    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
-                           device=dev)
+    params = _init_model(cfg, dev)
     out = {}
     kernel = FF.flash_fwd_cuda
     with torch.no_grad():
@@ -4985,35 +5016,58 @@ def _plain_flash_loss(dev, cfg, batch):
     return out
 
 
-def train_full_width(dev):
-    """`launch.train.main` at full width: 3 steps of internlm2_1_8b at
-    batch 4 x 2048 (SyntheticLM seed 0, no checkpoint dir), then, after
-    that run's state is freed, 1 step with --grad-compression. flash_fwd
-    runs in each block's forward and again in its recompute: >= 2 x 24
-    launches a step. Step 0's loss is held against the same forward
-    through the plain flash version on the card."""
-    import gc
+@contextlib.contextmanager
+def _registry_config(cfg):
+    """The config registry answering ``cfg`` (a depth cut of a registered
+    model) for its name: the train CLI's `main` then trains the cut model
+    through its own code, no flag added."""
+    import repro_torch.configs as C
+    orig = C.get_config
 
+    def get_config(name, smoke=False):
+        if name.replace("-", "_") == cfg.name and not smoke:
+            return cfg
+        return orig(name, smoke=smoke)
+    C.get_config = get_config
+    try:
+        yield
+    finally:
+        C.get_config = orig
+
+
+def _n_attn(cfg) -> int:
+    """Flash forward calls in one forward: an attention block's one; an
+    encoder-decoder's encoder, self and cross attention."""
+    from repro_torch.models import transformer as T
+    if cfg.family == "encdec":
+        return cfg.n_encoder_layers + 2 * cfg.n_layers
+    return sum(cfg.block_kind(i) in T.ATTN_KINDS for i in range(cfg.n_layers))
+
+
+def _train_runs(dev, cfg, B: int, S: int, runs: tuple, tag: str) -> dict:
+    """`launch.train.main` on ``cfg`` (through `_registry_config`), one
+    run of each (label, extra argv, steps), each freed before the next:
+    finite losses and grad norms, and flash launches of at least 2 (the
+    forward and the recompute) x `_n_attn` x steps (none without
+    attention). Returns {label: {steps, wall_s, launches, peak}}."""
     import torch
-    from repro_torch.configs import get_config
-    from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.launch import train as train_cli
-    cfg = get_config("internlm2_1_8b")
-    B, S = 4, 2048
-    argv = ["--arch", "internlm2_1_8b", "--batch", str(B), "--seq", str(S),
+    argv = ["--arch", cfg.name, "--batch", str(B), "--seq", str(S),
             "--log-every", "1"]
-    runs = {}
-    for label, extra, steps, needs in (
-            ("train", [], 3, ("flash_fwd",)),
-            ("train compressed", ["--grad-compression"], 1,
-             ("flash_fwd", "absmax", "quantize_with_scales", "dequantize"))):
+    n_attn = _n_attn(cfg)
+    out = {}
+    for label, extra, steps in runs:
+        needs = (("flash_fwd",) if n_attn else ()) + (
+            ("absmax", "quantize_with_scales", "dequantize")
+            if "--grad-compression" in extra else ())
         rows = []
-        _, wall, counts, peak = _run_path(
-            dev, label, needs, lambda: train_cli.main(
-                argv + ["--steps", str(steps)] + extra,
-                on_step=lambda i, m, sec: rows.append(
-                    {"step": i, **m, "step_ms": sec * 1e3,
-                     "tokens_per_s": B * S / sec})))
+        with _registry_config(cfg):
+            _, wall, counts, peak = _run_path(
+                dev, label, needs, lambda: train_cli.main(
+                    argv + ["--steps", str(steps)] + extra,
+                    on_step=lambda i, m, sec: rows.append(
+                        {"step": i, **m, "step_ms": sec * 1e3,
+                         "tokens_per_s": B * S / sec})))
         gc.collect()
         torch.cuda.empty_cache()
         if len(rows) != steps or not all(
@@ -5021,36 +5075,123 @@ def train_full_width(dev):
                 for r in rows):
             raise AssertionError(f"{label}: steps or losses not finite: "
                                  f"{rows}")
-        if counts["flash_fwd"] < 2 * cfg.n_layers * steps:
+        if counts["flash_fwd"] < 2 * n_attn * steps or (
+                not n_attn and counts["flash_fwd"]):
             raise AssertionError(f"{label}: {counts['flash_fwd']} flash "
-                                 f"launches, < 2 x {cfg.n_layers} x {steps}")
-        runs[label] = {"steps": rows, "wall_s": wall, "launches": counts,
-                       "max_memory_allocated_bytes": peak}
+                                 f"launches against 2 x {n_attn} x {steps}")
+        out[label] = {"steps": rows, "wall_s": wall, "launches": counts,
+                      "max_memory_allocated_bytes": peak}
         for r in rows:
-            log(f"[{label}] step {r['step']}: loss {r['loss']:.5f} grad_norm "
-                f"{r['grad_norm']:.4f} lr {r['lr']:.3e} step "
-                f"{r['step_ms']:.1f} ms ({r['tokens_per_s']:.0f} tok/s)")
+            log(f"[{label}] step {r['step']}: loss {r['loss']:.5f} aux "
+                f"{r['aux_loss']:.5f} grad_norm {r['grad_norm']:.4f} lr "
+                f"{r['lr']:.3e} step {r['step_ms']:.1f} ms "
+                f"({r['tokens_per_s']:.0f} tok/s){tag}")
         log(f"[{label}] {steps} steps in {wall:.2f} s, launches {counts}, "
-            f"max_memory_allocated {peak / 2**30:.2f} GiB")
-    data = SyntheticLM(DataConfig(seq_len=S, global_batch=B, vocab=cfg.vocab,
-                                  seed=0))
-    batch = {k: torch.from_numpy(v).to(dev)
-             for k, v in data.batch_at(0).items()}
-    losses = _plain_flash_loss(dev, cfg, batch)
-    cli0 = runs["train"]["steps"][0]["loss"]
+            f"max_memory_allocated {peak} B ({peak / 2**30:.2f} GiB){tag}")
+    return out
+
+
+def _step0_check(dev, cfg, B: int, S: int, cli0: float, label: str) -> dict:
+    """Step 0's loss of the CLI run (the kernel) against the same forward
+    through the plain flash version on the card: within LOSS_RTOL."""
+    import torch
+    losses = _plain_flash_loss(dev, cfg, _train_batch(cfg, B, S, dev))
     rel = abs(cli0 - losses["plain"]) / abs(losses["plain"])
     if rel > LOSS_RTOL:
-        raise AssertionError(f"step-0 loss through the kernel {cli0} vs "
-                             f"plain flash {losses['plain']}: {rel:.2e} > "
-                             f"{LOSS_RTOL:g}")
-    runs["step0_loss"] = {"cli_kernel": cli0, **losses, "rel_diff": rel}
-    log(f"[train] step-0 loss: CLI (kernel) {cli0:.6f}, forward with kernel "
-        f"{losses['kernel']:.6f}, with plain flash {losses['plain']:.6f} "
-        f"(rel diff {rel:.2e} <= {LOSS_RTOL:g})")
+        raise AssertionError(f"{label}: step-0 loss through the kernel "
+                             f"{cli0} vs plain flash {losses['plain']}: "
+                             f"{rel:.2e} > {LOSS_RTOL:g}")
+    log(f"[{label}] step-0 loss: CLI (kernel) {cli0:.6f}, forward with "
+        f"kernel {losses['kernel']:.6f}, with plain flash "
+        f"{losses['plain']:.6f} (rel diff {rel:.2e} <= {LOSS_RTOL:g})")
     gc.collect()
     torch.cuda.empty_cache()
+    return {"cli_kernel": cli0, **losses, "rel_diff": rel}
+
+
+def train_full_width(dev):
+    """`launch.train.main` at full width: 3 steps of internlm2_1_8b at
+    batch 4 x 2048 (SyntheticLM seed 0, no checkpoint dir), then, after
+    that run's state is freed, 1 step with --grad-compression. flash_fwd
+    runs in each block's forward and again in its recompute: >= 2 x 24
+    launches a step. Step 0's loss is held against the same forward
+    through the plain flash version on the card."""
+    from repro_torch.configs import get_config
+    cfg = get_config("internlm2_1_8b")
+    B, S = 4, 2048
+    runs = _train_runs(dev, cfg, B, S, (
+        ("train", [], 3), ("train compressed", ["--grad-compression"], 1)),
+        "")
+    runs["step0_loss"] = _step0_check(dev, cfg, B, S,
+                                      runs["train"]["steps"][0]["loss"],
+                                      "train")
     log("[train] " + json.dumps(runs))
     return {k: v["launches"] for k, v in runs.items() if "launches" in v}
+
+
+# the other families through the train CLI, one model at a time: (arch,
+# layers kept (None: uncut), batch, sequence, steps, compressed steps).
+# recurrentgemma_9b's 5 layers are one group of its pattern and a tail of
+# two RG-LRU layers, as its 38 = 12 x 3 + 2 (3.09 B params: 49.4 GB of
+# bf16 weights and gradients and float32 m, v and master weights), over
+# 4096 tokens past its 2048 window; qwen2_moe_a2_7b's 4 of 24 layers
+# (2.90 B params); whisper_small's 448 is its text context
+# (arXiv:2212.04356), its frames (4, 1500, 768)
+TRAIN_FAMILIES = (
+    ("qwen2_vl_2b", None, 4, 2048, 2, 0),
+    ("xlstm_350m", None, 4, 2048, 2, 0),
+    (WHISPER, None, 4, 448, 2, 0),
+    ("recurrentgemma_9b", 5, 1, 4096, 2, 1),
+    ("qwen2_moe_a2_7b", 4, 2, 2048, 2, 0),
+)
+
+
+def train_families_full_width(dev, card: str) -> dict:
+    """Each model of TRAIN_FAMILIES trained through the CLI (`_train_runs`:
+    step ms with step 0 apart, tokens/s, loss, aux, grad_norm, launches,
+    peak memory), its parameters' bytes, and with attention step 0's loss
+    against the plain flash forward's (`_step0_check`); freed before the
+    next. Returns the launch counts by path."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import encdec
+    from repro_torch.models import transformer as T
+    counts, report = {}, {}
+    for arch, layers, B, S, steps, comp in TRAIN_FAMILIES:
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        init = encdec.init_params if cfg.family == "encdec" else \
+            T.init_params
+        meta = list(_leaves(init(cfg, torch.Generator(), device="meta")))
+        size = {"params": sum(t.numel() for t in meta),
+                "bytes": sum(t.numel() * t.element_size() for t in meta)}
+        cut = f" ({layers} of {get_config(arch).n_layers} layers)" \
+            if layers else ""
+        runs = _train_runs(dev, cfg, B, S, (
+            (f"train {arch}", [], steps),
+            *(((f"train {arch} compressed", ["--grad-compression"],
+                comp),) if comp else ())), f"; {card}")
+        first = runs[f"train {arch}"]["steps"]
+        res = {"layers": cfg.n_layers, "batch": B, "seq": S, **size,
+               "step0_ms": first[0]["step_ms"],
+               "step_ms": [r["step_ms"] for r in first[1:]],
+               "tokens_per_s": [r["tokens_per_s"] for r in first[1:]],
+               **runs}
+        if _n_attn(cfg):
+            res["step0_loss"] = _step0_check(dev, cfg, B, S, first[0]["loss"],
+                                             f"train {arch}")
+        report[arch] = res
+        counts.update({k: v["launches"] for k, v in runs.items()})
+        log(f"[train {arch}]{cut} {size['params']} params, {size['bytes']} "
+            f"B; step 0 {res['step0_ms']:.1f} ms, then "
+            f"{res['step_ms']} ms, {res['tokens_per_s']} tok/s; phase "
+            f"{time.perf_counter() - t0:.1f} s; {card}")
+    log("[train families] " + json.dumps(report))
+    return counts
 
 
 def _leaves(x):
@@ -5342,6 +5483,9 @@ def main() -> int:
     t0 = time.perf_counter()
     path_counts.update(train_full_width(dev))
     log(f"[train] phase in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    path_counts.update(train_families_full_width(dev, card))
+    log(f"[train families] phase in {time.perf_counter() - t0:.1f} s")
 
     prefill["sass_mma"] = pmma
     kernels = kernels_line(

@@ -24,10 +24,12 @@ bfloat16 cannot go through `torch.from_numpy`).
   (E, d, f) / (E, f, d), shared experts).
 - `opt_state_from_numpy`: the reference's ``init_opt_state`` tree (m, v,
   master, step, optional grad_err) -> the port's (`training.step`).
-- `tree_to_numpy`: the port's parameters (or moments, master weights) ->
-  the reference's stacked layout (with the config, its pattern's period
-  and tail; an encoder-decoder's two stacks), float32 numpy, for
-  leaf-by-leaf comparison.
+- `reference_layout`: the port's layout -> the reference's, by the
+  config (what `optim.compression` keeps its error state in).
+- `tree_to_numpy`: the port's parameters (or moments, master weights,
+  error state) -> the reference's stacked layout (with the config, its
+  pattern's period and tail; an encoder-decoder's two stacks), float32
+  numpy, for leaf-by-leaf comparison.
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.tree import leaves, tree_map
+from repro_torch.models import encdec
 from repro_torch.models.transformer import (pattern_layout, stack_layers,
                                             unstack_layers)
 
@@ -66,7 +69,6 @@ def _tensor(a, dtype, device) -> torch.Tensor:
 _F32 = {"final_norm", "norm1", "norm2", "norm_x", "enc_norm", "bias",
         "router", "shared_gate", "lam", "w_a", "b_a", "w_x", "b_x", "w_if",
         "b_if", "b"}
-_ENCDEC = (("enc_blocks", "enc_layers"), ("dec_blocks", "dec_layers"))
 
 
 def _conv(node, dtype_of, device, f32=False):
@@ -88,12 +90,12 @@ def _encdec_layout(tree, cfg, device, dtype_of) -> dict:
     """The reference's encoder-decoder tree -> the port's, the stacks as
     per-layer lists."""
     got = {k: int(np.asarray(tree[k]["norm1"]["scale"]).shape[0])
-           for k, _ in _ENCDEC}
+           for k, _ in encdec.STACKS}
     want = {"enc_blocks": cfg.n_encoder_layers, "dec_blocks": cfg.n_layers}
     if got != want:
         raise ValueError(f"expected {want} stacked layers, got {got}")
     port = _conv(tree, dtype_of, device)
-    for ref_key, port_key in _ENCDEC:
+    for ref_key, port_key in encdec.STACKS:
         port[port_key] = _unstack(port.pop(ref_key))
     return port
 
@@ -116,10 +118,22 @@ def params_from_numpy(tree, cfg, device) -> dict:
                         lambda f32: torch.float32 if f32 else dt)
 
 
+def reference_layout(tree, cfg, stack=torch.stack) -> dict:
+    """The port's layout -> the reference's, by ``cfg``: a decoder's
+    layers as ``blocks.p{i}`` by its pattern's period and its ``tail``
+    (`transformer.stack_layers`), an encoder-decoder's as ``enc_blocks`` /
+    ``dec_blocks`` (`encdec.stack_layers`); each stacked leaf is ``stack``
+    of the list of its layers' leaves."""
+    if cfg.family == "encdec":
+        return encdec.stack_layers(tree, stack)
+    return stack_layers(tree, pattern_layout(cfg)[0], stack)
+
+
 def opt_state_from_numpy(tree, cfg, device) -> dict:
     """{"adam": {m, v, master, step}, "grad_err"?} -> the port's optimizer
     state: m, v and master float32 in the port's layout, step an int32
-    tensor, grad_err float32 in the stacked layout it keeps."""
+    tensor, grad_err float32 in the reference's layout, which it keeps
+    (`optim.compression`)."""
     f32 = lambda norm: torch.float32
     adam = tree["adam"]
     out = {"adam": {k: _port_layout(adam[k], cfg, device, f32)
@@ -127,30 +141,26 @@ def opt_state_from_numpy(tree, cfg, device) -> dict:
     out["adam"]["step"] = torch.tensor(int(np.asarray(adam["step"])),
                                        dtype=torch.int32, device=device)
     if "grad_err" in tree:
-        err = _stacked_ref(tree["grad_err"], cfg)
-        if not err["tail"]:
-            del err["tail"]
+        err = tree["grad_err"]
+        if cfg.family != "encdec":
+            err = _stacked_ref(err, cfg)
+            if not err["tail"]:
+                del err["tail"]
         out["grad_err"] = tree_map(
             lambda a: _tensor(a, torch.float32, device), err)
     return out
 
 
 def tree_to_numpy(tree, cfg=None) -> dict:
-    """The port's layout (or the stacked one) -> the reference's stacked
-    layout as float32 numpy: blocks by ``cfg``'s pattern position (one
-    position without a config) and its ``tail`` (empty when there is
-    none; an encoder-decoder's ``enc_layers`` / ``dec_layers`` stacked
-    back as ``enc_blocks`` / ``dec_blocks``)."""
+    """The port's layout (or the reference's) -> the reference's layout
+    as float32 numpy (`reference_layout`; without a config, a decoder's
+    layers as one pattern position). A decoder's tree gets an empty
+    ``tail`` where it has none, as the reference's."""
     if "dec_layers" in tree:
-        out = {k: v for k, v in tree.items()
-               if k not in ("enc_layers", "dec_layers")}
-        for ref_key, port_key in _ENCDEC:
-            layers = tree[port_key]
-            out[ref_key] = tree_map(lambda *xs: torch.stack(xs), layers[0],
-                                    *layers[1:])
-        return tree_map(lambda x: x.detach().float().cpu().numpy(), out)
-    period = pattern_layout(cfg)[0] if cfg is not None else 1
-    stacked = stack_layers(tree, period) if "layers" in tree else tree
-    out = tree_map(lambda x: x.detach().float().cpu().numpy(), stacked)
-    out.setdefault("tail", [])
+        tree = encdec.stack_layers(tree)
+    elif "layers" in tree:
+        tree = stack_layers(tree, pattern_layout(cfg)[0] if cfg else 1)
+    out = tree_map(lambda x: x.detach().float().cpu().numpy(), tree)
+    if "blocks" in out:
+        out.setdefault("tail", [])
     return out

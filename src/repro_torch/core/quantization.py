@@ -145,6 +145,27 @@ def dequantize_blocked(x_q: torch.Tensor, scales: torch.Tensor, *,
 
 
 # ---------------------------------------------------------------------------
+# Differentiable fake-quant (straight-through), for QAT-style training
+# ---------------------------------------------------------------------------
+
+class _FakeQuant(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        q, s = quantize_matrix(x)
+        return dequantize(q, s, dtype=x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def fake_quant(x: torch.Tensor) -> torch.Tensor:
+    """x (..., T, D) round-tripped through per-channel INT8; its gradient
+    is the identity (the straight-through estimator)."""
+    return _FakeQuant.apply(x)
+
+
+# ---------------------------------------------------------------------------
 # Error metrics: the paper's evaluation quantities (paper §7.2, §7.3)
 # ---------------------------------------------------------------------------
 

@@ -4,10 +4,12 @@ card):
     PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2_1_8b \
         --steps 3 --batch 4 --seq 2048
 
-Wires together the config registry, the data pipeline (`SyntheticLM`,
-seed 0), the train step (optional microbatches and INT8 gradient
-compression), atomic checkpointing with restart-resume, heartbeat and
-straggler monitoring, and the restart supervisor. The reference's
+Trains any of the registry's architectures (an encoder-decoder on
+`make_frames` frames made for each step, as the reference's launcher
+does). Wires together the config registry, the data pipeline
+(`SyntheticLM`, seed 0), the train step (optional microbatches and INT8
+gradient compression), atomic checkpointing with restart-resume,
+heartbeat and straggler monitoring, and the restart supervisor. The reference's
 ``--mesh`` and ``--force-devices`` have no counterpart: the port runs on
 one device. Runs on the card by default (``--device cuda``) and fails
 without one; ``--device cpu`` runs the kernels' plain versions.
@@ -45,8 +47,8 @@ def main(argv=None, on_step=None):
 
     from repro_torch.checkpoint import latest_step, restore, save
     from repro_torch.configs import get_config
-    from repro_torch.data import DataConfig, SyntheticLM
-    from repro_torch.models import transformer
+    from repro_torch.data import DataConfig, SyntheticLM, make_frames
+    from repro_torch.models import encdec, transformer
     from repro_torch.optim import AdamWConfig
     from repro_torch.runtime import (HeartbeatMonitor, RestartPolicy,
                                      run_with_restarts)
@@ -54,7 +56,6 @@ def main(argv=None, on_step=None):
 
     device = transformer.check_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
-    transformer.check_trainable(cfg)
     opt_cfg = AdamWConfig(lr=args.lr,
                           warmup_steps=min(20, args.steps // 10 + 1),
                           total_steps=args.steps)
@@ -71,10 +72,11 @@ def main(argv=None, on_step=None):
 
     def make_loop():
         def loop():
-            params = transformer.init_params(
-                cfg, torch.Generator(device=device).manual_seed(0),
-                device=device)
-            opt = init_opt_state(params,
+            init = (encdec.init_params if cfg.family == "encdec"
+                    else transformer.init_params)
+            params = init(cfg, torch.Generator(device=device).manual_seed(0),
+                          device=device)
+            opt = init_opt_state(params, cfg,
                                  grad_compression=args.grad_compression)
             start = 0
             if args.ckpt_dir and (s := latest_step(args.ckpt_dir)) is not None:
@@ -93,8 +95,11 @@ def main(argv=None, on_step=None):
                 print(f"[train] resumed from step {s}")
 
             for i in range(start, args.steps):
-                b = {k: torch.from_numpy(v).to(device)
-                     for k, v in data.batch_at(i).items()}
+                b = data.batch_at(i)
+                if cfg.family == "encdec":
+                    b["frames"] = make_frames(dcfg, cfg.d_model,
+                                              cfg.encoder_seq, i)
+                b = {k: torch.from_numpy(v).to(device) for k, v in b.items()}
                 t0 = time.perf_counter()
                 params, opt, m = step_fn(params, opt, b)
                 sync()

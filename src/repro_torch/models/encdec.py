@@ -65,6 +65,23 @@ def sinusoid_rows(pos_b: torch.Tensor, d: int) -> torch.Tensor:
     return _angles(pos_b.float()[:, None], d)
 
 
+# the reference's stacks of the port's per-layer lists
+STACKS = (("enc_blocks", "enc_layers"), ("dec_blocks", "dec_layers"))
+
+
+def stack_layers(tree, stack=torch.stack) -> dict:
+    """The port's layout -> the reference's: ``enc_layers`` and
+    ``dec_layers`` as ``enc_blocks`` and ``dec_blocks``, each leaf the
+    ``stack`` (default `torch.stack`: on axis 0) of the list of its
+    layers' leaves; the other entries unchanged."""
+    out = {k: v for k, v in tree.items() if k not in dict(STACKS).values()}
+    for ref_key, port_key in STACKS:
+        layers = tree[port_key]
+        out[ref_key] = tree_map(lambda *xs: stack(list(xs)), layers[0],
+                                *layers[1:])
+    return out
+
+
 def _zero_pos(B: int, S: int, device) -> torch.Tensor:
     return torch.zeros((B, S), dtype=torch.int32, device=device)
 

@@ -208,19 +208,20 @@ def pattern_layout(cfg) -> tuple[int, int, int]:
     return period, n_groups, cfg.n_layers - n_groups * period
 
 
-def stack_layers(tree, period: int = 1) -> dict:
+def stack_layers(tree, period: int = 1, stack=torch.stack) -> dict:
     """The port's layout (``layers``: one dict per layer) -> the
-    reference's: ``blocks.p{i}`` for i < ``period``, each leaf stacked on
-    axis 0 over the n_groups = len(layers) // period groups, and the
-    remaining layers unstacked under ``tail`` (a key only when there is a
-    tail); the other top-level entries unchanged."""
+    reference's: ``blocks.p{i}`` for i < ``period``, each leaf the
+    ``stack`` (default `torch.stack`: on axis 0) of the list of its n_groups
+    = len(layers) // period layers' leaves, and the remaining layers
+    unstacked under ``tail`` (a key only when there is a tail); the other
+    top-level entries unchanged."""
     out = {k: v for k, v in tree.items() if k != "layers"}
     layers = tree["layers"]
     n_groups = len(layers) // period
     out["blocks"] = {}
     for i in range(period):
         pos = layers[i:n_groups * period:period]
-        out["blocks"][f"p{i}"] = tree_map(lambda *xs: torch.stack(xs),
+        out["blocks"][f"p{i}"] = tree_map(lambda *xs: stack(list(xs)),
                                           pos[0], *pos[1:])
     if len(layers) > n_groups * period:
         out["tail"] = list(layers[n_groups * period:])
@@ -240,65 +241,64 @@ def unstack_layers(tree) -> dict:
     return out
 
 
-def check_trainable(cfg) -> None:
-    """The port trains the dense family without QKV bias only (and,
-    through `init_params`, the stacks it serves); MoE, QKV-bias, hybrid
-    and xLSTM models are served, their training waits on a slice that
-    tests it."""
-    if cfg.family != "dense" or cfg.qkv_bias:
-        what = f"{cfg.family!r} models" if cfg.family != "dense" \
-            else "QKV-bias models"
-        raise NotImplementedError(
-            f"{cfg.name}: the port trains the dense family without QKV "
-            f"bias only; {what} are ROADMAP queue 1, item 15")
-
-
 # -- training -----------------------------------------------------------------
 
-def _embed(params, tok, positions):
-    """tokens (B, S) -> (embeddings (B, S, d), positions (B, S) int32;
-    0..S-1 when None)."""
-    B, S = tok.shape
-    x = params["embed"][tok]
+def _embed(params, tok, cfg, positions):
+    """tokens (B, S), or embeddings (B, S, d) when ``cfg.embedding_inputs``
+    -> (x (B, S, d), positions (B, S) int32; 0..S-1 when None)."""
+    if cfg.embedding_inputs and tok.dim() == 3:
+        x = tok.to(cfg.activation_dtype)
+    else:
+        x = params["embed"][tok]
+    B, S = x.shape[:2]
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
-                                 device=tok.device)[None].expand(B, S)
+                                 device=x.device)[None].expand(B, S)
     return x, positions
 
 
-def _block_train(p, x, cfg, positions):
-    x = x + attention.train(p["attn"], norm(cfg, p["norm1"], x), cfg,
-                            positions)
-    return x + mlp.apply(p["mlp"], norm(cfg, p["norm2"], x))
+def _block_train(p, x, kind: str, cfg, positions):
+    """One layer over the whole sequence: its mixer by kind, the residual,
+    then its FFN. Returns (x, the MoE's aux loss, 0 for other kinds)."""
+    h = norm(cfg, p["norm1"], x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind in ATTN_KINDS:
+        h = attention.train(p["attn"], h, cfg, positions,
+                            local=kind == "local_attn")
+    elif kind == "rglru":
+        h, _ = rglru.apply_seq(p["rglru"], h, cfg)
+    elif kind == "mlstm":
+        h, _ = xlstm.mlstm_seq(p["mlstm"], h, cfg)
+    elif kind == "slstm":
+        h, _ = xlstm.slstm_seq(p["slstm"], h, cfg)
+    x = x + h
+    if "moe" in p:
+        h2, aux = moe.apply(p["moe"], norm(cfg, p["norm2"], x), cfg)
+        x = x + h2
+    elif "mlp" in p:
+        x = x + mlp.apply(p["mlp"], norm(cfg, p["norm2"], x))
+    return x, aux
 
 
-def forward_train(params, tokens, cfg, *, positions=None,
+def forward_train(params, tokens_or_embeds, cfg, *, positions=None,
                   remat: bool = True):
-    """-> (logits (B, S, Vp), aux_loss ()). tokens (B, S) int. With
-    ``remat`` each block keeps only its input for the backward and runs
-    its forward again there (flash attention's kernel included). The
-    families `check_trainable` refuses raise."""
-    check_trainable(cfg)
-    return forward(params, tokens, cfg, positions=positions, remat=remat)
-
-
-def forward(params, tokens, cfg, *, positions=None, remat: bool = False):
-    """`forward_train`'s computation for any stack of "attn" blocks (QKV
-    bias, M-RoPE, either norm, tied embeddings), without the training
-    check: the reference's ``forward_train`` logits of a model the port
-    serves but does not train yet (qwen2_vl_2b)."""
-    if set(cfg.block_pattern) != {"attn"}:
-        raise ValueError(f"{cfg.name}: the training forward takes 'attn' "
-                         f"blocks only (got {cfg.block_pattern})")
-    x, positions = _embed(params, tokens, positions)
-    for p in params["layers"]:
+    """-> (logits (B, S, Vp), aux_loss ()): every block kind, as the
+    reference's. tokens (B, S) int, or embeddings (B, S, d) when
+    ``cfg.embedding_inputs``; aux is the sum of the MoE blocks' load
+    balancing losses (0 without them). With ``remat`` each block keeps
+    only its input for the backward and runs its forward again there
+    (flash attention's kernel included)."""
+    x, positions = _embed(params, tokens_or_embeds, cfg, positions)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, p in enumerate(params["layers"]):
+        kind = cfg.block_kind(i)
         if remat:
-            x = checkpoint(_block_train, p, x, cfg, positions,
-                           use_reentrant=False)
+            x, a = checkpoint(_block_train, p, x, kind, cfg, positions,
+                              use_reentrant=False)
         else:
-            x = _block_train(p, x, cfg, positions)
-    return _head(params, x, cfg), torch.zeros((), dtype=torch.float32,
-                                              device=x.device)
+            x, a = _block_train(p, x, kind, cfg, positions)
+        aux = aux + a
+    return _head(params, x, cfg), aux
 
 
 # -- serving ------------------------------------------------------------------

@@ -8,7 +8,9 @@ feedback (`optim.compression`). The parameters and optimizer state are
 updated in place (`optim.adamw.apply_updates`) and returned.
 
 batch = {"tokens": (B, S) int, "labels": (B, S) int} tensors on the
-parameters' device.
+parameters' device; an encoder-decoder adds "frames" (B, T_enc, d), and a
+config with ``embedding_inputs`` may give "embeds" (B, S, d) in place of
+the tokens as the model's input.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ from typing import Any
 import torch
 
 from repro_torch.core.tree import leaves, tree_map, unflatten
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.optim import compression as C
 from repro_torch.optim.adamw import AdamWConfig, apply_updates, init_state
 from repro_torch.training.loss import next_token_loss
@@ -27,7 +29,12 @@ AUX_WEIGHT = 0.01   # load-balancing loss weight (Switch default scale)
 
 def loss_fn(params, batch, cfg):
     """-> (loss + AUX_WEIGHT * aux, {"loss", "aux_loss"})."""
-    logits, aux = transformer.forward_train(params, batch["tokens"], cfg)
+    if cfg.family == "encdec":
+        logits, aux = encdec.forward_train(params, batch["frames"],
+                                           batch["tokens"], cfg)
+    else:
+        inp = batch.get("embeds", batch["tokens"])
+        logits, aux = transformer.forward_train(params, inp, cfg)
     loss = next_token_loss(logits, batch["labels"], cfg.vocab)
     return loss + AUX_WEIGHT * aux, {"loss": loss, "aux_loss": aux}
 
@@ -64,7 +71,8 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, *, microbatches: int = 1,
             for a in leaves(grads):
                 a.div_(microbatches)
         if grad_compression:
-            grads, err = C.compress_with_feedback(grads, opt_state["grad_err"])
+            grads, err = C.compress_with_feedback(grads, opt_state["grad_err"],
+                                                  cfg)
         params, inner, om = apply_updates(params, grads, opt_state["adam"],
                                           opt_cfg)
         new_opt: dict[str, Any] = {"adam": inner}
@@ -76,8 +84,10 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, *, microbatches: int = 1,
     return train_step
 
 
-def init_opt_state(params, *, grad_compression: bool = False) -> dict:
+def init_opt_state(params, cfg, *, grad_compression: bool = False) -> dict:
+    """AdamW's state, and with ``grad_compression`` the error state in the
+    reference's layout of ``cfg``."""
     st: dict[str, Any] = {"adam": init_state(params)}
     if grad_compression:
-        st["grad_err"] = C.init_error_state(params)
+        st["grad_err"] = C.init_error_state(params, cfg)
     return st

@@ -18,11 +18,11 @@ Pallas kernels in interpret mode:
   where no value differs (llama);
 - `kv_cache_memory_report` of each full config (MHA pools at H_kv 32 and
   16 included) equals the reference's;
-- the entry points serve these configs and refuse what is not ported:
-  training MoE or QKV-bias models (llama3_2_3b, dense without bias,
-  trains); M-RoPE serves on both backends (tests/test_torch_vlm.py holds
-  qwen2_vl_2b); a sliding window serves from the contiguous ring and the
-  paged backend refuses it."""
+- the entry points serve these configs and train them (the train CLI,
+  two smoke steps, finite losses; tests/test_torch_train_families.py holds
+  the steps against the reference's); M-RoPE serves on both backends
+  (tests/test_torch_vlm.py holds qwen2_vl_2b); a sliding window serves
+  from the contiguous ring and the paged backend refuses it."""
 import dataclasses
 
 import jax
@@ -155,18 +155,15 @@ def test_memory_report_matches_reference(arch):
 
 def test_entry_points_serve_and_refuse():
     from repro_torch.launch import train
-    for arch in ARCHS:
+    for arch in ARCHS + ("internlm2_1_8b",):
         cfg = get_config(arch, smoke=True)
         T.check_servable(cfg)
-        if arch == "llama3_2_3b":
-            T.check_trainable(cfg)
-            continue
-        with pytest.raises(NotImplementedError, match="item 15"):
-            T.check_trainable(cfg)
-        with pytest.raises(NotImplementedError, match="item 15"):
-            train.main(["--arch", arch, "--smoke", "--device", "cpu",
-                        "--steps", "1"])
-    T.check_trainable(get_config("internlm2_1_8b", smoke=True))
+        losses = []
+        assert train.main(["--arch", arch, "--smoke", "--device", "cpu",
+                           "--steps", "2", "--batch", "2", "--seq", "16"],
+                          on_step=lambda i, m, s: losses.append(
+                              m["loss"])) == 0
+        assert len(losses) == 2 and np.isfinite(losses).all()
     # a sliding window serves from the contiguous ring, not from pages
     window = dataclasses.replace(get_config("qwen2_moe_a2_7b", smoke=True),
                                  sliding_window=16)

@@ -38,7 +38,11 @@ and ticks with no host sync; recurrentgemma_9b's kernel shapes (the
 flash forward, flat decode and the seed at D 256 and GQA group 16, a
 window shorter than the prompt and a wrapped ring; the blocked quantizer
 at D 256, block 256) and the smoke tokens of recurrentgemma_9b,
-xlstm_350m and mixtral_8x22b on the contiguous backend against the CPU.
+xlstm_350m and mixtral_8x22b on the contiguous backend against the CPU;
+one smoke train step of each family beyond internlm's (QKV bias, MoE,
+M-RoPE, RG-LRU, xLSTM, whisper_small) with --grad-compression against
+the CPU, and the flash attention's gradients (the kernel's forward, the
+plain backward) at head widths 64, 128 and 256 against the CPU.
 Skipped where there is no card; imports
 no JAX (the card's machine has none).
 
@@ -818,7 +822,7 @@ def test_smoke_train_step_loss_matches_cpu(cuda_device):
                                                 total_steps=10),
                                grad_compression=True)
         b = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
-        _, _, m = step(p, init_opt_state(p, grad_compression=True), b)
+        _, _, m = step(p, init_opt_state(p, cfg, grad_compression=True), b)
         return {k: float(v) for k, v in m.items()}
 
     before = FF.flash_fwd_cuda.launches
@@ -1407,3 +1411,107 @@ def test_recurrent_smoke_tokens_match_cpu(arch, cuda_device):
         LLMEngine(_to(params, cuda_device), cfg, EngineConfig(
             batch=2, max_len=128, paged=True), device=cuda_device).generate(
             prompts[:1], sps[0])
+
+
+TRAIN_ARCHS = ("llama3_2_3b", "codeqwen1_5_7b", "qwen2_5_32b",
+               "qwen2_moe_a2_7b", "mixtral_8x22b", "qwen2_vl_2b",
+               "recurrentgemma_9b", "xlstm_350m", "whisper_small")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_family_train_step_matches_cpu(arch, cuda_device):
+    """One smoke train step of each family beyond internlm's, float32,
+    with --grad-compression, on the card (flash forward and the
+    per-channel pair through the kernels) against the CPU's (plain
+    versions), the same weights (QKV biases and RG-LRU gate vectors drawn
+    non-zero) and batch (frames for whisper): loss within 1e-5 relative,
+    grad_norm 1e-4, as the internlm step above; the attention blocks'
+    flash launches at least 2 a block (forward and recompute)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM, make_frames
+    from repro_torch.models import encdec
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.training.step import init_opt_state, make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    init = encdec.init_params if cfg.family == "encdec" else T.init_params
+    params = init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.RandomState(3)
+    for layer in params.get("layers", []):
+        for name in ("bq", "bk", "bv"):
+            if name in layer.get("attn", {}):
+                layer["attn"][name].copy_(torch.from_numpy(
+                    0.5 * rng.randn(layer["attn"][name].shape[0]).astype(
+                        np.float32)))
+        for name in ("lam", "w_a", "w_x", "b_a", "b_x"):
+            if name in layer.get("rglru", {}):
+                layer["rglru"][name].add_(torch.from_numpy(0.25 * rng.randn(
+                    layer["rglru"][name].shape[0]).astype(np.float32)))
+    dcfg = DataConfig(seq_len=32, global_batch=4, vocab=cfg.vocab)
+    batch = SyntheticLM(dcfg).batch_at(0)
+    if cfg.family == "encdec":
+        batch["frames"] = make_frames(dcfg, cfg.d_model, cfg.encoder_seq)
+
+    def run(device):
+        p = _to(params, device)
+        step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=2,
+                                                total_steps=10),
+                               grad_compression=True)
+        b = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        _, _, m = step(p, init_opt_state(p, cfg, grad_compression=True), b)
+        return {k: float(v) for k, v in m.items()}
+
+    n_attn = (3 * cfg.n_layers if cfg.family == "encdec" else sum(
+        cfg.block_kind(i) in T.ATTN_KINDS for i in range(cfg.n_layers)))
+    before = FF.flash_fwd_cuda.launches
+    pair = QK.absmax_cuda.launches
+    card, cpu = run(cuda_device), run("cpu")
+    assert FF.flash_fwd_cuda.launches - before >= 2 * n_attn
+    assert QK.absmax_cuda.launches > pair
+    assert math.isfinite(card["loss"])
+    assert card["loss"] == pytest.approx(cpu["loss"], rel=1e-5)
+    assert card["aux_loss"] == pytest.approx(cpu["aux_loss"], rel=1e-5)
+    assert card["grad_norm"] == pytest.approx(cpu["grad_norm"], rel=1e-4)
+
+
+# (H, H_kv, S, T, D, causal, window): the trained families' shapes at
+# their head widths: internlm / qwen2_vl (G 6) at D 128, whisper's
+# encoder and cross-attention at D 64 (non-causal, S != T), recurrentgemma
+# at D 256 (G 16, a window shorter than S)
+FLASH_BWD = {
+    "d128_g6": (12, 2, 192, 192, 128, True, None),
+    "d64_encoder": (12, 12, 150, 150, 64, False, None),
+    "d64_cross": (12, 12, 64, 150, 64, False, None),
+    "d256_g16_window": (16, 1, 160, 160, 256, True, 64),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(FLASH_BWD))
+def test_flash_backward_matches_cpu(case, cuda_device):
+    """`models.flash.flash_attention`'s gradients on the card (the kernel's
+    forward, its m and l feeding the plain backward) against the CPU's,
+    float32: dq, dk, dv within 1e-4 (|b| + max |b|) (cuBLAS against the
+    CPU's sums, over tiles of another order)."""
+    from repro_torch.models import flash
+    torch.backends.cuda.matmul.allow_tf32 = False
+    H, Hkv, S, T, D, causal, window = FLASH_BWD[case]
+    gen = torch.Generator().manual_seed(sorted(FLASH_BWD).index(case))
+    q, k, v, w = (torch.randn(s, generator=gen) for s in (
+        (2, H, S, D), (2, Hkv, T, D), (2, Hkv, T, D), (2, H, S, D)))
+    kv_offset = T - S if causal else 0
+
+    def grads(device):
+        xs = [x.to(device).requires_grad_(True) for x in (q, k, v)]
+        out = flash.flash_attention(*xs, causal, window, kv_offset)
+        return [g.cpu() for g in torch.autograd.grad(
+            (out * w.to(device)).sum(), xs)]
+
+    before = FF.flash_fwd_cuda.launches
+    card, cpu = grads(cuda_device), grads("cpu")
+    assert FF.flash_fwd_cuda.launches == before + 1
+    for a, b in zip(card, cpu):
+        tol = 1e-4 * (b.abs() + b.abs().max())
+        assert bool(((a - b).abs() <= tol).all()), float((a - b).abs().max())

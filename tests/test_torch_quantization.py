@@ -149,3 +149,27 @@ def test_storage_layout_helpers_match():
         Q.packed_tokens(7, "int4")
     with pytest.raises(Q.QuantizationError):
         Q.kv_storage_dtype("int2")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fake_quant_value_and_straight_through_gradient(dtype):
+    """`fake_quant` against the reference's custom_vjp: the round trip
+    bitwise (eager, as the reference's own test takes its value), and the
+    gradient of sum(fake_quant(x)^2) / 2 through both: fake_quant(x), the
+    rounding passed straight through (the reference's
+    tests/test_quantization.py::test_fake_quant_gradient_is_identity)."""
+    x = _x((2, 2, 16, 8), seed=7).astype(getattr(ml_dtypes, dtype)
+                                     if dtype == "bfloat16" else np.float32)
+    rx = jnp.asarray(x)
+    ref = RQ.fake_quant(rx)
+    rg = jax.grad(lambda v: jnp.sum(RQ.fake_quant(v).astype(jnp.float32)
+                                    ** 2) / 2)(rx)
+    px = to_torch(x).requires_grad_(True)
+    port = Q.fake_quant(px)
+    (pg,) = torch.autograd.grad((port.float() ** 2).sum() / 2, px)
+    _bitwise(ref, port)
+    assert pg.dtype == port.dtype
+    np.testing.assert_allclose(to_numpy(pg), to_numpy(rg), rtol=1e-6)
+    np.testing.assert_array_equal(to_numpy(pg),
+                                  to_numpy(port.detach().float().to(
+                                      port.dtype)))

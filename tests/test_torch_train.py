@@ -64,6 +64,8 @@ from repro_torch.runtime import (HeartbeatMonitor, RestartPolicy,
 from repro_torch.training import loss as L
 from repro_torch.training import step as S
 from torch_parity import to_torch
+from torch_train_parity import close_trees as _close_trees
+from torch_train_parity import pairs as _pairs
 
 jax.config.update("jax_platform_name", "cpu")
 
@@ -83,32 +85,6 @@ def _models(dtype="float32"):
 def _batch(vocab, seed=3):
     return RD.SyntheticLM(RD.DataConfig(seq_len=SEQ, global_batch=B,
                                         vocab=vocab, seed=seed)).batch_at(0)
-
-
-def _pairs(port, ref, path=""):
-    """(path, port leaf, reference leaf) of two trees of one structure."""
-    if isinstance(ref, dict):
-        assert sorted(port) == sorted(ref), path
-        return [x for k in sorted(ref)
-                for x in _pairs(port[k], ref[k], f"{path}.{k}")]
-    if isinstance(ref, list):
-        assert len(port) == len(ref), path
-        return [x for i, (a, b) in enumerate(zip(port, ref))
-                for x in _pairs(a, b, f"{path}.{i}")]
-    return [(path, np.asarray(port, np.float32), np.asarray(ref, np.float32))]
-
-
-def _close_trees(port, ref, rtol, scale=1.0, flips=0.0):
-    """Leaf by leaf |a - b| <= rtol (|b| + scale max|b of the leaf|), for
-    all but a fraction ``flips`` of the elements of the tree."""
-    bad = total = 0
-    for path, a, b in _pairs(port, ref):
-        assert a.shape == b.shape, path
-        tol = rtol * (np.abs(b) + scale * float(np.abs(b).max()))
-        n = int((np.abs(a - b) > tol).sum())
-        assert flips or not n, (path, float(np.abs(a - b).max()))
-        bad, total = bad + n, total + b.size
-    assert bad <= flips * total, (bad, total)
 
 
 # -- data, schedule, loss -----------------------------------------------------
@@ -172,7 +148,7 @@ def _step_both(mb, gc, dtype="float32"):
                                        microbatches=mb, grad_compression=gc))
     rp, ro, rm = rstep(rparams, ropt, {k: jnp.asarray(v)
                                        for k, v in batch.items()})
-    popt = S.init_opt_state(pparams, grad_compression=gc)
+    popt = S.init_opt_state(pparams, pcfg, grad_compression=gc)
     pstep = S.make_train_step(pcfg, AdamWConfig(**OPT), microbatches=mb,
                               grad_compression=gc)
     pp, po, pm = pstep(pparams, popt, {k: to_torch(v)
@@ -213,7 +189,7 @@ def test_opt_state_bridge_round_trips_the_reference_state():
     ropt = jax.tree.map(np.asarray, RS.init_opt_state(
         rparams, grad_compression=True))
     popt = bridge.opt_state_from_numpy(ropt, pcfg, "cpu")
-    own = S.init_opt_state(pparams, grad_compression=True)
+    own = S.init_opt_state(pparams, pcfg, grad_compression=True)
     for k in ("m", "v", "master"):
         for t in (popt, own):
             for path, a, b in _pairs(bridge.tree_to_numpy(t["adam"][k]),
@@ -238,7 +214,7 @@ def test_compress_with_feedback_is_bitwise_in_the_stacked_layout():
     perr = bridge.opt_state_from_numpy(
         {"adam": {"m": grads, "v": grads, "master": grads, "step": 0},
          "grad_err": err}, pcfg, "cpu")["grad_err"]
-    pcomp, pnew = compression.compress_with_feedback(pgrads, perr)
+    pcomp, pnew = compression.compress_with_feedback(pgrads, perr, pcfg)
     rcomp, rerr = (jax.tree.map(np.asarray, t) for t in (rcomp, rerr))
     residual = jax.tree.map(lambda g, e, c: (g + e) - c, grads, err, rcomp)
     for (path, a, b), (_, e, r), (_, _, c) in zip(
@@ -321,9 +297,13 @@ def test_train_cli_checkpoints_and_resumes(tmp_path, capsys):
 
 
 def test_train_rejects_other_families_and_a_missing_card():
-    cfg = dataclasses.replace(port_cfgs.smoke(), family="moe")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.forward_train({}, torch.zeros((1, 4), dtype=torch.long), cfg)
+    # every family trains (tests/test_torch_train_families.py, _recurrent,
+    # _encdec): the family no longer decides, the device does
+    (_, _), (pcfg, pparams) = _models()
+    cfg = dataclasses.replace(pcfg, family="moe")
+    logits, aux = T.forward_train(pparams, torch.zeros((1, 4),
+                                                       dtype=torch.long), cfg)
+    assert logits.shape == (1, 4, T.padded_vocab(cfg)) and float(aux) == 0
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cuda'"):
             train_cli.main(["--arch", "internlm2_1_8b", "--smoke",

@@ -13,9 +13,9 @@ the reference on its Pallas kernels in interpret mode:
   `text_mrope_positions` equal; in text mode `apply_mrope` is
   `apply_rope` bit for bit in each package (tests/test_models.py's
   identity);
-- the bridge keeps every weight; `forward` (the training forward,
-  without the training check: the port does not train "vlm" yet) gives
-  the reference's ``forward_train`` logits within 2e-5;
+- the bridge keeps every weight; `forward_train` gives the reference's
+  ``forward_train`` logits within 2e-5 (with and without remat;
+  tests/test_torch_train_families.py holds its train step);
 - paged chunk prefill, contiguous prefill and a decode step each within
   atol 2e-3 (tests/test_torch_arch_forward.py's protocol), the pages
   within the page rule; the memory report and the serve CLI on both
@@ -113,11 +113,11 @@ def test_forward_matches_reference():
     toks = np.random.RandomState(6).randint(0, rcfg.vocab, (2, 24))
     rl, _ = RT.forward_train(rp, jnp.asarray(toks, jnp.int32), rcfg,
                              remat=False)
-    pl, _ = T.forward(pp, torch.from_numpy(toks), pcfg)
-    np.testing.assert_allclose(pl.detach().numpy(), np.asarray(rl),
-                               atol=2e-5)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        T.forward_train(pp, torch.from_numpy(toks), pcfg)
+    for remat in (False, True):
+        pl, _ = T.forward_train(pp, torch.from_numpy(toks), pcfg,
+                                remat=remat)
+        np.testing.assert_allclose(pl.detach().numpy(), np.asarray(rl),
+                                   atol=2e-5)
 
 
 def test_paged_prefill_and_decode_match(pallas_interpret):
