@@ -209,7 +209,23 @@ Phases, each fatal on failure (no fallback anywhere):
      peak memory, finite losses and grad norms, flash launches of at
      least 2 x the attention calls of a forward x steps (whisper's
      encoder, self and cross: 36), and with attention step 0's loss
-     against the plain flash forward's. The kernels' launch counters are
+     against the plain flash forward's; then sharded training
+     (`sharded_full_width`, `SHARDED_RUNS`): the parent frees its card
+     memory and spawns 4 ranks on cuda:0 over gloo (every collective
+     staged through pinned host buffers), mesh (data 2, model 2),
+     `file://` rendezvous and a timeout: internlm2_1_8b uncut at 4 x 2048
+     (2 x 1024 a rank), 2 steps and a fresh compressed step, and
+     qwen2_moe_a2_7b at 4 of 24 layers, 2 x 2048, 2 steps, through
+     `mesh_context` around `make_train_step` (each rank draws the seed-0
+     weights and keeps its shards of each part as it is made,
+     `launch.specs.init_shards`): losses within LOSS_RTOL and grad norms
+     within GNORM_RTOL of the same models' single-process steps above,
+     step 0's loss against the plain flash forward's, flash launched >=
+     2 x the attention layers x steps on each rank, the pair and
+     dequantize in the compressed step, the same bytes sent by every
+     step; per rank peak memory (and the init's), step ms, and the bytes
+     each collective sends a step by axes; then one rank at (1, 1) over
+     NCCL (the backend asserted) takes internlm2_1_8b's first 2 steps. The kernels' launch counters are
      set to 0 just before each path and must be > 0 just after for every
      kernel the path runs.
   6. a {"kernels": [...]} line, then the card line, then as the last line
@@ -256,6 +272,12 @@ PREFILL_ROWS = 64              # query rows per tile (csrc/paged_prefill.cu)
 # the full-width train step's loss through the kernel vs through the
 # plain flash forward, bf16 model: relative
 LOSS_RTOL = 1e-3
+# the sharded step's gradient norm against the single-process step's,
+# relative: bf16 partial sums reduced over "model" (the MLP's and MoE's
+# down-projections, dK / dV, as the reference's shard_map bodies) round
+# once more than one process's matmul; 0.12-0.68% at full depth on the
+# card (PR 28 run 1), 0.1-0.3% in the CPU runs at smoke depth
+GNORM_RTOL = 2e-2
 # the seed baseline reads and folds every slot of T whatever the lengths:
 # its time at lengths 1 over its time at full lengths must reach this
 SEED_LEN1_MIN = 0.8
@@ -5081,6 +5103,7 @@ def _train_runs(dev, cfg, B: int, S: int, runs: tuple, tag: str) -> dict:
                                  f"launches against 2 x {n_attn} x {steps}")
         out[label] = {"steps": rows, "wall_s": wall, "launches": counts,
                       "max_memory_allocated_bytes": peak}
+        SINGLE[label] = out[label]
         for r in rows:
             log(f"[{label}] step {r['step']}: loss {r['loss']:.5f} aux "
                 f"{r['aux_loss']:.5f} grad_norm {r['grad_norm']:.4f} lr "
@@ -5097,6 +5120,7 @@ def _step0_check(dev, cfg, B: int, S: int, cli0: float, label: str) -> dict:
     import torch
     losses = _plain_flash_loss(dev, cfg, _train_batch(cfg, B, S, dev))
     rel = abs(cli0 - losses["plain"]) / abs(losses["plain"])
+    SINGLE[label]["plain_flash_loss"] = losses["plain"]
     if rel > LOSS_RTOL:
         raise AssertionError(f"{label}: step-0 loss through the kernel "
                              f"{cli0} vs plain flash {losses['plain']}: "
@@ -5191,6 +5215,277 @@ def train_families_full_width(dev, card: str) -> dict:
             f"{res['step_ms']} ms, {res['tokens_per_s']} tok/s; phase "
             f"{time.perf_counter() - t0:.1f} s; {card}")
     log("[train families] " + json.dumps(report))
+    return counts
+
+
+# -- sharded training: ranks of a mesh sharing the card over gloo ------------
+
+# the single-process train runs of this call, by label (`_train_runs`):
+# what the sharded runs are held against
+SINGLE: dict = {}
+SHARDED_MESH = ((2, 2), ("data", "model"))
+# (arch, layers kept (None: uncut), batch, sequence, steps, compressed
+# steps, the single-process run's label and its --steps (its schedule))
+SHARDED_RUNS = (
+    ("internlm2_1_8b", None, 4, 2048, 2, 1, "train", 3),
+    ("qwen2_moe_a2_7b", 4, 2, 2048, 2, 0, "train qwen2_moe_a2_7b", 2),
+)
+SHARDED_TIMEOUT_S = 600
+
+
+def _cut(arch: str, layers):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def _sharded_run(mesh, dev, arch: str, layers, B: int, S: int, steps: int,
+                 comp: bool, sched_steps: int) -> dict:
+    """One sharded run on this rank: seed-0 weights, each part cut to this
+    rank's shards as it is made (`launch.specs.init_shards`), then
+    ``steps`` steps of the global
+    SyntheticLM batches through `make_train_step` under `mesh_context`,
+    with the train CLI's schedule for ``sched_steps`` steps. Launches,
+    collective stats and peak memory from this run alone."""
+    import torch
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import specs as SP
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.parallel.shard import mesh_context
+    from repro_torch.training.step import init_opt_state, make_train_step
+    cfg = _cut(arch, layers)
+    specs = SP.train_specs(cfg, mesh, comp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = SP.init_shards(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev, specs["params"], mesh)
+    init_peak = torch.cuda.max_memory_allocated(dev)
+    opt = init_opt_state(params, cfg, grad_compression=comp)
+    step_fn = make_train_step(
+        cfg, AdamWConfig(lr=3e-4, warmup_steps=min(20, sched_steps // 10
+                                                   + 1),
+                         total_steps=sched_steps), grad_compression=comp,
+        specs=specs)
+    data = SyntheticLM(DataConfig(seq_len=S, global_batch=B,
+                                  vocab=cfg.vocab, seed=0))
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    rows = []
+    for i in range(steps):
+        b = {k: torch.from_numpy(v).to(dev)
+             for k, v in data.batch_at(i).items()}
+        torch.cuda.synchronize(dev)
+        mesh.stats.clear()
+        t0 = time.perf_counter()
+        with mesh_context(mesh):
+            params, opt, m = step_fn(params, opt, b)
+        torch.cuda.synchronize(dev)
+        rows.append({"step": i, **{k: float(v) for k, v in m.items()},
+                     "step_ms": (time.perf_counter() - t0) * 1e3,
+                     "collectives": {f"{op}:{'+'.join(ax)}": {
+                         "calls": v[0], "bytes": v[1], "host_s": v[2]}
+                         for (op, ax), v in mesh.stats.items()}})
+    out = {"steps": rows,
+           "launches": {k: c.launches for k, c in counters.items()},
+           "collectives": rows[-1]["collectives"],
+           "peak_bytes": torch.cuda.max_memory_allocated(dev),
+           "init_peak_bytes": init_peak,
+           "state_bytes": sum(t.numel() * t.element_size()
+                              for t in _leaves({"p": params, "o": opt}))}
+    sent = [{k: v["bytes"] for k, v in r["collectives"].items()}
+            for r in rows]
+    if any(x != sent[0] for x in sent):
+        raise AssertionError(f"{arch}: the steps sent other bytes: {sent}")
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sharded_rank(rank: int, world: int, rdzv: str, sizes, axes, runs,
+                  out_dir: str):
+    """A spawned rank on card rank % cards (one card: every rank on
+    cuda:0, and the process group is gloo), the mesh, then each run of
+    ``runs``; writes its report to out_dir/rank<r>.json."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    torch.set_num_threads(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.parallel.shard import Mesh, init_distributed
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    backend = init_distributed(dev, rank=rank, world=world,
+                               init_method=rdzv, timeout_s=300)
+    mesh = Mesh(sizes, axes, dev)
+    report = {"rank": rank, "backend": backend, "coords": mesh.coords,
+              "staged": mesh.staged, "runs": {}}
+    for label, arch, layers, B, S, steps, comp, sched in runs:
+        report["runs"][label] = _sharded_run(mesh, dev, arch, layers, B, S,
+                                             steps, comp, sched)
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(report))
+    dist.destroy_process_group()
+
+
+def _spawn_ranks(world: int, sizes, axes, runs, label: str) -> list:
+    """``world`` ranks of `_sharded_rank` (spawned, ``file://``
+    rendezvous, SHARDED_TIMEOUT_S); their reports in rank order."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+    tmp = tempfile.mkdtemp(prefix="sharded-")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_sharded_rank, args=(
+        r, world, f"file://{tmp}/rdzv", sizes, axes, runs, tmp))
+        for r in range(world)]
+    for p in procs:
+        p.start()
+    end = time.monotonic() + SHARDED_TIMEOUT_S
+    for p in procs:
+        p.join(max(end - time.monotonic(), 1))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    if any(codes):
+        raise AssertionError(f"{label}: ranks exited {codes}")
+    return [json.loads(Path(tmp, f"rank{r}.json").read_text())
+            for r in range(world)]
+
+
+def _hold_sharded(label: str, reps: list, single: dict, n_attn: int,
+                  comp: bool):
+    """The sharded run ``label``'s checks on every rank's report: losses
+    within LOSS_RTOL and grad norms within GNORM_RTOL of the same model's
+    single-process steps of this call, the metrics equal on every rank,
+    flash launched >= 2 x n_attn x steps on each rank (forward and
+    recompute), the pair and dequantize with compression."""
+    rows = reps[0]["runs"][label]["steps"]
+    for rep in reps[1:]:
+        if [r["loss"] for r in rep["runs"][label]["steps"]] != \
+                [r["loss"] for r in rows]:
+            raise AssertionError(f"{label}: ranks disagree on the loss")
+    for r, s in zip(rows, single["steps"]):
+        for key, tol in (("loss", LOSS_RTOL), ("grad_norm", GNORM_RTOL)):
+            rel = abs(r[key] - s[key]) / abs(s[key])
+            if not rel <= tol:
+                raise AssertionError(
+                    f"{label}: step {r['step']} {key} {r[key]} against "
+                    f"the single process's {s[key]}: {rel:.2e} > {tol:g}")
+    for rep in reps:
+        got = rep["runs"][label]["launches"]
+        if got["flash_fwd"] < 2 * n_attn * len(rows):
+            raise AssertionError(f"{label}: rank {rep['rank']} launched "
+                                 f"flash {got['flash_fwd']} times")
+        if comp and min(got[k] for k in ("absmax", "quantize_with_scales",
+                                         "dequantize")) < 1:
+            raise AssertionError(f"{label}: rank {rep['rank']} skipped "
+                                 f"the compression kernels: {got}")
+
+
+def sharded_full_width(dev, card: str) -> dict:
+    """Sharded training on the card (`SHARDED_RUNS`): the parent frees its
+    card memory and spawns 4 ranks on cuda:0 over gloo, mesh (data 2,
+    model 2): internlm2_1_8b uncut at 4 x 2048 (2 x 1024 a rank), 2
+    steps, then a fresh run of 1 step with --grad-compression, and
+    qwen2_moe_a2_7b at 4 of 24 layers, 2 x 2048, 2 steps; each held
+    against the same model's single-process steps of this call and its
+    step-0 loss against the plain flash forward's (`_hold_sharded`); per
+    rank: peak memory (and the weights' init peak), step ms, bytes by
+    collective and axes. Then one rank at (1, 1) over NCCL (the backend
+    asserted) takes internlm2_1_8b's first step. Returns the launch
+    counts by path, summed over ranks."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    sizes, axes = SHARDED_MESH
+    world = math.prod(sizes)
+    runs, checks = [], []
+    for arch, layers, B, S, steps, comp, single, sched in SHARDED_RUNS:
+        label = f"train sharded {arch}"
+        runs.append((label, arch, layers, B, S, steps, False, sched))
+        checks.append((label, arch, layers, B, S, single, False))
+        if comp:
+            runs.append((f"{label} compressed", arch, layers, B, S, comp,
+                         True, comp))
+            checks.append((f"{label} compressed", arch, layers, B, S,
+                           f"{single} compressed", True))
+    t0 = time.perf_counter()
+    reps = _spawn_ranks(world, sizes, axes, tuple(runs), "sharded")
+    wall = time.perf_counter() - t0
+    if {r["backend"] for r in reps} != {"gloo"}:
+        raise AssertionError(f"sharded: backends {[r['backend'] for r in reps]}")
+    counts, report = {}, {"mesh": dict(zip(axes, sizes)), "wall_s": wall,
+                          "card": card}
+    for label, arch, layers, B, S, single, comp in checks:
+        cfg = _cut(arch, layers)
+        one = SINGLE[single]
+        _hold_sharded(label, reps, one, _n_attn(cfg), comp)
+        rows = reps[0]["runs"][label]["steps"]
+        plain = SINGLE[single.replace(" compressed", "")].get(
+            "plain_flash_loss")
+        if plain is not None:
+            rel = abs(rows[0]["loss"] - plain) / abs(plain)
+            if rel > LOSS_RTOL:
+                raise AssertionError(f"{label}: step-0 loss {rows[0]['loss']}"
+                                     f" vs plain flash {plain}")
+        per_rank = [r["runs"][label] for r in reps]
+        counts[label] = {k: sum(p["launches"][k] for p in per_rank)
+                         for k in per_rank[0]["launches"]}
+        report[label] = {
+            "loss": [r["loss"] for r in rows],
+            "single_loss": [r["loss"] for r in one["steps"][:len(rows)]],
+            "grad_norm": [r["grad_norm"] for r in rows],
+            "single_grad_norm": [r["grad_norm"]
+                                 for r in one["steps"][:len(rows)]],
+            "step_ms": [[r["step_ms"] for r in p["steps"]]
+                        for p in per_rank],
+            "single_step_ms": [r["step_ms"]
+                               for r in one["steps"][:len(rows)]],
+            "peak_bytes": [p["peak_bytes"] for p in per_rank],
+            "init_peak_bytes": [p["init_peak_bytes"] for p in per_rank],
+            "state_bytes": [p["state_bytes"] for p in per_rank],
+            "collectives": per_rank[0]["collectives"],
+            "launches_per_rank": [p["launches"] for p in per_rank]}
+        got = {k: v["bytes"] for k, v in per_rank[0]["collectives"].items()}
+        log(f"[{label}] losses {report[label]['loss']} (single "
+            f"{report[label]['single_loss']}), grad norms "
+            f"{report[label]['grad_norm']} (single "
+            f"{report[label]['single_grad_norm']}); step ms by rank "
+            f"{report[label]['step_ms']} (single "
+            f"{report[label]['single_step_ms']}); peak by rank "
+            f"{report[label]['peak_bytes']} B (init "
+            f"{report[label]['init_peak_bytes']} B), state "
+            f"{report[label]['state_bytes']} B; bytes sent a rank {got}; "
+            f"host s in collectives "
+            f"{ {k: round(v['host_s'], 3) for k, v in per_rank[0]['collectives'].items()} }; "
+            f"{card}")
+    # one rank over NCCL: its own card
+    t1 = time.perf_counter()
+    arch, layers, B, S, _, _, single, sched = SHARDED_RUNS[0]
+    label = f"train nccl {arch}"
+    nccl = _spawn_ranks(1, (1, 1), ("data", "model"), (
+        (label, arch, layers, B, S, 2, False, sched),), "nccl")
+    if nccl[0]["backend"] != "nccl" or nccl[0]["staged"]:
+        raise AssertionError(f"(1, 1): backend {nccl[0]['backend']}")
+    _hold_sharded(label, nccl, SINGLE[single], _n_attn(_cut(arch, layers)),
+                  False)
+    run = nccl[0]["runs"][label]
+    counts[label] = run["launches"]
+    report[label] = run
+    log(f"[{label}] backend nccl, losses "
+        f"{[r['loss'] for r in run['steps']]} (single "
+        f"{[r['loss'] for r in SINGLE[single]['steps'][:2]]}), step ms "
+        f"{[r['step_ms'] for r in run['steps']]} (single "
+        f"{[r['step_ms'] for r in SINGLE[single]['steps'][:2]]}), peak "
+        f"{run['peak_bytes']} B, collectives {run['collectives']} in "
+        f"{time.perf_counter() - t1:.1f} s; {card}")
+    log("[train sharded] " + json.dumps(report))
     return counts
 
 
@@ -5486,6 +5781,9 @@ def main() -> int:
     t0 = time.perf_counter()
     path_counts.update(train_families_full_width(dev, card))
     log(f"[train families] phase in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    path_counts.update(sharded_full_width(dev, card))
+    log(f"[train sharded] phase in {time.perf_counter() - t0:.1f} s")
 
     prefill["sass_mma"] = pmma
     kernels = kernels_line(

@@ -24,6 +24,9 @@ bfloat16 cannot go through `torch.from_numpy`).
   (E, d, f) / (E, f, d), shared experts).
 - `opt_state_from_numpy`: the reference's ``init_opt_state`` tree (m, v,
   master, step, optional grad_err) -> the port's (`training.step`).
+  Both take a ``mesh`` and ``specs`` (`launch.specs.train_specs`'
+  "params" and "opt"): each rank then takes its shards straight from the
+  numpy arrays, with no whole copy on the device.
 - `reference_layout`: the port's layout -> the reference's, by the
   config (what `optim.compression` keeps its error state in).
 - `tree_to_numpy`: the port's parameters (or moments, master weights,
@@ -38,8 +41,10 @@ import torch
 
 from repro_torch.core.tree import leaves, tree_map
 from repro_torch.models import encdec
-from repro_torch.models.transformer import (pattern_layout, stack_layers,
+from repro_torch.models.transformer import (check_distributable,
+                                            pattern_layout, stack_layers,
                                             unstack_layers)
+from repro_torch.parallel.shard import take_shard
 
 
 def _stacked_ref(tree, cfg) -> dict:
@@ -71,12 +76,19 @@ _F32 = {"final_norm", "norm1", "norm2", "norm_x", "enc_norm", "bias",
         "b_if", "b"}
 
 
-def _conv(node, dtype_of, device, f32=False):
+def _conv(node, dtype_of, device, f32=False, spec=None, mesh=None):
+    """Numpy leaves -> tensors of ``dtype_of(is_float32_leaf)``; under a
+    mesh, this rank's shard of each (``spec`` the tree's specs)."""
     if isinstance(node, dict):
-        return {k: _conv(v, dtype_of, device, f32 or k in _F32)
+        return {k: _conv(v, dtype_of, device, f32 or k in _F32,
+                         None if spec is None else spec[k], mesh)
                 for k, v in node.items()}
     if isinstance(node, (list, tuple)):
-        return [_conv(v, dtype_of, device, f32) for v in node]
+        return [_conv(v, dtype_of, device, f32,
+                      None if spec is None else spec[i], mesh)
+                for i, v in enumerate(node)]
+    if spec is not None:
+        node = take_shard(np.asarray(node), spec, mesh)
     return _tensor(node, dtype_of(f32), device)
 
 
@@ -100,22 +112,28 @@ def _encdec_layout(tree, cfg, device, dtype_of) -> dict:
     return port
 
 
-def _port_layout(tree, cfg, device, dtype_of) -> dict:
+def _port_layout(tree, cfg, device, dtype_of, mesh=None,
+                 specs=None) -> dict:
     """Reference layout -> port layout; each leaf a tensor of
     ``dtype_of(is_float32_leaf)``, layers as copies (not views of a
-    stack)."""
+    stack); under ``mesh`` this rank's shards of ``specs``."""
     if cfg.family == "encdec":
+        if mesh is not None:
+            check_distributable(cfg, mesh)
         return _encdec_layout(tree, cfg, device, dtype_of)
     ref = _stacked_ref(tree, cfg)
-    port = unstack_layers(_conv(ref, dtype_of, device))
-    port["layers"] = tree_map(lambda x: x.clone(), port["layers"])
-    return port
+    if mesh is None:
+        port = unstack_layers(_conv(ref, dtype_of, device))
+        port["layers"] = tree_map(lambda x: x.clone(), port["layers"])
+        return port
+    port = unstack_layers(tree_map(np.asarray, ref))
+    return _conv(port, dtype_of, device, spec=specs, mesh=mesh)
 
 
-def params_from_numpy(tree, cfg, device) -> dict:
+def params_from_numpy(tree, cfg, device, mesh=None, specs=None) -> dict:
     dt = cfg.activation_dtype
     return _port_layout(tree, cfg, device,
-                        lambda f32: torch.float32 if f32 else dt)
+                        lambda f32: torch.float32 if f32 else dt, mesh, specs)
 
 
 def reference_layout(tree, cfg, stack=torch.stack) -> dict:
@@ -129,14 +147,17 @@ def reference_layout(tree, cfg, stack=torch.stack) -> dict:
     return stack_layers(tree, pattern_layout(cfg)[0], stack)
 
 
-def opt_state_from_numpy(tree, cfg, device) -> dict:
+def opt_state_from_numpy(tree, cfg, device, mesh=None, specs=None) -> dict:
     """{"adam": {m, v, master, step}, "grad_err"?} -> the port's optimizer
     state: m, v and master float32 in the port's layout, step an int32
     tensor, grad_err float32 in the reference's layout, which it keeps
-    (`optim.compression`)."""
+    (`optim.compression`); under ``mesh`` this rank's shards of ``specs``
+    (the same tree of specs)."""
     f32 = lambda norm: torch.float32
     adam = tree["adam"]
-    out = {"adam": {k: _port_layout(adam[k], cfg, device, f32)
+    out = {"adam": {k: _port_layout(adam[k], cfg, device, f32, mesh,
+                                    None if mesh is None
+                                    else specs["adam"][k])
                     for k in ("m", "v", "master")}}
     out["adam"]["step"] = torch.tensor(int(np.asarray(adam["step"])),
                                        dtype=torch.int32, device=device)
@@ -146,8 +167,12 @@ def opt_state_from_numpy(tree, cfg, device) -> dict:
             err = _stacked_ref(err, cfg)
             if not err["tail"]:
                 del err["tail"]
-        out["grad_err"] = tree_map(
-            lambda a: _tensor(a, torch.float32, device), err)
+        if mesh is None:
+            out["grad_err"] = tree_map(
+                lambda a: _tensor(a, torch.float32, device), err)
+        else:
+            out["grad_err"] = _conv(err, f32, device,
+                                    spec=specs["grad_err"], mesh=mesh)
     return out
 
 

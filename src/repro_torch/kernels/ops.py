@@ -35,6 +35,22 @@ def quantize_per_channel(x):
     return fn(x.float().contiguous())
 
 
+def absmax(x):
+    """Column absmax over T: (..., T, D) -> float32 (..., D); the first
+    per-channel pass alone (a sharded caller all-reduces it with MAX
+    before the second)."""
+    fn = _route(x, _quant.absmax_cuda, _quant.absmax_plain)
+    return fn(x.float().contiguous())
+
+
+def quantize_with_scales(x, absmax):
+    """The second per-channel pass: (..., T, D) and a column absmax
+    (..., D) -> (int8 (..., T, D), float32 scales (..., D))."""
+    fn = _route(x, _quant.quantize_with_scales_cuda,
+                _quant.quantize_with_scales_plain)
+    return fn(x.float().contiguous(), absmax.float().contiguous())
+
+
 def quantize_blocked(x, block_size: int = 256):
     """(..., T, D) -> (int8 (..., T, D), float32 (..., T // block_size,
     D)); absmax and quantize per (token block, channel) in one kernel."""

@@ -5,7 +5,16 @@ sliding window).
 
 Training:
     train(...)          full causal (optionally sliding-window) attention,
-                        no cache: blocked flash attention (`models.flash`)
+                        no cache: blocked flash attention (`models.flash`);
+                        under a mesh context parallel, as the reference's
+                        (DESIGN.md §4: heads need not divide the model
+                        axis): the weights gathered over every axis,
+                        queries left sequence-sharded over "model" with
+                        RoPE at this rank's absolute positions, K and V
+                        gathered over "model" along the sequence in their
+                        storage dtype (``_gather_seq``; the backward
+                        reduce-scatters dK, dV), and the flash walk at
+                        ``kv_offset`` = this rank's first position
 Encoder-decoder cross attention (`models.encdec`):
     cross_train(...)    queries from the decoder, keys / values from the
                         encoder output, no RoPE, no mask (flash forward,
@@ -41,6 +50,7 @@ from repro_torch.core.paging import PagedQuantizedKVCache
 from repro_torch.kernels import ops
 from repro_torch.models import flash
 from repro_torch.models.common import apply_mrope, apply_rope, dense_init
+from repro_torch.parallel.shard import all_gather, gather_param
 
 
 def init(cfg, gen: torch.Generator, device) -> dict:
@@ -81,9 +91,10 @@ def _project_qkv(p, x, cfg, positions):
     return q, k, v
 
 
-def _sdpa(q, k, v, *, causal: bool, window: int | None):
+def _sdpa(q, k, v, *, causal: bool, window: int | None,
+          kv_offset: int = 0):
     """Blocked flash-style attention (see models/flash.py)."""
-    return flash.flash_attention(q, k, v, causal, window)
+    return flash.flash_attention(q, k, v, causal, window, kv_offset)
 
 
 def _merge_heads(p, out, dtype):
@@ -100,10 +111,21 @@ def _window(cfg, local: bool):
 
 # -- training -----------------------------------------------------------------
 
-def train(p, x, cfg, positions, *, local: bool = False, causal: bool = True):
-    """x (B, S, d) -> (B, S, d): attention over the sequence itself."""
+def train(p, x, cfg, positions, *, local: bool = False, causal: bool = True,
+          lay=None, sp=None):
+    """x (B, S, d) -> (B, S, d): attention over the sequence itself. Under
+    a mesh (``lay``, ``sp`` the specs of p's leaves) x, positions and the
+    result are this rank's part of ``lay``."""
+    offset = 0
+    if lay is not None:
+        p = {k: gather_param(v, sp[k], lay.mesh) for k, v in p.items()}
     q, k, v = _project_qkv(p, x, cfg, positions)
-    out = _sdpa(q, k, v, causal=causal, window=_window(cfg, local))
+    if lay is not None and lay.seq:           # _gather_seq
+        k = all_gather(k, lay.seq, 2, lay.mesh)
+        v = all_gather(v, lay.seq, 2, lay.mesh)
+        offset = lay.positions().start
+    out = _sdpa(q, k, v, causal=causal, window=_window(cfg, local),
+                kv_offset=offset)
     return _merge_heads(p, out, x.dtype)
 
 

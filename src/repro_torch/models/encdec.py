@@ -41,7 +41,10 @@ from repro_torch.core.kvcache import QuantizedKVCache
 from repro_torch.core.tree import tree_map
 from repro_torch.models import attention, mlp
 from repro_torch.models.common import embed_init, layernorm, layernorm_init
-from repro_torch.models.transformer import check_device, padded_vocab
+from repro_torch.models.transformer import (check_device,
+                                            check_distributable,
+                                            padded_vocab)
+from repro_torch.parallel.shard import current_mesh
 
 
 def _angles(pos: torch.Tensor, d: int) -> torch.Tensor:
@@ -161,7 +164,9 @@ def _dec_block_train(bp, x, enc_out, cfg, pos):
 
 def forward_train(params, frames, tokens, cfg, *, remat: bool = True):
     """-> (logits (B, S, Vp), aux = 0). frames (B, T_enc, d); tokens (B,
-    S) int."""
+    S) int. A mesh of several ranks raises `ValueError`
+    (`transformer.check_distributable`)."""
+    check_distributable(cfg, current_mesh())
     enc_out = encode(params, frames, cfg, remat)
     B, S = tokens.shape
     x = params["embed"][tokens]

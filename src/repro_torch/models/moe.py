@@ -1,6 +1,15 @@
-"""Token-choice top-k Mixture-of-Experts (port of ``repro.models.moe``
-without a mesh: the reference's ``_apply_local``; qwen2-moe's shared
-experts included).
+"""Token-choice top-k Mixture-of-Experts (port of ``repro.models.moe``:
+without a mesh the reference's ``_apply_local``, under one its
+``_apply_shard_map``; qwen2-moe's shared experts included).
+
+Under a mesh each rank routes the rows of its data shard over the WHOLE
+sequence (gathered over "model"; the capacity comes from the full S), with
+the experts' d-axis shards gathered over the FSDP axes and their hidden
+dim left sharded over "model": the down-projection's partial sums are
+summed over "model" in the storage dtype (a reduce-scatter back to the
+sequence shards, or an all-reduce where the sequence is whole), and the
+aux loss is this rank's share of the mean over every row (the
+reference's ``pmean``). Tokens never leave their data shard.
 
 Dispatch is the reference's capacity-bounded scatter/gather, per batch
 row: each row's S * k assignments (row-major over (S, k)) take slots by a
@@ -26,6 +35,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import mlp
 from repro_torch.models.common import dense_init
+from repro_torch.parallel.shard import gather_param
 
 
 def init(cfg, gen: torch.Generator, device) -> dict:
@@ -113,10 +123,31 @@ def _apply_routed(p, x, cfg):
     return out, r["aux"].mean()
 
 
-def apply(p, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, d) -> (out (B, S, d) in x's dtype, aux_loss ())."""
-    out, aux = _apply_routed(p, x, cfg)
+def _apply_sharded(p, x, cfg, lay, sp):
+    """`_apply_routed` under a mesh -> (out in x's dtype and ``lay``,
+    this rank's share of aux)."""
+    mesh = lay.mesh
+    tp = sp["w_gate"][2]                      # the expert hidden axes
+    routed = {k: gather_param(p[k], sp[k], mesh,
+                              keep=() if k == "router" else tp)
+              for k in ("router", "w_gate", "w_up", "w_down")}
+    out, aux = _apply_routed(routed, lay.whole_seq(x), cfg)
+    return lay.to_layout(out.to(x.dtype), tp), aux / mesh.size
+
+
+def apply(p, x: torch.Tensor, cfg, lay=None, sp=None):
+    """x (B, S, d) -> (out (B, S, d) in x's dtype, aux_loss ()). Under a
+    mesh (``lay``, ``sp`` the specs of p's leaves) x and out are this
+    rank's part of ``lay`` and aux is this rank's share (the shares of all
+    ranks sum to the mean over every row)."""
+    if lay is None:
+        out, aux = _apply_routed(p, x, cfg)
+    else:
+        out, aux = _apply_sharded(p, x, cfg, lay, sp)
     if cfg.n_shared_experts:
-        g = torch.sigmoid(x.float() @ p["shared_gate"])
-        out = out + g * mlp.apply(p["shared"], x).float()
+        gate = p["shared_gate"] if lay is None else gather_param(
+            p["shared_gate"], sp["shared_gate"], lay.mesh)
+        g = torch.sigmoid(x.float() @ gate)
+        out = out + g * mlp.apply(p["shared"], x, lay,
+                                  None if sp is None else sp["shared"]).float()
     return out.to(x.dtype), aux

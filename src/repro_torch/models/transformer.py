@@ -32,6 +32,20 @@ full-attention stacks only, as the reference's. An encoder-decoder
 `forward_train` recomputes each block in the backward
 (`torch.utils.checkpoint`), as the reference's per-block
 ``jax.checkpoint(nothing_saveable)``.
+
+Under `parallel.shard.mesh_context` (a mesh of ranks), `forward_train`
+takes the global batch and runs this rank's part of it: parameters are
+shards, laid out by the ``specs`` passed in (`launch.specs.param_specs`),
+activations between blocks are (batch over "pod" / "data", sequence
+over "model") where
+`logical_spec` says the sizes divide (`parallel.shard.Layout`), and each
+block gathers, inside its checkpoint region, the weights its compute
+needs (so the recompute gathers again and the backward reduce-scatters
+the gradients). The embedding is vocab-parallel (the rows this "model"
+rank lacks are zero, then a reduce-scatter along the sequence), and so
+are the logits. The attention, MLP and MoE blocks serve under a mesh;
+the recurrent kinds and the encoder-decoder wait for ROADMAP item 15
+(`check_distributable`).
 """
 from __future__ import annotations
 
@@ -46,6 +60,8 @@ from repro_torch.models import attention, mlp, moe, rglru, xlstm
 from repro_torch.models import sampling as SMP
 from repro_torch.models.common import (dense_init, embed_init, layernorm,
                                        layernorm_init, rmsnorm, rmsnorm_init)
+from repro_torch.parallel.shard import (Layout, current_mesh, gather_param,
+                                        logical_spec)
 
 
 def padded_vocab(cfg) -> int:
@@ -97,24 +113,31 @@ def check_servable(cfg, *, paged: bool = False) -> None:
 
 
 def init_params(cfg, generator: torch.Generator | None = None, *,
-                device="cuda") -> dict:
+                device="cuda", keep=None) -> dict:
     """Random weights with the reference's distributions, drawn from
-    ``generator`` (a `torch.Generator` on ``device``; None = seed 0)."""
+    ``generator`` (a `torch.Generator` on ``device``; None = seed 0).
+    ``keep(key, part)``, when given, takes each part as it is made (the
+    embedding, the final norm, the head, then each layer, ``key`` its
+    path in the tree) and returns what to hold of it: a rank of a mesh
+    keeps its shards (`launch.specs.init_shards`)."""
     device = check_device(device)
     check_servable(cfg)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
+    keep = keep or (lambda key, part: part)
     Vp, dt = padded_vocab(cfg), cfg.activation_dtype
     params = {
-        "embed": embed_init(generator, Vp, cfg.d_model, dt, device),
-        "final_norm": norm_init(cfg, device),
+        "embed": keep(("embed",), embed_init(generator, Vp, cfg.d_model, dt,
+                                             device)),
+        "final_norm": keep(("final_norm",), norm_init(cfg, device)),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense_init(generator, cfg.d_model, Vp, dt, device)
+        params["lm_head"] = keep(("lm_head",), dense_init(
+            generator, cfg.d_model, Vp, dt, device))
     params["layers"] = []
     for i in range(cfg.n_layers):
-        params["layers"].append(_block_init(cfg, cfg.block_kind(i),
-                                            generator, device))
+        params["layers"].append(keep(("layers", i), _block_init(
+            cfg, cfg.block_kind(i), generator, device)))
     return params
 
 
@@ -257,14 +280,42 @@ def _embed(params, tok, cfg, positions):
     return x, positions
 
 
-def _block_train(p, x, kind: str, cfg, positions):
+def check_distributable(cfg, mesh) -> bool:
+    """Whether training runs sharded on ``mesh`` (None: no mesh). The
+    attention kinds do; a stack with rglru, mlstm or slstm blocks, or an
+    encoder-decoder, raises `ValueError` on a mesh of several ranks and
+    runs its one-device path on a mesh of one."""
+    if mesh is None:
+        return False
+    other = sorted({k for k in cfg.block_pattern if k not in ATTN_KINDS})
+    if cfg.family == "encdec" or other:
+        if mesh.size > 1:
+            what = "an encoder-decoder" if cfg.family == "encdec" else \
+                f"{'/'.join(other)} blocks"
+            raise ValueError(
+                f"{cfg.name}: {what} under a mesh of {mesh.size} ranks "
+                f"wait for ROADMAP item 15 (the reference shards their "
+                f"batch over the idle model axis and lays out "
+                f"cross-attention apart); train them on one rank")
+        return False
+    return True
+
+
+def _sub(sp, key):
+    return None if sp is None else sp[key]
+
+
+def _block_train(p, x, kind: str, cfg, positions, lay=None, sp=None):
     """One layer over the whole sequence: its mixer by kind, the residual,
-    then its FFN. Returns (x, the MoE's aux loss, 0 for other kinds)."""
+    then its FFN. Returns (x, the MoE's aux loss, 0 for other kinds).
+    Under a mesh x is this rank's part of ``lay``, ``sp`` the layer's
+    specs, and aux this rank's share."""
     h = norm(cfg, p["norm1"], x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind in ATTN_KINDS:
         h = attention.train(p["attn"], h, cfg, positions,
-                            local=kind == "local_attn")
+                            local=kind == "local_attn", lay=lay,
+                            sp=_sub(sp, "attn"))
     elif kind == "rglru":
         h, _ = rglru.apply_seq(p["rglru"], h, cfg)
     elif kind == "mlstm":
@@ -273,21 +324,93 @@ def _block_train(p, x, kind: str, cfg, positions):
         h, _ = xlstm.slstm_seq(p["slstm"], h, cfg)
     x = x + h
     if "moe" in p:
-        h2, aux = moe.apply(p["moe"], norm(cfg, p["norm2"], x), cfg)
+        h2, aux = moe.apply(p["moe"], norm(cfg, p["norm2"], x), cfg, lay,
+                            _sub(sp, "moe"))
         x = x + h2
     elif "mlp" in p:
-        x = x + mlp.apply(p["mlp"], norm(cfg, p["norm2"], x))
+        x = x + mlp.apply(p["mlp"], norm(cfg, p["norm2"], x), lay,
+                          _sub(sp, "mlp"))
     return x, aux
 
 
+def _embed_sharded(params, sp, tok, cfg, lay):
+    """This rank's rows of tokens (B_l, S) (or embeddings (B_l, S, d))
+    -> x in ``lay``: a vocab-parallel lookup into the embedding gathered
+    over its FSDP axes (rows of other "model" ranks zero), summed over the
+    vocab axes onto the sequence shards."""
+    if cfg.embedding_inputs and tok.dim() == 3:
+        return lay.to_layout(tok.to(cfg.activation_dtype), ())
+    vax = sp["embed"][0]
+    E = gather_param(params["embed"], sp["embed"], lay.mesh, keep=vax)
+    if not vax:
+        return lay.to_layout(E[tok], ())
+    Vl = E.shape[0]
+    idx = tok.to(torch.int64) - lay.mesh.index(vax)[0] * Vl
+    own = (idx >= 0) & (idx < Vl)
+    x = torch.where(own[..., None], E[idx.clamp(0, Vl - 1)],
+                    torch.zeros((), dtype=E.dtype, device=E.device))
+    return lay.to_layout(x, vax)
+
+
+def _head_sharded(params, sp, x, cfg, lay):
+    """x in ``lay`` -> this rank's logits (B_l, S, Vp / n): the final norm
+    on the sequence shards, the sequence gathered, and the product with
+    this rank's vocab columns of the head (FSDP shards gathered)."""
+    x = lay.whole_seq(norm(cfg, params["final_norm"], x))
+    if cfg.tie_embeddings:
+        e = sp["embed"]
+        return x @ gather_param(params["embed"], e, lay.mesh, keep=e[0]).T
+    h = sp["lm_head"]
+    return x @ gather_param(params["lm_head"], h, lay.mesh, keep=h[1])
+
+
+def logits_spec(cfg, B: int, S: int, mesh) -> tuple:
+    """The layout of the training logits (B, S, Vp): rows over "batch",
+    vocab over "vocab" (the reference's ``act_shard(logits, "batch",
+    None, "vocab")``)."""
+    return logical_spec(("batch", None, "vocab"), (B, S, padded_vocab(cfg)),
+                        mesh)
+
+
+def _forward_train_sharded(params, sp, tok, cfg, mesh, positions, remat):
+    B, S = tok.shape[:2]
+    lay = Layout.of(mesh, B, S, cfg.d_model)
+    rows, cols = lay.rows(), lay.positions()
+    x = _embed_sharded(params, sp, tok[rows], cfg, lay)
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=x.device)[None].expand(B, S)
+    positions = positions[rows][..., cols]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, (p, s) in enumerate(zip(params["layers"], sp["layers"])):
+        args = (p, x, cfg.block_kind(i), cfg, positions, lay, s)
+        x, a = (checkpoint(_block_train, *args, use_reentrant=False)
+                if remat else _block_train(*args))
+        aux = aux + a
+    return _head_sharded(params, sp, x, cfg, lay), aux
+
+
 def forward_train(params, tokens_or_embeds, cfg, *, positions=None,
-                  remat: bool = True):
+                  remat: bool = True, specs=None):
     """-> (logits (B, S, Vp), aux_loss ()): every block kind, as the
     reference's. tokens (B, S) int, or embeddings (B, S, d) when
     ``cfg.embedding_inputs``; aux is the sum of the MoE blocks' load
     balancing losses (0 without them). With ``remat`` each block keeps
     only its input for the backward and runs its forward again there
-    (flash attention's kernel included)."""
+    (flash attention's kernel included).
+
+    Under a mesh of ranks (module docstring): tokens (B, S) or embeddings
+    are the GLOBAL batch, the parameters this rank's shards (``specs``
+    theirs), and it returns this rank's block of the logits
+    (`logits_spec`) and its share of aux (the shares of all ranks sum to
+    aux)."""
+    mesh = current_mesh()
+    if check_distributable(cfg, mesh):
+        if specs is None:
+            raise ValueError("forward_train under a mesh needs the "
+                             "parameters' specs")
+        return _forward_train_sharded(params, specs, tokens_or_embeds, cfg,
+                                      mesh, positions, remat)
     x, positions = _embed(params, tokens_or_embeds, cfg, positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(params["layers"]):

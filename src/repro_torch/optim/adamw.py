@@ -4,8 +4,9 @@ State mirrors the parameters: {m, v, master} in float32 whatever the
 parameters' dtype (bf16 parameters, float32 moments and master weights)
 and a step counter (int32). Unlike the reference's pure functions,
 `apply_updates` updates the parameters, moments and master weights IN
-PLACE (the port's own tensors), so a step at full width holds one copy of
-each; it returns them too.
+PLACE (the port's own tensors, or this rank's shards of them under a
+mesh), so a step at full width holds one copy of each; it returns them
+too.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from typing import Callable
 import torch
 
 from repro_torch.core.tree import leaves, tree_map
+from repro_torch.parallel.shard import spec_leaves, unused_axes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,22 +61,37 @@ def init_state(params) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in float32."""
-    return torch.sqrt(sum(torch.sum(x.float() ** 2) for x in leaves(tree)))
+def global_norm(tree, specs=None, mesh=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in float32. Under a mesh
+    (``specs`` the leaves' specs) the leaves are shards: each rank sums
+    its own, a leaf replicated over some axes counted on the ranks at
+    coordinate 0 of them only, and the sum is all-reduced over every
+    rank."""
+    if mesh is None:
+        return torch.sqrt(sum(torch.sum(x.float() ** 2)
+                              for x in leaves(tree)))
+    total = torch.zeros((), dtype=torch.float32,
+                        device=leaves(tree)[0].device)
+    for x, spec in zip(leaves(tree), spec_leaves(specs)):
+        if all(mesh.coords[a] == 0 for a in unused_axes(spec, mesh)):
+            total = total + torch.sum(x.float() ** 2)
+    return torch.sqrt(mesh.all_reduce(total, mesh.axis_names))
 
 
 @torch.no_grad()
-def apply_updates(params, grads, state, cfg: AdamWConfig):
+def apply_updates(params, grads, state, cfg: AdamWConfig, *, specs=None,
+                  mesh=None):
     """One AdamW step with global-norm clipping, in place (see the module
-    docstring). Returns (params, state, {"grad_norm", "lr"}). Each leaf
+    docstring). Returns (params, state, {"grad_norm", "lr"}). Under a
+    mesh the leaves are shards (``specs`` theirs): the update is element
+    by element, the norm `global_norm`'s over every rank. Each leaf
     goes through two float32 buffers of its size, whatever its dtype:
     the reference's expression evaluated operation by operation, in its
     order, into them (the same roundings as the expression's temporaries,
     without their memory: the largest leaf of a model with a 256000-token
     vocabulary is 4.2 GB in float32)."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, specs, mesh)
     scale = torch.clamp_max(cfg.grad_clip / torch.clamp_min(gnorm, 1e-12),
                             1.0)
     lr = cosine_schedule(cfg)(step)

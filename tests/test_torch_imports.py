@@ -68,3 +68,18 @@ def test_chip_smoke_alone_fails_without_a_result(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+
+
+def test_distributed_workers_import_neither_jax_nor_the_reference():
+    """The rank processes of the distributed tests (and the card's `gpu`
+    file) start from JAX-free modules: tests/torch_dist_worker.py and
+    tests/torch_dist.py import with jax and repro blocked."""
+    code = _BLOCKER.split("import repro_torch")[0] + (
+        "import torch_dist, torch_dist_worker\n"
+        "assert not any(k.split('.')[0] in ('jax', 'repro') "
+        "for k in sys.modules)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": os.pathsep.join(
+                             [str(ROOT / "src"), str(ROOT / "tests")])})
+    assert res.returncode == 0, res.stderr

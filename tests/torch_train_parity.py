@@ -154,16 +154,25 @@ def check_step(ref, port, cfg, gc: bool = False, rtol: float = RTOL,
                     flips=flips)
     assert ("grad_err" in po) == gc
     if gc:
-        clip = min(1.0, OPT_CFG.grad_clip / float(rm["grad_norm"]))
-        bad = total = 0
-        for (path, a, b), (_, _, m) in zip(
-                pairs(bridge.tree_to_numpy(po["grad_err"], cfg),
-                      jax.tree.map(np.asarray, ro["grad_err"])),
-                pairs(ra["m"], ra["m"])):
-            gmax = float(np.abs(m).max()) / ((1 - OPT_CFG.beta1) * clip)
-            bad += int((np.abs(a - b) > rtol * (np.abs(b) + gmax)).sum())
-            total += b.size
-        assert bad <= flips * total, (bad, total)
+        check_grad_err(bridge.tree_to_numpy(po["grad_err"], cfg), ro, rm,
+                       rtol, flips)
+
+
+def check_grad_err(err, ro, rm, rtol: float = RTOL, flips: float = 1e-4):
+    """An error state (numpy, the reference's layout) against the
+    reference step's: each element within rtol of its leaf's largest
+    gradient (read back from the reference's m) but a fraction ``flips``
+    (`check_step`)."""
+    ra = jax.tree.map(np.asarray, ro["adam"])
+    clip = min(1.0, OPT_CFG.grad_clip / float(rm["grad_norm"]))
+    bad = total = 0
+    for (path, a, b), (_, _, m) in zip(
+            pairs(err, jax.tree.map(np.asarray, ro["grad_err"])),
+            pairs(ra["m"], ra["m"])):
+        gmax = float(np.abs(m).max()) / ((1 - OPT_CFG.beta1) * clip)
+        bad += int((np.abs(a - b) > rtol * (np.abs(b) + gmax)).sum())
+        total += b.size
+    assert bad <= flips * total, (bad, total)
 
 
 def check_compression(rparams, pcfg):
