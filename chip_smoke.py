@@ -225,7 +225,24 @@ Phases, each fatal on failure (no fallback anywhere):
      dequantize in the compressed step, the same bytes sent by every
      step; per rank peak memory (and the init's), step ms, and the bytes
      each collective sends a step by axes; then one rank at (1, 1) over
-     NCCL (the backend asserted) takes internlm2_1_8b's first 2 steps. The kernels' launch counters are
+     NCCL (the backend asserted) takes internlm2_1_8b's first 2 steps;
+     then sharded serving (`serve_sharded_full_width`,
+     `SERVE_SHARDED_RUNS`): internlm2_1_8b uncut through one process's
+     `make_serve_fns` (4 rows of 3072-token prompts, max_len 4096, 32
+     greedy steps; contiguous per block and per channel, paged through
+     `make_chunk_prefill_fn`), its tokens, logits and caches kept on
+     disk; the parent frees the card and spawns 4 gloo ranks at (data 2,
+     model 2), each gathering the seed-0 weights' shards whole once and
+     running the three runs teacher-forced on those tokens: logits within
+     SERVE_LOGIT_TOL, a greedy difference only at a one-process top-2 gap
+     within it (the first printed with both gaps), each rank's cache
+     against the one-process cache's slice (the page rule; scale rows
+     within a bf16 step; the decode steps' K / V within SERVE_LOGIT_TOL),
+     the cache bytes and each decode step's bytes by collective as
+     `serve_sharded_predict` reckons them, the launches as
+     `_serve_launches` predicts on every rank; step and prefill ms beside
+     the one process's; then one NCCL rank at (1, 1) runs the contiguous
+     per-block run. The kernels' launch counters are
      set to 0 just before each path and must be > 0 just after for every
      kernel the path runs.
   6. a {"kernels": [...]} line, then the card line, then as the last line
@@ -5331,16 +5348,18 @@ def _sharded_rank(rank: int, world: int, rdzv: str, sizes, axes, runs,
     dist.destroy_process_group()
 
 
-def _spawn_ranks(world: int, sizes, axes, runs, label: str) -> list:
-    """``world`` ranks of `_sharded_rank` (spawned, ``file://``
-    rendezvous, SHARDED_TIMEOUT_S); their reports in rank order."""
+def _spawn_ranks(world: int, sizes, axes, runs, label: str,
+                 target=None, extra=()) -> list:
+    """``world`` ranks of ``target`` (default `_sharded_rank`; spawned,
+    ``file://`` rendezvous, SHARDED_TIMEOUT_S; ``extra`` its arguments
+    after the report directory); their reports in rank order."""
     import tempfile
 
     import torch.multiprocessing as mp
     tmp = tempfile.mkdtemp(prefix="sharded-")
     ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=_sharded_rank, args=(
-        r, world, f"file://{tmp}/rdzv", sizes, axes, runs, tmp))
+    procs = [ctx.Process(target=target or _sharded_rank, args=(
+        r, world, f"file://{tmp}/rdzv", sizes, axes, runs, tmp, *extra))
         for r in range(world)]
     for p in procs:
         p.start()
@@ -5487,6 +5506,567 @@ def sharded_full_width(dev, card: str) -> dict:
         f"{time.perf_counter() - t1:.1f} s; {card}")
     log("[train sharded] " + json.dumps(report))
     return counts
+
+
+# -- sharded serving: make_serve_fns on ranks sharing the card ---------------
+
+# 4 rows of 3072-token prompts in a 4096-slot cache, 32 decode steps: at
+# (data 2, model 2) a rank holds 2 rows and 2048 slots, so the first
+# "model" rank holds 2048 prompt tokens and the second 1024 and the
+# decoded ones
+SERVE_SHARDED = {"B": 4, "S": 3072, "max_len": 4096, "steps": 32}
+# (label, granularity, paged)
+SERVE_SHARDED_RUNS = (("contiguous per_block", "per_block", False),
+                      ("contiguous per_channel", "per_channel", False),
+                      ("paged", "per_block", True))
+# teacher-forced logits, a rank against the one-process run of this call,
+# bf16 model: a rank's products have other row counts (2 rows against 4,
+# 1536 prompt positions against 3072) and its attention merges the ranks'
+# partials in another order, so a layer may round a value one bf16 step
+# (2^-8 relative) apart, and such steps add up over 24 layers: within
+# this share of the step's largest |logit| (about 8 bf16 steps of it)
+SERVE_LOGIT_TOL = 0.03
+# the cache against the one-process cache's slice: int8 values one step
+# apart in at most this share of the places (the page rule, ROADMAP queue
+# 3), scale rows within one bf16 step of their absmax (K and V are bf16
+# products); the decode steps' K / V (the bf16 residual, and per channel
+# the int8 slots after the prompt) differ as the logits do: dequantized,
+# within SERVE_LOGIT_TOL of their largest |value|
+SERVE_INT8_FRAC = 5e-3
+SERVE_BF16_RTOL = 2.0 ** -7
+
+
+def _serve_cfg(gran: str):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config("internlm2_1_8b")
+    return dataclasses.replace(cfg, quant=dataclasses.replace(
+        cfg.quant, granularity=gran))
+
+
+def _serve_table(n_pages: int, block: int):
+    """Every row's pages from a fresh `HostPageAllocator`, row by row (the
+    table each rank's replicated allocator must hand out)."""
+    import numpy as np
+    from repro_torch.core.paging import HostPageAllocator
+    alloc = HostPageAllocator(n_pages)
+    nb = SERVE_SHARDED["max_len"] // block
+    return np.array([alloc.alloc(nb) for _ in range(SERVE_SHARDED["B"])],
+                    np.int32)
+
+
+def _state_bytes(state) -> int:
+    """Every tensor of a serving state (caches, pools, tables, lengths)."""
+    import torch
+    seen, n = set(), 0
+    for c in state:
+        for t in [*vars(c).values(), *vars(getattr(c, "pool", c)).values()]:
+            if isinstance(t, torch.Tensor) and id(t) not in seen:
+                seen.add(id(t))
+                n += t.numel() * t.element_size()
+    return n
+
+
+def serve_sharded_predict(cfg, paged: bool, sizes) -> dict:
+    """A rank's cache bytes and the bytes it sends a decode step, by
+    collective, reckoned from the shapes (the specs' rules: rows over
+    "data", slots or kv heads over "model"; `Mesh.stats`' ring counts)."""
+    n_d, n_m = sizes
+    B, T = SERVE_SHARDED["B"], SERVE_SHARDED["max_len"]
+    L, Hkv, H, D = cfg.n_layers, cfg.n_kv_heads, cfg.n_heads, cfg.head_dim
+    Bl, bs = B // n_d, cfg.quant.block_size
+    vp = -(-cfg.vocab // 128) * 128
+    logits = (n_d - 1) * Bl * vp * 2                  # bf16, over "data"
+    if paged:
+        P, Hl = B * T // bs + 1, Hkv // n_m
+        cache = L * (2 * P * bs * Hl * D + 2 * P * Hl * D * 4
+                     + Bl * (T // bs) * 4 + 2 * Bl * Hl * bs * D * 2 + Bl * 4)
+        # the heads' bf16 outputs of one token a row, gathered before wo
+        sent = {"all_gather:model": L * (n_m - 1) * Bl * H * D * 2 // n_m}
+    else:
+        per_ch = cfg.quant.granularity == "per_channel"
+        nb = 1 if per_ch else T // bs
+        nb_l = nb // n_m if nb % n_m == 0 else nb
+        blk = 1 if per_ch else bs
+        cache = L * (2 * Bl * Hkv * (T // n_m) * D + 2 * Bl * Hkv * nb_l * D
+                     * 4 + 2 * Bl * Hkv * blk * D * 2)
+        sent = {"all_gather:model": L * (n_m - 1) * Bl * H * (D + 2) * 4}
+    sent["all_gather:data"] = logits
+    return {"cache_bytes": cache,
+            "sent": {k: v for k, v in sent.items() if v}}
+
+
+def _serve_one(dev, params, cfg, label: str, paged: bool, toks, out: Path
+               ) -> dict:
+    """The one-process run the ranks are held against: prefill (paged:
+    one chunk through `make_chunk_prefill_fn`), then SERVE_SHARDED's
+    greedy steps; writes the prompts, the tokens fed, every step's logits
+    and the final state (the bridge's layout, a file a field) under
+    ``out``."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import bridge
+    from repro_torch.serving.engine import (make_chunk_prefill_fn,
+                                            make_serve_fns)
+    B, S = toks.shape
+    out.mkdir(parents=True)
+
+    def run():
+        init, prefill, decode = make_serve_fns(
+            cfg, max_len=SERVE_SHARDED["max_len"], paged=paged, device=dev)
+        state = init(B)
+        t = torch.from_numpy(toks).to(dev)
+        if paged:
+            table = _serve_table(state[0].pool.k_q.shape[0],
+                                 cfg.quant.block_size)
+            for c in state:
+                c.page_table.copy_(torch.from_numpy(table))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if paged:
+            z = torch.zeros((B,), dtype=torch.int32, device=dev)
+            lg, state = make_chunk_prefill_fn(cfg)(
+                params, t, state, z, torch.full_like(z, S),
+                torch.ones((B,), dtype=torch.bool, device=dev))
+        else:
+            lg, state = prefill(params, t, state)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        logits, stream, step_ms = [lg.float().cpu().numpy()], [], []
+        pos = torch.full((B,), S, dtype=torch.int32, device=dev)
+        for _ in range(SERVE_SHARDED["steps"]):
+            tok = lg[:, :cfg.vocab].argmax(-1).to(torch.int32)
+            stream.append(tok.cpu().numpy())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, state = decode(params, tok[:, None], state, pos)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            logits.append(lg.float().cpu().numpy())
+            pos = pos + 1
+        np.save(out / "tokens.npy", toks)
+        np.save(out / "stream.npy", np.stack(stream))
+        np.save(out / "logits.npy", np.stack(logits))
+        st = bridge.serve_state_to_numpy(state, cfg)["p0"]
+        for k, v in st.items():
+            for n, a in (v.items() if k == "pool" else ((k, v),)):
+                np.save(out / f"{'pool.' if k == 'pool' else ''}{n}.npy", a)
+        return {"prefill_ms": prefill_ms, "step_ms": step_ms,
+                "cache_bytes": _state_bytes(state)}
+    res, wall, counts, peak = _run_path(dev, f"one process {label}", (),
+                                        run)
+    return {**res, "wall_s": wall, "launches": counts, "peak_bytes": peak}
+
+
+def _top2_gap(row, vocab: int) -> float:
+    import numpy as np
+    top = np.sort(row[:vocab])[-2:]
+    return float(top[1] - top[0])
+
+
+def _hold_cache(got: dict, ref: Path, where: dict) -> dict:
+    """A rank's cache (the bridge's layout, layer-stacked) against the
+    one-process cache's slice read from ``ref``: int8 values (the share
+    one step apart, the largest step), scale rows and residuals (largest
+    relative difference), lengths."""
+    import numpy as np
+    rows = slice(*where["rows"])
+    cut = {}
+    if "heads" in where:
+        pages = np.unique(np.load(ref / "page_table.npy")[:, rows])
+        h = slice(*where["heads"])
+        cut = {"pool.k_q": (slice(None), pages, slice(None), h),
+               "pool.v_q": (slice(None), pages, slice(None), h),
+               "pool.k_s": (slice(None), pages, h),
+               "pool.v_s": (slice(None), pages, h),
+               "resid_k": (slice(None), rows, h), "resid_v": (slice(None),
+                                                              rows, h),
+               "page_table": (slice(None), rows), "length": (slice(None),
+                                                             rows)}
+        mine = {**{f"pool.{k}": v[:, pages] for k, v in got["pool"].items()},
+                **{k: v for k, v in got.items() if k != "pool"}}
+    else:
+        t, s = slice(*where["slots"]), slice(*where["scales"])
+        cut = {"k_q": (slice(None), rows, slice(None), t),
+               "v_q": (slice(None), rows, slice(None), t),
+               "k_s": (slice(None), rows, slice(None), s),
+               "v_s": (slice(None), rows, slice(None), s),
+               "resid_k": (slice(None), rows), "resid_v": (slice(None), rows),
+               "length": (slice(None),)}
+        mine = got
+    out = {}
+    for name, idx in cut.items():
+        want = np.load(ref / f"{name}.npy", mmap_mode="r")[idx]
+        have = mine[name]
+        if have.shape != want.shape:
+            raise AssertionError(f"{name}: {have.shape} against the slice "
+                                 f"{want.shape}")
+        if name in ("k_q", "v_q"):
+            # the prompt's slots by the page rule; the decode steps' (per
+            # channel: quantized with the prompt's scales) dequantized, as
+            # the residual is held
+            n = min(max(SERVE_SHARDED["S"] - where["slots"][0], 0),
+                    have.shape[3])
+            d = np.abs(have[:, :, :, :n].astype(np.int32)
+                       - want[:, :, :, :n].astype(np.int32))
+            sc = np.load(ref / f"{name[0]}_s.npy", mmap_mode="r")[:, rows]
+            blk = SERVE_SHARDED["max_len"] // sc.shape[3]
+            sc = sc[:, :, :, (where["slots"][0] + n
+                              + np.arange(have.shape[3] - n)) // blk]
+            dec = [x[:, :, :, n:].astype(np.float32) * sc
+                   for x in (have, want)]
+            out[name] = {"max_step": int(d.max(initial=0)),
+                         "frac": float((d > 0).mean()) if d.size else 0.0,
+                         "decode_max_rel_scale": float(
+                             np.abs(dec[0] - dec[1]).max(initial=0)
+                             / max(np.abs(dec[1]).max(initial=0), 1e-30))}
+        elif name.endswith("_q"):
+            d = np.abs(have.astype(np.int32) - want.astype(np.int32))
+            out[name] = {"max_step": int(d.max()),
+                         "frac": float((d > 0).mean())}
+        elif name in ("page_table", "length"):
+            out[name] = {"equal": bool(np.array_equal(have, want))}
+        elif name.startswith(("resid", "pool.resid")):
+            # the decode steps' K / V: as the logits, against their scale
+            out[name] = {"max_rel_scale": float(
+                np.abs(have - want).max() / max(np.abs(want).max(), 1e-30))}
+        else:
+            rel = np.abs(have - want) / np.maximum(np.abs(want), 1e-30)
+            out[name] = {"max_rel": float(rel.max())}
+    return out
+
+
+def _serve_sharded_run(mesh, dev, params, label: str, gran: str,
+                       paged: bool, ref: Path) -> dict:
+    """One run on this rank: `make_serve_fns` under the mesh, this rank's
+    state (its cache bytes), the prompts prefilled (paged: one chunk, its
+    pages from a replicated allocator), then each one-process token fed
+    (teacher forcing): per step the logits against the one-process ones,
+    ms, and the bytes sent by collective; the launches; the cache against
+    the one-process cache's slice."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import bridge
+    from repro_torch.launch import specs as SP
+    from repro_torch.parallel.shard import mesh_context, shard_slices
+    from repro_torch.serving.engine import (make_chunk_prefill_fn,
+                                            make_serve_fns)
+    cfg = _serve_cfg(gran)
+    B, S, T = SERVE_SHARDED["B"], SERVE_SHARDED["S"], \
+        SERVE_SHARDED["max_len"]
+    toks = np.load(ref / "tokens.npy")
+    stream = np.load(ref / "stream.npy")
+    want = np.load(ref / "logits.npy")
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    with mesh_context(mesh):
+        init, prefill, decode = make_serve_fns(cfg, max_len=T, paged=paged,
+                                               device=dev)
+        chunk = make_chunk_prefill_fn(cfg) if paged else None
+    state = init(B)
+    specs = SP.serve_state_specs(cfg, B, T, mesh, paged=paged)[0][0]
+    rep = {"cache_bytes": _state_bytes(state)}
+    span = lambda s, n: list(s.indices(n)[:2])
+    if paged:
+        where = {"rows": span(shard_slices(specs["page_table"], (B, 1),
+                                           mesh)[0], B),
+                 "heads": span(shard_slices(specs["pool"]["k_q"],
+                                            (1, 1, cfg.n_kv_heads, 1),
+                                            mesh)[2], cfg.n_kv_heads)}
+        table = _serve_table(state[0].pool.k_q.shape[0],
+                             cfg.quant.block_size)
+        rep["pages_equal"] = bool(np.array_equal(
+            table, np.load(ref / "page_table.npy")[0]))
+        for c in state:
+            c.page_table.copy_(torch.from_numpy(
+                table[slice(*where["rows"])]))
+    else:
+        nb = 1 if gran == "per_channel" else T // cfg.quant.block_size
+        where = {"rows": span(shard_slices(specs["k_q"], (B, 1, T, 1),
+                                           mesh)[0], B),
+                 "slots": span(shard_slices(specs["k_q"], (B, 1, T, 1),
+                                            mesh)[2], T),
+                 "scales": span(shard_slices(specs["k_s"], (1, 1, nb, 1),
+                                             mesh)[2], nb)}
+    rep["where"] = where
+    sent = lambda: {f"{op}:{'+'.join(ax)}": v[1]
+                    for (op, ax), v in mesh.stats.items() if v[1]}
+
+    def held(j, lg):
+        got = lg.float().cpu().numpy()
+        w = want[j]
+        tol = SERVE_LOGIT_TOL * float(np.abs(w).max())
+        err = float(np.abs(got - w).max())
+        a, b = got[:, :cfg.vocab].argmax(-1), w[:, :cfg.vocab].argmax(-1)
+        row = {"step": j, "max_abs": err, "tol": tol}
+        if not np.array_equal(a, b):
+            r = int(np.nonzero(a != b)[0][0])
+            row["first_difference"] = {
+                "row": r, "token": int(a[r]), "one_process": int(b[r]),
+                "gap": _top2_gap(got[r], cfg.vocab),
+                "one_process_gap": _top2_gap(w[r], cfg.vocab)}
+        return row
+
+    mesh.stats.clear()
+    t = torch.from_numpy(toks).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if paged:
+        z = torch.zeros((B,), dtype=torch.int32, device=dev)
+        lg, state = chunk(params, t, state, z, torch.full_like(z, S),
+                          torch.ones((B,), dtype=torch.bool, device=dev))
+    else:
+        lg, state = prefill(params, t, state)
+    torch.cuda.synchronize()
+    rep["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    rep["prefill_sent"] = sent()
+    steps = [held(0, lg)]
+    pos = torch.full((B,), S, dtype=torch.int32, device=dev)
+    rep["step_ms"], rep["step_sent"] = [], []
+    for j in range(SERVE_SHARDED["steps"]):
+        tok = torch.from_numpy(stream[j][:, None]).to(dev)
+        mesh.stats.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, state = decode(params, tok, state, pos)
+        torch.cuda.synchronize()
+        rep["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        rep["step_sent"].append(sent())
+        steps.append(held(j + 1, lg))
+        pos = pos + 1
+    rep["logits"] = steps
+    rep["launches"] = {k: c.launches for k, c in counters.items()}
+    got = bridge.serve_state_to_numpy(state, cfg)["p0"]
+    rep["cache"] = _hold_cache(got, ref, where)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rep
+
+
+def _serve_rank(rank: int, world: int, rdzv: str, sizes, axes, runs,
+                out_dir: str, ref_dir: str):
+    """A spawned rank on cuda:0 (several ranks: gloo; one rank: NCCL):
+    internlm2_1_8b's seed-0 weights as its shards
+    (`launch.specs.init_shards`), gathered whole once
+    (`serving.engine.gathered_weights`), then each run of ``runs``;
+    writes its report to out_dir/rank<r>.json."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    torch.set_num_threads(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.launch import specs as SP
+    from repro_torch.parallel.shard import Mesh, init_distributed
+    from repro_torch.serving import engine
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    backend = init_distributed(dev, rank=rank, world=world,
+                               init_method=rdzv, timeout_s=300)
+    mesh = Mesh(sizes, axes, dev)
+    cfg = _serve_cfg("per_block")
+    params = SP.init_shards(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev, SP.param_specs(cfg, mesh), mesh)
+    mesh.stats.clear()
+    t0 = time.perf_counter()
+    engine.gathered_weights(params, cfg, mesh)
+    torch.cuda.synchronize()
+    report = {"rank": rank, "backend": backend, "coords": mesh.coords,
+              "gather_s": time.perf_counter() - t0,
+              "gathered_bytes": mesh.gathered["nbytes"],
+              "gather_sent": mesh.gathered["sent"],
+              "peak_after_gather": torch.cuda.max_memory_allocated(dev),
+              "runs": {}}
+    for label, gran, paged in runs:
+        report["runs"][label] = _serve_sharded_run(
+            mesh, dev, params, label, gran, paged, Path(ref_dir, label))
+    report["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    engine.release_gathered_weights(mesh)
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(report))
+    dist.destroy_process_group()
+
+
+def _serve_launches(cfg, paged: bool, steps: int, prompt_slots: bool
+                    ) -> dict:
+    """The kernels a rank launches in one run: each attention layer's
+    prefill (flash forward and the quantizer of its granularity, where
+    the rank holds prompt slots; paged: paged prefill) and each decode
+    step's attention (flat or paged decode; no block fills in 32 steps
+    past a 3072-token prompt at block 256)."""
+    L = cfg.n_layers
+    if paged:
+        return {"paged_prefill": L, "paged_decode": L * steps}
+    want = {"flash_fwd": L, "flat_decode": L * steps}
+    if cfg.quant.granularity == "per_channel":
+        want.update(absmax=2 * L, quantize_with_scales=2 * L)
+    elif prompt_slots:
+        want["quantize_blocked"] = 2 * L
+    return want
+
+
+def serve_sharded_full_width(dev, card: str) -> dict:
+    """Sharded serving on the card (`SERVE_SHARDED_RUNS`): the parent runs
+    internlm2_1_8b (seed-0 weights, uncut) through one process's
+    `make_serve_fns` (contiguous per block and per channel, paged through
+    `make_chunk_prefill_fn`): 4 rows of 3072-token prompts, max_len 4096,
+    32 greedy steps, keeping its tokens, logits and caches in a temporary
+    directory; frees its card memory and spawns 4 ranks on cuda:0 over
+    gloo, mesh (data 2, model 2), each running the same three runs
+    teacher-forced on those tokens. Held on every rank: logits within
+    SERVE_LOGIT_TOL of the step's largest, a greedy difference only
+    where the one-process top-2 gap lies within the tolerance (the first
+    difference printed with both gaps), the cache against the one-process
+    cache's slice (the page rule, scales and residuals within one bf16
+    step), the cache bytes and the bytes each decode step sends by
+    collective as `serve_sharded_predict` reckons them (the same every
+    step), each kernel's launches as `_serve_launches` predicts; step ms
+    beside the one-process step. Then one rank at (1, 1) over NCCL (the
+    backend asserted) runs the contiguous per-block run. Returns the
+    launch counts by path, summed over ranks."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as T
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    B, S = SERVE_SHARDED["B"], SERVE_SHARDED["S"]
+    sizes, axes = SHARDED_MESH
+    ref = Path(tempfile.mkdtemp(prefix="serve-sharded-"))
+    cfg = _serve_cfg("per_block")
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    toks = np.random.RandomState(30).randint(0, cfg.vocab, (B, S)).astype(
+        np.int32)
+    one = {}
+    for label, gran, paged in SERVE_SHARDED_RUNS:
+        one[label] = _serve_one(dev, params, _serve_cfg(gran), label, paged,
+                                toks, ref / label)
+        log(f"[serve sharded] one process {label}: prefill "
+            f"{one[label]['prefill_ms']:.1f} ms, step ms median "
+            f"{statistics.median(one[label]['step_ms']):.2f}, cache "
+            f"{one[label]['cache_bytes']} B, launches "
+            f"{ {k: v for k, v in one[label]['launches'].items() if v} }")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    preds = {label: serve_sharded_predict(_serve_cfg(gran), paged, sizes)
+             for label, gran, paged in SERVE_SHARDED_RUNS}
+    log(f"[serve sharded] predicted a rank at {dict(zip(axes, sizes))}: "
+        f"{json.dumps(preds)}")
+    counts, report = {}, {"mesh": dict(zip(axes, sizes)), "card": card,
+                          "one_process": one}
+    try:
+        t0 = time.perf_counter()
+        reps = _spawn_ranks(math.prod(sizes), sizes, axes,
+                            SERVE_SHARDED_RUNS, "serve sharded",
+                            target=_serve_rank, extra=(str(ref),))
+        report["wall_s"] = time.perf_counter() - t0
+        if {r["backend"] for r in reps} != {"gloo"}:
+            raise AssertionError(f"serve sharded: backends "
+                                 f"{[r['backend'] for r in reps]}")
+        for label, gran, paged in SERVE_SHARDED_RUNS:
+            counts[f"serve sharded {label}"] = _hold_serve_sharded(
+                label, _serve_cfg(gran), paged, reps, one[label],
+                preds[label], card)
+        report["ranks"] = [_serve_rank_summary(r) for r in reps]
+        # one rank over NCCL: its own card
+        t1 = time.perf_counter()
+        runs = SERVE_SHARDED_RUNS[:1]
+        nccl = _spawn_ranks(1, (1, 1), axes, runs, "serve nccl",
+                            target=_serve_rank, extra=(str(ref),))
+        if nccl[0]["backend"] != "nccl":
+            raise AssertionError(f"(1, 1): backend {nccl[0]['backend']}")
+        label = runs[0][0]
+        counts[f"serve nccl {label}"] = _hold_serve_sharded(
+            label, _serve_cfg(runs[0][1]), False, nccl, one[label],
+            serve_sharded_predict(_serve_cfg(runs[0][1]), False, (1, 1)),
+            card)
+        report["nccl"] = _serve_rank_summary(nccl[0])
+        log(f"[serve sharded] the NCCL rank in "
+            f"{time.perf_counter() - t1:.1f} s")
+    finally:
+        shutil.rmtree(ref, ignore_errors=True)
+    log(f"[serve sharded] phase {time.perf_counter() - t_phase:.1f} s; "
+        f"{card}")
+    log("[serve sharded] " + json.dumps(report))
+    return counts
+
+
+def _serve_rank_summary(rep: dict) -> dict:
+    """A rank's report without its per-step logits rows."""
+    return {**{k: v for k, v in rep.items() if k != "runs"},
+            "runs": {label: {k: v for k, v in r.items() if k != "logits"}
+                     for label, r in rep["runs"].items()}}
+
+
+def _hold_serve_sharded(label: str, cfg, paged: bool, reps: list,
+                        one: dict, pred: dict, card: str) -> dict:
+    """Prints the numbers of run ``label`` from every rank's report, then
+    holds them (`serve_sharded_full_width`'s checks). Returns its launches
+    summed over the ranks."""
+    per = [rep["runs"][label] for rep in reps]
+    log(f"[serve sharded {label}] ranks {len(reps)} "
+        f"({reps[0]['backend']}); gathered "
+        f"{[rep['gathered_bytes'] for rep in reps]} B in "
+        f"{[round(rep['gather_s'], 2) for rep in reps]} s (sent "
+        f"{[rep['gather_sent'] for rep in reps]} B); cache a rank "
+        f"{[p['cache_bytes'] for p in per]} B (one process "
+        f"{one['cache_bytes']}); prefill ms "
+        f"{[round(p['prefill_ms'], 1) for p in per]} "
+        f"(one process {one['prefill_ms']:.1f}), sent "
+        f"{per[0]['prefill_sent']}; decode step ms median "
+        f"{[round(statistics.median(p['step_ms']), 2) for p in per]} "
+        f"(one process {statistics.median(one['step_ms']):.2f}); sent a "
+        f"step {per[0]['step_sent'][0]}; logits max |diff| "
+        f"{max(row['max_abs'] for p in per for row in p['logits']):.4g} "
+        f"(tol from {min(row['tol'] for row in per[0]['logits']):.4g}); "
+        f"cache {per[0]['cache']}; launches a rank "
+        f"{ {k: v for k, v in per[0]['launches'].items() if v} }; "
+        f"peak {[rep['peak_bytes'] for rep in reps]} B; {card}")
+    steps = SERVE_SHARDED["steps"]
+    for rep in reps:
+        r = rep["runs"][label]
+        who = f"serve sharded {label}: rank {rep['rank']}"
+        diffs = [row for row in r["logits"] if "first_difference" in row]
+        if diffs:
+            log(f"[serve sharded] {who}: first greedy difference at step "
+                f"{diffs[0]['step']}: {diffs[0]['first_difference']} "
+                f"({len(diffs)} steps differ)")
+        for row in r["logits"]:
+            if not row["max_abs"] <= row["tol"]:
+                raise AssertionError(f"{who}: step {row['step']} logits "
+                                     f"{row['max_abs']} off (tol "
+                                     f"{row['tol']})")
+            diff = row.get("first_difference")
+            if diff and diff["one_process_gap"] > row["tol"]:
+                raise AssertionError(f"{who}: a greedy token differs past "
+                                     f"the tolerance: {diff}")
+        for name, c in r["cache"].items():
+            bad = (c.get("max_step", 0) > 1
+                   or c.get("frac", 0) > SERVE_INT8_FRAC
+                   or c.get("max_rel", 0) > SERVE_BF16_RTOL
+                   or c.get("max_rel_scale", 0) > SERVE_LOGIT_TOL
+                   or c.get("decode_max_rel_scale", 0) > SERVE_LOGIT_TOL
+                   or not c.get("equal", True))
+            if bad:
+                raise AssertionError(f"{who}: cache {name} {c}")
+        if r["cache_bytes"] != pred["cache_bytes"]:
+            raise AssertionError(f"{who}: cache {r['cache_bytes']} B, "
+                                 f"predicted {pred['cache_bytes']}")
+        if any(s != pred["sent"] for s in r["step_sent"]):
+            raise AssertionError(f"{who}: a step sent {r['step_sent'][0]}, "
+                                 f"predicted {pred['sent']}")
+        if paged and not r["pages_equal"]:
+            raise AssertionError(f"{who}: its allocator's pages differ")
+        want = _serve_launches(cfg, paged, steps, True)
+        got = {k: v for k, v in r["launches"].items() if v}
+        if got != want:
+            raise AssertionError(f"{who}: launches {got}, predicted {want}")
+    return {k: sum(p["launches"][k] for p in per) for k in per[0]["launches"]}
 
 
 def _leaves(x):
@@ -5784,6 +6364,9 @@ def main() -> int:
     t0 = time.perf_counter()
     path_counts.update(sharded_full_width(dev, card))
     log(f"[train sharded] phase in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    path_counts.update(serve_sharded_full_width(dev, card))
+    log(f"[serve sharded] phase in {time.perf_counter() - t0:.1f} s")
 
     prefill["sass_mma"] = pmma
     kernels = kernels_line(

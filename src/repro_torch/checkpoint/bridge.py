@@ -33,6 +33,10 @@ bfloat16 cannot go through `torch.from_numpy`).
   error state) -> the reference's stacked layout (with the config, its
   pattern's period and tail; an encoder-decoder's two stacks), float32
   numpy, for leaf-by-leaf comparison.
+- `serve_state_to_numpy` / `serve_state_from_numpy`: an attention
+  stack's serving state (contiguous or paged int8 caches; under a mesh a
+  rank's shards) <-> the reference's stacked state as numpy, a cache's
+  fields as a dict (a paged cache's pool under ``pool``).
 """
 from __future__ import annotations
 
@@ -189,3 +193,70 @@ def tree_to_numpy(tree, cfg=None) -> dict:
     if "blocks" in out:
         out.setdefault("tail", [])
     return out
+
+
+# -- serving states -----------------------------------------------------------
+
+_CACHE_FIELDS = ("k_q", "v_q", "k_s", "v_s", "resid_k", "resid_v", "length")
+_POOL_FIELDS = ("k_q", "v_q", "k_s", "v_s")
+_VIEW_FIELDS = ("page_table", "resid_k", "resid_v", "length")
+
+
+def _numpy(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+    return np.asarray(x)
+
+
+def serve_state_to_numpy(state, cfg) -> dict:
+    """A serving state (one cache a layer, `transformer.init_decode_state`
+    of an attention stack; under a mesh a rank's shards) -> the
+    reference's stacked layout (``p{i}`` with a leading layer-group axis,
+    ``tail``): a contiguous cache's fields k_q, v_q, k_s, v_s, resid_k,
+    resid_v and length, a paged one's ``pool`` {k_q, v_q, k_s, v_s},
+    page_table, resid_k, resid_v and length, as numpy (bfloat16 as
+    float32)."""
+    def fields(c):
+        if hasattr(c, "pool"):
+            return {"pool": {f: _numpy(getattr(c.pool, f))
+                             for f in _POOL_FIELDS},
+                    **{f: _numpy(getattr(c, f)) for f in _VIEW_FIELDS}}
+        return {f: _numpy(getattr(c, f)) for f in _CACHE_FIELDS}
+    out = stack_layers({"layers": [fields(c) for c in state]},
+                       pattern_layout(cfg)[0], np.stack)
+    blocks = out.pop("blocks")
+    return {**blocks, "tail": out.get("tail", [])}
+
+
+def serve_state_from_numpy(tree, state, cfg, mesh=None, specs=None):
+    """Write the reference's serving state (numpy, the layout
+    `serve_state_to_numpy` gives, whole) into ``state`` in place: one
+    process's state of its shapes, or under ``mesh`` this rank's shards
+    laid out by ``specs`` (`launch.specs.serve_state_specs`' first
+    part), each cut from the numpy arrays. Returns ``state``."""
+    layers = unstack_layers({
+        "blocks": {k: v for k, v in tree.items() if k != "tail"},
+        "tail": list(tree.get("tail") or [])})["layers"]
+    if len(layers) != len(state):
+        raise ValueError(f"{len(layers)} layers for a state of {len(state)}")
+    for i, (c, f) in enumerate(zip(state, layers)):
+        sp = None if specs is None else specs[i]
+
+        def put(dst, a, spec):
+            a = np.asarray(a)
+            if spec is not None:
+                a = take_shard(a, spec, mesh)
+            dst.copy_(torch.from_numpy(np.ascontiguousarray(a)).to(
+                dst.dtype))
+        if hasattr(c, "pool"):
+            for n in _POOL_FIELDS:
+                put(getattr(c.pool, n), f["pool"][n],
+                    None if sp is None else sp["pool"][n])
+            for n in _VIEW_FIELDS:
+                put(getattr(c, n), f[n], None if sp is None else sp[n])
+            continue
+        for n in _CACHE_FIELDS[:-1]:
+            put(getattr(c, n), f[n], None if sp is None else sp[n])
+        c.length = int(f["length"])
+    return state

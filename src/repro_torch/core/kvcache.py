@@ -23,8 +23,14 @@ per-channel prefill through ``quantize_per_channel``, per-block prefill and
 every block flush through ``quantize_blocked``, `dequantized` through
 ``dequantize``. The length is a host int: it is the same for every row, so
 a flush is a Python branch and no decode step waits on the device.
+
+Under a mesh (sharded serving) a rank holds a `ShardedKVCache`: its rows
+and its slots of the cache length, as `launch.specs.cache_shardings`
+lays them out.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -158,6 +164,186 @@ class QuantizedKVCache:
             k[:, :, tail] = self.resid_k[:, :, :n_tail].to(dtype)
             v[:, :, tail] = self.resid_v[:, :, :n_tail].to(dtype)
         return k, v
+
+
+class ShardedKVCache(QuantizedKVCache):
+    """One rank's part of a `QuantizedKVCache` whose rows and cache length
+    are sharded over a mesh as `launch.specs.cache_shardings` lays them
+    out (rows over "batch", slots over "seq_shard" -> "model"; the
+    reference's "flash-decode cross-shard merge"). ``k_q`` / ``v_q``
+    (B_l, H_kv, T_l, D) hold the global slots [slot0, slot0 + T_l) of a
+    cache of ``total`` slots, a rank's slots over ``axes``; ``k_s`` /
+    ``v_s`` hold this rank's scale rows where their spec shards them
+    (per block with n_blocks % n == 0: blocks never straddle two ranks)
+    and every row where it replicates them (per channel's one row; per
+    block where n_blocks % n != 0, so a block may straddle two ranks).
+    The residual is replicated over ``axes``, and ``length`` is the
+    global token count, one host int.
+
+    Prefill takes the whole prompt's K/V (every rank of ``axes`` has it,
+    gathered) and writes this rank's slots: per channel the absmax of its
+    slots, a MAX all-reduce over ``axes`` and the second pass on its
+    slots (a max is exact: the scales and values equal one process's);
+    per block its own blocks, or every block where the scale rows are
+    replicated. An append writes a quantized slot on the rank that owns
+    it; a flush quantizes the block on its owner (on every rank where the
+    scale rows are replicated, each keeping its slots of it).
+    `decode_partials` runs the flat decode kernel over this rank's live
+    slots and merges every rank's partials in rank order
+    (`merge_rank_partials`), so every rank of ``axes`` ends with the same
+    bits. No ring: a sliding window does not shard."""
+
+    def __init__(self, k_q, v_q, k_s, v_s, resid_k, resid_v, length: int,
+                 block_size: int, per_channel: bool, *, mesh, axes,
+                 slot0: int, total: int):
+        super().__init__(k_q, v_q, k_s, v_s, resid_k, resid_v, length,
+                         block_size, per_channel, ring=False)
+        self.mesh, self.axes = mesh, tuple(axes)
+        self.slot0, self.total = slot0, total
+        T_l = k_q.shape[2]
+        self.scales_local = per_channel or k_s.shape[2] * block_size == T_l
+        self._rows = None
+        if not self.scales_local:
+            # the kernel takes T_l / nb slots a scale row: rows of g slots,
+            # each the row of the block its first slot lies in
+            g = math.gcd(block_size, T_l)
+            self._rows = torch.tensor(
+                [(slot0 + j * g) // block_size for j in range(T_l // g)],
+                dtype=torch.int64, device=k_q.device)
+
+    @staticmethod
+    def init(batch: int, kv_heads: int, max_len: int, head_dim: int,
+             cfg: Q.QuantConfig, ring: bool = False, *, device, mesh=None,
+             axes=(), scale_axes=()) -> "ShardedKVCache":
+        """This rank's part of a (``batch`` local rows, ``max_len`` global
+        slots) cache: its slots over ``axes``, its scale rows over
+        ``scale_axes`` (``()``: every row)."""
+        if ring:
+            raise ValueError("a ring cache (sliding window) does not shard")
+        from repro_torch.parallel.shard import slot_range
+        per_channel = cfg.granularity == "per_channel"
+        bs = 1 if per_channel else cfg.block_size
+        if not per_channel and max_len % bs:
+            raise ValueError(f"max_len={max_len} not a multiple of block "
+                             f"{bs}")
+        lo, hi = slot_range(axes, max_len, mesh)
+        nb = 1 if per_channel else max_len // bs
+        s0, s1 = slot_range(scale_axes, nb, mesh)
+        z8 = lambda: torch.zeros((batch, kv_heads, hi - lo, head_dim),
+                                 dtype=torch.int8, device=device)
+        zs = lambda: torch.full((batch, kv_heads, s1 - s0, head_dim), Q._EPS,
+                                dtype=torch.float32, device=device)
+        zr = lambda: torch.zeros((batch, kv_heads, bs, head_dim),
+                                 dtype=torch_dtype(cfg.ref_dtype),
+                                 device=device)
+        return ShardedKVCache(z8(), z8(), zs(), zs(), zr(), zr(), 0, bs,
+                              per_channel,
+                              mesh=mesh, axes=axes, slot0=lo, total=max_len)
+
+    @property
+    def max_len(self) -> int:
+        return self.total
+
+    def _local(self, n: int) -> int:
+        """Global slots [0, n) -> how many of this rank's are among them."""
+        return min(max(n - self.slot0, 0), self.k_q.shape[2])
+
+    def _overlap(self, a: int, b: int) -> tuple[int, int]:
+        """Global slots [a, b) within this rank's, as local offsets."""
+        lo, n = self.slot0, self.k_q.shape[2]
+        return max(a, lo) - lo, max(min(b, lo + n), max(a, lo)) - lo
+
+    # -- prefill -----------------------------------------------------------
+    def prefill(self, k: torch.Tensor, v: torch.Tensor) -> "ShardedKVCache":
+        """Write the whole prompt's (B_l, H, S, D) K/V (every rank of
+        ``axes`` passes the same): this rank's slots of it."""
+        S = k.shape[2]
+        a, b = self._overlap(0, S)
+        lo, bs = self.slot0, self.block_size
+        if self.per_channel:
+            B, H, _, D = k.shape
+            parts = (k[:, :, lo + a:lo + b], v[:, :, lo + a:lo + b])
+            if b > a:
+                amax = torch.stack([ops.absmax(x) for x in parts])
+            else:
+                amax = torch.zeros((2, B, H, D), dtype=torch.float32,
+                                   device=k.device)
+                parts = (torch.zeros((B, H, 1, D), device=k.device),) * 2
+            amax = self.mesh.all_reduce(amax, self.axes, op="max")
+            for i, (x, dq, ds) in enumerate(zip(parts, (self.k_q, self.v_q),
+                                                (self.k_s, self.v_s))):
+                x_q, x_s = ops.quantize_with_scales(x, amax[i])
+                if b > a:
+                    dq[:, :, a:b] = x_q
+                ds[:, :, 0] = x_s
+        elif self.scales_local:
+            if b > a:
+                for x, dq, ds in ((k, self.k_q, self.k_s),
+                                  (v, self.v_q, self.v_s)):
+                    x_q, x_s = ops.quantize_blocked(x[:, :, lo + a:lo + b],
+                                                    bs)
+                    dq[:, :, a:b] = x_q
+                    ds[:, :, a // bs:b // bs] = x_s
+        else:                       # replicated scale rows: every block
+            for x, dq, ds in ((k, self.k_q, self.k_s),
+                              (v, self.v_q, self.v_s)):
+                x_q, x_s = ops.quantize_blocked(x, bs)
+                dq[:, :, a:b] = x_q[:, :, lo + a:lo + b]
+                ds[:, :, :S // bs] = x_s
+        self.length = S
+        return self
+
+    # -- decode append -----------------------------------------------------
+    def _append_per_channel(self, k, v):
+        slot = min(self.length, self.total - 1)
+        a, b = self._overlap(slot, slot + 1)
+        if b > a:
+            self.k_q[:, :, a:b] = Q.quantize(k, self.k_s[:, :, 0])
+            self.v_q[:, :, a:b] = Q.quantize(v, self.v_s[:, :, 0])
+        self.length += 1
+        return self
+
+    def _append_blocked(self, k, v):
+        bs = self.block_size
+        pos = self.length
+        off = pos % bs
+        blk = min(pos // bs, self.total // bs - 1)
+        self.resid_k[:, :, off] = k[:, :, 0].to(self.resid_k.dtype)
+        self.resid_v[:, :, off] = v[:, :, 0].to(self.resid_v.dtype)
+        if off == bs - 1:                    # block full: flush
+            a, b = self._overlap(blk * bs, (blk + 1) * bs)
+            if b > a or not self.scales_local:
+                row = blk - self.slot0 // bs if self.scales_local else blk
+                src = self.slot0 + a - blk * bs
+                for r, dq, ds in ((self.resid_k, self.k_q, self.k_s),
+                                  (self.resid_v, self.v_q, self.v_s)):
+                    f_q, f_s = ops.quantize_blocked(r, bs)
+                    dq[:, :, a:b] = f_q[:, :, src:src + b - a]
+                    ds[:, :, row:row + 1] = f_s
+            self.resid_k.zero_()
+            self.resid_v.zero_()
+        self.length = pos + 1
+        return self
+
+    # -- read --------------------------------------------------------------
+    def decode_partials(self, q: torch.Tensor, n: int):
+        """One query a row (B_l, H, D) over the quantized slots [0, n):
+        the flat decode kernel over this rank's (a rank with none gives
+        m = -1e30), then every rank's partials merged in rank order.
+        Returns the merged (o, m, l), the same bits on every rank."""
+        from repro_torch.kernels.quant_attention import merge_rank_partials
+        from repro_torch.parallel.shard import gather_partials
+        k_s, v_s = self.k_s, self.v_s
+        if self._rows is not None:
+            k_s, v_s = k_s[:, :, self._rows], v_s[:, :, self._rows]
+        o, m, l = ops.quant_attention_decode_partials(
+            q, self.k_q, k_s, self.v_q, v_s, self._local(n))
+        return merge_rank_partials(*gather_partials(o, m, l, self.axes,
+                                                    self.mesh))
+
+    def dequantized(self, dtype: torch.dtype = torch.float32):
+        raise ValueError("a sharded cache holds a part of the slots: read "
+                         "it through decode_partials")
 
 
 # -- unquantized baseline (the paper's FP32/BF16 comparison point) -----------

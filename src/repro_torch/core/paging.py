@@ -30,6 +30,11 @@ and always masked out by ``length``. A page is written only by the flush
 or prefill scatter that fills it, so sharing one (prefix hits, `fork_row`)
 needs no device copy: copy-on-write retargets a table entry on the host
 before the flush, and the fp residual holds the page's whole content.
+
+Under a mesh (sharded serving) a rank's pool holds its kv heads where
+`parallel.shard.page_pool_specs` shards them (``kv_axes`` names the
+axes) and every page, its views its rows; the allocator runs alike on
+every rank, and a rank writes the pages of its own rows only.
 """
 from __future__ import annotations
 
@@ -501,6 +506,9 @@ class PagedQuantizedKVCache:
         self.page_table = page_table
         self.resid_k, self.resid_v = resid_k, resid_v
         self.length = length
+        # the mesh axes this rank's kv heads are a shard over (under a
+        # mesh, where `parallel.shard.page_pool_specs` shards them)
+        self.kv_axes: tuple[str, ...] = ()
 
     @staticmethod
     def init(batch: int, kv_heads: int, max_len: int, head_dim: int,
@@ -554,6 +562,19 @@ class PagedQuantizedKVCache:
 
         self.pool.write(ids, to_pages(k_q), scales_to_pages(k_s),
                         to_pages(v_q), scales_to_pages(v_s))
+
+    def prefill(self, k: torch.Tensor, v: torch.Tensor, row_mask=None
+                ) -> "PagedQuantizedKVCache":
+        """Write a whole (B, H, T, D) prompt, T a page multiple, into each
+        row's first T / page_size mapped pages (the reference's
+        whole-prompt entry point; the scheduler goes through
+        `prefill_at`): `prefill_at` from block 0 with every token valid,
+        so the residuals are cleared and the lengths set to T."""
+        if k.shape[2] % self.page_size:
+            raise ValueError(f"T={k.shape[2]} not a multiple of "
+                             f"page_size={self.page_size}")
+        return self.prefill_at(k, v, torch.zeros_like(self.length),
+                               row_mask=row_mask)
 
     def prefill_at(self, k: torch.Tensor, v: torch.Tensor,
                    start_block: torch.Tensor, row_mask=None, valid=None

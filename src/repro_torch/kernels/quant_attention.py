@@ -13,6 +13,9 @@ over the contiguous int8 cache (B, H_kv, T, D) with one scale row per
 token block or per channel; slots past ``min(length, T)`` and ring slots
 older than the row's window are masked. Its kernel splits each row's slots
 into runs of ``flat_decode_splits`` and merges them as the paged one does.
+Over a cache sequence-sharded across ranks, each rank runs it on its
+slots and the ranks' partials merge in rank order (`merge_rank_partials`,
+plain PyTorch: a few (B, H, D) tensors).
 
 Seed (port of ``_decode_kernel``, the reference's baseline under vmap):
 the flat kernel's result with the baseline's cost, every slot of T copied
@@ -96,6 +99,24 @@ def merge_split_partials(o_s, m_s, l_s):
     m = torch.amax(m_s, dim=2)
     w = torch.exp(m_s - m[:, :, None])
     return (o_s * w).sum(2), m, (l_s * w).sum(2)
+
+
+def merge_rank_partials(o_r, m_r, l_r):
+    """Merge the flash partials of ranks that each hold a part of the key
+    axis (a sequence-sharded cache): o_r (n, B, H, D), m_r / l_r
+    (n, B, H, 1) float32, stacked in rank order -> (o, m, l) as
+    `merge_split_partials` gives, folded rank by rank in that order, so
+    every rank that merges the same stack gets the same bits. A rank
+    with nothing to attend (m = -1e30, l = 0, o = 0) adds nothing."""
+    m = m_r[0]
+    for r in range(1, m_r.shape[0]):
+        m = torch.maximum(m, m_r[r])
+    o, l = torch.zeros_like(o_r[0]), torch.zeros_like(l_r[0])
+    for r in range(m_r.shape[0]):
+        w = torch.exp(m_r[r] - m)
+        o = o + o_r[r] * w
+        l = l + l_r[r] * w
+    return o, m, l
 
 
 def decode_splits(B: int, Hkv: int, G: int, NT: int, sms: int):

@@ -8,14 +8,15 @@ are replicated. The port keeps one dict a layer, whose leaves have the
 trailing dims of the reference's stacked ones, so a leaf's spec is the
 reference's without the stacked axis. `parallel.shard.logical_spec` maps
 the logical axes onto the mesh, so one set of rules serves the (16, 16),
-the (2, 16, 16) and the (1, 1) mesh.
+the (2, 16, 16) and the (1, 1) mesh. A serving state's shards are made
+at their local shapes (`init_serve_state`), never whole and then cut.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.parallel.shard import (MeshShape, gather_leaf, logical_spec,
-                                        take_shard)
+                                        shard_slices, take_shard)
 
 # leaf name -> logical axes of trailing dims
 PARAM_RULES: dict[str, tuple] = {
@@ -125,6 +126,69 @@ def _layer_specs(layers, mesh, n_stack: int, stacked: int | None = None):
         out.append({k: spec_for(k, lead + _shape(v), CACHE_RULES,
                                 mesh)[len(lead):]
                     for k, v in _fields(c).items()})
+    return out
+
+
+def serve_state_specs(cfg, batch: int, max_len: int, mesh, *,
+                      paged: bool = False, n_pages: int | None = None,
+                      kv_cache_dtype="int8") -> tuple[list, list]:
+    """(specs, whole): each layer's specs of ``cfg``'s serving state for
+    ``batch`` rows (`cache_shardings`; paged: `paged_cache_specs`) and
+    the whole state they are computed from, on the meta device (shapes
+    only)."""
+    from repro_torch.models.transformer import init_decode_state
+    from repro_torch.parallel.shard import paged_cache_specs
+    whole = init_decode_state(cfg, batch, max_len, paged=paged,
+                              n_pages=n_pages, kv_cache_dtype=kv_cache_dtype,
+                              device="meta")
+    if paged:
+        return [paged_cache_specs(c, mesh) for c in whole], whole
+    return cache_shardings(whole, mesh, cfg), whole
+
+
+def _local(shape, spec, mesh) -> tuple[int, ...]:
+    return tuple(len(range(*s.indices(n))) for s, n in zip(
+        shard_slices(spec, shape, mesh), shape))
+
+
+def init_serve_state(cfg, batch: int, max_len: int, mesh, *,
+                     paged: bool = False, n_pages: int | None = None,
+                     kv_cache_dtype="int8", device="cuda") -> list:
+    """This rank's shards of `transformer.init_decode_state`'s state, each
+    made at its local shapes (never whole, then cut; as `init_shards`):
+    a contiguous layer's rows and slots of `cache_shardings`' spec (a
+    `ShardedKVCache` where the slots are sharded, else a
+    `QuantizedKVCache` of the rank's rows), a paged layer's rows (page
+    table, residual, lengths) and its pool's kv heads of
+    `paged_cache_specs`' (``kv_axes`` the heads' axes; every page, the
+    allocator being replicated). Attention stacks only
+    (`transformer.check_serve_distributable`)."""
+    from repro_torch.core.kvcache import QuantizedKVCache, ShardedKVCache
+    from repro_torch.core.paging import PagedQuantizedKVCache
+    specs, whole = serve_state_specs(cfg, batch, max_len, mesh, paged=paged,
+                                     n_pages=n_pages,
+                                     kv_cache_dtype=kv_cache_dtype)
+    out = []
+    for c, sp in zip(whole, specs):
+        if paged:
+            B_l, H_l = _local(c.resid_k.shape, sp["resid_k"], mesh)[:2]
+            new = PagedQuantizedKVCache.init(
+                B_l, H_l, max_len, cfg.head_dim, cfg.quant,
+                n_pages=c.pool.k_q.shape[0], kv_dtype=c.kv_dtype,
+                device=device)
+            new.kv_axes = sp["pool"]["k_q"][2]
+        else:
+            B_l = _local(c.k_q.shape, sp["k_q"], mesh)[0]
+            if sp["k_q"][2]:
+                new = ShardedKVCache.init(
+                    B_l, cfg.n_kv_heads, max_len, cfg.head_dim, cfg.quant,
+                    device=device, mesh=mesh, axes=sp["k_q"][2],
+                    scale_axes=sp["k_s"][2])
+            else:
+                new = QuantizedKVCache.init(B_l, cfg.n_kv_heads, max_len,
+                                            cfg.head_dim, cfg.quant,
+                                            device=device)
+        out.append(new)
     return out
 
 

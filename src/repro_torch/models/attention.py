@@ -40,12 +40,23 @@ Paged cache (`core.paging.PagedQuantizedKVCache`):
 The caches are updated in place: attention reads the pool BEFORE a chunk's
 pages are written, and decode appends BEFORE it reads, exactly the order
 of the reference's functional updates.
+
+Serving under a mesh (`models.transformer`; this rank's rows, whole
+weights): over a contiguous cache sharded along its slots
+(`core.kvcache.ShardedKVCache`) the prompt runs context parallel (K/V
+gathered along the sequence) and each rank writes its own slots; a
+decode step runs the flat decode kernel over this rank's slots, merges
+every rank's partials in rank order and then the replicated fp residual
+tail. Over a paged cache whose pool holds this rank's kv heads, every
+function above runs as it is on the rank's cut of the heads
+(`head_slice`), and the caller gathers their outputs over the heads'
+axes and applies the whole ``wo``.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.kvcache import QuantizedKVCache
+from repro_torch.core.kvcache import QuantizedKVCache, ShardedKVCache
 from repro_torch.core.paging import PagedQuantizedKVCache
 from repro_torch.kernels import ops
 from repro_torch.models import flash
@@ -71,15 +82,16 @@ def _project_qkv(p, x, cfg, positions):
     (M-RoPE where the config has sections: (B, S) positions broadcast to
     (B, 3, S), text mode). A bias joins the product after it is rounded
     to the activation dtype, as in the reference (a fused ``addmm`` would
-    add it before)."""
+    add it before). The head counts are the projections' widths over
+    hd: a rank's cut of the heads (`head_slice`) projects its heads."""
     B, S, _ = x.shape
     hd = cfg.head_dim
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, cfg.n_heads, hd).transpose(1, 2)
-    k = k.reshape(B, S, cfg.n_kv_heads, hd).transpose(1, 2)
-    v = v.reshape(B, S, cfg.n_kv_heads, hd).transpose(1, 2)
+    q = q.reshape(B, S, -1, hd).transpose(1, 2)
+    k = k.reshape(B, S, -1, hd).transpose(1, 2)
+    v = v.reshape(B, S, -1, hd).transpose(1, 2)
     if cfg.mrope_sections is not None:
         pos3 = positions if positions.dim() == 3 else \
             positions[:, None].expand(B, 3, S)
@@ -91,6 +103,19 @@ def _project_qkv(p, x, cfg, positions):
     return q, k, v
 
 
+def head_slice(p, cfg, h0: int, h1: int) -> dict:
+    """The attention weights of kv heads [h0, h1) and their query groups
+    (views): wq / bq columns, wk, wv / bk, bv columns, and no wo: the
+    functions below then return these heads' outputs (B, S, H_l * hd) in
+    the activation dtype, which the caller gathers over the heads' ranks
+    and multiplies by the whole wo, as one process does."""
+    hd, G = cfg.head_dim, cfg.n_heads // cfg.n_kv_heads
+    q, kv = slice(G * h0 * hd, G * h1 * hd), slice(h0 * hd, h1 * hd)
+    cut = {"wq": (slice(None), q), "wk": (slice(None), kv),
+           "wv": (slice(None), kv), "bq": (q,), "bk": (kv,), "bv": (kv,)}
+    return {k: w[cut[k]] for k, w in p.items() if k in cut}
+
+
 def _sdpa(q, k, v, *, causal: bool, window: int | None,
           kv_offset: int = 0):
     """Blocked flash-style attention (see models/flash.py)."""
@@ -98,9 +123,12 @@ def _sdpa(q, k, v, *, causal: bool, window: int | None,
 
 
 def _merge_heads(p, out, dtype):
+    """(B, H, S, hd) -> (B, S, d): the heads rounded to ``dtype``, then
+    their product with wo; without wo (`head_slice`) the heads alone,
+    (B, S, H * hd)."""
     B, H, S, hd = out.shape
     out = out.transpose(1, 2).reshape(B, S, H * hd).to(dtype)
-    return out @ p["wo"]
+    return out @ p["wo"] if "wo" in p else out
 
 
 def _window(cfg, local: bool):
@@ -158,18 +186,33 @@ def cross_decode(p, x, cfg, cache: QuantizedKVCache):
 
 # -- serving ------------------------------------------------------------------
 
-def prefill(p, x, cfg, positions, cache: QuantizedKVCache, *,
-            local: bool = False, row_mask=None):
-    """Prompt pass over the contiguous cache: causal (sliding-window)
-    attention, then the prompt's K/V quantized into the cache (a ring
-    keeps the last window's tokens). ``row_mask`` is a paged-cache
-    feature: the contiguous cache has one length for every row."""
-    if row_mask is not None:
+def prefill(p, x, cfg, positions, cache, *, local: bool = False,
+            row_mask=None, lay=None):
+    """Prompt pass: causal (sliding-window) attention, then the prompt's
+    K/V quantized into the cache: the contiguous one (a ring keeps the
+    last window's tokens) or, T a page multiple, the paged one's mapped
+    pages (`PagedQuantizedKVCache.prefill`). ``row_mask`` is a
+    paged-cache feature: the contiguous cache has one length for every
+    row. Under a mesh (``lay``: this rank's rows and positions, x and
+    the result this rank's part) the prompt runs context parallel as
+    `train` does: K and V gathered along the sequence, the flash walk at
+    this rank's first position, and the cache (`ShardedKVCache`) takes
+    the whole prompt's K/V and writes its own slots."""
+    if row_mask is not None and not isinstance(cache, PagedQuantizedKVCache):
         raise ValueError("row-masked prefill requires the paged cache (the "
                          "contiguous cache has one shared length)")
     q, k, v = _project_qkv(p, x, cfg, positions)
-    out = _sdpa(q, k, v, causal=True, window=_window(cfg, local))
-    cache.prefill(k.float(), v.float())
+    offset = 0
+    if lay is not None and lay.seq:
+        k = lay.mesh.all_gather(k, lay.seq, 2)
+        v = lay.mesh.all_gather(v, lay.seq, 2)
+        offset = lay.positions().start
+    out = _sdpa(q, k, v, causal=True, window=_window(cfg, local),
+                kv_offset=offset)
+    if isinstance(cache, PagedQuantizedKVCache):
+        cache.prefill(k.float(), v.float(), row_mask=row_mask)
+    else:
+        cache.prefill(k.float(), v.float())
     return _merge_heads(p, out, x.dtype), cache
 
 
@@ -210,7 +253,10 @@ def decode(p, x, cfg, positions, cache, *, local: bool = False,
             raise ValueError("row-masked decode requires the paged cache")
         cache.append(k.float(), v.float())
         window = _window(cfg, local) if cache.ring else None
-        if cache.per_channel:
+        if isinstance(cache, ShardedKVCache) and cache.per_channel:
+            o, _, l = cache.decode_partials(q[:, :, 0], cache.length)
+            out = o / torch.clamp_min(l, 1e-30)
+        elif cache.per_channel:
             out = ops.quant_attention_decode(
                 q[:, :, 0], cache.k_q, cache.k_s, cache.v_q, cache.v_s,
                 cache.length, window=window)
@@ -221,16 +267,21 @@ def decode(p, x, cfg, positions, cache, *, local: bool = False,
 
 
 def _decode_blocked(q, cache: QuantizedKVCache, *, window=None):
-    """The flat decode kernel over the flushed blocks merged with exact
-    attention over the residual tail. Ring ages in the quantized part count
+    """The flat decode kernel over the flushed blocks (over a sharded
+    cache: every rank's slots, merged) merged with exact attention over
+    the residual tail. Ring ages in the quantized part count
     from the flushed prefix, and its window budget leaves out the n_tail
     newest (residual) tokens."""
     bs = cache.block_size
     flushed = (cache.length // bs) * bs
     n_tail = cache.length % bs
     win_q = None if window is None else max(window - n_tail, 0)
-    o1, m1, l1 = ops.quant_attention_decode_partials(
-        q, cache.k_q, cache.k_s, cache.v_q, cache.v_s, flushed, window=win_q)
+    if isinstance(cache, ShardedKVCache):
+        o1, m1, l1 = cache.decode_partials(q, flushed)
+    else:
+        o1, m1, l1 = ops.quant_attention_decode_partials(
+            q, cache.k_q, cache.k_s, cache.v_q, cache.v_s, flushed,
+            window=win_q)
     m2, l2, o2 = _decode_partials_fp(q, cache.resid_k, cache.resid_v, n_tail)
     return _merge_partials(o1, m1, l1, o2, m2, l2)
 

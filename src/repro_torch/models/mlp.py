@@ -9,7 +9,9 @@ shards gathered over "model", the FSDP shards of the weights gathered,
 down-projection's partial sums reduce-scattered back to sequence shards.
 Otherwise ``_apply_plain`` on the layout `logical_spec` gives: with d_ff
 sharded and the sequence whole, the partial sums all-reduced; with d_ff
-whole, this rank's rows alone.
+whole, this rank's rows alone. Serving under a mesh calls the plain form
+on whole weights (gathered once a rank) over the rank's rows
+(`models.transformer`).
 """
 from __future__ import annotations
 

@@ -24,7 +24,10 @@ It runs inside a captured CUDA graph: static shapes only (C comes from
 S), no host sync (no ``nonzero``, boolean-mask indexing or ``.item()``),
 and the scatter writes each kept slot once, so a replay gives the eager
 result bit for bit. The expert products are plain matmuls, as the
-reference computes them outside any Pallas kernel.
+reference computes them outside any Pallas kernel. Serving under a mesh
+calls the plain form on whole weights (gathered once a rank) over the
+rank's rows, the whole sequence gathered first in a context-parallel
+prefill (`models.transformer`).
 """
 from __future__ import annotations
 

@@ -43,11 +43,29 @@ block gathers, inside its checkpoint region, the weights its compute
 needs (so the recompute gathers again and the backward reduce-scatters
 the gradients). The embedding is vocab-parallel (the rows this "model"
 rank lacks are zero, then a reduce-scatter along the sequence), and so
-are the logits. The attention, MLP and MoE blocks serve under a mesh;
+are the logits. The attention, MLP and MoE blocks train under a mesh;
 the recurrent kinds and the encoder-decoder wait for ROADMAP item 15
 (`check_distributable`).
+
+Serving under a mesh (`check_serve_distributable`: the attention and MoE
+stacks without a sliding window) takes the global batch and WHOLE
+weights on every rank (`serving.engine.make_serve_fns` gathers a rank's
+shards once) and runs this rank's rows (`serve_layout`): the caches are
+this rank's shards of `launch.specs.cache_shardings` /
+`parallel.shard.paged_cache_specs` (`launch.specs.init_serve_state`). A
+contiguous prefill runs context parallel over "model" and each rank
+writes its slots of the sequence-sharded cache; a contiguous decode
+step merges the ranks' flat decode partials (`models.attention`). Over
+a paged pool of this rank's kv heads the attention runs on their cut,
+and the heads' outputs are gathered over "model" before the whole
+``wo``. The MLP and the MoE run on whole
+weights over the rank's rows. The logits come back for every row,
+gathered over the batch axes, so a step's callers (`decode_scan`, the
+greedy argmax) run as they do on one device.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -283,8 +301,9 @@ def _embed(params, tok, cfg, positions):
 def check_distributable(cfg, mesh) -> bool:
     """Whether training runs sharded on ``mesh`` (None: no mesh). The
     attention kinds do; a stack with rglru, mlstm or slstm blocks, or an
-    encoder-decoder, raises `ValueError` on a mesh of several ranks and
-    runs its one-device path on a mesh of one."""
+    encoder-decoder, raises `ValueError` on a mesh of several ranks (for
+    training and for serving alike) and runs its one-device path on a
+    mesh of one."""
     if mesh is None:
         return False
     other = sorted({k for k in cfg.block_pattern if k not in ATTN_KINDS})
@@ -296,7 +315,27 @@ def check_distributable(cfg, mesh) -> bool:
                 f"{cfg.name}: {what} under a mesh of {mesh.size} ranks "
                 f"wait for ROADMAP item 15 (the reference shards their "
                 f"batch over the idle model axis and lays out "
-                f"cross-attention apart); train them on one rank")
+                f"cross-attention apart); train or serve them on one rank")
+        return False
+    return True
+
+
+def check_serve_distributable(cfg, mesh) -> bool:
+    """Whether serving runs sharded on ``mesh`` (None: no mesh): the
+    attention and MoE stacks without a sliding window do. On a mesh of
+    several ranks a sliding window (mixtral_8x22b's ring) raises
+    `ValueError` citing ROADMAP item 13, and rglru, mlstm or slstm
+    blocks or an encoder-decoder as `check_distributable` does (item
+    15); on a mesh of one rank they run their one-device path."""
+    if not check_distributable(cfg, mesh):
+        return False
+    if cfg.sliding_window:
+        if mesh.size > 1:
+            raise ValueError(
+                f"{cfg.name}: a sliding window (the contiguous ring) under "
+                f"a mesh of {mesh.size} ranks waits for ROADMAP item 13 "
+                f"(the ring's slots wrap across the sequence shards); "
+                f"serve it on one rank")
         return False
     return True
 
@@ -433,25 +472,38 @@ def _round_block(n: int, cfg) -> int:
 
 
 def _block_serve(p, x, kind: str, cfg, positions, cache, mode: str,
-                 row_mask=None, hist_blocks=None, valid=None):
+                 row_mask=None, hist_blocks=None, valid=None, lay=None):
     """One layer over x (B, S, d): its mixer by kind (the cache or the
-    recurrent state updated in place), the residual, then its FFN."""
+    recurrent state updated in place), the residual, then its FFN. Under
+    a mesh (``lay``) x is this rank's part; over a pool of this rank's kv
+    heads the attention runs on their cut and the heads' outputs are
+    gathered over their axes before the whole ``wo`` (the product one
+    process computes, bit for bit where its rows agree), and over
+    sequence shards the MoE routes the whole sequence (gathered)."""
     h = norm(cfg, p["norm1"], x)
     if kind in ATTN_KINDS:
         local = kind == "local_attn"
+        pa, heads = p["attn"], getattr(cache, "kv_axes", ())
+        if lay is not None and heads:
+            n = cache.resid_k.shape[1]
+            h0 = lay.mesh.index(heads)[0] * n
+            pa = attention.head_slice(pa, cfg, h0, h0 + n)
         if mode == "prefill":
-            h, cache = attention.prefill(p["attn"], h, cfg, positions, cache,
-                                         local=local, row_mask=row_mask)
+            h, cache = attention.prefill(pa, h, cfg, positions, cache,
+                                         local=local, row_mask=row_mask,
+                                         lay=lay)
         elif mode == "chunk":
-            h, cache = attention.prefill_chunk(p["attn"], h, cfg, positions,
+            h, cache = attention.prefill_chunk(pa, h, cfg, positions,
                                                cache, row_mask=row_mask,
                                                hist_blocks=hist_blocks,
                                                valid=valid)
         elif mode == "decode":
-            h, cache = attention.decode(p["attn"], h, cfg, positions, cache,
+            h, cache = attention.decode(pa, h, cfg, positions, cache,
                                         local=local, row_mask=row_mask)
         else:
             raise ValueError(f"unknown serving mode {mode!r}")
+        if lay is not None and heads:
+            h = lay.mesh.all_gather(h, heads, 2) @ p["attn"]["wo"]
     else:
         if mode not in ("prefill", "decode"):
             raise ValueError(f"{kind} blocks serve prefill and decode only "
@@ -469,7 +521,11 @@ def _block_serve(p, x, kind: str, cfg, positions, cache, mode: str,
         cache.copy_(new)
     x = x + h.to(x.dtype)
     if "moe" in p:
-        return x + moe.apply(p["moe"], norm(cfg, p["norm2"], x), cfg)[0]
+        h2 = norm(cfg, p["norm2"], x)
+        if lay is not None and lay.seq:
+            whole = lay.mesh.all_gather(h2, lay.seq, 1)
+            return x + moe.apply(p["moe"], whole, cfg)[0][:, lay.positions()]
+        return x + moe.apply(p["moe"], h2, cfg)[0]
     if "mlp" in p:
         return x + mlp.apply(p["mlp"], norm(cfg, p["norm2"], x))
     return x
@@ -477,19 +533,54 @@ def _block_serve(p, x, kind: str, cfg, positions, cache, mode: str,
 
 def _serve(params, tok, cfg, state, positions, mode: str, row_mask=None,
            hist_blocks=None, valid=None):
-    """Run every layer over tokens (B, S); returns the final hidden states
-    (B, S, d) — the head is applied by the caller, only where it reads
-    logits (the same numbers as the reference's all-position head)."""
+    """Run every layer over tokens (B, S); returns (the final hidden
+    states, the layout) — the head is applied by the caller, only where it
+    reads logits (the same numbers as the reference's all-position head).
+    Without a mesh the states are (B, S, d) and the layout None; under one
+    (`check_serve_distributable`) they are this rank's rows, and in a
+    contiguous prefill its positions, of `serve_layout`."""
+    mesh = current_mesh()
+    lay = None
+    if check_serve_distributable(cfg, mesh):
+        lay = serve_layout(mesh, cfg, *tok.shape, mode,
+                           isinstance(state[0], PagedQuantizedKVCache))
+        rows, cols = lay.rows(), lay.positions()
+        tok, positions = tok[rows][:, cols], positions[rows][..., cols]
+        row_mask = None if row_mask is None else row_mask[rows]
+        valid = None if valid is None else valid[rows]
     x = params["embed"][tok]
     for i, (p, cache) in enumerate(zip(params["layers"], state)):
         x = _block_serve(p, x, cfg.block_kind(i), cfg, positions, cache,
-                         mode, row_mask, hist_blocks, valid)
-    return x
+                         mode, row_mask, hist_blocks, valid, lay)
+    return x, lay
+
+
+def serve_layout(mesh, cfg, B: int, S: int, mode: str,
+                 paged: bool) -> Layout:
+    """Where a serving step's (B, S, d) activations live under ``mesh``:
+    rows over "batch" as the caches' specs lay them out (a row's cache
+    lives with it), and the positions of a contiguous prefill over
+    "seq_shard" (context parallel); every other step keeps the whole
+    sequence."""
+    lay = Layout.of(mesh, B, S, cfg.d_model)
+    if mode != "prefill" or paged:
+        lay = dataclasses.replace(lay, seq=())
+    return lay
 
 
 def _head(params, x, cfg):
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return norm(cfg, params["final_norm"], x) @ w
+
+
+def _logits(params, x_last, cfg, lay):
+    """The head over each row's last hidden state (B_l, d) -> logits (B,
+    Vp): under a mesh every row's, gathered over the batch axes, the
+    same on every rank."""
+    logits = _head(params, x_last, cfg)
+    if lay is not None and lay.batch:
+        logits = lay.mesh.all_gather(logits, lay.batch, 0)
+    return logits
 
 
 def prefill(params, tokens, cfg, state, *, positions=None, row_mask=None):
@@ -500,8 +591,12 @@ def prefill(params, tokens, cfg, state, *, positions=None, row_mask=None):
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device)[None].expand(B, S)
-    x = _serve(params, tokens, cfg, state, positions, "prefill", row_mask)
-    return _head(params, x[:, -1], cfg), state
+    x, lay = _serve(params, tokens, cfg, state, positions, "prefill",
+                    row_mask)
+    last = x[:, -1]
+    if lay is not None and lay.seq:          # the last position's shard
+        last = lay.mesh.all_gather(x[:, -1:], lay.seq, 1)[:, -1]
+    return _logits(params, last, cfg, lay), state
 
 
 def prefill_chunk(params, tokens, cfg, state, *, start, row_mask=None,
@@ -513,22 +608,24 @@ def prefill_chunk(params, tokens, cfg, state, *, start, row_mask=None,
     C = tokens.shape[1]
     positions = start[:, None].to(torch.int32) + torch.arange(
         C, dtype=torch.int32, device=tokens.device)[None]
-    x = _serve(params, tokens, cfg, state, positions, "chunk", row_mask,
-               hist_blocks, valid)
+    x, lay = _serve(params, tokens, cfg, state, positions, "chunk",
+                    row_mask, hist_blocks, valid)
     if valid is None:
         last = x[:, -1]
     else:
+        if lay is not None:
+            valid = valid[lay.rows()]
         idx = torch.clamp_min(valid.to(torch.int64) - 1, 0)
         last = x[torch.arange(x.shape[0], device=x.device), idx]
-    return _head(params, last, cfg), state
+    return _logits(params, last, cfg, lay), state
 
 
 def decode_step(params, token, cfg, state, pos, *, row_mask=None):
     """One decode step: token (B, 1), pos (B,) current positions. Returns
     (logits (B, Vp), state)."""
     positions = pos[:, None].to(torch.int32)
-    x = _serve(params, token, cfg, state, positions, "decode", row_mask)
-    return _head(params, x[:, -1], cfg), state
+    x, lay = _serve(params, token, cfg, state, positions, "decode", row_mask)
+    return _logits(params, x[:, -1], cfg, lay), state
 
 
 def scan_carry(token, pos, steps: int) -> dict:

@@ -254,6 +254,9 @@ class Mesh(MeshShape):
                     self._rank_lists(axes))
                 self._groups[axes] = mine
         self.stats = defaultdict(lambda: [0, 0, 0.0])
+        # the whole weights serving gathered last on this mesh
+        # (`serving.engine.gathered_weights`)
+        self.gathered: dict = {}
 
     def _rank_lists(self, axes) -> list[list[int]]:
         others = [a for a in self.axis_names if a not in axes]
@@ -436,6 +439,23 @@ def shard_slices(spec, shape, mesh) -> tuple[slice, ...]:
     return tuple(out)
 
 
+def slot_range(axes, size: int, mesh) -> tuple[int, int]:
+    """This rank's [start, stop) of a length-``size`` axis sharded over
+    ``axes`` (``()``: the whole axis), as `shard_slices` cuts it."""
+    s = shard_slices((tuple(axes),), (size,), mesh)[0]
+    return s.indices(size)[:2]
+
+
+@torch.no_grad()
+def gather_partials(o, m, l, axes, mesh):
+    """Each rank's float32 flash partials over its part of a key axis,
+    o (B, H, D) and m, l (B, H, 1), -> every rank's over ``axes`` in rank
+    order: (n, B, H, D), (n, B, H, 1), (n, B, H, 1); one all-gather."""
+    D = o.shape[-1]
+    g = mesh.all_gather(torch.cat([o, m, l], -1)[None], axes, 0)
+    return g[..., :D], g[..., D:D + 1], g[..., D + 1:]
+
+
 def take_shard(x, spec, mesh):
     """This rank's shard of the whole array ``x`` (numpy or torch; a
     view)."""
@@ -479,9 +499,10 @@ def unused_axes(spec, mesh) -> tuple[str, ...]:
 
 @torch.no_grad()
 def gather_leaf(x, spec, mesh):
-    """One leaf's shards -> the whole array, on every rank."""
+    """One leaf's shards -> the whole array, on every rank (a dimension
+    over axes of size 1 is whole already: not gathered)."""
     for dim, axes in enumerate(spec):
-        if axes:
+        if axes and mesh.index(axes)[1] > 1:
             x = mesh.all_gather(x, axes, dim)
     return x
 

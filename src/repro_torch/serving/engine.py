@@ -16,15 +16,33 @@ greedy or seeded sampled decode). These are plain closures and loops;
 where the reference jits them, the paged scheduler captures its steps as
 CUDA graphs on the card (`serving.dispatch`), and `generate` runs
 eagerly (ROADMAP queue 1, item 16's remainder).
+
+Under `parallel.shard.mesh_context` (a mesh of ranks, each calling the
+same functions in step), `make_serve_fns` and `make_chunk_prefill_fn`
+serve sharded as the reference's functions do under its mesh
+(`transformer.check_serve_distributable`: the attention and MoE stacks
+without a sliding window; the others raise a named `ValueError` on a
+mesh of several ranks). ``init_state`` builds this rank's shards of the
+state (`launch.specs.init_serve_state`); the steps take this rank's
+shards of the parameters (`launch.specs.param_specs`' layout), gather
+them whole once per rank (`gathered_weights`, never per step), take the
+global batch and return every row's logits. The functions run under the
+mesh they were built under (None included), whatever is active when
+they are called. `generate`, the batchers and the serve CLI run on one
+device and refuse a mesh (`check_one_device`).
 """
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
 
+from repro_torch.core.tree import leaves
 from repro_torch.models import encdec
 from repro_torch.models import sampling as SMP
 from repro_torch.models import transformer
+from repro_torch.parallel.shard import current_mesh, mesh_context
 from repro_torch.serving.params import SamplingParams, sampling_arrays
 
 
@@ -35,6 +53,58 @@ def check_encdec(paged: bool, kv_cache_dtype) -> None:
                          "cross-attention cache is write-once)")
     if kv_cache_dtype != "int8":
         raise ValueError("kv_cache_dtype is a paged-backend feature")
+
+
+def check_one_device(what: str) -> None:
+    """``what`` runs on one device: under a mesh it raises `ValueError`
+    rather than run each rank's one-device path."""
+    mesh = current_mesh()
+    if mesh is not None:
+        raise ValueError(
+            f"{what} under a mesh of {mesh.size} ranks waits for ROADMAP "
+            f"item 15; serve sharded through make_serve_fns and "
+            f"make_chunk_prefill_fn")
+
+
+def gathered_weights(params, cfg, mesh) -> dict:
+    """This rank's shards ``params`` (laid out by
+    `launch.specs.param_specs`) -> the whole weights, on every rank of
+    ``mesh`` (a collective: every rank calls it). Gathered once per
+    parameter tree: the mesh keeps the last tree's whole weights (one
+    model's a rank; ``mesh.gathered``, which `release_gathered_weights`
+    empties), so a tree changed in place afterwards is not gathered
+    again. Prints the bytes gathered and sent a rank."""
+    held = mesh.gathered
+    if held.get("params") is params:
+        return held["whole"]
+    held.clear()
+    from repro_torch.launch.specs import gather_tree, param_specs
+    sent0 = sum(v[1] for v in mesh.stats.values())
+    t0 = time.perf_counter()
+    whole = gather_tree(params, param_specs(cfg, mesh), mesh)
+    sent = sum(v[1] for v in mesh.stats.values()) - sent0
+    nbytes = sum(t.numel() * t.element_size() for t in leaves(whole))
+    print(f"[serve] rank {mesh.rank}: {nbytes} B of whole weights, "
+          f"{sent} B sent gathering them, {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    held.update(params=params, whole=whole, nbytes=nbytes, sent=sent)
+    return whole
+
+
+def release_gathered_weights(mesh) -> None:
+    """Drop the whole weights `gathered_weights` keeps on ``mesh``."""
+    mesh.gathered.clear()
+
+
+def _on_mesh(mesh, sharded: bool, cfg, fn):
+    """``fn(params, ...)`` run under ``mesh``; with ``sharded``, on the
+    whole weights gathered from this rank's shards."""
+    def run(params, *args, **kw):
+        with mesh_context(mesh):
+            if sharded:
+                params = gathered_weights(params, cfg, mesh)
+            return fn(params, *args, **kw)
+    return run
 
 
 def make_serve_fns(cfg, *, max_len: int, paged: bool = False,
@@ -50,7 +120,15 @@ def make_serve_fns(cfg, *, max_len: int, paged: bool = False,
     state, row_mask=None) with ``batch_inputs`` the reference's dict of
     ``"frames"`` (B, T_enc, d) and ``"tokens"`` (B, S), and decode(params,
     token, state, pos); paged or a dtype other than int8 raise the
-    reference's `ValueError`."""
+    reference's `ValueError`.
+
+    Under a mesh (module docstring) ``init_state(batch)`` gives this
+    rank's shards of the state, prefill and decode take this rank's
+    parameter shards and the global batch and return (logits (B, Vp),
+    state); a config that does not shard raises `ValueError` here on a
+    mesh of several ranks."""
+    mesh = current_mesh()
+    sharded = transformer.check_serve_distributable(cfg, mesh)
     if cfg.family == "encdec":
         check_encdec(paged, kv_cache_dtype)
 
@@ -65,9 +143,16 @@ def make_serve_fns(cfg, *, max_len: int, paged: bool = False,
         def decode_fn(params, token, state, pos):
             return encdec.decode_step(params, token, cfg, state, pos)
 
-        return init_state, prefill_fn, decode_fn
+        return (init_state, _on_mesh(mesh, False, cfg, prefill_fn),
+                _on_mesh(mesh, False, cfg, decode_fn))
 
     def init_state(batch):
+        if sharded:
+            from repro_torch.launch.specs import init_serve_state
+            return init_serve_state(cfg, batch, max_len, mesh, paged=paged,
+                                    n_pages=n_pages,
+                                    kv_cache_dtype=kv_cache_dtype,
+                                    device=device)
         return transformer.init_decode_state(
             cfg, batch, max_len, paged=paged, n_pages=n_pages,
             kv_cache_dtype=kv_cache_dtype, device=device)
@@ -80,7 +165,8 @@ def make_serve_fns(cfg, *, max_len: int, paged: bool = False,
         return transformer.decode_step(params, token, cfg, state, pos,
                                        row_mask=row_mask)
 
-    return init_state, prefill_fn, decode_fn
+    return (init_state, _on_mesh(mesh, sharded, cfg, prefill_fn),
+            _on_mesh(mesh, sharded, cfg, decode_fn))
 
 
 def make_chunk_prefill_fn(cfg, *, hist_blocks: int | None = None):
@@ -88,9 +174,13 @@ def make_chunk_prefill_fn(cfg, *, hist_blocks: int | None = None):
     tokens (B, C) (C a page multiple), start (B,) resident token counts,
     valid (B,) true tokens per row, row_mask (B,) bool -> (last-valid-
     position logits (B, Vp), state). ``hist_blocks`` bounds each layer's
-    history walk. Decoder-only, as the reference's."""
+    history walk. Decoder-only, as the reference's. Under a mesh, as
+    `make_serve_fns`' steps: this rank's parameter shards and the global
+    batch in, every row's logits out."""
     if cfg.family == "encdec":
         raise ValueError("chunked prefill is decoder-only")
+    mesh = current_mesh()
+    sharded = transformer.check_serve_distributable(cfg, mesh)
 
     def chunk_prefill(params, tokens, state, start, valid, row_mask):
         return transformer.prefill_chunk(params, tokens, cfg, state,
@@ -98,7 +188,7 @@ def make_chunk_prefill_fn(cfg, *, hist_blocks: int | None = None):
                                          row_mask=row_mask,
                                          hist_blocks=hist_blocks)
 
-    return chunk_prefill
+    return _on_mesh(mesh, sharded, cfg, chunk_prefill)
 
 
 def generate(params, cfg, prompts, *, steps: int, sampling=None,
@@ -116,7 +206,9 @@ def generate(params, cfg, prompts, *, steps: int, sampling=None,
     Token 0 is drawn from the prefill's logits, the rest in the scan. Stop
     conditions are the scheduler's, not handled here. Decoder-only: an
     encoder-decoder config raises `ValueError` (its prefill needs frames,
-    which the reference's ``generate`` does not feed either)."""
+    which the reference's ``generate`` does not feed either). One device
+    only: under a mesh it raises `ValueError`."""
+    check_one_device("generate")
     transformer.check_servable(cfg)
     device = transformer.check_device(device)
     if params["embed"].device != device:

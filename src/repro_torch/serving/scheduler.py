@@ -102,8 +102,8 @@ from repro_torch.models import sampling as SMP
 from repro_torch.models import transformer as T
 from repro_torch.runtime.fault import StallWatchdog
 from repro_torch.serving.dispatch import GraphDispatch
-from repro_torch.serving.engine import (check_encdec, make_chunk_prefill_fn,
-                                        make_serve_fns)
+from repro_torch.serving.engine import (check_encdec, check_one_device,
+                                        make_chunk_prefill_fn, make_serve_fns)
 from repro_torch.serving.params import (EngineConfig, SamplingParams,
                                         default_detokenize, request_key,
                                         sampling_arrays)
@@ -206,6 +206,7 @@ class ContinuousBatcher:
     queued or running uid; `run_to_completion` drains the queue."""
 
     def __init__(self, params, cfg, config: EngineConfig, *, device="cuda"):
+        check_one_device("the batchers")
         self.device = T.check_device(device)
         if cfg.family == "encdec" and config.paged:
             check_encdec(True, config.kv_cache_dtype)

@@ -1,0 +1,148 @@
+"""The port's sharded serving over the contiguous INT8 cache on 4 gloo
+ranks on the CPU (each a process of the JAX-free
+tests/torch_dist_worker.py): `make_serve_fns` under `mesh_context`, the
+cache's rows over "data" and its slots over "model"
+(`launch.specs.cache_shardings`), against the reference's jitted
+UNSHARDED `make_serve_fns` on the same numpy weights (helpers and
+tolerances in tests/torch_serve_parity.py).
+
+internlm2_1_8b per block and per channel, qwen2_moe_a2_7b (the MoE
+routes the gathered sequence in the context-parallel prefill) and
+qwen2_vl_2b (M-RoPE), smoke in float32, each on meshes (data 2, model 2)
+and (data 1, model 4): 4 prompts of 24 tokens, max_len 48, then 8
+decode steps teacher-forced on the reference's greedy stream (a block
+flush at position 31). At (2, 2) a rank holds 24 slots, so the second
+"model" rank has no prompt slot and merges m = -1e30 until the flush,
+which it owns (its scale row 0); at (1, 4) 48 slots make 6 blocks over
+4 ranks: ``k_q`` is sharded (12 slots a rank) and ``k_s`` replicated,
+blocks straddle two ranks (the flushed block 3 lies on the third).
+Checked on every rank: logits within ATOL and the greedy tokens
+identical, the logits bit for bit the same on every rank, every decode
+step sending the same bytes, and its cache (its rows, slots and scale
+rows) against the reference cache's slice by the page rule. Also: a
+decode from the reference's own prefill state carried into each rank's
+shards (`checkpoint.bridge.serve_state_from_numpy`, bit for bit), and
+the configs that do not shard: mixtral_8x22b (a sliding window,
+ROADMAP item 13), recurrentgemma_9b and xlstm_350m (recurrent blocks)
+and whisper_small (an encoder-decoder; item 15) raise a named
+`ValueError` under a mesh of 4 and serve their one-device path under a
+mesh of 1 (logits equal the port's own without a mesh)."""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import torch_serve_parity as SV
+from repro_torch.checkpoint import bridge
+from repro_torch.configs import get_config
+from repro_torch.models import encdec, transformer
+from torch_dist import run_ranks
+from torch_dist_worker import load_tree, save_tree, serve_once
+
+CASES = [("internlm2_1_8b", "per_block"), ("internlm2_1_8b", "per_channel"),
+         ("qwen2_moe_a2_7b", "per_block"), ("qwen2_vl_2b", "per_block")]
+REFUSED = {"mixtral_8x22b": "ROADMAP item 13",
+           "recurrentgemma_9b": "ROADMAP item 15",
+           "xlstm_350m": "ROADMAP item 15", "whisper_small": "ROADMAP item 15"}
+
+
+def _cfg(arch):
+    return dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+
+
+@pytest.fixture(scope="module")
+def results(tmp_path_factory):
+    """Every case's reference run in this process, then every sharded
+    run and the refusals under a mesh of 4 in one 4-rank job, and the
+    refused configs under a mesh of 1 in a 1-rank job."""
+    d = tmp_path_factory.mktemp("serve")
+    refs, tasks = {}, []
+    for arch, gran in CASES:
+        rcfg, rparams = SV.models(arch, gran)
+        toks = SV.tokens(rcfg)
+        ref = SV.run_reference(rcfg, rparams, toks)
+        key = f"{arch}-{gran}"
+        refs[key] = (rcfg, ref)
+        w, b = SV.write_inputs(d, key, rparams, toks, ref)
+        for m in SV.MESHES:
+            tasks.append(SV.serve_task(arch, m, w, b, d / f"{key}.{m}",
+                                       granularity=gran))
+        if key == "internlm2_1_8b-per_block":
+            save_tree(d / "prefill_state.npz", ref["prefill_state"])
+            tasks.append(SV.serve_task(
+                arch, "2x2", w, b, d / "carried", granularity=gran,
+                ref_state=str(d / "prefill_state.npz")))
+    for arch in REFUSED:
+        cfg = _cfg(arch)
+        init = encdec.init_params if cfg.family == "encdec" else \
+            transformer.init_params
+        save_tree(d / f"refused.{arch}.npz", bridge.tree_to_numpy(
+            init(cfg, torch.Generator().manual_seed(0), device="cpu"), cfg))
+    refuse = {"kind": "serve_refuse", "archs": list(REFUSED),
+              "weights": str(d / "refused")}
+    tasks.append(dict(refuse, mesh=[2, 2], axes=SV.AXES,
+                      result=str(d / "refuse4.npz")))
+    run_ranks(d, 4, tasks, name="serve")
+    run_ranks(d, 1, [dict(refuse, mesh=[1, 1], axes=SV.AXES,
+                          result=str(d / "refuse1.npz"))], name="serve1")
+    return d, refs
+
+
+@pytest.mark.parametrize("mesh", list(SV.MESHES))
+@pytest.mark.parametrize("arch,gran", CASES)
+def test_sharded_serving_matches_reference(results, arch, gran, mesh):
+    d, refs = results
+    rcfg, ref = refs[f"{arch}-{gran}"]
+    ranks = [load_tree(d / f"{arch}-{gran}.{mesh}.{r}.npz")
+             for r in range(4)]
+    for r, got in enumerate(ranks):
+        label = f"{arch} {gran} {mesh} rank {r}"
+        SV.check_logits(got["logits"], ref["logits"], rcfg.vocab, label)
+        np.testing.assert_array_equal(got["logits"], ranks[0]["logits"],
+                                      err_msg=f"{label}: ranks differ")
+        assert len(set(got["sent"].tolist())) == 1, (label, got["sent"])
+        SV.check_contiguous(got["state"], ref["state"], got["where"], label)
+    where = [g["where"] for g in ranks]
+    model = 2 if mesh == "2x2" else 4
+    assert {tuple(w["slots"]) for w in where} == {
+        (i * 48 // model, (i + 1) * 48 // model) for i in range(model)}
+    if mesh == "1x4" and gran == "per_block":     # 6 blocks over 4 ranks
+        assert all(tuple(w["scales"]) == (0, 6) for w in where)
+
+
+def test_prefill_state_carried_into_shards(results):
+    """The reference's own prefill state, carried into each rank's shards
+    (bit for bit its slice), decodes to the reference's logits."""
+    d, refs = results
+    rcfg, ref = refs["internlm2_1_8b-per_block"]
+    for r in range(4):
+        got = load_tree(d / f"carried.{r}.npz")
+        w = got["where"]
+        rows, slots, scales = (slice(*w[k]) for k in
+                               ("rows", "slots", "scales"))
+        for key, layer in got["carried"].items():
+            if key == "tail":
+                continue
+            want = ref["prefill_state"][key]
+            for n, cut in (("k_q", slots), ("v_q", slots), ("k_s", scales),
+                           ("v_s", scales)):
+                np.testing.assert_array_equal(layer[n],
+                                              want[n][:, rows, :, cut])
+            np.testing.assert_array_equal(layer["resid_k"],
+                                          want["resid_k"][:, rows])
+        SV.check_logits(got["logits"], ref["logits"][1:], rcfg.vocab,
+                        f"carried rank {r}")
+        SV.check_contiguous(got["state"], ref["state"], w, f"carried {r}")
+
+
+def test_refusals_and_one_rank_meshes(results):
+    d, _ = results
+    four, one = load_tree(d / "refuse4.npz"), load_tree(d / "refuse1.npz")
+    for arch, item in REFUSED.items():
+        msg = str(four[arch])
+        assert msg.startswith("ValueError") and item in msg, (arch, msg)
+        assert "serve" in msg, msg
+        np.testing.assert_array_equal(
+            one[arch], serve_once(_cfg(arch), d / f"refused.{arch}.npz",
+                                  "cpu"), err_msg=arch)

@@ -1,6 +1,7 @@
-"""The port's sharded training on the card (``gpu`` marker; JAX-free):
-ranks share cuda:0 over gloo (their collectives staged through pinned
-host buffers), each a process of tests/torch_dist_worker.py.
+"""The port's sharded training and serving on the card (``gpu`` marker;
+JAX-free): ranks share cuda:0 over gloo (their collectives staged
+through pinned host buffers), each a process of
+tests/torch_dist_worker.py.
 
 - a sharded step of internlm2_1_8b's smoke config (float32) on a (data 1,
   model 2) and a (data 2, model 1) mesh against the single-process step
@@ -9,7 +10,12 @@ host buffers), each a process of tests/torch_dist_worker.py.
   dequantized payloads in rank order, bit for bit;
 - sharded `compress_with_feedback` on the card: the compressed gradients
   and the error state (so the scales) bit for bit the single-process
-  ones.
+  ones;
+- sharded serving: `make_serve_fns` of internlm2_1_8b's smoke config
+  (float32) on 4 ranks at (data 2, model 2), contiguous per block and
+  per channel and paged, against the one-process functions on the card:
+  logits within 2e-3, greedy tokens equal, the same bits on every rank,
+  each rank's path kernels launched.
 """
 import dataclasses
 
@@ -139,3 +145,89 @@ def _equal(a, b):
             _equal(x, y)
     else:
         np.testing.assert_array_equal(a, b)
+
+
+# -- sharded serving ----------------------------------------------------------
+
+# 32-token prompts over 24 slots a "model" rank: both ranks hold prompt
+# slots, so both launch the prefill's quantizer
+SERVE_B, SERVE_S, SERVE_LEN, SERVE_STEPS = 4, 32, 48, 8
+# (granularity, paged, chunk) -> the kernels each rank must launch
+SERVE_ROUTES = {
+    "per_block": (("per_block", False, False),
+                  ("flash_fwd_cuda", "quantize_blocked_cuda",
+                   "flat_decode_partials_cuda")),
+    "per_channel": (("per_channel", False, False),
+                    ("flash_fwd_cuda", "absmax_cuda",
+                     "quantize_with_scales_cuda",
+                     "flat_decode_partials_cuda")),
+    "paged": (("per_block", True, True),
+              ("paged_prefill_cuda", "paged_decode_partials_cuda"))}
+
+
+@pytest.mark.parametrize("route", list(SERVE_ROUTES))
+def test_sharded_serving_on_the_card_matches_one_process(route, tmp_path,
+                                                         cuda_device):
+    """`make_serve_fns` on 4 ranks sharing the card, mesh (data 2, model
+    2), against the one-process functions on the card: logits within
+    2e-3 (an int8 value one step apart moves them; the ranks' flat decode
+    walks split other slot ranges), the greedy tokens equal, the same
+    bits on every rank, and each rank launched its path's kernels."""
+    from repro_torch.core.paging import HostPageAllocator
+    from repro_torch.serving.engine import (make_chunk_prefill_fn,
+                                            make_serve_fns)
+    from torch_dist_worker import allocate_rows
+    (gran, paged, chunk), kernels = SERVE_ROUTES[route]
+    cfg = dataclasses.replace(get_config("internlm2_1_8b", smoke=True),
+                              dtype="float32")
+    cfg = dataclasses.replace(cfg, quant=dataclasses.replace(
+        cfg.quant, granularity=gran))
+    params = T.init_params(cfg, torch.Generator(device=cuda_device)
+                           .manual_seed(0), device=cuda_device)
+    toks = np.random.RandomState(1).randint(
+        0, cfg.vocab, (SERVE_B, SERVE_S)).astype(np.int32)
+    init, prefill, decode = make_serve_fns(cfg, max_len=SERVE_LEN,
+                                           paged=paged, n_pages=32,
+                                           device=cuda_device)
+    state = init(SERVE_B)
+    t = torch.from_numpy(toks).to(cuda_device)
+    if paged:
+        table = allocate_rows(HostPageAllocator(32), SERVE_B,
+                              SERVE_LEN // cfg.quant.block_size)
+        for c in state:
+            c.page_table.copy_(torch.from_numpy(table))
+        z = torch.zeros(SERVE_B, dtype=torch.int32, device=cuda_device)
+        lg, state = make_chunk_prefill_fn(cfg)(
+            params, t, state, z, torch.full_like(z, SERVE_S),
+            torch.ones(SERVE_B, dtype=torch.bool, device=cuda_device))
+    else:
+        lg, state = prefill(params, t, state)
+    logits, stream = [lg], []
+    pos = torch.full((SERVE_B,), SERVE_S, dtype=torch.int32,
+                     device=cuda_device)
+    for _ in range(SERVE_STEPS):
+        tok = lg[:, :cfg.vocab].argmax(-1).to(torch.int32)
+        stream.append(tok.cpu().numpy())
+        lg, state = decode(params, tok[:, None], state, pos)
+        logits.append(lg)
+        pos = pos + 1
+    want = np.stack([x.cpu().numpy() for x in logits])
+    save_tree(tmp_path / "w.npz", bridge.tree_to_numpy(params, cfg))
+    save_tree(tmp_path / "b.npz", {"tokens": toks,
+                                   "stream": np.stack(stream)})
+    run_ranks(tmp_path, 4, [{
+        "kind": "serve", "arch": "internlm2_1_8b", "mesh": [2, 2],
+        "axes": ["data", "model"], "weights": str(tmp_path / "w.npz"),
+        "batch": str(tmp_path / "b.npz"), "max_len": SERVE_LEN,
+        "granularity": gran, "paged": paged, "chunk": chunk, "n_pages": 32,
+        "result": str(tmp_path / "r")}], device="cuda")
+    ranks = [load_tree(tmp_path / f"r.{r}.npz") for r in range(4)]
+    for r, got in enumerate(ranks):
+        np.testing.assert_allclose(got["logits"], want, atol=2e-3, rtol=0,
+                                   err_msg=f"rank {r}")
+        np.testing.assert_array_equal(
+            np.argmax(got["logits"][..., :cfg.vocab], -1),
+            np.argmax(want[..., :cfg.vocab], -1))
+        np.testing.assert_array_equal(got["logits"], ranks[0]["logits"])
+        for k in kernels:
+            assert int(got["launches"][k]) > 0, (r, k, got["launches"])

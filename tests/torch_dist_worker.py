@@ -23,6 +23,21 @@ rank 0 writes each task's ``result``. Tasks:
   the call sent (``result``.json).
 - ``compress``: `compress_with_feedback` of this rank's shards of whole
   gradients and error state; writes the gathered results.
+- ``serve``: `make_serve_fns` under the mesh from the reference's
+  weights as this rank's shards: the prompts (``batch``: an npz of
+  ``tokens`` (B, S) and ``stream`` (steps, B), the tokens each decode
+  step feeds) prefilled (``chunk``: through `make_chunk_prefill_fn`;
+  ``paged``: pages from a `HostPageAllocator` of every row, the rank's
+  rows written into its tables), or with ``ref_state`` (an npz of the
+  reference's state after its prefill) that state carried into this
+  rank's shards (`serve_state_from_numpy`); then each step of
+  ``stream`` teacher-forced. Every rank writes ``result``.<rank>.npz:
+  every step's logits, this rank's state in the reference's layout,
+  where its shards lie (``where``), the pages it allocated, the bytes
+  each step sent and each kernel's launches (on the card).
+- ``serve_refuse``: `make_serve_fns` of each of ``archs`` on the mesh and,
+  where it builds, a prefill and a decode step on the whole weights;
+  writes each arch's `ValueError` or its logits.
 """
 from __future__ import annotations
 
@@ -81,6 +96,9 @@ def load_tree(path):
 def _config(task):
     from repro_torch.configs import get_config
     cfg = get_config(task["arch"], smoke=True)
+    if task.get("granularity"):
+        cfg = dataclasses.replace(cfg, quant=dataclasses.replace(
+            cfg.quant, granularity=task["granularity"]))
     return dataclasses.replace(cfg, dtype=task.get("dtype", "float32"),
                                **task.get("replace", {}))
 
@@ -244,9 +262,152 @@ def task_compress(task, mesh, rank):
             "err": bridge.tree_to_numpy(full["e"])})
 
 
+def allocate_rows(alloc, rows: int, blocks: int) -> np.ndarray:
+    """A page table (rows, blocks) from ``alloc`` (a `HostPageAllocator`
+    of either package): a few pages taken and every other one given back
+    first, so the rows' pages are out of order; then each row's, row by
+    row."""
+    warm = alloc.alloc(5)
+    alloc.release(warm[::2])
+    return np.array([alloc.alloc(blocks) for _ in range(rows)], np.int32)
+
+
+def _where(state, specs, mesh, cfg, B: int, max_len: int) -> dict:
+    """Where this rank's shards of layer 0 lie in the whole state: rows,
+    and slots and scale rows, or kv heads, as [start, stop)."""
+    from repro_torch.parallel.shard import shard_slices
+    c, sp = state[0], specs[0]
+    span = lambda s, n: np.array(s.indices(n)[:2])
+    if hasattr(c, "pool"):
+        return {"rows": span(shard_slices(sp["page_table"], (B, 1),
+                                          mesh)[0], B),
+                "heads": span(shard_slices(
+                    sp["pool"]["k_q"], (1, 1, cfg.n_kv_heads, 1),
+                    mesh)[2], cfg.n_kv_heads)}
+    nb = 1 if c.per_channel else max_len // c.block_size
+    whole = (B, cfg.n_kv_heads, max_len, 1)
+    return {"rows": span(shard_slices(sp["k_q"], whole, mesh)[0], B),
+            "slots": span(shard_slices(sp["k_q"], whole, mesh)[2], max_len),
+            "scales": span(shard_slices(sp["k_s"], (1, 1, nb, 1),
+                                        mesh)[2], nb)}
+
+
+def task_serve(task, mesh, rank):
+    import torch
+
+    from repro_torch.checkpoint import bridge
+    from repro_torch.core.paging import HostPageAllocator
+    from repro_torch.launch import specs as SP
+    from repro_torch.parallel.shard import mesh_context
+    from repro_torch.serving.engine import (make_chunk_prefill_fn,
+                                            make_serve_fns)
+    cfg = _config(task)
+    params = bridge.params_from_numpy(load_tree(task["weights"]), cfg,
+                                      mesh.device, mesh=mesh,
+                                      specs=SP.param_specs(cfg, mesh))
+    data = load_tree(task["batch"])
+    toks = torch.from_numpy(data["tokens"]).to(mesh.device)
+    stream = data["stream"]
+    B, S = toks.shape
+    paged = task.get("paged", False)
+    with mesh_context(mesh):
+        init, prefill, decode = make_serve_fns(
+            cfg, max_len=task["max_len"], paged=paged,
+            n_pages=task.get("n_pages"), device=mesh.device)
+        chunk = make_chunk_prefill_fn(cfg) if task.get("chunk") else None
+    state = init(B)
+    specs = SP.serve_state_specs(cfg, B, task["max_len"], mesh, paged=paged,
+                                 n_pages=task.get("n_pages"))[0]
+    out = {"where": _where(state, specs, mesh, cfg, B, task["max_len"])}
+    if paged:
+        table = allocate_rows(HostPageAllocator(state[0].pool.k_q.shape[0]),
+                              B, task["max_len"] // cfg.quant.block_size)
+        r0, r1 = out["where"]["rows"]
+        for c in state:
+            c.page_table.copy_(torch.from_numpy(table[r0:r1]))
+        out["pages"] = table
+    from repro_torch.kernels import COUNTED
+    launches0 = {f.__name__: f.launches for f in COUNTED}
+    logits = []
+    if task.get("ref_state"):
+        bridge.serve_state_from_numpy(load_tree(task["ref_state"]), state,
+                                      cfg, mesh, specs)
+        out["carried"] = bridge.serve_state_to_numpy(state, cfg)
+    elif chunk is not None:
+        zeros = torch.zeros((B,), dtype=torch.int32, device=mesh.device)
+        lg, state = chunk(params, toks, state, zeros,
+                          torch.full_like(zeros, S),
+                          torch.ones((B,), dtype=torch.bool,
+                                     device=mesh.device))
+        logits.append(lg)
+    else:
+        lg, state = prefill(params, toks, state)
+        logits.append(lg)
+    pos = torch.full((B,), S, dtype=torch.int32, device=mesh.device)
+    sent = []
+    for j in range(stream.shape[0]):
+        mesh.stats.clear()
+        tok = torch.from_numpy(stream[j][:, None]).to(mesh.device)
+        lg, state = decode(params, tok, state, pos)
+        logits.append(lg)
+        sent.append(sum(v[1] for v in mesh.stats.values()))
+        pos = pos + 1
+    out["state"] = bridge.serve_state_to_numpy(state, cfg)
+    out["logits"] = np.stack([lg.float().cpu().numpy() for lg in logits])
+    out["sent"] = np.array(sent, np.int64)
+    out["launches"] = {f.__name__: np.int64(f.launches
+                                            - launches0[f.__name__])
+                       for f in COUNTED}
+    save_tree(f"{task['result']}.{rank}.npz", out)
+
+
+def serve_once(cfg, weights: str, device, mesh=None):
+    """`make_serve_fns` of a smoke config (under ``mesh`` where given) on
+    the whole weights of ``weights`` (an npz in the reference's layout):
+    a prefill of 2 seeded 16-token prompts (an encoder-decoder's with
+    `make_frames` frames) and one decode step. Returns both steps' logits
+    (2, 2, Vp), or the message of the `ValueError` the mesh raises."""
+    import torch
+
+    from repro_torch.checkpoint import bridge
+    from repro_torch.data import DataConfig, make_frames
+    from repro_torch.parallel.shard import mesh_context
+    from repro_torch.serving.engine import make_serve_fns
+    with mesh_context(mesh):
+        try:
+            init, prefill, decode = make_serve_fns(cfg, max_len=32,
+                                                   device=device)
+        except ValueError as e:
+            return f"ValueError: {e}"
+        params = bridge.params_from_numpy(load_tree(weights), cfg, device)
+        toks = torch.from_numpy(np.random.RandomState(0).randint(
+            0, cfg.vocab, (2, 16)).astype(np.int32))
+        inputs = toks
+        if cfg.family == "encdec":
+            inputs = {"tokens": toks, "frames": torch.from_numpy(
+                make_frames(DataConfig(seq_len=16, global_batch=2,
+                                       vocab=cfg.vocab),
+                            cfg.d_model, cfg.encoder_seq))}
+        state = init(2)
+        lg, state = prefill(params, inputs, state)
+        lg2, _ = decode(params, toks[:, -1:], state,
+                        torch.full((2,), 16, dtype=torch.int32))
+    return np.stack([lg.float().numpy(), lg2.float().numpy()])
+
+
+def task_serve_refuse(task, mesh, rank):
+    out = {arch: serve_once(_config({"arch": arch}),
+                            f"{task['weights']}.{arch}.npz", mesh.device,
+                            mesh) for arch in task["archs"]}
+    if rank == 0:
+        save_tree(task["result"], {k: np.array(v) if isinstance(v, str)
+                                   else v for k, v in out.items()})
+
+
 TASKS = {"step": task_step, "refuse": task_refuse, "save": task_save,
          "restore": task_restore, "psum": task_psum,
-         "compress": task_compress}
+         "compress": task_compress, "serve": task_serve,
+         "serve_refuse": task_serve_refuse}
 
 
 def main(job_path: str, rank: int, world: int) -> int:
