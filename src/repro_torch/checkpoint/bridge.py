@@ -40,6 +40,8 @@ bfloat16 cannot go through `torch.from_numpy`).
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -202,29 +204,48 @@ _POOL_FIELDS = ("k_q", "v_q", "k_s", "v_s")
 _VIEW_FIELDS = ("page_table", "resid_k", "resid_v", "length")
 
 
+def _state_fields(c) -> tuple[str, ...]:
+    """A layer's serving-state fields: a contiguous cache's, or a
+    recurrent state's (its dataclass fields)."""
+    if hasattr(c, "k_q"):
+        return _CACHE_FIELDS
+    return tuple(f.name for f in dataclasses.fields(c))
+
+
 def _numpy(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         x = x.detach().cpu()
+        if x.dtype == torch.float8_e4m3fn:       # fp8 pages as their bytes
+            return x.view(torch.int8).numpy()
         return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
     return np.asarray(x)
 
 
 def serve_state_to_numpy(state, cfg) -> dict:
-    """A serving state (one cache a layer, `transformer.init_decode_state`
-    of an attention stack; under a mesh a rank's shards) -> the
-    reference's stacked layout (``p{i}`` with a leading layer-group axis,
-    ``tail``): a contiguous cache's fields k_q, v_q, k_s, v_s, resid_k,
-    resid_v and length, a paged one's ``pool`` {k_q, v_q, k_s, v_s},
-    page_table, resid_k, resid_v and length, as numpy (bfloat16 as
-    float32)."""
+    """A serving state (one entry a layer, `transformer.init_decode_state`;
+    under a mesh a rank's shards) -> the reference's stacked layout
+    (``p{i}`` with a leading layer-group axis, ``tail``): a contiguous
+    cache's fields k_q, v_q, k_s, v_s, resid_k, resid_v and length, a
+    paged one's ``pool`` {k_q, v_q, k_s, v_s}, page_table, resid_k,
+    resid_v and length, a recurrent state's fields (RG-LRU h, conv;
+    mLSTM C, n, m, C_s; sLSTM c, n, h, m), as numpy (bfloat16 as
+    float32, fp8 pages as their bytes). Under a mixed per-layer page plan
+    each ``p{i}`` is a list of its layers, as the reference keeps it (its
+    pools differ in dtype and shape)."""
     def fields(c):
         if hasattr(c, "pool"):
             return {"pool": {f: _numpy(getattr(c.pool, f))
                              for f in _POOL_FIELDS},
                     **{f: _numpy(getattr(c, f)) for f in _VIEW_FIELDS}}
-        return {f: _numpy(getattr(c, f)) for f in _CACHE_FIELDS}
-    out = stack_layers({"layers": [fields(c) for c in state]},
-                       pattern_layout(cfg)[0], np.stack)
+        return {f: _numpy(getattr(c, f)) for f in _state_fields(c)}
+    layers = [fields(c) for c in state]
+    if len({getattr(getattr(c, "pool", None), "kv_dtype", None)
+            for c in state}) > 1:
+        period, n_groups, _ = pattern_layout(cfg)
+        return {**{f"p{i}": layers[i:n_groups * period:period]
+                   for i in range(period)},
+                "tail": layers[n_groups * period:]}
+    out = stack_layers({"layers": layers}, pattern_layout(cfg)[0], np.stack)
     blocks = out.pop("blocks")
     return {**blocks, "tail": out.get("tail", [])}
 
@@ -254,6 +275,10 @@ def serve_state_from_numpy(tree, state, cfg, mesh=None, specs=None):
                 put(getattr(c.pool, n), f["pool"][n],
                     None if sp is None else sp["pool"][n])
             for n in _VIEW_FIELDS:
+                put(getattr(c, n), f[n], None if sp is None else sp[n])
+            continue
+        if not hasattr(c, "k_q"):
+            for n in _state_fields(c):
                 put(getattr(c, n), f[n], None if sp is None else sp[n])
             continue
         for n in _CACHE_FIELDS[:-1]:

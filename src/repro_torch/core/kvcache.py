@@ -191,13 +191,21 @@ class ShardedKVCache(QuantizedKVCache):
     `decode_partials` runs the flat decode kernel over this rank's live
     slots and merges every rank's partials in rank order
     (`merge_rank_partials`), so every rank of ``axes`` ends with the same
-    bits. No ring: a sliding window does not shard."""
+    bits.
+
+    A ring (``ring=True``, a sliding window) shards its ``total`` slots
+    the same way: prefill keeps the prompt's last ``total`` tokens rolled
+    to slot ``pos % total`` (the one-process ring) and writes this rank's
+    slots of them, an append writes slot ``pos % total`` on its owner, a
+    flush block ``blk % n_blocks``, and decode gives the kernel this
+    rank's live slots as a length and window of its own
+    (`ring_slot_args`)."""
 
     def __init__(self, k_q, v_q, k_s, v_s, resid_k, resid_v, length: int,
                  block_size: int, per_channel: bool, *, mesh, axes,
-                 slot0: int, total: int):
+                 slot0: int, total: int, ring: bool = False):
         super().__init__(k_q, v_q, k_s, v_s, resid_k, resid_v, length,
-                         block_size, per_channel, ring=False)
+                         block_size, per_channel, ring=ring)
         self.mesh, self.axes = mesh, tuple(axes)
         self.slot0, self.total = slot0, total
         T_l = k_q.shape[2]
@@ -216,10 +224,9 @@ class ShardedKVCache(QuantizedKVCache):
              cfg: Q.QuantConfig, ring: bool = False, *, device, mesh=None,
              axes=(), scale_axes=()) -> "ShardedKVCache":
         """This rank's part of a (``batch`` local rows, ``max_len`` global
-        slots) cache: its slots over ``axes``, its scale rows over
-        ``scale_axes`` (``()``: every row)."""
-        if ring:
-            raise ValueError("a ring cache (sliding window) does not shard")
+        slots; a ring of them with ``ring``) cache: its slots over
+        ``axes``, its scale rows over ``scale_axes`` (``()``: every
+        row)."""
         from repro_torch.parallel.shard import slot_range
         per_channel = cfg.granularity == "per_channel"
         bs = 1 if per_channel else cfg.block_size
@@ -237,8 +244,8 @@ class ShardedKVCache(QuantizedKVCache):
                                  dtype=torch_dtype(cfg.ref_dtype),
                                  device=device)
         return ShardedKVCache(z8(), z8(), zs(), zs(), zr(), zr(), 0, bs,
-                              per_channel,
-                              mesh=mesh, axes=axes, slot0=lo, total=max_len)
+                              per_channel, mesh=mesh, axes=axes, slot0=lo,
+                              total=max_len, ring=ring)
 
     @property
     def max_len(self) -> int:
@@ -256,8 +263,14 @@ class ShardedKVCache(QuantizedKVCache):
     # -- prefill -----------------------------------------------------------
     def prefill(self, k: torch.Tensor, v: torch.Tensor) -> "ShardedKVCache":
         """Write the whole prompt's (B_l, H, S, D) K/V (every rank of
-        ``axes`` passes the same): this rank's slots of it."""
-        S = k.shape[2]
+        ``axes`` passes the same): this rank's slots of it (a ring: of its
+        last ``total`` tokens, rolled to their slots)."""
+        T = S = k.shape[2]
+        if self.ring and S > self.total:
+            shift = S % self.total
+            k = torch.roll(k[:, :, S - self.total:], shift, dims=2)
+            v = torch.roll(v[:, :, S - self.total:], shift, dims=2)
+            S = self.total
         a, b = self._overlap(0, S)
         lo, bs = self.slot0, self.block_size
         if self.per_channel:
@@ -290,12 +303,13 @@ class ShardedKVCache(QuantizedKVCache):
                 x_q, x_s = ops.quantize_blocked(x, bs)
                 dq[:, :, a:b] = x_q[:, :, lo + a:lo + b]
                 ds[:, :, :S // bs] = x_s
-        self.length = S
+        self.length = T
         return self
 
     # -- decode append -----------------------------------------------------
     def _append_per_channel(self, k, v):
-        slot = min(self.length, self.total - 1)
+        slot = self.length % self.total if self.ring else \
+            min(self.length, self.total - 1)
         a, b = self._overlap(slot, slot + 1)
         if b > a:
             self.k_q[:, :, a:b] = Q.quantize(k, self.k_s[:, :, 0])
@@ -307,7 +321,8 @@ class ShardedKVCache(QuantizedKVCache):
         bs = self.block_size
         pos = self.length
         off = pos % bs
-        blk = min(pos // bs, self.total // bs - 1)
+        nb = self.total // bs
+        blk = (pos // bs) % nb if self.ring else min(pos // bs, nb - 1)
         self.resid_k[:, :, off] = k[:, :, 0].to(self.resid_k.dtype)
         self.resid_v[:, :, off] = v[:, :, 0].to(self.resid_v.dtype)
         if off == bs - 1:                    # block full: flush
@@ -326,24 +341,64 @@ class ShardedKVCache(QuantizedKVCache):
         return self
 
     # -- read --------------------------------------------------------------
-    def decode_partials(self, q: torch.Tensor, n: int):
-        """One query a row (B_l, H, D) over the quantized slots [0, n):
-        the flat decode kernel over this rank's (a rank with none gives
-        m = -1e30), then every rank's partials merged in rank order.
-        Returns the merged (o, m, l), the same bits on every rank."""
+    def decode_partials(self, q: torch.Tensor, n: int, window=None):
+        """One query a row (B_l, H, D) over the quantized slots [0, n)
+        (a ring: the live slots of ``n`` tokens written, masked by
+        ``window`` as the one-process kernel masks them): the flat decode
+        kernel over this rank's (a rank with none gives m = -1e30), then
+        every rank's partials merged in rank order. Returns the merged
+        (o, m, l), the same bits on every rank."""
         from repro_torch.kernels.quant_attention import merge_rank_partials
         from repro_torch.parallel.shard import gather_partials
         k_s, v_s = self.k_s, self.v_s
         if self._rows is not None:
             k_s, v_s = k_s[:, :, self._rows], v_s[:, :, self._rows]
+        if self.ring:
+            n, window = ring_slot_args(n, window, self.total, self.slot0,
+                                       self.k_q.shape[2])
+        else:
+            n, window = self._local(n), None
         o, m, l = ops.quant_attention_decode_partials(
-            q, self.k_q, k_s, self.v_q, v_s, self._local(n))
+            q, self.k_q, k_s, self.v_q, v_s, n, window=window)
         return merge_rank_partials(*gather_partials(o, m, l, self.axes,
                                                     self.mesh))
 
     def dequantized(self, dtype: torch.dtype = torch.float32):
         raise ValueError("a sharded cache holds a part of the slots: read "
                          "it through decode_partials")
+
+
+def ring_slot_args(length: int, window, total: int, lo: int,
+                   n: int) -> tuple[int, int]:
+    """The flat decode kernel's (length, window) over the slots [lo, lo +
+    n) of a ring of ``total`` slots that masks exactly the slots the
+    one-process kernel leaves live there at ``length`` tokens written and
+    ``window`` (None: every slot). The kernel keeps local slot t where t
+    < min(length, n) and (length - 1 - t) mod n < window. The live slots
+    of the whole ring are one run of ``c`` slots from slot ``s`` that
+    may wrap past the last slot; its part in [lo, lo + n) is a run, or
+    two that touch both ends of the rank's slots: one run that wraps in
+    the rank's own slots."""
+    w = total if window is None else min(int(window), total)
+    if length <= total:
+        s = max(length - w, 0)
+        c = length - s
+    else:
+        c = w
+        s = (length - 1 - c + 1) % total
+    hi = lo + n
+    # the run [s, s + c) (mod total) cut by [lo, hi), as local offsets
+    a1, b1 = max(s, lo) - lo, min(s + c, total, hi) - lo
+    a2, b2 = 0, min(s + c - total, hi) - lo
+    one = b1 > a1
+    two = s + c > total and b2 > a2
+    if one and two:                 # [0, b2) and [a1, n): wraps at n
+        return n + b2, b2 + n - a1
+    if one:
+        return b1, b1 - a1
+    if two:
+        return b2, b2
+    return 0, 0
 
 
 # -- unquantized baseline (the paper's FP32/BF16 comparison point) -----------

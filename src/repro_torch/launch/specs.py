@@ -15,7 +15,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.parallel.shard import (MeshShape, gather_leaf, logical_spec,
+from repro_torch.parallel.shard import (MeshShape, current_rules,
+                                        gather_leaf, logical_spec,
                                         shard_slices, take_shard)
 
 # leaf name -> logical axes of trailing dims
@@ -151,18 +152,24 @@ def _local(shape, spec, mesh) -> tuple[int, ...]:
         shard_slices(spec, shape, mesh), shape))
 
 
+# a recurrent state's initial values where they are not 0
+# (`rglru.init_state`, `xlstm.mlstm_init_state`, `xlstm.slstm_init_state`)
+_STATE_FILL = {"m": -1e30, "C_s": 1e-30}
+
+
 def init_serve_state(cfg, batch: int, max_len: int, mesh, *,
                      paged: bool = False, n_pages: int | None = None,
                      kv_cache_dtype="int8", device="cuda") -> list:
     """This rank's shards of `transformer.init_decode_state`'s state, each
     made at its local shapes (never whole, then cut; as `init_shards`):
     a contiguous layer's rows and slots of `cache_shardings`' spec (a
-    `ShardedKVCache` where the slots are sharded, else a
-    `QuantizedKVCache` of the rank's rows), a paged layer's rows (page
-    table, residual, lengths) and its pool's kv heads of
-    `paged_cache_specs`' (``kv_axes`` the heads' axes; every page, the
-    allocator being replicated). Attention stacks only
-    (`transformer.check_serve_distributable`)."""
+    `ShardedKVCache` where the slots are sharded, a ring under a sliding
+    window, else a `QuantizedKVCache` of the rank's rows), a paged
+    layer's rows (page table, residual, lengths) and its pool's kv heads
+    of `paged_cache_specs`' (``kv_axes`` the heads' axes; every page, the
+    allocator being replicated), a recurrent layer's state as each
+    leaf's spec cuts it, the specs kept on it as ``spec``
+    (`models.recurrent_mesh`)."""
     from repro_torch.core.kvcache import QuantizedKVCache, ShardedKVCache
     from repro_torch.core.paging import PagedQuantizedKVCache
     specs, whole = serve_state_specs(cfg, batch, max_len, mesh, paged=paged,
@@ -177,17 +184,22 @@ def init_serve_state(cfg, batch: int, max_len: int, mesh, *,
                 n_pages=c.pool.k_q.shape[0], kv_dtype=c.kv_dtype,
                 device=device)
             new.kv_axes = sp["pool"]["k_q"][2]
-        else:
+        elif isinstance(c, QuantizedKVCache):
             B_l = _local(c.k_q.shape, sp["k_q"], mesh)[0]
             if sp["k_q"][2]:
                 new = ShardedKVCache.init(
-                    B_l, cfg.n_kv_heads, max_len, cfg.head_dim, cfg.quant,
-                    device=device, mesh=mesh, axes=sp["k_q"][2],
+                    B_l, cfg.n_kv_heads, c.max_len, cfg.head_dim, cfg.quant,
+                    c.ring, device=device, mesh=mesh, axes=sp["k_q"][2],
                     scale_axes=sp["k_s"][2])
             else:
-                new = QuantizedKVCache.init(B_l, cfg.n_kv_heads, max_len,
-                                            cfg.head_dim, cfg.quant,
+                new = QuantizedKVCache.init(B_l, cfg.n_kv_heads, c.max_len,
+                                            cfg.head_dim, cfg.quant, c.ring,
                                             device=device)
+        else:
+            new = type(c)(**{f: torch.full(
+                _local(v.shape, sp[f], mesh), _STATE_FILL.get(f, 0.0),
+                dtype=v.dtype, device=device) for f, v in vars(c).items()})
+            new.spec = sp
         out.append(new)
     return out
 
@@ -215,10 +227,19 @@ def param_shapes(cfg):
     return init(cfg, torch.Generator(), device="meta")
 
 
+def _key(*parts) -> tuple:
+    """A spec cache key: ``parts``, the mesh shape's and the logical rules
+    in force (`parallel.shard.current_rules`, an override included), so a
+    cached spec never answers for other rules."""
+    *parts, mesh = parts
+    rules = tuple(sorted((k, tuple(v)) for k, v in current_rules().items()))
+    return (*parts, MeshShape(mesh.axis_names, mesh.sizes).key, rules)
+
+
 def param_specs(cfg, mesh):
-    """`param_shardings` of ``cfg``'s parameters (cached by config and
-    mesh shape)."""
-    key = (cfg, MeshShape(mesh.axis_names, mesh.sizes).key)
+    """`param_shardings` of ``cfg``'s parameters (cached by config, mesh
+    shape and rules)."""
+    key = _key(cfg, mesh)
     if key not in _SPECS:
         _SPECS[key] = param_shardings(param_shapes(cfg), mesh)
     return _SPECS[key]
@@ -229,7 +250,7 @@ def error_specs(cfg, mesh):
     parameters' specs in the reference's layout, a stacked leaf with its
     layer axis replicated."""
     from repro_torch.checkpoint.bridge import reference_layout
-    key = ("err", cfg, MeshShape(mesh.axis_names, mesh.sizes).key)
+    key = _key("err", cfg, mesh)
     if key not in _SPECS:
         _SPECS[key] = param_shardings(
             reference_layout(param_shapes(cfg), cfg), mesh)

@@ -47,7 +47,9 @@ weights): over a contiguous cache sharded along its slots
 gathered along the sequence) and each rank writes its own slots; a
 decode step runs the flat decode kernel over this rank's slots, merges
 every rank's partials in rank order and then the replicated fp residual
-tail. Over a paged cache whose pool holds this rank's kv heads, every
+tail; over a sharded ring each rank's live slots are those the window
+leaves live there (`core.kvcache.ring_slot_args`). Over a paged cache
+whose pool holds this rank's kv heads, every
 function above runs as it is on the rank's cut of the heads
 (`head_slice`), and the caller gathers their outputs over the heads'
 axes and applies the whole ``wo``.
@@ -254,7 +256,8 @@ def decode(p, x, cfg, positions, cache, *, local: bool = False,
         cache.append(k.float(), v.float())
         window = _window(cfg, local) if cache.ring else None
         if isinstance(cache, ShardedKVCache) and cache.per_channel:
-            o, _, l = cache.decode_partials(q[:, :, 0], cache.length)
+            o, _, l = cache.decode_partials(q[:, :, 0], cache.length,
+                                            window=window)
             out = o / torch.clamp_min(l, 1e-30)
         elif cache.per_channel:
             out = ops.quant_attention_decode(
@@ -277,7 +280,7 @@ def _decode_blocked(q, cache: QuantizedKVCache, *, window=None):
     n_tail = cache.length % bs
     win_q = None if window is None else max(window - n_tail, 0)
     if isinstance(cache, ShardedKVCache):
-        o1, m1, l1 = cache.decode_partials(q, flushed)
+        o1, m1, l1 = cache.decode_partials(q, flushed, window=win_q)
     else:
         o1, m1, l1 = ops.quant_attention_decode_partials(
             q, cache.k_q, cache.k_s, cache.v_q, cache.v_s, flushed,

@@ -9,7 +9,8 @@ shards gathered over "model", the FSDP shards of the weights gathered,
 down-projection's partial sums reduce-scattered back to sequence shards.
 Otherwise ``_apply_plain`` on the layout `logical_spec` gives: with d_ff
 sharded and the sequence whole, the partial sums all-reduced; with d_ff
-whole, this rank's rows alone. Serving under a mesh calls the plain form
+whole (or the rows split over "model" too, `Layout.free`), this rank's
+rows alone. Serving under a mesh calls the plain form
 on whole weights (gathered once a rank) over the rank's rows
 (`models.transformer`).
 """
@@ -39,7 +40,7 @@ def apply(p, x: torch.Tensor, lay=None, sp=None) -> torch.Tensor:
     rank's part of ``lay`` and ``sp`` holds the specs of p's leaves."""
     if lay is None:
         return _swiglu(p, x)
-    tp = sp["w_gate"][1]                      # the d_ff axes ("model")
+    tp = lay.free(sp["w_gate"][1])            # the d_ff axes ("model")
     w = {k: gather_param(v, sp[k], lay.mesh, keep=tp) for k, v in p.items()}
     if tp and lay.seq:                        # _sp_plan: _apply_shard_map
         return lay.to_layout(_swiglu(w, lay.whole_seq(x)), tp)

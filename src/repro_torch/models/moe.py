@@ -130,7 +130,7 @@ def _apply_sharded(p, x, cfg, lay, sp):
     """`_apply_routed` under a mesh -> (out in x's dtype and ``lay``,
     this rank's share of aux)."""
     mesh = lay.mesh
-    tp = sp["w_gate"][2]                      # the expert hidden axes
+    tp = lay.free(sp["w_gate"][2])            # the expert hidden axes
     routed = {k: gather_param(p[k], sp[k], mesh,
                               keep=() if k == "router" else tp)
               for k in ("router", "w_gate", "w_up", "w_down")}

@@ -154,14 +154,19 @@ def _scan(a, b, h0=None):
     return _assoc_scan(a, b)[1]
 
 
-def apply_seq(p, x, cfg, state: RGLRUState | None = None):
-    """Prefill: x (B, S, d) -> (out (B, S, d), final RGLRUState)."""
+def apply_seq(p, x, cfg, state: RGLRUState | None = None,
+              f32_out: bool = False):
+    """Prefill: x (B, S, d) -> (out (B, S, d), final RGLRUState). Over a
+    cut of the channels (a rank's) the output is their part of the
+    ``w_out`` product; ``f32_out`` keeps that product in float32 (the
+    parts are summed before one rounding)."""
     gate = gelu(x @ p["w_gate"])
     u = (x @ p["w_in"]).float()
     u, tail = _conv1d(p, u, None if state is None else state.conv)
     a, b = _gates(p, u)
     h = _scan(a, b, None if state is None else state.h)      # (B, S, w)
-    out = (h.to(x.dtype) * gate) @ p["w_out"]
+    y = h.to(x.dtype) * gate
+    out = y.float() @ p["w_out"].float() if f32_out else y @ p["w_out"]
     return out, RGLRUState(h=h[:, -1], conv=tail.float())
 
 

@@ -43,19 +43,23 @@ block gathers, inside its checkpoint region, the weights its compute
 needs (so the recompute gathers again and the backward reduce-scatters
 the gradients). The embedding is vocab-parallel (the rows this "model"
 rank lacks are zero, then a reduce-scatter along the sequence), and so
-are the logits. The attention, MLP and MoE blocks train under a mesh;
-the recurrent kinds and the encoder-decoder wait for ROADMAP item 15
-(`check_distributable`).
+are the logits, where the rows are not split over the vocab's axes
+too (an override that gives "model" to the batch, `SSM_RULES`: then
+whole). Every decoder kind trains under a mesh: the recurrent ones in
+the layouts of `models.recurrent_mesh`; the encoder-decoder waits for
+ROADMAP item 15 (`check_distributable`).
 
-Serving under a mesh (`check_serve_distributable`: the attention and MoE
-stacks without a sliding window) takes the global batch and WHOLE
+Serving under a mesh (`check_distributable`: every decoder stack; a
+sliding window from a sharded ring) takes the global batch and WHOLE
 weights on every rank (`serving.engine.make_serve_fns` gathers a rank's
 shards once) and runs this rank's rows (`serve_layout`): the caches are
 this rank's shards of `launch.specs.cache_shardings` /
 `parallel.shard.paged_cache_specs` (`launch.specs.init_serve_state`). A
 contiguous prefill runs context parallel over "model" and each rank
-writes its slots of the sequence-sharded cache; a contiguous decode
-step merges the ranks' flat decode partials (`models.attention`). Over
+writes its slots of the sequence-sharded cache (a ring under a sliding
+window); a contiguous decode step merges the ranks' flat decode
+partials (`models.attention`). A recurrent layer runs as
+`models.recurrent_mesh` lays it out, its state this rank's shards. Over
 a paged pool of this rank's kv heads the attention runs on their cut,
 and the heads' outputs are gathered over "model" before the whole
 ``wo``. The MLP and the MoE run on whole
@@ -74,7 +78,8 @@ from repro_torch.core import quantization as Q
 from repro_torch.core.kvcache import QuantizedKVCache
 from repro_torch.core.paging import PagedQuantizedKVCache
 from repro_torch.core.tree import leaves, tree_map
-from repro_torch.models import attention, mlp, moe, rglru, xlstm
+from repro_torch.models import (attention, mlp, moe, recurrent_mesh, rglru,
+                                xlstm)
 from repro_torch.models import sampling as SMP
 from repro_torch.models.common import (dense_init, embed_init, layernorm,
                                        layernorm_init, rmsnorm, rmsnorm_init)
@@ -299,45 +304,23 @@ def _embed(params, tok, cfg, positions):
 
 
 def check_distributable(cfg, mesh) -> bool:
-    """Whether training runs sharded on ``mesh`` (None: no mesh). The
-    attention kinds do; a stack with rglru, mlstm or slstm blocks, or an
-    encoder-decoder, raises `ValueError` on a mesh of several ranks (for
-    training and for serving alike) and runs its one-device path on a
-    mesh of one."""
+    """Whether training and serving run sharded on ``mesh`` (None: no
+    mesh). Every decoder stack does, whatever its kinds; an
+    encoder-decoder raises `ValueError` on a mesh of several ranks and
+    runs its one-device path on a mesh of one."""
     if mesh is None:
         return False
-    other = sorted({k for k in cfg.block_pattern if k not in ATTN_KINDS})
-    if cfg.family == "encdec" or other:
+    if cfg.family == "encdec":
         if mesh.size > 1:
-            what = "an encoder-decoder" if cfg.family == "encdec" else \
-                f"{'/'.join(other)} blocks"
             raise ValueError(
-                f"{cfg.name}: {what} under a mesh of {mesh.size} ranks "
-                f"wait for ROADMAP item 15 (the reference shards their "
-                f"batch over the idle model axis and lays out "
-                f"cross-attention apart); train or serve them on one rank")
+                f"{cfg.name}: an encoder-decoder under a mesh of "
+                f"{mesh.size} ranks waits for ROADMAP item 15 (its cross "
+                f"caches laid out per channel over the encoder's slots, "
+                f"its encoder context parallel); train or serve it on one "
+                f"rank")
         return False
     return True
 
-
-def check_serve_distributable(cfg, mesh) -> bool:
-    """Whether serving runs sharded on ``mesh`` (None: no mesh): the
-    attention and MoE stacks without a sliding window do. On a mesh of
-    several ranks a sliding window (mixtral_8x22b's ring) raises
-    `ValueError` citing ROADMAP item 13, and rglru, mlstm or slstm
-    blocks or an encoder-decoder as `check_distributable` does (item
-    15); on a mesh of one rank they run their one-device path."""
-    if not check_distributable(cfg, mesh):
-        return False
-    if cfg.sliding_window:
-        if mesh.size > 1:
-            raise ValueError(
-                f"{cfg.name}: a sliding window (the contiguous ring) under "
-                f"a mesh of {mesh.size} ranks waits for ROADMAP item 13 "
-                f"(the ring's slots wrap across the sequence shards); "
-                f"serve it on one rank")
-        return False
-    return True
 
 
 def _sub(sp, key):
@@ -355,6 +338,8 @@ def _block_train(p, x, kind: str, cfg, positions, lay=None, sp=None):
         h = attention.train(p["attn"], h, cfg, positions,
                             local=kind == "local_attn", lay=lay,
                             sp=_sub(sp, "attn"))
+    elif lay is not None:
+        h = recurrent_mesh.train(kind, p[kind], h, cfg, lay, sp[kind])
     elif kind == "rglru":
         h, _ = rglru.apply_seq(p["rglru"], h, cfg)
     elif kind == "mlstm":
@@ -379,7 +364,7 @@ def _embed_sharded(params, sp, tok, cfg, lay):
     vocab axes onto the sequence shards."""
     if cfg.embedding_inputs and tok.dim() == 3:
         return lay.to_layout(tok.to(cfg.activation_dtype), ())
-    vax = sp["embed"][0]
+    vax = lay.free(sp["embed"][0])
     E = gather_param(params["embed"], sp["embed"], lay.mesh, keep=vax)
     if not vax:
         return lay.to_layout(E[tok], ())
@@ -398,9 +383,11 @@ def _head_sharded(params, sp, x, cfg, lay):
     x = lay.whole_seq(norm(cfg, params["final_norm"], x))
     if cfg.tie_embeddings:
         e = sp["embed"]
-        return x @ gather_param(params["embed"], e, lay.mesh, keep=e[0]).T
+        return x @ gather_param(params["embed"], e, lay.mesh,
+                                keep=lay.free(e[0])).T
     h = sp["lm_head"]
-    return x @ gather_param(params["lm_head"], h, lay.mesh, keep=h[1])
+    return x @ gather_param(params["lm_head"], h, lay.mesh,
+                            keep=lay.free(h[1]))
 
 
 def logits_spec(cfg, B: int, S: int, mesh) -> tuple:
@@ -509,7 +496,10 @@ def _block_serve(p, x, kind: str, cfg, positions, cache, mode: str,
             raise ValueError(f"{kind} blocks serve prefill and decode only "
                              f"(got mode {mode!r})")
         seq = mode == "prefill"
-        if kind == "rglru":
+        if lay is not None:
+            fn = recurrent_mesh.prefill if seq else recurrent_mesh.decode
+            h = fn(kind, p[kind], h, cfg, lay, cache)
+        elif kind == "rglru":
             h, new = (rglru.apply_seq(p["rglru"], h, cfg) if seq else
                       rglru.apply_step(p["rglru"], h, cfg, cache))
         elif kind == "mlstm":
@@ -518,7 +508,8 @@ def _block_serve(p, x, kind: str, cfg, positions, cache, mode: str,
         else:
             h, new = (xlstm.slstm_seq(p["slstm"], h, cfg) if seq else
                       xlstm.slstm_step(p["slstm"], h, cfg, cache))
-        cache.copy_(new)
+        if lay is None:
+            cache.copy_(new)
     x = x + h.to(x.dtype)
     if "moe" in p:
         h2 = norm(cfg, p["norm2"], x)
@@ -537,11 +528,11 @@ def _serve(params, tok, cfg, state, positions, mode: str, row_mask=None,
     states, the layout) — the head is applied by the caller, only where it
     reads logits (the same numbers as the reference's all-position head).
     Without a mesh the states are (B, S, d) and the layout None; under one
-    (`check_serve_distributable`) they are this rank's rows, and in a
+    (`check_distributable`) they are this rank's rows, and in a
     contiguous prefill its positions, of `serve_layout`."""
     mesh = current_mesh()
     lay = None
-    if check_serve_distributable(cfg, mesh):
+    if check_distributable(cfg, mesh):
         lay = serve_layout(mesh, cfg, *tok.shape, mode,
                            isinstance(state[0], PagedQuantizedKVCache))
         rows, cols = lay.rows(), lay.positions()
@@ -560,10 +551,13 @@ def serve_layout(mesh, cfg, B: int, S: int, mode: str,
     """Where a serving step's (B, S, d) activations live under ``mesh``:
     rows over "batch" as the caches' specs lay them out (a row's cache
     lives with it), and the positions of a contiguous prefill over
-    "seq_shard" (context parallel); every other step keeps the whole
-    sequence."""
+    "seq_shard" (context parallel) in a stack with attention; every other
+    step, and an attention-free stack's prefill (each of its blocks
+    gathers the whole sequence: a split would only add the gathers),
+    keeps the whole sequence."""
     lay = Layout.of(mesh, B, S, cfg.d_model)
-    if mode != "prefill" or paged:
+    if mode != "prefill" or paged or not any(
+            k in ATTN_KINDS for k in cfg.block_pattern):
         lay = dataclasses.replace(lay, seq=())
     return lay
 

@@ -15,6 +15,11 @@ matrix memory stored INT8 with per-channel scales between steps
 (``state_quant``). sLSTM is a true recurrence: a prompt steps through its
 tokens one at a time (a host loop), as the reference's ``jax.lax.scan``.
 
+The head count comes from the weights (``w_if`` has two columns a head),
+so a rank of a mesh runs its cut of the heads (`models.recurrent_mesh`);
+`mlstm_step` takes the key-dim part a rank holds of a sharded matrix
+memory, and the sLSTM cell the channels a rank holds of its state.
+
 Every contraction is a plain matmul or einsum, as the reference computes
 them outside any Pallas kernel. The functions are functional and return
 new states; the serving path copies them into the persistent state
@@ -78,12 +83,17 @@ def mlstm_init_state(cfg, batch: int, state_quant: bool = False, *,
         C_s=torch.full((batch, nh, dh), 1e-30, **f32))
 
 
+def _heads(p, cfg) -> tuple[int, int]:
+    """(heads of ``p``, head width): the weights may hold a cut of the
+    heads."""
+    return p["w_if"].shape[1] // 2, cfg.d_model // cfg.n_heads
+
+
 def _qkv_gates(p, x, cfg):
     """x (B, S, d) -> q, k, v (B, H, S, dh) in x's dtype (k / sqrt(dh)),
-    log_i, log_f (B, H, S) float32."""
-    B, S, d = x.shape
-    nh = cfg.n_heads
-    dh = d // nh
+    log_i, log_f (B, H, S) float32; H the heads of ``p``."""
+    B, S, _ = x.shape
+    nh, dh = _heads(p, cfg)
     heads = lambda t: t.reshape(B, S, nh, dh).transpose(1, 2)
     q = heads(x @ p["wq"])
     k = heads(x @ p["wk"]) / torch.sqrt(torch.tensor(float(dh),
@@ -95,12 +105,14 @@ def _qkv_gates(p, x, cfg):
     return q, k, v, log_i.transpose(1, 2), log_f.transpose(1, 2)
 
 
-def mlstm_seq(p, x, cfg, chunk: int = 256):
+def mlstm_seq(p, x, cfg, chunk: int = 256, f32_out: bool = False):
     """Chunkwise-parallel prefill: x (B, S, d) -> ((B, S, d), final
-    MLSTMState), quadratic within a chunk and recurrent across chunks."""
-    B, S, d = x.shape
-    nh = cfg.n_heads
-    dh = d // nh
+    MLSTMState), quadratic within a chunk and recurrent across chunks.
+    Over a cut of the heads (``p``'s) the output is their part of the
+    ``wo`` product; ``f32_out`` keeps it in float32 (the parts are summed
+    before one rounding)."""
+    B, S, _ = x.shape
+    nh, dh = _heads(p, cfg)
     chunk = min(chunk, S)
     if S % chunk:
         raise ValueError(f"mlstm_seq: S={S} is no multiple of the chunk "
@@ -151,16 +163,24 @@ def mlstm_seq(p, x, cfg, chunk: int = 256):
         np_ = decay[..., None] * np_ + torch.einsum("bhs,bhsd->bhd", wu, kt)
         mp = m_n
     h = torch.stack(hs, dim=2).reshape(B, nh, S, dh)
-    out = h.transpose(1, 2).reshape(B, S, d).to(x.dtype) @ p["wo"]
+    h = h.transpose(1, 2).reshape(B, S, nh * dh).to(x.dtype)
+    out = h.float() @ p["wo"].float() if f32_out else h @ p["wo"]
     state = MLSTMState(C=Cp, n=np_, m=mp,
                        C_s=torch.full(np_.shape, 1e-30, dtype=torch.float32,
                                       device=x.device))
     return out, state
 
 
-def mlstm_step(p, x, cfg, state: MLSTMState, state_quant: bool = False):
-    """Decode step: x (B, 1, d) -> ((B, 1, d), new state)."""
-    B, _, d = x.shape
+def mlstm_step(p, x, cfg, state: MLSTMState, state_quant: bool = False,
+               part=None):
+    """Decode step: x (B, 1, d) -> ((B, 1, d), new state). ``part``
+    (keys, reduce): ``state`` holds the key dims ``keys`` (a slice) of C,
+    n and C_s, a rank's part of a memory sharded over them; the readout
+    ``C^T q`` and the normaliser ``n . q`` are then partial sums over the
+    key dims, and ``reduce(hnum, nq)`` returns them summed over every
+    part."""
+    B = x.shape[0]
+    keys = slice(None) if part is None else part[0]
     q, k, v, log_i, log_f = _qkv_gates(p, x, cfg)
     q, k, v = q[:, :, 0], k[:, :, 0], v[:, :, 0]                # (B,H,dh)
     log_i, log_f = log_i[..., 0], log_f[..., 0]                 # (B,H)
@@ -173,13 +193,16 @@ def mlstm_step(p, x, cfg, state: MLSTMState, state_quant: bool = False):
     m_new = torch.maximum(log_f + state.m, log_i)
     f_eff = torch.exp(log_f + state.m - m_new)[..., None]
     i_eff = torch.exp(log_i - m_new)[..., None]
+    k = k[..., keys]
     C = f_eff[..., None] * C_prev + (i_eff * k)[..., None] * v[..., None, :]
     n = f_eff * state.n + i_eff * k
-    qf = q.float()
+    qf = q.float()[..., keys]
     hnum = torch.einsum("bhde,bhd->bhe", C, qf)
-    hden = torch.maximum(torch.einsum("bhd,bhd->bh", n, qf).abs()[..., None],
-                         torch.exp(-m_new)[..., None])
-    h = (hnum / hden).reshape(B, 1, d).to(x.dtype)
+    nq = torch.einsum("bhd,bhd->bh", n, qf)
+    if part is not None:
+        hnum, nq = part[1](hnum, nq)
+    hden = torch.maximum(nq.abs()[..., None], torch.exp(-m_new)[..., None])
+    h = (hnum / hden).reshape(B, 1, -1).to(x.dtype)
     out = h @ p["wo"]
 
     if state_quant:
@@ -223,17 +246,23 @@ def slstm_init_state(cfg, batch: int, *, device) -> SLSTMState:
                                    dtype=torch.float32, device=device))
 
 
-def _slstm_cell(p, gx, st: SLSTMState, dtype):
+def _slstm_cell(p, gx, st: SLSTMState, dtype, h_prev=None,
+                ch=slice(None)):
     """One step from the input's gate pre-activations ``gx`` (B, 4d)
-    float32 (x_t @ w_gates) and the state."""
-    g = gx + (st.h.to(dtype) @ p["r_gates"]).float() + p["b"]
+    float32 (x_t @ w_gates) and the state. Where ``st`` holds the
+    channels ``ch`` of c, n and h (a rank's part), ``h_prev`` is the
+    whole previous h and the new c, n, h are those channels; m is
+    whole."""
+    hp = st.h if h_prev is None else h_prev
+    g = gx + (hp.to(dtype) @ p["r_gates"]).float() + p["b"]
     gi, gf, gz, go = torch.chunk(g, 4, dim=-1)
     log_i = gi                                    # exponential input gate
     log_f = -softplus(-gf)                        # log sigmoid(f)
     m_new = torch.maximum(log_f + st.m, log_i)
-    i_eff = torch.exp(log_i - m_new)
-    f_eff = torch.exp(log_f + st.m - m_new)
-    c = f_eff * st.c + i_eff * torch.tanh(gz)
+    i_eff = torch.exp(log_i - m_new)[..., ch]
+    f_eff = torch.exp(log_f + st.m - m_new)[..., ch]
+    go = go[..., ch]
+    c = f_eff * st.c + i_eff * torch.tanh(gz[..., ch])
     n = f_eff * st.n + i_eff
     h = torch.sigmoid(go) * c / torch.clamp_min(n, 1e-12)
     return SLSTMState(c=c, n=n, h=h, m=m_new)

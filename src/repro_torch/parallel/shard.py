@@ -76,19 +76,35 @@ def current_mesh():
     return getattr(_state, "mesh", None)
 
 
+def rules_override() -> dict | None:
+    """The active `mesh_context`'s override of the rules (None: none)."""
+    return getattr(_state, "rules", None)
+
+
 def current_rules() -> dict:
-    return LOGICAL_RULES
+    """`LOGICAL_RULES` with the active `mesh_context`'s override merged
+    over them."""
+    over = getattr(_state, "rules", None)
+    return {**LOGICAL_RULES, **(over or {})}
 
 
 @contextlib.contextmanager
-def mesh_context(mesh):
-    """Activate a mesh for the code inside."""
-    prev = current_mesh()
-    _state.mesh = mesh
+def mesh_context(mesh, rules: dict | None = None):
+    """Activate a mesh (and an override of some logical rules, e.g.
+    `SSM_RULES`) for the code inside."""
+    prev, prev_rules = current_mesh(), getattr(_state, "rules", None)
+    _state.mesh, _state.rules = mesh, rules
     try:
         yield
     finally:
-        _state.mesh = prev
+        _state.mesh, _state.rules = prev, prev_rules
+
+
+# the reference's override for attention-free stacks (family "ssm"): with
+# no tensor or context parallel use for "model", the batch takes it too
+# (src/repro/launch/dryrun.py:101-104); "heads" and "ffn" then find
+# "model" taken and replicate
+SSM_RULES: dict[str, tuple[str, ...]] = {"batch": ("pod", "data", "model")}
 
 
 class MeshShape:
@@ -500,11 +516,13 @@ def unused_axes(spec, mesh) -> tuple[str, ...]:
 @torch.no_grad()
 def gather_leaf(x, spec, mesh):
     """One leaf's shards -> the whole array, on every rank (a dimension
-    over axes of size 1 is whole already: not gathered)."""
+    over axes of size 1 is whole already: not gathered), contiguous as
+    one process holds it (a matmul on a gathered view of another stride
+    sums in another order)."""
     for dim, axes in enumerate(spec):
         if axes and mesh.index(axes)[1] > 1:
             x = mesh.all_gather(x, axes, dim)
-    return x
+    return x.contiguous()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -555,6 +573,35 @@ class Layout:
         """(B_l, S_l, d) -> (B_l, S, d): the sequence gathered over its
         axes (differentiable; the transpose reduce-scatters)."""
         return all_gather(x, self.seq, 1, self.mesh) if self.seq else x
+
+    def free(self, axes) -> tuple[str, ...]:
+        """``axes`` where the ranks along them hold the same rows (a layer
+        may split its channels or vocab over them and sum the parts), or
+        ``()`` where the rows are split over one of them (an override
+        that gives "model" to the batch: each rank computes whole)."""
+        axes = tuple(axes or ())
+        return () if set(axes) & set(self.batch) else axes
+
+
+@torch.no_grad()
+def refit(x, have, want, mesh):
+    """``x``, this rank's block of an array laid out by spec ``have`` ->
+    its block by spec ``want``: a dimension sharded in ``have`` and not
+    in ``want`` is gathered over its axes, one sharded in ``want`` and
+    not in ``have`` is cut to this rank's part (a dimension over other
+    axes in each is gathered, then cut). Every gather comes before any
+    cut: the ranks of a gather must hold the same block of the other
+    dimensions."""
+    moves = [(dim, tuple(h), tuple(w)) for dim, (h, w) in
+             enumerate(zip(have, want)) if tuple(h) != tuple(w)]
+    for dim, h, _ in moves:
+        if h and mesh.index(h)[1] > 1:
+            x = mesh.all_gather(x, h, dim)
+    for dim, _, w in moves:
+        if w:
+            s = shard_slices((w,), (x.shape[dim],), mesh)[0]
+            x = x.narrow(dim, s.start, s.stop - s.start)
+    return x
 
 
 # -- paged KV cache specs (core/paging.py) ---------------------------------------

@@ -20,15 +20,16 @@ eagerly (ROADMAP queue 1, item 16's remainder).
 Under `parallel.shard.mesh_context` (a mesh of ranks, each calling the
 same functions in step), `make_serve_fns` and `make_chunk_prefill_fn`
 serve sharded as the reference's functions do under its mesh
-(`transformer.check_serve_distributable`: the attention and MoE stacks
-without a sliding window; the others raise a named `ValueError` on a
-mesh of several ranks). ``init_state`` builds this rank's shards of the
+(`transformer.check_distributable`: every decoder stack; an
+encoder-decoder raises a named `ValueError` on a mesh of several
+ranks). ``init_state`` builds this rank's shards of the
 state (`launch.specs.init_serve_state`); the steps take this rank's
 shards of the parameters (`launch.specs.param_specs`' layout), gather
 them whole once per rank (`gathered_weights`, never per step), take the
 global batch and return every row's logits. The functions run under the
-mesh they were built under (None included), whatever is active when
-they are called. `generate`, the batchers and the serve CLI run on one
+mesh and rules they were built under (None included; an override of
+the logical rules, `parallel.shard.SSM_RULES`, included), whatever is
+active when they are called. `generate`, the batchers and the serve CLI run on one
 device and refuse a mesh (`check_one_device`).
 """
 from __future__ import annotations
@@ -42,7 +43,8 @@ from repro_torch.core.tree import leaves
 from repro_torch.models import encdec
 from repro_torch.models import sampling as SMP
 from repro_torch.models import transformer
-from repro_torch.parallel.shard import current_mesh, mesh_context
+from repro_torch.parallel.shard import (current_mesh, mesh_context,
+                                        rules_override)
 from repro_torch.serving.params import SamplingParams, sampling_arrays
 
 
@@ -96,11 +98,12 @@ def release_gathered_weights(mesh) -> None:
     mesh.gathered.clear()
 
 
-def _on_mesh(mesh, sharded: bool, cfg, fn):
-    """``fn(params, ...)`` run under ``mesh``; with ``sharded``, on the
-    whole weights gathered from this rank's shards."""
+def _on_mesh(mesh, sharded: bool, cfg, fn, rules=None):
+    """``fn(params, ...)`` run under ``mesh`` and ``rules``; with
+    ``sharded``, on the whole weights gathered from this rank's
+    shards."""
     def run(params, *args, **kw):
-        with mesh_context(mesh):
+        with mesh_context(mesh, rules):
             if sharded:
                 params = gathered_weights(params, cfg, mesh)
             return fn(params, *args, **kw)
@@ -127,8 +130,8 @@ def make_serve_fns(cfg, *, max_len: int, paged: bool = False,
     parameter shards and the global batch and return (logits (B, Vp),
     state); a config that does not shard raises `ValueError` here on a
     mesh of several ranks."""
-    mesh = current_mesh()
-    sharded = transformer.check_serve_distributable(cfg, mesh)
+    mesh, rules = current_mesh(), rules_override()
+    sharded = transformer.check_distributable(cfg, mesh)
     if cfg.family == "encdec":
         check_encdec(paged, kv_cache_dtype)
 
@@ -149,10 +152,11 @@ def make_serve_fns(cfg, *, max_len: int, paged: bool = False,
     def init_state(batch):
         if sharded:
             from repro_torch.launch.specs import init_serve_state
-            return init_serve_state(cfg, batch, max_len, mesh, paged=paged,
-                                    n_pages=n_pages,
-                                    kv_cache_dtype=kv_cache_dtype,
-                                    device=device)
+            with mesh_context(mesh, rules):
+                return init_serve_state(cfg, batch, max_len, mesh,
+                                        paged=paged, n_pages=n_pages,
+                                        kv_cache_dtype=kv_cache_dtype,
+                                        device=device)
         return transformer.init_decode_state(
             cfg, batch, max_len, paged=paged, n_pages=n_pages,
             kv_cache_dtype=kv_cache_dtype, device=device)
@@ -165,8 +169,8 @@ def make_serve_fns(cfg, *, max_len: int, paged: bool = False,
         return transformer.decode_step(params, token, cfg, state, pos,
                                        row_mask=row_mask)
 
-    return (init_state, _on_mesh(mesh, sharded, cfg, prefill_fn),
-            _on_mesh(mesh, sharded, cfg, decode_fn))
+    return (init_state, _on_mesh(mesh, sharded, cfg, prefill_fn, rules),
+            _on_mesh(mesh, sharded, cfg, decode_fn, rules))
 
 
 def make_chunk_prefill_fn(cfg, *, hist_blocks: int | None = None):
@@ -179,8 +183,8 @@ def make_chunk_prefill_fn(cfg, *, hist_blocks: int | None = None):
     batch in, every row's logits out."""
     if cfg.family == "encdec":
         raise ValueError("chunked prefill is decoder-only")
-    mesh = current_mesh()
-    sharded = transformer.check_serve_distributable(cfg, mesh)
+    mesh, rules = current_mesh(), rules_override()
+    sharded = transformer.check_distributable(cfg, mesh)
 
     def chunk_prefill(params, tokens, state, start, valid, row_mask):
         return transformer.prefill_chunk(params, tokens, cfg, state,
@@ -188,7 +192,7 @@ def make_chunk_prefill_fn(cfg, *, hist_blocks: int | None = None):
                                          row_mask=row_mask,
                                          hist_blocks=hist_blocks)
 
-    return _on_mesh(mesh, sharded, cfg, chunk_prefill)
+    return _on_mesh(mesh, sharded, cfg, chunk_prefill, rules)
 
 
 def generate(params, cfg, prompts, *, steps: int, sampling=None,

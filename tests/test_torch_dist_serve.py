@@ -7,8 +7,9 @@ UNSHARDED `make_serve_fns` on the same numpy weights (helpers and
 tolerances in tests/torch_serve_parity.py).
 
 internlm2_1_8b per block and per channel, qwen2_moe_a2_7b (the MoE
-routes the gathered sequence in the context-parallel prefill) and
-qwen2_vl_2b (M-RoPE), smoke in float32, each on meshes (data 2, model 2)
+routes the gathered sequence in the context-parallel prefill),
+qwen2_vl_2b (M-RoPE), codeqwen1_5_7b and qwen2_5_32b (QKV bias) and
+llama3_2_3b, smoke in float32, each on meshes (data 2, model 2)
 and (data 1, model 4): 4 prompts of 24 tokens, max_len 48, then 8
 decode steps teacher-forced on the reference's greedy stream (a block
 flush at position 31). At (2, 2) a rank holds 24 slots, so the second
@@ -22,11 +23,26 @@ step sending the same bytes, and its cache (its rows, slots and scale
 rows) against the reference cache's slice by the page rule. Also: a
 decode from the reference's own prefill state carried into each rank's
 shards (`checkpoint.bridge.serve_state_from_numpy`, bit for bit), and
-the configs that do not shard: mixtral_8x22b (a sliding window,
-ROADMAP item 13), recurrentgemma_9b and xlstm_350m (recurrent blocks)
-and whisper_small (an encoder-decoder; item 15) raise a named
-`ValueError` under a mesh of 4 and serve their one-device path under a
-mesh of 1 (logits equal the port's own without a mesh)."""
+the config that does not shard: whisper_small (an encoder-decoder;
+ROADMAP item 15) raises a named `ValueError` under a mesh of 4 and
+serves its one-device path under a mesh of 1 (logits equal the port's
+own without a mesh).
+
+The long-context stacks (`RECURRENT`): recurrentgemma_9b (RG-LRU and a
+local-attention ring) per block and per channel and mixtral_8x22b (a
+sliding-window ring) on 40-token prompts, so the 16-slot smoke ring has
+wrapped twice at the prefill (4 slots a rank at (1, 4), blocks of 8
+straddling two ranks, the scale rows replicated, and once the residual
+holds 4 tokens or more a rank whose slots the window leaves dead, which
+merges m = -1e30), and the block flush at position 47 lands on the
+ring's second block; xlstm_350m (mLSTM / sLSTM)
+under the default rules and under `SSM_RULES`. Each rank's ring and
+recurrent states are held against the reference state's slice where
+`launch.specs.cache_shardings` puts its shard (`check_state`). And
+(`SQ_CASES`) the sharded decode of `models.recurrent_mesh` over an
+mLSTM and an RG-LRU state, with and without ``state_quant``, against
+the reference's `mlstm_step` / `apply_step` (6 steps from the int8
+initial state: outputs and the state's shards)."""
 import dataclasses
 
 import numpy as np
@@ -41,10 +57,20 @@ from torch_dist import run_ranks
 from torch_dist_worker import load_tree, save_tree, serve_once
 
 CASES = [("internlm2_1_8b", "per_block"), ("internlm2_1_8b", "per_channel"),
-         ("qwen2_moe_a2_7b", "per_block"), ("qwen2_vl_2b", "per_block")]
-REFUSED = {"mixtral_8x22b": "ROADMAP item 13",
-           "recurrentgemma_9b": "ROADMAP item 15",
-           "xlstm_350m": "ROADMAP item 15", "whisper_small": "ROADMAP item 15"}
+         ("qwen2_moe_a2_7b", "per_block"), ("qwen2_vl_2b", "per_block"),
+         ("codeqwen1_5_7b", "per_block"), ("qwen2_5_32b", "per_block"),
+         ("llama3_2_3b", "per_block")]
+# (arch, granularity, rules, prompt length)
+RECURRENT = [("recurrentgemma_9b", "per_block", "default", 40),
+             ("recurrentgemma_9b", "per_channel", "default", 40),
+             ("mixtral_8x22b", "per_block", "default", 40),
+             ("xlstm_350m", "per_block", "default", 24),
+             ("xlstm_350m", "per_block", "ssm", 24)]
+# (arch, the layer's kind, rules) of the state_quant decode
+SQ_CASES = [("xlstm_350m", "mlstm", "default"), ("xlstm_350m", "mlstm", "ssm"),
+            ("recurrentgemma_9b", "rglru", "default")]
+SQ_STEPS = 6
+REFUSED = {"whisper_small": "ROADMAP item 15"}
 
 
 def _cfg(arch):
@@ -73,6 +99,25 @@ def results(tmp_path_factory):
             tasks.append(SV.serve_task(
                 arch, "2x2", w, b, d / "carried", granularity=gran,
                 ref_state=str(d / "prefill_state.npz")))
+    for arch, gran, rules, s in RECURRENT:
+        rcfg, rparams = SV.models(arch, gran)
+        toks = SV.tokens(rcfg, s=s)
+        ref = SV.run_reference(rcfg, rparams, toks)
+        key = f"{arch}-{gran}-{rules}"
+        refs[key] = (rcfg, ref)
+        w, b = SV.write_inputs(d, key, rparams, toks, ref)
+        for m in SV.MESHES:
+            tasks.append(SV.serve_task(arch, m, w, b, d / f"{key}.{m}",
+                                       granularity=gran, rules=rules))
+    for arch, kind, rules in SQ_CASES:
+        for sq in (False, True):
+            key = f"sq-{arch}-{rules}-{sq}"
+            refs[key] = SV.recurrent_reference(arch, kind, sq, SQ_STEPS,
+                                               d / f"{key}.in.npz")
+            for m in SV.MESHES:
+                tasks.append(SV.recurrent_task(arch, kind, m, sq, rules,
+                                               d / f"{key}.in.npz",
+                                               d / f"{key}.{m}"))
     for arch in REFUSED:
         cfg = _cfg(arch)
         init = encdec.init_params if cfg.family == "encdec" else \
@@ -109,6 +154,48 @@ def test_sharded_serving_matches_reference(results, arch, gran, mesh):
         (i * 48 // model, (i + 1) * 48 // model) for i in range(model)}
     if mesh == "1x4" and gran == "per_block":     # 6 blocks over 4 ranks
         assert all(tuple(w["scales"]) == (0, 6) for w in where)
+
+
+@pytest.mark.parametrize("mesh", list(SV.MESHES))
+@pytest.mark.parametrize("arch,gran,rules,s", RECURRENT)
+def test_sharded_long_context_serving_matches_reference(results, arch, gran,
+                                                        rules, s, mesh):
+    """Logits and greedy tokens as `test_sharded_serving_matches_reference`
+    holds them, and every layer's ring or recurrent state against the
+    reference's slice."""
+    d, refs = results
+    key = f"{arch}-{gran}-{rules}"
+    rcfg, ref = refs[key]
+    ranks = [load_tree(d / f"{key}.{mesh}.{r}.npz") for r in range(4)]
+    for r, got in enumerate(ranks):
+        label = f"{key} {mesh} rank {r}"
+        SV.check_logits(got["logits"], ref["logits"], rcfg.vocab, label)
+        np.testing.assert_array_equal(got["logits"], ranks[0]["logits"],
+                                      err_msg=f"{label}: ranks differ")
+        assert len(set(got["sent"].tolist())) == 1, (label, got["sent"])
+        SV.check_state(got["state"], ref["state"], got["slices"], rcfg,
+                       label)
+    if rcfg.sliding_window:                       # the ring's slots split
+        n_model = SV.MESHES[mesh][1]
+        slots = {tuple(g["slices"][f"{_first_attn(rcfg)}.k_q"][2])
+                 for g in ranks}
+        assert len(slots) == n_model, slots
+
+
+def _first_attn(cfg) -> int:
+    return next(i for i in range(cfg.n_layers)
+                if cfg.block_kind(i) in ("attn", "local_attn", "moe"))
+
+
+@pytest.mark.parametrize("mesh", list(SV.MESHES))
+@pytest.mark.parametrize("sq", [False, True], ids=["f32", "state_quant"])
+@pytest.mark.parametrize("arch,kind,rules", SQ_CASES)
+def test_sharded_recurrent_decode_matches_reference(results, arch, kind,
+                                                    rules, sq, mesh):
+    d, refs = results
+    key = f"sq-{arch}-{rules}-{sq}"
+    SV.check_recurrent(refs[key], [load_tree(d / f"{key}.{mesh}.{r}.npz")
+                                   for r in range(4)], f"{key} {mesh}")
 
 
 def test_prefill_state_carried_into_shards(results):

@@ -15,8 +15,14 @@ to 1.1% in L2); with compression at most 1e-4 of the elements a level
 apart, and the error state held as there. Also: a sequence and batch
 that do not divide the mesh (B 3, S 31: both replicate, as
 `logical_spec` says) and kv_heads 2 < model 4 on a (1, 4) mesh; the
-refusal of the recurrent and encoder-decoder configs under a mesh (a
-ValueError citing ROADMAP item 15); and a checkpoint saved at (2, 2)
+recurrent stacks (`models.recurrent_mesh`): recurrentgemma_9b (RG-LRU
+channel parallel, local attention context parallel in between) and
+xlstm_350m (mLSTM head parallel, sLSTM whole on each rank of a row
+block) at (2, 2), (2, 1, 2) and (1, 4), and both under `SSM_RULES`
+("ssm": the batch over every axis, every rank whole sequences of its own
+rows, the vocab-parallel embedding and head then whole) at (2, 2); the
+refusal of the encoder-decoder under a mesh (a ValueError citing
+ROADMAP item 15); and a checkpoint saved at (2, 2)
 restored at (1, 1) and at (2, 1, 2), bit for bit; the train CLI on the
 one-rank host mesh."""
 import json
@@ -45,9 +51,13 @@ CASES = [("internlm2_1_8b", "plain", 4, 32, ("2x2", "pod")),
          ("internlm2_1_8b", "mb", 4, 32, ("2x2", "pod")),
          ("qwen2_5_32b", "plain", 4, 32, ("2x2", "pod")),
          ("qwen2_vl_2b", "plain", 4, 32, ("2x2", "pod")),
-         ("internlm2_1_8b", "plain", 3, 31, ("2x2",))]
+         ("internlm2_1_8b", "plain", 3, 31, ("2x2",)),
+         ("recurrentgemma_9b", "plain", 4, 32, ("2x2", "pod", "1x4")),
+         ("recurrentgemma_9b", "ssm", 4, 32, ("2x2",)),
+         ("xlstm_350m", "plain", 4, 32, ("2x2", "pod", "1x4")),
+         ("xlstm_350m", "ssm", 4, 32, ("2x2",))]
 ODD = {"1x4": ((1, 4), ("data", "model"))}
-REFUSED = ("recurrentgemma_9b", "xlstm_350m", "whisper_small")
+REFUSED = ("whisper_small",)
 SRC = Path(__file__).resolve().parents[1] / "src"
 
 
@@ -57,6 +67,10 @@ def pp_cfg(arch):
 
 def _kw(mode):
     return {"gc": mode == "gc", "mb": 2 if mode == "mb" else 1}
+
+
+def _rules(mode):
+    return {"rules": "ssm"} if mode == "ssm" else {}
 
 
 @pytest.fixture(scope="module")
@@ -73,13 +87,15 @@ def results(tmp_path_factory):
         key = f"{arch}-{mode}-{B}x{S}"
         save_tree(d / f"{key}.w.npz", jax.tree.map(np.asarray, mods[0][1]))
         save_tree(d / f"{key}.b.npz", b)
-        out[key] = TP.step_both(mods, b, **_kw(mode))
+        plain = f"{arch}-plain-{B}x{S}"       # the rules move no value
+        out[key] = out[plain] if mode == "ssm" else \
+            TP.step_both(mods, b, **_kw(mode))
         for m in meshes + (("1x4",) if key == "internlm2_1_8b-plain-4x32"
                            else ()):
             sizes, axes = {**MESHES, **ODD}[m]
             tasks.append(step_task(arch, sizes, axes, d / f"{key}.w.npz",
                                    d / f"{key}.b.npz", d / f"{key}.{m}.npz",
-                                   TP.OPT, **_kw(mode)))
+                                   TP.OPT, **_kw(mode), **_rules(mode)))
     ck = "internlm2_1_8b-plain-4x32"
     tasks.append({"kind": "refuse", "mesh": [2, 2], "axes": ["data", "model"],
                   "archs": list(REFUSED), "batch": str(d / f"{ck}.b.npz"),
@@ -128,9 +144,14 @@ def test_sharded_step_matches_reference_and_one_process(results, arch, mode,
     # the wire: bytes went over every axis of the mesh
     axes = {k.split(":")[1] for k in got["stats"]}
     assert any("model" in a for a in axes), axes
+    if mode == "ssm":       # the rows over every axis, whole sequences
+        assert str(got["layout"]["batch"]) == "data+model", got["layout"]
+        assert str(got["layout"]["seq"]) == "", got["layout"]
 
 
 def test_refuses_recurrent_and_encdec_under_a_mesh(results):
+    """Only the encoder-decoder is refused now (REFUSED); the recurrent
+    stacks train sharded (CASES)."""
     d, _ = results
     msgs = json.loads((d / "refuse.json").read_text())
     for arch in REFUSED:

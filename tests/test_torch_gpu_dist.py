@@ -15,7 +15,14 @@ tests/torch_dist_worker.py.
   (float32) on 4 ranks at (data 2, model 2), contiguous per block and
   per channel and paged, against the one-process functions on the card:
   logits within 2e-3, greedy tokens equal, the same bits on every rank,
-  each rank's path kernels launched.
+  each rank's path kernels launched;
+- the sharded ring: flat decode's CUDA kernel over each rank's slots of a
+  wrapped ring at `core.kvcache.ring_slot_args`' length and window,
+  merged in rank order, against the plain kernel over the whole ring;
+  and `make_serve_fns` of recurrentgemma_9b (RG-LRU + local-attention
+  ring) and mixtral_8x22b (sliding-window ring) on 4 ranks at (data 1,
+  model 4), 40-token prompts (the 16-slot ring wrapped twice), against
+  the one-process functions on the card.
 """
 import dataclasses
 
@@ -230,4 +237,93 @@ def test_sharded_serving_on_the_card_matches_one_process(route, tmp_path,
             np.argmax(want[..., :cfg.vocab], -1))
         np.testing.assert_array_equal(got["logits"], ranks[0]["logits"])
         for k in kernels:
+            assert int(got["launches"][k]) > 0, (r, k, got["launches"])
+
+
+# -- the sharded ring -----------------------------------------------------------
+
+@pytest.mark.parametrize("length,window", [(40, 32), (35, 30), (70, 30),
+                                           (100, 5)])
+def test_sharded_ring_decode_on_the_card(length, window, cuda_device):
+    """A 32-slot ring (blocks of 8) cut in 4 ranks' parts: flat decode's
+    kernel on each part at its ring_slot_args, merged in rank order,
+    against the plain version over the whole ring (35 and 70 at window
+    30 leave rank 0 two runs of live slots)."""
+    from repro_torch.core.kvcache import ring_slot_args
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.quant_attention import (
+        flat_decode_partials_plain, merge_rank_partials)
+    B, H, Hkv, D, ring, bs = 2, 16, 1, 256, 32, 8
+    g = torch.Generator().manual_seed(length)
+    kq = torch.randint(-127, 128, (B, Hkv, ring, D), generator=g,
+                       dtype=torch.int8)
+    vq = torch.randint(-127, 128, (B, Hkv, ring, D), generator=g,
+                       dtype=torch.int8)
+    ks = torch.rand((B, Hkv, ring // bs, D), generator=g) * 0.02 + 1e-3
+    vs = torch.rand((B, Hkv, ring // bs, D), generator=g) * 0.02 + 1e-3
+    q = torch.randn((B, H, D), generator=g)
+    dev = lambda t: t.to(cuda_device)
+    parts = []
+    for r in range(4):
+        ln, wn = ring_slot_args(length, window, ring, r * 8, 8)
+        cut = slice(r * 8, (r + 1) * 8)
+        parts.append(ops.quant_attention_decode_partials(
+            dev(q), dev(kq[:, :, cut]), dev(ks[:, :, r:r + 1]),
+            dev(vq[:, :, cut]), dev(vs[:, :, r:r + 1]), ln, window=wn))
+    o, m, l = merge_rank_partials(*[torch.stack(x) for x in zip(*parts)])
+    i32 = lambda v: torch.full((B,), v, dtype=torch.int32)
+    fo, fm, fl = flat_decode_partials_plain(q, kq, ks, vq, vs, i32(length),
+                                            i32(window))
+    np.testing.assert_allclose(
+        (o / torch.clamp_min(l, 1e-30)).cpu().numpy(),
+        (fo / torch.clamp_min(fl, 1e-30)).numpy(), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma_9b", "mixtral_8x22b"])
+def test_sharded_ring_serving_on_the_card(arch, tmp_path, cuda_device):
+    """`make_serve_fns` on 4 ranks sharing the card at (data 1, model 4),
+    a 40-token prompt a row (the ring wrapped twice, 4 slots a rank, its
+    blocks of 8 straddling two ranks), 8 teacher-forced steps through a
+    block flush, against the one-process functions on the card: logits
+    within 2e-3, greedy tokens equal, the same bits on every rank, and
+    flash, quantize_blocked and flat decode launched on each rank."""
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    params = T.init_params(cfg, torch.Generator(device=cuda_device)
+                           .manual_seed(0), device=cuda_device)
+    from repro_torch.serving.engine import make_serve_fns
+    S = 40
+    toks = np.random.RandomState(1).randint(
+        0, cfg.vocab, (SERVE_B, S)).astype(np.int32)
+    init, prefill, decode = make_serve_fns(cfg, max_len=SERVE_LEN,
+                                           device=cuda_device)
+    state = init(SERVE_B)
+    lg, state = prefill(params, torch.from_numpy(toks).to(cuda_device),
+                        state)
+    logits, stream = [lg], []
+    pos = torch.full((SERVE_B,), S, dtype=torch.int32, device=cuda_device)
+    for _ in range(SERVE_STEPS):
+        tok = lg[:, :cfg.vocab].argmax(-1).to(torch.int32)
+        stream.append(tok.cpu().numpy())
+        lg, state = decode(params, tok[:, None], state, pos)
+        logits.append(lg)
+        pos = pos + 1
+    want = np.stack([x.cpu().numpy() for x in logits])
+    save_tree(tmp_path / "w.npz", bridge.tree_to_numpy(params, cfg))
+    save_tree(tmp_path / "b.npz", {"tokens": toks,
+                                   "stream": np.stack(stream)})
+    run_ranks(tmp_path, 4, [{
+        "kind": "serve", "arch": arch, "mesh": [1, 4],
+        "axes": ["data", "model"], "weights": str(tmp_path / "w.npz"),
+        "batch": str(tmp_path / "b.npz"), "max_len": SERVE_LEN,
+        "result": str(tmp_path / "r")}], device="cuda")
+    ranks = [load_tree(tmp_path / f"r.{r}.npz") for r in range(4)]
+    for r, got in enumerate(ranks):
+        np.testing.assert_allclose(got["logits"], want, atol=2e-3, rtol=0,
+                                   err_msg=f"rank {r}")
+        np.testing.assert_array_equal(
+            np.argmax(got["logits"][..., :cfg.vocab], -1),
+            np.argmax(want[..., :cfg.vocab], -1))
+        np.testing.assert_array_equal(got["logits"], ranks[0]["logits"])
+        for k in ("flash_fwd_cuda", "quantize_blocked_cuda",
+                  "flat_decode_partials_cuda"):
             assert int(got["launches"][k]) > 0, (r, k, got["launches"])

@@ -220,3 +220,136 @@ def test_meshes_refuse_another_world_size():
         PM.make_production_mesh("cpu")
     with pytest.raises(ValueError, match="needs 512 ranks"):
         PM.make_production_mesh("cpu", multi_pod=True)
+
+
+SSM_MESHES = [((2, 2), ("data", "model")), ((2, 4), ("data", "model")),
+              ((2, 2, 2), ("pod", "data", "model")),
+              ((16, 16), ("data", "model"))]
+
+
+@pytest.mark.parametrize("arch", ["xlstm_350m", "recurrentgemma_9b",
+                                  "internlm2_1_8b"])
+def test_specs_under_the_ssm_override_match_reference(arch):
+    """`mesh_context(mesh, SSM_RULES)` (the reference's dry-run override
+    for family "ssm", dryrun.py:101-104) on both sides: the parameter,
+    serving-state and batch specs of the smoke config, dimension by
+    dimension, with the override in force (the batch takes "model", so
+    the state's "heads" / "ffn" dims replicate)."""
+    from repro_torch.parallel.shard import SSM_RULES, mesh_context
+    assert SSM_RULES == {"batch": ("pod", "data", "model")}
+    pcfg = get_config(arch, smoke=True)
+    rcfg = ref_get_config(arch, smoke=True)
+    _, rshapes = _ref_params(arch, True)
+    pshapes = SP.param_shapes(pcfg)
+    B, L = 8, 64
+    rstate = jax.eval_shape(lambda: RT.init_decode_state(rcfg, B, L))
+    pstate = T.init_decode_state(pcfg, B, L, device="cpu")
+    batch = {"tokens": np.zeros((B, 33), np.int32)}
+    for sizes, axes in SSM_MESHES:
+        rmesh, pmesh = _both(sizes, axes)
+        with RSH.mesh_context(rmesh, dict(SSM_RULES)), \
+                mesh_context(None, SSM_RULES):
+            ref = _ref_specs(RS.param_shardings(rshapes, rmesh), rshapes)
+            _compare(ref, SP.param_shardings(pshapes, pmesh), pcfg,
+                     f"{sizes} ssm ")
+            want = _ref_cache_specs(rcfg, rstate,
+                                    RS.cache_shardings(rstate, rmesh))
+            got = SP.cache_shardings(pstate, pmesh, pcfg)
+            assert got == want, sizes
+            rb = RS.batch_shardings(batch, rmesh)
+            assert SP.batch_shardings(batch, pmesh) == {
+                k: _norm(v.spec, 2) for k, v in rb.items()}
+        # the override moves the batch onto "model" where it divides
+        with mesh_context(None, SSM_RULES):
+            bspec = logical_spec(("batch",), (B,), pmesh)[0]
+        if B % pmesh.size == 0:
+            assert bspec == tuple(axes), (sizes, bspec)
+
+
+def _ref_cache_specs(rcfg, rstate, rsh) -> list:
+    """The reference's stacked state shardings -> {field: spec} a layer,
+    in layer order (as `test_cache_and_batch_specs_match_reference`)."""
+    period = len(rcfg.block_pattern)
+    per = [_unstack(rstate[f"p{i}"], rsh[f"p{i}"]) for i in range(period)]
+    want = [per[i][g] for g in range(len(per[0])) for i in range(period)]
+    for c, s in zip(rstate.get("tail", []), rsh.get("tail", [])):
+        want.append({f: _norm(getattr(s, f).spec, len(getattr(c, f).shape))
+                     for f in SP.CACHE_RULES if hasattr(c, f)})
+    return want
+
+
+@pytest.mark.parametrize("sizes,axes", SSM_MESHES[:2])
+def test_recurrent_state_leaf_specs(sizes, axes):
+    """Each recurrent state leaf at full width, against the reference's
+    `_spec_for` on its stacked leaf, and what the rules make of it: the
+    mLSTM matrix memory C (B, nh, dh, dh) shards its KEY dim (the third:
+    the readout contracts it, ``einsum("bhde,bhd->bhe", C, q)``), n
+    (B, nh, dh) the same dim, m (B, nh) the rows only; the sLSTM n
+    (B, d), stacked three dims deep under a three-name rule, keeps its
+    rows whole; h and c (B, d) and the RG-LRU h and conv tail shard
+    their channels over "model"."""
+    from repro.launch.specs import _spec_for
+    from jax.tree_util import DictKey
+    rmesh, pmesh = _both(sizes, axes)
+    model = ("model",)
+    rows = ("data",)
+    for arch in ("xlstm_350m", "recurrentgemma_9b"):
+        pcfg = get_config(arch)
+        rcfg = ref_get_config(arch)
+        B = 8
+        rstate = jax.eval_shape(lambda: RT.init_decode_state(rcfg, B, 512))
+        pspecs = SP.cache_shardings(
+            T.init_decode_state(pcfg, B, 512, device="meta"), pmesh, pcfg)
+        period = len(rcfg.block_pattern)
+        for i, kind in enumerate(rcfg.block_pattern):
+            if kind in ("attn", "local_attn", "moe"):
+                continue
+            c = rstate[f"p{i}"]
+            for f in SP.CACHE_RULES:
+                if not hasattr(c, f):
+                    continue
+                leaf = getattr(c, f)
+                ref = _norm(_spec_for([DictKey(f)], leaf, SP.CACHE_RULES,
+                                      rmesh).spec, leaf.ndim)[1:]
+                assert pspecs[i][f] == ref, (arch, kind, f, pspecs[i][f],
+                                             ref)
+            got = pspecs[i]
+            if kind == "mlstm":
+                assert got["C"] == (rows, (), model, ())
+                assert got["n"] == (rows, (), model)
+                assert got["m"] == (rows, ())
+                assert got["C_s"] == (rows, (), model)
+            elif kind == "slstm":
+                assert got["n"] == ((), model), got["n"]
+                assert got["h"] == got["c"] == (rows, model)
+                assert got["m"] == (rows, ())
+            else:
+                assert got["h"] == (rows, model)
+                assert got["conv"] == (rows, (), model)
+        assert period
+
+
+def test_spec_cache_is_keyed_on_the_rules():
+    """JAX-free: one config and mesh shape under two rule sets give two
+    specs (the cache answers each with its own rules' specs, in any
+    order), and the default rules come back after the override."""
+    from repro_torch.parallel.shard import (LOGICAL_RULES, current_rules,
+                                            mesh_context)
+    cfg = get_config("internlm2_1_8b", smoke=True)
+    mesh = MeshShape(("data", "model"), (2, 2))
+    base = SP.param_specs(cfg, mesh)
+    base_err = SP.error_specs(cfg, mesh)
+    over = {"vocab": (), "heads": ()}
+    with mesh_context(None, over):
+        assert current_rules() == {**LOGICAL_RULES, **over}
+        alt = SP.param_specs(cfg, mesh)
+        assert alt == SP.param_shardings(SP.param_shapes(cfg), mesh)
+    assert current_rules() == LOGICAL_RULES
+    assert alt != base
+    assert alt["embed"] == ((), ("data",)) != base["embed"]
+    assert alt["layers"][0]["attn"]["wq"] == (("data",), ())
+    assert SP.param_specs(cfg, mesh) == base
+    with mesh_context(None, over):
+        assert SP.param_specs(cfg, mesh) == alt
+        assert SP.error_specs(cfg, mesh) != base_err
+    assert SP.error_specs(cfg, mesh) == base_err

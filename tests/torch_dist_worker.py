@@ -35,6 +35,13 @@ rank 0 writes each task's ``result``. Tasks:
   every step's logits, this rank's state in the reference's layout,
   where its shards lie (``where``), the pages it allocated, the bytes
   each step sent and each kernel's launches (on the card).
+  ``rules`` "ssm" runs it under `SSM_RULES`; ``kv_cache_dtype`` a page
+  format or a per-layer plan. ``slices`` says where the rank's shard of
+  every leaf of every contiguous or recurrent layer lies.
+- ``recurrent``: `models.recurrent_mesh.decode` over the first
+  ``layer_kind`` layer's state of a smoke config (``state_quant``: from
+  the int8 initial state), its weights and inputs from ``inputs``;
+  writes the rank's outputs, rows, state and its shards' slices.
 - ``serve_refuse``: `make_serve_fns` of each of ``archs`` on the mesh and,
   where it builds, a prefill and a decode step on the whole weights;
   writes each arch's `ValueError` or its logits.
@@ -111,9 +118,17 @@ def _mesh(task, meshes, device):
     return meshes[key]
 
 
+def _rules(task):
+    """The task's override of the logical rules ("ssm": `SSM_RULES`)."""
+    from repro_torch.parallel.shard import SSM_RULES
+    return SSM_RULES if task.get("rules") == "ssm" else None
+
+
 def _specs(task, cfg, mesh):
     from repro_torch.launch import specs as SP
-    return SP.train_specs(cfg, mesh, task.get("gc", False))
+    from repro_torch.parallel.shard import mesh_context
+    with mesh_context(mesh, _rules(task)):
+        return SP.train_specs(cfg, mesh, task.get("gc", False))
 
 
 def _state(task, cfg, mesh):
@@ -141,7 +156,7 @@ def _step(task, cfg, mesh, params, opt, specs):
                            specs=specs)
     batch = {k: torch.from_numpy(v).to(mesh.device) for k, v in
              load_tree(task["batch"]).items()}
-    with mesh_context(mesh):
+    with mesh_context(mesh, _rules(task)):
         return step(params, opt, batch)
 
 
@@ -169,10 +184,22 @@ def task_step(task, mesh, rank):
     stats = {f"{op}:{'+'.join(ax)}": np.asarray(v, np.float64)
              for (op, ax), v in mesh.stats.items()}
     out = _gathered(cfg, mesh, params, opt, task.get("gc", False))
+    out["layout"] = _layout(task, cfg, mesh)
     if rank == 0:
         out["metrics"] = {k: np.float64(float(v)) for k, v in m.items()}
         out["stats"] = stats
         save_tree(task["result"], out)
+
+
+def _layout(task, cfg, mesh) -> dict:
+    """The step's activation layout under the task's rules: the axes of
+    the rows and of the positions."""
+    from repro_torch.parallel.shard import Layout, mesh_context
+    B, S = load_tree(task["batch"])["tokens"].shape
+    with mesh_context(mesh, _rules(task)):
+        lay = Layout.of(mesh, B, S, cfg.d_model)
+    return {"batch": np.array("+".join(lay.batch)),
+            "seq": np.array("+".join(lay.seq))}
 
 
 def task_refuse(task, mesh, rank):
@@ -273,10 +300,16 @@ def allocate_rows(alloc, rows: int, blocks: int) -> np.ndarray:
 
 
 def _where(state, specs, mesh, cfg, B: int, max_len: int) -> dict:
-    """Where this rank's shards of layer 0 lie in the whole state: rows,
-    and slots and scale rows, or kv heads, as [start, stop)."""
+    """Where this rank's shards of the first attention layer lie in the
+    whole state: rows, and slots and scale rows, or kv heads, as [start,
+    stop) (none in a stack without attention)."""
     from repro_torch.parallel.shard import shard_slices
-    c, sp = state[0], specs[0]
+    first = [i for i, c in enumerate(state)
+             if hasattr(c, "pool") or hasattr(c, "k_q")]
+    if not first:
+        return {}
+    c, sp = state[first[0]], specs[first[0]]
+    max_len = getattr(c, "max_len", max_len)      # a ring's slots
     span = lambda s, n: np.array(s.indices(n)[:2])
     if hasattr(c, "pool"):
         return {"rows": span(shard_slices(sp["page_table"], (B, 1),
@@ -292,13 +325,31 @@ def _where(state, specs, mesh, cfg, B: int, max_len: int) -> dict:
                                         mesh)[2], nb)}
 
 
+def _slices(specs, whole, mesh) -> dict:
+    """Where this rank's shard of each leaf of each contiguous or
+    recurrent layer lies in the whole layer: {"<layer>.<field>": (ndim,
+    2) [start, stop) a dim}."""
+    from repro_torch.parallel.shard import shard_slices
+    out = {}
+    for i, (sp, c) in enumerate(zip(specs, whole)):
+        if hasattr(c, "pool"):
+            continue
+        for f, spec in sp.items():
+            shape = tuple(getattr(getattr(c, f), "shape", ()))
+            out[f"{i}.{f}"] = np.array(
+                [s.indices(n)[:2] for s, n in zip(
+                    shard_slices(spec, shape, mesh), shape)],
+                np.int64).reshape(len(shape), 2)
+    return out
+
+
 def task_serve(task, mesh, rank):
     import torch
 
     from repro_torch.checkpoint import bridge
     from repro_torch.core.paging import HostPageAllocator
     from repro_torch.launch import specs as SP
-    from repro_torch.parallel.shard import mesh_context
+    from repro_torch.parallel.shard import SSM_RULES, mesh_context
     from repro_torch.serving.engine import (make_chunk_prefill_fn,
                                             make_serve_fns)
     cfg = _config(task)
@@ -310,15 +361,20 @@ def task_serve(task, mesh, rank):
     stream = data["stream"]
     B, S = toks.shape
     paged = task.get("paged", False)
-    with mesh_context(mesh):
+    rules = SSM_RULES if task.get("rules") == "ssm" else None
+    kv = task.get("kv_cache_dtype", "int8")
+    with mesh_context(mesh, rules):
         init, prefill, decode = make_serve_fns(
             cfg, max_len=task["max_len"], paged=paged,
-            n_pages=task.get("n_pages"), device=mesh.device)
+            n_pages=task.get("n_pages"), kv_cache_dtype=kv,
+            device=mesh.device)
         chunk = make_chunk_prefill_fn(cfg) if task.get("chunk") else None
+        specs, whole = SP.serve_state_specs(
+            cfg, B, task["max_len"], mesh, paged=paged,
+            n_pages=task.get("n_pages"), kv_cache_dtype=kv)
     state = init(B)
-    specs = SP.serve_state_specs(cfg, B, task["max_len"], mesh, paged=paged,
-                                 n_pages=task.get("n_pages"))[0]
-    out = {"where": _where(state, specs, mesh, cfg, B, task["max_len"])}
+    out = {"where": _where(state, specs, mesh, cfg, B, task["max_len"]),
+           "slices": _slices(specs, whole, mesh)}
     if paged:
         table = allocate_rows(HostPageAllocator(state[0].pool.k_q.shape[0]),
                               B, task["max_len"] // cfg.quant.block_size)
@@ -404,10 +460,51 @@ def task_serve_refuse(task, mesh, rank):
                                    else v for k, v in out.items()})
 
 
+def task_recurrent(task, mesh, rank):
+    """The sharded decode of `models.recurrent_mesh` over one recurrent
+    layer's state (the first of ``layer_kind``; ``state_quant``: from the
+    int8 initial state), its weights and seeded inputs from
+    ``inputs``; writes this rank's outputs, rows, state and where its
+    shards lie."""
+    import torch
+
+    from repro_torch.launch import specs as SP
+    from repro_torch.models import recurrent_mesh
+    from repro_torch.models.transformer import serve_layout
+    from repro_torch.parallel.shard import SSM_RULES, mesh_context
+    cfg = _config(task)
+    data = load_tree(task["inputs"])
+    p = {k: torch.from_numpy(v).to(mesh.device)
+         for k, v in data["weights"].items()}
+    x = data["x"]
+    B = x.shape[1]
+    i = list(cfg.block_pattern).index(task["layer_kind"])
+    sq = task["state_quant"]
+    rules = SSM_RULES if task.get("rules") == "ssm" else None
+    with mesh_context(mesh, rules):
+        specs, whole = SP.serve_state_specs(cfg, B, 16, mesh)
+        st = SP.init_serve_state(cfg, B, 16, mesh, device=mesh.device)[i]
+        if sq and task["layer_kind"] == "mlstm":
+            st.C = torch.zeros(st.C.shape, dtype=torch.int8,
+                               device=mesh.device)
+        lay = serve_layout(mesh, cfg, B, 1, "decode", False)
+        rows = lay.rows()
+        outs = [recurrent_mesh.decode(
+            task["layer_kind"], p, torch.from_numpy(x[t][rows]).to(
+                mesh.device), cfg, lay, st, state_quant=sq)
+            for t in range(x.shape[0])]
+    sl = _slices(specs, whole, mesh)
+    save_tree(f"{task['result']}.{rank}.npz", {
+        "out": np.stack([o.float().cpu().numpy() for o in outs]),
+        "rows": np.array(rows.indices(B)[:2]),
+        "state": {f: getattr(st, f).cpu().numpy() for f in st.spec},
+        "slices": {f: sl[f"{i}.{f}"] for f in st.spec}})
+
+
 TASKS = {"step": task_step, "refuse": task_refuse, "save": task_save,
          "restore": task_restore, "psum": task_psum,
          "compress": task_compress, "serve": task_serve,
-         "serve_refuse": task_serve_refuse}
+         "serve_refuse": task_serve_refuse, "recurrent": task_recurrent}
 
 
 def main(job_path: str, rank: int, world: int) -> int:

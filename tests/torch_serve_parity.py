@@ -38,6 +38,10 @@ INT8_STEP_FRAC = 5e-3
 SCALE_RTOL = 1e-5
 # the bf16 residual of K/V that differ by float32 rounding: one bf16 step
 RESID_RTOL = 2.0 ** -7
+# a recurrent state's float leaves: float32 sums of another order through
+# the layers below (the logits' ATOL as a share of the leaf's largest
+# |value|)
+STATE_TOL = 1e-4
 MESHES = {"2x2": [2, 2], "1x4": [1, 4]}
 AXES = ["data", "model"]
 CACHE = ("k_q", "v_q", "k_s", "v_s", "resid_k", "resid_v", "length")
@@ -71,14 +75,17 @@ def pallas_interpret():
 
 
 def state_numpy(state) -> dict:
-    """The reference's serving state -> numpy in the bridge's layout."""
+    """The reference's serving state -> numpy in the bridge's layout (a
+    recurrent state's dataclass fields)."""
     def fields(c):
         if hasattr(c, "pool"):
             return {"pool": {f: to_numpy(getattr(c.pool, f)) for f in POOL},
                     **{f: to_numpy(getattr(c, f)) for f in VIEW}}
-        return {f: to_numpy(getattr(c, f)) for f in CACHE}
-    return {k: ([fields(c) for c in v] if k == "tail" else fields(v))
-            for k, v in state.items()}
+        names = CACHE if hasattr(c, "k_q") else \
+            [f.name for f in dataclasses.fields(c)]
+        return {f: to_numpy(getattr(c, f)) for f in names}
+    return {k: ([fields(c) for c in v] if isinstance(v, list) else
+                fields(v)) for k, v in state.items()}
 
 
 def page_table(n_pages: int, max_len: int, block: int) -> np.ndarray:
@@ -90,28 +97,39 @@ def page_table(n_pages: int, max_len: int, block: int) -> np.ndarray:
 
 
 def run_reference(rcfg, rparams, toks, *, paged=False, chunk=False,
-                  n_pages=None, max_len=MAX_LEN, steps=STEPS) -> dict:
+                  n_pages=None, max_len=MAX_LEN, steps=STEPS,
+                  kv_cache_dtype="int8") -> dict:
     """Prefill ``toks`` (B, S) (``chunk``: one chunk through
     `make_chunk_prefill_fn`), then ``steps`` greedy decode steps, jitted
     and unsharded: {"logits" (steps + 1, B, Vp), "stream" (steps, B) the
     tokens fed, "prefill_state" and "state" as numpy, "table" the page
-    table where paged}."""
+    table where paged}. ``kv_cache_dtype`` as the reference's
+    `make_serve_fns` takes it (a per-layer list: a mixed plan, whose
+    ``p{i}`` are lists of layers)."""
     out = {}
+    if isinstance(kv_cache_dtype, list):
+        kv_cache_dtype = tuple(kv_cache_dtype)
     with pallas_interpret():
-        init, prefill, decode = RE.make_serve_fns(rcfg, max_len=max_len,
-                                                  paged=paged,
-                                                  n_pages=n_pages)
+        init, prefill, decode = RE.make_serve_fns(
+            rcfg, max_len=max_len, paged=paged, n_pages=n_pages,
+            kv_cache_dtype=kv_cache_dtype)
         state = init(B)
         if paged:
-            table = page_table(state["p0"].pool.k_q.shape[1], max_len,
+            first = state["p0"][0] if isinstance(state["p0"], list) else \
+                state["p0"]
+            table = page_table(first.pool.k_q.shape[-4], max_len,
                                rcfg.quant.block_size)
-            state["p0"] = dataclasses.replace(
-                state["p0"], page_table=jnp.broadcast_to(
-                    jnp.asarray(table), state["p0"].page_table.shape))
+
+            def put(c):
+                return dataclasses.replace(c, page_table=jnp.broadcast_to(
+                    jnp.asarray(table), c.page_table.shape))
+            state = {k: ([put(c) for c in v] if isinstance(v, list) else
+                         put(v)) for k, v in state.items()}
             out["table"] = table
         t = jnp.asarray(toks)
         if chunk:
-            fn = jax.jit(RE.make_chunk_prefill_fn(rcfg))
+            fn = jax.jit(RE.make_chunk_prefill_fn(
+                rcfg, kv_cache_dtype=kv_cache_dtype))
             lg, state = fn(rparams, t, state, jnp.zeros(B, jnp.int32),
                            jnp.full(B, toks.shape[1], jnp.int32),
                            jnp.ones(B, bool))
@@ -130,6 +148,41 @@ def run_reference(rcfg, rparams, toks, *, paged=False, chunk=False,
     out.update(logits=np.stack(logits), stream=np.stack(stream),
                state=state_numpy(state))
     return out
+
+
+def run_port(arch: str, toks, stream, *, kv_cache_dtype, n_pages: int,
+             max_len=MAX_LEN) -> np.ndarray:
+    """The port's own unsharded paged run of ``arch``'s smoke model (the
+    reference's weights bridged): one chunk prefill of ``toks`` on the
+    reference allocator's pages, then ``stream`` teacher-forced. Returns
+    every step's logits (steps + 1, B, Vp)."""
+    import torch
+
+    from repro_torch.serving.engine import (make_chunk_prefill_fn,
+                                            make_serve_fns)
+    _, (pcfg, pparams) = smoke_models(arch)
+    kv = tuple(kv_cache_dtype) if isinstance(kv_cache_dtype, list) else \
+        kv_cache_dtype
+    init, _, decode = make_serve_fns(pcfg, max_len=max_len, paged=True,
+                                     n_pages=n_pages, kv_cache_dtype=kv,
+                                     device="cpu")
+    state = init(B)
+    table = torch.from_numpy(page_table(n_pages, max_len,
+                                        pcfg.quant.block_size))
+    for c in state:
+        c.page_table.copy_(table)
+    z = torch.zeros(B, dtype=torch.int32)
+    lg, state = make_chunk_prefill_fn(pcfg)(
+        pparams, torch.from_numpy(toks), state, z,
+        torch.full_like(z, toks.shape[1]), torch.ones(B, dtype=torch.bool))
+    logits = [lg.numpy()]
+    pos = torch.full((B,), toks.shape[1], dtype=torch.int32)
+    for tok in stream:
+        lg, state = decode(pparams, torch.from_numpy(tok[:, None]), state,
+                           pos)
+        logits.append(lg.numpy())
+        pos = pos + 1
+    return np.stack(logits)
 
 
 def tokens(rcfg, seed: int = 1, s: int = S) -> np.ndarray:
@@ -192,6 +245,139 @@ def check_contiguous(got, ref, where, label):
                                       err_msg=label)
 
 
+def layer_leaf(tree, cfg, i: int) -> dict:
+    """Layer ``i``'s fields in the bridge's stacked layout (``p{j}`` with
+    its group axis, ``tail``)."""
+    period = len(cfg.block_pattern)
+    n_groups = cfg.n_layers // period
+    if i >= n_groups * period:
+        return tree["tail"][i - n_groups * period]
+    return {f: v[i // period] for f, v in tree[f"p{i % period}"].items()}
+
+
+def check_state(got, ref, slices, cfg, label):
+    """Every layer of a rank's state (a ring cache, or a recurrent state)
+    against the reference state's slice where the rank's specs put its
+    shard (``slices``, the worker's `_slices`): int8 values by the page
+    rule, scale rows within SCALE_RTOL, the bf16 residual within
+    RESID_RTOL, lengths equal, and a recurrent state's float leaves
+    within STATE_TOL of the leaf's largest |value|."""
+    for i in range(cfg.n_layers):
+        g, w = layer_leaf(got, cfg, i), layer_leaf(ref, cfg, i)
+        for f in g:
+            name = f"{label} layer {i} {f}"
+            if f == "length":
+                np.testing.assert_array_equal(g[f], w[f], err_msg=name)
+                continue
+            want = w[f][tuple(slice(*se) for se in slices[f"{i}.{f}"])]
+            assert g[f].shape == want.shape, (name, g[f].shape, want.shape)
+            if g[f].dtype == np.int8:
+                close_int8(g[f], want, name)
+            elif f in ("k_s", "v_s"):
+                np.testing.assert_allclose(g[f], want, rtol=SCALE_RTOL,
+                                           atol=0, err_msg=name)
+            elif f.startswith("resid"):
+                np.testing.assert_allclose(g[f], want, rtol=RESID_RTOL,
+                                           atol=1e-30, err_msg=name)
+            else:
+                err = np.abs(g[f] - want).max(initial=0)
+                assert err <= STATE_TOL * np.abs(w[f]).max(initial=0), (
+                    name, err, np.abs(w[f]).max(initial=0))
+
+
+def recurrent_reference(arch: str, kind: str, state_quant: bool,
+                        steps: int, path) -> dict:
+    """The reference's decode of the first ``kind`` layer of ``arch``'s
+    smoke model (`mlstm_step` / `apply_step`, ``state_quant`` as given)
+    from its initial state (int8 under state_quant), ``steps`` seeded
+    inputs of B rows, jitted; writes the layer's weights and the inputs
+    to ``path`` for `recurrent_task`. Returns {"out" (steps, B, 1, d),
+    "state": the final state's fields}."""
+    from repro.models import rglru as RG
+    from repro.models import xlstm as RX
+    rcfg, rparams = models(arch)
+    i = list(rcfg.block_pattern).index(kind)
+    lp = jax.tree.map(lambda a: a[0], rparams["blocks"][f"p{i}"][kind])
+    x = np.random.RandomState(5).randn(steps, B, 1, rcfg.d_model).astype(
+        np.float32)
+    if kind == "mlstm":
+        state = RX.mlstm_init_state(rcfg, B, state_quant=state_quant)
+        step = jax.jit(lambda s, t: RX.mlstm_step(
+            lp, t, rcfg, s, state_quant=state_quant))
+    else:
+        state = RG.init_state(rcfg, B)
+        step = jax.jit(lambda s, t: RG.apply_step(
+            lp, t, rcfg, s, state_quant=state_quant))
+    outs = []
+    for t in range(steps):
+        out, state = step(state, jnp.asarray(x[t]))
+        outs.append(np.asarray(out))
+    save_tree(path, {"weights": jax.tree.map(np.asarray, lp), "x": x})
+    return {"out": np.stack(outs),
+            "state": {f.name: np.asarray(getattr(state, f.name))
+                      for f in dataclasses.fields(state)}}
+
+
+def recurrent_task(arch, kind, mesh, state_quant, rules, inputs,
+                   result) -> dict:
+    return {"kind": "recurrent", "arch": arch, "layer_kind": kind,
+            "mesh": MESHES[mesh], "axes": AXES, "state_quant": state_quant,
+            "rules": rules, "inputs": str(inputs), "result": str(result)}
+
+
+def check_recurrent(ref, ranks, label):
+    """Each rank's outputs (its rows) within ATOL, and its state's shards
+    against the reference state's slices (int8 by the page rule, floats
+    within STATE_TOL of the leaf's largest |value|)."""
+    for r, got in enumerate(ranks):
+        rows = slice(*got["rows"])
+        np.testing.assert_allclose(got["out"], ref["out"][:, rows],
+                                   atol=ATOL, rtol=0,
+                                   err_msg=f"{label} rank {r}")
+        for f, g in got["state"].items():
+            w = ref["state"][f]
+            want = w[tuple(slice(*se) for se in got["slices"][f])]
+            name = f"{label} rank {r} {f}"
+            assert g.shape == want.shape, (name, g.shape, want.shape)
+            if g.dtype == np.int8:
+                close_int8(g, want, name)
+            else:
+                err = np.abs(g - want).max(initial=0)
+                assert err <= STATE_TOL * np.abs(w).max(initial=0), (
+                    name, err)
+
+
+def page_values(q: np.ndarray, kv_dtype: str) -> np.ndarray:
+    """Stored page values as integers one quantization step apart: int8
+    as it is, int4 unpacked to its nibbles (on its token axis, the one
+    before last), fp8 codes (their bytes) as signed magnitudes."""
+    if kv_dtype == "int4":
+        import torch
+
+        from repro_torch.core.quantization import unpack_int4
+        t = torch.from_numpy(np.ascontiguousarray(q)).movedim(-3, -2)
+        return unpack_int4(t).movedim(-2, -3).numpy().astype(np.int32)
+    q = q.astype(np.int32)
+    if kv_dtype == "fp8_e4m3":
+        mag = q & 0x7F
+        return np.where(q < 0, -mag, mag)
+    return q
+
+
+def _stacked(layers):
+    """A stack position's layers (stacked arrays, or a mixed plan's list
+    of layers) -> one tree a layer, each leaf with a layer axis of 1."""
+    if isinstance(layers, list):
+        cut = [lambda a: np.asarray(a)[None]] * len(layers)
+        return [{k: ({n: f(a) for n, a in v.items()} if isinstance(v, dict)
+                     else f(v)) for k, v in c.items()}
+                for f, c in zip(cut, layers)]
+    n = len(layers["length"])
+    return [{k: ({f: a[g:g + 1] for f, a in v.items()} if isinstance(v, dict)
+                 else v[g:g + 1]) for k, v in layers.items()}
+            for g in range(n)]
+
+
 def check_paged(got, ref, where, label):
     """A rank's paged cache against the reference's: its rows' page
     tables, lengths and residuals (its kv heads), and its pool's pages
@@ -203,19 +389,50 @@ def check_paged(got, ref, where, label):
     for key in ref:
         if key == "tail":
             continue
-        g, w = got[key], ref[key]
-        np.testing.assert_array_equal(g["page_table"], w["page_table"][:, r])
-        np.testing.assert_array_equal(g["length"], w["length"][:, r])
-        for n in ("resid_k", "resid_v"):
-            np.testing.assert_allclose(g[n], w[n][:, r, h], rtol=RESID_RTOL,
-                                       atol=1e-30, err_msg=f"{label} {n}")
-        pages = np.unique(w["page_table"][:, r])
-        for n in POOL:
-            gp, wp = g["pool"][n][:, pages], w["pool"][n][:, pages]
-            wp = wp[:, :, h] if n.endswith("_s") else wp[:, :, :, h]
-            assert gp.shape == wp.shape, (label, n, gp.shape, wp.shape)
-            if n.endswith("_s"):
-                np.testing.assert_allclose(gp, wp, rtol=SCALE_RTOL, atol=0,
-                                           err_msg=f"{label} {n}")
-            else:
-                close_int8(gp, wp, f"{label} {n}")
+        for i, (g, w) in enumerate(zip(_stacked(got[key]),
+                                       _stacked(ref[key]))):
+            _check_paged_layer(g, w, r, h, f"{label} {key}[{i}]", "int8")
+
+
+def check_paged_formats(got, ref, where, label, ruled: dict):
+    """`check_paged` on the layers ``ruled`` names ((``p{i}``, group) ->
+    page dtype: every layer above stores int8); on the others, the rows'
+    tables and lengths equal and their pages' scale rows written in the
+    same places (off their initial 1e-30)."""
+    r, h = slice(*where["rows"]), slice(*where["heads"])
+    for key in ref:
+        if key == "tail":
+            continue
+        for i, (g, w) in enumerate(zip(_stacked(got[key]),
+                                       _stacked(ref[key]))):
+            tag = f"{label} {key}[{i}]"
+            if (key, i) in ruled:
+                _check_paged_layer(g, w, r, h, tag, ruled[(key, i)])
+                continue
+            np.testing.assert_array_equal(g["page_table"],
+                                          w["page_table"][:, r])
+            np.testing.assert_array_equal(g["length"], w["length"][:, r])
+            pages = np.unique(w["page_table"][:, r])
+            for n in ("k_s", "v_s"):
+                written = [x[:, pages] != np.float32(1e-30) for x in
+                           (g["pool"][n], w["pool"][n][:, :, h])]
+                np.testing.assert_array_equal(*written, err_msg=f"{tag} {n}")
+
+
+def _check_paged_layer(g, w, r, h, label, dt):
+    np.testing.assert_array_equal(g["page_table"], w["page_table"][:, r])
+    np.testing.assert_array_equal(g["length"], w["length"][:, r])
+    for n in ("resid_k", "resid_v"):
+        np.testing.assert_allclose(g[n], w[n][:, r, h], rtol=RESID_RTOL,
+                                   atol=1e-30, err_msg=f"{label} {n}")
+    pages = np.unique(w["page_table"][:, r])
+    for n in POOL:
+        gp, wp = g["pool"][n][:, pages], w["pool"][n][:, pages]
+        wp = wp[:, :, h] if n.endswith("_s") else wp[:, :, :, h]
+        assert gp.shape == wp.shape, (label, n, gp.shape, wp.shape)
+        if n.endswith("_s"):
+            np.testing.assert_allclose(gp, wp, rtol=SCALE_RTOL, atol=0,
+                                       err_msg=f"{label} {n}")
+        else:
+            close_int8(page_values(gp, dt), page_values(wp, dt),
+                       f"{label} {n}")
