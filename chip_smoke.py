@@ -57,7 +57,11 @@ Phases, each fatal on failure (no fallback anywhere):
      length 1500 with an empty row and per block over the 512-slot self
      cache, quantize_blocked bitwise at (4, 12, 256, 64) and (4, 12, 512,
      64), the per-channel pair bitwise at (4, 12, 1504, 64) (zero past
-     1500) and (4, 12, 256, 64).
+     1500) and (4, 12, 256, 64); then whisper_small's shapes on a rank of
+     its (data 2, model 2) mesh (`_d64_mesh_rows`): the flash forward
+     non-causal at (2, 12, 750 over 1500, 64) (float32 at 1 row), the
+     pair bitwise over (2, 12, 752, 64) (748 live, zero past) and flat
+     decode per channel over 752 slots.
   3. the paper's kernels at its eight (T, D) sizes: quantize per channel,
      quantize blocked (block 256) and dequantize through `kernels.ops`
      (launches counted), each bitwise against its plain version, Eq. 9
@@ -214,7 +218,7 @@ Phases, each fatal on failure (no fallback anywhere):
      (`sharded_full_width`, `SHARDED_RUNS`): the parent frees its card
      memory and spawns 4 ranks on cuda:0 over gloo (every collective
      staged through pinned host buffers), mesh (data 2, model 2),
-     `file://` rendezvous and a timeout: internlm2_1_8b at 8 of 24
+     `file://` rendezvous and a timeout: internlm2_1_8b at 4 of 24
      layers at 4 x 2048 (2 x 1024 a rank), 2 steps and a
      fresh compressed step, and
      qwen2_moe_a2_7b at 2 of 24 layers, 2 x 2048, 2 steps, through
@@ -244,20 +248,26 @@ Phases, each fatal on failure (no fallback anywhere):
      and each decode step's bytes by collective as `serve_predict`
      reckons them, the launches as `_serve_launches` predicts; step and
      prefill ms beside the one process's; then one NCCL rank at (1, 1).
-     Phase `serve sharded` (`SERVE_SHARDED_RUNS`): internlm2_1_8b at 8
-     of 24 layers, 4 rows of 3072-token prompts, max_len 4096, 32 steps,
-     contiguous per block and per channel and paged (`make_chunk_prefill_fn`);
-     the NCCL rank runs the contiguous per-block run. Phase `long
-     sharded` (`long_sharded_full_width`, `LONG_SERVE`, `LONG_TRAIN`):
-     mixtral_8x22b (2 of 56 layers), recurrentgemma_9b (5 of 38) and
+     One phase, `serve sharded` (`serve_sharded_full_width`): first
+     `SERVE_SHARDED_RUNS`, internlm2_1_8b at 4 of 24 layers, 4 rows of
+     3072-token prompts, max_len 4096, 32 steps, contiguous per block and
+     per channel and paged (`make_chunk_prefill_fn`), the NCCL rank
+     serving the contiguous per-block run; then `LONG_SERVE` and
+     `LONG_TRAIN`: mixtral_8x22b (1 of 56 layers), recurrentgemma_9b (5
+     of 38) and
      xlstm_350m (float32) served from the sharded ring and recurrent
-     states past their windows, held against one process serving the
-     same rows 2 at a time; recurrentgemma_9b and xlstm_350m (float32,
-     also under `SSM_RULES`; one bf16 step: its loss, and its gradient
-     norm against the float32 norm of the same weights within one
-     process's bf16 distance from it plus GNORM_RTOL) trained on the same
-     ranks against the single-process steps; the NCCL rank serves
-     recurrentgemma_9b. The
+     states past their windows, and whisper_small (12 + 12 layers,
+     frames (4, 1500, 768) encoded context parallel, 256-token prompts,
+     max_len 512; its cross caches' int8 bytes a rank as predicted,
+     their scale rows bit for bit the one process's and the same on
+     every rank of a row block), held
+     against one process serving the same rows 2 at a time;
+     recurrentgemma_9b and xlstm_350m (float32, also under `SSM_RULES`;
+     one bf16 step: its loss, and its gradient norm against the float32
+     norm of the same weights within one process's bf16 distance from it
+     plus GNORM_RTOL) and whisper_small (4 x 256 on its frames) trained
+     on the same ranks against the single-process steps; the NCCL rank
+     serves recurrentgemma_9b and whisper_small. The
      kernels' launch counters are set to 0 just before each path and
      must be > 0 just after for every kernel the path runs.
   6. a {"kernels": [...]} line, then the card line, then as the last line
@@ -1547,6 +1557,63 @@ def check_g6_d64(dev, gen):
         f"{pair['quantize_with_scales']['ms']:.4f} ms, back to back "
         f"{pair['pair']['ms']:.4f} ms (bound {pair['pair']['bound_ms']:.5f}"
         f" ms)")
+    rows.update(_d64_mesh_rows(dev, gen, i32))
+    return rows
+
+
+def _d64_mesh_rows(dev, gen, i32) -> dict:
+    """whisper_small's kernel shapes on a rank of the (data 2, model 2)
+    mesh (2 rows, 750 of the 1500 positions, 752 of the 1504 cross
+    slots), each against its plain version and timed beside its bound
+    and SDPA where SDPA computes the same function: the flash forward
+    non-causal with a rank's 750 queries over all 1500 keys (bf16, and
+    float32 at 1 row); the per-channel pair bitwise over the second
+    "model" rank's (2, 12, 752, 64) cross slots (748 live, zero past);
+    flat decode per channel over a rank's 752 cross slots (the first
+    rank's 752 live and the second's 748; timed at 752). Rows
+    ``*_d64mesh``."""
+    import torch
+    H, D, S, Tc, bs = (D64[k] for k in ("H", "D", "frames", "slots", "bs"))
+    Bl, Sl, Tl = 2, S // 2, Tc // 2
+    rows = {}
+    shape = (Bl, H, H, Sl, S, D)
+    e, x, _ = _flash_check("D64 mesh", (1, H, H, Sl, S, D), torch.float32,
+                           False, gen, dev)
+    r = _flash_row("D64 mesh", shape, False, gen, dev, (e, x))
+    r["shapes"] = {"checked": f"{shape} bf16 and (1,{H},{H},{Sl},{S},{D}) "
+                              f"float32 non-causal",
+                   "timed": f"{shape} bf16 non-causal"}
+    rows["flash_fwd_d64mesh"] = r
+    live = S - Tl                     # the second "model" rank's live slots
+    k = torch.zeros((Bl, H, Tl, D), device=dev)
+    v = torch.zeros((Bl, H, Tl, D), device=dev)
+    k[:, :, :live] = torch.randn((Bl, H, live, D), generator=gen, device=dev)
+    v[:, :, :live] = torch.randn((Bl, H, live, D), generator=gen, device=dev)
+    pair = per_channel_rows(k, 50, 5)
+    for name in PAIR:
+        pair[name].update({"max_abs_err": 0.0, "shapes": {
+            "checked": f"({Bl},{H},{Tl},{D}) (zero past {live}), bitwise",
+            "timed": f"({Bl},{H},{Tl},{D})"},
+            "pair_ms": pair["pair"]["ms"],
+            "pair_bound_ms": pair["pair"]["bound_ms"]})
+        rows[f"{name}_d64mesh"] = pair[name]
+    q = torch.randn((Bl, H, D), generator=gen, device=dev)
+    kq, ks, vq, vs = _flat_quant("per_channel", k, v, bs)
+    r = _flat_row("D64 mesh cross per_channel", q, kq, ks, vq, vs, Tl,
+                  (q, kq, ks, vq, vs, i32([Tl, live]), i32([Tl] * Bl)), dev)
+    r["shapes"] = {"checked": f"q ({Bl},{H},{D}); per channel k/v "
+                              f"({Bl},{H},{Tl},{D}) lengths [{Tl}, {live}]",
+                   "timed": f"every row at {Tl} of {Tl}"}
+    rows["flat_decode_d64mesh"] = r
+    log(f"[D64 mesh] a rank's shapes: flash {shape} non-causal "
+        f"{rows['flash_fwd_d64mesh']['ms']:.4f} ms (sdpa "
+        f"{rows['flash_fwd_d64mesh']['library_ms']:.4f}, bound "
+        f"{rows['flash_fwd_d64mesh']['bound_ms']:.5f}); the pair bitwise "
+        f"at ({Bl},{H},{Tl},{D}): {pair['absmax']['ms']:.4f} + "
+        f"{pair['quantize_with_scales']['ms']:.4f} ms (back to back "
+        f"{pair['pair']['ms']:.4f}, bound {pair['pair']['bound_ms']:.5f}); "
+        f"flat decode over {Tl} slots {r['ms']:.4f} ms (bound "
+        f"{r['bound_ms']:.5f})")
     return rows
 
 
@@ -2725,7 +2792,7 @@ def seeded_gates(params, seed: int):
     import numpy as np
     import torch
     rng = np.random.RandomState(seed)
-    for layer in params["layers"]:
+    for layer in params.get("layers", ()):
         g = layer.get("rglru")
         if g is None:
             continue
@@ -5270,11 +5337,11 @@ SINGLE: dict = {}
 SHARDED_MESH = ((2, 2), ("data", "model"))
 # (arch, layers kept (None: uncut), batch, sequence, steps, compressed
 # steps, the single-process run's label and its --steps (its schedule))
-# (internlm2_1_8b at 8 of 24 layers and qwen2_moe_a2_7b at 2 of 24, to
-# keep the script's time with the long-context phase: their
+# (internlm2_1_8b at 4 of 24 layers and qwen2_moe_a2_7b at 2 of 24, to
+# keep the script's time with the sharded serving phase: their
 # single-process runs are made here, `sharded_full_width`)
 SHARDED_RUNS = (
-    ("internlm2_1_8b", 8, 4, 2048, 2, 1, "train internlm2_1_8b 8 layers",
+    ("internlm2_1_8b", 4, 4, 2048, 2, 1, "train internlm2_1_8b 4 layers",
      3),
     ("qwen2_moe_a2_7b", 2, 2, 2048, 2, 0, "train qwen2_moe_a2_7b 2 layers",
      2),
@@ -5299,11 +5366,13 @@ def _sharded_run(mesh, dev, arch: str, layers, B: int, S: int, steps: int,
     rank's shards as it is made (`launch.specs.init_shards`), then
     ``steps`` steps of the global
     SyntheticLM batches through `make_train_step` under `mesh_context`,
-    with the train CLI's schedule for ``sched_steps`` steps; ``rules``
-    "ssm" under `SSM_RULES`; ``dtype`` the config's in place of its own.
+    with the train CLI's schedule for ``sched_steps`` steps (an
+    encoder-decoder's `make_frames` frames as the CLI makes them);
+    ``rules`` "ssm" under `SSM_RULES`; ``dtype`` the config's in place of
+    its own.
     Launches, collective stats and peak memory from this run alone."""
     import torch
-    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.data import DataConfig, SyntheticLM, make_frames
     from repro_torch.launch import specs as SP
     from repro_torch.optim import AdamWConfig
     from repro_torch.parallel.shard import SSM_RULES, mesh_context
@@ -5324,15 +5393,17 @@ def _sharded_run(mesh, dev, arch: str, layers, B: int, S: int, steps: int,
                                                    + 1),
                          total_steps=sched_steps), grad_compression=comp,
         specs=specs)
-    data = SyntheticLM(DataConfig(seq_len=S, global_batch=B,
-                                  vocab=cfg.vocab, seed=0))
+    dcfg = DataConfig(seq_len=S, global_batch=B, vocab=cfg.vocab, seed=0)
+    data = SyntheticLM(dcfg)
     counters = _counters()
     for c in counters.values():
         c.launches = 0
     rows = []
     for i in range(steps):
-        b = {k: torch.from_numpy(v).to(dev)
-             for k, v in data.batch_at(i).items()}
+        b = data.batch_at(i)
+        if cfg.family == "encdec":          # the train CLI's frames
+            b["frames"] = make_frames(dcfg, cfg.d_model, cfg.encoder_seq, i)
+        b = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
         torch.cuda.synchronize(dev)
         mesh.stats.clear()
         t0 = time.perf_counter()
@@ -5457,7 +5528,7 @@ def _hold_sharded(label: str, reps: list, single: dict, n_attn: int,
 def sharded_full_width(dev, card: str) -> dict:
     """Sharded training on the card (`SHARDED_RUNS`): the parent frees its
     card memory and spawns 4 ranks on cuda:0 over gloo, mesh (data 2,
-    model 2): internlm2_1_8b at 8 of 24 layers at 4 x 2048 (2 x 1024 a
+    model 2): internlm2_1_8b at 4 of 24 layers at 4 x 2048 (2 x 1024 a
     rank), 2 steps, then a fresh run of 1 step with --grad-compression,
     and qwen2_moe_a2_7b at 2 of 24 layers, 2 x 2048, 2 steps; each held
     against the same model's single-process steps of this call (a cut
@@ -5585,12 +5656,13 @@ def sharded_full_width(dev, card: str) -> dict:
 # products differ with their row count; a MoE router may flip at a near
 # tie), else against one process serving every row at once
 SERVE_B, SERVE_STEPS = 4, 32
-# internlm2_1_8b's runs (at 8 of 24 layers, to keep the script's
-# time with the long-context phase after it): at (data 2, model 2) a rank
-# holds 2 rows and 2048 of the 4096 slots, so the first "model" rank
-# holds 2048 prompt tokens and the second 1024 and the decoded ones
+# internlm2_1_8b's runs (at 4 of 24 layers, to keep the script's
+# time with the long-context and whisper runs after it): at (data 2,
+# model 2) a rank holds 2 rows and 2048 of the 4096 slots, so the first
+# "model" rank holds 2048 prompt tokens and the second 1024 and the
+# decoded ones
 SERVE_SHARDED_RUNS = tuple(
-    {"label": label, "arch": "internlm2_1_8b", "layers": 8, "gran": gran,
+    {"label": label, "arch": "internlm2_1_8b", "layers": 4, "gran": gran,
      "paged": paged, "S": 3072, "max_len": 4096, "seed": 30}
     for label, gran, paged in (
         ("contiguous per_block", "per_block", False),
@@ -5638,11 +5710,20 @@ def _serve_table(n_pages: int, block: int, rows: int, max_len: int):
                     np.int32)
 
 
+def _layers(state) -> list:
+    """A serving state's layers (or their specs) in one list: a decoder's
+    as they are; an encoder-decoder's self caches, then its cross
+    caches."""
+    if isinstance(state, dict):
+        return list(state["self"]) + list(state["cross"])
+    return list(state)
+
+
 def _state_bytes(state) -> int:
     """Every tensor of a serving state (caches, pools, tables, lengths)."""
     import torch
     seen, n = set(), 0
-    for c in state:
+    for c in _layers(state):
         for t in [*vars(c).values(), *vars(getattr(c, "pool", c)).values()]:
             if isinstance(t, torch.Tensor) and id(t) not in seen:
                 seen.add(id(t))
@@ -5656,7 +5737,11 @@ def serve_predict(cfg, run: dict, sizes) -> dict:
     "data"; a contiguous cache's or a ring's slots and scale rows, a
     paged pool's kv heads, the RG-LRU's and sLSTM's channels and the
     mLSTM memory's key dims over "model"; the sLSTM n's rows whole;
-    `Mesh.stats`' ring counts)."""
+    `Mesh.stats`' ring counts). An encoder-decoder: each layer's self
+    cache (per block, ``max_len`` slots) and per-channel cross cache
+    (`enc_cache_len` slots, one scale row and a residual of one slot),
+    both over "model", the float32 logits gathered over "data"."""
+    from repro_torch.models.encdec import enc_cache_len
     from repro_torch.models.transformer import ATTN_KINDS
     n_d, n_m = sizes
     B, T = SERVE_B, run["max_len"]
@@ -5666,6 +5751,22 @@ def serve_predict(cfg, run: dict, sizes) -> dict:
     act = cfg.activation_dtype.itemsize
     d, w = cfg.d_model, cfg.rnn_width
     nh, dh = cfg.n_heads, cfg.d_model // cfg.n_heads
+    if cfg.family == "encdec":
+        bs, D, Hkv, L = (cfg.quant.block_size, cfg.head_dim, cfg.n_kv_heads,
+                         cfg.n_layers)
+        nb = T // bs
+        nb_l = nb // n_m if nb % n_m == 0 else nb
+        Tc = enc_cache_len(cfg) // n_m
+        self_ = (2 * Bl * Hkv * (T // n_m) * D + 2 * Bl * Hkv * nb_l * D * 4
+                 + 2 * Bl * Hkv * bs * D * 2)
+        cross_q, cross_s = 2 * Bl * Hkv * Tc * D, 2 * Bl * Hkv * D * 4
+        cross = cross_q + cross_s + 2 * Bl * Hkv * D * 2
+        sent = {"all_gather:model": 2 * L * (n_m - 1) * Bl * nh * (D + 2)
+                * 4, "all_gather:data": (n_d - 1) * Bl * vp * 4}
+        return {"cache_bytes": L * (self_ + cross),
+                "cross_int8_bytes": L * cross_q,
+                "cross_scale_bytes": L * cross_s,
+                "sent": {k: int(v) for k, v in sent.items() if v}}
     cache, sent = 0, {"all_gather:model": 0, "all_reduce_sum:model": 0,
                       "all_gather:data": (n_d - 1) * Bl * vp * act}
     for i in range(cfg.n_layers):
@@ -5707,12 +5808,24 @@ def serve_predict(cfg, run: dict, sizes) -> dict:
             "sent": {k: int(v) for k, v in sent.items() if v}}
 
 
-def _serve_launches(cfg, run: dict) -> dict:
+def _serve_launches(cfg, run: dict, prompt_slots: bool = True) -> dict:
     """The kernels a rank launches in one run: each attention layer's
-    prefill (flash forward and the quantizer of its granularity, every
-    rank holding prompt slots; paged: paged prefill) and each decode
-    step's attention (flat or paged decode; no block or page fills in
-    SERVE_STEPS steps past a prompt of whole blocks)."""
+    prefill (flash forward and the quantizer of its granularity; a per
+    block cache's only where the rank holds prompt slots,
+    ``prompt_slots``; paged: paged prefill) and each decode step's
+    attention (flat or paged decode; no block or page fills in
+    SERVE_STEPS steps past a prompt of whole blocks). An
+    encoder-decoder: flash in each encoder, self and cross attention,
+    the self caches' quantizer, the cross caches' pair on every rank,
+    and flat decode over both caches a step."""
+    if cfg.family == "encdec":
+        n = cfg.n_layers
+        want = {"flash_fwd": _n_attn(cfg), "absmax": 2 * n,
+                "quantize_with_scales": 2 * n,
+                "flat_decode": 2 * n * SERVE_STEPS}
+        if prompt_slots:
+            want["quantize_blocked"] = 2 * n
+        return want
     n = _n_attn(cfg)
     if not n:
         return {}
@@ -5721,7 +5834,7 @@ def _serve_launches(cfg, run: dict) -> dict:
     want = {"flash_fwd": n, "flat_decode": n * SERVE_STEPS}
     if cfg.quant.granularity == "per_channel":
         want.update(absmax=2 * n, quantize_with_scales=2 * n)
-    else:
+    elif prompt_slots:
         want["quantize_blocked"] = 2 * n
     return want
 
@@ -5733,7 +5846,8 @@ def _seed_gate_shards(params, specs, cfg, mesh):
     import torch
     from repro_torch.parallel.shard import take_shard
     rng = np.random.RandomState(0)
-    for layer, sp in zip(params["layers"], specs["layers"]):
+    for layer, sp in zip(params.get("layers", ()),
+                         specs.get("layers", ())):
         g = layer.get("rglru")
         if g is None:
             continue
@@ -5815,26 +5929,34 @@ def _serve_one(dev, params, cfg, run: dict, out: Path, stream=None,
     `make_chunk_prefill_fn`, `_serve_table`'s pages), SERVE_STEPS steps:
     greedy, or teacher-forced on ``stream`` with the rows served ``rows``
     at a time (contiguous; each block its own state, as a "data" rank
-    serves its rows); writes the prompts, the tokens fed, every step's
+    serves its rows); writes the prompts (an encoder-decoder's frames
+    too: `make_frames` of the run's seed), the tokens fed, every step's
     logits, each layer's state (a file a field, the blocks' rows
-    joined) and the MoE's routings under ``out``."""
+    joined; an encoder-decoder's self layers, then its cross layers)
+    and the MoE's routings under ``out``."""
     import numpy as np
     import torch
+    from repro_torch.data import DataConfig, make_frames
     from repro_torch.serving.engine import (make_chunk_prefill_fn,
                                             make_serve_fns)
     B, S, T = SERVE_B, run["S"], run["max_len"]
     paged = run.get("paged", False)
     toks = np.random.RandomState(run["seed"]).randint(
         0, cfg.vocab, (B, S)).astype(np.int32)
+    frames = None if cfg.family != "encdec" else make_frames(
+        DataConfig(seq_len=S, global_batch=B, vocab=cfg.vocab,
+                   seed=run["seed"]), cfg.d_model, cfg.encoder_seq)
     rows = rows or B
     out.mkdir(parents=True)
 
-    def block(t, fed):
+    def block(t, fed, f):
         n = t.shape[0]
         init, prefill, decode = make_serve_fns(cfg, max_len=T, paged=paged,
                                                device=dev)
         state = init(n)
         t = torch.from_numpy(t).to(dev)
+        inputs = t if f is None else {
+            "tokens": t, "frames": torch.from_numpy(f).to(dev)}
         if paged:
             table = _serve_table(state[0].pool.k_q.shape[0],
                                  cfg.quant.block_size, n, T)
@@ -5848,7 +5970,7 @@ def _serve_one(dev, params, cfg, run: dict, out: Path, stream=None,
                 params, t, state, z, torch.full_like(z, S),
                 torch.ones((n,), dtype=torch.bool, device=dev))
         else:
-            lg, state = prefill(params, t, state)
+            lg, state = prefill(params, inputs, state)
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t0) * 1e3
         logits, tokens, step_ms, rec = [lg.float().cpu().numpy()], [], [], []
@@ -5868,18 +5990,22 @@ def _serve_one(dev, params, cfg, run: dict, out: Path, stream=None,
         return {"logits": np.stack(logits), "stream": np.stack(tokens),
                 "routes": _routes(rec, SERVE_STEPS),
                 "leaves": [{f: _numpy(x) for f, x in _state_leaves(c).items()}
-                           for c in state],
+                           for c in _layers(state)],
                 "lengths": [c.length if isinstance(getattr(c, "length", None),
                                                    int) else None
-                            for c in state],
+                            for c in _layers(state)],
                 "prefill_ms": prefill_ms, "step_ms": step_ms,
                 "cache_bytes": _state_bytes(state)}
 
     def run_all():
         parts = [block(toks[i:i + rows], None if stream is None
-                       else stream[:, i:i + rows]) for i in range(0, B, rows)]
+                       else stream[:, i:i + rows],
+                       None if frames is None else frames[i:i + rows])
+                 for i in range(0, B, rows)]
         cat = lambda xs, axis: np.concatenate(xs, axis=axis)
         np.save(out / "tokens.npy", toks)
+        if frames is not None:
+            np.save(out / "frames.npy", frames)
         np.save(out / "stream.npy", cat([p["stream"] for p in parts], 1))
         np.save(out / "logits.npy", cat([p["logits"] for p in parts], 1))
         for k in parts[0]["routes"]:
@@ -5913,7 +6039,6 @@ def _serve_refs(dev, runs: tuple, ref: Path, rows: int, card: str) -> dict:
     "blocks"?, "rows_effect"?}}."""
     import numpy as np
     import torch
-    from repro_torch.models import transformer as T
     out, key, params = {}, None, None
     for run in runs:
         cfg = _serve_run_cfg(run)
@@ -5921,9 +6046,7 @@ def _serve_refs(dev, runs: tuple, ref: Path, rows: int, card: str) -> dict:
             del params
             gc.collect()
             torch.cuda.empty_cache()
-            params = seeded_gates(T.init_params(
-                cfg, torch.Generator(device=dev).manual_seed(0), device=dev),
-                0)
+            params = seeded_gates(_init_model(cfg, dev), 0)
             key = (run["arch"], run["layers"], run.get("dtype"))
         d = ref / run["label"]
         one = out[run["label"]] = {
@@ -6000,11 +6123,20 @@ def _hold_state(state, specs, whole, mesh, ref: Path, cfg, S: int) -> dict:
     rows; scale rows (the largest relative difference); residuals and
     recurrent leaves (the largest difference over the leaf's largest
     |value|: SERVE_LOGIT_TOL, a float32 model's recurrent leaves
-    SERVE_F32_STATE_TOL); page tables and lengths equal."""
+    SERVE_F32_STATE_TOL); page tables and lengths equal. An
+    encoder-decoder's self and cross layers are keyed "self" and
+    "cross" (a cross cache's prompt: the encoder's frames), its scale
+    rows also as "bits" (every bit equal)."""
     import numpy as np
     from repro_torch.parallel.shard import shard_slices
     out = {}
     f32 = cfg.dtype == "float32"
+    kinds = lens = None
+    if isinstance(state, dict):
+        L = len(state["self"])
+        kinds, lens = (["self"] * L + ["cross"] * L,
+                       [S] * L + [cfg.encoder_seq] * L)
+        state, specs, whole = _layers(state), _layers(specs), _layers(whole)
 
     def worst(key, stats):
         have = out.setdefault(key, {})
@@ -6014,7 +6146,9 @@ def _hold_state(state, specs, whole, mesh, ref: Path, cfg, S: int) -> dict:
 
     for i, (c, sp, w) in enumerate(zip(state, specs, whole)):
         cache = hasattr(c, "k_q") or hasattr(c, "pool")
-        kind = "attn" if cache else type(c).__name__
+        kind = kinds[i] if kinds else "attn" if cache else \
+            type(c).__name__
+        prompt = lens[i] if lens else S
         spec = {**{f"pool.{f}": s for f, s in sp.get("pool", {}).items()},
                 **{f: s for f, s in sp.items() if f != "pool"}}
         shapes = {f: tuple(t.shape) for f, t in _state_leaves(w).items()}
@@ -6035,7 +6169,7 @@ def _hold_state(state, specs, whole, mesh, ref: Path, cfg, S: int) -> dict:
                                      f"the slice {want.shape}")
             if have.dtype == np.int8 and f in ("k_q", "v_q"):
                 lo, n_slots = idx[2].indices(shapes[f][2])[0], have.shape[2]
-                n = n_slots if c.ring else min(max(S - lo, 0), n_slots)
+                n = n_slots if c.ring else min(max(prompt - lo, 0), n_slots)
                 d = np.abs(have[:, :, :n].astype(np.int32)
                            - want[:, :, :n].astype(np.int32))
                 scales = np.load(ref / f"{i}.{f[0]}_s.npy", mmap_mode="r")
@@ -6055,7 +6189,9 @@ def _hold_state(state, specs, whole, mesh, ref: Path, cfg, S: int) -> dict:
                             "frac": float((d > 0).mean())})
             elif f.endswith(("k_s", "v_s")):
                 rel = np.abs(have - want) / np.maximum(np.abs(want), 1e-30)
-                worst(key, {"max_rel": float(rel.max(initial=0))})
+                worst(key, {"max_rel": float(rel.max(initial=0)),
+                            **({"bits": bool(np.array_equal(have, want))}
+                               if kinds else {})})
             elif f in ("page_table", "length"):
                 worst(key, {"equal": bool(np.array_equal(have, want))})
             else:
@@ -6065,7 +6201,7 @@ def _hold_state(state, specs, whole, mesh, ref: Path, cfg, S: int) -> dict:
                     "tol": SERVE_F32_STATE_TOL if f32 and not cache
                     else SERVE_LOGIT_TOL})
         if isinstance(getattr(c, "length", None), int):
-            worst("attn.length", {"equal": bool(
+            worst(f"{kinds[i] if kinds else 'attn'}.length", {"equal": bool(
                 int(np.load(ref / f"{i}.length.npy")) == c.length)})
     return out
 
@@ -6100,7 +6236,11 @@ def _serve_sharded_run(mesh, dev, params, cfg, run: dict, ref: Path
     step the logits against the one-process ones, ms, the bytes sent by
     collective and the collectives; the MoE's routings against the one
     process's; the launches; the state against the one-process state's
-    slices (`_hold_state`)."""
+    slices (`_hold_state`); an encoder-decoder's frames fed with the
+    prompts, its cross caches' int8 bytes and a digest of their scale
+    rows (the same on every rank of a row block)."""
+    import hashlib
+
     import numpy as np
     import torch
     from repro_torch.launch import specs as SP
@@ -6124,6 +6264,10 @@ def _serve_sharded_run(mesh, dev, params, cfg, run: dict, ref: Path
     state = init(B)
     rep = {"cache_bytes": _state_bytes(state)}
     t = torch.from_numpy(toks).to(dev)
+    inputs = t
+    if (ref / "frames.npy").exists():
+        inputs = {"tokens": t, "frames": torch.from_numpy(
+            np.load(ref / "frames.npy")).to(dev)}
     if paged:
         table = _serve_table(state[0].pool.k_q.shape[0],
                              cfg.quant.block_size, B, T)
@@ -6142,9 +6286,16 @@ def _serve_sharded_run(mesh, dev, params, cfg, run: dict, ref: Path
         lg, state = chunk(params, t, state, z, torch.full_like(z, S),
                           torch.ones((B,), dtype=torch.bool, device=dev))
     else:
-        lg, state = prefill(params, t, state)
+        lg, state = prefill(params, inputs, state)
     torch.cuda.synchronize()
     rep["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    if isinstance(state, dict):
+        cross = state["cross"]
+        rep["cross_int8_bytes"] = sum(c.k_q.numel() + c.v_q.numel()
+                                      for c in cross)
+        rep["cross_scales"] = hashlib.sha1(b"".join(
+            _numpy(x).tobytes() for c in cross for x in (c.k_s, c.v_s))
+        ).hexdigest()
     rep["prefill_sent"] = sent()
     held = [_held(0, lg, want, cfg.vocab)]
     pos = torch.full((B,), S, dtype=torch.int32, device=dev)
@@ -6239,7 +6390,7 @@ def _serve_rank(rank: int, world: int, rdzv: str, sizes, axes, runs,
 
 
 def _hold_serve(run: dict, reps: list, one: dict, pred: dict,
-                card: str) -> dict:
+                card: str, sizes) -> dict:
     """Prints run ``run``'s numbers from every rank's report, then holds
     them: logits within SERVE_LOGIT_TOL of the step's largest (but at a
     (step, row) where a rank's MoE router chose other experts than the
@@ -6253,8 +6404,11 @@ def _hold_serve(run: dict, reps: list, one: dict, pred: dict,
     tolerance, tables and lengths equal); the state bytes and the bytes
     each decode step sends by collective as `serve_predict` reckons them;
     paged: the replicated allocator's pages; the launches as
-    `_serve_launches` predicts. Returns the launches summed over the
-    ranks."""
+    `_serve_launches` predicts for each rank (``sizes`` the mesh's). An
+    encoder-decoder: its cross caches' int8 bytes a rank as predicted,
+    their scale rows the same bits on every rank of a row block (the
+    ranks' absmax MAX-reduced) and bit for bit the one process's.
+    Returns the launches summed over the ranks."""
     label = run["label"]
     cfg = _serve_run_cfg(run)
     per = [rep["serve"][label] for rep in reps]
@@ -6326,7 +6480,26 @@ def _hold_serve(run: dict, reps: list, one: dict, pred: dict,
                                  f"predicted {pred['sent']}")
         if run.get("paged") and not r["pages_equal"]:
             raise AssertionError(f"{who}: its allocator's pages differ")
-        want = _serve_launches(cfg, run)
+        if "cross_int8_bytes" in pred:
+            if r["cross_int8_bytes"] != pred["cross_int8_bytes"]:
+                raise AssertionError(f"{who}: cross caches' int8 "
+                                     f"{r['cross_int8_bytes']} B, predicted "
+                                     f"{pred['cross_int8_bytes']}")
+            same = {p["cross_scales"] for p, q in zip(per, reps)
+                    if q["coords"]["data"] == rep["coords"]["data"]}
+            if len(same) != 1:
+                raise AssertionError(f"{who}: the cross scales differ "
+                                     f"between the ranks of its rows")
+            if not all(r["state"][f"cross.{f}"]["bits"]
+                       for f in ("k_s", "v_s")):
+                raise AssertionError(f"{who}: cross scales not bit for bit "
+                                     f"the one process's: {r['state']}")
+        slots = run["max_len"]              # a ring's: the window's
+        if cfg.sliding_window:
+            bs = cfg.quant.block_size
+            slots = min(slots, -(-cfg.sliding_window // bs) * bs)
+        lo = rep["coords"]["model"] * (slots // sizes[1])
+        want = _serve_launches(cfg, run, lo < min(run["S"], slots))
         got = {k: v for k, v in r["launches"].items() if v}
         if got != want:
             raise AssertionError(f"{who}: launches {got}, predicted {want}")
@@ -6377,7 +6550,7 @@ def _serve_ranks(dev, card: str, name: str, runs: tuple, nccl: tuple,
             sub = one[run["label"]]
             counts[f"serve sharded {run['label']}"] = _hold_serve(
                 run, reps, sub.get("blocks", sub["whole"]),
-                preds[run["label"]], card)
+                preds[run["label"]], card, sizes)
         report["one_process"] = one
         report["ranks"] = [{**{k: v for k, v in r.items()
                                if k not in ("serve", "runs")},
@@ -6397,29 +6570,12 @@ def _serve_ranks(dev, card: str, name: str, runs: tuple, nccl: tuple,
         for run in mine:
             counts[f"serve nccl {run['label']}"] = _hold_serve(
                 run, nccl_reps, one[run["label"]]["whole"],
-                serve_predict(_serve_run_cfg(run), run, (1, 1)), card)
+                serve_predict(_serve_run_cfg(run), run, (1, 1)), card,
+                (1, 1))
         log(f"[{name}] the NCCL rank in {time.perf_counter() - t1:.1f} s")
     finally:
         shutil.rmtree(ref, ignore_errors=True)
     return counts, report, reps
-
-
-def serve_sharded_full_width(dev, card: str) -> dict:
-    """Sharded serving on the card (`SERVE_SHARDED_RUNS`, `_serve_ranks`):
-    internlm2_1_8b (seed-0 weights, 8 of 24 layers) through one process's
-    `make_serve_fns` (contiguous per block and per channel, paged through
-    `make_chunk_prefill_fn`): 4 rows of 3072-token prompts, max_len 4096,
-    32 greedy steps; then 4 gloo ranks at (data 2, model 2) run the same
-    three runs teacher-forced on its tokens (`_hold_serve`), and one
-    NCCL rank at (1, 1) the contiguous per-block run. Returns the launch
-    counts by path, summed over ranks."""
-    t0 = time.perf_counter()
-    counts, report, _ = _serve_ranks(dev, card, "serve sharded",
-                                     SERVE_SHARDED_RUNS,
-                                     ("contiguous per_block",))
-    log(f"[serve sharded] phase {time.perf_counter() - t0:.1f} s; {card}")
-    log("[serve sharded] " + json.dumps(report))
-    return counts
 
 
 # -- the long-context stacks under a mesh: recurrent states, the sharded ring
@@ -6427,7 +6583,8 @@ def serve_sharded_full_width(dev, card: str) -> dict:
 # max_len 8192: mixtral's and recurrentgemma's prompts pass their windows
 # (4096, 2048), so each ring has wrapped at the prefill; the prompts are
 # block multiples and no block fills in 32 steps. mixtral first, on the
-# emptiest card: four ranks' whole weights (~11 GB each). xlstm_350m in
+# emptiest card: four ranks' whole weights (~5.8 GB each at 1 of 56
+# layers, cut from 2 for the script's time). xlstm_350m in
 # float32: in bf16 its exponential gates carry a rounding difference of
 # the rows' grouping through 24 layers (logits 0.28-0.42 apart between
 # one process serving 4 rows and 2 at a time, PERF.md §6), past
@@ -6435,9 +6592,18 @@ def serve_sharded_full_width(dev, card: str) -> dict:
 LONG_SERVE = tuple(
     {"label": arch, "arch": arch, "layers": layers, "S": S, "max_len": 8192,
      "seed": 31, "blocks": True, "dtype": dtype}
-    for arch, layers, S, dtype in (("mixtral_8x22b", 2, 4608, None),
+    for arch, layers, S, dtype in (("mixtral_8x22b", 1, 4608, None),
                                    ("recurrentgemma_9b", 5, 2560, None),
-                                   ("xlstm_350m", None, 1024, "float32")))
+                                   ("xlstm_350m", None, 1024, "float32"))
+) + (
+    # whisper_small (12 + 12 layers, bf16): make_frames frames (4, 1500,
+    # 768) encoded context parallel (750 positions a "model" rank), the
+    # per-channel cross cache's 1504 slots over "model" (752 a rank; the
+    # second rank's last 4 are padding), 256-token prompts in a 512-slot
+    # self cache (the second "model" rank holds no prompt slot), no block
+    # fill in 32 steps
+    {"label": WHISPER, "arch": WHISPER, "layers": None, "S": 256,
+     "max_len": 512, "seed": 32, "blocks": True, "dtype": None},)
 # (label, arch, layers, batch, sequence, steps, rules, the single-process
 # run's label, dtype, steps held: None all): recurrentgemma_9b on the
 # default rules only (it is family "hybrid"; under SSM_RULES a rank
@@ -6465,7 +6631,12 @@ LONG_TRAIN = (
     ("train sharded xlstm_350m ssm", "xlstm_350m", None, 4, 256, 2, "ssm",
      "train single xlstm_350m float32 4x256", "float32", 1),
     ("train sharded xlstm_350m bf16", "xlstm_350m", None, 4, 256, 1, None,
-     "bf16 xlstm_350m 4x256", None, 1))
+     "bf16 xlstm_350m 4x256", None, 1),
+    # whisper_small uncut in bf16 on its make_frames frames (4, 1500, 768)
+    # and 4 x 256 tokens: the encoder context parallel, the cross K/V
+    # gathered along the encoder sequence, FSDP over "data"
+    ("train sharded whisper_small", WHISPER, None, 4, 256, 2, None,
+     "train single whisper_small 4x256", None, None))
 
 
 def _bf16_reference(dev, arch: str, B: int, S: int) -> dict:
@@ -6517,15 +6688,21 @@ def _named_leaves(x, pre: str = ""):
         yield pre[:-1], x
 
 
-def long_sharded_full_width(dev, card: str) -> dict:
-    """The long-context stacks under a mesh (`_serve_ranks`, 4 ranks on
-    cuda:0 over gloo at (data 2, model 2), then 1 NCCL rank at (1, 1)).
-    Serving (`LONG_SERVE`): each model's one-process `make_serve_fns`
-    (seed-0 weights, RG-LRU gates seeded; 4 rows of prompts past the
-    window) greedy, then the same rows 2 at a time teacher-forced on its
-    stream, the rows a "data" rank serves; every gloo rank runs
-    teacher-forced on that stream, held against the 2-row run (the NCCL
-    rank serves recurrentgemma_9b, held against the 4-row run).
+def serve_sharded_full_width(dev, card: str) -> dict:
+    """Sharded serving on the card, one `_serve_ranks` call (4 ranks on
+    cuda:0 over gloo at (data 2, model 2), then 1 NCCL rank at (1, 1)):
+    `SERVE_SHARDED_RUNS` (internlm2_1_8b, 4 of 24 layers, through one
+    process's `make_serve_fns`: contiguous per block and per channel,
+    paged through `make_chunk_prefill_fn`; 4 rows of 3072-token prompts,
+    max_len 4096, 32 greedy steps; the ranks teacher-forced on its
+    tokens), then the long-context stacks and whisper_small
+    (`LONG_SERVE`): each model's one-process `make_serve_fns` (seed-0
+    weights, RG-LRU gates seeded; 4 rows of prompts past the window;
+    whisper's with its frames) greedy, then the same rows 2 at a time
+    teacher-forced on its stream, the rows a "data" rank serves; every
+    gloo rank runs teacher-forced on that stream, held against the 2-row
+    run (the NCCL rank serves internlm's contiguous per-block run,
+    recurrentgemma_9b and whisper_small, held against the 4-row runs).
     Training (`LONG_TRAIN`, on the same ranks after serving): each run
     held against the single-process steps of this call (`_hold_sharded`:
     losses within LOSS_RTOL and grad norms within GNORM_RTOL for the
@@ -6554,8 +6731,9 @@ def long_sharded_full_width(dev, card: str) -> dict:
                 _train_runs(dev, _cut(arch, layers, dtype), B, S,
                             ((single, [], steps),), f"; {card}")
     counts, report, reps = _serve_ranks(
-        dev, card, "long sharded", LONG_SERVE, ("recurrentgemma_9b",),
-        LONG_TRAIN, singles)
+        dev, card, "serve sharded", SERVE_SHARDED_RUNS + LONG_SERVE,
+        ("contiguous per_block", "recurrentgemma_9b", WHISPER), LONG_TRAIN,
+        singles)
     for label, arch, layers, B, S, steps, rules, single, dtype, held \
             in LONG_TRAIN:
         cfg = _cut(arch, layers, dtype)
@@ -6617,9 +6795,9 @@ def long_sharded_full_width(dev, card: str) -> dict:
                 f"{label}: step 0 grad norm {got['grad_norm']} lies "
                 f"{off:.2e} from the float32 gradient's {f32['grad_norm']}"
                 f", past one process's bf16 {own:.2e} + {GNORM_RTOL:g}")
-    log(f"[long sharded] phase {time.perf_counter() - t_phase:.1f} s; "
+    log(f"[serve sharded] phase {time.perf_counter() - t_phase:.1f} s; "
         f"{card}")
-    log("[long sharded] " + json.dumps(report))
+    log("[serve sharded] " + json.dumps(report))
     return counts
 
 
@@ -6654,8 +6832,9 @@ def kernels_line(decode, prefill, flat, quant, paper, grad, flash, seed,
     then a row per kernel at another model's shapes, from each (rows,
     prefix) of ``extras`` (`check_d256`: recurrentgemma_9b's head width
     256; `check_g6_d64`: qwen2_vl_2b's GQA group 6 and whisper_small's
-    head width 64), its launches those of the paths whose names start
-    with ``prefix`` (that model served at full width)."""
+    head width 64, on one card and on a rank of its mesh), its launches
+    those of the paths whose names start with ``prefix`` (a name or a
+    tuple of them: that model served or trained at full width)."""
     launches = {k: sum(c.get(k, 0) for c in path_counts.values())
                 for k in _counters()}
     by_path = {k: {p: c[k] for p, c in path_counts.items() if c.get(k)}
@@ -6921,9 +7100,6 @@ def main() -> int:
     t0 = time.perf_counter()
     path_counts.update(serve_sharded_full_width(dev, card))
     log(f"[serve sharded] phase in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    path_counts.update(long_sharded_full_width(dev, card))
-    log(f"[long sharded] phase in {time.perf_counter() - t0:.1f} s")
 
     prefill["sass_mma"] = pmma
     kernels = kernels_line(
@@ -6933,7 +7109,9 @@ def main() -> int:
             ({k: r for k, r in g6d64.items() if k.endswith("_g6")},
              "serve qwen2_vl_2b"),
             ({k: r for k, r in g6d64.items() if k.endswith("_d64")},
-             f"serve {WHISPER}")])
+             f"serve {WHISPER}"),
+            ({k: r for k, r in g6d64.items() if k.endswith("_d64mesh")},
+             (f"serve sharded {WHISPER}", f"train sharded {WHISPER}"))])
     if any(k["launches"] < 1 for k in kernels):
         raise AssertionError("a kernel was launched on no main path")
     log(f"[total] {time.perf_counter() - t_start:.1f} s")

@@ -36,7 +36,9 @@ bfloat16 cannot go through `torch.from_numpy`).
 - `serve_state_to_numpy` / `serve_state_from_numpy`: an attention
   stack's serving state (contiguous or paged int8 caches; under a mesh a
   rank's shards) <-> the reference's stacked state as numpy, a cache's
-  fields as a dict (a paged cache's pool under ``pool``).
+  fields as a dict (a paged cache's pool under ``pool``); an
+  encoder-decoder's ``{"self", "cross"}``, each a stack of its layers'
+  caches, as the reference keeps them.
 """
 from __future__ import annotations
 
@@ -45,10 +47,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.tree import leaves, tree_map
+from repro_torch.core.tree import tree_map
 from repro_torch.models import encdec
-from repro_torch.models.transformer import (check_distributable,
-                                            pattern_layout, stack_layers,
+from repro_torch.models.transformer import (pattern_layout, stack_layers,
                                             unstack_layers)
 from repro_torch.parallel.shard import take_shard
 
@@ -98,24 +99,21 @@ def _conv(node, dtype_of, device, f32=False, spec=None, mesh=None):
     return _tensor(node, dtype_of(f32), device)
 
 
-def _unstack(stack) -> list:
-    """A stacked tree (leading layer axis) -> one copy a layer."""
-    n = leaves(stack)[0].shape[0]
-    return [tree_map(lambda x, i=i: x[i].clone(), stack) for i in range(n)]
-
-
-def _encdec_layout(tree, cfg, device, dtype_of) -> dict:
+def _encdec_layout(tree, cfg, device, dtype_of, mesh=None,
+                   specs=None) -> dict:
     """The reference's encoder-decoder tree -> the port's, the stacks as
-    per-layer lists."""
+    per-layer lists; under ``mesh`` this rank's shards of ``specs``."""
     got = {k: int(np.asarray(tree[k]["norm1"]["scale"]).shape[0])
            for k, _ in encdec.STACKS}
     want = {"enc_blocks": cfg.n_encoder_layers, "dec_blocks": cfg.n_layers}
     if got != want:
         raise ValueError(f"expected {want} stacked layers, got {got}")
-    port = _conv(tree, dtype_of, device)
+    port = dict(tree)
     for ref_key, port_key in encdec.STACKS:
-        port[port_key] = _unstack(port.pop(ref_key))
-    return port
+        stack = tree_map(np.asarray, port.pop(ref_key))
+        port[port_key] = [tree_map(lambda a, i=i: a[i], stack)
+                          for i in range(want[ref_key])]
+    return _conv(port, dtype_of, device, spec=specs, mesh=mesh)
 
 
 def _port_layout(tree, cfg, device, dtype_of, mesh=None,
@@ -124,9 +122,7 @@ def _port_layout(tree, cfg, device, dtype_of, mesh=None,
     ``dtype_of(is_float32_leaf)``, layers as copies (not views of a
     stack); under ``mesh`` this rank's shards of ``specs``."""
     if cfg.family == "encdec":
-        if mesh is not None:
-            check_distributable(cfg, mesh)
-        return _encdec_layout(tree, cfg, device, dtype_of)
+        return _encdec_layout(tree, cfg, device, dtype_of, mesh, specs)
     ref = _stacked_ref(tree, cfg)
     if mesh is None:
         port = unstack_layers(_conv(ref, dtype_of, device))
@@ -231,7 +227,13 @@ def serve_state_to_numpy(state, cfg) -> dict:
     mLSTM C, n, m, C_s; sLSTM c, n, h, m), as numpy (bfloat16 as
     float32, fp8 pages as their bytes). Under a mixed per-layer page plan
     each ``p{i}`` is a list of its layers, as the reference keeps it (its
-    pools differ in dtype and shape)."""
+    pools differ in dtype and shape). An encoder-decoder's state (a dict
+    of two lists) -> ``{"self", "cross"}``, each field stacked over the
+    layers."""
+    if isinstance(state, dict):
+        return {k: {f: np.stack([_numpy(getattr(c, f)) for c in v])
+                    for f in _CACHE_FIELDS} for k, v in state.items()}
+
     def fields(c):
         if hasattr(c, "pool"):
             return {"pool": {f: _numpy(getattr(c.pool, f))
@@ -256,11 +258,26 @@ def serve_state_from_numpy(tree, state, cfg, mesh=None, specs=None):
     process's state of its shapes, or under ``mesh`` this rank's shards
     laid out by ``specs`` (`launch.specs.serve_state_specs`' first
     part), each cut from the numpy arrays. Returns ``state``."""
+    if isinstance(state, dict):           # an encoder-decoder's two stacks
+        for k, caches in state.items():
+            layers = [{f: a[i] for f, a in tree[k].items()}
+                      for i in range(len(caches))]
+            _put_layers(layers, caches, mesh,
+                        None if specs is None else specs[k])
+        return state
     layers = unstack_layers({
         "blocks": {k: v for k, v in tree.items() if k != "tail"},
         "tail": list(tree.get("tail") or [])})["layers"]
     if len(layers) != len(state):
         raise ValueError(f"{len(layers)} layers for a state of {len(state)}")
+    _put_layers(layers, state, mesh, specs)
+    return state
+
+
+def _put_layers(layers, state, mesh, specs) -> None:
+    """Each layer's numpy fields (whole) into ``state``'s layer of the
+    same index, in place; under ``mesh`` this rank's shard of each by
+    ``specs``."""
     for i, (c, f) in enumerate(zip(state, layers)):
         sp = None if specs is None else specs[i]
 
@@ -284,4 +301,3 @@ def serve_state_from_numpy(tree, state, cfg, mesh=None, specs=None):
         for n in _CACHE_FIELDS[:-1]:
             put(getattr(c, n), f[n], None if sp is None else sp[n])
         c.length = int(f["length"])
-    return state

@@ -193,6 +193,15 @@ class ShardedKVCache(QuantizedKVCache):
     (`merge_rank_partials`), so every rank of ``axes`` ends with the same
     bits.
 
+    ``length`` may be set below ``total`` after a prefill: an
+    encoder-decoder's cross cache (`models.encdec`) is prefilled per
+    channel from the encoder's K/V zero-padded to ``total`` slots, then
+    its length set to the true encoder length, so decode reads only the
+    live slots. The padding's zeros leave every channel's absmax as it
+    is, and a rank whose slots are all padding passes no live slot to
+    the kernel: its partials are m = -1e30, l = 0, which the merge
+    weighs by zero.
+
     A ring (``ring=True``, a sliding window) shards its ``total`` slots
     the same way: prefill keeps the prompt's last ``total`` tokens rolled
     to slot ``pos % total`` (the one-process ring) and writes this rank's

@@ -13,6 +13,8 @@ at their local shapes (`init_serve_state`), never whole and then cut.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch.parallel.shard import (MeshShape, current_rules,
@@ -136,9 +138,14 @@ def serve_state_specs(cfg, batch: int, max_len: int, mesh, *,
     """(specs, whole): each layer's specs of ``cfg``'s serving state for
     ``batch`` rows (`cache_shardings`; paged: `paged_cache_specs`) and
     the whole state they are computed from, on the meta device (shapes
-    only)."""
+    only). An encoder-decoder's are dicts of two lists, ``self`` and
+    ``cross`` (`encdec.init_decode_state`)."""
+    from repro_torch.models import encdec
     from repro_torch.models.transformer import init_decode_state
     from repro_torch.parallel.shard import paged_cache_specs
+    if cfg.family == "encdec":
+        whole = encdec.init_decode_state(cfg, batch, max_len, device="meta")
+        return cache_shardings(whole, mesh, cfg), whole
     whole = init_decode_state(cfg, batch, max_len, paged=paged,
                               n_pages=n_pages, kv_cache_dtype=kv_cache_dtype,
                               device="meta")
@@ -159,7 +166,7 @@ _STATE_FILL = {"m": -1e30, "C_s": 1e-30}
 
 def init_serve_state(cfg, batch: int, max_len: int, mesh, *,
                      paged: bool = False, n_pages: int | None = None,
-                     kv_cache_dtype="int8", device="cuda") -> list:
+                     kv_cache_dtype="int8", device="cuda"):
     """This rank's shards of `transformer.init_decode_state`'s state, each
     made at its local shapes (never whole, then cut; as `init_shards`):
     a contiguous layer's rows and slots of `cache_shardings`' spec (a
@@ -169,12 +176,23 @@ def init_serve_state(cfg, batch: int, max_len: int, mesh, *,
     of `paged_cache_specs`' (``kv_axes`` the heads' axes; every page, the
     allocator being replicated), a recurrent layer's state as each
     leaf's spec cuts it, the specs kept on it as ``spec``
-    (`models.recurrent_mesh`)."""
-    from repro_torch.core.kvcache import QuantizedKVCache, ShardedKVCache
-    from repro_torch.core.paging import PagedQuantizedKVCache
+    (`models.recurrent_mesh`). An encoder-decoder's is the dict of its
+    ``self`` and ``cross`` lists, each cache cut as a contiguous layer's
+    (the cross caches per channel over the encoder's slots)."""
     specs, whole = serve_state_specs(cfg, batch, max_len, mesh, paged=paged,
                                      n_pages=n_pages,
                                      kv_cache_dtype=kv_cache_dtype)
+    if isinstance(whole, dict):
+        return {k: _local_state(cfg, whole[k], specs[k], mesh, max_len,
+                                False, device) for k in whole}
+    return _local_state(cfg, whole, specs, mesh, max_len, paged, device)
+
+
+def _local_state(cfg, whole, specs, mesh, max_len, paged, device) -> list:
+    """This rank's part of each layer of ``whole`` (meta) by its
+    ``specs``, made at its local shapes (`init_serve_state`)."""
+    from repro_torch.core.kvcache import QuantizedKVCache, ShardedKVCache
+    from repro_torch.core.paging import PagedQuantizedKVCache
     out = []
     for c, sp in zip(whole, specs):
         if paged:
@@ -186,14 +204,16 @@ def init_serve_state(cfg, batch: int, max_len: int, mesh, *,
             new.kv_axes = sp["pool"]["k_q"][2]
         elif isinstance(c, QuantizedKVCache):
             B_l = _local(c.k_q.shape, sp["k_q"], mesh)[0]
+            quant = dataclasses.replace(cfg.quant, granularity=(
+                "per_channel" if c.per_channel else "per_block"))
             if sp["k_q"][2]:
                 new = ShardedKVCache.init(
-                    B_l, cfg.n_kv_heads, c.max_len, cfg.head_dim, cfg.quant,
+                    B_l, cfg.n_kv_heads, c.max_len, cfg.head_dim, quant,
                     c.ring, device=device, mesh=mesh, axes=sp["k_q"][2],
                     scale_axes=sp["k_s"][2])
             else:
                 new = QuantizedKVCache.init(B_l, cfg.n_kv_heads, c.max_len,
-                                            cfg.head_dim, cfg.quant, c.ring,
+                                            cfg.head_dim, quant, c.ring,
                                             device=device)
         else:
             new = type(c)(**{f: torch.full(
@@ -292,19 +312,17 @@ def init_shards(cfg, generator, device, specs, mesh):
     draws from ``generator``): each part is cut to its shards as it is
     made, so a rank never holds more of the whole model than one layer,
     or the embedding or head. ``specs`` are `param_specs`'. An
-    encoder-decoder (trained on a mesh of one rank only) is made whole
-    and cut."""
+    encoder-decoder's come from `encdec.init_params` the same way."""
     from repro_torch.models import encdec, transformer
-    if cfg.family == "encdec":
-        return shard_tree(encdec.init_params(cfg, generator, device=device),
-                          specs, mesh)
 
     def keep(key, part):
         sp = specs
         for k in key:
             sp = sp[k]
         return shard_tree(part, sp, mesh)
-    return transformer.init_params(cfg, generator, device=device, keep=keep)
+    init = encdec.init_params if cfg.family == "encdec" else \
+        transformer.init_params
+    return init(cfg, generator, device=device, keep=keep)
 
 
 def gather_tree(tree, specs, mesh):

@@ -86,7 +86,6 @@ def main(argv=None, on_step=None):
         mesh = (make_host_mesh(device) if args.mesh == "host" else
                 make_production_mesh(device,
                                      multi_pod=args.mesh == "multipod"))
-        transformer.check_distributable(cfg, mesh)
     device = transformer.check_device(device)
     lead = mesh is None or mesh.rank == 0
     say = print if lead else (lambda *a, **k: None)

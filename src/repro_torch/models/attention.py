@@ -18,9 +18,15 @@ Training:
 Encoder-decoder cross attention (`models.encdec`):
     cross_train(...)    queries from the decoder, keys / values from the
                         encoder output, no RoPE, no mask (flash forward,
-                        non-causal); returns the K/V for the cross cache
+                        non-causal); returns the K/V for the cross cache;
+                        under a mesh K and V projected on this rank's
+                        encoder positions and gathered along the encoder
+                        sequence (as ``_gather_seq``; the backward
+                        reduce-scatters dK, dV)
     cross_decode(...)   one query over the per-channel int8 cross cache
-                        (the flat decode kernel) at its valid length
+                        (the flat decode kernel) at its valid length;
+                        over a `ShardedKVCache` this rank's slots, the
+                        ranks' partials merged in rank order
 Contiguous cache (`core.kvcache.QuantizedKVCache`):
     prefill(...)        causal attention over the prompt (blocked flash
                         attention, `models.flash`), then quantizes its K/V
@@ -144,11 +150,12 @@ def _window(cfg, local: bool):
 def train(p, x, cfg, positions, *, local: bool = False, causal: bool = True,
           lay=None, sp=None):
     """x (B, S, d) -> (B, S, d): attention over the sequence itself. Under
-    a mesh (``lay``, ``sp`` the specs of p's leaves) x, positions and the
-    result are this rank's part of ``lay``."""
+    a mesh (``lay``, ``sp`` the specs of p's leaves; None: whole weights,
+    as serving holds them) x, positions and the result are this rank's
+    part of ``lay``."""
     offset = 0
-    if lay is not None:
-        p = {k: gather_param(v, sp[k], lay.mesh) for k, v in p.items()}
+    if sp is not None:
+        p = _gathered(p, sp, lay)
     q, k, v = _project_qkv(p, x, cfg, positions)
     if lay is not None and lay.seq:           # _gather_seq
         k = all_gather(k, lay.seq, 2, lay.mesh)
@@ -159,16 +166,32 @@ def train(p, x, cfg, positions, *, local: bool = False, causal: bool = True,
     return _merge_heads(p, out, x.dtype)
 
 
-def cross_train(p, x, kv_src, cfg):
+def _gathered(p, sp, lay) -> dict:
+    """The weights a block computes with: each leaf gathered from this
+    rank's shards by its spec."""
+    return {k: gather_param(v, sp[k], lay.mesh) for k, v in p.items()}
+
+
+def cross_train(p, x, kv_src, cfg, *, lay=None, sp=None):
     """Encoder-decoder cross attention (training and prefill): queries
     from x (B, S, d), keys / values from kv_src (B, T, d), the encoder
     output. No RoPE, no mask. Returns (out (B, S, d), (k, v) (B, Hkv, T,
-    hd)) — the K/V the cross cache quantizes."""
+    hd)) — the K/V the cross cache quantizes. Under a mesh x is this
+    rank's part of the decoder's layout and kv_src of the encoder's,
+    ``lay`` (the same rows); K and V are projected on this rank's encoder
+    positions and gathered along the sequence in the activation dtype,
+    so the K/V returned are the whole encoder's for this rank's rows.
+    ``sp``: the specs of p's leaves (None: whole weights)."""
+    if sp is not None:
+        p = _gathered(p, sp, lay)
     B, S, _ = x.shape
     hd = cfg.head_dim
     q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, hd).transpose(1, 2)
     k = (kv_src @ p["wk"]).reshape(B, -1, cfg.n_kv_heads, hd).transpose(1, 2)
     v = (kv_src @ p["wv"]).reshape(B, -1, cfg.n_kv_heads, hd).transpose(1, 2)
+    if lay is not None and lay.seq:           # _gather_seq
+        k = all_gather(k, lay.seq, 2, lay.mesh)
+        v = all_gather(v, lay.seq, 2, lay.mesh)
     out = _sdpa(q, k, v, causal=False, window=None)
     return _merge_heads(p, out, x.dtype), (k, v)
 
@@ -176,13 +199,19 @@ def cross_train(p, x, kv_src, cfg):
 def cross_decode(p, x, cfg, cache: QuantizedKVCache):
     """Decode-time cross attention: one query a row over the per-channel
     int8 encoder K/V (scales computed once at prefill, paper Eq. 5, never
-    updated), at the cache's valid length."""
+    updated), at the cache's valid length; over a `ShardedKVCache` the
+    flat decode kernel over this rank's slots, every rank's partials
+    merged in rank order."""
     B, S, _ = x.shape
     hd = cfg.head_dim
     q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, hd).transpose(1, 2)
-    out = ops.quant_attention_decode(
-        q[:, :, 0], cache.k_q, cache.k_s, cache.v_q, cache.v_s,
-        cache.valid_len)
+    if isinstance(cache, ShardedKVCache):
+        o, _, l = cache.decode_partials(q[:, :, 0], cache.valid_len)
+        out = o / torch.clamp_min(l, 1e-30)
+    else:
+        out = ops.quant_attention_decode(
+            q[:, :, 0], cache.k_q, cache.k_s, cache.v_q, cache.v_s,
+            cache.valid_len)
     return _merge_heads(p, out[:, :, None].to(x.dtype), x.dtype)
 
 

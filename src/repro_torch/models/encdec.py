@@ -29,6 +29,36 @@ embedded token, so the decoder runs that step in float32: the weights
 take part promoted to float32 (JAX promotes a bf16 x f32 product; torch
 does not, so the port converts each layer's weights as it reaches it).
 The prefill stays in the activation dtype.
+
+Under `parallel.shard.mesh_context` (a mesh of ranks) every entry point
+takes the global batch and runs this rank's part, as the reference lays
+it out under its mesh:
+
+  * the encoder runs context parallel: frames (B, T_enc, d) rows over
+    "batch" and positions over "seq_shard" (`parallel.shard.Layout`,
+    replicated where the sizes do not divide; the reference's
+    ``act_shard(x, "batch", "seq_shard", None)``), the
+    sinusoid taken at this rank's positions, and each layer's
+    non-causal attention over K/V gathered along the sequence
+    (`attention.train`);
+  * training (`forward_train`, ``specs`` the parameters') runs the
+    decoder as `transformer.forward_train` runs a decoder stack, with
+    its vocab-parallel tied embedding and head; cross-attention takes
+    this rank's query positions over the encoder's K/V, projected on the
+    encoder's positions and gathered along its sequence
+    (`attention.cross_train`). Every block gathers the weights it needs
+    inside its checkpoint region;
+  * serving (`prefill`, `decode_step`) runs on WHOLE weights
+    (`serving.engine.make_serve_fns` gathers a rank's shards once) over
+    this rank's rows (`transformer.serve_layout`): the prompt context
+    parallel, the caches this rank's `core.kvcache.ShardedKVCache`
+    shards (`launch.specs.init_serve_state`): each self cache's slots
+    over "model", each per-channel cross cache's `enc_cache_len` slots
+    over "model", prefilled from the whole padded encoder K/V (the
+    scales' absmax a MAX all-reduce of the ranks' slots) with its
+    ``length`` then set to the true encoder length; a decode step merges
+    the ranks' flat decode partials of both caches, and the logits come
+    back for every row.
 """
 from __future__ import annotations
 
@@ -39,12 +69,10 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.kvcache import QuantizedKVCache
 from repro_torch.core.tree import tree_map
-from repro_torch.models import attention, mlp
+from repro_torch.models import attention, mlp, transformer
 from repro_torch.models.common import embed_init, layernorm, layernorm_init
-from repro_torch.models.transformer import (check_device,
-                                            check_distributable,
-                                            padded_vocab)
-from repro_torch.parallel.shard import current_mesh
+from repro_torch.models.transformer import check_device, padded_vocab
+from repro_torch.parallel.shard import Layout, current_mesh
 
 
 def _angles(pos: torch.Tensor, d: int) -> torch.Tensor:
@@ -55,10 +83,12 @@ def _angles(pos: torch.Tensor, d: int) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
-def _sinusoid(S: int, d: int, device) -> torch.Tensor:
-    """(1, S, d) float32: positions 0..S-1."""
+def _sinusoid(S: int, d: int, device, lay=None) -> torch.Tensor:
+    """(1, S, d) float32: positions 0..S-1; under a layout ``lay`` (of S
+    positions) this rank's positions of it, the same rows."""
     pos = torch.arange(S, dtype=torch.float32, device=device)[:, None]
-    return _angles(pos, d)[None]
+    sin = _angles(pos, d)[None]
+    return sin[:, lay.positions()] if lay is not None and lay.seq else sin
 
 
 def sinusoid_rows(pos_b: torch.Tensor, d: int) -> torch.Tensor:
@@ -112,61 +142,104 @@ def _dec_block_init(cfg, gen, device) -> dict:
 
 
 def init_params(cfg, generator: torch.Generator | None = None, *,
-                device="cuda") -> dict:
+                device="cuda", keep=None) -> dict:
     """Random weights with the reference's distributions, drawn from
-    ``generator`` (a `torch.Generator` on ``device``; None = seed 0)."""
+    ``generator`` (a `torch.Generator` on ``device``; None = seed 0).
+    ``keep(key, part)``, when given, takes each part as it is made (each
+    encoder layer, each decoder layer, the embedding, then the two
+    norms; ``key`` its path in the tree) and returns what to hold of it,
+    as `transformer.init_params`' hook (`launch.specs.init_shards`)."""
     device = check_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
-    enc = [_enc_block_init(cfg, generator, device)
-           for _ in range(cfg.n_encoder_layers)]
-    dec = [_dec_block_init(cfg, generator, device)
-           for _ in range(cfg.n_layers)]
-    return {"embed": embed_init(generator, padded_vocab(cfg), cfg.d_model,
-                                cfg.activation_dtype, device),
+    keep = keep or (lambda key, part: part)
+    enc = [keep(("enc_layers", i), _enc_block_init(cfg, generator, device))
+           for i in range(cfg.n_encoder_layers)]
+    dec = [keep(("dec_layers", i), _dec_block_init(cfg, generator, device))
+           for i in range(cfg.n_layers)]
+    return {"embed": keep(("embed",), embed_init(
+                generator, padded_vocab(cfg), cfg.d_model,
+                cfg.activation_dtype, device)),
             "enc_layers": enc, "dec_layers": dec,
-            "enc_norm": layernorm_init(cfg.d_model, device),
-            "final_norm": layernorm_init(cfg.d_model, device)}
+            "enc_norm": keep(("enc_norm",),
+                             layernorm_init(cfg.d_model, device)),
+            "final_norm": keep(("final_norm",),
+                               layernorm_init(cfg.d_model, device))}
 
 
 # -- encoder ------------------------------------------------------------------
 
-def _enc_block(bp, x, cfg, pos):
+def _enc_block(bp, x, cfg, pos, lay=None, sp=None):
     x = x + attention.train(bp["attn"], layernorm(bp["norm1"], x), cfg, pos,
-                            causal=False)
-    return x + mlp.apply(bp["mlp"], layernorm(bp["norm2"], x))
+                            causal=False, lay=lay,
+                            sp=transformer._sub(sp, "attn"))
+    return x + mlp.apply(bp["mlp"], layernorm(bp["norm2"], x), lay,
+                         transformer._sub(sp, "mlp"))
 
 
-def encode(params, frames: torch.Tensor, cfg, remat: bool = False):
-    """frames (B, T_enc, d) stub embeddings -> encoder output (B, T_enc,
-    d) in the activation dtype. With ``remat`` each block keeps only its
-    input for the backward."""
+def _encode(params, frames, cfg, remat, lay=None, sp=None):
+    """frames: the whole (B, T_enc, d), or this rank's block of ``lay``
+    -> the encoder output in the same layout. ``sp``: the parameters'
+    specs (None: whole weights)."""
     B, S, d = frames.shape
     dt = cfg.activation_dtype
-    x = frames.to(dt) + _sinusoid(S, d, frames.device).to(dt)
+    sin = _sinusoid(S if lay is None else lay.S, d, frames.device, lay)
+    x = frames.to(dt) + sin.to(dt)
     pos = _zero_pos(B, S, frames.device)
-    for bp in params["enc_layers"]:
-        x = (checkpoint(_enc_block, bp, x, cfg, pos, use_reentrant=False)
-             if remat else _enc_block(bp, x, cfg, pos))
+    for i, bp in enumerate(params["enc_layers"]):
+        args = (bp, x, cfg, pos, lay, None if sp is None
+                else sp["enc_layers"][i])
+        x = (checkpoint(_enc_block, *args, use_reentrant=False)
+             if remat else _enc_block(*args))
     return layernorm(params["enc_norm"], x)
+
+
+def encode(params, frames: torch.Tensor, cfg, remat: bool = False, *,
+           specs=None):
+    """frames (B, T_enc, d) stub embeddings -> encoder output (B, T_enc,
+    d) in the activation dtype. With ``remat`` each block keeps only its
+    input for the backward. Under a mesh of ranks: frames are the global
+    batch, the parameters this rank's shards laid out by ``specs`` (None:
+    whole weights), and the result is this rank's block of the output,
+    at the rows and positions of ``Layout.of(mesh, B, T_enc, d)``."""
+    mesh = current_mesh()
+    if mesh is None:
+        return _encode(params, frames, cfg, remat)
+    lay = Layout.of(mesh, *frames.shape)
+    return _encode(params, frames[lay.rows()][:, lay.positions()], cfg,
+                   remat, lay, specs)
 
 
 # -- decoder: training --------------------------------------------------------
 
-def _dec_block_train(bp, x, enc_out, cfg, pos):
+def _dec_block_train(bp, x, enc_out, cfg, pos, lay=None, sp=None,
+                     elay=None):
     x = x + attention.train(bp["self_attn"], layernorm(bp["norm1"], x), cfg,
-                            pos, causal=True)
+                            pos, causal=True, lay=lay,
+                            sp=transformer._sub(sp, "self_attn"))
     h, _ = attention.cross_train(bp["cross_attn"],
-                                 layernorm(bp["norm_x"], x), enc_out, cfg)
+                                 layernorm(bp["norm_x"], x), enc_out, cfg,
+                                 lay=elay,
+                                 sp=transformer._sub(sp, "cross_attn"))
     x = x + h
-    return x + mlp.apply(bp["mlp"], layernorm(bp["norm2"], x))
+    return x + mlp.apply(bp["mlp"], layernorm(bp["norm2"], x), lay,
+                         transformer._sub(sp, "mlp"))
 
 
-def forward_train(params, frames, tokens, cfg, *, remat: bool = True):
+def forward_train(params, frames, tokens, cfg, *, remat: bool = True,
+                  specs=None):
     """-> (logits (B, S, Vp), aux = 0). frames (B, T_enc, d); tokens (B,
-    S) int. A mesh of several ranks raises `ValueError`
-    (`transformer.check_distributable`)."""
-    check_distributable(cfg, current_mesh())
+    S) int. Under a mesh of ranks (module docstring): frames and tokens
+    are the global batch, the parameters this rank's shards (``specs``
+    theirs), and it returns this rank's block of the logits
+    (`transformer.logits_spec`) and a zero aux."""
+    mesh = current_mesh()
+    if mesh is not None:
+        if specs is None:
+            raise ValueError("forward_train under a mesh needs the "
+                             "parameters' specs")
+        return _forward_train_sharded(params, specs, frames, tokens, cfg,
+                                      mesh, remat)
     enc_out = encode(params, frames, cfg, remat)
     B, S = tokens.shape
     x = params["embed"][tokens]
@@ -179,6 +252,23 @@ def forward_train(params, frames, tokens, cfg, *, remat: bool = True):
     x = layernorm(params["final_norm"], x)
     return x @ params["embed"].T, torch.zeros((), dtype=torch.float32,
                                               device=x.device)
+
+
+def _forward_train_sharded(params, sp, frames, tokens, cfg, mesh, remat):
+    B, S = tokens.shape
+    elay = Layout.of(mesh, *frames.shape)
+    enc_out = _encode(params, frames[elay.rows()][:, elay.positions()], cfg,
+                      remat, elay, sp)
+    lay = Layout.of(mesh, B, S, cfg.d_model)
+    x = transformer._embed_sharded(params, sp, tokens[lay.rows()], cfg, lay)
+    x = x + _sinusoid(S, cfg.d_model, x.device, lay).to(x.dtype)
+    pos = _zero_pos(*x.shape[:2], x.device)
+    for bp, s in zip(params["dec_layers"], sp["dec_layers"]):
+        args = (bp, x, enc_out, cfg, pos, lay, s, elay)
+        x = (checkpoint(_dec_block_train, *args, use_reentrant=False)
+             if remat else _dec_block_train(*args))
+    return (transformer._head_sharded(params, sp, x, cfg, lay),
+            torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 # -- decoder: serving ---------------------------------------------------------
@@ -208,37 +298,61 @@ def _pad_t(x: torch.Tensor, target: int) -> torch.Tensor:
     return torch.nn.functional.pad(x, (0, 0, 0, pad)) if pad else x
 
 
+def _serve_layout(cfg, B: int, S: int, mode: str):
+    """The decoder's layout of a serving step under the active mesh
+    (`transformer.serve_layout`), or None without one."""
+    mesh = current_mesh()
+    if mesh is None:
+        return None
+    return transformer.serve_layout(mesh, cfg, B, S, mode, False)
+
+
 def prefill(params, frames, tokens, cfg, state):
     """Encode the frames, run the prompt through the decoder and fill both
     caches. tokens (B, S) with S a block multiple under per-block caches.
-    Returns (logits of the last position (B, Vp), state)."""
-    enc_out = encode(params, frames, cfg)
+    Returns (logits of the last position (B, Vp), state). Under a mesh
+    (module docstring) frames and tokens are the global batch, the
+    weights whole, the state this rank's shards, and the logits every
+    row's."""
     B, S = tokens.shape
+    lay = elay = _serve_layout(cfg, B, S, "prefill")
+    if lay is not None:
+        elay = Layout.of(lay.mesh, *frames.shape)
+        frames = frames[elay.rows()][:, elay.positions()]
+        tokens = tokens[lay.rows()][:, lay.positions()]
+    enc_out = _encode(params, frames, cfg, False, elay)
     x = params["embed"][tokens]
-    x = x + _sinusoid(S, cfg.d_model, x.device).to(x.dtype)
-    pos = _zero_pos(B, S, x.device)
+    x = x + _sinusoid(S, cfg.d_model, x.device, lay).to(x.dtype)
+    pos = _zero_pos(*tokens.shape, x.device)
     for bp, self_c, cross_c in zip(params["dec_layers"], state["self"],
                                    state["cross"]):
         h, _ = attention.prefill(bp["self_attn"], layernorm(bp["norm1"], x),
-                                 cfg, pos, self_c)
+                                 cfg, pos, self_c, lay=lay)
         x = x + h
         h, (ck, cv) = attention.cross_train(
-            bp["cross_attn"], layernorm(bp["norm_x"], x), enc_out, cfg)
+            bp["cross_attn"], layernorm(bp["norm_x"], x), enc_out, cfg,
+            lay=elay)
         cross_c.prefill(_pad_t(ck.float(), cross_c.max_len),
                         _pad_t(cv.float(), cross_c.max_len))
         cross_c.length = ck.shape[2]            # masks the padding
         x = x + h
         x = x + mlp.apply(bp["mlp"], layernorm(bp["norm2"], x))
-    x = layernorm(params["final_norm"], x[:, -1])
-    return x @ params["embed"].T, state
+    last = x[:, -1]
+    if lay is not None and lay.seq:          # the last position's shard
+        last = lay.mesh.all_gather(x[:, -1:], lay.seq, 1)[:, -1]
+    return transformer._logits(params, last, cfg, lay), state
 
 
 def decode_step(params, token, cfg, state, pos_b):
     """token (B, 1), pos_b (B,) absolute positions -> (logits (B, Vp)
-    float32, state)."""
+    float32, state). Under a mesh: the global batch in, this rank's rows
+    run over its shards of the caches, every row's logits out."""
     B = token.shape[0]
+    lay = _serve_layout(cfg, B, 1, "decode")
+    if lay is not None:
+        token, pos_b = token[lay.rows()], pos_b[lay.rows()]
     x = params["embed"][token] + sinusoid_rows(pos_b, cfg.d_model)[:, None]
-    pos = _zero_pos(B, 1, x.device)
+    pos = _zero_pos(token.shape[0], 1, x.device)
     for bp, self_c, cross_c in zip(params["dec_layers"], state["self"],
                                    state["cross"]):
         bp = _f32(bp)
@@ -250,4 +364,7 @@ def decode_step(params, token, cfg, state, pos_b):
                                        cross_c)
         x = x + mlp.apply(bp["mlp"], layernorm(bp["norm2"], x))
     x = layernorm(params["final_norm"], x[:, -1])
-    return x @ params["embed"].float().T, state
+    logits = x @ params["embed"].float().T
+    if lay is not None and lay.batch:
+        logits = lay.mesh.all_gather(logits, lay.batch, 0)
+    return logits, state

@@ -12,7 +12,9 @@ sharded and the sequence whole, the partial sums all-reduced; with d_ff
 whole (or the rows split over "model" too, `Layout.free`), this rank's
 rows alone. Serving under a mesh calls the plain form
 on whole weights (gathered once a rank) over the rank's rows
-(`models.transformer`).
+(`models.transformer`), or passes its layout without specs (whole
+weights: the plain form over the rank's rows and positions,
+`models.encdec`).
 """
 from __future__ import annotations
 
@@ -37,8 +39,9 @@ def _swiglu(p, x):
 
 def apply(p, x: torch.Tensor, lay=None, sp=None) -> torch.Tensor:
     """x (B, S, d) -> (B, S, d); under a mesh x and the result are this
-    rank's part of ``lay`` and ``sp`` holds the specs of p's leaves."""
-    if lay is None:
+    rank's part of ``lay`` and ``sp`` holds the specs of p's leaves (None:
+    p is whole)."""
+    if lay is None or sp is None:
         return _swiglu(p, x)
     tp = lay.free(sp["w_gate"][1])            # the d_ff axes ("model")
     w = {k: gather_param(v, sp[k], lay.mesh, keep=tp) for k, v in p.items()}

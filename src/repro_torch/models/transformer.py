@@ -46,11 +46,12 @@ rank lacks are zero, then a reduce-scatter along the sequence), and so
 are the logits, where the rows are not split over the vocab's axes
 too (an override that gives "model" to the batch, `SSM_RULES`: then
 whole). Every decoder kind trains under a mesh: the recurrent ones in
-the layouts of `models.recurrent_mesh`; the encoder-decoder waits for
-ROADMAP item 15 (`check_distributable`).
+the layouts of `models.recurrent_mesh`; the encoder-decoder
+(`models.encdec`) reuses this module's vocab-parallel embedding and
+head (`_embed_sharded`, `_head_sharded`).
 
-Serving under a mesh (`check_distributable`: every decoder stack; a
-sliding window from a sharded ring) takes the global batch and WHOLE
+Serving under a mesh (every decoder stack; a sliding window from a
+sharded ring) takes the global batch and WHOLE
 weights on every rank (`serving.engine.make_serve_fns` gathers a rank's
 shards once) and runs this rank's rows (`serve_layout`): the caches are
 this rank's shards of `launch.specs.cache_shardings` /
@@ -303,26 +304,6 @@ def _embed(params, tok, cfg, positions):
     return x, positions
 
 
-def check_distributable(cfg, mesh) -> bool:
-    """Whether training and serving run sharded on ``mesh`` (None: no
-    mesh). Every decoder stack does, whatever its kinds; an
-    encoder-decoder raises `ValueError` on a mesh of several ranks and
-    runs its one-device path on a mesh of one."""
-    if mesh is None:
-        return False
-    if cfg.family == "encdec":
-        if mesh.size > 1:
-            raise ValueError(
-                f"{cfg.name}: an encoder-decoder under a mesh of "
-                f"{mesh.size} ranks waits for ROADMAP item 15 (its cross "
-                f"caches laid out per channel over the encoder's slots, "
-                f"its encoder context parallel); train or serve it on one "
-                f"rank")
-        return False
-    return True
-
-
-
 def _sub(sp, key):
     return None if sp is None else sp[key]
 
@@ -431,7 +412,7 @@ def forward_train(params, tokens_or_embeds, cfg, *, positions=None,
     (`logits_spec`) and its share of aux (the shares of all ranks sum to
     aux)."""
     mesh = current_mesh()
-    if check_distributable(cfg, mesh):
+    if mesh is not None:
         if specs is None:
             raise ValueError("forward_train under a mesh needs the "
                              "parameters' specs")
@@ -528,11 +509,11 @@ def _serve(params, tok, cfg, state, positions, mode: str, row_mask=None,
     states, the layout) — the head is applied by the caller, only where it
     reads logits (the same numbers as the reference's all-position head).
     Without a mesh the states are (B, S, d) and the layout None; under one
-    (`check_distributable`) they are this rank's rows, and in a
-    contiguous prefill its positions, of `serve_layout`."""
+    they are this rank's rows, and in a contiguous prefill its positions,
+    of `serve_layout`."""
     mesh = current_mesh()
     lay = None
-    if check_distributable(cfg, mesh):
+    if mesh is not None:
         lay = serve_layout(mesh, cfg, *tok.shape, mode,
                            isinstance(state[0], PagedQuantizedKVCache))
         rows, cols = lay.rows(), lay.positions()

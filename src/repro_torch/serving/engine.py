@@ -19,18 +19,18 @@ eagerly (ROADMAP queue 1, item 16's remainder).
 
 Under `parallel.shard.mesh_context` (a mesh of ranks, each calling the
 same functions in step), `make_serve_fns` and `make_chunk_prefill_fn`
-serve sharded as the reference's functions do under its mesh
-(`transformer.check_distributable`: every decoder stack; an
-encoder-decoder raises a named `ValueError` on a mesh of several
-ranks). ``init_state`` builds this rank's shards of the
-state (`launch.specs.init_serve_state`); the steps take this rank's
-shards of the parameters (`launch.specs.param_specs`' layout), gather
-them whole once per rank (`gathered_weights`, never per step), take the
-global batch and return every row's logits. The functions run under the
-mesh and rules they were built under (None included; an override of
-the logical rules, `parallel.shard.SSM_RULES`, included), whatever is
-active when they are called. `generate`, the batchers and the serve CLI run on one
-device and refuse a mesh (`check_one_device`).
+serve sharded as the reference's functions do under its mesh (every
+decoder stack, and the encoder-decoder through `models.encdec`'s mesh
+paths; a mesh of one rank too). ``init_state``
+builds this rank's shards of the state (`launch.specs.init_serve_state`);
+the steps take this rank's shards of the parameters
+(`launch.specs.param_specs`' layout), gather them whole once per rank
+(`gathered_weights`, never per step), take the global batch and return
+every row's logits. The functions run under the mesh and rules they
+were built under (None included; an override of the logical rules,
+`parallel.shard.SSM_RULES`, included), whatever is active when they are
+called. `generate`, the batchers and the serve CLI run on one device and
+refuse a mesh (`check_one_device`).
 """
 from __future__ import annotations
 
@@ -126,28 +126,14 @@ def make_serve_fns(cfg, *, max_len: int, paged: bool = False,
     reference's `ValueError`.
 
     Under a mesh (module docstring) ``init_state(batch)`` gives this
-    rank's shards of the state, prefill and decode take this rank's
-    parameter shards and the global batch and return (logits (B, Vp),
-    state); a config that does not shard raises `ValueError` here on a
-    mesh of several ranks."""
+    rank's shards of the state (an encoder-decoder's ``self`` and
+    ``cross`` caches alike), prefill and decode take this rank's
+    parameter shards and the global batch (``frames`` and ``tokens``
+    alike) and return (logits (B, Vp), state)."""
     mesh, rules = current_mesh(), rules_override()
-    sharded = transformer.check_distributable(cfg, mesh)
+    sharded = mesh is not None
     if cfg.family == "encdec":
         check_encdec(paged, kv_cache_dtype)
-
-        def init_state(batch):
-            return encdec.init_decode_state(cfg, batch, max_len,
-                                            device=device)
-
-        def prefill_fn(params, batch_inputs, state, row_mask=None):
-            return encdec.prefill(params, batch_inputs["frames"],
-                                  batch_inputs["tokens"], cfg, state)
-
-        def decode_fn(params, token, state, pos):
-            return encdec.decode_step(params, token, cfg, state, pos)
-
-        return (init_state, _on_mesh(mesh, False, cfg, prefill_fn),
-                _on_mesh(mesh, False, cfg, decode_fn))
 
     def init_state(batch):
         if sharded:
@@ -157,9 +143,23 @@ def make_serve_fns(cfg, *, max_len: int, paged: bool = False,
                                         paged=paged, n_pages=n_pages,
                                         kv_cache_dtype=kv_cache_dtype,
                                         device=device)
+        if cfg.family == "encdec":
+            return encdec.init_decode_state(cfg, batch, max_len,
+                                            device=device)
         return transformer.init_decode_state(
             cfg, batch, max_len, paged=paged, n_pages=n_pages,
             kv_cache_dtype=kv_cache_dtype, device=device)
+
+    if cfg.family == "encdec":
+        def prefill_fn(params, batch_inputs, state, row_mask=None):
+            return encdec.prefill(params, batch_inputs["frames"],
+                                  batch_inputs["tokens"], cfg, state)
+
+        def decode_fn(params, token, state, pos):
+            return encdec.decode_step(params, token, cfg, state, pos)
+
+        return (init_state, _on_mesh(mesh, sharded, cfg, prefill_fn, rules),
+                _on_mesh(mesh, sharded, cfg, decode_fn, rules))
 
     def prefill_fn(params, tokens, state, row_mask=None):
         return transformer.prefill(params, tokens, cfg, state,
@@ -184,7 +184,7 @@ def make_chunk_prefill_fn(cfg, *, hist_blocks: int | None = None):
     if cfg.family == "encdec":
         raise ValueError("chunked prefill is decoder-only")
     mesh, rules = current_mesh(), rules_override()
-    sharded = transformer.check_distributable(cfg, mesh)
+    sharded = mesh is not None
 
     def chunk_prefill(params, tokens, state, start, valid, row_mask):
         return transformer.prefill_chunk(params, tokens, cfg, state,

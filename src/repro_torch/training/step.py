@@ -32,14 +32,20 @@ from repro_torch.training.loss import next_token_loss, next_token_loss_sharded
 AUX_WEIGHT = 0.01   # load-balancing loss weight (Switch default scale)
 
 
+def _forward(params, batch, cfg, specs=None):
+    """The model's (logits, aux) on ``batch``: an encoder-decoder's on its
+    frames and tokens, a decoder's on its tokens or embeddings (under a
+    mesh this rank's block, ``specs`` the parameters')."""
+    if cfg.family == "encdec":
+        return encdec.forward_train(params, batch["frames"], batch["tokens"],
+                                    cfg, specs=specs)
+    return transformer.forward_train(
+        params, batch.get("embeds", batch["tokens"]), cfg, specs=specs)
+
+
 def loss_fn(params, batch, cfg):
     """-> (loss + AUX_WEIGHT * aux, {"loss", "aux_loss"})."""
-    if cfg.family == "encdec":
-        logits, aux = encdec.forward_train(params, batch["frames"],
-                                           batch["tokens"], cfg)
-    else:
-        inp = batch.get("embeds", batch["tokens"])
-        logits, aux = transformer.forward_train(params, inp, cfg)
+    logits, aux = _forward(params, batch, cfg)
     loss = next_token_loss(logits, batch["labels"], cfg.vocab)
     return loss + AUX_WEIGHT * aux, {"loss": loss, "aux_loss": aux}
 
@@ -50,8 +56,7 @@ def loss_fn_sharded(params, batch, cfg, mesh, specs):
     shares)."""
     labels = batch["labels"]
     B, S = labels.shape
-    logits, aux = transformer.forward_train(
-        params, batch.get("embeds", batch["tokens"]), cfg, specs=specs)
+    logits, aux = _forward(params, batch, cfg, specs)
     lay = Layout.of(mesh, B, S, cfg.d_model)
     vax = transformer.logits_spec(cfg, B, S, mesh)[2]
     loss = next_token_loss_sharded(logits, labels[lay.rows()], cfg.vocab,
@@ -91,7 +96,6 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, *, microbatches: int = 1,
     `launch.specs.train_specs` of ``cfg`` on it ({"params", "opt"})."""
     def train_step(params, opt_state, batch):
         mesh = current_mesh()
-        mesh = mesh if transformer.check_distributable(cfg, mesh) else None
         if mesh is not None and specs is None:
             raise ValueError("a step under a mesh needs specs= "
                              "(launch.specs.train_specs)")

@@ -22,11 +22,7 @@ identical, the logits bit for bit the same on every rank, every decode
 step sending the same bytes, and its cache (its rows, slots and scale
 rows) against the reference cache's slice by the page rule. Also: a
 decode from the reference's own prefill state carried into each rank's
-shards (`checkpoint.bridge.serve_state_from_numpy`, bit for bit), and
-the config that does not shard: whisper_small (an encoder-decoder;
-ROADMAP item 15) raises a named `ValueError` under a mesh of 4 and
-serves its one-device path under a mesh of 1 (logits equal the port's
-own without a mesh).
+shards (`checkpoint.bridge.serve_state_from_numpy`, bit for bit).
 
 The long-context stacks (`RECURRENT`): recurrentgemma_9b (RG-LRU and a
 local-attention ring) per block and per channel and mixtral_8x22b (a
@@ -42,19 +38,30 @@ recurrent states are held against the reference state's slice where
 (`SQ_CASES`) the sharded decode of `models.recurrent_mesh` over an
 mLSTM and an RG-LRU state, with and without ``state_quant``, against
 the reference's `mlstm_step` / `apply_step` (6 steps from the int8
-initial state: outputs and the state's shards)."""
-import dataclasses
+initial state: outputs and the state's shards).
 
+The encoder-decoder (`ENCDEC`): whisper_small per block, its frames
+(`make_frames`) encoded context parallel, its self caches sharded as
+the decoders' and its per-channel cross caches' `enc_cache_len` slots
+over "model", at its smoke encoder_seq 24 (24 slots: 12 a rank at
+(2, 2), 6 at (1, 4)) and at 20 and 12 (`dataclasses.replace`): 20
+frames pad to 24 slots, so at (1, 4) the last rank holds 2 live slots
+of 6; 12 pad to 16, so the last rank holds only padding and merges
+m = -1e30. Held as the decoders (logits, tokens, the self caches by the
+page rule; the scale rows of the block a decode step flushes from the
+bf16 residual within one bf16 step, `check_contiguous`), and each
+rank's cross cache against the reference's slice (int8 by the page
+rule, scales within SCALE_RTOL, lengths the true encoder length); both
+caches against the port's own unsharded run's (scales bit for bit: the
+absmax of a rank's slots MAX-reduced over the ranks is the absmax of
+all, and the padding's zeros move none; int8 by the page rule)."""
 import numpy as np
 import pytest
-import torch
 
 import torch_serve_parity as SV
-from repro_torch.checkpoint import bridge
-from repro_torch.configs import get_config
-from repro_torch.models import encdec, transformer
+from repro_torch.models import encdec
 from torch_dist import run_ranks
-from torch_dist_worker import load_tree, save_tree, serve_once
+from torch_dist_worker import load_tree, save_tree
 
 CASES = [("internlm2_1_8b", "per_block"), ("internlm2_1_8b", "per_channel"),
          ("qwen2_moe_a2_7b", "per_block"), ("qwen2_vl_2b", "per_block"),
@@ -70,18 +77,16 @@ RECURRENT = [("recurrentgemma_9b", "per_block", "default", 40),
 SQ_CASES = [("xlstm_350m", "mlstm", "default"), ("xlstm_350m", "mlstm", "ssm"),
             ("recurrentgemma_9b", "rglru", "default")]
 SQ_STEPS = 6
-REFUSED = {"whisper_small": "ROADMAP item 15"}
-
-
-def _cfg(arch):
-    return dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+# (arch, encoder_seq): the cross caches' padding across the ranks' slots
+ENCDEC = [("whisper_small", 24), ("whisper_small", 20),
+          ("whisper_small", 12)]
 
 
 @pytest.fixture(scope="module")
 def results(tmp_path_factory):
-    """Every case's reference run in this process, then every sharded
-    run and the refusals under a mesh of 4 in one 4-rank job, and the
-    refused configs under a mesh of 1 in a 1-rank job."""
+    """Every case's reference run in this process (and an
+    encoder-decoder's unsharded port run), then every sharded run in
+    one 4-rank job."""
     d = tmp_path_factory.mktemp("serve")
     refs, tasks = {}, []
     for arch, gran in CASES:
@@ -118,19 +123,17 @@ def results(tmp_path_factory):
                 tasks.append(SV.recurrent_task(arch, kind, m, sq, rules,
                                                d / f"{key}.in.npz",
                                                d / f"{key}.{m}"))
-    for arch in REFUSED:
-        cfg = _cfg(arch)
-        init = encdec.init_params if cfg.family == "encdec" else \
-            transformer.init_params
-        save_tree(d / f"refused.{arch}.npz", bridge.tree_to_numpy(
-            init(cfg, torch.Generator().manual_seed(0), device="cpu"), cfg))
-    refuse = {"kind": "serve_refuse", "archs": list(REFUSED),
-              "weights": str(d / "refused")}
-    tasks.append(dict(refuse, mesh=[2, 2], axes=SV.AXES,
-                      result=str(d / "refuse4.npz")))
+    for arch, enc in ENCDEC:
+        rcfg, rparams = SV.models(arch, encoder_seq=enc)
+        toks, frames = SV.tokens(rcfg), SV.frames(rcfg)
+        ref = SV.run_reference(rcfg, rparams, toks, frames=frames)
+        key = f"{arch}-{enc}"
+        w, b = SV.write_inputs(d, key, rparams, toks, ref, frames)
+        refs[key] = (rcfg, ref, SV.run_port_encdec(arch, enc, w, b))
+        for m in SV.MESHES:
+            tasks.append(SV.serve_task(arch, m, w, b, d / f"{key}.{m}",
+                                       replace={"encoder_seq": enc}))
     run_ranks(d, 4, tasks, name="serve")
-    run_ranks(d, 1, [dict(refuse, mesh=[1, 1], axes=SV.AXES,
-                          result=str(d / "refuse1.npz"))], name="serve1")
     return d, refs
 
 
@@ -223,13 +226,42 @@ def test_prefill_state_carried_into_shards(results):
         SV.check_contiguous(got["state"], ref["state"], w, f"carried {r}")
 
 
-def test_refusals_and_one_rank_meshes(results):
-    d, _ = results
-    four, one = load_tree(d / "refuse4.npz"), load_tree(d / "refuse1.npz")
-    for arch, item in REFUSED.items():
-        msg = str(four[arch])
-        assert msg.startswith("ValueError") and item in msg, (arch, msg)
-        assert "serve" in msg, msg
-        np.testing.assert_array_equal(
-            one[arch], serve_once(_cfg(arch), d / f"refused.{arch}.npz",
-                                  "cpu"), err_msg=arch)
+@pytest.mark.parametrize("mesh", list(SV.MESHES))
+@pytest.mark.parametrize("arch,enc", ENCDEC)
+def test_sharded_encdec_serving_matches_reference(results, arch, enc, mesh):
+    d, refs = results
+    key = f"{arch}-{enc}"
+    rcfg, ref, port = refs[key]
+    ranks = [load_tree(d / f"{key}.{mesh}.{r}.npz") for r in range(4)]
+    n_model = SV.MESHES[mesh][1]
+    slots = encdec.enc_cache_len(rcfg)
+    for r, got in enumerate(ranks):
+        label = f"{key} {mesh} rank {r}"
+        SV.check_logits(got["logits"], ref["logits"], rcfg.vocab, label)
+        np.testing.assert_array_equal(got["logits"], ranks[0]["logits"],
+                                      err_msg=f"{label}: ranks differ")
+        assert len(set(got["sent"].tolist())) == 1, (label, got["sent"])
+        for k, flushed in (("self", SV.S // rcfg.quant.block_size),
+                           ("cross", None)):
+            SV.check_contiguous({k: got["state"][k]}, {k: ref["state"][k]},
+                                got["where"][k], f"{label} {k}", flushed)
+            w = got["where"][k]
+            rows, cut, sc = (slice(*w[f]) for f in
+                             ("rows", "slots", "scales"))
+            mine, want = got["state"][k], port["state"][k]
+            for n in ("k_s", "v_s"):
+                np.testing.assert_array_equal(
+                    mine[n], want[n][:, rows, :, sc],
+                    err_msg=f"{label} {k} {n} (port)")
+            for n in ("k_q", "v_q"):
+                SV.close_int8(mine[n], want[n][:, rows, :, cut],
+                              f"{label} {k} {n} (port)")
+        w = got["where"]["cross"]
+        assert w["slots"][1] - w["slots"][0] == slots // n_model, w
+        np.testing.assert_array_equal(got["state"]["cross"]["length"],
+                                      np.full(rcfg.n_layers, enc))
+    # the last "model" rank's live cross slots: 2 of 6 at 20, none at 12
+    lo, hi = ranks[-1]["where"]["cross"]["slots"]
+    live = {24: slots // n_model, 20: 2 if n_model == 4 else 8,
+            12: 0 if n_model == 4 else 4}[enc]
+    assert max(min(enc, hi) - lo, 0) == live, (enc, mesh, lo, hi)

@@ -21,11 +21,15 @@ xlstm_350m (mLSTM head parallel, sLSTM whole on each rank of a row
 block) at (2, 2), (2, 1, 2) and (1, 4), and both under `SSM_RULES`
 ("ssm": the batch over every axis, every rank whole sequences of its own
 rows, the vocab-parallel embedding and head then whole) at (2, 2); the
-refusal of the encoder-decoder under a mesh (a ValueError citing
-ROADMAP item 15); and a checkpoint saved at (2, 2)
-restored at (1, 1) and at (2, 1, 2), bit for bit; the train CLI on the
-one-rank host mesh."""
-import json
+encoder-decoder whisper_small (`models.encdec`: its encoder context
+parallel over its 24 smoke frames, cross-attention over the encoder K/V
+gathered along the encoder sequence, the tied vocab-parallel head) at
+(2, 2), (2, 1, 2) and (1, 4), batch 4 x 32 with its `make_frames`
+frames; each rank's `encode` output (its rows and positions) against
+the reference's encoder at (2, 2) and (1, 4); internlm2_1_8b's and whisper_small's checkpoints (with
+--grad-compression's error state) saved at (2, 2) restored at (1, 1)
+and at (2, 1, 2), bit for bit; the train CLI on the one-rank host mesh
+for both."""
 import os
 import subprocess
 import sys
@@ -55,9 +59,12 @@ CASES = [("internlm2_1_8b", "plain", 4, 32, ("2x2", "pod")),
          ("recurrentgemma_9b", "plain", 4, 32, ("2x2", "pod", "1x4")),
          ("recurrentgemma_9b", "ssm", 4, 32, ("2x2",)),
          ("xlstm_350m", "plain", 4, 32, ("2x2", "pod", "1x4")),
-         ("xlstm_350m", "ssm", 4, 32, ("2x2",))]
+         ("xlstm_350m", "ssm", 4, 32, ("2x2",)),
+         ("whisper_small", "plain", 4, 32, ("2x2", "pod", "1x4"))]
 ODD = {"1x4": ((1, 4), ("data", "model"))}
-REFUSED = ("whisper_small",)
+# the checkpoints saved at (2, 2) and restored elsewhere
+SAVED = ("internlm2_1_8b", "whisper_small")
+ENCODE_MESHES = ("2x2", "1x4")
 SRC = Path(__file__).resolve().parents[1] / "src"
 
 
@@ -76,9 +83,9 @@ def _rules(mode):
 @pytest.fixture(scope="module")
 def results(tmp_path_factory):
     """Every case's reference and single-process step in this process,
-    then the ranks: every sharded step, the refusals and the checkpoint
-    save in one 4-rank job, the restores at (1, 1) in a 1-rank job and at
-    (2, 1, 2) in another 4-rank one."""
+    then the ranks: every sharded step, the sharded encoders and the
+    checkpoint saves in one 4-rank job, the restores at (1, 1) in a
+    1-rank job and at (2, 1, 2) in another 4-rank one."""
     d = tmp_path_factory.mktemp("dist")
     out, tasks = {}, []
     for arch, mode, B, S, meshes in CASES:
@@ -96,22 +103,28 @@ def results(tmp_path_factory):
             tasks.append(step_task(arch, sizes, axes, d / f"{key}.w.npz",
                                    d / f"{key}.b.npz", d / f"{key}.{m}.npz",
                                    TP.OPT, **_kw(mode), **_rules(mode)))
-    ck = "internlm2_1_8b-plain-4x32"
-    tasks.append({"kind": "refuse", "mesh": [2, 2], "axes": ["data", "model"],
-                  "archs": list(REFUSED), "batch": str(d / f"{ck}.b.npz"),
-                  "result": str(d / "refuse.json")})
-    save = dict(step_task("internlm2_1_8b", (2, 2), ("data", "model"),
-                          d / f"{ck}.w.npz", d / f"{ck}.b.npz",
-                          d / "saved.npz", TP.OPT, gc=True),
-                kind="save", ckpt=str(d / "ckpt"))
-    tasks.append(save)
-    run_ranks(d, 4, tasks, name="steps")
+    wk = "whisper_small-plain-4x32"
+    out["encode"] = TP.encode_reference(d / f"{wk}.w.npz",
+                                        d / f"{wk}.b.npz")
+    for m in ENCODE_MESHES:
+        sizes, axes = {**MESHES, **ODD}[m]
+        tasks.append(step_task("whisper_small", sizes, axes,
+                               d / f"{wk}.w.npz", d / f"{wk}.b.npz",
+                               d / f"encode.{m}", TP.OPT, kind="encode"))
+    saves = [dict(step_task(arch, (2, 2), ("data", "model"),
+                            d / f"{arch}-plain-4x32.w.npz",
+                            d / f"{arch}-plain-4x32.b.npz",
+                            d / f"saved.{arch}.npz", TP.OPT, gc=True),
+                  kind="save", ckpt=str(d / f"ckpt.{arch}"))
+             for arch in SAVED]
+    run_ranks(d, 4, tasks + saves, name="steps")
     restore = [dict(save, kind="restore", mesh=sizes, axes=axes,
-                    result=str(d / f"restored.{n}.npz"))
+                    result=str(d / f"restored.{save['arch']}.{n}.npz"))
                for n, (sizes, axes) in (("1x1", ((1, 1), ("data", "model"))),
-                                        ("pod", MESHES["pod"]))]
-    run_ranks(d, 1, restore[:1], name="restore1")
-    run_ranks(d, 4, restore[1:], name="restore4")
+                                        ("pod", MESHES["pod"]))
+               for save in saves]
+    run_ranks(d, 1, restore[:len(saves)], name="restore1")
+    run_ranks(d, 4, restore[len(saves):], name="restore4")
     return d, out
 
 
@@ -149,34 +162,44 @@ def test_sharded_step_matches_reference_and_one_process(results, arch, mode,
         assert str(got["layout"]["seq"]) == "", got["layout"]
 
 
-def test_refuses_recurrent_and_encdec_under_a_mesh(results):
-    """Only the encoder-decoder is refused now (REFUSED); the recurrent
-    stacks train sharded (CASES)."""
-    d, _ = results
-    msgs = json.loads((d / "refuse.json").read_text())
-    for arch in REFUSED:
-        assert msgs[arch].startswith("ValueError"), (arch, msgs[arch])
-        assert "ROADMAP item 15" in msgs[arch], msgs[arch]
+@pytest.mark.parametrize("mesh", ENCODE_MESHES)
+def test_sharded_encoder_matches_reference(results, mesh):
+    """Each rank's block of the encoder output (its rows and positions)
+    against the reference's jitted `encode` (no remat), within 1e-5."""
+    d, out = results
+    want = out["encode"]
+    for r in range(4):
+        got = load_tree(d / f"encode.{mesh}.{r}.npz")
+        rows, cols = slice(*got["rows"]), slice(*got["positions"])
+        assert got["out"].shape == want[rows, cols].shape, got["out"].shape
+        np.testing.assert_allclose(got["out"], want[rows, cols],
+                                   rtol=TP.RTOL, atol=TP.RTOL,
+                                   err_msg=f"{mesh} rank {r}")
+    if mesh == "1x4":               # the 24 frames over the 4 "model" ranks
+        assert {tuple(load_tree(d / f"encode.{mesh}.{r}.npz")["positions"])
+                for r in range(4)} == {(6 * i, 6 * i + 6) for i in range(4)}
 
 
+@pytest.mark.parametrize("arch", SAVED)
 @pytest.mark.parametrize("mesh", ["1x1", "pod"])
-def test_checkpoint_saved_at_2x2_restores_elsewhere(results, mesh):
+def test_checkpoint_saved_at_2x2_restores_elsewhere(results, mesh, arch):
     d, _ = results
-    saved, got = load_tree(d / "saved.npz"), load_tree(
-        d / f"restored.{mesh}.npz")
+    saved, got = load_tree(d / f"saved.{arch}.npz"), load_tree(
+        d / f"restored.{arch}.{mesh}.npz")
     assert int(got.pop("step")) == 1
     for (path, a, b) in TP.pairs(got, saved):
         np.testing.assert_array_equal(a, b, err_msg=path)
 
 
-def test_train_cli_on_the_host_mesh(tmp_path, capsys):
+@pytest.mark.parametrize("arch", ["internlm2_1_8b", "whisper_small"])
+def test_train_cli_on_the_host_mesh(tmp_path, capsys, arch):
     """The train CLI with ``--mesh host`` (one rank: what ``torchrun
     --nproc-per-node 1`` starts) prints the one-device run's losses and
     grad norms (bf16: within 1e-3, the vocab-parallel loss sums in
     another order), saves through the mesh and resumes from its
-    checkpoint."""
+    checkpoint; whisper_small on its `make_frames` frames."""
     from repro_torch.launch import train
-    argv = ["--arch", "internlm2_1_8b", "--smoke", "--device", "cpu",
+    argv = ["--arch", arch, "--smoke", "--device", "cpu",
             "--batch", "2", "--seq", "32", "--log-every", "1"]
     train.main(argv + ["--steps", "2"])
     plain = [ln for ln in capsys.readouterr().out.splitlines()

@@ -6,11 +6,13 @@
   cuda:0, distinct UUIDs), gloo when ranks share a card or compute on
   the CPU, and a `ValueError` for ranks on cards and on the CPU at once;
 - `launch.specs.init_shards` draws the same weights as
-  `transformer.init_params` and keeps each rank's shards bit for bit
-  those of the whole tree cut by `shard_tree`, at every coordinate of
-  the (data 2, model 2) and (pod 2, data 1, model 2) meshes, and no
-  shard holds the storage of a whole leaf; its hook sees the embedding,
-  the head and one layer at a time;
+  `transformer.init_params` (whisper_small: `encdec.init_params`) and
+  keeps each rank's shards bit for bit those of the whole tree cut by
+  `shard_tree`, at every coordinate of the (data 2, model 2) and (pod 2,
+  data 1, model 2) meshes, and no shard holds the storage of a whole
+  leaf; its hook sees the embedding, the head and one layer at a time
+  (whisper_small: each encoder and decoder layer, the embedding, the
+  two norms);
 - `mesh_context` restores the mesh it found.
 """
 import dataclasses
@@ -23,6 +25,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core.tree import leaves
 from repro_torch.launch import specs as SP
+from repro_torch.models import encdec as E
 from repro_torch.models import transformer as T
 from repro_torch.parallel.shard import (Mesh, MeshShape, backend_for,
                                         current_mesh, mesh_context,
@@ -78,7 +81,7 @@ def _coords(sizes):
 
 
 @pytest.mark.parametrize("arch", ["internlm2_1_8b", "qwen2_moe_a2_7b",
-                                  "qwen2_vl_2b"])
+                                  "qwen2_vl_2b", "whisper_small"])
 @pytest.mark.parametrize("mesh", [((2, 2), ("data", "model")),
                                   ((2, 1, 2), ("pod", "data", "model"))],
                          ids=["2x2", "pod"])
@@ -86,8 +89,8 @@ def test_init_shards_are_the_whole_init_cut(arch, mesh):
     sizes, axes = mesh
     cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
     specs = SP.param_specs(cfg, MeshShape(axes, sizes))
-    whole = T.init_params(cfg, torch.Generator().manual_seed(3),
-                          device="cpu")
+    init = E.init_params if cfg.family == "encdec" else T.init_params
+    whole = init(cfg, torch.Generator().manual_seed(3), device="cpu")
     for c in _coords(sizes):
         m = CoordMesh(axes, sizes, c)
         want = SP.shard_tree(whole, specs, m)
@@ -99,13 +102,21 @@ def test_init_shards_are_the_whole_init_cut(arch, mesh):
                 * a.element_size(), c
 
 
-def test_init_params_hands_over_one_part_at_a_time():
-    cfg = get_config("internlm2_1_8b", smoke=True)
+@pytest.mark.parametrize("arch", ["internlm2_1_8b", "whisper_small"])
+def test_init_params_hands_over_one_part_at_a_time(arch):
+    cfg = get_config(arch, smoke=True)
     seen = []
 
     def keep(key, part):
         seen.append(key)
         return part
+    if cfg.family == "encdec":
+        E.init_params(cfg, torch.Generator().manual_seed(0), device="cpu",
+                      keep=keep)
+        assert seen == [("enc_layers", i) for i in range(
+            cfg.n_encoder_layers)] + [("dec_layers", i) for i in range(
+                cfg.n_layers)] + [("embed",), ("enc_norm",), ("final_norm",)]
+        return
     T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu",
                   keep=keep)
     assert seen == [("embed",), ("final_norm",), ("lm_head",)] + [

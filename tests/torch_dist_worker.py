@@ -14,8 +14,10 @@ rank 0 writes each task's ``result``. Tasks:
   ``grad_compression`` or with ``microbatches``; writes the metrics and
   the gathered parameters, moments, master weights and error state in
   the reference's layout (`checkpoint.bridge.tree_to_numpy`).
-- ``refuse``: the step of each of ``archs`` on a mesh; writes the
-  `ValueError` each raises.
+- ``encode``: `models.encdec.encode` of the batch's ``frames`` on the
+  mesh from the reference's weights as this rank's shards; every rank
+  writes ``result``.<rank>.npz: its block of the output and where it
+  lies (``rows``, ``positions``).
 - ``save`` / ``restore``: a step, then its state saved on the mesh; or
   the state restored on the mesh from ``ckpt`` and written gathered.
 - ``psum``: `optim.compression.int8_psum` of this rank's row of
@@ -26,7 +28,8 @@ rank 0 writes each task's ``result``. Tasks:
 - ``serve``: `make_serve_fns` under the mesh from the reference's
   weights as this rank's shards: the prompts (``batch``: an npz of
   ``tokens`` (B, S) and ``stream`` (steps, B), the tokens each decode
-  step feeds) prefilled (``chunk``: through `make_chunk_prefill_fn`;
+  step feeds; an encoder-decoder's ``frames``) prefilled (``chunk``:
+  through `make_chunk_prefill_fn`;
   ``paged``: pages from a `HostPageAllocator` of every row, the rank's
   rows written into its tables), or with ``ref_state`` (an npz of the
   reference's state after its prefill) that state carried into this
@@ -42,9 +45,6 @@ rank 0 writes each task's ``result``. Tasks:
   ``layer_kind`` layer's state of a smoke config (``state_quant``: from
   the int8 initial state), its weights and inputs from ``inputs``;
   writes the rank's outputs, rows, state and its shards' slices.
-- ``serve_refuse``: `make_serve_fns` of each of ``archs`` on the mesh and,
-  where it builds, a prefill and a decode step on the whole weights;
-  writes each arch's `ValueError` or its logits.
 """
 from __future__ import annotations
 
@@ -202,20 +202,24 @@ def _layout(task, cfg, mesh) -> dict:
             "seq": np.array("+".join(lay.seq))}
 
 
-def task_refuse(task, mesh, rank):
-    from repro_torch.launch.specs import param_shapes
-    msgs = {}
-    for arch in task["archs"]:
-        cfg = _config({"arch": arch})
-        try:
-            _step({"opt": {}, "batch": task["batch"]}, cfg, mesh,
-                  param_shapes(cfg), {"adam": {}}, None)
-            msgs[arch] = "no error"
-        except ValueError as e:
-            msgs[arch] = f"ValueError: {e}"
-    if rank == 0:
-        with open(task["result"], "w") as f:
-            json.dump(msgs, f)
+def task_encode(task, mesh, rank):
+    import torch
+
+    from repro_torch.models import encdec
+    from repro_torch.parallel.shard import Layout, mesh_context
+    cfg = _config(task)
+    params, _ = _state(task, cfg, mesh)
+    frames = torch.from_numpy(load_tree(task["batch"])["frames"]).to(
+        mesh.device)
+    with mesh_context(mesh):
+        lay = Layout.of(mesh, *frames.shape)
+        with torch.no_grad():
+            out = encdec.encode(params, frames, cfg,
+                                specs=_specs(task, cfg, mesh)["params"])
+    save_tree(f"{task['result']}.{rank}.npz", {
+        "out": out.float().cpu().numpy(),
+        "rows": np.array(lay.rows().indices(lay.B)[:2]),
+        "positions": np.array(lay.positions().indices(lay.S)[:2])})
 
 
 def task_save(task, mesh, rank):
@@ -373,8 +377,14 @@ def task_serve(task, mesh, rank):
             cfg, B, task["max_len"], mesh, paged=paged,
             n_pages=task.get("n_pages"), kv_cache_dtype=kv)
     state = init(B)
-    out = {"where": _where(state, specs, mesh, cfg, B, task["max_len"]),
-           "slices": _slices(specs, whole, mesh)}
+    if isinstance(state, dict):         # an encoder-decoder's two stacks
+        out = {"where": {k: _where(state[k], specs[k], mesh, cfg, B,
+                                   task["max_len"]) for k in state},
+               "slices": {k: _slices(specs[k], whole[k], mesh)
+                          for k in state}}
+    else:
+        out = {"where": _where(state, specs, mesh, cfg, B, task["max_len"]),
+               "slices": _slices(specs, whole, mesh)}
     if paged:
         table = allocate_rows(HostPageAllocator(state[0].pool.k_q.shape[0]),
                               B, task["max_len"] // cfg.quant.block_size)
@@ -397,7 +407,11 @@ def task_serve(task, mesh, rank):
                                      device=mesh.device))
         logits.append(lg)
     else:
-        lg, state = prefill(params, toks, state)
+        inputs = toks
+        if "frames" in data:
+            inputs = {"tokens": toks, "frames": torch.from_numpy(
+                data["frames"]).to(mesh.device)}
+        lg, state = prefill(params, inputs, state)
         logits.append(lg)
     pos = torch.full((B,), S, dtype=torch.int32, device=mesh.device)
     sent = []
@@ -415,49 +429,6 @@ def task_serve(task, mesh, rank):
                                             - launches0[f.__name__])
                        for f in COUNTED}
     save_tree(f"{task['result']}.{rank}.npz", out)
-
-
-def serve_once(cfg, weights: str, device, mesh=None):
-    """`make_serve_fns` of a smoke config (under ``mesh`` where given) on
-    the whole weights of ``weights`` (an npz in the reference's layout):
-    a prefill of 2 seeded 16-token prompts (an encoder-decoder's with
-    `make_frames` frames) and one decode step. Returns both steps' logits
-    (2, 2, Vp), or the message of the `ValueError` the mesh raises."""
-    import torch
-
-    from repro_torch.checkpoint import bridge
-    from repro_torch.data import DataConfig, make_frames
-    from repro_torch.parallel.shard import mesh_context
-    from repro_torch.serving.engine import make_serve_fns
-    with mesh_context(mesh):
-        try:
-            init, prefill, decode = make_serve_fns(cfg, max_len=32,
-                                                   device=device)
-        except ValueError as e:
-            return f"ValueError: {e}"
-        params = bridge.params_from_numpy(load_tree(weights), cfg, device)
-        toks = torch.from_numpy(np.random.RandomState(0).randint(
-            0, cfg.vocab, (2, 16)).astype(np.int32))
-        inputs = toks
-        if cfg.family == "encdec":
-            inputs = {"tokens": toks, "frames": torch.from_numpy(
-                make_frames(DataConfig(seq_len=16, global_batch=2,
-                                       vocab=cfg.vocab),
-                            cfg.d_model, cfg.encoder_seq))}
-        state = init(2)
-        lg, state = prefill(params, inputs, state)
-        lg2, _ = decode(params, toks[:, -1:], state,
-                        torch.full((2,), 16, dtype=torch.int32))
-    return np.stack([lg.float().numpy(), lg2.float().numpy()])
-
-
-def task_serve_refuse(task, mesh, rank):
-    out = {arch: serve_once(_config({"arch": arch}),
-                            f"{task['weights']}.{arch}.npz", mesh.device,
-                            mesh) for arch in task["archs"]}
-    if rank == 0:
-        save_tree(task["result"], {k: np.array(v) if isinstance(v, str)
-                                   else v for k, v in out.items()})
 
 
 def task_recurrent(task, mesh, rank):
@@ -501,10 +472,10 @@ def task_recurrent(task, mesh, rank):
         "slices": {f: sl[f"{i}.{f}"] for f in st.spec}})
 
 
-TASKS = {"step": task_step, "refuse": task_refuse, "save": task_save,
+TASKS = {"step": task_step, "encode": task_encode, "save": task_save,
          "restore": task_restore, "psum": task_psum,
          "compress": task_compress, "serve": task_serve,
-         "serve_refuse": task_serve_refuse, "recurrent": task_recurrent}
+         "recurrent": task_recurrent}
 
 
 def main(job_path: str, rank: int, world: int) -> int:

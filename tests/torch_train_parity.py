@@ -67,6 +67,17 @@ def batch(cfg, B: int, S_: int, seed: int = 3) -> dict:
     return b
 
 
+def encode_reference(weights, batch) -> np.ndarray:
+    """The reference's jitted whisper `encode` (no remat) of the
+    ``frames`` of the batch npz ``batch`` on the weights npz
+    ``weights`` (tests/torch_dist_worker.py's files): (B, T_enc, d)."""
+    from torch_dist_worker import load_tree
+    rcfg = dataclasses.replace(ref_get_config("whisper_small", smoke=True),
+                               dtype="float32")
+    fn = jax.jit(lambda p, f: RE.encode(p, f, rcfg, remat=False))
+    return np.asarray(fn(load_tree(weights), load_tree(batch)["frames"]))
+
+
 def forward_both(mods, b):
     """(reference (logits, aux), port (logits, aux)) as numpy, no remat
     (the reference's jitted)."""

@@ -1,5 +1,6 @@
-"""chip_smoke.py's sharded serving phases (`serve sharded`, `long
-sharded`: one process's references, 4 gloo ranks, the NCCL rank's runs,
+"""chip_smoke.py's sharded serving phase (`serve sharded`: internlm's
+runs, the long-context stacks and whisper_small, and their training
+runs; one process's references, 4 gloo ranks, the NCCL rank's runs,
 every hold and prediction) rehearsed on the CPU at smoke size: the
 torch.cuda timing and memory calls stubbed, every config its smoke one,
 prompts of a few blocks past the smoke windows, 6 decode steps, the
@@ -7,7 +8,7 @@ kernels' launch checks off (the CPU runs the plain versions), the
 (1, 1) rank's backend taken as NCCL. A fault of the harness (a slice, a
 prediction, a hold) shows here in ~1 minute, before a run on the card.
 
-    python tools/sharded_phases_cpu.py [serve] [long]
+    python tools/sharded_phases_cpu.py
 """
 import dataclasses
 import sys
@@ -44,7 +45,7 @@ def cut(arch, layers, dtype=None):
 C._cut = cut
 # the ranks on the CPU, no kernel to count
 C._rank_device = lambda rank: torch.device("cpu")
-C._serve_launches = lambda cfg, run: {}
+C._serve_launches = lambda cfg, run, *a: {}
 C._n_attn = lambda cfg: 0
 _run_path = C._run_path
 C._run_path = lambda dev, label, needs, fn: _run_path(dev, label, (), fn)
@@ -84,10 +85,5 @@ def spawn(world, *a, **kw):
 C._spawn_ranks = spawn
 
 if __name__ == "__main__":
-    dev = torch.device("cpu")
-    which = sys.argv[1:] or ["serve", "long"]
-    if "serve" in which:
-        C.serve_sharded_full_width(dev, "CPU")
-    if "long" in which:
-        C.long_sharded_full_width(dev, "CPU")
+    C.serve_sharded_full_width(torch.device("cpu"), "CPU")
     print("sharded phases: every hold passed on the CPU")
