@@ -237,8 +237,15 @@ Phases, each fatal on failure (no fallback anywhere):
      `_serve_rank`, `_hold_serve`): one process's `make_serve_fns` runs
      each model of a phase (its tokens, logits, states and MoE routings
      kept on disk), the parent frees the card and spawns 4 gloo ranks at
-     (data 2, model 2), each gathering a model's seed-0 shards whole
-     once and serving its runs teacher-forced on those tokens: logits
+     (data 2, model 2), each drawing a model's seed-0 weights straight
+     into its shards of `launch.specs.serve_param_specs`: the attention
+     and MoE stacks (internlm2_1_8b, mixtral_8x22b) serve tensor
+     parallel on those shards alone (heads, kv heads, d_ff, vocabulary
+     and output columns over "model"; each rank's weight bytes and the
+     prefill's bytes as predicted, no leaf the specs split held whole,
+     nothing gathered), the recurrent stacks and whisper_small gather
+     theirs whole once; each serves its runs teacher-forced on those
+     tokens: logits
      within SERVE_LOGIT_TOL (a MoE router flip excused only at a near
      tie), a greedy difference only at a one-process top-2 gap within it
      (the first printed with both gaps), each state leaf against the one
@@ -250,7 +257,7 @@ Phases, each fatal on failure (no fallback anywhere):
      prefill ms beside the one process's; then one NCCL rank at (1, 1).
      One phase, `serve sharded` (`serve_sharded_full_width`): first
      `SERVE_SHARDED_RUNS`, internlm2_1_8b at 4 of 24 layers, 4 rows of
-     3072-token prompts, max_len 4096, 32 steps, contiguous per block and
+     3072-token prompts, max_len 4096, 16 steps, contiguous per block and
      per channel and paged (`make_chunk_prefill_fn`), the NCCL rank
      serving the contiguous per-block run; then `LONG_SERVE` and
      `LONG_TRAIN`: mixtral_8x22b (1 of 56 layers), recurrentgemma_9b (5
@@ -266,8 +273,16 @@ Phases, each fatal on failure (no fallback anywhere):
      one bf16 step: its loss, and its gradient norm against the float32
      norm of the same weights within one process's bf16 distance from it
      plus GNORM_RTOL) and whisper_small (4 x 256 on its frames) trained
-     on the same ranks against the single-process steps; the NCCL rank
-     serves recurrentgemma_9b and whisper_small. The
+     one step each on the same ranks against the single-process steps;
+     the NCCL rank serves recurrentgemma_9b and whisper_small; then
+     `TP_SERVE`, the run only tensor parallelism holds: qwen2_5_32b at
+     all 64 layers and full width (~65.5 GB whole, ~16.4 GB a rank) on 4
+     gloo ranks at (data 1, model 4), 4 rows of 256-token prompts,
+     max_len 512, 16 steps teacher-forced on one process serving the
+     same rows, which runs first and frees the card; before the spawn
+     `column_split_products` prints how the card's bf16 products move
+     when a rank computes a quarter of their output columns (at a decode
+     step's 4 rows and a prompt's 1024). The
      kernels' launch counters are set to 0 just before each path and
      must be > 0 just after for every kernel the path runs.
   6. a {"kernels": [...]} line, then the card line, then as the last line
@@ -5654,8 +5669,14 @@ def sharded_full_width(dev, card: str) -> dict:
 # gloo ranks are held against one process serving the rows a "data" rank
 # serves, that many at a time (each block its own state: the card's bf16
 # products differ with their row count; a MoE router may flip at a near
-# tie), else against one process serving every row at once
-SERVE_B, SERVE_STEPS = 4, 32
+# tie), else against one process serving every row at once; "steps":
+# its steps (default SERVE_STEPS, 16 for the script's time with the
+# tensor-parallel qwen2_5_32b run)
+SERVE_B, SERVE_STEPS = 4, 16
+
+
+def _steps(run: dict) -> int:
+    return run.get("steps", SERVE_STEPS)
 # internlm2_1_8b's runs (at 4 of 24 layers, to keep the script's
 # time with the long-context and whisper runs after it): at (data 2,
 # model 2) a rank holds 2 rows and 2048 of the 4096 slots, so the first
@@ -5740,9 +5761,12 @@ def serve_predict(cfg, run: dict, sizes) -> dict:
     `Mesh.stats`' ring counts). An encoder-decoder: each layer's self
     cache (per block, ``max_len`` slots) and per-channel cross cache
     (`enc_cache_len` slots, one scale row and a residual of one slot),
-    both over "model", the float32 logits gathered over "data"."""
+    both over "model", the float32 logits gathered over "data". A
+    tensor-parallel stack (`transformer.tensor_parallel`): also its
+    resident weight bytes (`_tp_resident`) and the prefill's bytes, each
+    step's by `_tp_sent`."""
     from repro_torch.models.encdec import enc_cache_len
-    from repro_torch.models.transformer import ATTN_KINDS
+    from repro_torch.models.transformer import ATTN_KINDS, tensor_parallel
     n_d, n_m = sizes
     B, T = SERVE_B, run["max_len"]
     Bl = B // n_d
@@ -5791,6 +5815,10 @@ def serve_predict(cfg, run: dict, sizes) -> dict:
             blk = 1 if per_ch else bs
             cache += (2 * Bl * Hkv * (M // n_m) * D + 2 * Bl * Hkv * nb_l
                       * D * 4 + 2 * Bl * Hkv * blk * D * 2)
+            if nb_l * blk != M // n_m and not per_ch:
+                # scale rows whole on each rank: the int64 row of each
+                # run of slots (`ShardedKVCache._rows`)
+                cache += 8 * (M // n_m) // math.gcd(bs, M // n_m)
             # every rank's flash partials (o, m, l) over its slots
             sent["all_gather:model"] += (n_m - 1) * Bl * nh * (D + 2) * 4
         elif kind == "rglru":
@@ -5804,8 +5832,92 @@ def serve_predict(cfg, run: dict, sizes) -> dict:
             cache += 4 * (2 * Bl * (d // n_m) + B * (d // n_m) + Bl * d)
             sent["all_gather:model"] += 2 * Bl * d * 4 * f     # h, twice
             sent["all_gather:data"] += B * (d // n_m) * 4 * (n_d - 1) / n_d
+    if tensor_parallel(cfg):
+        return {"cache_bytes": cache,
+                "weight_bytes": _tp_resident(cfg, sizes),
+                "sent": _tp_sent(cfg, run, sizes, "decode", 1),
+                "prefill_sent": _tp_sent(
+                    cfg, run, sizes, "chunk" if run.get("paged")
+                    else "prefill", run["S"])}
     return {"cache_bytes": cache,
             "sent": {k: int(v) for k, v in sent.items() if v}}
+
+
+def _tp_resident(cfg, sizes) -> int:
+    """A tensor-parallel rank's weight bytes: each leaf of
+    `launch.specs.serve_param_specs` at ``sizes`` (data, model), its dims
+    cut by their axes' sizes (every cut even)."""
+    from repro_torch.core.tree import leaves
+    from repro_torch.launch import specs as SP
+    from repro_torch.parallel.shard import MeshShape, spec_leaves
+    shape = MeshShape(("data", "model"), sizes)
+    total = 0
+    for x, sp in zip(leaves(SP.param_shapes(cfg)),
+                     spec_leaves(SP.serve_param_specs(cfg, shape)),
+                     strict=True):
+        cut = math.prod(shape.shape[a] for axes in sp for a in axes)
+        total += x.numel() // cut * x.element_size()
+    return total
+
+
+def _tp_sent(cfg, run: dict, sizes, mode: str, S: int) -> dict:
+    """The bytes a tensor-parallel rank sends by collective and axes
+    (`Mesh.stats`' ring counts, each call's rounded down) over a decode
+    step (``mode`` "decode", S 1) or a prompt of S tokens a row
+    ("prefill": the contiguous whole prompt; "chunk": one paged chunk),
+    activations only: the embedding's vocab-parallel sum; per attention
+    layer the heads gathered (a pool's kv-head outputs or a prompt's
+    flash outputs; Q, K and V before a cache of every head), a
+    contiguous prompt's K / V for the cache and a per-channel prompt's
+    absmax MAX, the sequence-sharded cache's float32 flash partials, the
+    ``wo`` columns; the FFN's hidden activations (an MoE's every expert
+    over its C slots a row, and its shared experts') and output
+    columns; the last position's logits over the rows' and vocabulary's
+    axes in one gather."""
+    from repro_torch.models.moe import capacity
+    n_d, n_m = sizes
+    Bl, a = SERVE_B // n_d, cfg.activation_dtype.itemsize
+    H, Hkv, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
+    kv = Hkv % n_m == 0
+    q = H % n_m == 0 and (kv or (H // Hkv) % (H // n_m) == 0)
+    paged, tok = run.get("paged", False), Bl * S
+    out = {}
+
+    def add(key, numel, n=n_m, elsize=a, reduce=False):
+        if n > 1:
+            out[key] = out.get(key, 0) + int(numel * elsize * (
+                2 if reduce else 1) * (n - 1) / n)
+    add("all_reduce_sum:model", tok * d, reduce=True)
+    for _ in range(cfg.n_layers):
+        if paged and kv:
+            add("all_gather:model", H * tok * hd)
+        elif mode == "prefill":
+            if kv:
+                add("all_gather:model", 2 * Hkv * tok * hd)
+            if q:
+                add("all_gather:model", H * tok * hd)
+            if cfg.quant.granularity == "per_channel":
+                add("all_reduce_max:model", 2 * Bl * Hkv * hd, elsize=4,
+                    reduce=True)
+        else:
+            add("all_gather:model", ((H if q else 0)
+                                     + (2 * Hkv if kv else 0)) * tok * hd)
+            if not paged and mode == "decode":
+                add("all_gather:model", n_m * Bl * H * (hd + 2), elsize=4)
+        add("all_gather:model", tok * d)
+        if cfg.n_experts:
+            add("all_gather:model", cfg.n_experts * Bl * capacity(cfg, S)
+                * cfg.moe_d_ff)
+            if cfg.n_shared_experts:
+                add("all_gather:model",
+                    tok * cfg.moe_d_ff * cfg.n_shared_experts)
+        else:
+            add("all_gather:model", tok * cfg.d_ff)
+        add("all_gather:model", tok * d)
+    vp = -(-cfg.vocab // 128) * 128
+    add("all_gather:" + ("data+model" if n_d > 1 else "model"),
+        SERVE_B * vp, n=n_d * n_m)
+    return out
 
 
 def _serve_launches(cfg, run: dict, prompt_slots: bool = True) -> dict:
@@ -5813,8 +5925,8 @@ def _serve_launches(cfg, run: dict, prompt_slots: bool = True) -> dict:
     prefill (flash forward and the quantizer of its granularity; a per
     block cache's only where the rank holds prompt slots,
     ``prompt_slots``; paged: paged prefill) and each decode step's
-    attention (flat or paged decode; no block or page fills in
-    SERVE_STEPS steps past a prompt of whole blocks). An
+    attention (flat or paged decode; no block or page fills in the run's
+    steps past a prompt of whole blocks). An
     encoder-decoder: flash in each encoder, self and cross attention,
     the self caches' quantizer, the cross caches' pair on every rank,
     and flat decode over both caches a step."""
@@ -5822,7 +5934,7 @@ def _serve_launches(cfg, run: dict, prompt_slots: bool = True) -> dict:
         n = cfg.n_layers
         want = {"flash_fwd": _n_attn(cfg), "absmax": 2 * n,
                 "quantize_with_scales": 2 * n,
-                "flat_decode": 2 * n * SERVE_STEPS}
+                "flat_decode": 2 * n * _steps(run)}
         if prompt_slots:
             want["quantize_blocked"] = 2 * n
         return want
@@ -5830,8 +5942,8 @@ def _serve_launches(cfg, run: dict, prompt_slots: bool = True) -> dict:
     if not n:
         return {}
     if run.get("paged"):
-        return {"paged_prefill": n, "paged_decode": n * SERVE_STEPS}
-    want = {"flash_fwd": n, "flat_decode": n * SERVE_STEPS}
+        return {"paged_prefill": n, "paged_decode": n * _steps(run)}
+    want = {"flash_fwd": n, "flat_decode": n * _steps(run)}
     if cfg.quant.granularity == "per_channel":
         want.update(absmax=2 * n, quantize_with_scales=2 * n)
     elif prompt_slots:
@@ -5926,7 +6038,7 @@ def _serve_one(dev, params, cfg, run: dict, out: Path, stream=None,
                rows: int | None = None) -> dict:
     """A one-process run the ranks are held against: `make_serve_fns`,
     the prompts prefilled (paged: one chunk through
-    `make_chunk_prefill_fn`, `_serve_table`'s pages), SERVE_STEPS steps:
+    `make_chunk_prefill_fn`, `_serve_table`'s pages), `_steps` steps:
     greedy, or teacher-forced on ``stream`` with the rows served ``rows``
     at a time (contiguous; each block its own state, as a "data" rank
     serves its rows); writes the prompts (an encoder-decoder's frames
@@ -5976,7 +6088,7 @@ def _serve_one(dev, params, cfg, run: dict, out: Path, stream=None,
         logits, tokens, step_ms, rec = [lg.float().cpu().numpy()], [], [], []
         pos = torch.full((n,), S, dtype=torch.int32, device=dev)
         with _routes_recorded(rec):
-            for j in range(SERVE_STEPS):
+            for j in range(_steps(run)):
                 tok = lg[:, :cfg.vocab].argmax(-1).to(torch.int32) \
                     if fed is None else torch.from_numpy(fed[j]).to(dev)
                 tokens.append(tok.cpu().numpy())
@@ -5988,7 +6100,7 @@ def _serve_one(dev, params, cfg, run: dict, out: Path, stream=None,
                 logits.append(lg.float().cpu().numpy())
                 pos = pos + 1
         return {"logits": np.stack(logits), "stream": np.stack(tokens),
-                "routes": _routes(rec, SERVE_STEPS),
+                "routes": _routes(rec, _steps(run)),
                 "leaves": [{f: _numpy(x) for f, x in _state_leaves(c).items()}
                            for c in _layers(state)],
                 "lengths": [c.length if isinstance(getattr(c, "length", None),
@@ -6229,8 +6341,9 @@ def _route_flips(routes: dict, ref: Path, rows: slice) -> list:
 
 def _serve_sharded_run(mesh, dev, params, cfg, run: dict, ref: Path
                        ) -> dict:
-    """One run on this rank over the whole weights gathered from
-    ``params``: `make_serve_fns` under the mesh, its state (bytes), the
+    """One run on this rank over its shards ``params`` (a stack that does
+    not serve tensor parallel: the whole weights gathered from them):
+    `make_serve_fns` under the mesh, its state (bytes), the
     prompts prefilled (paged: one chunk, its pages from a replicated
     allocator), then each one-process token fed (teacher forcing): per
     step the logits against the one-process ones, ms, the bytes sent by
@@ -6238,7 +6351,8 @@ def _serve_sharded_run(mesh, dev, params, cfg, run: dict, ref: Path
     process's; the launches; the state against the one-process state's
     slices (`_hold_state`); an encoder-decoder's frames fed with the
     prompts, its cross caches' int8 bytes and a digest of their scale
-    rows (the same on every rank of a row block)."""
+    rows (the same on every rank of a row block); whether the mesh holds
+    gathered weights after it."""
     import hashlib
 
     import numpy as np
@@ -6302,7 +6416,7 @@ def _serve_sharded_run(mesh, dev, params, cfg, run: dict, ref: Path
     rep["step_ms"], rep["step_sent"], rep["step_calls"] = [], [], []
     rec = []
     with _routes_recorded(rec):
-        for j in range(SERVE_STEPS):
+        for j in range(_steps(run)):
             tok = torch.from_numpy(stream[j][:, None]).to(dev)
             mesh.stats.clear()
             torch.cuda.synchronize()
@@ -6317,14 +6431,40 @@ def _serve_sharded_run(mesh, dev, params, cfg, run: dict, ref: Path
     rep["logits"] = held
     rep["launches"] = {k: c.launches for k, c in counters.items()}
     rep["route_flips"] = _route_flips(
-        _routes(rec, SERVE_STEPS), ref,
+        _routes(rec, _steps(run)), ref,
         serve_layout(mesh, cfg, B, 1, "decode", False).rows()) if rec else []
     rep["state"] = _hold_state(state, specs, whole, mesh, ref, cfg, S)
     rep["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    rep["gathered"] = bool(mesh.gathered)
     del state
     gc.collect()
     torch.cuda.empty_cache()
     return rep
+
+
+def _held_weights(params, specs, cfg, mesh) -> dict:
+    """What a rank holds of a model's serving weights: the bytes of the
+    storages its leaves use (each once), how many leaves its specs split
+    over axes of more than one rank and how many of those it holds whole,
+    and the card's allocated bytes."""
+    import torch
+    from repro_torch.core.tree import leaves
+    from repro_torch.launch import specs as SP
+    from repro_torch.parallel.shard import spec_leaves
+    seen, held = set(), 0
+    for t in leaves(params):
+        st = t.untyped_storage()
+        if st.data_ptr() not in seen:
+            seen.add(st.data_ptr())
+            held += st.nbytes()
+    split = whole = 0
+    for t, full, sp in zip(leaves(params), leaves(SP.param_shapes(cfg)),
+                           spec_leaves(specs), strict=True):
+        if any(axes and mesh.index(axes)[1] > 1 for axes in sp):
+            split += 1
+            whole += tuple(t.shape) == tuple(full.shape)
+    return {"held_bytes": held, "split": split, "split_whole": whole,
+            "allocated_after_init": torch.cuda.memory_allocated(mesh.device)}
 
 
 def _serve_rank(rank: int, world: int, rdzv: str, sizes, axes, runs,
@@ -6332,17 +6472,20 @@ def _serve_rank(rank: int, world: int, rdzv: str, sizes, axes, runs,
     """A spawned rank on cuda:0 (several ranks: gloo; one rank: NCCL):
     ``runs`` = (the serving runs, each with the one-process run it is
     held against, "whole" or "blocks"; the training runs of
-    `_sharded_run`). Each model's seed-0 weights as its shards
-    (`launch.specs.init_shards`, RG-LRU gates seeded), gathered whole
-    once (`serving.engine.gathered_weights`) for its runs in a row and
-    freed before the next model; then the training runs. Writes its
-    report to out_dir/rank<r>.json."""
+    `_sharded_run`). Each model's seed-0 weights drawn straight into
+    this rank's shards of `launch.specs.serve_param_specs`
+    (`launch.specs.init_shards`, RG-LRU gates seeded) and held for its
+    runs in a row, freed before the next model: a tensor-parallel stack's
+    serve on the shards alone, any other's gathered whole once
+    (`serving.engine.gathered_weights`); then the training runs. Writes
+    its report to out_dir/rank<r>.json."""
     import torch
     import torch.distributed as dist
     sys.path.insert(0, str(SRC))
     torch.set_num_threads(2)
     torch.backends.cuda.matmul.allow_tf32 = False
     from repro_torch.launch import specs as SP
+    from repro_torch.models.transformer import tensor_parallel
     from repro_torch.parallel.shard import Mesh, init_distributed
     from repro_torch.serving import engine
     dev = _rank_device(rank)
@@ -6352,7 +6495,7 @@ def _serve_rank(rank: int, world: int, rdzv: str, sizes, axes, runs,
     serve, train = runs
     report = {"rank": rank, "backend": backend, "coords": mesh.coords,
               "serve": {}, "runs": {}}
-    key, params, gather = None, None, {}
+    key, params, held = None, None, {}
     for run, sub in serve:
         cfg = _serve_run_cfg(run)
         if key != (run["arch"], run["layers"], run.get("dtype")):
@@ -6361,21 +6504,28 @@ def _serve_rank(rank: int, world: int, rdzv: str, sizes, axes, runs,
             gc.collect()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(dev)
-            pspecs = SP.param_specs(cfg, mesh)
+            pspecs = SP.serve_param_specs(cfg, mesh)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
             params = SP.init_shards(
                 cfg, torch.Generator(device=dev).manual_seed(0), dev, pspecs,
                 mesh)
             _seed_gate_shards(params, pspecs, cfg, mesh)
-            mesh.stats.clear()
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            engine.gathered_weights(params, cfg, mesh)
-            torch.cuda.synchronize()
-            gather = {"gather_s": time.perf_counter() - t0,
-                      "gathered_bytes": mesh.gathered["nbytes"],
-                      "gather_sent": mesh.gathered["sent"]}
+            torch.cuda.empty_cache()
+            held = {"tensor_parallel": tensor_parallel(cfg),
+                    "init_s": time.perf_counter() - t0,
+                    **_held_weights(params, pspecs, cfg, mesh)}
+            if not held["tensor_parallel"]:
+                mesh.stats.clear()
+                t0 = time.perf_counter()
+                engine.gathered_weights(params, cfg, mesh)
+                torch.cuda.synchronize()
+                held.update(gather_s=time.perf_counter() - t0,
+                            gathered_bytes=mesh.gathered["nbytes"],
+                            gather_sent=mesh.gathered["sent"])
             key = (run["arch"], run["layers"], run.get("dtype"))
-        report["serve"][run["label"]] = {**gather, **_serve_sharded_run(
+        report["serve"][run["label"]] = {**held, **_serve_sharded_run(
             mesh, dev, params, cfg, run, Path(ref_dir, run["label"], sub))}
     engine.release_gathered_weights(mesh)
     del params
@@ -6403,7 +6553,9 @@ def _hold_serve(run: dict, reps: list, one: dict, pred: dict,
     bf16 step, residuals, decode slots and recurrent leaves within their
     tolerance, tables and lengths equal); the state bytes and the bytes
     each decode step sends by collective as `serve_predict` reckons them;
-    paged: the replicated allocator's pages; the launches as
+    a tensor-parallel stack: its weight bytes a rank and the prefill's
+    bytes as predicted, no leaf its specs split held whole, nothing
+    gathered; paged: the replicated allocator's pages; the launches as
     `_serve_launches` predicts for each rank (``sizes`` the mesh's). An
     encoder-decoder: its cross caches' int8 bytes a rank as predicted,
     their scale rows the same bits on every rank of a row block (the
@@ -6413,14 +6565,23 @@ def _hold_serve(run: dict, reps: list, one: dict, pred: dict,
     cfg = _serve_run_cfg(run)
     per = [rep["serve"][label] for rep in reps]
     name = f"serve sharded {label}"
-    log(f"[{name}] ranks {len(reps)} ({reps[0]['backend']}); gathered "
-        f"{[p['gathered_bytes'] for p in per]} B in "
-        f"{[round(p['gather_s'], 2) for p in per]} s (sent "
-        f"{[p['gather_sent'] for p in per]} B); state a rank "
+    tp = per[0]["tensor_parallel"]
+    weights = (f"tensor parallel: weights a rank "
+               f"{[p['held_bytes'] for p in per]} B (predicted "
+               f"{pred['weight_bytes']}; split leaves {per[0]['split']}, "
+               f"held whole {[p['split_whole'] for p in per]}), drawn in "
+               f"{[round(p['init_s'], 2) for p in per]} s, allocated after "
+               f"{[p['allocated_after_init'] for p in per]} B" if tp else
+               f"gathered {[p['gathered_bytes'] for p in per]} B in "
+               f"{[round(p['gather_s'], 2) for p in per]} s (sent "
+               f"{[p['gather_sent'] for p in per]} B)")
+    log(f"[{name}] ranks {len(reps)} ({reps[0]['backend']}); {weights}; "
+        f"state a rank "
         f"{[p['cache_bytes'] for p in per]} B (one process "
         f"{one['cache_bytes']}; predicted {pred['cache_bytes']}); prefill ms "
         f"{[round(p['prefill_ms'], 1) for p in per]} (one process "
-        f"{one['prefill_ms']:.1f}), sent {per[0]['prefill_sent']}; decode "
+        f"{one['prefill_ms']:.1f}), sent {per[0]['prefill_sent']} "
+        f"(predicted {pred.get('prefill_sent', 'not reckoned')}); decode "
         f"step ms median "
         f"{[round(statistics.median(p['step_ms']), 2) for p in per]} (one "
         f"process {statistics.median(one['step_ms']):.2f}); sent a step "
@@ -6478,6 +6639,19 @@ def _hold_serve(run: dict, reps: list, one: dict, pred: dict,
         if any(s != pred["sent"] for s in r["step_sent"]):
             raise AssertionError(f"{who}: a step sent {r['step_sent'][0]}, "
                                  f"predicted {pred['sent']}")
+        if tp:          # its shards alone, as predicted, nothing gathered
+            if r["held_bytes"] != pred["weight_bytes"]:
+                raise AssertionError(f"{who}: weights {r['held_bytes']} B, "
+                                     f"predicted {pred['weight_bytes']}")
+            if r["split_whole"] or (sizes[1] > 1 and not r["split"]):
+                raise AssertionError(f"{who}: {r['split_whole']} of "
+                                     f"{r['split']} split leaves whole")
+            if r["gathered"]:
+                raise AssertionError(f"{who}: weights gathered whole")
+            if r["prefill_sent"] != pred["prefill_sent"]:
+                raise AssertionError(f"{who}: the prefill sent "
+                                     f"{r['prefill_sent']}, predicted "
+                                     f"{pred['prefill_sent']}")
         if run.get("paged") and not r["pages_equal"]:
             raise AssertionError(f"{who}: its allocator's pages differ")
         if "cross_int8_bytes" in pred:
@@ -6494,12 +6668,16 @@ def _hold_serve(run: dict, reps: list, one: dict, pred: dict,
                        for f in ("k_s", "v_s")):
                 raise AssertionError(f"{who}: cross scales not bit for bit "
                                      f"the one process's: {r['state']}")
-        slots = run["max_len"]              # a ring's: the window's
-        if cfg.sliding_window:
-            bs = cfg.quant.block_size
+        slots, bs = run["max_len"], cfg.quant.block_size
+        if cfg.sliding_window:              # a ring's: the window's
             slots = min(slots, -(-cfg.sliding_window // bs) * bs)
         lo = rep["coords"]["model"] * (slots // sizes[1])
-        want = _serve_launches(cfg, run, lo < min(run["S"], slots))
+        # scale rows whole on every rank (blocks that do not divide over
+        # "model"): each rank quantizes the prompt's blocks
+        whole_scales = (cfg.quant.granularity == "per_block"
+                        and (slots // bs) % sizes[1] != 0)
+        want = _serve_launches(cfg, run,
+                               whole_scales or lo < min(run["S"], slots))
         got = {k: v for k, v in r["launches"].items() if v}
         if got != want:
             raise AssertionError(f"{who}: launches {got}, predicted {want}")
@@ -6507,24 +6685,25 @@ def _hold_serve(run: dict, reps: list, one: dict, pred: dict,
 
 
 def _serve_ranks(dev, card: str, name: str, runs: tuple, nccl: tuple,
-                 train: tuple = (), before=None) -> tuple:
+                 train: tuple = (), before=None,
+                 sizes=SHARDED_MESH[0]) -> tuple:
     """A sharded serving phase: the one-process runs of ``runs``
     (`_serve_refs`, kept in a temporary directory), then ``before()``
     (the training phase's single-process steps), then the parent frees
-    its card memory and spawns SHARDED_MESH's 4 ranks on cuda:0 over
-    gloo, each serving every run teacher-forced on the one process's
-    stream (the runs with "blocks" held against their rows served
-    SHARDED_MESH's "data" share at a time), then taking the ``train``
+    its card memory and spawns the 4 ranks of the mesh ``sizes`` (data,
+    model) on cuda:0 over gloo, each serving every run teacher-forced on
+    the one process's stream (the runs with "blocks" held against their
+    rows served the "data" share at a time), then taking the ``train``
     runs; every run held by `_hold_serve` against `serve_predict`; then
     one NCCL rank at (1, 1) (the backend asserted) serves the runs
-    labelled ``nccl``, held against the whole one-process runs. Returns
-    (the launch counts by path summed over ranks, the phase's report, the
-    gloo ranks' reports)."""
+    labelled ``nccl`` (none: no NCCL rank), held against the whole
+    one-process runs. Returns (the launch counts by path summed over
+    ranks, the phase's report, the gloo ranks' reports)."""
     import shutil
     import tempfile
 
     import torch
-    sizes, axes = SHARDED_MESH
+    axes = SHARDED_MESH[1]
     gc.collect()
     torch.cuda.empty_cache()
     ref = Path(tempfile.mkdtemp(prefix="serve-sharded-"))
@@ -6561,6 +6740,8 @@ def _serve_ranks(dev, card: str, name: str, runs: tuple, nccl: tuple,
         # one rank over NCCL: its own card
         t1 = time.perf_counter()
         mine = tuple(run for run in runs if run["label"] in nccl)
+        if not mine:
+            return counts, report, reps
         nccl_reps = _spawn_ranks(1, (1, 1), axes, (
             tuple((run, "whole") for run in mine), ()), f"{name} nccl",
             target=_serve_rank, extra=(str(ref),))
@@ -6582,7 +6763,7 @@ def _serve_ranks(dev, card: str, name: str, runs: tuple, nccl: tuple,
 
 # max_len 8192: mixtral's and recurrentgemma's prompts pass their windows
 # (4096, 2048), so each ring has wrapped at the prefill; the prompts are
-# block multiples and no block fills in 32 steps. mixtral first, on the
+# block multiples and no block fills in 16 steps. mixtral first, on the
 # emptiest card: four ranks' whole weights (~5.8 GB each at 1 of 56
 # layers, cut from 2 for the script's time). xlstm_350m in
 # float32: in bf16 its exponential gates carry a rounding difference of
@@ -6601,7 +6782,7 @@ LONG_SERVE = tuple(
     # per-channel cross cache's 1504 slots over "model" (752 a rank; the
     # second rank's last 4 are padding), 256-token prompts in a 512-slot
     # self cache (the second "model" rank holds no prompt slot), no block
-    # fill in 32 steps
+    # fill in 16 steps
     {"label": WHISPER, "arch": WHISPER, "layers": None, "S": 256,
      "max_len": 512, "seed": 32, "blocks": True, "dtype": None},)
 # (label, arch, layers, batch, sequence, steps, rules, the single-process
@@ -6616,27 +6797,82 @@ LONG_SERVE = tuple(
 # in bf16 any two computations of it lie O(1) apart leaf by leaf (one
 # process's bf16 embedding gradient 81% from its float32 one) and their
 # norms several percent: GNORM_RTOL cannot tell a fault from rounding
-# there. Its first float32 step is held: its second is held to nothing,
-# as one process's own step-1 norm moves from 84.49 to 83.62 or 99.75
-# when it computes its rows 2 or 1 at a time in step 0. One bf16 step,
+# there. Its first float32 step is held, and taken alone: a second would
+# be held to nothing, as one process's own step-1 norm moves from 84.49
+# to 83.62 or 99.75 when it computes its rows 2 or 1 at a time in step 0.
+# recurrentgemma_9b and whisper_small take one step each (the script's
+# time for the tensor-parallel qwen2_5_32b run; the sharded optimizer's
+# second step is held in `train sharded`). One bf16 step,
 # the config's own dtype as the train CLI runs it, is held against one
 # process (`_bf16_reference`): its loss within LOSS_RTOL, and its
 # gradient norm no farther from the float32 norm of the same weights
 # than one process's bf16 norm lies, plus GNORM_RTOL
 LONG_TRAIN = (
-    ("train sharded recurrentgemma_9b", "recurrentgemma_9b", 5, 4, 512, 2,
+    ("train sharded recurrentgemma_9b", "recurrentgemma_9b", 5, 4, 512, 1,
      None, "train single recurrentgemma_9b 4x512", None, None),
-    ("train sharded xlstm_350m", "xlstm_350m", None, 4, 256, 2, None,
+    ("train sharded xlstm_350m", "xlstm_350m", None, 4, 256, 1, None,
      "train single xlstm_350m float32 4x256", "float32", 1),
-    ("train sharded xlstm_350m ssm", "xlstm_350m", None, 4, 256, 2, "ssm",
+    ("train sharded xlstm_350m ssm", "xlstm_350m", None, 4, 256, 1, "ssm",
      "train single xlstm_350m float32 4x256", "float32", 1),
     ("train sharded xlstm_350m bf16", "xlstm_350m", None, 4, 256, 1, None,
      "bf16 xlstm_350m 4x256", None, 1),
     # whisper_small uncut in bf16 on its make_frames frames (4, 1500, 768)
     # and 4 x 256 tokens: the encoder context parallel, the cross K/V
     # gathered along the encoder sequence, FSDP over "data"
-    ("train sharded whisper_small", WHISPER, None, 4, 256, 2, None,
+    ("train sharded whisper_small", WHISPER, None, 4, 256, 1, None,
      "train single whisper_small 4x256", None, None))
+
+
+# the run only tensor-parallel serving holds: qwen2_5_32b at all 64 layers
+# and full width (~65.5 GB of bf16 weights whole) on (data 1, model 4), 4
+# gloo ranks on the one card, ~16.4 GB of weights each; 4 rows of
+# 256-token prompts, max_len 512 (128 slots a rank: the block of 256
+# straddles the first two ranks, the last two hold no prompt slot; 2
+# blocks on 4 ranks: every rank keeps and quantizes the scale rows), 16
+# steps teacher-forced on one process serving the same 4 rows, which runs
+# first and frees the card before the spawn
+TP_MESH = (1, 4)
+TP_SERVE = ({"label": "qwen2_5_32b", "arch": "qwen2_5_32b", "layers": None,
+             "gran": "per_block", "S": 256, "max_len": 512, "seed": 33,
+             "steps": 16},)
+
+
+def column_split_products(dev, cfg, n: int, card: str) -> dict:
+    """How the card's bf16 products move when a rank computes 1/``n`` of
+    their output columns: x (M, K) @ W (K, N) against x @ W[:, :N / n]
+    (contiguous) at ``cfg``'s projections, for M = 4 (a decode step's
+    rows) and M = 1024 (a 4 x 256 prompt's), seeded; per shape the share
+    of those output elements whose bits differ and the largest
+    difference over the largest |value|. Each element is one dot product
+    either way: a difference is the GEMM's order of summation, chosen by
+    its shape (cuBLAS's kernel or split-K), not the port's."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(7)
+    H, Hkv, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
+    vp = -(-cfg.vocab // 128) * 128
+    shapes = {"wq": (d, H * hd), "wk": (d, Hkv * hd), "wo": (H * hd, d),
+              "w_gate": (d, cfg.d_ff), "w_down": (cfg.d_ff, d),
+              "lm_head": (d, vp)}
+    out = {}
+    for M in (4, 1024):
+        for name, (K, N) in shapes.items():
+            x = torch.randn((M, K), generator=g, device=dev).to(
+                torch.bfloat16)
+            w = (torch.randn((K, N), generator=g, device=dev)
+                 / math.sqrt(K)).to(torch.bfloat16)
+            a = (x @ w)[:, :N // n]
+            b = x @ w[:, :N // n].contiguous()
+            diff = (a.float() - b.float()).abs()
+            out[f"{name} M={M}"] = {
+                "bits_differ": float((a.view(torch.int16)
+                                      != b.view(torch.int16)).float().mean()),
+                "max_rel": float(diff.max() / a.float().abs().max())}
+            del x, w, a, b, diff
+    torch.cuda.empty_cache()
+    log(f"[serve sharded] bf16 products, 1/{n} of the output columns "
+        f"against all of them (share of bits that differ, largest "
+        f"difference over the largest |value|): {json.dumps(out)}; {card}")
+    return out
 
 
 def _bf16_reference(dev, arch: str, B: int, S: int) -> dict:
@@ -6694,7 +6930,7 @@ def serve_sharded_full_width(dev, card: str) -> dict:
     `SERVE_SHARDED_RUNS` (internlm2_1_8b, 4 of 24 layers, through one
     process's `make_serve_fns`: contiguous per block and per channel,
     paged through `make_chunk_prefill_fn`; 4 rows of 3072-token prompts,
-    max_len 4096, 32 greedy steps; the ranks teacher-forced on its
+    max_len 4096, 16 greedy steps; the ranks teacher-forced on its
     tokens), then the long-context stacks and whisper_small
     (`LONG_SERVE`): each model's one-process `make_serve_fns` (seed-0
     weights, RG-LRU gates seeded; 4 rows of prompts past the window;
@@ -6795,8 +7031,17 @@ def serve_sharded_full_width(dev, card: str) -> dict:
                 f"{label}: step 0 grad norm {got['grad_norm']} lies "
                 f"{off:.2e} from the float32 gradient's {f32['grad_norm']}"
                 f", past one process's bf16 {own:.2e} + {GNORM_RTOL:g}")
-    log(f"[serve sharded] phase {time.perf_counter() - t_phase:.1f} s; "
-        f"{card}")
+    t1 = time.perf_counter()
+    cols = {}
+    tp_counts, report["tensor parallel"], _ = _serve_ranks(
+        dev, card, "serve sharded", TP_SERVE, (), sizes=TP_MESH,
+        before=lambda: cols.update(column_split_products(
+            dev, _serve_run_cfg(TP_SERVE[0]), TP_MESH[1], card)))
+    report["tensor parallel"]["column_split_products"] = cols
+    counts.update(tp_counts)
+    log(f"[serve sharded] {TP_SERVE[0]['label']} at {TP_MESH} in "
+        f"{time.perf_counter() - t1:.1f} s; phase "
+        f"{time.perf_counter() - t_phase:.1f} s; {card}")
     log("[serve sharded] " + json.dumps(report))
     return counts
 

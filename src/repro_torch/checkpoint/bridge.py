@@ -25,8 +25,9 @@ bfloat16 cannot go through `torch.from_numpy`).
 - `opt_state_from_numpy`: the reference's ``init_opt_state`` tree (m, v,
   master, step, optional grad_err) -> the port's (`training.step`).
   Both take a ``mesh`` and ``specs`` (`launch.specs.train_specs`'
-  "params" and "opt"): each rank then takes its shards straight from the
-  numpy arrays, with no whole copy on the device.
+  "params" and "opt"; for serving, `launch.specs.serve_param_specs`):
+  each rank then takes its shards straight from the numpy arrays, with no
+  whole copy on the device.
 - `reference_layout`: the port's layout -> the reference's, by the
   config (what `optim.compression` keeps its error state in).
 - `tree_to_numpy`: the port's parameters (or moments, master weights,

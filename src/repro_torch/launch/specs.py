@@ -14,12 +14,14 @@ at their local shapes (`init_serve_state`), never whole and then cut.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
 from repro_torch.parallel.shard import (MeshShape, current_rules,
                                         gather_leaf, logical_spec,
-                                        shard_slices, take_shard)
+                                        shard_slices, spec_leaves,
+                                        take_shard)
 
 # leaf name -> logical axes of trailing dims
 PARAM_RULES: dict[str, tuple] = {
@@ -265,6 +267,107 @@ def param_specs(cfg, mesh):
     return _SPECS[key]
 
 
+def _tp_axes(logical: str, units: int, mesh) -> tuple[str, ...]:
+    """The mesh axes that cut ``units`` whole units (heads, channels,
+    vocabulary rows) of a serving weight by the ``logical`` rule, ``()``
+    where they do not divide it or where the rules give the axes to the
+    rows (an override such as `SSM_RULES`: each rank then computes
+    whole)."""
+    axes = logical_spec((logical,), (units,), mesh)[0]
+    rows = set(current_rules().get("batch", ()))
+    return () if rows & set(axes) else axes
+
+
+# serving leaf name -> (the dim "model" cuts, counted from the end; what it
+# cuts: "q" query heads, "kv" kv heads, "ffn" hidden channels, "out" the
+# d_model output columns, "vocab" vocabulary rows or columns)
+_SERVE_CUTS = {"wq": (-1, "q"), "bq": (-1, "q"), "wk": (-1, "kv"),
+               "wv": (-1, "kv"), "bk": (-1, "kv"), "bv": (-1, "kv"),
+               "wo": (-1, "out"), "w_gate": (-1, "ffn"),
+               "w_up": (-1, "ffn"), "w_down": (-1, "out"),
+               "embed": (-2, "vocab"), "lm_head": (-1, "vocab")}
+
+
+def serve_param_specs(cfg, mesh):
+    """The layout serving takes the parameters in under ``mesh`` (cached
+    by config, mesh shape and rules).
+
+    For a stack of attention and MoE blocks
+    (`transformer.tensor_parallel`) a tensor-parallel layout over
+    "model", cut on whole units: ``wq`` / ``bq`` by query head, ``wk``,
+    ``wv``, ``bk``, ``bv`` by kv head, ``w_gate`` / ``w_up`` (an MLP's, the
+    experts' and the shared experts') by hidden channel, ``lm_head``'s
+    vocabulary columns and ``embed``'s rows, and the OUTPUT (d_model)
+    columns of ``wo`` and of every ``w_down``: each output element of a
+    projection is then one whole dot product, the one one process
+    computes, gathered rather than summed from partial products (a
+    reduced row split moves the residual's bf16 bits and, through the
+    next layer's K/V, the int8 pages). The router and the norms stay
+    whole. A unit count the axes do not divide stays whole (kv heads
+    fewer than "model": every rank projects and stores every kv head,
+    the paged pool's kv heads replicated as `page_pool_specs` keeps
+    them); query heads split only where each rank's lie in whole
+    groups of one or more kv heads (query head h reads kv head h // G).
+
+    Unlike training's `param_specs` nothing lies over "data": a serving
+    rank's rows are independent requests, and FSDP shards gathered
+    every step would send most of the model each token; the ranks of a
+    "data" axis hold replicas of their "model" shard.
+
+    Any other stack (recurrent, encoder-decoder) is served from
+    `param_specs`' layout, its shards gathered whole once a rank
+    (`serving.engine.gathered_weights`): this returns those specs."""
+    from repro_torch.models.transformer import tensor_parallel
+    if not tensor_parallel(cfg):
+        return param_specs(cfg, mesh)
+    key = _key("serve", cfg, mesh)
+    if key not in _SPECS:
+        H, Hkv = cfg.n_heads, cfg.n_kv_heads
+        kv, q = _tp_axes("kv_heads", Hkv, mesh), _tp_axes("heads", H, mesh)
+        if q and not kv and (H // Hkv) % (
+                H // math.prod(mesh.shape[a] for a in q)):
+            q = ()                          # a rank's heads span kv heads
+        heads = {"q": q, "kv": kv}
+
+        def spec(name, leaf):
+            shape = _shape(leaf)
+            dim, what = _SERVE_CUTS.get(name, (None, None))
+            out = [()] * len(shape)
+            if what is not None and len(shape) >= -dim:
+                out[dim] = heads[what] if what in heads else _tp_axes(
+                    "vocab" if what == "vocab" else "ffn", shape[dim], mesh)
+            return tuple(out)
+        _SPECS[key] = _map_named(param_shapes(cfg), spec)
+    return _SPECS[key]
+
+
+def _zip3(tree, have, want, fn):
+    if isinstance(tree, dict):
+        return {k: _zip3(v, have[k], want[k], fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_zip3(*a, fn) for a in zip(tree, have, want)]
+    return None if tree is None else fn(tree, have, want)
+
+
+def refit_tree(tree, have, want, mesh):
+    """This rank's shards laid out by the specs ``have`` -> by ``want``
+    (`parallel.shard.refit` leaf by leaf, each a contiguous copy; a
+    collective): a tree saved or restored in training's layout
+    (`param_specs`) re-cut once to the serving layout
+    (`serve_param_specs`)."""
+    from repro_torch.parallel.shard import refit
+    return _zip3(tree, have, want, lambda x, h, w: refit(x, h, w, mesh).clone(
+        memory_format=torch.contiguous_format))
+
+
+def shard_shapes(cfg, specs, mesh) -> list:
+    """The local shape of each of this rank's shards of ``cfg``'s
+    parameters laid out by ``specs``, in `core.tree.leaves` order."""
+    from repro_torch.core.tree import leaves
+    return [_local(x.shape, s, mesh) for x, s in zip(
+        leaves(param_shapes(cfg)), spec_leaves(specs), strict=True)]
+
+
 def error_specs(cfg, mesh):
     """The specs of the error state of `optim.compression`: the
     parameters' specs in the reference's layout, a stacked leaf with its
@@ -311,8 +414,9 @@ def init_shards(cfg, generator, device, specs, mesh):
     """This rank's shards of `transformer.init_params`'s weights (the same
     draws from ``generator``): each part is cut to its shards as it is
     made, so a rank never holds more of the whole model than one layer,
-    or the embedding or head. ``specs`` are `param_specs`'. An
-    encoder-decoder's come from `encdec.init_params` the same way."""
+    or the embedding or head. ``specs`` are `param_specs`' (training) or
+    `serve_param_specs`' (serving). An encoder-decoder's come from
+    `encdec.init_params` the same way."""
     from repro_torch.models import encdec, transformer
 
     def keep(key, part):

@@ -47,18 +47,24 @@ The caches are updated in place: attention reads the pool BEFORE a chunk's
 pages are written, and decode appends BEFORE it reads, exactly the order
 of the reference's functional updates.
 
-Serving under a mesh (`models.transformer`; this rank's rows, whole
-weights): over a contiguous cache sharded along its slots
-(`core.kvcache.ShardedKVCache`) the prompt runs context parallel (K/V
-gathered along the sequence) and each rank writes its own slots; a
-decode step runs the flat decode kernel over this rank's slots, merges
-every rank's partials in rank order and then the replicated fp residual
-tail; over a sharded ring each rank's live slots are those the window
-leaves live there (`core.kvcache.ring_slot_args`). Over a paged cache
-whose pool holds this rank's kv heads, every
-function above runs as it is on the rank's cut of the heads
-(`head_slice`), and the caller gathers their outputs over the heads'
-axes and applies the whole ``wo``.
+Serving under a mesh (`models.transformer`; this rank's rows): the
+stacks of attention and MoE blocks call `serve_tp` on the rank's shards
+of the weights (`launch.specs.serve_param_specs`: query and kv heads,
+and ``wo``'s output columns, over "model"). Q, K and V come from the
+rank's head columns; over a paged pool of the rank's kv heads every
+function above runs on those heads, and over a cache holding every
+head (a contiguous cache, sharded along its slots as
+`core.kvcache.ShardedKVCache`, or a paged pool whose kv heads do not
+divide over "model") the heads are gathered first: a prompt's flash
+still runs on the rank's query heads, a decode step on every head
+(the flat decode kernel over this rank's slots, every rank's partials
+merged in rank order, then the replicated fp residual tail; over a
+sharded ring each rank's live slots are those the window leaves live
+there, `core.kvcache.ring_slot_args`). The heads' outputs, gathered,
+times the rank's ``wo`` columns, gathered, are what one process
+computes. A stack with recurrent blocks serves on whole weights: its
+contiguous prompt runs context parallel (K/V gathered along the
+sequence, `prefill`'s ``lay``) and each rank writes its own slots.
 """
 from __future__ import annotations
 
@@ -69,7 +75,8 @@ from repro_torch.core.paging import PagedQuantizedKVCache
 from repro_torch.kernels import ops
 from repro_torch.models import flash
 from repro_torch.models.common import apply_mrope, apply_rope, dense_init
-from repro_torch.parallel.shard import all_gather, gather_param
+from repro_torch.parallel.shard import (all_gather, gather_cols,
+                                        gather_heads, gather_param)
 
 
 def init(cfg, gen: torch.Generator, device) -> dict:
@@ -91,7 +98,7 @@ def _project_qkv(p, x, cfg, positions):
     (B, 3, S), text mode). A bias joins the product after it is rounded
     to the activation dtype, as in the reference (a fused ``addmm`` would
     add it before). The head counts are the projections' widths over
-    hd: a rank's cut of the heads (`head_slice`) projects its heads."""
+    hd: a rank's shards of the heads (`head_slice`) project its heads."""
     B, S, _ = x.shape
     hd = cfg.head_dim
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
@@ -111,17 +118,23 @@ def _project_qkv(p, x, cfg, positions):
     return q, k, v
 
 
-def head_slice(p, cfg, h0: int, h1: int) -> dict:
-    """The attention weights of kv heads [h0, h1) and their query groups
-    (views): wq / bq columns, wk, wv / bk, bv columns, and no wo: the
-    functions below then return these heads' outputs (B, S, H_l * hd) in
-    the activation dtype, which the caller gathers over the heads' ranks
-    and multiplies by the whole wo, as one process does."""
-    hd, G = cfg.head_dim, cfg.n_heads // cfg.n_kv_heads
-    q, kv = slice(G * h0 * hd, G * h1 * hd), slice(h0 * hd, h1 * hd)
-    cut = {"wq": (slice(None), q), "wk": (slice(None), kv),
-           "wv": (slice(None), kv), "bq": (q,), "bk": (kv,), "bv": (kv,)}
-    return {k: w[cut[k]] for k, w in p.items() if k in cut}
+def head_slice(cfg, sp, mesh) -> dict:
+    """The heads this rank's attention shards hold at rest (``sp`` their
+    specs, `launch.specs.serve_param_specs`; ``mesh`` None: one process,
+    every head): ``q`` its query heads' [h0, h1) (the ``wq`` / ``bq``
+    columns [h0 * hd, h1 * hd)), ``kv`` its kv heads' (``wk``, ``wv``,
+    ``bk``, ``bv``), ``reads`` the kv heads its query heads read (query
+    head h reads kv head h // G)."""
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+
+    def cut(axes, n):
+        if mesh is None or not axes:
+            return 0, n
+        i, k = mesh.index(axes)
+        return i * n // k, (i + 1) * n // k
+    q, kv = cut(sp["wq"][-1], H), cut(sp["wk"][-1], Hkv)
+    G = H // Hkv
+    return {"q": q, "kv": kv, "reads": (q[0] // G, (q[1] - 1) // G + 1)}
 
 
 def _sdpa(q, k, v, *, causal: bool, window: int | None,
@@ -132,8 +145,7 @@ def _sdpa(q, k, v, *, causal: bool, window: int | None,
 
 def _merge_heads(p, out, dtype):
     """(B, H, S, hd) -> (B, S, d): the heads rounded to ``dtype``, then
-    their product with wo; without wo (`head_slice`) the heads alone,
-    (B, S, H * hd)."""
+    their product with wo; without wo the heads alone, (B, S, H * hd)."""
     B, H, S, hd = out.shape
     out = out.transpose(1, 2).reshape(B, S, H * hd).to(dtype)
     return out @ p["wo"] if "wo" in p else out
@@ -229,9 +241,7 @@ def prefill(p, x, cfg, positions, cache, *, local: bool = False,
     `train` does: K and V gathered along the sequence, the flash walk at
     this rank's first position, and the cache (`ShardedKVCache`) takes
     the whole prompt's K/V and writes its own slots."""
-    if row_mask is not None and not isinstance(cache, PagedQuantizedKVCache):
-        raise ValueError("row-masked prefill requires the paged cache (the "
-                         "contiguous cache has one shared length)")
+    _check_row_mask(cache, row_mask, "prefill")
     q, k, v = _project_qkv(p, x, cfg, positions)
     offset = 0
     if lay is not None and lay.seq:
@@ -240,21 +250,28 @@ def prefill(p, x, cfg, positions, cache, *, local: bool = False,
         offset = lay.positions().start
     out = _sdpa(q, k, v, causal=True, window=_window(cfg, local),
                 kv_offset=offset)
+    _write_prompt(cache, k, v, row_mask)
+    return _merge_heads(p, out, x.dtype), cache
+
+
+def _check_row_mask(cache, row_mask, what: str):
+    if row_mask is not None and not isinstance(cache, PagedQuantizedKVCache):
+        raise ValueError(f"row-masked {what} requires the paged cache (the "
+                         f"contiguous cache has one shared length)")
+
+
+def _write_prompt(cache, k, v, row_mask):
     if isinstance(cache, PagedQuantizedKVCache):
         cache.prefill(k.float(), v.float(), row_mask=row_mask)
     else:
         cache.prefill(k.float(), v.float())
-    return _merge_heads(p, out, x.dtype), cache
 
 
-def prefill_chunk(p, x, cfg, positions, cache: PagedQuantizedKVCache, *,
-                  row_mask=None, hist_blocks: int | None = None, valid=None):
-    """One prompt chunk under varlen chunked prefill. ``x`` (B, C, d), C a
-    page multiple (the dispatch width); ``positions`` (B, C) absolute, with
-    positions[:, 0] each row's page-aligned resident history; ``valid``
-    (B,) true tokens per row (None = C); ``hist_blocks`` bounds the
-    history walk (None = the whole table, 0 = no history)."""
-    q, k, v = _project_qkv(p, x, cfg, positions)
+def _chunk_core(q, k, v, positions, cache: PagedQuantizedKVCache, row_mask,
+                hist_blocks, valid):
+    """The paged prefill kernel over a chunk's q, k, v (B, H, C, D) and
+    the rows' resident pages, then the chunk's K/V written into pages:
+    (B, H, C, D) float32."""
     hist_len = positions[:, 0].to(torch.int32)
     nb = cache.max_blocks if hist_blocks is None else \
         min(hist_blocks, cache.max_blocks)
@@ -266,22 +283,30 @@ def prefill_chunk(p, x, cfg, positions, cache: PagedQuantizedKVCache, *,
                      torch.div(hist_len, cache.page_size,
                                rounding_mode="floor"),
                      row_mask=row_mask, valid=valid)
+    return out
+
+
+def prefill_chunk(p, x, cfg, positions, cache: PagedQuantizedKVCache, *,
+                  row_mask=None, hist_blocks: int | None = None, valid=None):
+    """One prompt chunk under varlen chunked prefill. ``x`` (B, C, d), C a
+    page multiple (the dispatch width); ``positions`` (B, C) absolute, with
+    positions[:, 0] each row's page-aligned resident history; ``valid``
+    (B,) true tokens per row (None = C); ``hist_blocks`` bounds the
+    history walk (None = the whole table, 0 = no history)."""
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    out = _chunk_core(q, k, v, positions, cache, row_mask, hist_blocks,
+                      valid)
     return _merge_heads(p, out.to(x.dtype), x.dtype), cache
 
 
-def decode(p, x, cfg, positions, cache, *, local: bool = False,
-           row_mask=None):
-    """One-token step: append K/V, then attention over the int8 cache
-    (merged with the exact fp residual tail where there is one; a ring's
-    slots masked by the window). ``row_mask`` (B,) bool freezes unmasked
-    rows' caches (paged only)."""
-    q, k, v = _project_qkv(p, x, cfg, positions)          # S == 1
+def _decode_core(q, k, v, cfg, cache, local: bool, row_mask):
+    """Append one token's K/V (B, Hkv, 1, D) to the cache, then attention
+    of q (B, H, 1, D) over it: (B, H, 1, D) float32."""
     if isinstance(cache, PagedQuantizedKVCache):
         cache.append(k.float(), v.float(), row_mask=row_mask)
         out = _decode_paged(q[:, :, 0], cache)
     else:
-        if row_mask is not None:
-            raise ValueError("row-masked decode requires the paged cache")
+        _check_row_mask(cache, row_mask, "decode")
         cache.append(k.float(), v.float())
         window = _window(cfg, local) if cache.ring else None
         if isinstance(cache, ShardedKVCache) and cache.per_channel:
@@ -294,8 +319,66 @@ def decode(p, x, cfg, positions, cache, *, local: bool = False,
                 cache.length, window=window)
         else:
             out = _decode_blocked(q[:, :, 0], cache, window=window)
-    out = out[:, :, None]                                  # (B, H, 1, hd)
+    return out[:, :, None]
+
+
+def decode(p, x, cfg, positions, cache, *, local: bool = False,
+           row_mask=None):
+    """One-token step: append K/V, then attention over the int8 cache
+    (merged with the exact fp residual tail where there is one; a ring's
+    slots masked by the window). ``row_mask`` (B,) bool freezes unmasked
+    rows' caches (paged only)."""
+    q, k, v = _project_qkv(p, x, cfg, positions)          # S == 1
+    out = _decode_core(q, k, v, cfg, cache, local, row_mask)
     return _merge_heads(p, out.to(x.dtype), x.dtype), cache
+
+
+def serve_tp(p, sp, x, cfg, positions, cache, mode: str, *,
+             local: bool = False, row_mask=None, hist_blocks=None,
+             valid=None, mesh=None):
+    """One serving step's attention on this rank's shards of the
+    weights (``sp`` their specs, `launch.specs.serve_param_specs`): x
+    (B_l, S, d) this rank's rows, whole on the ranks of "model". Q, K and
+    V are projected on the rank's head columns. Over a paged pool of the
+    rank's kv heads (``cache.kv_axes``) the step runs on them alone and
+    the heads' outputs are gathered; in a prompt over any other cache
+    (every kv head on every rank) the flash runs on the rank's query
+    heads and the kv heads they read, and the cache takes every head's
+    K/V (gathered); a decode step or a chunk over such a cache gathers
+    the heads of Q, K and V and runs every head on every rank (a
+    sequence-sharded cache's partials merged in rank order: the same
+    bits on every rank). The heads' outputs times the rank's output
+    columns of ``wo``, gathered over theirs, give (B_l, S, d): each
+    element one whole dot product, as one process computes it."""
+    qa, kva, oa = sp["wq"][-1], sp["wk"][-1], sp["wo"][-1]
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    paged = isinstance(cache, PagedQuantizedKVCache)
+    heads = qa
+    if paged and tuple(getattr(cache, "kv_axes", ())) != tuple(kva):
+        raise ValueError(f"the pool's kv heads over {cache.kv_axes}, the "
+                         f"kv projections' over {kva}")
+    if mode == "prefill":
+        _check_row_mask(cache, row_mask, "prefill")
+        kw, vw = (k, v) if paged else gather_heads(mesh, (k, kva), (v, kva))
+        if not kva:                        # the kv heads the rank's read
+            r0, r1 = head_slice(cfg, sp, mesh)["reads"]
+            k, v = kw[:, r0:r1], vw[:, r0:r1]
+        out = _sdpa(q, k, v, causal=True, window=_window(cfg, local))
+        _write_prompt(cache, kw, vw, row_mask)
+    else:
+        if not (paged and kva):            # every head on every rank
+            q, k, v = gather_heads(mesh, (q, qa), (k, kva), (v, kva))
+            heads = ()
+        if mode == "chunk":
+            out = _chunk_core(q, k, v, positions, cache, row_mask,
+                              hist_blocks, valid)
+        elif mode == "decode":
+            out = _decode_core(q, k, v, cfg, cache, local, row_mask)
+        else:
+            raise ValueError(f"unknown serving mode {mode!r}")
+    o = _merge_heads({}, out.to(x.dtype), x.dtype)
+    o = gather_cols(o, heads, mesh)
+    return gather_cols(o @ p["wo"], oa, mesh)
 
 
 def _decode_blocked(q, cache: QuantizedKVCache, *, window=None):

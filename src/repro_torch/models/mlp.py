@@ -10,11 +10,15 @@ down-projection's partial sums reduce-scattered back to sequence shards.
 Otherwise ``_apply_plain`` on the layout `logical_spec` gives: with d_ff
 sharded and the sequence whole, the partial sums all-reduced; with d_ff
 whole (or the rows split over "model" too, `Layout.free`), this rank's
-rows alone. Serving under a mesh calls the plain form
-on whole weights (gathered once a rank) over the rank's rows
-(`models.transformer`), or passes its layout without specs (whole
-weights: the plain form over the rank's rows and positions,
-`models.encdec`).
+rows alone. Serving an attention or MoE stack under a mesh calls
+`serve_cols` on the rank's shards (`launch.specs.serve_param_specs`: the
+hidden channels of ``w_gate`` / ``w_up`` and the output columns of
+``w_down`` over "model"): ``silu(x Wg) * (x Wu)`` on its channels, the
+hidden activations gathered, then its output columns, which the caller
+gathers. A recurrent stack serves the plain form on whole weights
+(gathered once a rank) over the rank's rows, and an encoder-decoder
+passes its layout without specs (whole weights: the plain form over the
+rank's rows and positions, `models.encdec`).
 """
 from __future__ import annotations
 
@@ -22,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import dense_init
-from repro_torch.parallel.shard import gather_param
+from repro_torch.parallel.shard import gather_cols, gather_param
 
 
 def init(cfg, gen: torch.Generator, device, d_ff: int | None = None) -> dict:
@@ -49,3 +53,13 @@ def apply(p, x: torch.Tensor, lay=None, sp=None) -> torch.Tensor:
         return lay.to_layout(_swiglu(w, lay.whole_seq(x)), tp)
     y = _swiglu(w, x)
     return lay.to_layout(y, tp) if tp else y
+
+
+def serve_cols(p, sp, x: torch.Tensor, mesh) -> torch.Tensor:
+    """x (B, S, d) whole on the ranks of "model" -> this rank's output
+    columns (B, S, d / n) of the SwiGLU (``sp``: p's serving specs): the
+    hidden activations on the rank's channels, gathered over their axes,
+    times the rank's columns of ``w_down`` (every element one whole dot
+    product over d_ff, as one process sums it)."""
+    h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    return gather_cols(h, sp["w_gate"][-1], mesh) @ p["w_down"]

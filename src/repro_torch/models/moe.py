@@ -25,9 +25,12 @@ S), no host sync (no ``nonzero``, boolean-mask indexing or ``.item()``),
 and the scatter writes each kept slot once, so a replay gives the eager
 result bit for bit. The expert products are plain matmuls, as the
 reference computes them outside any Pallas kernel. Serving under a mesh
-calls the plain form on whole weights (gathered once a rank) over the
-rank's rows, the whole sequence gathered first in a context-parallel
-prefill (`models.transformer`).
+(`serve_tp`, `models.transformer`) routes the rank's rows with the whole
+router on every rank of "model" (the same inputs: the same routing),
+runs the experts' in-projections on the rank's hidden channels, gathers
+the expert hidden activations over "model", applies the rank's output
+columns of the down projections, adds the shared experts' columns
+(`mlp.serve_cols`) and gathers the output columns.
 """
 from __future__ import annotations
 
@@ -38,7 +41,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import mlp
 from repro_torch.models.common import dense_init
-from repro_torch.parallel.shard import gather_param
+from repro_torch.parallel.shard import gather_cols, gather_param
 
 
 def init(cfg, gen: torch.Generator, device) -> dict:
@@ -93,8 +96,11 @@ def route(p, x, cfg, C: int) -> dict:
             "keep": slot < C, "aux": aux}
 
 
-def _apply_routed(p, x, cfg):
-    """x (B, S, d) -> (out (B, S, d) float32, aux ())."""
+def _apply_routed(p, x, cfg, gather_hidden=None):
+    """x (B, S, d) -> (out (B, S, d) float32, aux ()). ``gather_hidden``,
+    where given, takes the experts' hidden activations (E, B * C, f_l)
+    on a rank's channels to the whole (E, B * C, f) before the down
+    projection (whose output columns are then the rank's)."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     C = capacity(cfg, S)
@@ -114,15 +120,19 @@ def _apply_routed(p, x, cfg):
     xe = buf[:, :E * C].reshape(B, E, C, d).transpose(0, 1).reshape(
         E, B * C, d)
     h = F.silu(torch.bmm(xe, p["w_gate"])) * torch.bmm(xe, p["w_up"])
-    y = torch.bmm(h, p["w_down"]).reshape(E, B, C, d).transpose(0, 1)
-    out_flat = torch.gather(y.reshape(B, E * C, d), 1,
+    if gather_hidden is not None:
+        h = gather_hidden(h)
+    y = torch.bmm(h, p["w_down"])
+    dy = y.shape[-1]                          # a rank's columns of d
+    y = y.reshape(E, B, C, dy).transpose(0, 1)
+    out_flat = torch.gather(y.reshape(B, E * C, dy), 1,
                             (e_idx * C + s_idx)[..., None].expand(
-                                B, S * k, d))             # (B, S*k, d)
+                                B, S * k, dy))            # (B, S*k, dy)
     # combine in the storage dtype, float32 sums: a product of two bf16
     # values is exact in float32
     w = (r["top_p"].reshape(B, S * k) * keep).to(x.dtype)
     out = (out_flat.float() * w.float()[..., None]).reshape(
-        B, S, k, d).sum(2)
+        B, S, k, dy).sum(2)
     return out, r["aux"].mean()
 
 
@@ -154,3 +164,19 @@ def apply(p, x: torch.Tensor, cfg, lay=None, sp=None):
         out = out + g * mlp.apply(p["shared"], x, lay,
                                   None if sp is None else sp["shared"]).float()
     return out.to(x.dtype), aux
+
+
+def serve_tp(p, sp, x: torch.Tensor, cfg, mesh) -> torch.Tensor:
+    """x (B, S, d) this rank's rows, whole on the ranks of "model" -> (B,
+    S, d) in x's dtype, on the rank's shards (``sp``: p's serving specs):
+    every rank routes its rows alike (the router whole), the experts' in
+    projections run on its hidden channels, the hidden activations are
+    gathered, the down projections give its output columns, the shared
+    experts theirs, and the columns are gathered."""
+    out, _ = _apply_routed(p, x, cfg, lambda h: gather_cols(
+        h, sp["w_gate"][-1], mesh))
+    if cfg.n_shared_experts:
+        g = torch.sigmoid(x.float() @ p["shared_gate"])
+        out = out + g * mlp.serve_cols(p["shared"], sp["shared"], x,
+                                       mesh).float()
+    return gather_cols(out.to(x.dtype), sp["w_down"][-1], mesh)

@@ -51,26 +51,33 @@ the layouts of `models.recurrent_mesh`; the encoder-decoder
 head (`_embed_sharded`, `_head_sharded`).
 
 Serving under a mesh (every decoder stack; a sliding window from a
-sharded ring) takes the global batch and WHOLE
-weights on every rank (`serving.engine.make_serve_fns` gathers a rank's
-shards once) and runs this rank's rows (`serve_layout`): the caches are
-this rank's shards of `launch.specs.cache_shardings` /
-`parallel.shard.paged_cache_specs` (`launch.specs.init_serve_state`). A
-contiguous prefill runs context parallel over "model" and each rank
-writes its slots of the sequence-sharded cache (a ring under a sliding
-window); a contiguous decode step merges the ranks' flat decode
-partials (`models.attention`). A recurrent layer runs as
-`models.recurrent_mesh` lays it out, its state this rank's shards. Over
-a paged pool of this rank's kv heads the attention runs on their cut,
-and the heads' outputs are gathered over "model" before the whole
-``wo``. The MLP and the MoE run on whole
-weights over the rank's rows. The logits come back for every row,
-gathered over the batch axes, so a step's callers (`decode_scan`, the
-greedy argmax) run as they do on one device.
+sharded ring) takes the global batch and runs this rank's rows
+(`serve_layout`): the caches are this rank's shards of
+`launch.specs.cache_shardings` / `parallel.shard.paged_cache_specs`
+(`launch.specs.init_serve_state`). A stack of attention and MoE blocks
+(`tensor_parallel`) serves tensor parallel on this rank's shards of the
+weights alone (`launch.specs.serve_param_specs`, passed in as
+``specs``): the embedding vocab parallel (`_embed_sharded`: rows the
+rank lacks are zero, summed over "model"), the attention on the rank's
+heads (`attention.serve_tp`), the MLP and the MoE on its d_ff channels
+(`mlp.serve_cols`, `moe.serve_tp`), every product's output columns
+gathered rather than partial sums reduced, so each element is the one
+whole dot product one process computes; its prompt keeps the whole
+sequence on every rank of "model" and splits the heads. Any other stack
+takes WHOLE weights on every rank (`serving.engine.make_serve_fns`
+gathers a rank's shards once): its contiguous prefill runs context
+parallel over "model", each rank writing its slots of the
+sequence-sharded cache (a ring under a sliding window), a decode step
+merges the ranks' flat decode partials (`models.attention`), and a
+recurrent layer runs as `models.recurrent_mesh` lays it out, its state
+this rank's shards. The logits come back for every row, gathered over
+the batch axes (and the vocabulary's), so a step's callers
+(`decode_scan`, the greedy argmax) run as they do on one device.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -84,8 +91,8 @@ from repro_torch.models import (attention, mlp, moe, recurrent_mesh, rglru,
 from repro_torch.models import sampling as SMP
 from repro_torch.models.common import (dense_init, embed_init, layernorm,
                                        layernorm_init, rmsnorm, rmsnorm_init)
-from repro_torch.parallel.shard import (Layout, current_mesh, gather_param,
-                                        logical_spec)
+from repro_torch.parallel.shard import (Layout, current_mesh, gather_cols,
+                                        gather_param, logical_spec)
 
 
 def padded_vocab(cfg) -> int:
@@ -107,6 +114,15 @@ def check_device(device) -> torch.device:
 
 
 ATTN_KINDS = ("attn", "local_attn", "moe")
+
+
+def tensor_parallel(cfg) -> bool:
+    """Whether ``cfg`` serves tensor parallel under a mesh (its weights
+    at rest in `launch.specs.serve_param_specs`' layout): a decoder whose
+    every block is attention or MoE. Stacks with recurrent blocks, and
+    the encoder-decoder, serve on whole weights gathered once a rank."""
+    return cfg.family != "encdec" and all(k in ATTN_KINDS
+                                          for k in cfg.block_pattern)
 
 
 def check_servable(cfg, *, paged: bool = False) -> None:
@@ -440,38 +456,44 @@ def _round_block(n: int, cfg) -> int:
 
 
 def _block_serve(p, x, kind: str, cfg, positions, cache, mode: str,
-                 row_mask=None, hist_blocks=None, valid=None, lay=None):
+                 row_mask=None, hist_blocks=None, valid=None, lay=None,
+                 sp=None):
     """One layer over x (B, S, d): its mixer by kind (the cache or the
     recurrent state updated in place), the residual, then its FFN. Under
-    a mesh (``lay``) x is this rank's part; over a pool of this rank's kv
-    heads the attention runs on their cut and the heads' outputs are
-    gathered over their axes before the whole ``wo`` (the product one
-    process computes, bit for bit where its rows agree), and over
-    sequence shards the MoE routes the whole sequence (gathered)."""
+    a mesh (``lay``) x is this rank's part: with ``sp`` (the layer's
+    serving specs: a tensor-parallel stack) the attention, MLP and MoE
+    run on the rank's shards (`attention.serve_tp`, `mlp.serve_cols`,
+    `moe.serve_tp`); without, on whole weights, the recurrent mixers as
+    `models.recurrent_mesh` lays them out."""
     h = norm(cfg, p["norm1"], x)
+    if sp is not None:
+        h = attention.serve_tp(p["attn"], sp["attn"], h, cfg, positions,
+                               cache, mode, local=kind == "local_attn",
+                               row_mask=row_mask, hist_blocks=hist_blocks,
+                               valid=valid, mesh=lay.mesh)
+        x = x + h.to(x.dtype)
+        h2 = norm(cfg, p["norm2"], x)
+        if "moe" in p:
+            return x + moe.serve_tp(p["moe"], sp["moe"], h2, cfg, lay.mesh)
+        return x + gather_cols(mlp.serve_cols(p["mlp"], sp["mlp"], h2,
+                                              lay.mesh),
+                               sp["mlp"]["w_down"][-1], lay.mesh)
     if kind in ATTN_KINDS:
         local = kind == "local_attn"
-        pa, heads = p["attn"], getattr(cache, "kv_axes", ())
-        if lay is not None and heads:
-            n = cache.resid_k.shape[1]
-            h0 = lay.mesh.index(heads)[0] * n
-            pa = attention.head_slice(pa, cfg, h0, h0 + n)
         if mode == "prefill":
-            h, cache = attention.prefill(pa, h, cfg, positions, cache,
+            h, cache = attention.prefill(p["attn"], h, cfg, positions, cache,
                                          local=local, row_mask=row_mask,
                                          lay=lay)
         elif mode == "chunk":
-            h, cache = attention.prefill_chunk(pa, h, cfg, positions,
+            h, cache = attention.prefill_chunk(p["attn"], h, cfg, positions,
                                                cache, row_mask=row_mask,
                                                hist_blocks=hist_blocks,
                                                valid=valid)
         elif mode == "decode":
-            h, cache = attention.decode(pa, h, cfg, positions, cache,
+            h, cache = attention.decode(p["attn"], h, cfg, positions, cache,
                                         local=local, row_mask=row_mask)
         else:
             raise ValueError(f"unknown serving mode {mode!r}")
-        if lay is not None and heads:
-            h = lay.mesh.all_gather(h, heads, 2) @ p["attn"]["wo"]
     else:
         if mode not in ("prefill", "decode"):
             raise ValueError(f"{kind} blocks serve prefill and decode only "
@@ -493,26 +515,25 @@ def _block_serve(p, x, kind: str, cfg, positions, cache, mode: str,
             cache.copy_(new)
     x = x + h.to(x.dtype)
     if "moe" in p:
-        h2 = norm(cfg, p["norm2"], x)
-        if lay is not None and lay.seq:
-            whole = lay.mesh.all_gather(h2, lay.seq, 1)
-            return x + moe.apply(p["moe"], whole, cfg)[0][:, lay.positions()]
-        return x + moe.apply(p["moe"], h2, cfg)[0]
+        return x + moe.apply(p["moe"], norm(cfg, p["norm2"], x), cfg)[0]
     if "mlp" in p:
         return x + mlp.apply(p["mlp"], norm(cfg, p["norm2"], x))
     return x
 
 
 def _serve(params, tok, cfg, state, positions, mode: str, row_mask=None,
-           hist_blocks=None, valid=None):
+           hist_blocks=None, valid=None, specs=None):
     """Run every layer over tokens (B, S); returns (the final hidden
     states, the layout) — the head is applied by the caller, only where it
     reads logits (the same numbers as the reference's all-position head).
     Without a mesh the states are (B, S, d) and the layout None; under one
-    they are this rank's rows, and in a contiguous prefill its positions,
-    of `serve_layout`."""
+    they are this rank's rows, and in a recurrent stack's contiguous
+    prefill its positions, of `serve_layout`: a tensor-parallel stack
+    (`tensor_parallel`) on the rank's shards laid out by ``specs``
+    (`launch.specs.serve_param_specs`; the embedding vocab parallel), any
+    other on whole weights."""
     mesh = current_mesh()
-    lay = None
+    lay = sp = None
     if mesh is not None:
         lay = serve_layout(mesh, cfg, *tok.shape, mode,
                            isinstance(state[0], PagedQuantizedKVCache))
@@ -520,10 +541,18 @@ def _serve(params, tok, cfg, state, positions, mode: str, row_mask=None,
         tok, positions = tok[rows][:, cols], positions[rows][..., cols]
         row_mask = None if row_mask is None else row_mask[rows]
         valid = None if valid is None else valid[rows]
-    x = params["embed"][tok]
+        if tensor_parallel(cfg):
+            if specs is None:
+                raise ValueError(f"{cfg.name} serves tensor parallel under "
+                                 f"a mesh: pass its shards' specs "
+                                 f"(launch.specs.serve_param_specs)")
+            sp = specs["layers"]
+    x = params["embed"][tok] if sp is None else \
+        _embed_sharded(params, specs, tok, cfg, lay)
     for i, (p, cache) in enumerate(zip(params["layers"], state)):
         x = _block_serve(p, x, cfg.block_kind(i), cfg, positions, cache,
-                         mode, row_mask, hist_blocks, valid, lay)
+                         mode, row_mask, hist_blocks, valid, lay,
+                         None if sp is None else sp[i])
     return x, lay
 
 
@@ -532,12 +561,15 @@ def serve_layout(mesh, cfg, B: int, S: int, mode: str,
     """Where a serving step's (B, S, d) activations live under ``mesh``:
     rows over "batch" as the caches' specs lay them out (a row's cache
     lives with it), and the positions of a contiguous prefill over
-    "seq_shard" (context parallel) in a stack with attention; every other
-    step, and an attention-free stack's prefill (each of its blocks
-    gathers the whole sequence: a split would only add the gathers),
-    keeps the whole sequence."""
+    "seq_shard" (context parallel) in a stack with attention and
+    recurrent blocks, which serves on whole weights; every other step,
+    a tensor-parallel stack's (`tensor_parallel`: its weights hold a
+    rank's heads, and its prompt's flash splits the heads) and an
+    attention-free stack's prefill (each of its blocks gathers the whole
+    sequence: a split would only add the gathers), keeps the whole
+    sequence."""
     lay = Layout.of(mesh, B, S, cfg.d_model)
-    if mode != "prefill" or paged or not any(
+    if mode != "prefill" or paged or tensor_parallel(cfg) or not any(
             k in ATTN_KINDS for k in cfg.block_pattern):
         lay = dataclasses.replace(lay, seq=())
     return lay
@@ -548,34 +580,59 @@ def _head(params, x, cfg):
     return norm(cfg, params["final_norm"], x) @ w
 
 
-def _logits(params, x_last, cfg, lay):
+def _logits(params, x_last, cfg, lay, specs=None):
     """The head over each row's last hidden state (B_l, d) -> logits (B,
-    Vp): under a mesh every row's, gathered over the batch axes, the
-    same on every rank."""
+    Vp): under a mesh every row's, the same on every rank, gathered over
+    the batch axes and, with ``specs`` (a tensor-parallel stack), over
+    the head's vocabulary axes (the rank's columns of ``lm_head``, or of
+    a tied ``embed``'s rows), by one collective."""
     logits = _head(params, x_last, cfg)
-    if lay is not None and lay.batch:
-        logits = lay.mesh.all_gather(logits, lay.batch, 0)
-    return logits
+    if lay is None:
+        return logits
+    va = () if specs is None else (specs["embed"][0] if cfg.tie_embeddings
+                                   else specs["lm_head"][1])
+    return gather_rows_cols(logits, lay.batch, va, lay.mesh)
 
 
-def prefill(params, tokens, cfg, state, *, positions=None, row_mask=None):
+def gather_rows_cols(y, rows, cols, mesh):
+    """y (B_l, V_l), this rank's block of a (B, V) value with rows cut
+    over the axes ``rows`` and columns over ``cols`` -> the whole (B, V)
+    on every rank, by one all-gather over both."""
+    axes = tuple(a for a in mesh.axis_names if a in (*rows, *cols)
+                 and mesh.shape[a] > 1)
+    if not axes:
+        return y
+    g = mesh.all_gather(y[None], axes, 0)             # rank order
+    sizes = [mesh.shape[a] for a in axes]
+    g = g.reshape(*sizes, *y.shape)
+    r = [i for i, a in enumerate(axes) if a in rows]
+    c = [i for i, a in enumerate(axes) if a in cols]
+    n = len(axes)
+    g = g.permute(*r, n, *c, n + 1)
+    return g.reshape(y.shape[0] * math.prod(sizes[i] for i in r),
+                     y.shape[1] * math.prod(sizes[i] for i in c))
+
+
+def prefill(params, tokens, cfg, state, *, positions=None, row_mask=None,
+            specs=None):
     """Prompt pass over the contiguous caches: tokens (B, S) at positions
     0..S-1 (default). Returns (logits of the last position (B, Vp),
-    state)."""
+    state). Under a mesh a tensor-parallel stack takes its shards'
+    ``specs`` (`_serve`)."""
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device)[None].expand(B, S)
     x, lay = _serve(params, tokens, cfg, state, positions, "prefill",
-                    row_mask)
+                    row_mask, specs=specs)
     last = x[:, -1]
     if lay is not None and lay.seq:          # the last position's shard
         last = lay.mesh.all_gather(x[:, -1:], lay.seq, 1)[:, -1]
-    return _logits(params, last, cfg, lay), state
+    return _logits(params, last, cfg, lay, specs), state
 
 
 def prefill_chunk(params, tokens, cfg, state, *, start, row_mask=None,
-                  hist_blocks=None, valid=None):
+                  hist_blocks=None, valid=None, specs=None):
     """One varlen chunked-prefill step: ``tokens`` (B, C) int (C a page
     multiple), ``start`` (B,) each row's page-aligned resident token count,
     ``valid`` (B,) true tokens per row (None = C). Returns (logits (B, Vp)
@@ -584,7 +641,7 @@ def prefill_chunk(params, tokens, cfg, state, *, start, row_mask=None,
     positions = start[:, None].to(torch.int32) + torch.arange(
         C, dtype=torch.int32, device=tokens.device)[None]
     x, lay = _serve(params, tokens, cfg, state, positions, "chunk",
-                    row_mask, hist_blocks, valid)
+                    row_mask, hist_blocks, valid, specs)
     if valid is None:
         last = x[:, -1]
     else:
@@ -592,15 +649,17 @@ def prefill_chunk(params, tokens, cfg, state, *, start, row_mask=None,
             valid = valid[lay.rows()]
         idx = torch.clamp_min(valid.to(torch.int64) - 1, 0)
         last = x[torch.arange(x.shape[0], device=x.device), idx]
-    return _logits(params, last, cfg, lay), state
+    return _logits(params, last, cfg, lay, specs), state
 
 
-def decode_step(params, token, cfg, state, pos, *, row_mask=None):
+def decode_step(params, token, cfg, state, pos, *, row_mask=None,
+                specs=None):
     """One decode step: token (B, 1), pos (B,) current positions. Returns
     (logits (B, Vp), state)."""
     positions = pos[:, None].to(torch.int32)
-    x, lay = _serve(params, token, cfg, state, positions, "decode", row_mask)
-    return _logits(params, x[:, -1], cfg, lay), state
+    x, lay = _serve(params, token, cfg, state, positions, "decode", row_mask,
+                    specs=specs)
+    return _logits(params, x[:, -1], cfg, lay, specs), state
 
 
 def scan_carry(token, pos, steps: int) -> dict:

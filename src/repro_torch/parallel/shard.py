@@ -271,7 +271,8 @@ class Mesh(MeshShape):
                 self._groups[axes] = mine
         self.stats = defaultdict(lambda: [0, 0, 0.0])
         # the whole weights serving gathered last on this mesh
-        # (`serving.engine.gathered_weights`)
+        # (`serving.engine.gathered_weights`: the stacks that do not serve
+        # tensor parallel)
         self.gathered: dict = {}
 
     def _rank_lists(self, axes) -> list[list[int]]:
@@ -470,6 +471,42 @@ def gather_partials(o, m, l, axes, mesh):
     D = o.shape[-1]
     g = mesh.all_gather(torch.cat([o, m, l], -1)[None], axes, 0)
     return g[..., :D], g[..., D:D + 1], g[..., D + 1:]
+
+
+@torch.no_grad()
+def gather_heads(mesh, *pairs):
+    """(t, axes) pairs, each t (B, h, S, D) this rank's heads of a tensor
+    cut over ``axes`` (``()``: whole) -> each whole, in head order; the
+    tensors cut over the same axes gathered by one collective."""
+    out = [t for t, _ in pairs]
+    by = {}
+    for i, (t, axes) in enumerate(pairs):
+        if axes and mesh.index(axes)[1] > 1:
+            by.setdefault(tuple(axes), []).append(i)
+    for axes, idx in by.items():
+        n = mesh.index(axes)[1]
+        g = mesh.all_gather(torch.cat([out[i] for i in idx], 1)[None],
+                            axes, 0)                 # (n, B, sum h, S, D)
+        start = 0
+        for i in idx:
+            h = out[i].shape[1]
+            part = g[:, :, start:start + h]
+            start += h
+            out[i] = part.transpose(0, 1).reshape(
+                part.shape[1], n * h, *part.shape[3:])
+    return out
+
+
+@torch.no_grad()
+def gather_cols(y, axes, mesh):
+    """y (..., w) this rank's columns of a value cut over ``axes`` ->
+    (..., n * w) whole, contiguous (a matmul on a strided view may sum in
+    another order)."""
+    if not axes or mesh.index(axes)[1] == 1:
+        return y
+    n = mesh.index(axes)[1]
+    g = mesh.all_gather(y[None], axes, 0)            # (n, ..., w)
+    return g.movedim(0, -2).reshape(*y.shape[:-1], n * y.shape[-1])
 
 
 def take_shard(x, spec, mesh):

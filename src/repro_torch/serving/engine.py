@@ -23,14 +23,20 @@ serve sharded as the reference's functions do under its mesh (every
 decoder stack, and the encoder-decoder through `models.encdec`'s mesh
 paths; a mesh of one rank too). ``init_state``
 builds this rank's shards of the state (`launch.specs.init_serve_state`);
-the steps take this rank's shards of the parameters
-(`launch.specs.param_specs`' layout), gather them whole once per rank
-(`gathered_weights`, never per step), take the global batch and return
-every row's logits. The functions run under the mesh and rules they
-were built under (None included; an override of the logical rules,
-`parallel.shard.SSM_RULES`, included), whatever is active when they are
-called. `generate`, the batchers and the serve CLI run on one device and
-refuse a mesh (`check_one_device`).
+the steps take this rank's shards of the parameters, laid out by
+`launch.specs.serve_param_specs`, take the global batch and return
+every row's logits. A stack of attention and MoE blocks
+(`transformer.tensor_parallel`) serves tensor parallel: each rank holds
+and computes with its shards alone (heads, kv heads, d_ff, the
+vocabulary and the output columns over "model"), and no weight byte
+crosses between ranks. A stack with recurrent blocks
+(recurrentgemma_9b, xlstm_350m) and the encoder-decoder (whisper_small)
+take `launch.specs.param_specs`' layout and gather it whole once per
+rank (`gathered_weights`, never per step). The functions run under the
+mesh and rules they were built under (None included; an override of the
+logical rules, `parallel.shard.SSM_RULES`, included), whatever is active
+when they are called. `generate`, the batchers and the serve CLI run on
+one device and refuse a mesh (`check_one_device`).
 """
 from __future__ import annotations
 
@@ -71,7 +77,9 @@ def check_one_device(what: str) -> None:
 def gathered_weights(params, cfg, mesh) -> dict:
     """This rank's shards ``params`` (laid out by
     `launch.specs.param_specs`) -> the whole weights, on every rank of
-    ``mesh`` (a collective: every rank calls it). Gathered once per
+    ``mesh`` (a collective: every rank calls it): the serving weights of
+    a stack that does not serve tensor parallel (a recurrent stack, the
+    encoder-decoder; `transformer.tensor_parallel`). Gathered once per
     parameter tree: the mesh keeps the last tree's whole weights (one
     model's a rank; ``mesh.gathered``, which `release_gathered_weights`
     empties), so a tree changed in place afterwards is not gathered
@@ -100,10 +108,28 @@ def release_gathered_weights(mesh) -> None:
 
 def _on_mesh(mesh, sharded: bool, cfg, fn, rules=None):
     """``fn(params, ...)`` run under ``mesh`` and ``rules``; with
-    ``sharded``, on the whole weights gathered from this rank's
-    shards."""
+    ``sharded``, on this rank's shards: a tensor-parallel stack's as they
+    are, ``fn`` given their specs (``specs=``; the shards' shapes checked
+    against them, so a tree in another layout raises), any other stack's
+    gathered whole once (`gathered_weights`)."""
+    tp = sharded and transformer.tensor_parallel(cfg)
+    if tp:
+        from repro_torch.launch.specs import serve_param_specs, shard_shapes
+        with mesh_context(mesh, rules):
+            specs = serve_param_specs(cfg, mesh)
+            want = shard_shapes(cfg, specs, mesh)
+
     def run(params, *args, **kw):
         with mesh_context(mesh, rules):
+            if tp:
+                got = [tuple(t.shape) for t in leaves(params)]
+                if got != want:
+                    raise ValueError(
+                        f"{cfg.name} serves tensor parallel: pass this "
+                        f"rank's shards laid out by "
+                        f"launch.specs.serve_param_specs (init_shards, or "
+                        f"refit_tree from training's param_specs)")
+                return fn(params, *args, specs=specs, **kw)
             if sharded:
                 params = gathered_weights(params, cfg, mesh)
             return fn(params, *args, **kw)
@@ -128,8 +154,9 @@ def make_serve_fns(cfg, *, max_len: int, paged: bool = False,
     Under a mesh (module docstring) ``init_state(batch)`` gives this
     rank's shards of the state (an encoder-decoder's ``self`` and
     ``cross`` caches alike), prefill and decode take this rank's
-    parameter shards and the global batch (``frames`` and ``tokens``
-    alike) and return (logits (B, Vp), state)."""
+    parameter shards (`launch.specs.serve_param_specs`' layout) and the
+    global batch (``frames`` and ``tokens`` alike) and return (logits
+    (B, Vp), state)."""
     mesh, rules = current_mesh(), rules_override()
     sharded = mesh is not None
     if cfg.family == "encdec":
@@ -161,13 +188,13 @@ def make_serve_fns(cfg, *, max_len: int, paged: bool = False,
         return (init_state, _on_mesh(mesh, sharded, cfg, prefill_fn, rules),
                 _on_mesh(mesh, sharded, cfg, decode_fn, rules))
 
-    def prefill_fn(params, tokens, state, row_mask=None):
+    def prefill_fn(params, tokens, state, row_mask=None, specs=None):
         return transformer.prefill(params, tokens, cfg, state,
-                                   row_mask=row_mask)
+                                   row_mask=row_mask, specs=specs)
 
-    def decode_fn(params, token, state, pos, row_mask=None):
+    def decode_fn(params, token, state, pos, row_mask=None, specs=None):
         return transformer.decode_step(params, token, cfg, state, pos,
-                                       row_mask=row_mask)
+                                       row_mask=row_mask, specs=specs)
 
     return (init_state, _on_mesh(mesh, sharded, cfg, prefill_fn, rules),
             _on_mesh(mesh, sharded, cfg, decode_fn, rules))
@@ -186,11 +213,13 @@ def make_chunk_prefill_fn(cfg, *, hist_blocks: int | None = None):
     mesh, rules = current_mesh(), rules_override()
     sharded = mesh is not None
 
-    def chunk_prefill(params, tokens, state, start, valid, row_mask):
+    def chunk_prefill(params, tokens, state, start, valid, row_mask,
+                      specs=None):
         return transformer.prefill_chunk(params, tokens, cfg, state,
                                          start=start, valid=valid,
                                          row_mask=row_mask,
-                                         hist_blocks=hist_blocks)
+                                         hist_blocks=hist_blocks,
+                                         specs=specs)
 
     return _on_mesh(mesh, sharded, cfg, chunk_prefill, rules)
 

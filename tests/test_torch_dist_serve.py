@@ -20,9 +20,17 @@ blocks straddle two ranks (the flushed block 3 lies on the third).
 Checked on every rank: logits within ATOL and the greedy tokens
 identical, the logits bit for bit the same on every rank, every decode
 step sending the same bytes, and its cache (its rows, slots and scale
-rows) against the reference cache's slice by the page rule. Also: a
-decode from the reference's own prefill state carried into each rank's
-shards (`checkpoint.bridge.serve_state_from_numpy`, bit for bit).
+rows) against the reference cache's slice by the page rule. These
+stacks serve tensor parallel (`launch.specs.serve_param_specs`; at
+(1, 4) the smoke configs' 2 kv heads stay whole on every rank, the
+query heads split): each rank holds exactly its shards' bytes, no leaf
+the specs split whole, nothing gathered, and every decode step and the
+prefill send the activation bytes `torch_serve_parity.tp_sent` reckons
+(`check_tensor_parallel`). Also: a decode from the reference's own
+prefill state carried into each rank's shards
+(`checkpoint.bridge.serve_state_from_numpy`, bit for bit), and weights
+saved in training's layout at (2, 2) served at (1, 4) after
+`launch.specs.refit_tree` (the restored tree itself refused).
 
 The long-context stacks (`RECURRENT`): recurrentgemma_9b (RG-LRU and a
 local-attention ring) per block and per channel and mixtral_8x22b (a
@@ -34,7 +42,9 @@ merges m = -1e30), and the block flush at position 47 lands on the
 ring's second block; xlstm_350m (mLSTM / sLSTM)
 under the default rules and under `SSM_RULES`. Each rank's ring and
 recurrent states are held against the reference state's slice where
-`launch.specs.cache_shardings` puts its shard (`check_state`). And
+`launch.specs.cache_shardings` puts its shard (`check_state`);
+mixtral_8x22b serves tensor parallel as above, the others on weights
+gathered whole once. And
 (`SQ_CASES`) the sharded decode of `models.recurrent_mesh` over an
 mLSTM and an RG-LRU state, with and without ``state_quant``, against
 the reference's `mlstm_step` / `apply_step` (6 steps from the int8
@@ -104,6 +114,12 @@ def results(tmp_path_factory):
             tasks.append(SV.serve_task(
                 arch, "2x2", w, b, d / "carried", granularity=gran,
                 ref_state=str(d / "prefill_state.npz")))
+            # saved in training's layout at (2, 2), served at (1, 4)
+            tasks.append({**SV.serve_task(arch, "2x2", w, b, None),
+                          "kind": "save_params", "ckpt": str(d / "ckpt")})
+            tasks.append(SV.serve_task(arch, "1x4", w, b, d / "refit",
+                                       granularity=gran,
+                                       ckpt=str(d / "ckpt")))
     for arch, gran, rules, s in RECURRENT:
         rcfg, rparams = SV.models(arch, gran)
         toks = SV.tokens(rcfg, s=s)
@@ -151,6 +167,7 @@ def test_sharded_serving_matches_reference(results, arch, gran, mesh):
                                       err_msg=f"{label}: ranks differ")
         assert len(set(got["sent"].tolist())) == 1, (label, got["sent"])
         SV.check_contiguous(got["state"], ref["state"], got["where"], label)
+        SV.check_tensor_parallel(got, rcfg, mesh, label)
     where = [g["where"] for g in ranks]
     model = 2 if mesh == "2x2" else 4
     assert {tuple(w["slots"]) for w in where} == {
@@ -178,6 +195,14 @@ def test_sharded_long_context_serving_matches_reference(results, arch, gran,
         assert len(set(got["sent"].tolist())) == 1, (label, got["sent"])
         SV.check_state(got["state"], ref["state"], got["slices"], rcfg,
                        label)
+        # mixtral_8x22b serves tensor parallel, the others on gathered
+        # weights
+        if arch == "mixtral_8x22b":
+            SV.check_tensor_parallel(got, rcfg, mesh, label, s=s)
+        else:
+            p = got["params"]
+            assert p["held_bytes"] == p["spec_bytes"], (label, p)
+            assert p["gathered"] > 0, (label, "served without a gather")
     if rcfg.sliding_window:                       # the ring's slots split
         n_model = SV.MESHES[mesh][1]
         slots = {tuple(g["slices"][f"{_first_attn(rcfg)}.k_q"][2])
@@ -224,6 +249,33 @@ def test_prefill_state_carried_into_shards(results):
         SV.check_logits(got["logits"], ref["logits"][1:], rcfg.vocab,
                         f"carried rank {r}")
         SV.check_contiguous(got["state"], ref["state"], w, f"carried {r}")
+        SV.check_tensor_parallel(got, rcfg, "2x2", f"carried {r}",
+                                 prefill=None)
+
+
+def test_serving_from_a_training_checkpoint(results):
+    """Weights saved on (data 2, model 2) in training's layout
+    (`launch.specs.param_specs`: FSDP over "data", heads over "model" cut
+    through the kv heads), restored on (data 1, model 4) and re-cut to
+    the serving layout (`launch.specs.refit_tree`): held as the fresh
+    (1, 4) run, and bit for bit its logits and cache; the restored tree
+    itself, in training's layout, refused by the prefill (`ValueError`)
+    rather than served or gathered."""
+    d, refs = results
+    rcfg, ref = refs["internlm2_1_8b-per_block"]
+    for r in range(4):
+        got = load_tree(d / f"refit.{r}.npz")
+        fresh = load_tree(d / f"internlm2_1_8b-per_block.1x4.{r}.npz")
+        label = f"refit rank {r}"
+        assert got["refused"], (label, "training's layout served")
+        SV.check_logits(got["logits"], ref["logits"], rcfg.vocab, label)
+        SV.check_tensor_parallel(got, rcfg, "1x4", label)
+        np.testing.assert_array_equal(got["logits"], fresh["logits"],
+                                      err_msg=label)
+        for key, layer in got["state"].items():
+            for f, v in (layer.items() if isinstance(layer, dict) else ()):
+                np.testing.assert_array_equal(v, fresh["state"][key][f],
+                                              err_msg=f"{label} {key} {f}")
 
 
 @pytest.mark.parametrize("mesh", list(SV.MESHES))

@@ -19,7 +19,9 @@ hands out the reference allocator's table. Checked on every rank:
 logits within ATOL and the greedy tokens identical, the same bits on
 every rank, every step sending the same bytes, and its rows' tables,
 lengths and residuals and its pool's pages of its rows at its kv heads
-against the reference's by the page rule.
+against the reference's by the page rule; tensor parallel as
+tests/test_torch_dist_serve.py holds it (`check_tensor_parallel`: the
+shards' bytes, nothing gathered, each step's and the prefill's bytes).
 
 Other page formats (`DT_CASES`, internlm2_1_8b by chunk): every layer's
 pages fp8_e4m3, every layer's int4, and a mixed per-layer plan (int8 then
@@ -109,6 +111,9 @@ def test_sharded_paged_serving_matches_reference(results, arch, route,
                                       err_msg=f"{label}: ranks differ")
         assert len(set(got["sent"].tolist())) == 1, (label, got["sent"])
         SV.check_paged(got["state"], ref["state"], got["where"], label)
+        SV.check_tensor_parallel(got, rcfg, mesh, label, paged=True,
+                                 prefill="chunk" if route == "chunk"
+                                 else "prefill")
         h0, h1 = got["where"]["heads"]
         if shards:          # this rank's kv heads of the pool's spec
             assert h1 - h0 == rcfg.n_kv_heads // n_model, label
@@ -140,5 +145,7 @@ def test_sharded_paged_formats_match_reference(results, label, kv, mesh):
         np.testing.assert_array_equal(got["logits"], ranks[0]["logits"],
                                       err_msg=f"{tag}: ranks differ")
         assert len(set(got["sent"].tolist())) == 1, (tag, got["sent"])
+        SV.check_tensor_parallel(got, rcfg, mesh, tag, paged=True,
+                                 prefill="chunk")
         SV.check_paged_formats(got["state"], ref["state"], got["where"],
                                tag, ruled)

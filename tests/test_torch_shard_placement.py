@@ -13,6 +13,15 @@
   leaf; its hook sees the embedding, the head and one layer at a time
   (whisper_small: each encoder and decoder layer, the embedding, the
   two norms);
+- `launch.specs.serve_param_specs` (tensor-parallel serving) cuts every
+  attention weight on whole heads at every coordinate of the (data 2,
+  model 2) and (data 1, model 4) meshes (kv heads fewer than "model"
+  whole on every rank, query heads split where a rank's lie in one kv
+  head, `attention.head_slice`), the FFN, vocabulary and output columns
+  over "model" and nothing over "data"; and a tree in training's layout
+  (`param_specs`, whose "heads" cut splits a kv head at (1, 4)) re-cut by
+  `parallel.shard.refit` is bit for bit the serving layout's shards
+  (each gather answered from the whole leaf, without processes);
 - `mesh_context` restores the mesh it found.
 """
 import dataclasses
@@ -25,11 +34,13 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core.tree import leaves
 from repro_torch.launch import specs as SP
+from repro_torch.models import attention as A
 from repro_torch.models import encdec as E
 from repro_torch.models import transformer as T
 from repro_torch.parallel.shard import (Mesh, MeshShape, backend_for,
                                         current_mesh, mesh_context,
-                                        placement)
+                                        placement, refit, shard_slices,
+                                        spec_leaves, take_shard)
 
 CARD = ("GPU-3f1c0c52-0a8e-7b1d-5c2e-9d40aa0c1e01",
         "GPU-8b2d7e14-61f0-4c3a-9e55-0b7f3c2d9a12",
@@ -121,6 +132,105 @@ def test_init_params_hands_over_one_part_at_a_time(arch):
                   keep=keep)
     assert seen == [("embed",), ("final_norm",), ("lm_head",)] + [
         ("layers", i) for i in range(cfg.n_layers)]
+
+
+TP_MESHES = {"2x2": ((2, 2), ("data", "model")),
+             "1x4": ((1, 4), ("data", "model"))}
+# (arch, smoke): the smoke configs' kv heads 2 or 4; qwen2_vl_2b's 12 / 2
+# at full width (G 6: 3 query heads a rank at (1, 4), one kv head read)
+TP_ARCHS = [("internlm2_1_8b", True), ("qwen2_moe_a2_7b", True),
+            ("codeqwen1_5_7b", True), ("mixtral_8x22b", True),
+            ("qwen2_vl_2b", False), ("qwen2_5_32b", False)]
+
+
+@pytest.mark.parametrize("mesh", list(TP_MESHES))
+@pytest.mark.parametrize("arch,smoke", TP_ARCHS)
+def test_serve_specs_cut_whole_heads(arch, smoke, mesh):
+    sizes, axes = TP_MESHES[mesh]
+    cfg = get_config(arch, smoke=smoke)
+    specs = SP.serve_param_specs(cfg, MeshShape(axes, sizes))
+    shapes = SP.param_shapes(cfg)
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    n = sizes[1]
+    kv_split, G = Hkv % n == 0, H // Hkv
+    for sp, leaf in zip(spec_leaves(specs), leaves(shapes), strict=True):
+        assert all(a in ((), ("model",)) for a in sp), sp   # no "data"
+    seen = set()
+    for c in _coords(sizes):
+        m = CoordMesh(axes, sizes, c)
+        for i, (lp, ls) in enumerate(zip(shapes["layers"],
+                                         specs["layers"])):
+            att, sa = lp["attn"], ls["attn"]
+            heads = A.head_slice(cfg, sa, m)
+            for name, units, (h0, h1) in (("wq", H, heads["q"]),
+                                          ("wk", Hkv, heads["kv"]),
+                                          ("wv", Hkv, heads["kv"])):
+                cols = shard_slices(sa[name], att[name].shape, m)[1]
+                lo, hi, _ = cols.indices(att[name].shape[1])
+                assert (lo, hi) == (h0 * hd, h1 * hd), (name, c, lo, hi)
+            assert heads["kv"] == ((0, Hkv) if not kv_split else
+                                   (c[1] * Hkv // n, (c[1] + 1) * Hkv // n))
+            q0, q1 = heads["q"]
+            assert q1 - q0 == H // n, (c, heads)      # every case splits q
+            r0, r1 = heads["reads"]
+            assert (r0, r1) == (q0 // G, (q1 - 1) // G + 1)
+            if kv_split:
+                assert (r0, r1) == heads["kv"]
+            else:
+                assert r1 - r0 == 1, heads            # one kv head read
+            seen.add((c[1], q0))
+            ffn = lp.get("mlp") or lp["moe"]
+            fs = ls.get("mlp") or ls["moe"]
+            for name in ("w_gate", "w_up", "w_down"):
+                assert fs[name][-1] == ("model",), (name, fs[name])
+                assert fs[name][:-1] == ((),) * (ffn[name].dim() - 1)
+            assert sa["wo"] == ((), ("model",))
+            if "moe" in ls:
+                assert ls["moe"]["router"] == ((), ())
+            assert ls["norm1"]["scale"] == ((),)
+        assert specs["embed"] == (("model",), ())
+        assert specs["lm_head"] == ((), ("model",))
+    assert len(seen) == n                   # each "model" rank its heads
+
+
+class GatherMesh(CoordMesh):
+    """A coordinate's view that answers `refit`'s gathers from the whole
+    leaf: each gather makes a dimension whole, the others as this
+    coordinate holds them."""
+
+    def __init__(self, axis_names, sizes, coords, whole, have):
+        super().__init__(axis_names, sizes, coords)
+        self.whole, self.cur = whole, list(have)
+
+    def all_gather(self, x, axes, dim):
+        self.cur[dim] = ()
+        return take_shard(self.whole, tuple(self.cur), self)
+
+
+@pytest.mark.parametrize("arch", ["internlm2_1_8b", "qwen2_moe_a2_7b"])
+def test_training_layout_refits_to_serving(arch):
+    """Saved at (2, 2) or (1, 4) in training's layout, re-cut at (1, 4)
+    (a checkpoint is whole on disk: where it was saved does not
+    matter): every leaf's training shard refitted is bit for bit its
+    serving shard."""
+    sizes, axes = TP_MESHES["1x4"]
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    shape = MeshShape(axes, sizes)
+    have, want = SP.param_specs(cfg, shape), SP.serve_param_specs(cfg, shape)
+    whole = T.init_params(cfg, torch.Generator().manual_seed(5),
+                          device="cpu")
+    if cfg.n_kv_heads % 4:  # the trap: training's cut halves a kv head
+        assert have["layers"][0]["attn"]["wk"][1] == ("model",)
+        assert want["layers"][0]["attn"]["wk"][1] == ()
+    moved = 0
+    for c in _coords(sizes):
+        for w, h, s in zip(leaves(whole), spec_leaves(have),
+                           spec_leaves(want), strict=True):
+            m = GatherMesh(axes, sizes, c, w, h)
+            got = refit(take_shard(w, h, m), h, s, m)
+            assert torch.equal(got, take_shard(w, s, m)), (c, h, s)
+            moved += tuple(h) != tuple(s)
+    assert moved > 0
 
 
 def test_mesh_context_restores_the_mesh():

@@ -39,8 +39,15 @@ rank 0 writes each task's ``result``. Tasks:
   where its shards lie (``where``), the pages it allocated, the bytes
   each step sent and each kernel's launches (on the card).
   ``rules`` "ssm" runs it under `SSM_RULES`; ``kv_cache_dtype`` a page
-  format or a per-layer plan. ``slices`` says where the rank's shard of
-  every leaf of every contiguous or recurrent layer lies.
+  format or a per-layer plan; ``ckpt``: the weights restored from a
+  checkpoint in training's layout and re-cut to the serving layout (the
+  restored tree itself refused by the prefill: ``refused``). ``slices``
+  says where the rank's shard of every leaf of every contiguous or
+  recurrent layer lies; ``params`` what the rank holds of the weights
+  (`_held_params`); ``prefill_sent`` / ``decode_sent`` the bytes the
+  prefill and the last decode step sent by collective.
+- ``save_params``: the reference's weights as this rank's shards in
+  training's layout, saved as a checkpoint at ``ckpt``.
 - ``recurrent``: `models.recurrent_mesh.decode` over the first
   ``layer_kind`` layer's state of a smoke config (``state_quant``: from
   the int8 initial state), its weights and inputs from ``inputs``;
@@ -355,17 +362,31 @@ def task_serve(task, mesh, rank):
     from repro_torch.launch import specs as SP
     from repro_torch.parallel.shard import SSM_RULES, mesh_context
     from repro_torch.serving.engine import (make_chunk_prefill_fn,
-                                            make_serve_fns)
+                                            make_serve_fns,
+                                            release_gathered_weights)
     cfg = _config(task)
-    params = bridge.params_from_numpy(load_tree(task["weights"]), cfg,
-                                      mesh.device, mesh=mesh,
-                                      specs=SP.param_specs(cfg, mesh))
+    rules = SSM_RULES if task.get("rules") == "ssm" else None
+    release_gathered_weights(mesh)
+    with mesh_context(mesh, rules):
+        pspecs = SP.serve_param_specs(cfg, mesh)
+        tspecs = SP.param_specs(cfg, mesh)
+    restored = None
+    if task.get("ckpt"):        # saved in training's layout, then re-cut
+        from repro_torch.checkpoint import latest_step, restore
+        like = SP.init_shards(cfg, torch.Generator().manual_seed(0),
+                              mesh.device, tspecs, mesh)
+        restored = restore(task["ckpt"], latest_step(task["ckpt"]), like,
+                           mesh=mesh, specs=tspecs)
+        params = SP.refit_tree(restored, tspecs, pspecs, mesh)
+    else:
+        params = bridge.params_from_numpy(load_tree(task["weights"]), cfg,
+                                          mesh.device, mesh=mesh,
+                                          specs=pspecs)
     data = load_tree(task["batch"])
     toks = torch.from_numpy(data["tokens"]).to(mesh.device)
     stream = data["stream"]
     B, S = toks.shape
     paged = task.get("paged", False)
-    rules = SSM_RULES if task.get("rules") == "ssm" else None
     kv = task.get("kv_cache_dtype", "int8")
     with mesh_context(mesh, rules):
         init, prefill, decode = make_serve_fns(
@@ -376,6 +397,12 @@ def task_serve(task, mesh, rank):
         specs, whole = SP.serve_state_specs(
             cfg, B, task["max_len"], mesh, paged=paged,
             n_pages=task.get("n_pages"), kv_cache_dtype=kv)
+    if restored is not None:    # training's layout is refused, unsent
+        try:
+            prefill(restored, toks, init(B))
+            out_refused = False
+        except ValueError:
+            out_refused = True
     state = init(B)
     if isinstance(state, dict):         # an encoder-decoder's two stacks
         out = {"where": {k: _where(state[k], specs[k], mesh, cfg, B,
@@ -385,6 +412,8 @@ def task_serve(task, mesh, rank):
     else:
         out = {"where": _where(state, specs, mesh, cfg, B, task["max_len"]),
                "slices": _slices(specs, whole, mesh)}
+    if restored is not None:
+        out["refused"] = np.bool_(out_refused)
     if paged:
         table = allocate_rows(HostPageAllocator(state[0].pool.k_q.shape[0]),
                               B, task["max_len"] // cfg.quant.block_size)
@@ -395,6 +424,7 @@ def task_serve(task, mesh, rank):
     from repro_torch.kernels import COUNTED
     launches0 = {f.__name__: f.launches for f in COUNTED}
     logits = []
+    mesh.stats.clear()
     if task.get("ref_state"):
         bridge.serve_state_from_numpy(load_tree(task["ref_state"]), state,
                                       cfg, mesh, specs)
@@ -413,6 +443,7 @@ def task_serve(task, mesh, rank):
                 data["frames"]).to(mesh.device)}
         lg, state = prefill(params, inputs, state)
         logits.append(lg)
+    out["prefill_sent"] = _sent(mesh)
     pos = torch.full((B,), S, dtype=torch.int32, device=mesh.device)
     sent = []
     for j in range(stream.shape[0]):
@@ -425,10 +456,62 @@ def task_serve(task, mesh, rank):
     out["state"] = bridge.serve_state_to_numpy(state, cfg)
     out["logits"] = np.stack([lg.float().cpu().numpy() for lg in logits])
     out["sent"] = np.array(sent, np.int64)
+    out["decode_sent"] = _sent(mesh)
+    out["params"] = _held_params(params, pspecs, cfg, mesh)
     out["launches"] = {f.__name__: np.int64(f.launches
                                             - launches0[f.__name__])
                        for f in COUNTED}
     save_tree(f"{task['result']}.{rank}.npz", out)
+
+
+def _sent(mesh) -> dict:
+    """The bytes each collective sent since ``mesh.stats`` was cleared,
+    by "op:axes"."""
+    return {f"{op}:{'+'.join(ax)}": np.int64(v[1])
+            for (op, ax), v in mesh.stats.items()}
+
+
+def _held_params(params, specs, cfg, mesh) -> dict:
+    """What this rank holds of the serving weights: the bytes of the
+    storages its leaves use (each counted once), the bytes the serving
+    specs give its shards (`launch.specs.shard_shapes`), how many leaves
+    the specs split (over axes of more than one rank) and how many of
+    those it holds whole, and how many leaves the mesh keeps gathered
+    (`serving.engine.gathered_weights`)."""
+    import math
+
+    from repro_torch.core.tree import leaves
+    from repro_torch.launch import specs as SP
+    from repro_torch.parallel.shard import spec_leaves
+    seen, held = set(), 0
+    for t in leaves(params):
+        st = t.untyped_storage()
+        if st.data_ptr() not in seen:
+            seen.add(st.data_ptr())
+            held += st.nbytes()
+    split = whole = 0
+    for t, full, sp in zip(leaves(params), leaves(SP.param_shapes(cfg)),
+                           spec_leaves(specs), strict=True):
+        if any(axes and mesh.index(axes)[1] > 1 for axes in sp):
+            split += 1
+            whole += tuple(t.shape) == tuple(full.shape)
+    want = sum(math.prod(shape) * x.element_size() for x, shape in zip(
+        leaves(SP.param_shapes(cfg)), SP.shard_shapes(cfg, specs, mesh)))
+    return {"held_bytes": np.int64(held), "spec_bytes": np.int64(want),
+            "split": np.int64(split), "split_whole": np.int64(whole),
+            "gathered": np.int64(len(mesh.gathered))}
+
+
+def task_save_params(task, mesh, rank):
+    """The reference's weights as this rank's shards in training's layout
+    (`launch.specs.param_specs`), saved as a checkpoint at ``ckpt``."""
+    from repro_torch.checkpoint import bridge, save
+    from repro_torch.launch import specs as SP
+    cfg = _config(task)
+    specs = SP.param_specs(cfg, mesh)
+    params = bridge.params_from_numpy(load_tree(task["weights"]), cfg,
+                                      mesh.device, mesh=mesh, specs=specs)
+    save(task["ckpt"], 0, params, mesh=mesh, specs=specs)
 
 
 def task_recurrent(task, mesh, rank):
@@ -475,7 +558,7 @@ def task_recurrent(task, mesh, rank):
 TASKS = {"step": task_step, "encode": task_encode, "save": task_save,
          "restore": task_restore, "psum": task_psum,
          "compress": task_compress, "serve": task_serve,
-         "recurrent": task_recurrent}
+         "save_params": task_save_params, "recurrent": task_recurrent}
 
 
 def main(job_path: str, rank: int, world: int) -> int:

@@ -262,6 +262,91 @@ def serve_task(arch, mesh, weights, batch, result, **kw) -> dict:
             "max_len": MAX_LEN, "result": str(result), **kw}
 
 
+def tp_sent(cfg, mesh: str, mode: str, S: int, paged: bool) -> dict:
+    """The bytes a rank sends, by "op:axes" (`Mesh.stats`' ring counts,
+    each call's count rounded down), over one tensor-parallel serving
+    step of ``cfg`` (float32) on ``mesh``: ``mode`` "decode" (S 1),
+    "prefill" (make_serve_fns' whole prompt of S tokens) or "chunk"
+    (make_chunk_prefill_fn's). Reckoned from the shapes alone: the
+    embedding's all-reduce, per attention layer the heads gathered (the
+    rank's outputs over a pool of its kv heads or in a prompt; Q, K and V
+    over a cache holding every head), a contiguous prompt's K/V, the
+    sequence-sharded cache's flash partials and per-channel absmax, the
+    ``wo`` columns, the FFN's hidden activations and output columns,
+    and the last position's logits over the rows' and vocabulary's axes:
+    activations only."""
+    n_d, n_m = MESHES[mesh]
+    Bl, a = B // n_d, 4
+    H, Hkv, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
+    kv = Hkv % n_m == 0
+    q = H % n_m == 0 and (kv or (H // Hkv) % (H // n_m) == 0)
+    tok = Bl * S
+    out = {}
+
+    def add(key, numel, n=n_m, elsize=a, reduce=False):
+        if n > 1:
+            out[key] = out.get(key, 0) + int(numel * elsize * (2 if reduce
+                                                                else 1)
+                                              * (n - 1) / n)
+    add("all_reduce_sum:model", tok * d, reduce=True)     # the embedding
+    for i in range(cfg.n_layers):
+        if paged and kv:                        # the rank's kv heads
+            add("all_gather:model", H * tok * hd)
+        elif mode == "prefill":
+            if kv:                              # the cache's K and V
+                add("all_gather:model", 2 * Hkv * tok * hd)
+            if q:                               # the flash's heads
+                add("all_gather:model", H * tok * hd)
+            if cfg.quant.granularity == "per_channel" and not paged:
+                add("all_reduce_max:model", 2 * Bl * Hkv * hd,
+                    reduce=True)
+        else:                                   # every head everywhere
+            add("all_gather:model", ((H if q else 0) + (2 * Hkv if kv
+                                                        else 0)) * tok * hd)
+            if not paged and mode == "decode":  # the ranks' partials
+                add("all_gather:model", n_m * Bl * H * (hd + 2))
+        add("all_gather:model", tok * d)                   # wo
+        if cfg.n_experts:
+            C = int(max(8, round(cfg.top_k * S / cfg.n_experts
+                                 * cfg.capacity_factor)))
+            add("all_gather:model", cfg.n_experts * Bl * C * cfg.moe_d_ff)
+            if cfg.n_shared_experts:
+                add("all_gather:model",
+                    tok * cfg.moe_d_ff * cfg.n_shared_experts)
+        else:
+            add("all_gather:model", tok * cfg.d_ff)
+        add("all_gather:model", tok * d)                   # w_down
+    vp = -(-cfg.vocab // 128) * 128
+    axes = "data+model" if n_d > 1 else "model"
+    add(f"all_gather:{axes}", B * vp, n=n_d * n_m)
+    return out
+
+
+def check_tensor_parallel(got, cfg, mesh: str, label: str, *, paged=False,
+                          prefill: str | None = "prefill", s: int = S):
+    """A tensor-parallel rank's serving (`torch_dist_worker._held_params`
+    and the bytes its steps sent): its parameters' storages exactly the
+    bytes its serving specs give its shards, none of the leaves the specs
+    split held whole (and some split), nothing gathered whole on the
+    mesh, and every decode step's and the prefill's (``prefill``, the
+    route: "prefill" or "chunk"; None: a carried state; ``s`` tokens a
+    row) bytes by collective as `tp_sent` reckons them, activations
+    only."""
+    p = got["params"]
+    assert p["held_bytes"] == p["spec_bytes"], (label, p)
+    assert p["split"] > 0 and p["split_whole"] == 0, (label, p)
+    assert p["gathered"] == 0, (label, "weights gathered whole")
+    want = tp_sent(cfg, mesh, "decode", 1, paged)
+    assert {k: int(v) for k, v in got["decode_sent"].items()} == want, (
+        label, got["decode_sent"], want)
+    assert set(got["sent"].tolist()) == {sum(want.values())}, (
+        label, got["sent"], want)
+    if prefill is not None:
+        want = tp_sent(cfg, mesh, prefill, s, paged)
+        assert {k: int(v) for k, v in got["prefill_sent"].items()} == want, (
+            label, got["prefill_sent"], want)
+
+
 def close_int8(got, want, label):
     """The page rule."""
     d = np.abs(got.astype(np.int32) - want.astype(np.int32))

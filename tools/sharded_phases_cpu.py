@@ -1,7 +1,8 @@
 """chip_smoke.py's sharded serving phase (`serve sharded`: internlm's
 runs, the long-context stacks and whisper_small, and their training
 runs; one process's references, 4 gloo ranks, the NCCL rank's runs,
-every hold and prediction) rehearsed on the CPU at smoke size: the
+then the tensor-parallel qwen2_5_32b run at (data 1, model 4); every
+hold and prediction) rehearsed on the CPU at smoke size: the
 torch.cuda timing and memory calls stubbed, every config its smoke one,
 prompts of a few blocks past the smoke windows, 6 decode steps, the
 kernels' launch checks off (the CPU runs the plain versions), the
@@ -55,6 +56,7 @@ C.SERVE_SHARDED_RUNS = tuple(dict(r, S=24, max_len=32)
                              for r in C.SERVE_SHARDED_RUNS)
 C.LONG_SERVE = tuple(dict(r, S=40 if r["arch"] != "xlstm_350m" else 32,
                           max_len=64) for r in C.LONG_SERVE)
+C.TP_SERVE = tuple(dict(r, S=24, max_len=32, steps=6) for r in C.TP_SERVE)
 C.LONG_TRAIN = tuple((lab, a, l, B, 32, st, ru, si, dt, h)
                      for lab, a, l, B, S, st, ru, si, dt, h in C.LONG_TRAIN)
 C.SHARDED_TIMEOUT_S = 900
