@@ -218,10 +218,10 @@ Phases, each fatal on failure (no fallback anywhere):
      (`sharded_full_width`, `SHARDED_RUNS`): the parent frees its card
      memory and spawns 4 ranks on cuda:0 over gloo (every collective
      staged through pinned host buffers), mesh (data 2, model 2),
-     `file://` rendezvous and a timeout: internlm2_1_8b at 4 of 24
+     `file://` rendezvous and a timeout: internlm2_1_8b at 2 of 24
      layers at 4 x 2048 (2 x 1024 a rank), 2 steps and a
      fresh compressed step, and
-     qwen2_moe_a2_7b at 2 of 24 layers, 2 x 2048, 2 steps, through
+     qwen2_moe_a2_7b at 1 of 24 layers, 2 x 2048, 2 steps, through
      `mesh_context` around `make_train_step` (each rank draws the seed-0
      weights and keeps its shards of each part as it is made,
      `launch.specs.init_shards`): losses within LOSS_RTOL and grad norms
@@ -238,14 +238,14 @@ Phases, each fatal on failure (no fallback anywhere):
      each model of a phase (its tokens, logits, states and MoE routings
      kept on disk), the parent frees the card and spawns 4 gloo ranks at
      (data 2, model 2), each drawing a model's seed-0 weights straight
-     into its shards of `launch.specs.serve_param_specs`: the attention
-     and MoE stacks (internlm2_1_8b, mixtral_8x22b) serve tensor
-     parallel on those shards alone (heads, kv heads, d_ff, vocabulary
-     and output columns over "model"; each rank's weight bytes and the
-     prefill's bytes as predicted, no leaf the specs split held whole,
-     nothing gathered), the recurrent stacks and whisper_small gather
-     theirs whole once; each serves its runs teacher-forced on those
-     tokens: logits
+     into its shards of `launch.specs.serve_param_specs`: every stack
+     serves tensor parallel on those shards alone (heads, kv heads,
+     d_ff, the RG-LRU's channels, the mLSTM's heads, vocabulary and
+     output columns over "model"; the sLSTM whole by layout; each
+     rank's weight bytes after the draw and after its runs and the
+     prefill's and every decode step's bytes as predicted, activations
+     only, no leaf the specs split held whole); each serves its runs
+     teacher-forced on those tokens: logits
      within SERVE_LOGIT_TOL (a MoE router flip excused only at a near
      tie), a greedy difference only at a one-process top-2 gap within it
      (the first printed with both gaps), each state leaf against the one
@@ -264,7 +264,7 @@ Phases, each fatal on failure (no fallback anywhere):
      of 38) and
      xlstm_350m (float32) served from the sharded ring and recurrent
      states past their windows, and whisper_small (12 + 12 layers,
-     frames (4, 1500, 768) encoded context parallel, 256-token prompts,
+     frames (4, 1500, 768) encoded with its heads split, 256-token prompts,
      max_len 512; its cross caches' int8 bytes a rank as predicted,
      their scale rows bit for bit the one process's and the same on
      every rank of a row block), held
@@ -275,11 +275,13 @@ Phases, each fatal on failure (no fallback anywhere):
      plus GNORM_RTOL) and whisper_small (4 x 256 on its frames) trained
      one step each on the same ranks against the single-process steps;
      the NCCL rank serves recurrentgemma_9b and whisper_small; then
-     `TP_SERVE`, the run only tensor parallelism holds: qwen2_5_32b at
-     all 64 layers and full width (~65.5 GB whole, ~16.4 GB a rank) on 4
-     gloo ranks at (data 1, model 4), 4 rows of 256-token prompts,
-     max_len 512, 16 steps teacher-forced on one process serving the
-     same rows, which runs first and frees the card; before the spawn
+     `TP_SERVE`, the runs only tensor parallelism holds: qwen2_5_32b at
+     all 64 layers and full width (~65.5 GB whole, ~16.4 GB a rank; 4
+     rows of 256-token prompts, max_len 512) and recurrentgemma_9b at
+     all 38 layers and full width (~19.1 GB whole, ~4.8 GB a rank; 4
+     rows of 2560-token prompts past its window) on 4 gloo ranks at
+     (data 1, model 4), 16 steps teacher-forced on one process serving
+     the same rows, which runs first and frees the card; before the spawn
      `column_split_products` prints how the card's bf16 products move
      when a rank computes a quarter of their output columns (at a decode
      step's 4 rows and a prompt's 1024). The
@@ -5352,13 +5354,14 @@ SINGLE: dict = {}
 SHARDED_MESH = ((2, 2), ("data", "model"))
 # (arch, layers kept (None: uncut), batch, sequence, steps, compressed
 # steps, the single-process run's label and its --steps (its schedule))
-# (internlm2_1_8b at 4 of 24 layers and qwen2_moe_a2_7b at 2 of 24, to
-# keep the script's time with the sharded serving phase: their
+# (internlm2_1_8b at 2 of 24 layers and qwen2_moe_a2_7b at 1 of 24, to
+# keep the script's time with the sharded serving phase, cut from 4 and 2
+# for recurrentgemma_9b's uncut tensor-parallel run there: their
 # single-process runs are made here, `sharded_full_width`)
 SHARDED_RUNS = (
-    ("internlm2_1_8b", 4, 4, 2048, 2, 1, "train internlm2_1_8b 4 layers",
+    ("internlm2_1_8b", 2, 4, 2048, 2, 1, "train internlm2_1_8b 2 layers",
      3),
-    ("qwen2_moe_a2_7b", 2, 2, 2048, 2, 0, "train qwen2_moe_a2_7b 2 layers",
+    ("qwen2_moe_a2_7b", 1, 2, 2048, 2, 0, "train qwen2_moe_a2_7b 1 layer",
      2),
 )
 SHARDED_TIMEOUT_S = 600
@@ -5753,28 +5756,27 @@ def _state_bytes(state) -> int:
 
 
 def serve_predict(cfg, run: dict, sizes) -> dict:
-    """A rank's state bytes and the bytes it sends a decode step, by
-    collective, reckoned from the shapes and the specs' rules (rows over
-    "data"; a contiguous cache's or a ring's slots and scale rows, a
-    paged pool's kv heads, the RG-LRU's and sLSTM's channels and the
-    mLSTM memory's key dims over "model"; the sLSTM n's rows whole;
-    `Mesh.stats`' ring counts). An encoder-decoder: each layer's self
-    cache (per block, ``max_len`` slots) and per-channel cross cache
-    (`enc_cache_len` slots, one scale row and a residual of one slot),
-    both over "model", the float32 logits gathered over "data". A
-    tensor-parallel stack (`transformer.tensor_parallel`): also its
-    resident weight bytes (`_tp_resident`) and the prefill's bytes, each
-    step's by `_tp_sent`."""
+    """A rank's state bytes, reckoned from the shapes and the specs' rules
+    (rows over "data"; a contiguous cache's or a ring's slots and scale
+    rows, a paged pool's kv heads, the RG-LRU's and sLSTM's channels and
+    the mLSTM memory's key dims over "model"; the sLSTM n's rows whole;
+    an encoder-decoder's self cache (per block, ``max_len`` slots) and
+    per-channel cross cache (`enc_cache_len` slots, one scale row and a
+    residual of one slot) a layer, both over "model"); its resident
+    weight bytes (`_tp_resident`); the bytes it sends a decode step and
+    a prefill by collective (`_tp_sent`: activations only, every family
+    tensor parallel)."""
     from repro_torch.models.encdec import enc_cache_len
-    from repro_torch.models.transformer import ATTN_KINDS, tensor_parallel
+    from repro_torch.models.transformer import ATTN_KINDS
     n_d, n_m = sizes
     B, T = SERVE_B, run["max_len"]
     Bl = B // n_d
-    f = (n_m - 1) / n_m
-    vp = -(-cfg.vocab // 128) * 128
-    act = cfg.activation_dtype.itemsize
     d, w = cfg.d_model, cfg.rnn_width
     nh, dh = cfg.n_heads, cfg.d_model // cfg.n_heads
+    out = {"weight_bytes": _tp_resident(cfg, sizes),
+           "sent": _tp_sent(cfg, run, sizes, "decode", 1),
+           "prefill_sent": _tp_sent(cfg, run, sizes, "chunk" if run.get(
+               "paged") else "prefill", run["S"])}
     if cfg.family == "encdec":
         bs, D, Hkv, L = (cfg.quant.block_size, cfg.head_dim, cfg.n_kv_heads,
                          cfg.n_layers)
@@ -5785,14 +5787,10 @@ def serve_predict(cfg, run: dict, sizes) -> dict:
                  + 2 * Bl * Hkv * bs * D * 2)
         cross_q, cross_s = 2 * Bl * Hkv * Tc * D, 2 * Bl * Hkv * D * 4
         cross = cross_q + cross_s + 2 * Bl * Hkv * D * 2
-        sent = {"all_gather:model": 2 * L * (n_m - 1) * Bl * nh * (D + 2)
-                * 4, "all_gather:data": (n_d - 1) * Bl * vp * 4}
-        return {"cache_bytes": L * (self_ + cross),
+        return {**out, "cache_bytes": L * (self_ + cross),
                 "cross_int8_bytes": L * cross_q,
-                "cross_scale_bytes": L * cross_s,
-                "sent": {k: int(v) for k, v in sent.items() if v}}
-    cache, sent = 0, {"all_gather:model": 0, "all_reduce_sum:model": 0,
-                      "all_gather:data": (n_d - 1) * Bl * vp * act}
+                "cross_scale_bytes": L * cross_s}
+    cache = 0
     for i in range(cfg.n_layers):
         kind = cfg.block_kind(i)
         if kind in ATTN_KINDS:
@@ -5802,10 +5800,6 @@ def serve_predict(cfg, run: dict, sizes) -> dict:
                 cache += (2 * P * bs * Hl * D + 2 * P * Hl * D * 4
                           + Bl * (T // bs) * 4 + 2 * Bl * Hl * bs * D * 2
                           + Bl * 4)
-                # the heads' bf16 outputs of one token a row, gathered
-                # before wo
-                sent["all_gather:model"] += (n_m - 1) * Bl * nh * D * 2 \
-                    // n_m
                 continue
             M = min(T, -(-cfg.sliding_window // bs) * bs) \
                 if cfg.sliding_window else T
@@ -5819,32 +5813,17 @@ def serve_predict(cfg, run: dict, sizes) -> dict:
                 # scale rows whole on each rank: the int64 row of each
                 # run of slots (`ShardedKVCache._rows`)
                 cache += 8 * (M // n_m) // math.gcd(bs, M // n_m)
-            # every rank's flash partials (o, m, l) over its slots
-            sent["all_gather:model"] += (n_m - 1) * Bl * nh * (D + 2) * 4
         elif kind == "rglru":
             cache += Bl * (w // n_m) * 4 * 4          # h and the conv tail
-            sent["all_gather:model"] += Bl * w * 4 * 4 * f
         elif kind == "mlstm":
             cache += 4 * Bl * nh * (dh // n_m) * (dh + 2) + 4 * Bl * nh
-            # the readout and the normaliser summed over the key dims
-            sent["all_reduce_sum:model"] += 2 * Bl * nh * (dh + 1) * 4 * f
         else:                                          # slstm
             cache += 4 * (2 * Bl * (d // n_m) + B * (d // n_m) + Bl * d)
-            sent["all_gather:model"] += 2 * Bl * d * 4 * f     # h, twice
-            sent["all_gather:data"] += B * (d // n_m) * 4 * (n_d - 1) / n_d
-    if tensor_parallel(cfg):
-        return {"cache_bytes": cache,
-                "weight_bytes": _tp_resident(cfg, sizes),
-                "sent": _tp_sent(cfg, run, sizes, "decode", 1),
-                "prefill_sent": _tp_sent(
-                    cfg, run, sizes, "chunk" if run.get("paged")
-                    else "prefill", run["S"])}
-    return {"cache_bytes": cache,
-            "sent": {k: int(v) for k, v in sent.items() if v}}
+    return {**out, "cache_bytes": cache}
 
 
 def _tp_resident(cfg, sizes) -> int:
-    """A tensor-parallel rank's weight bytes: each leaf of
+    """A rank's weight bytes: each leaf of
     `launch.specs.serve_param_specs` at ``sizes`` (data, model), its dims
     cut by their axes' sizes (every cut even)."""
     from repro_torch.core.tree import leaves
@@ -5861,19 +5840,25 @@ def _tp_resident(cfg, sizes) -> int:
 
 
 def _tp_sent(cfg, run: dict, sizes, mode: str, S: int) -> dict:
-    """The bytes a tensor-parallel rank sends by collective and axes
-    (`Mesh.stats`' ring counts, each call's rounded down) over a decode
-    step (``mode`` "decode", S 1) or a prompt of S tokens a row
-    ("prefill": the contiguous whole prompt; "chunk": one paged chunk),
-    activations only: the embedding's vocab-parallel sum; per attention
-    layer the heads gathered (a pool's kv-head outputs or a prompt's
-    flash outputs; Q, K and V before a cache of every head), a
-    contiguous prompt's K / V for the cache and a per-channel prompt's
-    absmax MAX, the sequence-sharded cache's float32 flash partials, the
-    ``wo`` columns; the FFN's hidden activations (an MoE's every expert
-    over its C slots a row, and its shared experts') and output
-    columns; the last position's logits over the rows' and vocabulary's
-    axes in one gather."""
+    """The bytes a rank sends by collective and axes (`Mesh.stats`' ring
+    counts, each call's rounded down) over a decode step (``mode``
+    "decode", S 1) or a prompt of S tokens a row ("prefill": the
+    contiguous whole prompt; "chunk": one paged chunk), activations only,
+    per layer by kind: the embedding's vocab-parallel sum; an attention
+    layer's heads gathered (a pool's kv-head outputs or a prompt's flash
+    outputs; Q, K and V before a cache of every head), a contiguous
+    prompt's K / V for the cache and a per-channel prompt's absmax MAX,
+    the sequence-sharded cache's float32 flash partials, the ``wo``
+    columns; an RG-LRU's hidden and ``w_out`` columns; an mLSTM's q / k
+    / v heads and float32 readout sum (decode) or its float32 final
+    state refit from heads to key dims and its hidden (prefill), and its
+    ``wo`` columns; an sLSTM's float32 h, twice, and n's rows (its
+    weights whole); the FFN's hidden activations (an MoE's every expert
+    over its C slots a row, and its shared experts') and output columns;
+    whisper's encoder (heads, ``wo``, MLP over every frame), its cross
+    K/V, heads and absmax MAX, its decode step in float32 (q's heads
+    and the cross partials too); the last position's logits over the
+    rows' and vocabulary's axes in one gather."""
     from repro_torch.models.moe import capacity
     n_d, n_m = sizes
     Bl, a = SERVE_B // n_d, cfg.activation_dtype.itemsize
@@ -5881,30 +5866,37 @@ def _tp_sent(cfg, run: dict, sizes, mode: str, S: int) -> dict:
     kv = Hkv % n_m == 0
     q = H % n_m == 0 and (kv or (H // Hkv) % (H // n_m) == 0)
     paged, tok = run.get("paged", False), Bl * S
+    f = 4 if (cfg.family == "encdec" and mode == "decode") else a
     out = {}
 
-    def add(key, numel, n=n_m, elsize=a, reduce=False):
+    def add(key, numel, n=n_m, elsize=f, reduce=False):
         if n > 1:
             out[key] = out.get(key, 0) + int(numel * elsize * (
                 2 if reduce else 1) * (n - 1) / n)
-    add("all_reduce_sum:model", tok * d, reduce=True)
-    for _ in range(cfg.n_layers):
-        if paged and kv:
+
+    def attn(tok, cache, ctok=None):
+        if cache == "paged" and kv:
             add("all_gather:model", H * tok * hd)
         elif mode == "prefill":
-            if kv:
-                add("all_gather:model", 2 * Hkv * tok * hd)
+            if kv and cache is not None:
+                add("all_gather:model", 2 * Hkv * (ctok or tok) * hd)
             if q:
                 add("all_gather:model", H * tok * hd)
-            if cfg.quant.granularity == "per_channel":
+            if cache == "cross" or (cache == "contiguous" and
+                                    cfg.quant.granularity == "per_channel"):
                 add("all_reduce_max:model", 2 * Bl * Hkv * hd, elsize=4,
                     reduce=True)
+        elif cache == "cross":
+            add("all_gather:model", (H if q else 0) * tok * hd)
+            add("all_gather:model", n_m * Bl * H * (hd + 2), elsize=4)
         else:
             add("all_gather:model", ((H if q else 0)
                                      + (2 * Hkv if kv else 0)) * tok * hd)
-            if not paged and mode == "decode":
+            if cache == "contiguous" and mode == "decode":
                 add("all_gather:model", n_m * Bl * H * (hd + 2), elsize=4)
         add("all_gather:model", tok * d)
+
+    def ffn(tok):
         if cfg.n_experts:
             add("all_gather:model", cfg.n_experts * Bl * capacity(cfg, S)
                 * cfg.moe_d_ff)
@@ -5914,6 +5906,49 @@ def _tp_sent(cfg, run: dict, sizes, mode: str, S: int) -> dict:
         else:
             add("all_gather:model", tok * cfg.d_ff)
         add("all_gather:model", tok * d)
+
+    def recurrent(kind):
+        nh, dh = H, d // H
+        if kind == "rglru":
+            add("all_gather:model", tok * cfg.rnn_width)
+            add("all_gather:model", tok * d)
+        elif kind == "mlstm":
+            if mode == "decode":
+                add("all_gather:model", 3 * tok * d)
+                if dh % n_m == 0:
+                    add("all_reduce_sum:model", Bl * nh * (dh + 1), elsize=4,
+                        reduce=True)
+            else:
+                if nh % n_m == 0:
+                    add("all_gather:model", Bl * nh * (dh * dh + 2 * dh + 1),
+                        elsize=4)
+                add("all_gather:model", tok * d)
+            add("all_gather:model", tok * d)
+        else:
+            if mode == "decode":
+                add("all_gather:model", 2 * Bl * d, elsize=4)
+            add("all_gather:data", SERVE_B * d // (n_m if mode == "decode"
+                                                   else 1), n=n_d, elsize=4)
+    add("all_reduce_sum:model", tok * d, elsize=a, reduce=True)
+    if cfg.family == "encdec":
+        T = cfg.encoder_seq
+        if mode == "prefill":
+            for _ in range(cfg.n_encoder_layers):
+                attn(Bl * T, None)
+                ffn(Bl * T)
+        for _ in range(cfg.n_layers):
+            attn(tok, "contiguous")
+            attn(tok, "cross", Bl * T)
+            ffn(tok)
+    else:
+        for i in range(cfg.n_layers):
+            kind = cfg.block_kind(i)
+            if kind in ("attn", "local_attn", "moe"):
+                attn(tok, "paged" if paged else "contiguous")
+            else:
+                recurrent(kind)
+            if cfg.d_ff or cfg.n_experts:
+                ffn(tok)
     vp = -(-cfg.vocab // 128) * 128
     add("all_gather:" + ("data+model" if n_d > 1 else "model"),
         SERVE_B * vp, n=n_d * n_m)
@@ -6141,14 +6176,113 @@ def _serve_one(dev, params, cfg, run: dict, out: Path, stream=None,
     return {**res, "wall_s": wall, "launches": counts, "peak_bytes": peak}
 
 
-def _serve_refs(dev, runs: tuple, ref: Path, rows: int, card: str) -> dict:
+class _ColumnCut:
+    """A one-process weight whose products are computed as a rank of a
+    mesh of ``n`` "model" ranks computes them, a 1/n of the output
+    columns at a time (each block a contiguous copy, as a rank holds it),
+    the blocks joined: the card's bf16 GEMM picks its reduction by shape,
+    so x @ W and the joined x @ W[:, block] may differ in their last
+    bits (`column_split_products`). Only the matmul with the wrapped
+    weight on the right is cut; every other use of the weight sees the
+    plain tensor."""
+
+    @staticmethod
+    def wrap(w, n: int):
+        import torch
+
+        class Cut(torch.Tensor):
+            @classmethod
+            def __torch_function__(cls, func, types, args=(), kwargs=None):
+                kwargs = kwargs or {}
+                plain = [a.as_subclass(torch.Tensor) if isinstance(a, Cut)
+                         else a for a in args]
+                if getattr(func, "__name__", "") in ("matmul", "__matmul__") \
+                        and len(args) == 2 and isinstance(args[1], Cut) \
+                        and not isinstance(args[0], Cut) and not kwargs:
+                    x, W = plain
+                    N = W.shape[-1]
+                    return torch.cat([x @ W[..., i * N // n:(i + 1) * N // n]
+                                      .contiguous() for i in range(n)], -1)
+                with torch._C.DisableTorchFunctionSubclass():
+                    return func(*plain, **kwargs)
+        return torch.Tensor._make_subclass(Cut, w)
+
+
+def _column_cut(params, cfg, sizes):
+    """``params`` (whole) with each 2-D weight whose serving spec at
+    ``sizes`` (data, model) cuts its output columns wrapped in
+    `_ColumnCut`: one process computing each such product as the ranks
+    do, the reference the ranks of a deep model are held against where
+    the quarter-column products' rounding carries past the logit bound
+    (ROADMAP queue 3, "Risks")."""
+    from repro_torch.launch import specs as SP
+    from repro_torch.parallel.shard import MeshShape
+    specs = SP.serve_param_specs(cfg, MeshShape(("data", "model"), sizes))
+    n = sizes[1]
+
+    def zip_map(x, sp):
+        if isinstance(x, dict):
+            return {k: zip_map(v, sp[k]) for k, v in x.items()}
+        if isinstance(x, list):
+            return [zip_map(v, s) for v, s in zip(x, sp)]
+        return _ColumnCut.wrap(x, n) if x.dim() == 2 and sp[-1] else x
+    return zip_map(params, specs)
+
+
+@contextlib.contextmanager
+def _rank_slots(n: int):
+    """While in the block, the flat decode partials over a whole
+    contiguous cache (a ring's too) are computed as ``n`` "model" ranks
+    holding 1/n of its slots and scale rows each compute them
+    (`core.kvcache.ShardedKVCache.decode_partials`): the kernel over each
+    part's live slots (`ring_slot_args`), the parts' partials merged in
+    rank order (`merge_rank_partials`). With `_column_cut` weights, one
+    process then computes what the ranks compute, op for op."""
+    import torch
+    from repro_torch.core.kvcache import ring_slot_args
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.quant_attention import merge_rank_partials
+    orig = ops.quant_attention_decode_partials
+
+    def split(q, k_q, k_s, v_q, v_s, length, window=None):
+        T = k_q.shape[2]
+        per, bs = T // n, T // k_s.shape[2]
+        g = math.gcd(bs, per)
+        out = []
+        for r in range(n):
+            lo = r * per
+            # a rank's scale rows: the block of each run of g slots
+            # (`ShardedKVCache._rows`; its own blocks where they divide)
+            rows = torch.tensor([(lo + j * g) // bs for j in range(per // g)],
+                                device=k_s.device)
+            ln, win = (ring_slot_args(length, window, T, lo, per)
+                       if window is not None else
+                       (min(max(int(length) - lo, 0), per), None))
+            out.append(orig(q, k_q[:, :, lo:lo + per].contiguous(),
+                            k_s[:, :, rows], v_q[:, :, lo:lo + per]
+                            .contiguous(), v_s[:, :, rows], ln, window=win))
+        return merge_rank_partials(*(torch.stack(x) for x in zip(*out)))
+    ops.quant_attention_decode_partials = split
+    try:
+        yield
+    finally:
+        ops.quant_attention_decode_partials = orig
+
+
+def _serve_refs(dev, runs: tuple, ref: Path, rows: int, card: str,
+                sizes=None) -> dict:
     """The one-process runs of ``runs`` (each model's seed-0 weights made
     once, RG-LRU gates seeded, freed before the next model): "whole",
-    every row at once, greedy; and for a run with "blocks", "blocks",
-    the rows ``rows`` at a time teacher-forced on the whole run's stream,
+    every row at once, greedy; for a run with "blocks", "blocks", the
+    rows ``rows`` at a time teacher-forced on the whole run's stream,
     with how far its logits lie from the whole run's a step (rows whose
-    routing flipped between the two aside). Returns {label: {"whole",
-    "blocks"?, "rows_effect"?}}."""
+    routing flipped between the two aside); for a run with
+    "column_cut", "cut", every row teacher-forced on that stream with its
+    products cut as the ranks of ``sizes`` (data, model) cut them
+    (`_column_cut`) and its decode attention over their slots
+    (`_rank_slots`), and how far its logits lie from the whole run's.
+    Returns {label: {"whole", "blocks"?, "rows_effect"?, "cut"?,
+    "cut_effect"?}}."""
     import numpy as np
     import torch
     out, key, params = {}, None, None
@@ -6188,6 +6322,23 @@ def _serve_refs(dev, runs: tuple, ref: Path, rows: int, card: str) -> dict:
                      f"its stream (what the ranks are held against): "
                      f"logits max |diff| a step {one['rows_effect']} (rows "
                      f"whose routing flipped between the two aside)")
+        if run.get("column_cut"):
+            with _rank_slots(sizes[1]):
+                one["cut"] = _serve_one(
+                    dev, _column_cut(params, cfg, sizes), cfg, run,
+                    d / "cut", stream=np.load(d / "whole" / "stream.npy"))
+            one["cut_effect"] = np.abs(
+                np.load(d / "cut" / "logits.npy")
+                - np.load(d / "whole" / "logits.npy")).max(-1).max(
+                    -1).tolist()
+            text += (f"; every product and the decode attention's slots "
+                     f"cut as the ranks at {sizes} cut them, teacher-forced "
+                     f"on its stream (what the ranks are held against): "
+                     f"prefill "
+                     f"{one['cut']['prefill_ms']:.1f} ms, step ms median "
+                     f"{statistics.median(one['cut']['step_ms']):.2f}, "
+                     f"logits max |diff| a step from the plain run "
+                     f"{one['cut_effect']}")
         log(text + f"; {card}")
     del params
     gc.collect()
@@ -6341,8 +6492,7 @@ def _route_flips(routes: dict, ref: Path, rows: slice) -> list:
 
 def _serve_sharded_run(mesh, dev, params, cfg, run: dict, ref: Path
                        ) -> dict:
-    """One run on this rank over its shards ``params`` (a stack that does
-    not serve tensor parallel: the whole weights gathered from them):
+    """One run on this rank over its shards ``params`` alone:
     `make_serve_fns` under the mesh, its state (bytes), the
     prompts prefilled (paged: one chunk, its pages from a replicated
     allocator), then each one-process token fed (teacher forcing): per
@@ -6351,8 +6501,10 @@ def _serve_sharded_run(mesh, dev, params, cfg, run: dict, ref: Path
     process's; the launches; the state against the one-process state's
     slices (`_hold_state`); an encoder-decoder's frames fed with the
     prompts, its cross caches' int8 bytes and a digest of their scale
-    rows (the same on every rank of a row block); whether the mesh holds
-    gathered weights after it."""
+    rows (the same on every rank of a row block); the bytes of the
+    weights' storages after it (nothing gathered whole: the shards'
+    bytes); the card's peak allocation over the run alone (the weights
+    resident, the load's peak reset)."""
     import hashlib
 
     import numpy as np
@@ -6367,9 +6519,11 @@ def _serve_sharded_run(mesh, dev, params, cfg, run: dict, ref: Path
     toks = np.load(ref / "tokens.npy")
     stream = np.load(ref / "stream.npy")
     want = np.load(ref / "logits.npy")
+    plain = np.load(ref.parent / "whole" / "logits.npy")
     counters = _counters()
     for c in counters.values():
         c.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)     # the run's, not the load's
     with mesh_context(mesh):
         init, prefill, decode = make_serve_fns(cfg, max_len=T, paged=paged,
                                                device=dev)
@@ -6412,6 +6566,7 @@ def _serve_sharded_run(mesh, dev, params, cfg, run: dict, ref: Path
         ).hexdigest()
     rep["prefill_sent"] = sent()
     held = [_held(0, lg, want, cfg.vocab)]
+    plain_rows = [_held(0, lg, plain, cfg.vocab)]
     pos = torch.full((B,), S, dtype=torch.int32, device=dev)
     rep["step_ms"], rep["step_sent"], rep["step_calls"] = [], [], []
     rec = []
@@ -6427,19 +6582,35 @@ def _serve_sharded_run(mesh, dev, params, cfg, run: dict, ref: Path
             rep["step_sent"].append(sent())
             rep["step_calls"].append(sum(v[0] for v in mesh.stats.values()))
             held.append(_held(j + 1, lg, want, cfg.vocab))
+            plain_rows.append(_held(j + 1, lg, plain, cfg.vocab))
             pos = pos + 1
     rep["logits"] = held
+    # against one process serving every row at once, plain: the measured
+    # share of the tolerance, no bound where the reference is another run
+    rep["plain_share"] = max(r["max_abs"] / r["tol"] for r in plain_rows)
     rep["launches"] = {k: c.launches for k, c in counters.items()}
     rep["route_flips"] = _route_flips(
         _routes(rec, _steps(run)), ref,
-        serve_layout(mesh, cfg, B, 1, "decode", False).rows()) if rec else []
+        serve_layout(mesh, cfg, B).rows()) if rec else []
     rep["state"] = _hold_state(state, specs, whole, mesh, ref, cfg, S)
     rep["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
-    rep["gathered"] = bool(mesh.gathered)
+    rep["weights_after"] = _storage_bytes(params)
     del state
     gc.collect()
     torch.cuda.empty_cache()
     return rep
+
+
+def _storage_bytes(params) -> int:
+    """The bytes of the storages a tree's leaves use, each once."""
+    from repro_torch.core.tree import leaves
+    seen, held = set(), 0
+    for t in leaves(params):
+        st = t.untyped_storage()
+        if st.data_ptr() not in seen:
+            seen.add(st.data_ptr())
+            held += st.nbytes()
+    return held
 
 
 def _held_weights(params, specs, cfg, mesh) -> dict:
@@ -6451,12 +6622,7 @@ def _held_weights(params, specs, cfg, mesh) -> dict:
     from repro_torch.core.tree import leaves
     from repro_torch.launch import specs as SP
     from repro_torch.parallel.shard import spec_leaves
-    seen, held = set(), 0
-    for t in leaves(params):
-        st = t.untyped_storage()
-        if st.data_ptr() not in seen:
-            seen.add(st.data_ptr())
-            held += st.nbytes()
+    held = _storage_bytes(params)
     split = whole = 0
     for t, full, sp in zip(leaves(params), leaves(SP.param_shapes(cfg)),
                            spec_leaves(specs), strict=True):
@@ -6467,6 +6633,51 @@ def _held_weights(params, specs, cfg, mesh) -> dict:
             "allocated_after_init": torch.cuda.memory_allocated(mesh.device)}
 
 
+def _load_peak(cfg, specs, mesh) -> int:
+    """The bytes `launch.specs.init_shards` should peak at on a rank:
+    the parts in their draw order (`init_params`' hook on the meta
+    device), each drawn whole beside the shards kept so far, a leaf of
+    two or more dims as N(0, 1) in float32 scaled into a second float32
+    tensor and then stored in its dtype (a float32 leaf: no third
+    copy), then cut (the whole part and its shards' copies both live).
+    The caching allocator's rounding is not counted."""
+    import torch
+    from repro_torch.models import encdec, transformer
+    parts = []
+    init = encdec.init_params if cfg.family == "encdec" else \
+        transformer.init_params
+    init(cfg, torch.Generator(), device="meta",
+         keep=lambda key, part: parts.append((key, part)) or part)
+
+    def walk(t, sp):
+        if isinstance(t, dict):
+            for k in t:
+                yield from walk(t[k], sp[k])
+        elif isinstance(t, (list, tuple)):
+            for a, b in zip(t, sp):
+                yield from walk(a, b)
+        elif t is not None:
+            yield t, sp
+    held = peak = 0
+    for key, part in parts:
+        sp = specs
+        for k in key:
+            sp = sp[k]
+        whole = kept = copies = 0
+        for t, leaf_sp in walk(part, sp):
+            b = t.numel() * t.element_size()
+            draw = b if t.dim() < 2 else 2 * 4 * t.numel() + (
+                0 if t.dtype == torch.float32 else b)
+            peak = max(peak, held + whole + draw)
+            whole += b
+            n = math.prod(mesh.index(a)[1] if a else 1 for a in leaf_sp)
+            kept += b // n
+            copies += b // n if n > 1 else 0
+        peak = max(peak, held + whole + copies)
+        held += kept
+    return peak
+
+
 def _serve_rank(rank: int, world: int, rdzv: str, sizes, axes, runs,
                 out_dir: str, ref_dir: str):
     """A spawned rank on cuda:0 (several ranks: gloo; one rank: NCCL):
@@ -6475,19 +6686,16 @@ def _serve_rank(rank: int, world: int, rdzv: str, sizes, axes, runs,
     `_sharded_run`). Each model's seed-0 weights drawn straight into
     this rank's shards of `launch.specs.serve_param_specs`
     (`launch.specs.init_shards`, RG-LRU gates seeded) and held for its
-    runs in a row, freed before the next model: a tensor-parallel stack's
-    serve on the shards alone, any other's gathered whole once
-    (`serving.engine.gathered_weights`); then the training runs. Writes
-    its report to out_dir/rank<r>.json."""
+    runs in a row, freed before the next model: every stack serves on
+    the shards alone; then the training runs. Writes its report to
+    out_dir/rank<r>.json."""
     import torch
     import torch.distributed as dist
     sys.path.insert(0, str(SRC))
     torch.set_num_threads(2)
     torch.backends.cuda.matmul.allow_tf32 = False
     from repro_torch.launch import specs as SP
-    from repro_torch.models.transformer import tensor_parallel
     from repro_torch.parallel.shard import Mesh, init_distributed
-    from repro_torch.serving import engine
     dev = _rank_device(rank)
     backend = init_distributed(dev, rank=rank, world=world,
                                init_method=rdzv, timeout_s=300)
@@ -6499,7 +6707,6 @@ def _serve_rank(rank: int, world: int, rdzv: str, sizes, axes, runs,
     for run, sub in serve:
         cfg = _serve_run_cfg(run)
         if key != (run["arch"], run["layers"], run.get("dtype")):
-            engine.release_gathered_weights(mesh)
             del params
             gc.collect()
             torch.cuda.empty_cache()
@@ -6512,22 +6719,15 @@ def _serve_rank(rank: int, world: int, rdzv: str, sizes, axes, runs,
                 mesh)
             _seed_gate_shards(params, pspecs, cfg, mesh)
             torch.cuda.synchronize()
+            load_peak = torch.cuda.max_memory_allocated(dev)
             torch.cuda.empty_cache()
-            held = {"tensor_parallel": tensor_parallel(cfg),
-                    "init_s": time.perf_counter() - t0,
+            held = {"init_s": time.perf_counter() - t0,
+                    "load_peak_bytes": load_peak,
+                    "load_peak_predicted": _load_peak(cfg, pspecs, mesh),
                     **_held_weights(params, pspecs, cfg, mesh)}
-            if not held["tensor_parallel"]:
-                mesh.stats.clear()
-                t0 = time.perf_counter()
-                engine.gathered_weights(params, cfg, mesh)
-                torch.cuda.synchronize()
-                held.update(gather_s=time.perf_counter() - t0,
-                            gathered_bytes=mesh.gathered["nbytes"],
-                            gather_sent=mesh.gathered["sent"])
             key = (run["arch"], run["layers"], run.get("dtype"))
         report["serve"][run["label"]] = {**held, **_serve_sharded_run(
             mesh, dev, params, cfg, run, Path(ref_dir, run["label"], sub))}
-    engine.release_gathered_weights(mesh)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -6551,11 +6751,12 @@ def _hold_serve(run: dict, reps: list, one: dict, pred: dict,
     gap lies within it (the first printed with both gaps), the state by
     `_hold_state`'s rules (int8 by the page rule, scale rows within a
     bf16 step, residuals, decode slots and recurrent leaves within their
-    tolerance, tables and lengths equal); the state bytes and the bytes
-    each decode step sends by collective as `serve_predict` reckons them;
-    a tensor-parallel stack: its weight bytes a rank and the prefill's
-    bytes as predicted, no leaf its specs split held whole, nothing
-    gathered; paged: the replicated allocator's pages; the launches as
+    tolerance, tables and lengths equal); the state bytes, the weight
+    bytes a rank (after the draw and after the run: nothing gathered
+    whole) and the bytes each decode step and the prefill send by
+    collective as `serve_predict` reckons them (activations only), no
+    leaf its specs split held whole; paged: the replicated allocator's
+    pages; the launches as
     `_serve_launches` predicts for each rank (``sizes`` the mesh's). An
     encoder-decoder: its cross caches' int8 bytes a rank as predicted,
     their scale rows the same bits on every rank of a row block (the
@@ -6565,16 +6766,14 @@ def _hold_serve(run: dict, reps: list, one: dict, pred: dict,
     cfg = _serve_run_cfg(run)
     per = [rep["serve"][label] for rep in reps]
     name = f"serve sharded {label}"
-    tp = per[0]["tensor_parallel"]
     weights = (f"tensor parallel: weights a rank "
                f"{[p['held_bytes'] for p in per]} B (predicted "
-               f"{pred['weight_bytes']}; split leaves {per[0]['split']}, "
-               f"held whole {[p['split_whole'] for p in per]}), drawn in "
+               f"{pred['weight_bytes']}; after the run "
+               f"{[p['weights_after'] for p in per]}; split leaves "
+               f"{per[0]['split']}, held whole "
+               f"{[p['split_whole'] for p in per]}), drawn in "
                f"{[round(p['init_s'], 2) for p in per]} s, allocated after "
-               f"{[p['allocated_after_init'] for p in per]} B" if tp else
-               f"gathered {[p['gathered_bytes'] for p in per]} B in "
-               f"{[round(p['gather_s'], 2) for p in per]} s (sent "
-               f"{[p['gather_sent'] for p in per]} B)")
+               f"{[p['allocated_after_init'] for p in per]} B")
     log(f"[{name}] ranks {len(reps)} ({reps[0]['backend']}); {weights}; "
         f"state a rank "
         f"{[p['cache_bytes'] for p in per]} B (one process "
@@ -6588,9 +6787,14 @@ def _hold_serve(run: dict, reps: list, one: dict, pred: dict,
         f"{per[0]['step_sent'][0]} in {per[0]['step_calls'][0]} collectives "
         f"(predicted {pred['sent']}); logits max |diff| "
         f"{max(row['max_abs'] for p in per for row in p['logits']):.4g} "
-        f"(tol from {min(row['tol'] for row in per[0]['logits']):.4g}); "
+        f"(tol from {min(row['tol'] for row in per[0]['logits']):.4g}; "
+        f"against the plain one-process run, every row at once, "
+        f"{max(p['plain_share'] for p in per):.3f} of the tolerance); "
         f"state {per[0]['state']}; launches a rank "
         f"{ {k: v for k, v in per[0]['launches'].items() if v} }; peak "
+        f"at load {[p['load_peak_bytes'] for p in per]} B (predicted "
+        f"{per[0]['load_peak_predicted']}: the largest part drawn whole "
+        f"beside the shards so far), over the run (weights resident) "
         f"{[p['peak_bytes'] for p in per]} B; {card}")
     # the logits are every row's (gathered over "data"); a row whose
     # routing flipped on any rank is excused at that step
@@ -6639,19 +6843,19 @@ def _hold_serve(run: dict, reps: list, one: dict, pred: dict,
         if any(s != pred["sent"] for s in r["step_sent"]):
             raise AssertionError(f"{who}: a step sent {r['step_sent'][0]}, "
                                  f"predicted {pred['sent']}")
-        if tp:          # its shards alone, as predicted, nothing gathered
-            if r["held_bytes"] != pred["weight_bytes"]:
-                raise AssertionError(f"{who}: weights {r['held_bytes']} B, "
-                                     f"predicted {pred['weight_bytes']}")
-            if r["split_whole"] or (sizes[1] > 1 and not r["split"]):
-                raise AssertionError(f"{who}: {r['split_whole']} of "
-                                     f"{r['split']} split leaves whole")
-            if r["gathered"]:
-                raise AssertionError(f"{who}: weights gathered whole")
-            if r["prefill_sent"] != pred["prefill_sent"]:
-                raise AssertionError(f"{who}: the prefill sent "
-                                     f"{r['prefill_sent']}, predicted "
-                                     f"{pred['prefill_sent']}")
+        # its shards alone, as predicted, nothing gathered whole
+        if r["held_bytes"] != pred["weight_bytes"] or \
+                r["weights_after"] != pred["weight_bytes"]:
+            raise AssertionError(f"{who}: weights {r['held_bytes']} B, "
+                                 f"{r['weights_after']} B after the run, "
+                                 f"predicted {pred['weight_bytes']}")
+        if r["split_whole"] or (sizes[1] > 1 and not r["split"]):
+            raise AssertionError(f"{who}: {r['split_whole']} of "
+                                 f"{r['split']} split leaves whole")
+        if r["prefill_sent"] != pred["prefill_sent"]:
+            raise AssertionError(f"{who}: the prefill sent "
+                                 f"{r['prefill_sent']}, predicted "
+                                 f"{pred['prefill_sent']}")
         if run.get("paged") and not r["pages_equal"]:
             raise AssertionError(f"{who}: its allocator's pages differ")
         if "cross_int8_bytes" in pred:
@@ -6684,6 +6888,14 @@ def _hold_serve(run: dict, reps: list, one: dict, pred: dict,
     return {k: sum(p["launches"][k] for p in per) for k in per[0]["launches"]}
 
 
+def _ref_kind(run: dict) -> str:
+    """The one-process run a sharded run is held against (`_serve_refs`):
+    "cut" (its products cut as the ranks cut them), "blocks" (its rows a
+    "data" rank's share at a time) or "whole"."""
+    return ("cut" if run.get("column_cut") else
+            "blocks" if run.get("blocks") else "whole")
+
+
 def _serve_ranks(dev, card: str, name: str, runs: tuple, nccl: tuple,
                  train: tuple = (), before=None,
                  sizes=SHARDED_MESH[0]) -> tuple:
@@ -6709,7 +6921,7 @@ def _serve_ranks(dev, card: str, name: str, runs: tuple, nccl: tuple,
     ref = Path(tempfile.mkdtemp(prefix="serve-sharded-"))
     counts, report = {}, {"mesh": dict(zip(axes, sizes)), "card": card}
     try:
-        one = _serve_refs(dev, runs, ref, SERVE_B // sizes[0], card)
+        one = _serve_refs(dev, runs, ref, SERVE_B // sizes[0], card, sizes)
         preds = {run["label"]: serve_predict(_serve_run_cfg(run), run, sizes)
                  for run in runs}
         log(f"[{name}] predicted a rank at {dict(zip(axes, sizes))}: "
@@ -6718,7 +6930,7 @@ def _serve_ranks(dev, card: str, name: str, runs: tuple, nccl: tuple,
             before()
         t0 = time.perf_counter()
         reps = _spawn_ranks(math.prod(sizes), sizes, axes, (
-            tuple((run, "blocks" if run.get("blocks") else "whole")
+            tuple((run, _ref_kind(run))
                   for run in runs), train), name, target=_serve_rank,
             extra=(str(ref),))
         report["wall_s"] = time.perf_counter() - t0
@@ -6728,7 +6940,7 @@ def _serve_ranks(dev, card: str, name: str, runs: tuple, nccl: tuple,
         for run in runs:
             sub = one[run["label"]]
             counts[f"serve sharded {run['label']}"] = _hold_serve(
-                run, reps, sub.get("blocks", sub["whole"]),
+                run, reps, sub[_ref_kind(run)],
                 preds[run["label"]], card, sizes)
         report["one_process"] = one
         report["ranks"] = [{**{k: v for k, v in r.items()
@@ -6763,9 +6975,9 @@ def _serve_ranks(dev, card: str, name: str, runs: tuple, nccl: tuple,
 
 # max_len 8192: mixtral's and recurrentgemma's prompts pass their windows
 # (4096, 2048), so each ring has wrapped at the prefill; the prompts are
-# block multiples and no block fills in 16 steps. mixtral first, on the
-# emptiest card: four ranks' whole weights (~5.8 GB each at 1 of 56
-# layers, cut from 2 for the script's time). xlstm_350m in
+# block multiples and no block fills in 16 steps. mixtral first (1 of 56
+# layers, cut from 2 for the script's time). Every model serves from its
+# shards of `launch.specs.serve_param_specs`. xlstm_350m in
 # float32: in bf16 its exponential gates carry a rounding difference of
 # the rows' grouping through 24 layers (logits 0.28-0.42 apart between
 # one process serving 4 rows and 2 at a time, PERF.md §6), past
@@ -6778,7 +6990,8 @@ LONG_SERVE = tuple(
                                    ("xlstm_350m", None, 1024, "float32"))
 ) + (
     # whisper_small (12 + 12 layers, bf16): make_frames frames (4, 1500,
-    # 768) encoded context parallel (750 positions a "model" rank), the
+    # 768) encoded over every frame with the heads split (6 of 12 a
+    # "model" rank), the
     # per-channel cross cache's 1504 slots over "model" (752 a rank; the
     # second rank's last 4 are padding), 256-token prompts in a 512-slot
     # self cache (the second "model" rank holds no prompt slot), no block
@@ -6823,18 +7036,34 @@ LONG_TRAIN = (
      "train single whisper_small 4x256", None, None))
 
 
-# the run only tensor-parallel serving holds: qwen2_5_32b at all 64 layers
-# and full width (~65.5 GB of bf16 weights whole) on (data 1, model 4), 4
-# gloo ranks on the one card, ~16.4 GB of weights each; 4 rows of
-# 256-token prompts, max_len 512 (128 slots a rank: the block of 256
-# straddles the first two ranks, the last two hold no prompt slot; 2
-# blocks on 4 ranks: every rank keeps and quantizes the scale rows), 16
-# steps teacher-forced on one process serving the same 4 rows, which runs
-# first and frees the card before the spawn
+# the runs only tensor-parallel serving holds, on (data 1, model 4), 4
+# gloo ranks on the one card, each teacher-forced for 16 steps on one
+# process serving the same 4 rows, which runs first and frees the card
+# before the spawn: qwen2_5_32b at all 64 layers and full width (~65.5 GB
+# of bf16 weights whole, ~16.4 GB a rank); 4 rows of 256-token prompts,
+# max_len 512 (128 slots a rank: the block of 256 straddles the first two
+# ranks, the last two hold no prompt slot; 2 blocks on 4 ranks: every
+# rank keeps and quantizes the scale rows); and recurrentgemma_9b at all
+# 38 layers and full width (~19.1 GB whole, ~4.8 GB a rank; on gathered
+# weights four ranks would need 76.6 GB of weights alone): 4 rows of
+# 2560-token prompts past its 2048 window (a ring of 2048 slots, 512 a
+# rank, wrapped at the prefill), its RG-LRU channels and MLP columns a
+# quarter a rank, its one kv head whole and 4 of its 16 query heads a
+# rank. Its decode steps' quarter-column products round otherwise than
+# the whole ones (`column_split_products`), and over 38 layers, the
+# RG-LRU state carrying them, that drift passed SERVE_LOGIT_TOL on the
+# card (PERF.md §6 PR 34: 0.239 against 0.142 at the first card run):
+# its ranks are held against one process computing every product cut as
+# they cut it and its decode attention over their slots, merged in rank
+# order ("column_cut": `_column_cut`, `_rank_slots`), and the share of
+# the tolerance against the plain one process is printed
 TP_MESH = (1, 4)
 TP_SERVE = ({"label": "qwen2_5_32b", "arch": "qwen2_5_32b", "layers": None,
              "gran": "per_block", "S": 256, "max_len": 512, "seed": 33,
-             "steps": 16},)
+             "steps": 16},
+            {"label": "recurrentgemma_9b uncut", "arch": "recurrentgemma_9b",
+             "layers": None, "S": 2560, "max_len": 8192, "seed": 34,
+             "steps": 16, "column_cut": True})
 
 
 def column_split_products(dev, cfg, n: int, card: str) -> dict:
@@ -7039,7 +7268,8 @@ def serve_sharded_full_width(dev, card: str) -> dict:
             dev, _serve_run_cfg(TP_SERVE[0]), TP_MESH[1], card)))
     report["tensor parallel"]["column_split_products"] = cols
     counts.update(tp_counts)
-    log(f"[serve sharded] {TP_SERVE[0]['label']} at {TP_MESH} in "
+    log(f"[serve sharded] {', '.join(r['label'] for r in TP_SERVE)} at "
+        f"{TP_MESH} in "
         f"{time.perf_counter() - t1:.1f} s; phase "
         f"{time.perf_counter() - t_phase:.1f} s; {card}")
     log("[serve sharded] " + json.dumps(report))

@@ -278,48 +278,91 @@ def _tp_axes(logical: str, units: int, mesh) -> tuple[str, ...]:
     return () if rows & set(axes) else axes
 
 
-# serving leaf name -> (the dim "model" cuts, counted from the end; what it
-# cuts: "q" query heads, "kv" kv heads, "ffn" hidden channels, "out" the
-# d_model output columns, "vocab" vocabulary rows or columns)
-_SERVE_CUTS = {"wq": (-1, "q"), "bq": (-1, "q"), "wk": (-1, "kv"),
-               "wv": (-1, "kv"), "bk": (-1, "kv"), "bv": (-1, "kv"),
-               "wo": (-1, "out"), "w_gate": (-1, "ffn"),
-               "w_up": (-1, "ffn"), "w_down": (-1, "out"),
-               "embed": (-2, "vocab"), "lm_head": (-1, "vocab")}
+# (block kind, leaf name) -> (the dim "model" cuts, counted from the end;
+# what it cuts: "q" query heads, "kv" kv heads, "heads" the mLSTM's heads,
+# "ffn" hidden channels, "out" the d_model output columns, "vocab"
+# vocabulary rows or columns). A leaf's kind is the nearest key above it
+# that names one (an MoE's shared experts are its "moe"'s); the leaf names
+# collide across kinds (the RG-LRU's ``w_gate``, the mLSTM's ``wq``), so
+# the cut is keyed on both
+_ATTN_CUTS = {"wq": (-1, "q"), "bq": (-1, "q"), "wk": (-1, "kv"),
+              "wv": (-1, "kv"), "bk": (-1, "kv"), "bv": (-1, "kv"),
+              "wo": (-1, "out")}
+_FFN_CUTS = {"w_gate": (-1, "ffn"), "w_up": (-1, "ffn"),
+             "w_down": (-1, "out")}
+_SERVE_CUTS = {
+    "": {"embed": (-2, "vocab"), "lm_head": (-1, "vocab")},
+    "attn": _ATTN_CUTS, "self_attn": _ATTN_CUTS, "cross_attn": _ATTN_CUTS,
+    "mlp": _FFN_CUTS, "moe": _FFN_CUTS,
+    "rglru": {**{k: (-1, "ffn") for k in ("w_in", "w_gate", "conv_w", "lam",
+                                          "w_a", "b_a", "w_x", "b_x")},
+              "w_out": (-1, "out")},
+    "mlstm": {"wq": (-1, "heads"), "wk": (-1, "heads"), "wv": (-1, "heads"),
+              "wo": (-1, "out")},
+    "slstm": {},
+}
+
+
+def _map_kinds(tree, fn, kind: str = "", name: str = ""):
+    """``fn(block kind, leaf name, leaf)`` over a parameter tree, the kind
+    the nearest key above the leaf in `_SERVE_CUTS` ("" at the top)."""
+    if isinstance(tree, dict):
+        return {k: _map_kinds(v, fn, k if k in _SERVE_CUTS else kind, k)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_kinds(v, fn, kind, name) for v in tree]
+    return None if tree is None else fn(kind, name, tree)
 
 
 def serve_param_specs(cfg, mesh):
-    """The layout serving takes the parameters in under ``mesh`` (cached
-    by config, mesh shape and rules).
+    """The layout serving takes the parameters in under ``mesh``, for
+    every family (cached by config, mesh shape and rules): tensor
+    parallel over "model", cut on whole units, keyed on the block kind
+    and the leaf name (`_SERVE_CUTS`).
 
-    For a stack of attention and MoE blocks
-    (`transformer.tensor_parallel`) a tensor-parallel layout over
-    "model", cut on whole units: ``wq`` / ``bq`` by query head, ``wk``,
-    ``wv``, ``bk``, ``bv`` by kv head, ``w_gate`` / ``w_up`` (an MLP's, the
-    experts' and the shared experts') by hidden channel, ``lm_head``'s
-    vocabulary columns and ``embed``'s rows, and the OUTPUT (d_model)
-    columns of ``wo`` and of every ``w_down``: each output element of a
-    projection is then one whole dot product, the one one process
-    computes, gathered rather than summed from partial products (a
-    reduced row split moves the residual's bf16 bits and, through the
-    next layer's K/V, the int8 pages). The router and the norms stay
-    whole. A unit count the axes do not divide stays whole (kv heads
-    fewer than "model": every rank projects and stores every kv head,
-    the paged pool's kv heads replicated as `page_pool_specs` keeps
-    them); query heads split only where each rank's lie in whole
-    groups of one or more kv heads (query head h reads kv head h // G).
+    - Attention (a decoder's, whisper's encoder self, decoder self and
+      cross attention): ``wq`` / ``bq`` by query head, ``wk``, ``wv``,
+      ``bk``, ``bv`` by kv head, ``wo`` by its OUTPUT (d_model) columns.
+      A unit count the axes do not divide stays whole (kv heads fewer
+      than "model": every rank projects and stores every kv head, the
+      paged pool's kv heads replicated as `page_pool_specs` keeps them;
+      recurrentgemma_9b's one kv head); query heads split only where
+      each rank's lie in whole groups of one or more kv heads (query
+      head h reads kv head h // G).
+    - MLP and MoE: ``w_gate`` / ``w_up`` (an MLP's, the experts' and the
+      shared experts') by hidden channel, ``w_down`` by its output
+      columns; the router stays whole.
+    - RG-LRU: ``w_in``, ``w_gate``, ``conv_w`` and the gate vectors
+      ``lam``, ``w_a``, ``b_a``, ``w_x``, ``b_x`` by channel, the same
+      slices `cache_shardings` gives the state's ``h`` and ``conv`` (both
+      the "ffn" rule over the same width), so a step reads and writes
+      only the rank's own state; ``w_out`` by its output columns.
+    - mLSTM: ``wq``, ``wk``, ``wv`` by whole head, ``wo`` by its output
+      columns; ``w_if`` / ``b_if`` whole on every rank (float32, a head's
+      i and f columns are h and nh + h: not one block; a rank slices its
+      heads' locally, `models.recurrent_mesh`).
+    - sLSTM: every leaf whole on every rank, by layout (nothing gathers
+      them): ``w_gates`` / ``r_gates`` (d, 4d) hold the gate blocks [i,
+      f, z, o] side by side, so a contiguous column cut gives a rank
+      whole gates rather than channels, and the recurrence ``h @
+      r_gates`` couples every channel at every token: any cut needs a
+      collective a token inside `xlstm.slstm_seq`'s host loop. The cost
+      is ~18.9 MB a layer in bf16 at xlstm_350m's width (56.6 MB for its
+      three sLSTM layers); training keeps them so too.
+    - ``embed``'s (padded) vocabulary rows and ``lm_head``'s columns;
+      the norms stay whole.
+
+    Each output element of a projection is then one whole dot product,
+    the one one process computes, gathered rather than summed from
+    partial products (a reduced row split moves the residual's bf16
+    bits and, through the next layer's K/V, the int8 pages).
 
     Unlike training's `param_specs` nothing lies over "data": a serving
     rank's rows are independent requests, and FSDP shards gathered
     every step would send most of the model each token; the ranks of a
-    "data" axis hold replicas of their "model" shard.
-
-    Any other stack (recurrent, encoder-decoder) is served from
-    `param_specs`' layout, its shards gathered whole once a rank
-    (`serving.engine.gathered_weights`): this returns those specs."""
-    from repro_torch.models.transformer import tensor_parallel
-    if not tensor_parallel(cfg):
-        return param_specs(cfg, mesh)
+    "data" axis hold replicas of their "model" shard. Where the rules
+    give "model" to the rows (`SSM_RULES`) every leaf is whole, a
+    replica by layout, never gathered."""
     key = _key("serve", cfg, mesh)
     if key not in _SPECS:
         H, Hkv = cfg.n_heads, cfg.n_kv_heads
@@ -327,17 +370,17 @@ def serve_param_specs(cfg, mesh):
         if q and not kv and (H // Hkv) % (
                 H // math.prod(mesh.shape[a] for a in q)):
             q = ()                          # a rank's heads span kv heads
-        heads = {"q": q, "kv": kv}
+        units = {"q": q, "kv": kv, "heads": _tp_axes("heads", H, mesh)}
 
-        def spec(name, leaf):
+        def spec(kind, name, leaf):
             shape = _shape(leaf)
-            dim, what = _SERVE_CUTS.get(name, (None, None))
+            dim, what = _SERVE_CUTS[kind].get(name, (None, None))
             out = [()] * len(shape)
             if what is not None and len(shape) >= -dim:
-                out[dim] = heads[what] if what in heads else _tp_axes(
+                out[dim] = units[what] if what in units else _tp_axes(
                     "vocab" if what == "vocab" else "ffn", shape[dim], mesh)
             return tuple(out)
-        _SPECS[key] = _map_named(param_shapes(cfg), spec)
+        _SPECS[key] = _map_kinds(param_shapes(cfg), spec)
     return _SPECS[key]
 
 

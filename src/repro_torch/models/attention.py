@@ -18,11 +18,12 @@ Training:
 Encoder-decoder cross attention (`models.encdec`):
     cross_train(...)    queries from the decoder, keys / values from the
                         encoder output, no RoPE, no mask (flash forward,
-                        non-causal); returns the K/V for the cross cache;
-                        under a mesh K and V projected on this rank's
-                        encoder positions and gathered along the encoder
-                        sequence (as ``_gather_seq``; the backward
-                        reduce-scatters dK, dV)
+                        non-causal); under a mesh K and V projected on
+                        this rank's encoder positions and gathered along
+                        the encoder sequence (as ``_gather_seq``; the
+                        backward reduce-scatters dK, dV)
+    cross_tp(...)       a prompt's cross attention on this rank's shards;
+                        returns the K/V for the cross cache
     cross_decode(...)   one query over the per-channel int8 cross cache
                         (the flat decode kernel) at its valid length;
                         over a `ShardedKVCache` this rank's slots, the
@@ -47,8 +48,8 @@ The caches are updated in place: attention reads the pool BEFORE a chunk's
 pages are written, and decode appends BEFORE it reads, exactly the order
 of the reference's functional updates.
 
-Serving under a mesh (`models.transformer`; this rank's rows): the
-stacks of attention and MoE blocks call `serve_tp` on the rank's shards
+Serving under a mesh (`models.transformer`, `models.encdec`; this rank's
+rows, every position): every stack calls `serve_tp` on the rank's shards
 of the weights (`launch.specs.serve_param_specs`: query and kv heads,
 and ``wo``'s output columns, over "model"). Q, K and V come from the
 rank's head columns; over a paged pool of the rank's kv heads every
@@ -56,15 +57,16 @@ function above runs on those heads, and over a cache holding every
 head (a contiguous cache, sharded along its slots as
 `core.kvcache.ShardedKVCache`, or a paged pool whose kv heads do not
 divide over "model") the heads are gathered first: a prompt's flash
-still runs on the rank's query heads, a decode step on every head
-(the flat decode kernel over this rank's slots, every rank's partials
-merged in rank order, then the replicated fp residual tail; over a
-sharded ring each rank's live slots are those the window leaves live
-there, `core.kvcache.ring_slot_args`). The heads' outputs, gathered,
-times the rank's ``wo`` columns, gathered, are what one process
-computes. A stack with recurrent blocks serves on whole weights: its
-contiguous prompt runs context parallel (K/V gathered along the
-sequence, `prefill`'s ``lay``) and each rank writes its own slots.
+still runs on the rank's query heads (whisper's encoder too, non-causal
+and without a cache), a decode step on every head (the flat decode
+kernel over this rank's slots, every rank's partials merged in rank
+order, then the replicated fp residual tail; over a sharded ring each
+rank's live slots are those the window leaves live there,
+`core.kvcache.ring_slot_args`). Whisper's cross attention: `cross_tp`
+projects the encoder's K/V on the rank's kv heads and gathers them for
+the cross cache, `cross_decode` gathers q's heads over the rank's cross
+slots. The heads' outputs, gathered, times the rank's ``wo`` columns,
+gathered (`_out_tp`), are what one process computes.
 """
 from __future__ import annotations
 
@@ -185,14 +187,12 @@ def _gathered(p, sp, lay) -> dict:
 
 
 def cross_train(p, x, kv_src, cfg, *, lay=None, sp=None):
-    """Encoder-decoder cross attention (training and prefill): queries
-    from x (B, S, d), keys / values from kv_src (B, T, d), the encoder
-    output. No RoPE, no mask. Returns (out (B, S, d), (k, v) (B, Hkv, T,
-    hd)) — the K/V the cross cache quantizes. Under a mesh x is this
-    rank's part of the decoder's layout and kv_src of the encoder's,
-    ``lay`` (the same rows); K and V are projected on this rank's encoder
-    positions and gathered along the sequence in the activation dtype,
-    so the K/V returned are the whole encoder's for this rank's rows.
+    """Encoder-decoder cross attention in training: queries from x (B, S,
+    d), keys / values from kv_src (B, T, d), the encoder output. No
+    RoPE, no mask. Returns out (B, S, d). Under a mesh x is this rank's
+    part of the decoder's layout and kv_src of the encoder's, ``lay``
+    (the same rows); K and V are projected on this rank's encoder
+    positions and gathered along the sequence in the activation dtype.
     ``sp``: the specs of p's leaves (None: whole weights)."""
     if sp is not None:
         p = _gathered(p, sp, lay)
@@ -205,18 +205,45 @@ def cross_train(p, x, kv_src, cfg, *, lay=None, sp=None):
         k = all_gather(k, lay.seq, 2, lay.mesh)
         v = all_gather(v, lay.seq, 2, lay.mesh)
     out = _sdpa(q, k, v, causal=False, window=None)
-    return _merge_heads(p, out, x.dtype), (k, v)
+    return _merge_heads(p, out, x.dtype)
 
 
-def cross_decode(p, x, cfg, cache: QuantizedKVCache):
-    """Decode-time cross attention: one query a row over the per-channel
-    int8 encoder K/V (scales computed once at prefill, paper Eq. 5, never
-    updated), at the cache's valid length; over a `ShardedKVCache` the
-    flat decode kernel over this rank's slots, every rank's partials
-    merged in rank order."""
+def cross_tp(p, sp, x, kv_src, cfg, mesh):
+    """Cross attention of a prompt on this rank's shards (``sp`` their
+    serving specs): queries from x (B_l, S, d) on the rank's query
+    heads, keys / values from kv_src (B_l, T, d), the whole encoder
+    output of its rows, projected on its kv heads and gathered over them
+    (the cross cache holds every head); the flash over the rank's query
+    heads and the kv heads they read. Returns (out (B_l, S, d), (k, v)
+    (B_l, Hkv, T, hd) every head): the K/V the cross cache quantizes.
+    On one device (every spec whole) the plain cross attention."""
+    qa, kva = sp["wq"][-1], sp["wk"][-1]
+    B, S, _ = x.shape
+    T, hd = kv_src.shape[1], cfg.head_dim
+    q = (x @ p["wq"]).reshape(B, S, -1, hd).transpose(1, 2)
+    k = (kv_src @ p["wk"]).reshape(B, T, -1, hd).transpose(1, 2)
+    v = (kv_src @ p["wv"]).reshape(B, T, -1, hd).transpose(1, 2)
+    kw, vw = gather_heads(mesh, (k, kva), (v, kva))
+    if not kva:                            # the kv heads the rank's read
+        r0, r1 = head_slice(cfg, sp, mesh)["reads"]
+        k, v = kw[:, r0:r1], vw[:, r0:r1]
+    out = _sdpa(q, k, v, causal=False, window=None)
+    return _out_tp(p, out, qa, sp["wo"][-1], mesh, x.dtype), (kw, vw)
+
+
+def cross_decode(p, sp, x, cfg, cache: QuantizedKVCache, mesh=None):
+    """Decode-time cross attention on this rank's shards ``p`` (``sp``
+    their serving specs; every leaf whole on one device): one query a
+    row over the per-channel int8 encoder K/V (scales computed once at
+    prefill, paper Eq. 5, never updated), at the cache's valid length.
+    q's heads are gathered first; over a `ShardedKVCache` the flat
+    decode kernel runs over this rank's slots, every rank's partials
+    merged in rank order; the heads' outputs times the rank's ``wo``
+    columns, gathered (`_out_tp`)."""
     B, S, _ = x.shape
     hd = cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, hd).transpose(1, 2)
+    q = gather_cols(x @ p["wq"], sp["wq"][-1], mesh)
+    q = q.reshape(B, S, cfg.n_heads, hd).transpose(1, 2)
     if isinstance(cache, ShardedKVCache):
         o, _, l = cache.decode_partials(q[:, :, 0], cache.valid_len)
         out = o / torch.clamp_min(l, 1e-30)
@@ -224,32 +251,22 @@ def cross_decode(p, x, cfg, cache: QuantizedKVCache):
         out = ops.quant_attention_decode(
             q[:, :, 0], cache.k_q, cache.k_s, cache.v_q, cache.v_s,
             cache.valid_len)
-    return _merge_heads(p, out[:, :, None].to(x.dtype), x.dtype)
+    return _out_tp(p, out[:, :, None], (), sp["wo"][-1], mesh, x.dtype)
 
 
 # -- serving ------------------------------------------------------------------
 
 def prefill(p, x, cfg, positions, cache, *, local: bool = False,
-            row_mask=None, lay=None):
+            row_mask=None):
     """Prompt pass: causal (sliding-window) attention, then the prompt's
     K/V quantized into the cache: the contiguous one (a ring keeps the
     last window's tokens) or, T a page multiple, the paged one's mapped
     pages (`PagedQuantizedKVCache.prefill`). ``row_mask`` is a
     paged-cache feature: the contiguous cache has one length for every
-    row. Under a mesh (``lay``: this rank's rows and positions, x and
-    the result this rank's part) the prompt runs context parallel as
-    `train` does: K and V gathered along the sequence, the flash walk at
-    this rank's first position, and the cache (`ShardedKVCache`) takes
-    the whole prompt's K/V and writes its own slots."""
+    row."""
     _check_row_mask(cache, row_mask, "prefill")
     q, k, v = _project_qkv(p, x, cfg, positions)
-    offset = 0
-    if lay is not None and lay.seq:
-        k = lay.mesh.all_gather(k, lay.seq, 2)
-        v = lay.mesh.all_gather(v, lay.seq, 2)
-        offset = lay.positions().start
-    out = _sdpa(q, k, v, causal=True, window=_window(cfg, local),
-                kv_offset=offset)
+    out = _sdpa(q, k, v, causal=True, window=_window(cfg, local))
     _write_prompt(cache, k, v, row_mask)
     return _merge_heads(p, out, x.dtype), cache
 
@@ -334,8 +351,8 @@ def decode(p, x, cfg, positions, cache, *, local: bool = False,
 
 
 def serve_tp(p, sp, x, cfg, positions, cache, mode: str, *,
-             local: bool = False, row_mask=None, hist_blocks=None,
-             valid=None, mesh=None):
+             local: bool = False, causal: bool = True, row_mask=None,
+             hist_blocks=None, valid=None, mesh=None):
     """One serving step's attention on this rank's shards of the
     weights (``sp`` their specs, `launch.specs.serve_param_specs`): x
     (B_l, S, d) this rank's rows, whole on the ranks of "model". Q, K and
@@ -344,13 +361,15 @@ def serve_tp(p, sp, x, cfg, positions, cache, mode: str, *,
     the heads' outputs are gathered; in a prompt over any other cache
     (every kv head on every rank) the flash runs on the rank's query
     heads and the kv heads they read, and the cache takes every head's
-    K/V (gathered); a decode step or a chunk over such a cache gathers
-    the heads of Q, K and V and runs every head on every rank (a
-    sequence-sharded cache's partials merged in rank order: the same
-    bits on every rank). The heads' outputs times the rank's output
-    columns of ``wo``, gathered over theirs, give (B_l, S, d): each
-    element one whole dot product, as one process computes it."""
-    qa, kva, oa = sp["wq"][-1], sp["wk"][-1], sp["wo"][-1]
+    K/V (gathered); a prompt without a cache (``cache`` None: whisper's
+    encoder, ``causal`` False) gathers none; a decode step or a chunk
+    over such a cache gathers the heads of Q, K and V and runs every
+    head on every rank (a sequence-sharded cache's partials merged in
+    rank order: the same bits on every rank). The heads' outputs times
+    the rank's output columns of ``wo``, gathered over theirs, give
+    (B_l, S, d): each element one whole dot product, as one process
+    computes it (`_out_tp`)."""
+    qa, kva = sp["wq"][-1], sp["wk"][-1]
     q, k, v = _project_qkv(p, x, cfg, positions)
     paged = isinstance(cache, PagedQuantizedKVCache)
     heads = qa
@@ -359,12 +378,14 @@ def serve_tp(p, sp, x, cfg, positions, cache, mode: str, *,
                          f"kv projections' over {kva}")
     if mode == "prefill":
         _check_row_mask(cache, row_mask, "prefill")
-        kw, vw = (k, v) if paged else gather_heads(mesh, (k, kva), (v, kva))
+        kw, vw = (k, v) if paged or cache is None else gather_heads(
+            mesh, (k, kva), (v, kva))
         if not kva:                        # the kv heads the rank's read
             r0, r1 = head_slice(cfg, sp, mesh)["reads"]
             k, v = kw[:, r0:r1], vw[:, r0:r1]
-        out = _sdpa(q, k, v, causal=True, window=_window(cfg, local))
-        _write_prompt(cache, kw, vw, row_mask)
+        out = _sdpa(q, k, v, causal=causal, window=_window(cfg, local))
+        if cache is not None:
+            _write_prompt(cache, kw, vw, row_mask)
     else:
         if not (paged and kva):            # every head on every rank
             q, k, v = gather_heads(mesh, (q, qa), (k, kva), (v, kva))
@@ -376,8 +397,14 @@ def serve_tp(p, sp, x, cfg, positions, cache, mode: str, *,
             out = _decode_core(q, k, v, cfg, cache, local, row_mask)
         else:
             raise ValueError(f"unknown serving mode {mode!r}")
-    o = _merge_heads({}, out.to(x.dtype), x.dtype)
-    o = gather_cols(o, heads, mesh)
+    return _out_tp(p, out, heads, sp["wo"][-1], mesh, x.dtype)
+
+
+def _out_tp(p, out, heads, oa, mesh, dtype):
+    """The heads' outputs (B, h, S, hd), this rank's heads over ``heads``
+    (``()``: every head) -> rounded to ``dtype``, gathered, times the
+    rank's ``wo`` columns (over ``oa``), gathered: (B, S, d)."""
+    o = gather_cols(_merge_heads({}, out.to(dtype), dtype), heads, mesh)
     return gather_cols(o @ p["wo"], oa, mesh)
 
 

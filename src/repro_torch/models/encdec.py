@@ -34,12 +34,12 @@ Under `parallel.shard.mesh_context` (a mesh of ranks) every entry point
 takes the global batch and runs this rank's part, as the reference lays
 it out under its mesh:
 
-  * the encoder runs context parallel: frames (B, T_enc, d) rows over
-    "batch" and positions over "seq_shard" (`parallel.shard.Layout`,
-    replicated where the sizes do not divide; the reference's
-    ``act_shard(x, "batch", "seq_shard", None)``), the
-    sinusoid taken at this rank's positions, and each layer's
-    non-causal attention over K/V gathered along the sequence
+  * the encoder (`encode`, and training's) runs context parallel:
+    frames (B, T_enc, d) rows over "batch" and positions over
+    "seq_shard" (`parallel.shard.Layout`, replicated where the sizes do
+    not divide; the reference's ``act_shard(x, "batch", "seq_shard",
+    None)``), the sinusoid taken at this rank's positions, and each
+    layer's non-causal attention over K/V gathered along the sequence
     (`attention.train`);
   * training (`forward_train`, ``specs`` the parameters') runs the
     decoder as `transformer.forward_train` runs a decoder stack, with
@@ -48,17 +48,29 @@ it out under its mesh:
     encoder's positions and gathered along its sequence
     (`attention.cross_train`). Every block gathers the weights it needs
     inside its checkpoint region;
-  * serving (`prefill`, `decode_step`) runs on WHOLE weights
-    (`serving.engine.make_serve_fns` gathers a rank's shards once) over
-    this rank's rows (`transformer.serve_layout`): the prompt context
-    parallel, the caches this rank's `core.kvcache.ShardedKVCache`
-    shards (`launch.specs.init_serve_state`): each self cache's slots
-    over "model", each per-channel cross cache's `enc_cache_len` slots
-    over "model", prefilled from the whole padded encoder K/V (the
-    scales' absmax a MAX all-reduce of the ranks' slots) with its
-    ``length`` then set to the true encoder length; a decode step merges
-    the ranks' flat decode partials of both caches, and the logits come
-    back for every row.
+  * serving (`prefill`, `decode_step`, ``specs`` the serving specs,
+    `launch.specs.serve_param_specs`) runs TENSOR PARALLEL on this rank's
+    shards alone, over its rows and every position
+    (`transformer.serve_layout`): the encoder over all of its rows'
+    frames with its heads split (`attention.serve_tp`, non-causal, no
+    cache) and its MLPs on their d_ff channels (`mlp.serve`), its output
+    whole on every rank of "model"; the decoder's self attention through
+    `attention.serve_tp` over this rank's `core.kvcache.ShardedKVCache`
+    self slots (`launch.specs.init_serve_state`), its cross attention's
+    K/V projected on the rank's kv heads and gathered over them
+    (`attention.cross_tp`), each per-channel cross cache's
+    `enc_cache_len` slots over "model" prefilled from the whole padded
+    encoder K/V (the scales' absmax a MAX all-reduce of the ranks'
+    slots) with its ``length`` then set to the true encoder length; a
+    decode step gathers q's heads over the rank's cross slots and merges
+    the ranks' flat decode partials of both caches in rank order
+    (`attention.cross_decode`), still converting each layer's weights
+    (now the rank's shards) to float32 as it reaches them; the tied
+    embedding and the logits vocab parallel
+    (`transformer._embed_sharded`, `transformer.gather_rows_cols`), every
+    row's logits out. One device serves through the same functions, on
+    specs that keep every leaf whole (`_whole_specs`): each gather is then
+    a no-op and each product the plain one.
 """
 from __future__ import annotations
 
@@ -177,20 +189,45 @@ def _enc_block(bp, x, cfg, pos, lay=None, sp=None):
                          transformer._sub(sp, "mlp"))
 
 
-def _encode(params, frames, cfg, remat, lay=None, sp=None):
+def _train_layers(cfg, remat, lay=None, sp=None):
+    """Training's encoder layer ``(i, bp, x, pos) -> x``: `_enc_block`
+    (under ``remat`` in a checkpoint region) in ``lay``, ``sp`` the
+    parameters' training specs (None: whole weights)."""
+    def layer(i, bp, x, pos):
+        args = (bp, x, cfg, pos, lay, None if sp is None
+                else sp["enc_layers"][i])
+        return (checkpoint(_enc_block, *args, use_reentrant=False)
+                if remat else _enc_block(*args))
+    return layer
+
+
+def _serve_layers(cfg, sp, mesh):
+    """Serving's encoder layer ``(i, bp, x, pos) -> x`` on this rank's
+    shards (``sp`` their serving specs): x this rank's rows at every
+    position, each layer's heads (`attention.serve_tp`, non-causal, no
+    cache) and d_ff channels (`mlp.serve`) split, the output whole on
+    every rank of "model"."""
+    def layer(i, bp, x, pos):
+        s = sp["enc_layers"][i]
+        x = x + attention.serve_tp(bp["attn"], s["attn"],
+                                   layernorm(bp["norm1"], x), cfg, pos, None,
+                                   "prefill", causal=False, mesh=mesh)
+        return x + mlp.serve(bp["mlp"], layernorm(bp["norm2"], x), s["mlp"],
+                             mesh)
+    return layer
+
+
+def _encode(params, frames, cfg, layer, lay=None):
     """frames: the whole (B, T_enc, d), or this rank's block of ``lay``
-    -> the encoder output in the same layout. ``sp``: the parameters'
-    specs (None: whole weights)."""
+    -> the encoder output in the same layout, ``layer(i, bp, x, pos)``
+    running encoder layer i (`_train_layers`, `_serve_layers`)."""
     B, S, d = frames.shape
     dt = cfg.activation_dtype
     sin = _sinusoid(S if lay is None else lay.S, d, frames.device, lay)
     x = frames.to(dt) + sin.to(dt)
     pos = _zero_pos(B, S, frames.device)
     for i, bp in enumerate(params["enc_layers"]):
-        args = (bp, x, cfg, pos, lay, None if sp is None
-                else sp["enc_layers"][i])
-        x = (checkpoint(_enc_block, *args, use_reentrant=False)
-             if remat else _enc_block(*args))
+        x = layer(i, bp, x, pos)
     return layernorm(params["enc_norm"], x)
 
 
@@ -204,10 +241,10 @@ def encode(params, frames: torch.Tensor, cfg, remat: bool = False, *,
     at the rows and positions of ``Layout.of(mesh, B, T_enc, d)``."""
     mesh = current_mesh()
     if mesh is None:
-        return _encode(params, frames, cfg, remat)
+        return _encode(params, frames, cfg, _train_layers(cfg, remat))
     lay = Layout.of(mesh, *frames.shape)
     return _encode(params, frames[lay.rows()][:, lay.positions()], cfg,
-                   remat, lay, specs)
+                   _train_layers(cfg, remat, lay, specs), lay)
 
 
 # -- decoder: training --------------------------------------------------------
@@ -217,11 +254,10 @@ def _dec_block_train(bp, x, enc_out, cfg, pos, lay=None, sp=None,
     x = x + attention.train(bp["self_attn"], layernorm(bp["norm1"], x), cfg,
                             pos, causal=True, lay=lay,
                             sp=transformer._sub(sp, "self_attn"))
-    h, _ = attention.cross_train(bp["cross_attn"],
-                                 layernorm(bp["norm_x"], x), enc_out, cfg,
-                                 lay=elay,
-                                 sp=transformer._sub(sp, "cross_attn"))
-    x = x + h
+    x = x + attention.cross_train(bp["cross_attn"],
+                                  layernorm(bp["norm_x"], x), enc_out, cfg,
+                                  lay=elay,
+                                  sp=transformer._sub(sp, "cross_attn"))
     return x + mlp.apply(bp["mlp"], layernorm(bp["norm2"], x), lay,
                          transformer._sub(sp, "mlp"))
 
@@ -258,7 +294,7 @@ def _forward_train_sharded(params, sp, frames, tokens, cfg, mesh, remat):
     B, S = tokens.shape
     elay = Layout.of(mesh, *frames.shape)
     enc_out = _encode(params, frames[elay.rows()][:, elay.positions()], cfg,
-                      remat, elay, sp)
+                      _train_layers(cfg, remat, elay, sp), elay)
     lay = Layout.of(mesh, B, S, cfg.d_model)
     x = transformer._embed_sharded(params, sp, tokens[lay.rows()], cfg, lay)
     x = x + _sinusoid(S, cfg.d_model, x.device, lay).to(x.dtype)
@@ -298,73 +334,95 @@ def _pad_t(x: torch.Tensor, target: int) -> torch.Tensor:
     return torch.nn.functional.pad(x, (0, 0, 0, pad)) if pad else x
 
 
-def _serve_layout(cfg, B: int, S: int, mode: str):
+def _serve_layout(cfg, B: int, specs):
     """The decoder's layout of a serving step under the active mesh
-    (`transformer.serve_layout`), or None without one."""
+    (`transformer.serve_layout`), or None without one (a mesh needs the
+    shards' ``specs``)."""
     mesh = current_mesh()
     if mesh is None:
         return None
-    return transformer.serve_layout(mesh, cfg, B, S, mode, False)
+    if specs is None:
+        raise ValueError(f"{cfg.name} serves tensor parallel under a mesh: "
+                         f"pass its shards' specs "
+                         f"(launch.specs.serve_param_specs)")
+    return transformer.serve_layout(mesh, cfg, B)
 
 
-def prefill(params, frames, tokens, cfg, state):
+def _whole_specs(params):
+    """Every leaf whole: one device serves through the tensor-parallel
+    functions on these specs, each gather a no-op (the one-device
+    products)."""
+    return tree_map(lambda t: ((),) * t.dim(), params)
+
+
+def prefill(params, frames, tokens, cfg, state, specs=None):
     """Encode the frames, run the prompt through the decoder and fill both
     caches. tokens (B, S) with S a block multiple under per-block caches.
     Returns (logits of the last position (B, Vp), state). Under a mesh
     (module docstring) frames and tokens are the global batch, the
-    weights whole, the state this rank's shards, and the logits every
-    row's."""
+    weights this rank's shards (``specs`` theirs), the state this rank's
+    shards, and the logits every row's."""
     B, S = tokens.shape
-    lay = elay = _serve_layout(cfg, B, S, "prefill")
-    if lay is not None:
-        elay = Layout.of(lay.mesh, *frames.shape)
-        frames = frames[elay.rows()][:, elay.positions()]
-        tokens = tokens[lay.rows()][:, lay.positions()]
-    enc_out = _encode(params, frames, cfg, False, elay)
-    x = params["embed"][tokens]
-    x = x + _sinusoid(S, cfg.d_model, x.device, lay).to(x.dtype)
+    lay = _serve_layout(cfg, B, specs)
+    if lay is None:
+        mesh, specs = None, _whole_specs(params)
+    else:
+        mesh = lay.mesh
+        frames, tokens = frames[lay.rows()], tokens[lay.rows()]
+    enc_out = _encode(params, frames, cfg, _serve_layers(cfg, specs, mesh))
+    x = params["embed"][tokens] if lay is None else \
+        transformer._embed_sharded(params, specs, tokens, cfg, lay)
+    x = x + _sinusoid(S, cfg.d_model, x.device).to(x.dtype)
     pos = _zero_pos(*tokens.shape, x.device)
-    for bp, self_c, cross_c in zip(params["dec_layers"], state["self"],
-                                   state["cross"]):
-        h, _ = attention.prefill(bp["self_attn"], layernorm(bp["norm1"], x),
-                                 cfg, pos, self_c, lay=lay)
-        x = x + h
-        h, (ck, cv) = attention.cross_train(
-            bp["cross_attn"], layernorm(bp["norm_x"], x), enc_out, cfg,
-            lay=elay)
+    for bp, sp, self_c, cross_c in zip(params["dec_layers"],
+                                       specs["dec_layers"], state["self"],
+                                       state["cross"]):
+        x = x + attention.serve_tp(bp["self_attn"], sp["self_attn"],
+                                   layernorm(bp["norm1"], x), cfg, pos,
+                                   self_c, "prefill", mesh=mesh)
+        h, (ck, cv) = attention.cross_tp(bp["cross_attn"], sp["cross_attn"],
+                                         layernorm(bp["norm_x"], x), enc_out,
+                                         cfg, mesh)
         cross_c.prefill(_pad_t(ck.float(), cross_c.max_len),
                         _pad_t(cv.float(), cross_c.max_len))
         cross_c.length = ck.shape[2]            # masks the padding
         x = x + h
-        x = x + mlp.apply(bp["mlp"], layernorm(bp["norm2"], x))
-    last = x[:, -1]
-    if lay is not None and lay.seq:          # the last position's shard
-        last = lay.mesh.all_gather(x[:, -1:], lay.seq, 1)[:, -1]
-    return transformer._logits(params, last, cfg, lay), state
+        x = x + mlp.serve(bp["mlp"], layernorm(bp["norm2"], x), sp["mlp"],
+                          mesh)
+    return transformer._logits(params, x[:, -1], cfg, lay, specs), state
 
 
-def decode_step(params, token, cfg, state, pos_b):
+def decode_step(params, token, cfg, state, pos_b, specs=None):
     """token (B, 1), pos_b (B,) absolute positions -> (logits (B, Vp)
     float32, state). Under a mesh: the global batch in, this rank's rows
-    run over its shards of the caches, every row's logits out."""
+    run over its shards of the weights (``specs`` theirs) and of the
+    caches, every row's logits out."""
     B = token.shape[0]
-    lay = _serve_layout(cfg, B, 1, "decode")
-    if lay is not None:
+    lay = _serve_layout(cfg, B, specs)
+    if lay is None:
+        mesh, specs = None, _whole_specs(params)
+        x = params["embed"][token]
+    else:
+        mesh = lay.mesh
         token, pos_b = token[lay.rows()], pos_b[lay.rows()]
-    x = params["embed"][token] + sinusoid_rows(pos_b, cfg.d_model)[:, None]
+        x = transformer._embed_sharded(params, specs, token, cfg, lay)
+    x = x + sinusoid_rows(pos_b, cfg.d_model)[:, None]
     pos = _zero_pos(token.shape[0], 1, x.device)
-    for bp, self_c, cross_c in zip(params["dec_layers"], state["self"],
-                                   state["cross"]):
+    for bp, sp, self_c, cross_c in zip(params["dec_layers"],
+                                       specs["dec_layers"], state["self"],
+                                       state["cross"]):
         bp = _f32(bp)
-        h, _ = attention.decode(bp["self_attn"], layernorm(bp["norm1"], x),
-                                cfg, pos, self_c)
-        x = x + h
-        x = x + attention.cross_decode(bp["cross_attn"],
+        x = x + attention.serve_tp(bp["self_attn"], sp["self_attn"],
+                                   layernorm(bp["norm1"], x), cfg, pos,
+                                   self_c, "decode", mesh=mesh)
+        x = x + attention.cross_decode(bp["cross_attn"], sp["cross_attn"],
                                        layernorm(bp["norm_x"], x), cfg,
-                                       cross_c)
-        x = x + mlp.apply(bp["mlp"], layernorm(bp["norm2"], x))
+                                       cross_c, mesh)
+        x = x + mlp.serve(bp["mlp"], layernorm(bp["norm2"], x), sp["mlp"],
+                          mesh)
     x = layernorm(params["final_norm"], x[:, -1])
     logits = x @ params["embed"].float().T
-    if lay is not None and lay.batch:
-        logits = lay.mesh.all_gather(logits, lay.batch, 0)
-    return logits, state
+    if lay is None:
+        return logits, state
+    return transformer.gather_rows_cols(logits, lay.batch,
+                                        specs["embed"][0], mesh), state

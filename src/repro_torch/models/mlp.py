@@ -10,15 +10,13 @@ down-projection's partial sums reduce-scattered back to sequence shards.
 Otherwise ``_apply_plain`` on the layout `logical_spec` gives: with d_ff
 sharded and the sequence whole, the partial sums all-reduced; with d_ff
 whole (or the rows split over "model" too, `Layout.free`), this rank's
-rows alone. Serving an attention or MoE stack under a mesh calls
-`serve_cols` on the rank's shards (`launch.specs.serve_param_specs`: the
-hidden channels of ``w_gate`` / ``w_up`` and the output columns of
-``w_down`` over "model"): ``silu(x Wg) * (x Wu)`` on its channels, the
-hidden activations gathered, then its output columns, which the caller
-gathers. A recurrent stack serves the plain form on whole weights
-(gathered once a rank) over the rank's rows, and an encoder-decoder
-passes its layout without specs (whole weights: the plain form over the
-rank's rows and positions, `models.encdec`).
+rows alone. Serving under a mesh calls `serve` (`serve_cols` on the
+rank's shards, `launch.specs.serve_param_specs`: the hidden channels of
+``w_gate`` / ``w_up`` and the output columns of ``w_down`` over
+"model"): ``silu(x Wg) * (x Wu)`` on its channels, the hidden
+activations gathered, then its output columns, gathered; every family's
+MLP (a decoder's, a recurrent stack's, whisper's encoder and decoder)
+and an MoE's shared experts (`moe.serve_tp`) serve so.
 """
 from __future__ import annotations
 
@@ -63,3 +61,12 @@ def serve_cols(p, sp, x: torch.Tensor, mesh) -> torch.Tensor:
     product over d_ff, as one process sums it)."""
     h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
     return gather_cols(h, sp["w_gate"][-1], mesh) @ p["w_down"]
+
+
+def serve(p, x: torch.Tensor, sp=None, mesh=None) -> torch.Tensor:
+    """A serving step's SwiGLU: the plain form on one device (``sp``
+    None); under a mesh `serve_cols` on this rank's shards (``sp`` their
+    specs) with its output columns gathered: (B, S, d) whole."""
+    if sp is None:
+        return _swiglu(p, x)
+    return gather_cols(serve_cols(p, sp, x, mesh), sp["w_down"][-1], mesh)

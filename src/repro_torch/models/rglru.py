@@ -154,29 +154,36 @@ def _scan(a, b, h0=None):
     return _assoc_scan(a, b)[1]
 
 
-def apply_seq(p, x, cfg, state: RGLRUState | None = None,
-              f32_out: bool = False):
-    """Prefill: x (B, S, d) -> (out (B, S, d), final RGLRUState). Over a
-    cut of the channels (a rank's) the output is their part of the
-    ``w_out`` product; ``f32_out`` keeps that product in float32 (the
-    parts are summed before one rounding)."""
+def hidden_seq(p, x, cfg, state: RGLRUState | None = None):
+    """Prefill up to ``w_out``: x (B, S, d) -> (the hidden y (B, S, w),
+    final RGLRUState); over a cut of the channels (a rank's,
+    `models.recurrent_mesh`) y and the state are theirs."""
     gate = gelu(x @ p["w_gate"])
     u = (x @ p["w_in"]).float()
     u, tail = _conv1d(p, u, None if state is None else state.conv)
     a, b = _gates(p, u)
     h = _scan(a, b, None if state is None else state.h)      # (B, S, w)
-    y = h.to(x.dtype) * gate
-    out = y.float() @ p["w_out"].float() if f32_out else y @ p["w_out"]
-    return out, RGLRUState(h=h[:, -1], conv=tail.float())
+    return h.to(x.dtype) * gate, RGLRUState(h=h[:, -1], conv=tail.float())
 
 
-def apply_step(p, x, cfg, state: RGLRUState, state_quant: bool = False):
-    """Decode: x (B, 1, d) -> (out (B, 1, d), new state)."""
+def apply_seq(p, x, cfg, state: RGLRUState | None = None):
+    """Prefill: x (B, S, d) -> (out (B, S, d), final RGLRUState)."""
+    y, state = hidden_seq(p, x, cfg, state)
+    return y @ p["w_out"], state
+
+
+def hidden_step(p, x, cfg, state: RGLRUState, state_quant: bool = False,
+                row_max=None):
+    """Decode up to ``w_out``: x (B, 1, d) -> (the hidden (B, 1, w), new
+    state). ``row_max`` (state_quant over a cut of the channels): the
+    rows' absmax over this cut -> theirs over every channel."""
     h_prev = state.h
     if state_quant:
         # symmetric INT8 on the carried state, one scale per batch row
-        s = torch.clamp_min(h_prev.abs().amax(-1, keepdim=True),
-                            1e-30) / 127.0
+        amax = h_prev.abs().amax(-1, keepdim=True)
+        if row_max is not None:
+            amax = row_max(amax)
+        s = torch.clamp_min(amax, 1e-30) / 127.0
         h_prev = torch.clamp(torch.round(h_prev / s), -127, 127).to(
             torch.int8) * s
     gate = gelu(x @ p["w_gate"])                           # (B, 1, w)
@@ -184,5 +191,10 @@ def apply_step(p, x, cfg, state: RGLRUState, state_quant: bool = False):
     u, tail = _conv1d(p, u, state.conv)
     a, b = _gates(p, u[:, 0])                              # (B, w)
     h = a * h_prev + b
-    out = (h[:, None].to(x.dtype) * gate) @ p["w_out"]
-    return out, RGLRUState(h=h, conv=tail.float())
+    return h[:, None].to(x.dtype) * gate, RGLRUState(h=h, conv=tail.float())
+
+
+def apply_step(p, x, cfg, state: RGLRUState, state_quant: bool = False):
+    """Decode: x (B, 1, d) -> (out (B, 1, d), new state)."""
+    y, state = hidden_step(p, x, cfg, state, state_quant)
+    return y @ p["w_out"], state

@@ -51,28 +51,23 @@ the layouts of `models.recurrent_mesh`; the encoder-decoder
 head (`_embed_sharded`, `_head_sharded`).
 
 Serving under a mesh (every decoder stack; a sliding window from a
-sharded ring) takes the global batch and runs this rank's rows
-(`serve_layout`): the caches are this rank's shards of
+sharded ring) takes the global batch and runs this rank's rows, every
+position (`serve_layout`): the caches are this rank's shards of
 `launch.specs.cache_shardings` / `parallel.shard.paged_cache_specs`
-(`launch.specs.init_serve_state`). A stack of attention and MoE blocks
-(`tensor_parallel`) serves tensor parallel on this rank's shards of the
-weights alone (`launch.specs.serve_param_specs`, passed in as
-``specs``): the embedding vocab parallel (`_embed_sharded`: rows the
-rank lacks are zero, summed over "model"), the attention on the rank's
-heads (`attention.serve_tp`), the MLP and the MoE on its d_ff channels
-(`mlp.serve_cols`, `moe.serve_tp`), every product's output columns
-gathered rather than partial sums reduced, so each element is the one
-whole dot product one process computes; its prompt keeps the whole
-sequence on every rank of "model" and splits the heads. Any other stack
-takes WHOLE weights on every rank (`serving.engine.make_serve_fns`
-gathers a rank's shards once): its contiguous prefill runs context
-parallel over "model", each rank writing its slots of the
-sequence-sharded cache (a ring under a sliding window), a decode step
-merges the ranks' flat decode partials (`models.attention`), and a
-recurrent layer runs as `models.recurrent_mesh` lays it out, its state
-this rank's shards. The logits come back for every row, gathered over
-the batch axes (and the vocabulary's), so a step's callers
-(`decode_scan`, the greedy argmax) run as they do on one device.
+(`launch.specs.init_serve_state`), and every stack serves tensor
+parallel on this rank's shards of the weights alone
+(`launch.specs.serve_param_specs`, passed in as ``specs``): the
+embedding vocab parallel (`_embed_sharded`: rows the rank lacks are
+zero, summed over "model"), the attention on the rank's heads
+(`attention.serve_tp`; its prompt keeps the whole sequence on every rank
+of "model" and splits the heads), the recurrent mixers on its channels
+or heads (`models.recurrent_mesh`; the sLSTM on whole weights, by
+layout), the MLP and the MoE on its d_ff channels (`mlp.serve`,
+`moe.serve_tp`), every product's output columns gathered rather than
+partial sums reduced, so each element is the one whole dot product one
+process computes. The logits come back for every row, gathered over
+the batch axes and the vocabulary's, so a step's callers (`decode_scan`,
+the greedy argmax) run as they do on one device.
 """
 from __future__ import annotations
 
@@ -91,8 +86,8 @@ from repro_torch.models import (attention, mlp, moe, recurrent_mesh, rglru,
 from repro_torch.models import sampling as SMP
 from repro_torch.models.common import (dense_init, embed_init, layernorm,
                                        layernorm_init, rmsnorm, rmsnorm_init)
-from repro_torch.parallel.shard import (Layout, current_mesh, gather_cols,
-                                        gather_param, logical_spec)
+from repro_torch.parallel.shard import (Layout, current_mesh, gather_param,
+                                        logical_spec)
 
 
 def padded_vocab(cfg) -> int:
@@ -114,15 +109,6 @@ def check_device(device) -> torch.device:
 
 
 ATTN_KINDS = ("attn", "local_attn", "moe")
-
-
-def tensor_parallel(cfg) -> bool:
-    """Whether ``cfg`` serves tensor parallel under a mesh (its weights
-    at rest in `launch.specs.serve_param_specs`' layout): a decoder whose
-    every block is attention or MoE. Stacks with recurrent blocks, and
-    the encoder-decoder, serve on whole weights gathered once a rank."""
-    return cfg.family != "encdec" and all(k in ATTN_KINDS
-                                          for k in cfg.block_pattern)
 
 
 def check_servable(cfg, *, paged: bool = False) -> None:
@@ -460,30 +446,22 @@ def _block_serve(p, x, kind: str, cfg, positions, cache, mode: str,
                  sp=None):
     """One layer over x (B, S, d): its mixer by kind (the cache or the
     recurrent state updated in place), the residual, then its FFN. Under
-    a mesh (``lay``) x is this rank's part: with ``sp`` (the layer's
-    serving specs: a tensor-parallel stack) the attention, MLP and MoE
-    run on the rank's shards (`attention.serve_tp`, `mlp.serve_cols`,
-    `moe.serve_tp`); without, on whole weights, the recurrent mixers as
-    `models.recurrent_mesh` lays them out."""
+    a mesh (``lay``) x is this rank's rows and ``sp`` the layer's serving
+    specs: the mixer and the FFN run on the rank's shards
+    (`attention.serve_tp`, `models.recurrent_mesh`, `mlp.serve`,
+    `moe.serve_tp`)."""
+    mesh = None if lay is None else lay.mesh
     h = norm(cfg, p["norm1"], x)
-    if sp is not None:
-        h = attention.serve_tp(p["attn"], sp["attn"], h, cfg, positions,
-                               cache, mode, local=kind == "local_attn",
-                               row_mask=row_mask, hist_blocks=hist_blocks,
-                               valid=valid, mesh=lay.mesh)
-        x = x + h.to(x.dtype)
-        h2 = norm(cfg, p["norm2"], x)
-        if "moe" in p:
-            return x + moe.serve_tp(p["moe"], sp["moe"], h2, cfg, lay.mesh)
-        return x + gather_cols(mlp.serve_cols(p["mlp"], sp["mlp"], h2,
-                                              lay.mesh),
-                               sp["mlp"]["w_down"][-1], lay.mesh)
     if kind in ATTN_KINDS:
         local = kind == "local_attn"
-        if mode == "prefill":
+        if sp is not None:
+            h = attention.serve_tp(p["attn"], sp["attn"], h, cfg, positions,
+                                   cache, mode, local=local,
+                                   row_mask=row_mask, hist_blocks=hist_blocks,
+                                   valid=valid, mesh=mesh)
+        elif mode == "prefill":
             h, cache = attention.prefill(p["attn"], h, cfg, positions, cache,
-                                         local=local, row_mask=row_mask,
-                                         lay=lay)
+                                         local=local, row_mask=row_mask)
         elif mode == "chunk":
             h, cache = attention.prefill_chunk(p["attn"], h, cfg, positions,
                                                cache, row_mask=row_mask,
@@ -499,25 +477,28 @@ def _block_serve(p, x, kind: str, cfg, positions, cache, mode: str,
             raise ValueError(f"{kind} blocks serve prefill and decode only "
                              f"(got mode {mode!r})")
         seq = mode == "prefill"
-        if lay is not None:
+        if sp is not None:
             fn = recurrent_mesh.prefill if seq else recurrent_mesh.decode
-            h = fn(kind, p[kind], h, cfg, lay, cache)
-        elif kind == "rglru":
-            h, new = (rglru.apply_seq(p["rglru"], h, cfg) if seq else
-                      rglru.apply_step(p["rglru"], h, cfg, cache))
-        elif kind == "mlstm":
-            h, new = (xlstm.mlstm_seq(p["mlstm"], h, cfg) if seq else
-                      xlstm.mlstm_step(p["mlstm"], h, cfg, cache))
+            h = fn(kind, p[kind], sp[kind], h, cfg, lay, cache)
         else:
-            h, new = (xlstm.slstm_seq(p["slstm"], h, cfg) if seq else
-                      xlstm.slstm_step(p["slstm"], h, cfg, cache))
-        if lay is None:
+            if kind == "rglru":
+                h, new = (rglru.apply_seq(p["rglru"], h, cfg) if seq else
+                          rglru.apply_step(p["rglru"], h, cfg, cache))
+            elif kind == "mlstm":
+                h, new = (xlstm.mlstm_seq(p["mlstm"], h, cfg) if seq else
+                          xlstm.mlstm_step(p["mlstm"], h, cfg, cache))
+            else:
+                h, new = (xlstm.slstm_seq(p["slstm"], h, cfg) if seq else
+                          xlstm.slstm_step(p["slstm"], h, cfg, cache))
             cache.copy_(new)
     x = x + h.to(x.dtype)
     if "moe" in p:
-        return x + moe.apply(p["moe"], norm(cfg, p["norm2"], x), cfg)[0]
+        h2 = norm(cfg, p["norm2"], x)
+        return x + (moe.apply(p["moe"], h2, cfg)[0] if sp is None else
+                    moe.serve_tp(p["moe"], sp["moe"], h2, cfg, mesh))
     if "mlp" in p:
-        return x + mlp.apply(p["mlp"], norm(cfg, p["norm2"], x))
+        return x + mlp.serve(p["mlp"], norm(cfg, p["norm2"], x),
+                             _sub(sp, "mlp"), mesh)
     return x
 
 
@@ -527,26 +508,22 @@ def _serve(params, tok, cfg, state, positions, mode: str, row_mask=None,
     states, the layout) — the head is applied by the caller, only where it
     reads logits (the same numbers as the reference's all-position head).
     Without a mesh the states are (B, S, d) and the layout None; under one
-    they are this rank's rows, and in a recurrent stack's contiguous
-    prefill its positions, of `serve_layout`: a tensor-parallel stack
-    (`tensor_parallel`) on the rank's shards laid out by ``specs``
-    (`launch.specs.serve_param_specs`; the embedding vocab parallel), any
-    other on whole weights."""
+    they are this rank's rows of `serve_layout`, computed on the rank's
+    shards laid out by ``specs`` (`launch.specs.serve_param_specs`; the
+    embedding vocab parallel)."""
     mesh = current_mesh()
     lay = sp = None
     if mesh is not None:
-        lay = serve_layout(mesh, cfg, *tok.shape, mode,
-                           isinstance(state[0], PagedQuantizedKVCache))
-        rows, cols = lay.rows(), lay.positions()
-        tok, positions = tok[rows][:, cols], positions[rows][..., cols]
+        if specs is None:
+            raise ValueError(f"{cfg.name} serves tensor parallel under a "
+                             f"mesh: pass its shards' specs "
+                             f"(launch.specs.serve_param_specs)")
+        lay = serve_layout(mesh, cfg, tok.shape[0])
+        rows = lay.rows()
+        tok, positions = tok[rows], positions[rows]
         row_mask = None if row_mask is None else row_mask[rows]
         valid = None if valid is None else valid[rows]
-        if tensor_parallel(cfg):
-            if specs is None:
-                raise ValueError(f"{cfg.name} serves tensor parallel under "
-                                 f"a mesh: pass its shards' specs "
-                                 f"(launch.specs.serve_param_specs)")
-            sp = specs["layers"]
+        sp = specs["layers"]
     x = params["embed"][tok] if sp is None else \
         _embed_sharded(params, specs, tok, cfg, lay)
     for i, (p, cache) in enumerate(zip(params["layers"], state)):
@@ -556,23 +533,13 @@ def _serve(params, tok, cfg, state, positions, mode: str, row_mask=None,
     return x, lay
 
 
-def serve_layout(mesh, cfg, B: int, S: int, mode: str,
-                 paged: bool) -> Layout:
+def serve_layout(mesh, cfg, B: int) -> Layout:
     """Where a serving step's (B, S, d) activations live under ``mesh``:
     rows over "batch" as the caches' specs lay them out (a row's cache
-    lives with it), and the positions of a contiguous prefill over
-    "seq_shard" (context parallel) in a stack with attention and
-    recurrent blocks, which serves on whole weights; every other step,
-    a tensor-parallel stack's (`tensor_parallel`: its weights hold a
-    rank's heads, and its prompt's flash splits the heads) and an
-    attention-free stack's prefill (each of its blocks gathers the whole
-    sequence: a split would only add the gathers), keeps the whole
-    sequence."""
-    lay = Layout.of(mesh, B, S, cfg.d_model)
-    if mode != "prefill" or paged or tensor_parallel(cfg) or not any(
-            k in ATTN_KINDS for k in cfg.block_pattern):
-        lay = dataclasses.replace(lay, seq=())
-    return lay
+    lives with it), every position on every rank of "model" (the
+    weights hold a rank's heads and channels, and a prompt's flash
+    splits the heads)."""
+    return dataclasses.replace(Layout.of(mesh, B, 1, cfg.d_model), seq=())
 
 
 def _head(params, x, cfg):
@@ -583,14 +550,13 @@ def _head(params, x, cfg):
 def _logits(params, x_last, cfg, lay, specs=None):
     """The head over each row's last hidden state (B_l, d) -> logits (B,
     Vp): under a mesh every row's, the same on every rank, gathered over
-    the batch axes and, with ``specs`` (a tensor-parallel stack), over
-    the head's vocabulary axes (the rank's columns of ``lm_head``, or of
-    a tied ``embed``'s rows), by one collective."""
+    the batch axes and the head's vocabulary axes (the rank's columns of
+    ``lm_head``, or of a tied ``embed``'s rows; ``specs`` theirs), by one
+    collective."""
     logits = _head(params, x_last, cfg)
     if lay is None:
         return logits
-    va = () if specs is None else (specs["embed"][0] if cfg.tie_embeddings
-                                   else specs["lm_head"][1])
+    va = specs["embed"][0] if cfg.tie_embeddings else specs["lm_head"][1]
     return gather_rows_cols(logits, lay.batch, va, lay.mesh)
 
 
@@ -625,10 +591,7 @@ def prefill(params, tokens, cfg, state, *, positions=None, row_mask=None,
                                  device=tokens.device)[None].expand(B, S)
     x, lay = _serve(params, tokens, cfg, state, positions, "prefill",
                     row_mask, specs=specs)
-    last = x[:, -1]
-    if lay is not None and lay.seq:          # the last position's shard
-        last = lay.mesh.all_gather(x[:, -1:], lay.seq, 1)[:, -1]
-    return _logits(params, last, cfg, lay, specs), state
+    return _logits(params, x[:, -1], cfg, lay, specs), state
 
 
 def prefill_chunk(params, tokens, cfg, state, *, start, row_mask=None,

@@ -17,8 +17,8 @@ tokens one at a time (a host loop), as the reference's ``jax.lax.scan``.
 
 The head count comes from the weights (``w_if`` has two columns a head),
 so a rank of a mesh runs its cut of the heads (`models.recurrent_mesh`);
-`mlstm_step` takes the key-dim part a rank holds of a sharded matrix
-memory, and the sLSTM cell the channels a rank holds of its state.
+`mlstm_hidden_step` takes the key-dim part a rank holds of a sharded
+matrix memory, and the sLSTM cell the channels a rank holds of its state.
 
 Every contraction is a plain matmul or einsum, as the reference computes
 them outside any Pallas kernel. The functions are functional and return
@@ -89,28 +89,30 @@ def _heads(p, cfg) -> tuple[int, int]:
     return p["w_if"].shape[1] // 2, cfg.d_model // cfg.n_heads
 
 
-def _qkv_gates(p, x, cfg):
+def _qkv_gates(p, x, cfg, qkv=None):
     """x (B, S, d) -> q, k, v (B, H, S, dh) in x's dtype (k / sqrt(dh)),
-    log_i, log_f (B, H, S) float32; H the heads of ``p``."""
+    log_i, log_f (B, H, S) float32; H the heads of ``p``. ``qkv``: x's
+    projections (x @ wq, x @ wk, x @ wv) where they are computed already
+    (a rank's heads, gathered)."""
     B, S, _ = x.shape
     nh, dh = _heads(p, cfg)
+    if qkv is None:
+        qkv = (x @ p["wq"], x @ p["wk"], x @ p["wv"])
     heads = lambda t: t.reshape(B, S, nh, dh).transpose(1, 2)
-    q = heads(x @ p["wq"])
-    k = heads(x @ p["wk"]) / torch.sqrt(torch.tensor(float(dh),
-                                                     dtype=x.dtype))
-    v = heads(x @ p["wv"])
+    q = heads(qkv[0])
+    k = heads(qkv[1]) / torch.sqrt(torch.tensor(float(dh), dtype=x.dtype))
+    v = heads(qkv[2])
     gates = x.float() @ p["w_if"] + p["b_if"]                  # (B, S, 2nh)
     log_i = -softplus(-gates[..., :nh])
     log_f = -softplus(-gates[..., nh:])
     return q, k, v, log_i.transpose(1, 2), log_f.transpose(1, 2)
 
 
-def mlstm_seq(p, x, cfg, chunk: int = 256, f32_out: bool = False):
-    """Chunkwise-parallel prefill: x (B, S, d) -> ((B, S, d), final
-    MLSTMState), quadratic within a chunk and recurrent across chunks.
-    Over a cut of the heads (``p``'s) the output is their part of the
-    ``wo`` product; ``f32_out`` keeps it in float32 (the parts are summed
-    before one rounding)."""
+def mlstm_hidden_seq(p, x, cfg, chunk: int = 256):
+    """Chunkwise-parallel prefill up to ``wo``: x (B, S, d) -> (the heads'
+    hidden (B, S, H * dh), final MLSTMState), quadratic within a chunk
+    and recurrent across chunks; H the heads of ``p`` (a rank's cut,
+    `models.recurrent_mesh`)."""
     B, S, _ = x.shape
     nh, dh = _heads(p, cfg)
     chunk = min(chunk, S)
@@ -164,24 +166,31 @@ def mlstm_seq(p, x, cfg, chunk: int = 256, f32_out: bool = False):
         mp = m_n
     h = torch.stack(hs, dim=2).reshape(B, nh, S, dh)
     h = h.transpose(1, 2).reshape(B, S, nh * dh).to(x.dtype)
-    out = h.float() @ p["wo"].float() if f32_out else h @ p["wo"]
     state = MLSTMState(C=Cp, n=np_, m=mp,
                        C_s=torch.full(np_.shape, 1e-30, dtype=torch.float32,
                                       device=x.device))
-    return out, state
+    return h, state
 
 
-def mlstm_step(p, x, cfg, state: MLSTMState, state_quant: bool = False,
-               part=None):
-    """Decode step: x (B, 1, d) -> ((B, 1, d), new state). ``part``
-    (keys, reduce): ``state`` holds the key dims ``keys`` (a slice) of C,
-    n and C_s, a rank's part of a memory sharded over them; the readout
-    ``C^T q`` and the normaliser ``n . q`` are then partial sums over the
-    key dims, and ``reduce(hnum, nq)`` returns them summed over every
-    part."""
+def mlstm_seq(p, x, cfg, chunk: int = 256):
+    """Chunkwise-parallel prefill: x (B, S, d) -> ((B, S, d), final
+    MLSTMState)."""
+    h, state = mlstm_hidden_seq(p, x, cfg, chunk)
+    return h @ p["wo"], state
+
+
+def mlstm_hidden_step(p, x, cfg, state: MLSTMState,
+                      state_quant: bool = False, part=None, qkv=None):
+    """Decode step up to ``wo``: x (B, 1, d) -> (the heads' hidden (B, 1,
+    d), new state). ``part`` (keys, reduce):
+    ``state`` holds the key dims ``keys`` (a slice) of C, n and C_s, a
+    rank's part of a memory sharded over them; the readout ``C^T q`` and
+    the normaliser ``n . q`` are then partial sums over the key dims, and
+    ``reduce(hnum, nq)`` returns them summed over every part. ``qkv``:
+    x's q, k, v projections computed already (`_qkv_gates`)."""
     B = x.shape[0]
     keys = slice(None) if part is None else part[0]
-    q, k, v, log_i, log_f = _qkv_gates(p, x, cfg)
+    q, k, v, log_i, log_f = _qkv_gates(p, x, cfg, qkv)
     q, k, v = q[:, :, 0], k[:, :, 0], v[:, :, 0]                # (B,H,dh)
     log_i, log_f = log_i[..., 0], log_f[..., 0]                 # (B,H)
 
@@ -203,15 +212,20 @@ def mlstm_step(p, x, cfg, state: MLSTMState, state_quant: bool = False,
         hnum, nq = part[1](hnum, nq)
     hden = torch.maximum(nq.abs()[..., None], torch.exp(-m_new)[..., None])
     h = (hnum / hden).reshape(B, 1, -1).to(x.dtype)
-    out = h @ p["wo"]
 
     if state_quant:
         # per-channel INT8 on the matrix memory: channel = last dim
         s = torch.clamp_min(C.abs().amax(-1), 1e-30) / 127.0
         C_q = torch.clamp(torch.round(C / s[..., None]), -127, 127).to(
             torch.int8)
-        return out, MLSTMState(C=C_q, n=n, m=m_new, C_s=s)
-    return out, MLSTMState(C=C, n=n, m=m_new, C_s=state.C_s)
+        return h, MLSTMState(C=C_q, n=n, m=m_new, C_s=s)
+    return h, MLSTMState(C=C, n=n, m=m_new, C_s=state.C_s)
+
+
+def mlstm_step(p, x, cfg, state: MLSTMState, state_quant: bool = False):
+    """Decode step: x (B, 1, d) -> ((B, 1, d), new state)."""
+    h, state = mlstm_hidden_step(p, x, cfg, state, state_quant)
+    return h @ p["wo"], state
 
 
 # -- sLSTM --------------------------------------------------------------------

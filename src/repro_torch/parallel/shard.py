@@ -270,10 +270,6 @@ class Mesh(MeshShape):
                     self._rank_lists(axes))
                 self._groups[axes] = mine
         self.stats = defaultdict(lambda: [0, 0, 0.0])
-        # the whole weights serving gathered last on this mesh
-        # (`serving.engine.gathered_weights`: the stacks that do not serve
-        # tensor parallel)
-        self.gathered: dict = {}
 
     def _rank_lists(self, axes) -> list[list[int]]:
         others = [a for a in self.axis_names if a not in axes]

@@ -25,22 +25,18 @@ paths; a mesh of one rank too). ``init_state``
 builds this rank's shards of the state (`launch.specs.init_serve_state`);
 the steps take this rank's shards of the parameters, laid out by
 `launch.specs.serve_param_specs`, take the global batch and return
-every row's logits. A stack of attention and MoE blocks
-(`transformer.tensor_parallel`) serves tensor parallel: each rank holds
-and computes with its shards alone (heads, kv heads, d_ff, the
-vocabulary and the output columns over "model"), and no weight byte
-crosses between ranks. A stack with recurrent blocks
-(recurrentgemma_9b, xlstm_350m) and the encoder-decoder (whisper_small)
-take `launch.specs.param_specs`' layout and gather it whole once per
-rank (`gathered_weights`, never per step). The functions run under the
-mesh and rules they were built under (None included; an override of the
-logical rules, `parallel.shard.SSM_RULES`, included), whatever is active
-when they are called. `generate`, the batchers and the serve CLI run on
-one device and refuse a mesh (`check_one_device`).
+every row's logits. Every stack serves tensor parallel (the attention
+and MoE stacks, the recurrent ones and the encoder-decoder alike): each
+rank holds and computes with its shards alone, from load to the end
+(heads, kv heads, d_ff, the RG-LRU's channels, the mLSTM's heads, the
+vocabulary and the output columns over "model"; the sLSTM whole by
+layout), and no weight byte crosses between ranks. The functions run
+under the mesh and rules they were built under (None included; an
+override of the logical rules, `parallel.shard.SSM_RULES`, included),
+whatever is active when they are called. `generate`, the batchers and
+the serve CLI run on one device and refuse a mesh (`check_one_device`).
 """
 from __future__ import annotations
-
-import time
 
 import numpy as np
 import torch
@@ -74,46 +70,13 @@ def check_one_device(what: str) -> None:
             f"make_chunk_prefill_fn")
 
 
-def gathered_weights(params, cfg, mesh) -> dict:
-    """This rank's shards ``params`` (laid out by
-    `launch.specs.param_specs`) -> the whole weights, on every rank of
-    ``mesh`` (a collective: every rank calls it): the serving weights of
-    a stack that does not serve tensor parallel (a recurrent stack, the
-    encoder-decoder; `transformer.tensor_parallel`). Gathered once per
-    parameter tree: the mesh keeps the last tree's whole weights (one
-    model's a rank; ``mesh.gathered``, which `release_gathered_weights`
-    empties), so a tree changed in place afterwards is not gathered
-    again. Prints the bytes gathered and sent a rank."""
-    held = mesh.gathered
-    if held.get("params") is params:
-        return held["whole"]
-    held.clear()
-    from repro_torch.launch.specs import gather_tree, param_specs
-    sent0 = sum(v[1] for v in mesh.stats.values())
-    t0 = time.perf_counter()
-    whole = gather_tree(params, param_specs(cfg, mesh), mesh)
-    sent = sum(v[1] for v in mesh.stats.values()) - sent0
-    nbytes = sum(t.numel() * t.element_size() for t in leaves(whole))
-    print(f"[serve] rank {mesh.rank}: {nbytes} B of whole weights, "
-          f"{sent} B sent gathering them, {time.perf_counter() - t0:.2f} s",
-          flush=True)
-    held.update(params=params, whole=whole, nbytes=nbytes, sent=sent)
-    return whole
-
-
-def release_gathered_weights(mesh) -> None:
-    """Drop the whole weights `gathered_weights` keeps on ``mesh``."""
-    mesh.gathered.clear()
-
-
-def _on_mesh(mesh, sharded: bool, cfg, fn, rules=None):
-    """``fn(params, ...)`` run under ``mesh`` and ``rules``; with
-    ``sharded``, on this rank's shards: a tensor-parallel stack's as they
-    are, ``fn`` given their specs (``specs=``; the shards' shapes checked
-    against them, so a tree in another layout raises), any other stack's
-    gathered whole once (`gathered_weights`)."""
-    tp = sharded and transformer.tensor_parallel(cfg)
-    if tp:
+def _on_mesh(mesh, cfg, fn, rules=None):
+    """``fn(params, ...)`` run under ``mesh`` and ``rules``; under a mesh
+    on this rank's shards as they are, ``fn`` given their specs
+    (``specs=``; the shards' shapes checked against
+    `launch.specs.serve_param_specs`, so a tree in another layout
+    raises)."""
+    if mesh is not None:
         from repro_torch.launch.specs import serve_param_specs, shard_shapes
         with mesh_context(mesh, rules):
             specs = serve_param_specs(cfg, mesh)
@@ -121,18 +84,16 @@ def _on_mesh(mesh, sharded: bool, cfg, fn, rules=None):
 
     def run(params, *args, **kw):
         with mesh_context(mesh, rules):
-            if tp:
-                got = [tuple(t.shape) for t in leaves(params)]
-                if got != want:
-                    raise ValueError(
-                        f"{cfg.name} serves tensor parallel: pass this "
-                        f"rank's shards laid out by "
-                        f"launch.specs.serve_param_specs (init_shards, or "
-                        f"refit_tree from training's param_specs)")
-                return fn(params, *args, specs=specs, **kw)
-            if sharded:
-                params = gathered_weights(params, cfg, mesh)
-            return fn(params, *args, **kw)
+            if mesh is None:
+                return fn(params, *args, **kw)
+            got = [tuple(t.shape) for t in leaves(params)]
+            if got != want:
+                raise ValueError(
+                    f"{cfg.name} serves tensor parallel: pass this rank's "
+                    f"shards laid out by launch.specs.serve_param_specs "
+                    f"(init_shards, or refit_tree from training's "
+                    f"param_specs)")
+            return fn(params, *args, specs=specs, **kw)
     return run
 
 
@@ -158,12 +119,11 @@ def make_serve_fns(cfg, *, max_len: int, paged: bool = False,
     global batch (``frames`` and ``tokens`` alike) and return (logits
     (B, Vp), state)."""
     mesh, rules = current_mesh(), rules_override()
-    sharded = mesh is not None
     if cfg.family == "encdec":
         check_encdec(paged, kv_cache_dtype)
 
     def init_state(batch):
-        if sharded:
+        if mesh is not None:
             from repro_torch.launch.specs import init_serve_state
             with mesh_context(mesh, rules):
                 return init_serve_state(cfg, batch, max_len, mesh,
@@ -178,15 +138,18 @@ def make_serve_fns(cfg, *, max_len: int, paged: bool = False,
             kv_cache_dtype=kv_cache_dtype, device=device)
 
     if cfg.family == "encdec":
-        def prefill_fn(params, batch_inputs, state, row_mask=None):
+        def prefill_fn(params, batch_inputs, state, row_mask=None,
+                       specs=None):
             return encdec.prefill(params, batch_inputs["frames"],
-                                  batch_inputs["tokens"], cfg, state)
+                                  batch_inputs["tokens"], cfg, state,
+                                  specs=specs)
 
-        def decode_fn(params, token, state, pos):
-            return encdec.decode_step(params, token, cfg, state, pos)
+        def decode_fn(params, token, state, pos, specs=None):
+            return encdec.decode_step(params, token, cfg, state, pos,
+                                      specs=specs)
 
-        return (init_state, _on_mesh(mesh, sharded, cfg, prefill_fn, rules),
-                _on_mesh(mesh, sharded, cfg, decode_fn, rules))
+        return (init_state, _on_mesh(mesh, cfg, prefill_fn, rules),
+                _on_mesh(mesh, cfg, decode_fn, rules))
 
     def prefill_fn(params, tokens, state, row_mask=None, specs=None):
         return transformer.prefill(params, tokens, cfg, state,
@@ -196,8 +159,8 @@ def make_serve_fns(cfg, *, max_len: int, paged: bool = False,
         return transformer.decode_step(params, token, cfg, state, pos,
                                        row_mask=row_mask, specs=specs)
 
-    return (init_state, _on_mesh(mesh, sharded, cfg, prefill_fn, rules),
-            _on_mesh(mesh, sharded, cfg, decode_fn, rules))
+    return (init_state, _on_mesh(mesh, cfg, prefill_fn, rules),
+            _on_mesh(mesh, cfg, decode_fn, rules))
 
 
 def make_chunk_prefill_fn(cfg, *, hist_blocks: int | None = None):
@@ -211,7 +174,6 @@ def make_chunk_prefill_fn(cfg, *, hist_blocks: int | None = None):
     if cfg.family == "encdec":
         raise ValueError("chunked prefill is decoder-only")
     mesh, rules = current_mesh(), rules_override()
-    sharded = mesh is not None
 
     def chunk_prefill(params, tokens, state, start, valid, row_mask,
                       specs=None):
@@ -221,7 +183,7 @@ def make_chunk_prefill_fn(cfg, *, hist_blocks: int | None = None):
                                          hist_blocks=hist_blocks,
                                          specs=specs)
 
-    return _on_mesh(mesh, sharded, cfg, chunk_prefill, rules)
+    return _on_mesh(mesh, cfg, chunk_prefill, rules)
 
 
 def generate(params, cfg, prompts, *, steps: int, sampling=None,

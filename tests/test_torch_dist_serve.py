@@ -7,7 +7,7 @@ UNSHARDED `make_serve_fns` on the same numpy weights (helpers and
 tolerances in tests/torch_serve_parity.py).
 
 internlm2_1_8b per block and per channel, qwen2_moe_a2_7b (the MoE
-routes the gathered sequence in the context-parallel prefill),
+routes every rank's whole sequence in the prefill),
 qwen2_vl_2b (M-RoPE), codeqwen1_5_7b and qwen2_5_32b (QKV bias) and
 llama3_2_3b, smoke in float32, each on meshes (data 2, model 2)
 and (data 1, model 4): 4 prompts of 24 tokens, max_len 48, then 8
@@ -43,15 +43,22 @@ ring's second block; xlstm_350m (mLSTM / sLSTM)
 under the default rules and under `SSM_RULES`. Each rank's ring and
 recurrent states are held against the reference state's slice where
 `launch.specs.cache_shardings` puts its shard (`check_state`);
-mixtral_8x22b serves tensor parallel as above, the others on weights
-gathered whole once. And
-(`SQ_CASES`) the sharded decode of `models.recurrent_mesh` over an
-mLSTM and an RG-LRU state, with and without ``state_quant``, against
-the reference's `mlstm_step` / `apply_step` (6 steps from the int8
-initial state: outputs and the state's shards).
+every one serves tensor parallel as above (`check_tensor_parallel`:
+the RG-LRU's channels, the mLSTM's heads, the sLSTM whole by layout,
+the bytes of the RG-LRU's hidden and column gathers, the mLSTM's
+q / k / v head gather, readout all-reduce and prefill state refit;
+under `SSM_RULES` no leaf split). And (`SQ_CASES`) the sharded decode
+of `models.recurrent_mesh` over an mLSTM and an RG-LRU state on the
+layer's weight shards, with and without ``state_quant`` (the RG-LRU's
+row scale a MAX over its channels' ranks), against the reference's
+`mlstm_step` / `apply_step` (6 steps from the int8 initial state:
+outputs, the state's shards, the weight bytes held and each step's
+bytes by collective).
 
-The encoder-decoder (`ENCDEC`): whisper_small per block, its frames
-(`make_frames`) encoded context parallel, its self caches sharded as
+The encoder-decoder (`ENCDEC`): whisper_small per block, tensor
+parallel (its encoder over every frame with its heads split, its cross
+K/V projected on a rank's kv heads and gathered, q's heads gathered in
+decode: `check_tensor_parallel`), its self caches sharded as
 the decoders' and its per-channel cross caches' `enc_cache_len` slots
 over "model", at its smoke encoder_seq 24 (24 slots: 12 a rank at
 (2, 2), 6 at (1, 4)) and at 20 and 12 (`dataclasses.replace`): 20
@@ -195,14 +202,7 @@ def test_sharded_long_context_serving_matches_reference(results, arch, gran,
         assert len(set(got["sent"].tolist())) == 1, (label, got["sent"])
         SV.check_state(got["state"], ref["state"], got["slices"], rcfg,
                        label)
-        # mixtral_8x22b serves tensor parallel, the others on gathered
-        # weights
-        if arch == "mixtral_8x22b":
-            SV.check_tensor_parallel(got, rcfg, mesh, label, s=s)
-        else:
-            p = got["params"]
-            assert p["held_bytes"] == p["spec_bytes"], (label, p)
-            assert p["gathered"] > 0, (label, "served without a gather")
+        SV.check_tensor_parallel(got, rcfg, mesh, label, s=s, rules=rules)
     if rcfg.sliding_window:                       # the ring's slots split
         n_model = SV.MESHES[mesh][1]
         slots = {tuple(g["slices"][f"{_first_attn(rcfg)}.k_q"][2])
@@ -222,8 +222,13 @@ def test_sharded_recurrent_decode_matches_reference(results, arch, kind,
                                                     rules, sq, mesh):
     d, refs = results
     key = f"sq-{arch}-{rules}-{sq}"
-    SV.check_recurrent(refs[key], [load_tree(d / f"{key}.{mesh}.{r}.npz")
-                                   for r in range(4)], f"{key} {mesh}")
+    ranks = [load_tree(d / f"{key}.{mesh}.{r}.npz") for r in range(4)]
+    SV.check_recurrent(refs[key], ranks, f"{key} {mesh}")
+    rcfg = SV.models(arch)[0]
+    for r, got in enumerate(ranks):
+        SV.check_tensor_parallel(got, rcfg, mesh, f"{key} {mesh} rank {r}",
+                                 prefill=None, rules=rules, only=kind,
+                                 state_quant=sq)
 
 
 def test_prefill_state_carried_into_shards(results):
@@ -292,7 +297,7 @@ def test_sharded_encdec_serving_matches_reference(results, arch, enc, mesh):
         SV.check_logits(got["logits"], ref["logits"], rcfg.vocab, label)
         np.testing.assert_array_equal(got["logits"], ranks[0]["logits"],
                                       err_msg=f"{label}: ranks differ")
-        assert len(set(got["sent"].tolist())) == 1, (label, got["sent"])
+        SV.check_tensor_parallel(got, rcfg, mesh, label)
         for k, flushed in (("self", SV.S // rcfg.quant.block_size),
                            ("cross", None)):
             SV.check_contiguous({k: got["state"][k]}, {k: ref["state"][k]},

@@ -13,15 +13,21 @@
   leaf; its hook sees the embedding, the head and one layer at a time
   (whisper_small: each encoder and decoder layer, the embedding, the
   two norms);
-- `launch.specs.serve_param_specs` (tensor-parallel serving) cuts every
-  attention weight on whole heads at every coordinate of the (data 2,
-  model 2) and (data 1, model 4) meshes (kv heads fewer than "model"
-  whole on every rank, query heads split where a rank's lie in one kv
-  head, `attention.head_slice`), the FFN, vocabulary and output columns
-  over "model" and nothing over "data"; and a tree in training's layout
-  (`param_specs`, whose "heads" cut splits a kv head at (1, 4)) re-cut by
-  `parallel.shard.refit` is bit for bit the serving layout's shards
-  (each gather answered from the whole leaf, without processes);
+- `launch.specs.serve_param_specs` (tensor-parallel serving, every
+  family) cuts every attention weight on whole heads at every coordinate
+  of the (data 2, model 2) and (data 1, model 4) meshes (kv heads fewer
+  than "model" whole on every rank, query heads split where a rank's lie
+  in one kv head, `attention.head_slice`; whisper_small's encoder, self
+  and cross attention), the mLSTM's q / k / v on whole heads, the
+  RG-LRU's channels, the FFN, vocabulary and output columns over
+  "model" and nothing over "data"; the RG-LRU's weight channel slices
+  equal its serving state's (two spec functions, compared slice by
+  slice); the sLSTM's leaves whole, and under `SSM_RULES` no leaf cut;
+  and a tree in training's layout (`param_specs`, whose "heads" cut
+  splits a kv head at (1, 4)) re-cut by `parallel.shard.refit` is bit
+  for bit the serving layout's shards (each gather answered from the
+  whole leaf, without processes), for the attention, MoE, recurrent and
+  encoder-decoder stacks;
 - `mesh_context` restores the mesh it found.
 """
 import dataclasses
@@ -37,10 +43,11 @@ from repro_torch.launch import specs as SP
 from repro_torch.models import attention as A
 from repro_torch.models import encdec as E
 from repro_torch.models import transformer as T
-from repro_torch.parallel.shard import (Mesh, MeshShape, backend_for,
-                                        current_mesh, mesh_context,
-                                        placement, refit, shard_slices,
-                                        spec_leaves, take_shard)
+from repro_torch.parallel.shard import (SSM_RULES, Mesh, MeshShape,
+                                        backend_for, current_mesh,
+                                        mesh_context, placement, refit,
+                                        shard_slices, spec_leaves,
+                                        take_shard)
 
 CARD = ("GPU-3f1c0c52-0a8e-7b1d-5c2e-9d40aa0c1e01",
         "GPU-8b2d7e14-61f0-4c3a-9e55-0b7f3c2d9a12",
@@ -137,15 +144,60 @@ def test_init_params_hands_over_one_part_at_a_time(arch):
 TP_MESHES = {"2x2": ((2, 2), ("data", "model")),
              "1x4": ((1, 4), ("data", "model"))}
 # (arch, smoke): the smoke configs' kv heads 2 or 4; qwen2_vl_2b's 12 / 2
-# at full width (G 6: 3 query heads a rank at (1, 4), one kv head read)
+# at full width (G 6: 3 query heads a rank at (1, 4), one kv head read);
+# recurrentgemma_9b's one kv head (query heads split, kv whole), its
+# RG-LRU channels; xlstm_350m's mLSTM heads and sLSTM; whisper_small's
+# encoder, self and cross attention
 TP_ARCHS = [("internlm2_1_8b", True), ("qwen2_moe_a2_7b", True),
             ("codeqwen1_5_7b", True), ("mixtral_8x22b", True),
-            ("qwen2_vl_2b", False), ("qwen2_5_32b", False)]
+            ("qwen2_vl_2b", False), ("qwen2_5_32b", False),
+            ("recurrentgemma_9b", True), ("recurrentgemma_9b", False),
+            ("xlstm_350m", True), ("whisper_small", True)]
+ATTN = ("attn", "self_attn", "cross_attn")
+RGLRU_CHANNELS = ("w_in", "w_gate", "conv_w", "lam", "w_a", "b_a", "w_x",
+                  "b_x")
+
+
+def _blocks(shapes, specs):
+    """(kind, parameters, specs) of each mixer and FFN of every layer (a
+    decoder's ``layers``, whisper's ``enc_layers`` and ``dec_layers``)."""
+    for key in ("layers", "enc_layers", "dec_layers"):
+        for lp, ls in zip(shapes.get(key, ()), specs.get(key, ())):
+            for kind in lp:
+                if not kind.startswith("norm"):
+                    yield kind, lp[kind], ls[kind]
+
+
+def _norms(shapes, specs):
+    """(name, leaf, spec) of every norm leaf: each layer's ``norm*`` (a
+    decoder's ``layers``, whisper's ``enc_layers`` and ``dec_layers``)
+    and the stack's ``final_norm`` / ``enc_norm``."""
+    tops = [(k, shapes[k], specs[k]) for k in ("final_norm", "enc_norm")
+            if k in shapes]
+    for key in ("layers", "enc_layers", "dec_layers"):
+        for i, (lp, ls) in enumerate(zip(shapes.get(key, ()),
+                                         specs.get(key, ()))):
+            tops += [(f"{key}[{i}].{k}", lp[k], ls[k]) for k in lp
+                     if k.startswith("norm")]
+    for name, lp, ls in tops:
+        for leaf in lp:
+            yield f"{name}.{leaf}", lp[leaf], ls[leaf]
+
+
+def _cols(spec, shape, m) -> tuple[int, int]:
+    """[start, stop) of this coordinate's last dim of a leaf."""
+    return shard_slices(spec, shape, m)[-1].indices(shape[-1])[:2]
 
 
 @pytest.mark.parametrize("mesh", list(TP_MESHES))
 @pytest.mark.parametrize("arch,smoke", TP_ARCHS)
 def test_serve_specs_cut_whole_heads(arch, smoke, mesh):
+    """Whole units cut at every coordinate: attention on whole query and
+    kv heads, the mLSTM's ``wq`` / ``wk`` / ``wv`` on whole heads (its
+    gate projection whole), the RG-LRU's channels, every FFN's hidden
+    channels and every output projection's d_model columns over "model",
+    the vocabulary's rows; nothing over "data"; the sLSTM and every norm
+    (each layer's, the final and the encoder's) whole."""
     sizes, axes = TP_MESHES[mesh]
     cfg = get_config(arch, smoke=smoke)
     specs = SP.serve_param_specs(cfg, MeshShape(axes, sizes))
@@ -155,42 +207,117 @@ def test_serve_specs_cut_whole_heads(arch, smoke, mesh):
     kv_split, G = Hkv % n == 0, H // Hkv
     for sp, leaf in zip(spec_leaves(specs), leaves(shapes), strict=True):
         assert all(a in ((), ("model",)) for a in sp), sp   # no "data"
-    seen = set()
+    seen, model = set(), ("model",)
+    for c in _coords(sizes):
+        m = CoordMesh(axes, sizes, c)
+        for kind, lp, ls in _blocks(shapes, specs):
+            if kind in ATTN:
+                heads = A.head_slice(cfg, ls, m)
+                for name, units, (h0, h1) in (("wq", H, heads["q"]),
+                                              ("wk", Hkv, heads["kv"]),
+                                              ("wv", Hkv, heads["kv"])):
+                    lo, hi = _cols(ls[name], lp[name].shape, m)
+                    assert (lo, hi) == (h0 * hd, h1 * hd), (name, c, lo, hi)
+                assert heads["kv"] == ((0, Hkv) if not kv_split else (
+                    c[1] * Hkv // n, (c[1] + 1) * Hkv // n))
+                q0, q1 = heads["q"]
+                assert q1 - q0 == H // n, (c, heads)  # every case splits q
+                r0, r1 = heads["reads"]
+                assert (r0, r1) == (q0 // G, (q1 - 1) // G + 1)
+                if kv_split:
+                    assert (r0, r1) == heads["kv"]
+                else:
+                    assert r1 - r0 == 1, heads        # one kv head read
+                seen.add((c[1], q0))
+                assert ls["wo"] == ((), model)
+            elif kind in ("mlp", "moe"):
+                for name in ("w_gate", "w_up", "w_down"):
+                    assert ls[name][-1] == model, (name, ls[name])
+                    assert ls[name][:-1] == ((),) * (lp[name].dim() - 1)
+                if kind == "moe":
+                    assert ls["router"] == ((), ())
+            elif kind == "rglru":
+                w = cfg.rnn_width
+                for name in RGLRU_CHANNELS:
+                    assert _cols(ls[name], lp[name].shape, m) == (
+                        c[1] * w // n, (c[1] + 1) * w // n), (name, c)
+                assert ls["w_out"] == ((), model)
+            elif kind == "mlstm":
+                dh, hl = cfg.d_model // H, H // n
+                for name in ("wq", "wk", "wv"):       # whole heads
+                    assert _cols(ls[name], lp[name].shape, m) == (
+                        c[1] * hl * dh, (c[1] + 1) * hl * dh), (name, c)
+                assert ls["w_if"] == ((), ()) and ls["b_if"] == ((),)
+                assert ls["wo"] == ((), model)
+            else:                                     # slstm: whole
+                assert kind == "slstm", kind
+                assert all(a == () for sp in ls.values() for a in sp), ls
+        n_norms = 0
+        for name, leaf, sp in _norms(shapes, specs):  # norms whole
+            assert sp == ((),) * leaf.dim(), (name, sp)
+            assert all(s == slice(None) for s in shard_slices(
+                sp, leaf.shape, m)), (name, c)
+            n_norms += 1
+        assert n_norms >= 1 + len(shapes.get("layers", ())), n_norms
+    assert specs["embed"] == (model, ())
+    if "lm_head" in specs:
+        assert specs["lm_head"] == ((), model)
+    if any(k in ATTN for k, _, _ in _blocks(shapes, specs)):
+        assert len(seen) == n               # each "model" rank its heads
+
+
+@pytest.mark.parametrize("mesh", list(TP_MESHES))
+@pytest.mark.parametrize("smoke", [True, False], ids=["smoke", "full"])
+def test_rglru_weight_channels_are_its_states(smoke, mesh):
+    """The RG-LRU's weights and its serving state come from two spec
+    functions (`serve_param_specs`, `serve_state_specs`): at every
+    coordinate the channel slices of ``w_in``, ``w_gate``, ``conv_w`` and
+    the gate vectors equal those of the state's ``h`` and ``conv``, so a
+    step touches only the rank's own state."""
+    sizes, axes = TP_MESHES[mesh]
+    cfg = get_config("recurrentgemma_9b", smoke=smoke)
+    shape = MeshShape(axes, sizes)
+    specs = SP.serve_param_specs(cfg, shape)
+    states, whole = SP.serve_state_specs(cfg, 4, 512, shape)
+    shapes = SP.param_shapes(cfg)
+    n_rglru = 0
     for c in _coords(sizes):
         m = CoordMesh(axes, sizes, c)
         for i, (lp, ls) in enumerate(zip(shapes["layers"],
                                          specs["layers"])):
-            att, sa = lp["attn"], ls["attn"]
-            heads = A.head_slice(cfg, sa, m)
-            for name, units, (h0, h1) in (("wq", H, heads["q"]),
-                                          ("wk", Hkv, heads["kv"]),
-                                          ("wv", Hkv, heads["kv"])):
-                cols = shard_slices(sa[name], att[name].shape, m)[1]
-                lo, hi, _ = cols.indices(att[name].shape[1])
-                assert (lo, hi) == (h0 * hd, h1 * hd), (name, c, lo, hi)
-            assert heads["kv"] == ((0, Hkv) if not kv_split else
-                                   (c[1] * Hkv // n, (c[1] + 1) * Hkv // n))
-            q0, q1 = heads["q"]
-            assert q1 - q0 == H // n, (c, heads)      # every case splits q
-            r0, r1 = heads["reads"]
-            assert (r0, r1) == (q0 // G, (q1 - 1) // G + 1)
-            if kv_split:
-                assert (r0, r1) == heads["kv"]
-            else:
-                assert r1 - r0 == 1, heads            # one kv head read
-            seen.add((c[1], q0))
-            ffn = lp.get("mlp") or lp["moe"]
-            fs = ls.get("mlp") or ls["moe"]
-            for name in ("w_gate", "w_up", "w_down"):
-                assert fs[name][-1] == ("model",), (name, fs[name])
-                assert fs[name][:-1] == ((),) * (ffn[name].dim() - 1)
-            assert sa["wo"] == ((), ("model",))
-            if "moe" in ls:
-                assert ls["moe"]["router"] == ((), ())
-            assert ls["norm1"]["scale"] == ((),)
-        assert specs["embed"] == (("model",), ())
-        assert specs["lm_head"] == ((), ("model",))
-    assert len(seen) == n                   # each "model" rank its heads
+            if "rglru" not in lp:
+                continue
+            st, sw = states[i], whole[i]
+            h = shard_slices(st["h"], sw.h.shape, m)[1]
+            conv = shard_slices(st["conv"], sw.conv.shape, m)[2]
+            assert h.indices(cfg.rnn_width) == conv.indices(cfg.rnn_width)
+            for name in RGLRU_CHANNELS:
+                got = shard_slices(ls["rglru"][name],
+                                   lp["rglru"][name].shape, m)[-1]
+                assert got.indices(cfg.rnn_width) == h.indices(
+                    cfg.rnn_width), (i, name, c, got, h)
+            assert h.indices(cfg.rnn_width)[:2] != (0, cfg.rnn_width)
+            n_rglru += 1
+    assert n_rglru
+
+
+@pytest.mark.parametrize("rules", ["default", "ssm"])
+def test_slstm_leaves_whole_and_ssm_cuts_nothing(rules):
+    """The sLSTM's leaves are whole on every rank by layout, under either
+    rules; under `SSM_RULES` ("model" holds rows) no leaf of xlstm_350m
+    is cut at all."""
+    sizes, axes = TP_MESHES["1x4"]
+    cfg = get_config("xlstm_350m", smoke=False)
+    with mesh_context(None, SSM_RULES if rules == "ssm" else None):
+        specs = SP.serve_param_specs(cfg, MeshShape(axes, sizes))
+    kinds = [k for k, _, _ in _blocks(SP.param_shapes(cfg), specs)]
+    assert kinds.count("slstm") == 3
+    for kind, _, ls in _blocks(SP.param_shapes(cfg), specs):
+        if kind == "slstm" or rules == "ssm":
+            assert all(a == () for sp in ls.values() for a in sp), (kind,
+                                                                    ls)
+    if rules == "ssm":
+        assert all(a == () for sp in spec_leaves(specs) for a in sp)
 
 
 class GatherMesh(CoordMesh):
@@ -207,7 +334,9 @@ class GatherMesh(CoordMesh):
         return take_shard(self.whole, tuple(self.cur), self)
 
 
-@pytest.mark.parametrize("arch", ["internlm2_1_8b", "qwen2_moe_a2_7b"])
+@pytest.mark.parametrize("arch", ["internlm2_1_8b", "qwen2_moe_a2_7b",
+                                  "recurrentgemma_9b", "xlstm_350m",
+                                  "whisper_small"])
 def test_training_layout_refits_to_serving(arch):
     """Saved at (2, 2) or (1, 4) in training's layout, re-cut at (1, 4)
     (a checkpoint is whole on disk: where it was saved does not
@@ -217,9 +346,10 @@ def test_training_layout_refits_to_serving(arch):
     cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
     shape = MeshShape(axes, sizes)
     have, want = SP.param_specs(cfg, shape), SP.serve_param_specs(cfg, shape)
-    whole = T.init_params(cfg, torch.Generator().manual_seed(5),
-                          device="cpu")
-    if cfg.n_kv_heads % 4:  # the trap: training's cut halves a kv head
+    init = E.init_params if cfg.family == "encdec" else T.init_params
+    whole = init(cfg, torch.Generator().manual_seed(5), device="cpu")
+    # the trap: training's cut halves a kv head
+    if cfg.n_kv_heads % 4 and "attn" in have["layers"][0]:
         assert have["layers"][0]["attn"]["wk"][1] == ("model",)
         assert want["layers"][0]["attn"]["wk"][1] == ()
     moved = 0

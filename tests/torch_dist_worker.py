@@ -362,11 +362,9 @@ def task_serve(task, mesh, rank):
     from repro_torch.launch import specs as SP
     from repro_torch.parallel.shard import SSM_RULES, mesh_context
     from repro_torch.serving.engine import (make_chunk_prefill_fn,
-                                            make_serve_fns,
-                                            release_gathered_weights)
+                                            make_serve_fns)
     cfg = _config(task)
     rules = SSM_RULES if task.get("rules") == "ssm" else None
-    release_gathered_weights(mesh)
     with mesh_context(mesh, rules):
         pspecs = SP.serve_param_specs(cfg, mesh)
         tspecs = SP.param_specs(cfg, mesh)
@@ -474,10 +472,9 @@ def _sent(mesh) -> dict:
 def _held_params(params, specs, cfg, mesh) -> dict:
     """What this rank holds of the serving weights: the bytes of the
     storages its leaves use (each counted once), the bytes the serving
-    specs give its shards (`launch.specs.shard_shapes`), how many leaves
-    the specs split (over axes of more than one rank) and how many of
-    those it holds whole, and how many leaves the mesh keeps gathered
-    (`serving.engine.gathered_weights`)."""
+    specs give its shards (`launch.specs.shard_shapes`), and how many
+    leaves the specs split (over axes of more than one rank) and how
+    many of those it holds whole."""
     import math
 
     from repro_torch.core.tree import leaves
@@ -497,9 +494,12 @@ def _held_params(params, specs, cfg, mesh) -> dict:
             whole += tuple(t.shape) == tuple(full.shape)
     want = sum(math.prod(shape) * x.element_size() for x, shape in zip(
         leaves(SP.param_shapes(cfg)), SP.shard_shapes(cfg, specs, mesh)))
+    return _held(held, want, split, whole)
+
+
+def _held(held, want, split, whole) -> dict:
     return {"held_bytes": np.int64(held), "spec_bytes": np.int64(want),
-            "split": np.int64(split), "split_whole": np.int64(whole),
-            "gathered": np.int64(len(mesh.gathered))}
+            "split": np.int64(split), "split_whole": np.int64(whole)}
 
 
 def task_save_params(task, mesh, rank):
@@ -517,9 +517,12 @@ def task_save_params(task, mesh, rank):
 def task_recurrent(task, mesh, rank):
     """The sharded decode of `models.recurrent_mesh` over one recurrent
     layer's state (the first of ``layer_kind``; ``state_quant``: from the
-    int8 initial state), its weights and seeded inputs from
-    ``inputs``; writes this rank's outputs, rows, state and where its
-    shards lie."""
+    int8 initial state), its weights (from ``inputs``) cut to this rank's
+    shards of `launch.specs.serve_param_specs` and its seeded inputs;
+    writes this rank's outputs, rows, state and where its shards lie, the
+    bytes each step sent and what it holds of the weights."""
+    import math
+
     import torch
 
     from repro_torch.launch import specs as SP
@@ -528,31 +531,46 @@ def task_recurrent(task, mesh, rank):
     from repro_torch.parallel.shard import SSM_RULES, mesh_context
     cfg = _config(task)
     data = load_tree(task["inputs"])
-    p = {k: torch.from_numpy(v).to(mesh.device)
-         for k, v in data["weights"].items()}
     x = data["x"]
     B = x.shape[1]
-    i = list(cfg.block_pattern).index(task["layer_kind"])
+    kind = task["layer_kind"]
+    i = list(cfg.block_pattern).index(kind)
     sq = task["state_quant"]
     rules = SSM_RULES if task.get("rules") == "ssm" else None
     with mesh_context(mesh, rules):
-        specs, whole = SP.serve_state_specs(cfg, B, 16, mesh)
+        sp = SP.serve_param_specs(cfg, mesh)["layers"][i][kind]
+        whole = {k: torch.from_numpy(v) for k, v in data["weights"].items()}
+        p = {k: v.to(mesh.device) for k, v in SP.shard_tree(
+            whole, sp, mesh).items()}
+        specs, swhole = SP.serve_state_specs(cfg, B, 16, mesh)
         st = SP.init_serve_state(cfg, B, 16, mesh, device=mesh.device)[i]
-        if sq and task["layer_kind"] == "mlstm":
+        if sq and kind == "mlstm":
             st.C = torch.zeros(st.C.shape, dtype=torch.int8,
                                device=mesh.device)
-        lay = serve_layout(mesh, cfg, B, 1, "decode", False)
+        lay = serve_layout(mesh, cfg, B)
         rows = lay.rows()
-        outs = [recurrent_mesh.decode(
-            task["layer_kind"], p, torch.from_numpy(x[t][rows]).to(
-                mesh.device), cfg, lay, st, state_quant=sq)
-            for t in range(x.shape[0])]
-    sl = _slices(specs, whole, mesh)
+        outs, sent = [], []
+        for t in range(x.shape[0]):
+            mesh.stats.clear()
+            outs.append(recurrent_mesh.decode(
+                kind, p, sp, torch.from_numpy(x[t][rows]).to(mesh.device),
+                cfg, lay, st, state_quant=sq))
+            sent.append(sum(v[1] for v in mesh.stats.values()))
+    split = [k for k in p if any(a and mesh.index(a)[1] > 1
+                                 for a in sp[k])]
+    held = _held(sum(t.untyped_storage().nbytes() for t in p.values()),
+                 sum(math.prod(SP._local(whole[k].shape, sp[k], mesh))
+                     * whole[k].element_size() for k in whole),
+                 len(split), sum(p[k].shape == whole[k].shape
+                                 for k in split))
+    sl = _slices(specs, swhole, mesh)
     save_tree(f"{task['result']}.{rank}.npz", {
         "out": np.stack([o.float().cpu().numpy() for o in outs]),
         "rows": np.array(rows.indices(B)[:2]),
         "state": {f: getattr(st, f).cpu().numpy() for f in st.spec},
-        "slices": {f: sl[f"{i}.{f}"] for f in st.spec}})
+        "slices": {f: sl[f"{i}.{f}"] for f in st.spec},
+        "sent": np.array(sent, np.int64), "decode_sent": _sent(mesh),
+        "params": held})
 
 
 TASKS = {"step": task_step, "encode": task_encode, "save": task_save,

@@ -13,6 +13,7 @@ reference's own sharded serving test (tests/test_distribution.py::
 test_sharded_decode_step_runs) fails under jax 0.9 (ROADMAP queue 3)."""
 import contextlib
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -262,50 +263,73 @@ def serve_task(arch, mesh, weights, batch, result, **kw) -> dict:
             "max_len": MAX_LEN, "result": str(result), **kw}
 
 
-def tp_sent(cfg, mesh: str, mode: str, S: int, paged: bool) -> dict:
+def tp_sent(cfg, mesh: str, mode: str, S: int, paged: bool, *,
+            rules: str = "default", only: str | None = None,
+            state_quant: bool = False) -> dict:
     """The bytes a rank sends, by "op:axes" (`Mesh.stats`' ring counts,
     each call's count rounded down), over one tensor-parallel serving
     step of ``cfg`` (float32) on ``mesh``: ``mode`` "decode" (S 1),
     "prefill" (make_serve_fns' whole prompt of S tokens) or "chunk"
-    (make_chunk_prefill_fn's). Reckoned from the shapes alone: the
-    embedding's all-reduce, per attention layer the heads gathered (the
-    rank's outputs over a pool of its kv heads or in a prompt; Q, K and V
-    over a cache holding every head), a contiguous prompt's K/V, the
-    sequence-sharded cache's flash partials and per-channel absmax, the
-    ``wo`` columns, the FFN's hidden activations and output columns,
-    and the last position's logits over the rows' and vocabulary's axes:
-    activations only."""
+    (make_chunk_prefill_fn's). Reckoned from the shapes alone, per layer
+    by kind: the embedding's all-reduce; an attention layer's heads
+    gathered (the rank's outputs over a pool of its kv heads or in a
+    prompt; Q, K and V over a cache holding every head), a contiguous
+    prompt's K/V, the sequence-sharded cache's flash partials and
+    per-channel absmax, the ``wo`` columns; an RG-LRU's hidden and its
+    ``w_out`` columns (state_quant: its rows' absmax MAX); an mLSTM's
+    q / k / v heads gathered and its readout all-reduced (decode) or its
+    final state refit from heads to key dims and its hidden gathered
+    (prefill), and its ``wo`` columns; an sLSTM's previous and new h and
+    its n's rows (the state only: whole weights); the FFN's hidden
+    activations and output columns; whisper's encoder (heads, ``wo``
+    and MLP columns over every frame), its cross K/V and heads, its
+    cross caches' absmax and its decode step's q heads and partials; and
+    the last position's logits over the rows' and vocabulary's axes:
+    activations only. ``rules`` "ssm": "model" takes the rows, nothing
+    is cut. ``only``: one layer of that kind's mixer alone (the
+    worker's ``recurrent`` task)."""
     n_d, n_m = MESHES[mesh]
-    Bl, a = B // n_d, 4
+    ssm = rules == "ssm"                # "model" holds rows: no cut
+    Bl, a = B // (n_d * n_m if ssm else n_d), 4
+    n_cut = 1 if ssm else n_m
     H, Hkv, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
     kv = Hkv % n_m == 0
     q = H % n_m == 0 and (kv or (H // Hkv) % (H // n_m) == 0)
     tok = Bl * S
     out = {}
 
-    def add(key, numel, n=n_m, elsize=a, reduce=False):
+    def add(key, numel, n=n_cut, elsize=a, reduce=False):
         if n > 1:
             out[key] = out.get(key, 0) + int(numel * elsize * (2 if reduce
                                                                 else 1)
                                               * (n - 1) / n)
-    add("all_reduce_sum:model", tok * d, reduce=True)     # the embedding
-    for i in range(cfg.n_layers):
-        if paged and kv:                        # the rank's kv heads
+
+    def attn(tok, cache, ctok=None):
+        """One attention layer: ``cache`` "paged", "contiguous", "cross"
+        (whisper's, ``ctok`` the encoder's tokens) or None (its
+        encoder's); the queries' ``tok`` tokens."""
+        if cache == "paged" and kv:             # the rank's kv heads
             add("all_gather:model", H * tok * hd)
         elif mode == "prefill":
-            if kv:                              # the cache's K and V
-                add("all_gather:model", 2 * Hkv * tok * hd)
+            if kv and cache is not None:        # the cache's K and V
+                add("all_gather:model", 2 * Hkv * (ctok or tok) * hd)
             if q:                               # the flash's heads
                 add("all_gather:model", H * tok * hd)
-            if cfg.quant.granularity == "per_channel" and not paged:
-                add("all_reduce_max:model", 2 * Bl * Hkv * hd,
-                    reduce=True)
+            if cache == "cross" or (
+                    cache == "contiguous"
+                    and cfg.quant.granularity == "per_channel"):
+                add("all_reduce_max:model", 2 * Bl * Hkv * hd, reduce=True)
+        elif cache == "cross":                  # q's heads
+            add("all_gather:model", (H if q else 0) * tok * hd)
+            add("all_gather:model", n_m * Bl * H * (hd + 2))
         else:                                   # every head everywhere
             add("all_gather:model", ((H if q else 0) + (2 * Hkv if kv
                                                         else 0)) * tok * hd)
-            if not paged and mode == "decode":  # the ranks' partials
+            if cache == "contiguous" and mode == "decode":
                 add("all_gather:model", n_m * Bl * H * (hd + 2))
         add("all_gather:model", tok * d)                   # wo
+
+    def ffn(tok):
         if cfg.n_experts:
             C = int(max(8, round(cfg.top_k * S / cfg.n_experts
                                  * cfg.capacity_factor)))
@@ -316,35 +340,92 @@ def tp_sent(cfg, mesh: str, mode: str, S: int, paged: bool) -> dict:
         else:
             add("all_gather:model", tok * cfg.d_ff)
         add("all_gather:model", tok * d)                   # w_down
+
+    def recurrent(kind):
+        nh, dh, w = H, d // H, cfg.rnn_width
+        if kind == "rglru":
+            if state_quant and mode == "decode":
+                add("all_reduce_max:model", Bl, reduce=True)
+            add("all_gather:model", tok * w)               # the hidden
+            add("all_gather:model", tok * d)               # w_out
+        elif kind == "mlstm":
+            if mode == "decode":
+                add("all_gather:model", 3 * tok * d)       # q, k, v
+                if dh % n_m == 0:                          # the readout
+                    add("all_reduce_sum:model", Bl * nh * (dh + 1),
+                        reduce=True)
+            elif nh % n_m == 0:           # C, n, m, C_s: heads -> keys
+                add("all_gather:model", Bl * nh * (dh * dh + 2 * dh + 1))
+            if mode != "decode":
+                add("all_gather:model", tok * d)           # the hidden
+            add("all_gather:model", tok * d)               # wo
+        elif ssm:               # slstm: n whole over its rows, its
+            if mode == "decode":  # channels over "model"
+                add("all_gather:model", B * d, n=n_m)      # n, read
+            add("all_gather:data+model", B * d, n=n_d * n_m)  # n, kept
+        else:
+            if mode == "decode":
+                add("all_gather:model", 2 * Bl * d)        # h, twice
+            add("all_gather:data", B * d // (n_m if mode == "decode"
+                                             else 1), n=n_d)  # n's rows
+    if only is not None:
+        recurrent(only)
+        return out
+    add("all_reduce_sum:model", tok * d, reduce=True)     # the embedding
+    if cfg.family == "encdec":
+        T = cfg.encoder_seq
+        if mode == "prefill":
+            for _ in range(cfg.n_encoder_layers):
+                attn(Bl * T, None)
+                ffn(Bl * T)
+        for _ in range(cfg.n_layers):
+            attn(tok, "contiguous")
+            attn(tok, "cross", Bl * T)
+            ffn(tok)
+    else:
+        for i in range(cfg.n_layers):
+            kind = cfg.block_kind(i)
+            if kind in ("attn", "local_attn", "moe"):
+                attn(tok, "paged" if paged else "contiguous")
+            else:
+                recurrent(kind)
+            if cfg.d_ff or cfg.n_experts:
+                ffn(tok)
     vp = -(-cfg.vocab // 128) * 128
-    axes = "data+model" if n_d > 1 else "model"
-    add(f"all_gather:{axes}", B * vp, n=n_d * n_m)
+    axes = "+".join(a for a, n in zip(AXES, MESHES[mesh]) if n > 1)
+    add(f"all_gather:{axes}", B * vp, n=math.prod(MESHES[mesh]))
     return out
 
 
 def check_tensor_parallel(got, cfg, mesh: str, label: str, *, paged=False,
-                          prefill: str | None = "prefill", s: int = S):
+                          prefill: str | None = "prefill", s: int = S,
+                          rules: str = "default", only: str | None = None,
+                          state_quant: bool = False):
     """A tensor-parallel rank's serving (`torch_dist_worker._held_params`
-    and the bytes its steps sent): its parameters' storages exactly the
-    bytes its serving specs give its shards, none of the leaves the specs
-    split held whole (and some split), nothing gathered whole on the
-    mesh, and every decode step's and the prefill's (``prefill``, the
-    route: "prefill" or "chunk"; None: a carried state; ``s`` tokens a
-    row) bytes by collective as `tp_sent` reckons them, activations
-    only."""
+    and the bytes its steps sent): its parameters' storages, after the
+    run, exactly the bytes its serving specs give its shards, none of the
+    leaves the specs split held whole (and some split; under ``rules``
+    "ssm", where "model" holds rows, none split), and every decode
+    step's and the prefill's (``prefill``, the route: "prefill" or
+    "chunk"; None: none, a carried state; ``s`` tokens a row) bytes by
+    collective as `tp_sent` reckons them, activations only: no weight
+    byte gathered. ``only``: one layer of that kind's mixer (the
+    worker's ``recurrent`` task)."""
     p = got["params"]
     assert p["held_bytes"] == p["spec_bytes"], (label, p)
-    assert p["split"] > 0 and p["split_whole"] == 0, (label, p)
-    assert p["gathered"] == 0, (label, "weights gathered whole")
-    want = tp_sent(cfg, mesh, "decode", 1, paged)
-    assert {k: int(v) for k, v in got["decode_sent"].items()} == want, (
-        label, got["decode_sent"], want)
+    assert p["split_whole"] == 0, (label, p)
+    assert (p["split"] > 0) == (rules != "ssm"), (label, p)
+    kw = dict(rules=rules, only=only, state_quant=state_quant)
+    want = tp_sent(cfg, mesh, "decode", 1, paged, **kw)
+    sent = got.get("decode_sent", {})           # an empty dict is no key
+    assert {k: int(v) for k, v in sent.items()} == want, (label, sent, want)
     assert set(got["sent"].tolist()) == {sum(want.values())}, (
         label, got["sent"], want)
     if prefill is not None:
-        want = tp_sent(cfg, mesh, prefill, s, paged)
-        assert {k: int(v) for k, v in got["prefill_sent"].items()} == want, (
-            label, got["prefill_sent"], want)
+        want = tp_sent(cfg, mesh, prefill, s, paged, **kw)
+        sent = got.get("prefill_sent", {})
+        assert {k: int(v) for k, v in sent.items()} == want, (label, sent,
+                                                               want)
 
 
 def close_int8(got, want, label):
