@@ -72,7 +72,10 @@ Phases, each fatal on failure (no fallback anywhere):
   4. CPU <-> card parity: the smoke config in float32 on the card
      (kernels) and on the CPU (plain versions): identical greedy tokens
      from the paged LLMEngine, the contiguous LLMEngine and greedy_generate
-     (per block and per channel); threefry bits on the card bit for bit
+     (per block and per channel); the paged engine's dequantize-gather
+     prefill oracle (use_fused_prefill=False) against its fused tokens on
+     the card (a difference allowed only at a top-2 gap under
+     ORACLE_GAP); threefry bits on the card bit for bit
      against the committed known answers of jax 0.9 and against the CPU;
      identical tokens of seeded sampled requests mixed with greedy ones
      (temperature 0.7 top_k 50, 1.0 top_p 0.9, 0.8 top_k 40 top_p 0.95)
@@ -286,7 +289,19 @@ Phases, each fatal on failure (no fallback anywhere):
      when a rank computes a quarter of their output columns (at a decode
      step's 4 rows and a prompt's 1024). The
      kernels' launch counters are set to 0 just before each path and
-     must be > 0 just after for every kernel the path runs.
+     must be > 0 just after for every kernel the path runs. Then
+     `dryrun` (`dryrun_phase`): `launch.dryrun` traces, in this process
+     on fake tensors over a fake process group, the sharded runs above
+     (internlm2_1_8b's two contiguous runs, qwen2_5_32b and
+     recurrentgemma_9b uncut, internlm2_1_8b's training run, and the
+     NCCL rank's serving and training runs at (1, 1)) with their
+     config, cut, mesh, rows and lengths: weight, state and
+     per-collective bytes exactly every rank's, no measured step or
+     prefill faster than its roofline, each rank's peak within
+     DRYRUN_PEAK_TOL of the traced bytes a device; and each serving
+     run's one process (no mesh) against a trace with no mesh: state
+     bytes exact, no prefill or decode step faster than its roofline;
+     every measured / roofline ratio printed.
   6. a {"kernels": [...]} line, then the card line, then as the last line
      {"ok": true, "device": {...}}.
 Exits non-zero without a CUDA device or without the repository's src/.
@@ -306,9 +321,15 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
-F32_FLOP_PER_S = 67e12         # H100 SXM float32 peak outside the tensor cores
-BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 dense tensor-core peak
+# the card's published rates (H100 80GB HBM3 SXM5 at 700 W), the ones the
+# dry run's roofline divides by: src/repro_torch/launch/mesh.py
+sys.path.insert(0, str(SRC))
+try:
+    from repro_torch.launch.mesh import HBM_BW as HBM_BYTES_PER_S
+    from repro_torch.launch.mesh import PEAK_FLOPS_BF16 as BF16_FLOP_PER_S
+    from repro_torch.launch.mesh import PEAK_FLOPS_F32 as F32_FLOP_PER_S
+except ImportError:            # not a checkout: main() says so and exits
+    HBM_BYTES_PER_S = F32_FLOP_PER_S = BF16_FLOP_PER_S = None
 PCIE_BYTES_PER_S = 64e9        # H100 SXM host link, PCIe Gen5 x16, each way
 DTYPES = ("int8", "fp8_e4m3", "int4")
 # kernel vs plain version, both float32 on the card; sums run in another
@@ -2085,6 +2106,38 @@ def parity_smoke(dev):
         log(f"[parity] smoke f32 {label}: {n_tok} greedy tokens identical on "
             f"cpu (plain versions) and card (kernels)"
             + ("" if paged else ", greedy_generate included"))
+        if paged:
+            fused = streams[str(dev)]
+    # the dequantize-gather prefill oracle (plain PyTorch on the card, no
+    # kernel of its own) against the fused engine's tokens on the card
+    eng = LLMEngine(_to(params, dev), base, EngineConfig(
+        batch=2, max_len=128, paged=True, use_fused_prefill=False),
+        device=dev)
+    oracle = [o.token_ids for o in eng.generate(prompts, sps)]
+    if not any(not f for _, f, _ in eng.batcher._chunk_prefill_fns):
+        raise AssertionError("smoke f32 paged oracle: no oracle chunk step")
+    diff = _first_difference(fused, oracle)
+    if diff is None:
+        log(f"[parity] smoke f32 paged oracle (use_fused_prefill=False) on "
+            f"the card: {sum(map(len, oracle))} greedy tokens identical to "
+            f"the fused engine's")
+    else:
+        r, j = diff
+        gap = draw_gap(params, base, list(prompts[r]) + fused[r][:j],
+                       sps[r], r, j)
+        log(f"[parity] smoke f32 paged oracle on the card parts from the "
+            f"fused engine at request {r} token {j}: {fused[r][j:j + 3]} "
+            f"against {oracle[r][j:j + 3]}, the fused history's top-2 gap "
+            f"{gap:.3e} on the CPU")
+        if gap > ORACLE_GAP:
+            raise AssertionError(f"smoke f32 paged oracle: a token differs "
+                                 f"at a top-2 gap of {gap:.3e}")
+
+
+# the oracle's tokens may part from the fused engine's only at a near
+# tie: float32 sums in another order (one softmax over a gathered
+# history against the kernel's split walk) move a logit by ~1e-6
+ORACLE_GAP = 1e-3
 
 
 # (temperature, top_k, top_p, seed) mixes of the sampled phases: a greedy
@@ -5417,6 +5470,9 @@ def _sharded_run(mesh, dev, arch: str, layers, B: int, S: int, steps: int,
     for c in counters.values():
         c.launches = 0
     rows = []
+    # the steps' own peak (the weights and optimizer state resident, the
+    # draw's peak reset)
+    torch.cuda.reset_peak_memory_stats(dev)
     for i in range(steps):
         b = data.batch_at(i)
         if cfg.family == "encdec":          # the train CLI's frames
@@ -5433,10 +5489,12 @@ def _sharded_run(mesh, dev, arch: str, layers, B: int, S: int, steps: int,
                      "collectives": {f"{op}:{'+'.join(ax)}": {
                          "calls": v[0], "bytes": v[1], "host_s": v[2]}
                          for (op, ax), v in mesh.stats.items()}})
+    step_peak = torch.cuda.max_memory_allocated(dev)
     out = {"steps": rows,
            "launches": {k: c.launches for k, c in counters.items()},
            "collectives": rows[-1]["collectives"],
-           "peak_bytes": torch.cuda.max_memory_allocated(dev),
+           "peak_bytes": max(init_peak, step_peak),
+           "step_peak_bytes": step_peak,
            "init_peak_bytes": init_peak,
            "state_bytes": sum(t.numel() * t.element_size()
                               for t in _leaves({"p": params, "o": opt}))}
@@ -5594,6 +5652,9 @@ def sharded_full_width(dev, card: str) -> dict:
         cfg = _cut(arch, layers)
         one = SINGLE[single]
         _hold_sharded(label, reps, one, _n_attn(cfg), comp)
+        RANK_REPORTS[label] = {"arch": arch, "layers": layers, "B": B,
+                               "S": S, "comp": comp, "sizes": sizes,
+                               "per": [r["runs"][label] for r in reps]}
         rows = reps[0]["runs"][label]["steps"]
         plain = SINGLE[single.replace(" compressed", "")].get(
             "plain_flash_loss")
@@ -5650,6 +5711,8 @@ def sharded_full_width(dev, card: str) -> dict:
     _hold_sharded(label, nccl, SINGLE[single], _n_attn(_cut(arch, layers)),
                   False)
     run = nccl[0]["runs"][label]
+    RANK_REPORTS[label] = {"arch": arch, "layers": layers, "B": B, "S": S,
+                           "comp": False, "sizes": (1, 1), "per": [run]}
     counts[label] = run["launches"]
     report[label] = run
     log(f"[{label}] backend nccl, losses "
@@ -6592,8 +6655,9 @@ def _serve_sharded_run(mesh, dev, params, cfg, run: dict, ref: Path
     rep["route_flips"] = _route_flips(
         _routes(rec, _steps(run)), ref,
         serve_layout(mesh, cfg, B).rows()) if rec else []
-    rep["state"] = _hold_state(state, specs, whole, mesh, ref, cfg, S)
+    # the run's peak, read before the checks below allocate
     rep["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    rep["state"] = _hold_state(state, specs, whole, mesh, ref, cfg, S)
     rep["weights_after"] = _storage_bytes(params)
     del state
     gc.collect()
@@ -6942,6 +7006,10 @@ def _serve_ranks(dev, card: str, name: str, runs: tuple, nccl: tuple,
             counts[f"serve sharded {run['label']}"] = _hold_serve(
                 run, reps, sub[_ref_kind(run)],
                 preds[run["label"]], card, sizes)
+            RANK_REPORTS[f"serve {run['label']}"] = {
+                "run": run, "sizes": tuple(sizes),
+                "per": [r["serve"][run["label"]] for r in reps],
+                "one": sub["whole"]}
         report["one_process"] = one
         report["ranks"] = [{**{k: v for k, v in r.items()
                                if k not in ("serve", "runs")},
@@ -6965,6 +7033,9 @@ def _serve_ranks(dev, card: str, name: str, runs: tuple, nccl: tuple,
                 run, nccl_reps, one[run["label"]]["whole"],
                 serve_predict(_serve_run_cfg(run), run, (1, 1)), card,
                 (1, 1))
+            RANK_REPORTS[f"serve nccl {run['label']}"] = {
+                "run": run, "sizes": (1, 1),
+                "per": [nccl_reps[0]["serve"][run["label"]]]}
         log(f"[{name}] the NCCL rank in {time.perf_counter() - t1:.1f} s")
     finally:
         shutil.rmtree(ref, ignore_errors=True)
@@ -7276,6 +7347,212 @@ def serve_sharded_full_width(dev, card: str) -> dict:
     return counts
 
 
+# -- the dry run against the ranks ------------------------------------------
+
+# what the sharded phases' ranks measured, by run: each rank's report
+RANK_REPORTS: dict = {}
+# the sharded runs the dry run is held against: the contiguous serving
+# runs (`launch.dryrun.trace_serve` traces the contiguous cache; the paged
+# run's chunk prefill is not a dry-run cell) and the uncompressed training
+# run of internlm2_1_8b, on the 4 gloo ranks; the NCCL rank's serving and
+# training runs at (1, 1), which share no card and stage nothing; and the
+# one process that each serving run is held against (no mesh)
+DRYRUN_SERVE = ("contiguous per_block", "contiguous per_channel",
+                "qwen2_5_32b", "recurrentgemma_9b uncut",
+                "nccl contiguous per_block")
+DRYRUN_TRAIN = ("train sharded internlm2_1_8b", "train nccl internlm2_1_8b")
+# a rank's measured peak against the dry run's bytes a device
+DRYRUN_PEAK_TOL = 0.20
+
+
+def _dryrun_hold(label: str, who: str, got: dict, want: dict) -> None:
+    bad = {k: (got[k], want[k]) for k in want if got[k] != want[k]}
+    if bad:
+        raise AssertionError(f"dryrun {label}: {who}: measured against "
+                             f"traced {bad}")
+
+
+def _peak_ratio(label: str, who: str, peak: int, traced: int) -> float:
+    ratio = peak / traced
+    if not abs(ratio - 1.0) <= DRYRUN_PEAK_TOL:
+        raise AssertionError(f"dryrun {label}: {who}: peak {peak} B, "
+                             f"{ratio:.3f} of the traced {traced} B")
+    return ratio
+
+
+def _over_roofline(label: str, who: str, what: str, ms: float,
+                   row: dict) -> float:
+    """``ms`` measured over the row's roofline step_time_s; fails below 1
+    (a step faster than its bound: the cost model counts too much)."""
+    ratio = ms / (row["step_time_s"] * 1e3)
+    if not ratio >= 1.0:
+        raise AssertionError(
+            f"dryrun {label}: {who} beat its roofline: {what} {ms:.3f} ms, "
+            f"bound {row['step_time_s'] * 1e3:.3f} ms "
+            f"({row['bottleneck']})")
+    return ratio
+
+
+def _dryrun_one(label: str, rep: dict, card: str) -> dict:
+    """The one process a serving run is held against (every row, no
+    mesh, no process group) against `trace_serve` with no mesh: its
+    state bytes exactly, its prefill and every decode step no faster
+    than their roofline (measured / roofline printed); its peak printed
+    beside the traced bytes a device."""
+    from repro_torch.launch import dryrun as DR
+    run, one = rep["run"], rep["one"]
+    t0 = time.perf_counter()
+    rows = DR.trace_serve(_serve_run_cfg(run), None, SERVE_B, run["S"],
+                          run["max_len"])
+    pre, dec = rows["prefill"], rows["decode"]
+    who = "one process"
+    _dryrun_hold(label, who, {"state_bytes": one["cache_bytes"]},
+                 {"state_bytes": dec["state_bytes"]})
+    ratio = {"prefill": _over_roofline(label, who, "prefill",
+                                       one["prefill_ms"], pre),
+             "decode_min": _over_roofline(label, who, "decode step",
+                                          min(one["step_ms"]), dec),
+             "decode_median": statistics.median(one["step_ms"]) /
+             (dec["step_time_s"] * 1e3)}
+    traced = max(pre["bytes_per_device"], dec["bytes_per_device"])
+    log(f"[dryrun] serve {label}, one process ({SERVE_B} rows, no mesh): "
+        f"traced in {time.perf_counter() - t0:.1f} s; state "
+        f"{dec['state_bytes']} B exactly its own; roofline prefill "
+        f"{pre['step_time_s'] * 1e3:.3f} ms ({pre['bottleneck']}: compute "
+        f"{pre['compute_s'] * 1e3:.3f}, memory {pre['memory_s'] * 1e3:.3f})"
+        f", measured {one['prefill_ms']:.3f} ms; decode "
+        f"{dec['step_time_s'] * 1e3:.4f} ms ({dec['bottleneck']}: compute "
+        f"{dec['compute_s'] * 1e3:.4f}, memory {dec['memory_s'] * 1e3:.4f})"
+        f", measured least {min(one['step_ms']):.3f} ms, median "
+        f"{statistics.median(one['step_ms']):.3f} ms; measured / roofline "
+        f"{ {k: round(v, 3) for k, v in ratio.items()} }; peak "
+        f"{one['peak_bytes']} B against {traced} B traced "
+        f"({one['peak_bytes'] / traced:.4f}, printed, not held); {card}")
+    return {"step_time_s": {k: r["step_time_s"] for k, r in rows.items()},
+            "hbm_bytes": {k: r["hbm_bytes"] for k, r in rows.items()},
+            "over_roofline": ratio,
+            "peak_ratio": one["peak_bytes"] / traced}
+
+
+def dryrun_phase(card: str) -> dict:
+    """The dry run (`launch.dryrun`: one rank's step on fake tensors over
+    a fake process group, in this process) of the sharded runs this script
+    made, with their config, cut, mesh, rows and lengths, held against
+    every rank's measurements: weight, state and per-collective bytes
+    exactly (the prefill's and every decode step's; a training step's),
+    no measured prefill, decode step or training step faster than its
+    roofline step_time_s (the card's published rates; measured / roofline
+    printed), and each rank's peak within DRYRUN_PEAK_TOL of the traced
+    bytes a device (serving: the run's peak after the load, against the
+    larger of the prefill and decode cells; training: the steps' peak).
+    The traced rank is the last; the ranks' bytes are the same on every
+    rank of these meshes. The gloo ranks share one card and stage their
+    collectives through the host, so their steps lie far above any
+    bound; the NCCL rank at (1, 1) and each serving run's one process
+    (`_dryrun_one`) run alone on the card."""
+    from repro_torch.launch import dryrun as DR
+    axes = SHARDED_MESH[1]
+    out = {"card": card, "fake_device": DR.fake_device()}
+    try:
+        for label in DRYRUN_SERVE:
+            rep = RANK_REPORTS[f"serve {label}"]
+            run, sizes, per = rep["run"], rep["sizes"], rep["per"]
+            cfg = _serve_run_cfg(run)
+            t0 = time.perf_counter()
+            rows = DR.trace_serve(cfg, DR.fake_mesh(sizes, axes), SERVE_B,
+                                  run["S"], run["max_len"])
+            pre, dec = rows["prefill"], rows["decode"]
+            traced = max(pre["bytes_per_device"], dec["bytes_per_device"])
+            ratios, over = [], []
+            for r, p in enumerate(per):
+                who = f"rank {r}"
+                _dryrun_hold(label, who, {
+                    "weight_bytes": p["held_bytes"],
+                    "state_bytes": p["cache_bytes"],
+                    "prefill_sent": p["prefill_sent"],
+                    "step_sent": p["step_sent"]}, {
+                    "weight_bytes": dec["weight_bytes"],
+                    "state_bytes": dec["state_bytes"],
+                    "prefill_sent": pre["coll_detail"],
+                    "step_sent": [dec["coll_detail"]] * len(p["step_sent"])})
+                over.append((
+                    round(_over_roofline(label, who, "prefill",
+                                         p["prefill_ms"], pre), 3),
+                    round(_over_roofline(label, who, "decode step",
+                                         min(p["step_ms"]), dec), 3)))
+                ratios.append(_peak_ratio(label, who, p["peak_bytes"],
+                                          traced))
+            out[label] = {k: {f: r[f] for f in (
+                "bytes_per_device", "arg_bytes", "temp_bytes", "compute_s",
+                "memory_s", "collective_s", "step_time_s", "bottleneck",
+                "compile_s", "kernels")} for k, r in rows.items()}
+            out[label]["peak_ratio"] = ratios
+            out[label]["over_roofline"] = over
+            log(f"[dryrun] serve {label} at {sizes}: traced rank "
+                f"{dec['rank']} in {time.perf_counter() - t0:.1f} s; weight "
+                f"{dec['weight_bytes']} B, state {dec['state_bytes']} B, "
+                f"prefill sent {pre['coll_detail']}, a decode step "
+                f"{dec['coll_detail']}: exactly every rank's; roofline "
+                f"prefill {pre['step_time_s'] * 1e3:.3f} ms "
+                f"({pre['bottleneck']}; measured "
+                f"{[round(p['prefill_ms'], 1) for p in per]}), decode "
+                f"{dec['step_time_s'] * 1e3:.4f} ms ({dec['bottleneck']}; "
+                f"measured median "
+                f"{[round(statistics.median(p['step_ms']), 2) for p in per]})"
+                f"; measured / roofline (prefill, least decode step) by rank "
+                f"{over}; peak {[p['peak_bytes'] for p in per]} B against "
+                f"{traced} B traced (prefill "
+                f"{pre['bytes_per_device']}, decode "
+                f"{dec['bytes_per_device']}): ratios "
+                f"{[round(x, 4) for x in ratios]}; {card}")
+            if "one" in rep:
+                out[label]["one_process"] = _dryrun_one(label, rep, card)
+        for label in DRYRUN_TRAIN:
+            rep = RANK_REPORTS[label]
+            cfg = _cut(rep["arch"], rep["layers"])
+            t0 = time.perf_counter()
+            row = DR.trace_train(cfg, DR.fake_mesh(rep["sizes"], axes),
+                                 rep["B"], rep["S"])
+            ratios, over = [], []
+            for r, p in enumerate(rep["per"]):
+                who = f"rank {r}"
+                sent = {k: v["bytes"] for k, v in p["collectives"].items()
+                        if v["bytes"]}
+                _dryrun_hold(label, who, {"state_bytes": p["state_bytes"],
+                                          "sent": sent},
+                             {"state_bytes": row["state_bytes"],
+                              "sent": row["coll_detail"]})
+                over.append(round(_over_roofline(
+                    label, who, "a step",
+                    min(s["step_ms"] for s in p["steps"]), row), 3))
+                ratios.append(_peak_ratio(label, who, p["step_peak_bytes"],
+                                          row["bytes_per_device"]))
+            out[label] = {f: row[f] for f in (
+                "bytes_per_device", "arg_bytes", "temp_bytes", "compute_s",
+                "memory_s", "collective_s", "step_time_s", "bottleneck",
+                "compile_s", "kernels")}
+            out[label]["peak_ratio"] = ratios
+            out[label]["over_roofline"] = over
+            log(f"[dryrun] {label} at {rep['sizes']}: traced rank "
+                f"{row['rank']} in {time.perf_counter() - t0:.1f} s; "
+                f"weights and optimizer state {row['state_bytes']} B and a "
+                f"step's {row['coll_detail']}: exactly every rank's; "
+                f"roofline {row['step_time_s'] * 1e3:.3f} ms "
+                f"({row['bottleneck']}: compute "
+                f"{row['compute_s'] * 1e3:.3f}, memory "
+                f"{row['memory_s'] * 1e3:.3f}, collective "
+                f"{row['collective_s'] * 1e3:.3f}; measured "
+                f"{[[round(s['step_ms'], 1) for s in p['steps']] for p in rep['per']]}"
+                f"; measured / roofline, least step, by rank {over}); step "
+                f"peak {[p['step_peak_bytes'] for p in rep['per']]} "
+                f"B against {row['bytes_per_device']} B traced: ratios "
+                f"{[round(x, 4) for x in ratios]}; {card}")
+    finally:
+        DR.close_fake_group()
+    log("[dryrun] " + json.dumps(out))
+    return out
+
+
 def _leaves(x):
     if isinstance(x, dict):
         for v in x.values():
@@ -7575,6 +7852,9 @@ def main() -> int:
     t0 = time.perf_counter()
     path_counts.update(serve_sharded_full_width(dev, card))
     log(f"[serve sharded] phase in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dryrun_phase(card)
+    log(f"[dryrun] phase in {time.perf_counter() - t0:.1f} s")
 
     prefill["sass_mma"] = pmma
     kernels = kernels_line(

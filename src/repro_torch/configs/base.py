@@ -2,7 +2,9 @@
 
 Same dataclass and field names as the reference, so a test can compare a
 config field by field; dtypes are plain strings (``"bfloat16"``) and
-resolve to torch dtypes through `torch_dtype`.
+resolve to torch dtypes through `torch_dtype`. The derived counts
+(`ModelConfig.param_count`, `kv_cache_bytes`) and the shape cells
+(`SHAPES`: the dry run's, `launch.dryrun`) are the reference's.
 """
 from __future__ import annotations
 
@@ -86,6 +88,55 @@ class ModelConfig:
     def block_kind(self, layer: int) -> BlockKind:
         return self.block_pattern[layer % len(self.block_pattern)]
 
+    @property
+    def is_subquadratic(self) -> bool:
+        """Can this arch run 500K-token decode? (sliding window, recurrent,
+        or attention-free)."""
+        if all(k in ("rglru", "slstm", "mlstm") for k in self.block_pattern):
+            return True
+        if any(k in ("rglru", "slstm", "mlstm") for k in self.block_pattern):
+            return True   # hybrid: attention layers are local/windowed
+        return self.sliding_window is not None
+
+    @property
+    def has_decoder(self) -> bool:
+        return True   # every assigned arch decodes (whisper via its decoder)
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embedding + blocks + head), the
+        reference's arithmetic."""
+        d, dff, V = self.d_model, self.d_ff, self.vocab
+        hd = self.head_dim
+        n_q = self.n_heads * hd
+        n_kv = self.n_kv_heads * hd
+        total = V * d                                  # embedding
+        if not self.tie_embeddings:
+            total += V * d                             # lm head
+        for i in range(self.n_layers):
+            kind = self.block_kind(i)
+            total += d                                 # pre-norm scale
+            if kind in ("attn", "local_attn"):
+                total += d * (n_q + 2 * n_kv) + n_q * d
+                if self.qkv_bias:
+                    total += n_q + 2 * n_kv
+            elif kind == "rglru":
+                w = self.rnn_width
+                total += 2 * d * w + w * d             # in/gate/out projections
+                total += 3 * w + w * self.conv1d_width  # recurrence + conv
+            elif kind in ("slstm", "mlstm"):
+                total += 4 * d * d + d * d             # gates + out
+            if kind == "moe" or (self.n_experts and kind == "attn"):
+                eff = self.moe_d_ff or dff
+                total += d * self.n_experts            # router
+                total += self.n_experts * 3 * d * eff  # routed experts
+                total += self.n_shared_experts * 3 * d * eff
+                total += d                             # post norm
+            elif kind in ("attn", "local_attn", "rglru"):
+                total += 3 * d * dff + d               # swiglu + post norm
+        for _ in range(self.n_encoder_layers):         # encoder (whisper)
+            total += 2 * d + d * 3 * d + d * d + 2 * d * dff + dff * d
+        return total
+
     def kv_cache_bytes(self, batch: int, seq: int, dtype_bytes: float) -> int:
         """Paper Table 1: 2 * L_attn * H_kv * d_head * T * bytes * batch."""
         n_attn = sum(1 for i in range(self.n_layers)
@@ -96,3 +147,27 @@ class ModelConfig:
             seq, self.sliding_window)
         return int(2 * n_attn * self.n_kv_heads * self.head_dim * eff_seq
                    * dtype_bytes * batch)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One benchmark cell: (shape name, seq_len, global_batch, kind)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+
+
+SHAPES: tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", 4_096, 256, "train"),
+    ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    ShapeConfig("long_500k", 524_288, 1, "decode"),
+)
+
+
+def get_shape(name: str) -> ShapeConfig:
+    for s in SHAPES:
+        if s.name == name:
+            return s
+    raise KeyError(name)

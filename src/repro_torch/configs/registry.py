@@ -29,3 +29,7 @@ def canonical(name: str) -> str:
 def get_config(name: str, smoke: bool = False):
     mod = importlib.import_module(f"repro_torch.configs.{canonical(name)}")
     return mod.smoke() if smoke else mod.config()
+
+
+def all_configs(smoke: bool = False):
+    return {a: get_config(a, smoke) for a in ARCHS}

@@ -494,6 +494,24 @@ class PagePool:
         self.v_s.index_copy_(0, ids, v_s.float().contiguous())
 
 
+def gather_pages(pool_kq, pool_ks, pool_vq, pool_vs, page_table):
+    """The contiguous cache layout from a page pool: pool (n_pages,
+    ps_packed, H, D) + table (B, NT) -> values (B, H, NT * ps_packed, D)
+    and float32 scales (B, H, NT, D), K then V (the reference path's
+    gather; the paged kernels read pages through the table instead)."""
+    B, NT = page_table.shape
+    _, ps, H, D = pool_kq.shape
+    tbl = page_table.long()
+
+    def gq(pool_q):
+        return pool_q[tbl].permute(0, 3, 1, 2, 4).reshape(B, H, NT * ps, D)
+
+    def gs(pool_s):
+        return pool_s[tbl].permute(0, 2, 1, 3)
+
+    return gq(pool_kq), gs(pool_ks), gq(pool_vq), gs(pool_vs)
+
+
 class PagedQuantizedKVCache:
     """Per-row page-table view over a `PagePool` (see module docstring).
     `prefill_at`, `append` and `fork_row` write the pool, the residuals,
@@ -626,6 +644,22 @@ class PagedQuantizedKVCache:
         self.resid_k.copy_(rk)
         self.resid_v.copy_(rv)
         return self
+
+    def dequantized_prefix(self, n_blocks: int, dtype=torch.float32
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Dequantized (k, v) of each row's first ``n_blocks`` logical
+        blocks: (B, H_kv, n_blocks * ps, D) in ``dtype``, no residual
+        overlay. The parity oracle's history read only
+        (`attention.prefill_chunk(use_fused=False)`): the fused paged
+        prefill kernel reads the pages in place and never writes this
+        copy. Plain dequantization of the gathered pages (the
+        reference's ``Q.dequantize_pages``), not a kernel."""
+        k_q, k_s, v_q, v_s = gather_pages(
+            self.pool.k_q, self.pool.k_s, self.pool.v_q, self.pool.v_s,
+            self.page_table[:, :n_blocks])
+        kv_dtype = self.pool.kv_dtype
+        return (Q.dequantize_pages(k_q, k_s, kv_dtype, dtype=dtype),
+                Q.dequantize_pages(v_q, v_s, kv_dtype, dtype=dtype))
 
     def fork_row(self, src: int, dst: int) -> "PagedQuantizedKVCache":
         """Copy row ``src``'s view into row ``dst``, in place: page table

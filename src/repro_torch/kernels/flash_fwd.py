@@ -21,14 +21,18 @@ inputs on the tensor cores (bf16 products, float32 sums), float32 inputs
 as float32 FMAs on the CUDA cores; both walk 64-key tiles. The plain
 version is what a CPU tensor gets, and what the kernels are held against
 (walked in the kernels' tiles: each probability is rounded to bf16 at the
-running max of its own tile).
+running max of its own tile). On fake tensors (a cost trace,
+`core.costing`) `flash_fwd_fake` gives the outputs' shapes and reports
+the kernel's work (`flash_cost`).
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
+from repro_torch.core import costing
 from repro_torch.kernels import _build, counted
 from repro_torch.kernels.quant_attention import (FLAT_HEAD_DIMS, _check,
                                                    _check_aligned, logit_scale)
@@ -36,6 +40,43 @@ from repro_torch.kernels.quant_attention import (FLAT_HEAD_DIMS, _check,
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ROWS = 64                     # query rows per kernel block
+
+
+def live_pairs(S: int, T: int, causal: bool = True,
+               window: int | None = None, kv_offset: int = 0) -> int:
+    """The (query, key) pairs a head attends: query i at kv_offset + i
+    sees the keys j < T with j <= kv_offset + i (causal) and j >
+    kv_offset + i - window."""
+    pos = kv_offset + np.arange(S, dtype=np.int64)
+    hi = np.minimum(pos + 1, T) if causal else np.full(S, T)
+    lo = np.maximum(pos - window + 1, 0) if window else np.zeros(S, np.int64)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def flash_cost(B: int, H: int, Hkv: int, S: int, T: int, D: int,
+               itemsize: int, causal: bool = True, window: int | None = None,
+               kv_offset: int = 0) -> tuple[int, int]:
+    """(bytes, operations) of the flash forward kernel: q, k, v read once
+    (``itemsize`` bytes an element), out, m and l written (float32); 4 D
+    operations a live (query, key) pair a head (Q.K and P.V)."""
+    nbytes = ((B * H * S + 2 * B * Hkv * T) * D * itemsize
+              + B * H * S * D * 4 + 2 * B * H * S * 4)
+    return nbytes, 4 * D * B * H * live_pairs(S, T, causal, window,
+                                              kv_offset)
+
+
+def flash_fwd_fake(q, k, v, causal: bool = True, window: int | None = None,
+                   kv_offset: int = 0, kv_block: int = 512):
+    """The kernel on fake tensors: its outputs' shapes, its work reported
+    (bf16 inputs on the tensor cores, float32 on the CUDA cores)."""
+    B, H, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    costing.kernel("flash_fwd", *flash_cost(
+        B, H, Hkv, S, T, D, q.element_size(), causal, window, kv_offset),
+        f32=q.dtype == torch.float32)
+    f = lambda *shape: torch.empty(shape, dtype=torch.float32,
+                                   device=q.device)
+    return f(B, H, S, D), f(B, Hkv, H // Hkv, S, 1), f(B, Hkv, H // Hkv, S, 1)
 
 
 def flash_fwd_plain(q, k, v, causal: bool = True, window: int | None = None,

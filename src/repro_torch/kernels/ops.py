@@ -3,12 +3,20 @@
 
 A CUDA tensor launches the hand-written kernel — or raises; there is no
 fallback — and a CPU tensor takes the kernel's plain PyTorch version.
+A fake tensor (``FakeTensorMode``: the dry run's cost trace,
+`core.costing`), whatever device it claims, takes the kernel's ``*_fake``
+function: outputs of the kernel's shapes, and the work the kernel does
+reported, never the plain version's steps. The test is on the tensor
+being fake, not on a failure: a dry-run mode, not a fallback.
 The shapes and arguments are the reference's, so the tests call both
 packages alike.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.kernels import flash_fwd as _ff
 from repro_torch.kernels import quant_attention as _qa
@@ -17,7 +25,9 @@ from repro_torch.kernels import quantize as _quant
 from repro_torch.kernels.quant_attention import logit_scale
 
 
-def _route(t: torch.Tensor, cuda_fn, plain_fn):
+def _route(t: torch.Tensor, cuda_fn, plain_fn, fake_fn):
+    if isinstance(t, FakeTensor):
+        return fake_fn
     if t.device.type == "cuda":
         return cuda_fn
     if t.device.type == "cpu":
@@ -31,7 +41,8 @@ def quantize_per_channel(x):
     """(..., T, D) -> (int8 (..., T, D), float32 scales (..., D)); paper
     Eq. 5-7 in two passes (column absmax, then quantize)."""
     fn = _route(x, _quant.quantize_per_channel_cuda,
-                _quant.quantize_per_channel_plain)
+                _quant.quantize_per_channel_plain,
+                _quant.quantize_per_channel_fake)
     return fn(x.float().contiguous())
 
 
@@ -39,7 +50,8 @@ def absmax(x):
     """Column absmax over T: (..., T, D) -> float32 (..., D); the first
     per-channel pass alone (a sharded caller all-reduces it with MAX
     before the second)."""
-    fn = _route(x, _quant.absmax_cuda, _quant.absmax_plain)
+    fn = _route(x, _quant.absmax_cuda, _quant.absmax_plain,
+                _quant.absmax_fake)
     return fn(x.float().contiguous())
 
 
@@ -47,7 +59,8 @@ def quantize_with_scales(x, absmax):
     """The second per-channel pass: (..., T, D) and a column absmax
     (..., D) -> (int8 (..., T, D), float32 scales (..., D))."""
     fn = _route(x, _quant.quantize_with_scales_cuda,
-                _quant.quantize_with_scales_plain)
+                _quant.quantize_with_scales_plain,
+                _quant.quantize_with_scales_fake)
     return fn(x.float().contiguous(), absmax.float().contiguous())
 
 
@@ -55,14 +68,15 @@ def quantize_blocked(x, block_size: int = 256):
     """(..., T, D) -> (int8 (..., T, D), float32 (..., T // block_size,
     D)); absmax and quantize per (token block, channel) in one kernel."""
     fn = _route(x, _quant.quantize_blocked_cuda,
-                _quant.quantize_blocked_plain)
+                _quant.quantize_blocked_plain, _quant.quantize_blocked_fake)
     return fn(x.float().contiguous(), block_size)
 
 
 def dequantize(x_q, scales, *, out_dtype=torch.float32):
     """int8 (..., T, D) x float32 scales (..., nb, D) or (..., D) ->
     (..., T, D) ``out_dtype``."""
-    fn = _route(x_q, _quant.dequantize_cuda, _quant.dequantize_plain)
+    fn = _route(x_q, _quant.dequantize_cuda, _quant.dequantize_plain,
+                _quant.dequantize_fake)
     return fn(x_q.contiguous(), scales.float().contiguous(), out_dtype)
 
 
@@ -74,7 +88,8 @@ def flash_prefill(q, k, v, *, causal: bool = True, window: int | None = None,
     k/v (B, H_kv, T, D), one dtype (float32 or bfloat16; a CPU tensor
     takes any). Returns (out (B, H, S, D), m, l (B, H_kv, G, S, 1))
     float32; ``kv_block`` is the plain version's kv slice."""
-    fn = _route(q, _ff.flash_fwd_cuda, _ff.flash_fwd_plain)
+    fn = _route(q, _ff.flash_fwd_cuda, _ff.flash_fwd_plain,
+                _ff.flash_fwd_fake)
     return fn(q.contiguous(), k.contiguous(), v.contiguous(), causal, window,
               kv_offset, kv_block)
 
@@ -89,6 +104,16 @@ def _per_row(v, B: int, device) -> torch.Tensor:
     return torch.full((B,), int(v), dtype=torch.int32, device=device)
 
 
+def _live(length, window, T: int, B: int):
+    """Each row's live slots where the host knows them (``length`` and
+    ``window`` ints or None): min(length, T, window); None where the
+    length is a tensor."""
+    if isinstance(length, torch.Tensor) or isinstance(window, torch.Tensor):
+        return None
+    w = T if window is None else int(window)
+    return [max(min(int(length), T, w), 0)] * B
+
+
 def quant_attention_decode_partials(q, k_q, k_s, v_q, v_s, length, *,
                                     window=None):
     """Flash partials (o_unnormalized, m, l) of one query token per row
@@ -100,7 +125,9 @@ def quant_attention_decode_partials(q, k_q, k_s, v_q, v_s, length, *,
     B = q.shape[0]
     T = k_q.shape[2]
     fn = _route(q, _qa.flat_decode_partials_cuda,
-                _qa.flat_decode_partials_plain)
+                _qa.flat_decode_partials_plain, functools.partial(
+                    _qa.flat_decode_partials_fake,
+                    live=_live(length, window, T, B)))
     return fn(q.float().contiguous(), k_q.contiguous(),
               k_s.float().contiguous(), v_q.contiguous(),
               v_s.float().contiguous(), _per_row(length, B, q.device),
@@ -126,7 +153,8 @@ def quant_attention_decode_partials_vmap(q, k_q, k_s, v_q, v_s, length, *,
         raise ValueError(f"scale rows {nb} incompatible with "
                          f"{T // block_t} token blocks")
     fn = _route(q, _qa.seed_decode_partials_cuda,
-                _qa.flat_decode_partials_plain)
+                _qa.flat_decode_partials_plain, functools.partial(
+                    _qa.flat_decode_partials_fake, name="seed_decode"))
     return fn(q.float().contiguous(), k_q.contiguous(),
               k_s.float().contiguous(), v_q.contiguous(),
               v_s.float().contiguous(), _per_row(length, B, q.device),
@@ -153,7 +181,8 @@ def paged_attention_decode_partials(q, pool_kq, pool_ks, pool_vq, pool_vs,
     flushed prefix; the residual tail merges separately). Returns
     (o_unnormalized (B, H, D), m (B, H, 1), l (B, H, 1)) float32."""
     fn = _route(q, _qa.paged_decode_partials_cuda,
-                _qa.paged_decode_partials_plain)
+                _qa.paged_decode_partials_plain,
+                _qa.paged_decode_partials_fake)
     return fn(q.float().contiguous(), pool_kq, pool_ks, pool_vq, pool_vs,
               page_table.to(torch.int32).contiguous(),
               lengths.to(torch.int32).contiguous(), kv_dtype)
@@ -177,7 +206,8 @@ def paged_attention_prefill(q, k, v, pool_kq, pool_ks, pool_vq, pool_vs,
     i32 = lambda a: a.to(device=q.device, dtype=torch.int32).contiguous()
     if valid is None:
         valid = torch.full((B,), C, dtype=torch.int32, device=q.device)
-    fn = _route(q, _qp.paged_prefill_cuda, _qp.paged_prefill_plain)
+    fn = _route(q, _qp.paged_prefill_cuda, _qp.paged_prefill_plain,
+                _qp.paged_prefill_fake)
     out = fn(qg, k.float().contiguous(), v.float().contiguous(), pool_kq,
              pool_ks, pool_vq, pool_vs, i32(page_table), i32(hist_len),
              i32(valid), hist_blocks, kv_dtype)

@@ -28,7 +28,10 @@ o = 0, m = -1e30, l = 0.
 
 The CUDA kernels (``csrc/paged_decode.cu``, ``csrc/flat_decode.cu``,
 ``csrc/seed_decode.cu``) run on CUDA tensors; the plain versions are what
-a CPU tensor gets, and what the kernels are held against.
+a CPU tensor gets, and what the kernels are held against. On fake tensors
+(a cost trace, `core.costing`) the ``*_fake`` functions give outputs of
+the kernels' shapes and report the work the kernels do (``*_cost``: each
+input read once, each output written once; no dequantized copy).
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core import costing
 from repro_torch.core import quantization as Q
 from repro_torch.kernels import _build, counted
 
@@ -86,6 +90,72 @@ def paged_decode_partials_plain(q, pool_kq, pool_ks, pool_vq, pool_vs,
     l = p.sum(-1, keepdim=True)
     o = torch.einsum("bhgt,bthd->bhgd", p, v)
     return o.reshape(B, H, D), m.reshape(B, H, 1), l.reshape(B, H, 1)
+
+
+def _kv_per_token(kv_dtype: str) -> float:
+    return 0.5 if kv_dtype == "int4" else 1.0
+
+
+def paged_decode_cost(B: int, H: int, Hkv: int, D: int, lengths,
+                      ps: int, kv_dtype: str = "int8") -> tuple[int, int]:
+    """(bytes, operations) of the paged decode kernel: the live tokens'
+    K/V pages (``lengths`` per row) and their pages' scale rows, the
+    table entries, the lengths, q read and o, m, l written; 2 x 2 x D
+    operations a (query head, live token) for Q.K and P.V."""
+    live = sum(int(n) for n in lengths)
+    pages = sum(-(-int(n) // ps) for n in lengths)
+    nbytes = (2 * live * Hkv * D * _kv_per_token(kv_dtype)
+              + 2 * pages * Hkv * D * 4 + pages * 4 + B * 4
+              + 2 * B * H * D * 4 + 2 * B * H * 4)
+    return int(nbytes), 4 * D * H * live
+
+
+def flat_decode_cost(B: int, H: int, Hkv: int, D: int, nb: int,
+                     live) -> tuple[int, int]:
+    """(bytes, operations) of the flat decode kernel: the live slots' int8
+    K/V (``live`` per row), every scale row, q read and o, m, l written,
+    the lengths and windows; 4 D operations a (query head, live slot).
+    The seed kernel reads and folds every slot: its ``live`` is T a
+    row."""
+    n = sum(int(x) for x in live)
+    nbytes = (2 * n * Hkv * D + 2 * B * Hkv * nb * D * 4
+              + 2 * B * H * D * 4 + 2 * B * H * 4 + 2 * B * 4)
+    return nbytes, 4 * D * H * n
+
+
+def _partials_like(q):
+    B, H, D = q.shape
+    return (torch.empty((B, H, D), dtype=torch.float32, device=q.device),
+            torch.empty((B, H, 1), dtype=torch.float32, device=q.device),
+            torch.empty((B, H, 1), dtype=torch.float32, device=q.device))
+
+
+def paged_decode_partials_fake(q, pool_kq, pool_ks, pool_vq, pool_vs,
+                               page_table, lengths, kv_dtype="int8"):
+    """The paged decode kernel on fake tensors: its outputs' shapes, its
+    work reported (every page of the table: a fake tensor's lengths are
+    not known)."""
+    B, H, D = q.shape
+    Hkv, ps_packed = pool_kq.shape[2], pool_kq.shape[1]
+    ps = 2 * ps_packed if kv_dtype == "int4" else ps_packed
+    lens = [page_table.shape[1] * ps] * B
+    costing.kernel("paged_decode", *paged_decode_cost(
+        B, H, Hkv, D, lens, ps, kv_dtype), f32=True)
+    return _partials_like(q)
+
+
+def flat_decode_partials_fake(q, k_q, k_s, v_q, v_s, lengths, windows, *,
+                              live=None, name="flat_decode"):
+    """The flat decode (or seed, ``name``) kernel on fake tensors: its
+    outputs' shapes, its work reported (``live``: the rows' live slots
+    where the host knows them; else every slot)."""
+    B, H, D = q.shape
+    _, Hkv, T, _ = k_q.shape
+    if live is None or name == "seed_decode":
+        live = [T] * B
+    costing.kernel(name, *flat_decode_cost(B, H, Hkv, D, k_s.shape[2],
+                                           live), f32=True)
+    return _partials_like(q)
 
 
 def merge_split_partials(o_s, m_s, l_s):

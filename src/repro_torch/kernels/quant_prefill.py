@@ -14,7 +14,9 @@ The CUDA kernel (``csrc/paged_prefill.cu``) runs on CUDA tensors; the plain
 version is what a CPU tensor gets, and what the kernel is held against. The
 kernel runs its products on the tensor cores with every float operand split
 into three bf16 terms; `paged_prefill_split_plain` is that arithmetic in
-plain PyTorch, walked in the kernel's tiles, for the tests.
+plain PyTorch, walked in the kernel's tiles, for the tests. On fake
+tensors (a cost trace, `core.costing`) `paged_prefill_fake` gives the
+output's shape and reports the kernel's work (`paged_prefill_cost`).
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core import costing
 from repro_torch.core import quantization as Q
 from repro_torch.kernels import _build, counted
 from repro_torch.kernels.quant_attention import (HEAD_DIMS, KV_CODES,
@@ -31,6 +34,43 @@ from repro_torch.kernels.quant_attention import (HEAD_DIMS, KV_CODES,
 _NEG_INF = -1e30
 # the kernel's tiles: query rows, history keys (at most a page), chunk keys
 ROW_TILE, HIST_TILE, CHUNK_TILE = 64, 64, 32
+
+
+def paged_prefill_cost(H: int, Hkv: int, C: int, D: int, hist_len, valid,
+                       ps: int, kv_dtype: str = "int8") -> tuple[int, int]:
+    """(bytes, operations) of the paged prefill kernel over B = len(valid)
+    rows: each row's ``hist_len`` history tokens' K/V pages and their
+    scale rows and table entries, q, the chunk's float32 K/V and the
+    output (float32), hist_len and valid; 4 D operations a (query head,
+    key) pair for its ``valid`` query rows (history, then causal in the
+    chunk)."""
+    B = len(valid)
+    flops = nbytes = pages = 0
+    for h, n in zip(hist_len, valid):
+        h, n = int(h), int(n)
+        flops += 4 * D * H * (n * h + n * (n + 1) // 2)
+        pages += -(-h // ps)
+        nbytes += 2 * h * Hkv * D * (0.5 if kv_dtype == "int4" else 1.0)
+    q_elems = B * H * C * D
+    nbytes += ((q_elems + 2 * B * Hkv * C * D) * 4 + 2 * pages * Hkv * D * 4
+               + pages * 4 + B * 8 + q_elems * 4)
+    return int(nbytes), flops
+
+
+def paged_prefill_fake(qg, kc, vc, pool_kq, pool_ks, pool_vq, pool_vs,
+                       page_table, hist_len, valid, hist_blocks: int,
+                       kv_dtype="int8"):
+    """The kernel on fake tensors: the output's shape, its work reported
+    (a fake tensor's lengths are not known: ``hist_blocks`` pages of
+    history and the whole chunk a row)."""
+    B, Hkv, GC, D = qg.shape
+    C = kc.shape[2]
+    ps_packed = pool_kq.shape[1]
+    ps = 2 * ps_packed if kv_dtype == "int4" else ps_packed
+    costing.kernel("paged_prefill", *paged_prefill_cost(
+        GC // C * Hkv, Hkv, C, D, [hist_blocks * ps] * B, [C] * B, ps,
+        kv_dtype), f32=True)
+    return torch.empty_like(qg)
 
 
 def paged_prefill_plain(qg, kc, vc, pool_kq, pool_ks, pool_vq, pool_vs,

@@ -45,6 +45,7 @@ import math
 
 import torch
 
+from repro_torch.core import costing
 from repro_torch.kernels import _build, counted
 from repro_torch.kernels.quant_attention import (_check, _check_aligned,
                                                  _sm_count)
@@ -107,6 +108,73 @@ def dequantize_plain(x_q: torch.Tensor, scales: torch.Tensor,
     nb = s.shape[-2]
     xb = x_q.reshape(*lead, nb, T // nb, D).float()
     return (xb * s.float().unsqueeze(-2)).reshape(*lead, T, D).to(out_dtype)
+
+
+# -- the kernels' work, and their outputs on fake tensors (a cost trace) ------
+
+def quantize_cost(name: str, shape, block_size: int = 0,
+                  out_bytes: int = 4) -> tuple[int, int]:
+    """(bytes, operations) of one quantize kernel on float32 x (..., T,
+    D) of ``shape`` (dequantize: its int8 values, ``out_bytes`` an output
+    element): each input read once, each output written once. absmax
+    reads x (4 B) and writes a row; quantize_with_scales reads x and the
+    row, writes int8 values and scales; quantize_blocked reads x, writes
+    int8 values and a scale row a ``block_size`` block; dequantize reads
+    the values and scale rows (``block_size`` tokens a row; 0: one row)
+    and writes the result."""
+    *lead, T, D = shape
+    n, N = math.prod(shape), math.prod(lead)
+    nb = T // block_size if block_size else 1
+    if name == "absmax":
+        return 4 * n + 4 * N * D, 2 * n
+    if name == "quantize_with_scales":
+        return 5 * n + 8 * N * D, 4 * n
+    if name == "quantize_blocked":
+        return 4 * n + n + 4 * N * nb * D, 6 * n
+    if name == "dequantize":
+        return n + 4 * N * nb * D + out_bytes * n, n
+    raise ValueError(f"no quantize kernel {name!r}")
+
+
+def _report(name, shape, block_size=0, out_bytes=4):
+    costing.kernel(name, *quantize_cost(name, shape, block_size, out_bytes),
+                   f32=True)
+
+
+def _int8_like(x):
+    return torch.empty(x.shape, dtype=torch.int8, device=x.device)
+
+
+def _rows(x, nb: int):
+    return torch.empty((*x.shape[:-2], nb, x.shape[-1]), dtype=torch.float32,
+                       device=x.device)
+
+
+def absmax_fake(x):
+    _report("absmax", x.shape)
+    return _rows(x, 1)[..., 0, :]
+
+
+def quantize_with_scales_fake(x, absmax):
+    _report("quantize_with_scales", x.shape)
+    return _int8_like(x), _rows(x, 1)[..., 0, :]
+
+
+def quantize_per_channel_fake(x):
+    return quantize_with_scales_fake(x, absmax_fake(x))
+
+
+def quantize_blocked_fake(x, block_size: int):
+    _report("quantize_blocked", x.shape, block_size)
+    return _int8_like(x), _rows(x, x.shape[-2] // block_size)
+
+
+def dequantize_fake(x_q, scales, out_dtype=torch.float32):
+    T = x_q.shape[-2]
+    nb = _scale_rows(x_q, scales).shape[-2]
+    _report("dequantize", x_q.shape, T // nb if nb > 1 else 0,
+            out_dtype.itemsize)
+    return torch.empty(x_q.shape, dtype=out_dtype, device=x_q.device)
 
 
 # -- CUDA launchers -----------------------------------------------------------

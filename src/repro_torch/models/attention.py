@@ -38,8 +38,11 @@ Contiguous cache (`core.kvcache.QuantizedKVCache`):
 Paged cache (`core.paging.PagedQuantizedKVCache`):
     prefill_chunk(...)  one varlen prompt chunk: attends over the row's
                         resident pages + causally within the chunk (the
-                        paged prefill kernel), then writes the chunk's K/V
-                        into pages (`PagedQuantizedKVCache.prefill_at`)
+                        paged prefill kernel; ``use_fused=False``: the
+                        parity oracle, the history dequantized and one
+                        softmax, `_chunk_attention`), then writes the
+                        chunk's K/V into pages
+                        (`PagedQuantizedKVCache.prefill_at`)
     decode(...)         one token: appends K/V to the cache, then attends
                         over the flushed pages (the paged decode kernel)
                         merged with the fp residual tail
@@ -285,17 +288,27 @@ def _write_prompt(cache, k, v, row_mask):
 
 
 def _chunk_core(q, k, v, positions, cache: PagedQuantizedKVCache, row_mask,
-                hist_blocks, valid):
+                hist_blocks, valid, use_fused: bool = True,
+                oracle_hist_dtype=torch.float32):
     """The paged prefill kernel over a chunk's q, k, v (B, H, C, D) and
-    the rows' resident pages, then the chunk's K/V written into pages:
+    the rows' resident pages (``use_fused`` False: the parity oracle,
+    the history dequantized into ``oracle_hist_dtype`` and one softmax,
+    `_chunk_attention`), then the chunk's K/V written into pages:
     (B, H, C, D) float32."""
     hist_len = positions[:, 0].to(torch.int32)
     nb = cache.max_blocks if hist_blocks is None else \
         min(hist_blocks, cache.max_blocks)
     pool = cache.pool
-    out = ops.paged_attention_prefill(
-        q, k, v, pool.k_q, pool.k_s, pool.v_q, pool.v_s, cache.page_table,
-        hist_len, valid, hist_blocks=nb, kv_dtype=pool.kv_dtype)
+    if use_fused:
+        out = ops.paged_attention_prefill(
+            q, k, v, pool.k_q, pool.k_s, pool.v_q, pool.v_s,
+            cache.page_table, hist_len, valid, hist_blocks=nb,
+            kv_dtype=pool.kv_dtype)
+    else:
+        hk = hv = None
+        if nb:
+            hk, hv = cache.dequantized_prefix(nb, oracle_hist_dtype)
+        out = _chunk_attention(q, k, v, hk, hv, hist_len)
     cache.prefill_at(k.float(), v.float(),
                      torch.div(hist_len, cache.page_size,
                                rounding_mode="floor"),
@@ -304,16 +317,66 @@ def _chunk_core(q, k, v, positions, cache: PagedQuantizedKVCache, row_mask,
 
 
 def prefill_chunk(p, x, cfg, positions, cache: PagedQuantizedKVCache, *,
-                  row_mask=None, hist_blocks: int | None = None, valid=None):
+                  row_mask=None, hist_blocks: int | None = None, valid=None,
+                  use_fused: bool = True, oracle_hist_dtype=torch.float32):
     """One prompt chunk under varlen chunked prefill. ``x`` (B, C, d), C a
     page multiple (the dispatch width); ``positions`` (B, C) absolute, with
     positions[:, 0] each row's page-aligned resident history; ``valid``
     (B,) true tokens per row (None = C); ``hist_blocks`` bounds the
-    history walk (None = the whole table, 0 = no history)."""
+    history walk (None = the whole table, 0 = no history).
+    ``use_fused=True`` (the default) attends through the paged prefill
+    kernel, which reads the int8 pages in place; ``use_fused=False`` is
+    the parity oracle: `PagedQuantizedKVCache.dequantized_prefix` in
+    ``oracle_hist_dtype`` (bf16 halves the gathered copy) and
+    `_chunk_attention`'s one softmax over history and chunk."""
     q, k, v = _project_qkv(p, x, cfg, positions)
     out = _chunk_core(q, k, v, positions, cache, row_mask, hist_blocks,
-                      valid)
+                      valid, use_fused, oracle_hist_dtype)
     return _merge_heads(p, out.to(x.dtype), x.dtype), cache
+
+
+def _chunk_attention(q, k, v, hk, hv, hist_len):
+    """Exact attention of chunk queries over (resident history ‖ chunk):
+    the parity oracle of the paged prefill kernel, one float32 softmax
+    over the gathered, dequantized history and the chunk, as naive as
+    the reference's.
+
+    q (B, H, C, hd); k/v (B, Hkv, C, hd) the chunk's own keys; hk/hv
+    (B, Hkv, HT, hd) the dequantized history (None when the dispatch has
+    none; any float dtype, the logits in float32); hist_len (B,) tokens
+    of real history a row, <= HT. History masked by hist_len, the chunk
+    causally, each masked logit -1e30 and its probability zeroed."""
+    B, H, C, hd = q.shape
+    Hkv = k.shape[1]
+    G = H // Hkv
+    dev = q.device
+    # 1 / sqrt(hd) in float32, a host number (no copy to the device: the
+    # chunk step may be captured as a CUDA graph)
+    scale = float(1.0 / torch.sqrt(torch.tensor(float(hd),
+                                                dtype=torch.float32)))
+    qg = q.reshape(B, Hkv, G, C, hd).float() * scale
+    neg = -1e30
+    lc = torch.einsum("bhgcd,bhtd->bhgct", qg, k.float())
+    ar = torch.arange(C, device=dev)
+    mc = ar[None, :] <= ar[:, None]                        # (C, C) causal
+    lc = torch.where(mc[None, None, None], lc, neg)
+    if hk is None:
+        logits, vs = lc, v.float()
+    else:
+        HT = hk.shape[2]
+        lh = torch.einsum("bhgcd,bhtd->bhgct", qg, hk.float())
+        mh = (torch.arange(HT, device=dev)[None, :]
+              < hist_len.to(dev)[:, None])                 # (B, HT)
+        lh = torch.where(mh[:, None, None, None, :], lh, neg)
+        logits = torch.cat([lh, lc], dim=-1)               # (..., HT + C)
+        vs = torch.cat([hv.float(), v.float()], dim=2)
+    m = torch.amax(logits, dim=-1, keepdim=True)
+    pexp = torch.exp(logits - m)
+    pexp = torch.where(logits <= -1e30 / 2, torch.zeros_like(pexp), pexp)
+    l = torch.sum(pexp, dim=-1, keepdim=True)
+    out = torch.einsum("bhgct,bhtd->bhgcd",
+                       pexp / torch.clamp_min(l, 1e-30), vs)
+    return out.reshape(B, H, C, hd)
 
 
 def _decode_core(q, k, v, cfg, cache, local: bool, row_mask):
@@ -352,7 +415,8 @@ def decode(p, x, cfg, positions, cache, *, local: bool = False,
 
 def serve_tp(p, sp, x, cfg, positions, cache, mode: str, *,
              local: bool = False, causal: bool = True, row_mask=None,
-             hist_blocks=None, valid=None, mesh=None):
+             hist_blocks=None, valid=None, mesh=None,
+             use_fused: bool = True):
     """One serving step's attention on this rank's shards of the
     weights (``sp`` their specs, `launch.specs.serve_param_specs`): x
     (B_l, S, d) this rank's rows, whole on the ranks of "model". Q, K and
@@ -392,7 +456,7 @@ def serve_tp(p, sp, x, cfg, positions, cache, mode: str, *,
             heads = ()
         if mode == "chunk":
             out = _chunk_core(q, k, v, positions, cache, row_mask,
-                              hist_blocks, valid)
+                              hist_blocks, valid, use_fused)
         elif mode == "decode":
             out = _decode_core(q, k, v, cfg, cache, local, row_mask)
         else:

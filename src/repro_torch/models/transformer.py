@@ -443,7 +443,7 @@ def _round_block(n: int, cfg) -> int:
 
 def _block_serve(p, x, kind: str, cfg, positions, cache, mode: str,
                  row_mask=None, hist_blocks=None, valid=None, lay=None,
-                 sp=None):
+                 sp=None, use_fused: bool = True):
     """One layer over x (B, S, d): its mixer by kind (the cache or the
     recurrent state updated in place), the residual, then its FFN. Under
     a mesh (``lay``) x is this rank's rows and ``sp`` the layer's serving
@@ -458,7 +458,8 @@ def _block_serve(p, x, kind: str, cfg, positions, cache, mode: str,
             h = attention.serve_tp(p["attn"], sp["attn"], h, cfg, positions,
                                    cache, mode, local=local,
                                    row_mask=row_mask, hist_blocks=hist_blocks,
-                                   valid=valid, mesh=mesh)
+                                   valid=valid, mesh=mesh,
+                                   use_fused=use_fused)
         elif mode == "prefill":
             h, cache = attention.prefill(p["attn"], h, cfg, positions, cache,
                                          local=local, row_mask=row_mask)
@@ -466,7 +467,8 @@ def _block_serve(p, x, kind: str, cfg, positions, cache, mode: str,
             h, cache = attention.prefill_chunk(p["attn"], h, cfg, positions,
                                                cache, row_mask=row_mask,
                                                hist_blocks=hist_blocks,
-                                               valid=valid)
+                                               valid=valid,
+                                               use_fused=use_fused)
         elif mode == "decode":
             h, cache = attention.decode(p["attn"], h, cfg, positions, cache,
                                         local=local, row_mask=row_mask)
@@ -503,7 +505,7 @@ def _block_serve(p, x, kind: str, cfg, positions, cache, mode: str,
 
 
 def _serve(params, tok, cfg, state, positions, mode: str, row_mask=None,
-           hist_blocks=None, valid=None, specs=None):
+           hist_blocks=None, valid=None, specs=None, use_fused: bool = True):
     """Run every layer over tokens (B, S); returns (the final hidden
     states, the layout) — the head is applied by the caller, only where it
     reads logits (the same numbers as the reference's all-position head).
@@ -529,7 +531,7 @@ def _serve(params, tok, cfg, state, positions, mode: str, row_mask=None,
     for i, (p, cache) in enumerate(zip(params["layers"], state)):
         x = _block_serve(p, x, cfg.block_kind(i), cfg, positions, cache,
                          mode, row_mask, hist_blocks, valid, lay,
-                         None if sp is None else sp[i])
+                         None if sp is None else sp[i], use_fused)
     return x, lay
 
 
@@ -595,16 +597,19 @@ def prefill(params, tokens, cfg, state, *, positions=None, row_mask=None,
 
 
 def prefill_chunk(params, tokens, cfg, state, *, start, row_mask=None,
-                  hist_blocks=None, valid=None, specs=None):
+                  hist_blocks=None, valid=None, specs=None,
+                  use_fused: bool = True):
     """One varlen chunked-prefill step: ``tokens`` (B, C) int (C a page
     multiple), ``start`` (B,) each row's page-aligned resident token count,
     ``valid`` (B,) true tokens per row (None = C). Returns (logits (B, Vp)
-    at each row's last valid position, state)."""
+    at each row's last valid position, state). ``use_fused`` picks the
+    paged prefill kernel (True) or the dequantize-gather oracle
+    (`attention.prefill_chunk`)."""
     C = tokens.shape[1]
     positions = start[:, None].to(torch.int32) + torch.arange(
         C, dtype=torch.int32, device=tokens.device)[None]
     x, lay = _serve(params, tokens, cfg, state, positions, "chunk",
-                    row_mask, hist_blocks, valid, specs)
+                    row_mask, hist_blocks, valid, specs, use_fused)
     if valid is None:
         last = x[:, -1]
     else:

@@ -32,6 +32,7 @@ import math
 
 import torch
 
+from repro_torch.core.costing import host_loop
 from repro_torch.models.common import dense_init
 from repro_torch.models.rglru import softplus
 
@@ -134,7 +135,8 @@ def mlstm_hidden_seq(p, x, cfg, chunk: int = 256):
     np_ = torch.zeros((B, nh, dh), dtype=torch.float32, device=x.device)
     mp = torch.full((B, nh), -1e30, dtype=torch.float32, device=x.device)
     hs = []
-    for c in range(nc):
+    chunks = host_loop(nc)
+    for c in chunks:
         qt, kt, vt = qc[:, :, c], kc[:, :, c], vc[:, :, c]
         li, lf = lic[:, :, c], lfc[:, :, c]
         L = torch.cumsum(lf, dim=-1)                           # (B,H,c)
@@ -164,7 +166,7 @@ def mlstm_hidden_seq(p, x, cfg, chunk: int = 256):
               torch.einsum("bhs,bhsd,bhse->bhde", wu, kt, vt))
         np_ = decay[..., None] * np_ + torch.einsum("bhs,bhsd->bhd", wu, kt)
         mp = m_n
-    h = torch.stack(hs, dim=2).reshape(B, nh, S, dh)
+    h = torch.stack(chunks.repeat(hs), dim=2).reshape(B, nh, S, dh)
     h = h.transpose(1, 2).reshape(B, S, nh * dh).to(x.dtype)
     state = MLSTMState(C=Cp, n=np_, m=mp,
                        C_s=torch.full(np_.shape, 1e-30, dtype=torch.float32,
@@ -289,10 +291,11 @@ def slstm_seq(p, x, cfg, state: SLSTMState | None = None):
     st = state or slstm_init_state(cfg, B, device=x.device)
     gx = (x @ p["w_gates"]).float()                            # (B, S, 4d)
     hs = []
-    for t in range(S):
+    tokens = host_loop(S)
+    for t in tokens:
         st = _slstm_cell(p, gx[:, t], st, x.dtype)
         hs.append(st.h)
-    out = torch.stack(hs, dim=1).to(x.dtype) @ p["wo"]
+    out = torch.stack(tokens.repeat(hs), dim=1).to(x.dtype) @ p["wo"]
     return out, st
 
 

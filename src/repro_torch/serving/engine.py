@@ -163,12 +163,16 @@ def make_serve_fns(cfg, *, max_len: int, paged: bool = False,
             _on_mesh(mesh, cfg, decode_fn, rules))
 
 
-def make_chunk_prefill_fn(cfg, *, hist_blocks: int | None = None):
+def make_chunk_prefill_fn(cfg, *, hist_blocks: int | None = None,
+                          use_fused: bool = True):
     """``chunk_prefill(params, tokens, state, start, valid, row_mask)`` with
     tokens (B, C) (C a page multiple), start (B,) resident token counts,
     valid (B,) true tokens per row, row_mask (B,) bool -> (last-valid-
     position logits (B, Vp), state). ``hist_blocks`` bounds each layer's
-    history walk. Decoder-only, as the reference's. Under a mesh, as
+    history walk. ``use_fused`` picks the paged prefill kernel (True) or
+    the dequantize-gather parity oracle (`attention.prefill_chunk`); it
+    is part of the closure's identity, so the scheduler keys its chunk
+    steps on it. Decoder-only, as the reference's. Under a mesh, as
     `make_serve_fns`' steps: this rank's parameter shards and the global
     batch in, every row's logits out."""
     if cfg.family == "encdec":
@@ -181,7 +185,7 @@ def make_chunk_prefill_fn(cfg, *, hist_blocks: int | None = None):
                                          start=start, valid=valid,
                                          row_mask=row_mask,
                                          hist_blocks=hist_blocks,
-                                         specs=specs)
+                                         specs=specs, use_fused=use_fused)
 
     return _on_mesh(mesh, cfg, chunk_prefill, rules)
 

@@ -1,9 +1,8 @@
 """Request-level sampling parameters and the engine configuration (port
 of ``repro.serving.params``).
 
-Field names are the reference's. Options whose machinery is not ported
-yet raise `NotImplementedError` naming their ROADMAP item instead of
-being silently ignored. `sampling_arrays` compiles a batch of
+Field names are the reference's, and every option is served.
+`sampling_arrays` compiles a batch of
 `SamplingParams` into the per-row arrays the decode paths draw with
 (`models.sampling.sample_at_step`).
 """
@@ -21,10 +20,6 @@ from repro_torch.models import prng
 
 # finish reasons a request can end with
 FINISH_REASONS = ("stop_token", "stop_string", "length", "aborted")
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet ({item})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,7 +143,11 @@ class EngineConfig:
     layers agree becomes that dtype string (an all-int8 plan is the
     default engine), a mixed one the tuple of per-layer dtypes. It is read
     again every paged tick: a flip on an idle engine rebuilds the pools.
-    ``use_fused_prefill=False`` raises `NotImplementedError`."""
+    ``use_fused_prefill`` routes chunk-prefill attention through the paged
+    prefill kernel (default); False takes the dequantize-gather parity
+    oracle (`attention.prefill_chunk`): slower, kept for tests and
+    debugging. It is read at every dispatch, so a flip gives a new chunk
+    step rather than a stale one."""
     batch: int = 4
     max_len: int = 128
     eos_id: int | None = None
@@ -170,10 +169,6 @@ class EngineConfig:
     host_tier_dtype: str | None = None
 
     def __post_init__(self):
-        if not self.use_fused_prefill:
-            _not_ported("the dequantize-gather prefill oracle "
-                        "(use_fused_prefill=False)",
-                        "ROADMAP queue 1, item 13")
         # the layer count is checked where the model is known (the batcher)
         self.kv_cache_dtype = resolve_kv_dtype_spec(self.kv_cache_dtype)
         if self.kv_cache_dtype != "int8" and not self.paged:

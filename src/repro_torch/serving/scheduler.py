@@ -71,10 +71,11 @@ dtypes, plans, or the two) on an idle engine rebuilds the pools.
 Dispatch (the reference's jitted entries): per-token ticks go through
 ``_decode``, decode-scan chunks through ``_chunk_fns`` keyed ``(n,
 kv_cache_dtype)``, draws at the host boundary through ``_sample_fn`` and
-prompt chunks through ``_chunk_prefill_fns`` keyed ``(hist_blocks, True,
-kv_cache_dtype)``. ``_decode``, ``_sample_fn``, the prompt chunks and
-``_scan_step`` (one step of a scan, `models.transformer.decode_scan_step`,
-which an n-step chunk calls n times) are each a `serving.dispatch.Step`:
+prompt chunks through ``_chunk_prefill_fns`` keyed ``(hist_blocks,
+use_fused_prefill, kv_cache_dtype)``. ``_decode``, ``_sample_fn``, the
+prompt chunks and ``_scan_step`` (one step of a scan,
+`models.transformer.decode_scan_step`, which an n-step chunk calls n
+times) are each a `serving.dispatch.Step`:
 on the card, with the paged backend, one captured CUDA graph per shape
 key, replayed; on the CPU and on the contiguous backend, the eager
 function. So a chunk's length never shapes a graph: a scan of any length
@@ -1135,18 +1136,23 @@ class ContinuousBatcher:
         """Chunk step for a dispatch whose deepest cursor is ``max_start``
         tokens: the history walk is bounded by the cursor in pages rounded
         up to a power of two (the reference's compile set). Keyed
-        ``(hist_blocks, True, kv_cache_dtype)`` as the reference's: the
-        fused flag is True (the port refuses ``use_fused_prefill=False``,
-        ROADMAP queue 1, item 13)."""
+        ``(hist_blocks, use_fused_prefill, kv_cache_dtype)`` as the
+        reference's, the flag and the dtype read from the live config at
+        every dispatch: flipping either gives a new step, never a stale
+        one (``use_fused_prefill=False``: the dequantize-gather oracle,
+        `attention.prefill_chunk`)."""
         blocks = -(-max_start // self.page_size)
         hb = 0 if blocks == 0 else min(1 << (blocks - 1).bit_length(),
                                        self.max_blocks)
-        key = (hb, True, self.kv_cache_dtype)
+        fused = self.config.use_fused_prefill
+        key = (hb, fused, self.kv_cache_dtype)
         fn = self._chunk_prefill_fns.get(key)
         if fn is None:
             fn = self._chunk_prefill_fns[key] = self._dispatch.step(
-                make_chunk_prefill_fn(self.cfg, hist_blocks=hb),
-                name=f"chunk_prefill[{hb}]", opaque=(0, 2), state_arg=2)
+                make_chunk_prefill_fn(self.cfg, hist_blocks=hb,
+                                      use_fused=fused),
+                name=f"chunk_prefill[{hb}{'' if fused else ', oracle'}]",
+                opaque=(0, 2), state_arg=2)
         return fn
 
     def _chunk_width(self, rem: int) -> int:

@@ -57,4 +57,6 @@ def next_token_loss_sharded(logits: torch.Tensor, labels: torch.Tensor,
         gold = all_reduce(gold, vocab_axes, mesh)
     nll = m + torch.log(se) - gold
     mask = (labels >= 0).float()
-    return torch.sum(nll * mask) / max(float(n_labels), 1.0) / lay.rep
+    n = torch.clamp_min(torch.as_tensor(n_labels, device=nll.device)
+                        .float(), 1.0)          # on the device: no sync
+    return torch.sum(nll * mask) / n / lay.rep

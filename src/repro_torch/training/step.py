@@ -21,6 +21,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.core.costing import host_loop
 from repro_torch.core.tree import leaves, tree_map, unflatten
 from repro_torch.models import encdec, transformer
 from repro_torch.optim import compression as C
@@ -112,7 +113,7 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, *, microbatches: int = 1,
             mb = B // microbatches
             grads = tree_map(lambda p: torch.zeros(
                 p.shape, dtype=torch.float32, device=p.device), params)
-            for i in range(microbatches):
+            for i in host_loop(microbatches, closed=True):
                 part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
                 g, metrics = _grads(params, part, cfg, mesh, psp)
                 for a, x in zip(leaves(grads), leaves(g)):

@@ -30,7 +30,9 @@ prefill send the activation bytes `torch_serve_parity.tp_sent` reckons
 prefill state carried into each rank's shards
 (`checkpoint.bridge.serve_state_from_numpy`, bit for bit), and weights
 saved in training's layout at (2, 2) served at (1, 4) after
-`launch.specs.refit_tree` (the restored tree itself refused).
+`launch.specs.refit_tree` (the restored tree itself refused). And the
+dry run's fake trace of internlm's (2, 2) run against what its gloo
+ranks recorded (bytes by collective, weight and state bytes: exact).
 
 The long-context stacks (`RECURRENT`): recurrentgemma_9b (RG-LRU and a
 local-attention ring) per block and per channel and mixtral_8x22b (a
@@ -79,6 +81,7 @@ import torch_serve_parity as SV
 from repro_torch.models import encdec
 from torch_dist import run_ranks
 from torch_dist_worker import load_tree, save_tree
+from torch_dryrun import fake_serve_ranks
 
 CASES = [("internlm2_1_8b", "per_block"), ("internlm2_1_8b", "per_channel"),
          ("qwen2_moe_a2_7b", "per_block"), ("qwen2_vl_2b", "per_block"),
@@ -208,6 +211,30 @@ def test_sharded_long_context_serving_matches_reference(results, arch, gran,
         slots = {tuple(g["slices"][f"{_first_attn(rcfg)}.k_q"][2])
                  for g in ranks}
         assert len(slots) == n_model, slots
+
+
+def test_fake_trace_matches_the_ranks(results):
+    """The dry run's fake trace (`launch.dryrun.trace_serve` on a fake
+    process group, every rank in turn; tests/torch_dryrun.py) of the
+    smoke internlm2_1_8b per-block prefill of 4 x 24 tokens and one decode
+    step at max_len 48 on (2, 2): each rank's bytes by collective and
+    axes, its weight bytes and its state bytes exactly what the real gloo
+    ranks of this batch recorded."""
+    d, _ = results
+    fake = fake_serve_ranks("internlm2_1_8b", "per_block", "float32",
+                            SV.MESHES["2x2"], SV.B, SV.S, SV.MAX_LEN)
+    sent = lambda x: {k: int(v) for k, v in x.items() if int(v)}
+    for r in range(4):
+        got = load_tree(d / f"internlm2_1_8b-per_block.2x2.{r}.npz")
+        f = fake[r]
+        assert f["prefill"]["coll_detail"] == sent(got["prefill_sent"]), r
+        assert f["decode"]["coll_detail"] == sent(got["decode_sent"]), r
+        for kind in ("prefill", "decode"):
+            assert f[kind]["weight_bytes"] == \
+                int(got["params"]["held_bytes"]), r
+            assert f[kind]["state_bytes"] == int(got["state_bytes"]), r
+        assert f["decode"]["rank_coords"] == {"data": r // 2,
+                                              "model": r % 2}
 
 
 def _first_attn(cfg) -> int:

@@ -1,7 +1,8 @@
 """The port stands alone: every module of `repro_torch` (the training
 path's too: `training`, `optim`, `data`, `checkpoint`, `runtime`,
 `launch.train`, `kernels.flash_fwd`) imports in a fresh interpreter where
-`jax` and the reference package `repro` cannot be imported, `chip_smoke.py`
+`jax` and the reference package `repro` cannot be imported (the dry run,
+its roofline and cost model too), `chip_smoke.py`
 and `chip_ab.py` import neither, and `chip_smoke.py` copied alone into an
 empty directory fails without printing a result."""
 import os
@@ -39,12 +40,14 @@ def test_every_port_module_imports_without_jax_or_the_reference():
                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
     assert res.returncode == 0, res.stderr
     names = set(res.stdout.strip().splitlines()[-1].split())
-    assert len(names) >= 44
+    assert len(names) >= 48
     assert {"repro_torch.training.step", "repro_torch.training.loss",
             "repro_torch.optim.adamw", "repro_torch.optim.compression",
             "repro_torch.data.pipeline", "repro_torch.checkpoint.manager",
             "repro_torch.runtime.fault", "repro_torch.launch.train",
-            "repro_torch.kernels.flash_fwd"} <= names
+            "repro_torch.kernels.flash_fwd", "repro_torch.launch.dryrun",
+            "repro_torch.launch.roofline", "repro_torch.launch.op_cost",
+            "repro_torch.launch.mesh", "repro_torch.core.costing"} <= names
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_reference():

@@ -3,11 +3,12 @@ in both packages (internlm2_1_8b smoke in float32, bridged weights, the
 reference on its Pallas kernels in interpret mode) gives identical token
 streams, finish reasons and scheduler ticks for 5 requests on 2 batch
 rows — prompts with a partial page, several chunks, a mid-stream
-admission, a stop token and a stop string. Plus: options that are not
-ported raise, plan forms resolve as the reference's, and entry points
-default to the card. (Sampling and the
-prefix cache, which used to raise here, are held against the reference
-in tests/test_torch_sampling.py and tests/test_torch_prefix_cache.py.)"""
+admission, a stop token and a stop string. Plus: options the port once
+refused construct as the reference's, plan forms resolve as the
+reference's, and entry points default to the card. (Sampling, the
+prefix cache and the prefill oracle, which used to raise here, are held
+against the reference in tests/test_torch_sampling.py,
+tests/test_torch_prefix_cache.py and tests/test_torch_prefill_oracle.py.)"""
 import dataclasses
 
 import jax
@@ -81,8 +82,12 @@ def test_generate_matches_reference_engine(pallas_interpret):
 
 @pytest.mark.parametrize("option", [dict(use_fused_prefill=False)])
 def test_unported_engine_options_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EngineConfig(**option)
+    """The options the port once refused (the name dates from then) now
+    construct, as the reference's do (the prefill oracle:
+    tests/test_torch_prefill_oracle.py serves it)."""
+    got, ref = EngineConfig(**option), RefEngineConfig(**option)
+    for key in option:
+        assert getattr(got, key) == getattr(ref, key) == option[key]
 
 
 def _outcome(make):

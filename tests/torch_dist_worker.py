@@ -402,6 +402,8 @@ def task_serve(task, mesh, rank):
         except ValueError:
             out_refused = True
     state = init(B)
+    from repro_torch.launch.op_cost import tree_bytes
+    state_bytes = np.int64(tree_bytes(state))
     if isinstance(state, dict):         # an encoder-decoder's two stacks
         out = {"where": {k: _where(state[k], specs[k], mesh, cfg, B,
                                    task["max_len"]) for k in state},
@@ -410,6 +412,7 @@ def task_serve(task, mesh, rank):
     else:
         out = {"where": _where(state, specs, mesh, cfg, B, task["max_len"]),
                "slices": _slices(specs, whole, mesh)}
+    out["state_bytes"] = state_bytes
     if restored is not None:
         out["refused"] = np.bool_(out_refused)
     if paged:

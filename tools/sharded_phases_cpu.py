@@ -6,8 +6,10 @@ hold and prediction) rehearsed on the CPU at smoke size: the
 torch.cuda timing and memory calls stubbed, every config its smoke one,
 prompts of a few blocks past the smoke windows, 6 decode steps, the
 kernels' launch checks off (the CPU runs the plain versions), the
-(1, 1) rank's backend taken as NCCL. A fault of the harness (a slice, a
-prediction, a hold) shows here in ~1 minute, before a run on the card.
+(1, 1) rank's backend taken as NCCL; then the `dryrun` phase's traces
+of those runs held against the ranks (bytes and roofline; no peaks). A
+fault of the harness (a slice, a prediction, a hold) shows here in ~2
+minutes, before a run on the card.
 
     python tools/sharded_phases_cpu.py
 """
@@ -88,4 +90,9 @@ C._spawn_ranks = spawn
 
 if __name__ == "__main__":
     C.serve_sharded_full_width(torch.device("cpu"), "CPU")
+    # the dry run against these ranks: bytes and roofline held, the peaks
+    # printed (no device memory on the CPU); the training run is not made
+    C.DRYRUN_TRAIN = ()
+    C._peak_ratio = lambda label, who, peak, traced: float("nan")
+    C.dryrun_phase("CPU")
     print("sharded phases: every hold passed on the CPU")
